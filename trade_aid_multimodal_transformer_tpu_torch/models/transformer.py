@@ -1,0 +1,264 @@
+"""The multimodal transformer's inference forward over a parameter tree
+(port of the JAX package's ``models/transformer.py``).
+
+Architecture as there (reference model, SURVEY Quirk Q6):
+
+- factored QKV: Linear(C, hs/2) -> tanh -> Linear(hs/2, hs, no bias) per
+  projection; attention q.k^T * hs**-0.5, causal mask, softmax, then .v
+- output projection: Linear(H*hs, C/2) -> tanh -> Linear(C/2, C)
+- cross-attention: per head a no-bias query Linear; per KV modality a no-bias
+  Linear(C, 2hs) split into k, v; per-modality outputs SUMMED across the KV
+  modalities; the KV inputs are the post-SA/FF activations of the other
+  modalities in the same block
+- block order: x += SA(LN1(x)); x += FF(LN2(x)); then cross-attention
+- post block: LN -> Linear(C, V/2) -> tanh -> Linear(V/2, V), all heads
+  batched over a vocabulary padded to a multiple of 128
+
+Self-attention, feed-forward and LayerNorm are stacked over a leading
+modality axis M; embeddings, vocab heads and cross-attention unroll per
+modality. On a CUDA device in the kernel band, self-attention is one call of
+the fused projection + attention kernel and the cross core one call of the
+cross kernel (ops/kernels.py); elsewhere the dense cores run. Dropout is the
+identity here: this module is the forward with ``train=False``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..ops import kernels
+from ..ops.attention import (
+    causal_attention_dense,
+    cross_causal_attention,
+    fused_qkv_attention_active,
+)
+from ..ops.layers import layernorm
+from .config import ModelConfig
+
+
+def _mm(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """einsum with >= f32 accumulation, result in the activation dtype.
+
+    bf16 activations multiply bf16 weights with f32 accumulation on the card.
+    On the CPU the product runs in f32 on the f32 weights and rounds to bf16,
+    as the JAX package does where the backend lacks mixed bf16 dots."""
+    if a.dtype == torch.bfloat16 and a.device.type == "cpu":
+        return torch.einsum(eq, a.float(), b.float()).to(torch.bfloat16)
+    return torch.einsum(eq, a, b.to(a.dtype))
+
+
+def _bias(b: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """(M, N) bias -> (M, 1, 1, N) in the activation dtype."""
+    return b.to(dt)[:, None, None, :]
+
+
+def _qkv_project_fused(h: torch.Tensor, sa: Dict[str, torch.Tensor], H: int, hs2: int):
+    """All three factored q/k/v projections in two einsums. h: (M, B, T, C).
+    Returns q, k, v: (M, B, H, T, hs)."""
+    M, B, T, _ = h.shape
+    w1 = torch.cat([sa["w1_q"], sa["w1_k"], sa["w1_v"]], dim=-1)
+    b1 = torch.cat([sa["b1_q"], sa["b1_k"], sa["b1_v"]], dim=-1)
+    t = _mm("mbtc,mcd->mbtd", h, w1) + _bias(b1, h.dtype)
+    t = torch.tanh(t).reshape(M, B, T, 3, H, hs2)
+    w2 = torch.stack([sa["w2_q"], sa["w2_k"], sa["w2_v"]])  # (3, M, H, hs2, hs)
+    out = _mm("mbtihd,imhde->imbhte", t, w2)
+    return out[0], out[1], out[2]
+
+
+def _proj_mlp_heads(
+    att: torch.Tensor, w1, b1, w2, b2, H: int, hs: int, head_major: bool = False
+) -> torch.Tensor:
+    """tanh-MLP output projection taking attention output in (..., H, T, hs)
+    layout; ``head_major=True`` takes (M, H, B, T, hs) / (H, B, T, hs)."""
+    dt = att.dtype
+    if w1.ndim == 3:  # stacked over modality
+        M = att.shape[0]
+        w1r = w1.reshape(M, H, hs, w1.shape[-1])
+        eq = "mhbte,mhec->mbtc" if head_major else "mbhte,mhec->mbtc"
+        t = torch.tanh(_mm(eq, att, w1r) + _bias(b1, dt))
+        return _mm("mbtc,mcd->mbtd", t, w2) + _bias(b2, dt)
+    w1r = w1.reshape(H, hs, w1.shape[-1])
+    eq = "hbte,hec->btc" if head_major else "bhte,hec->btc"
+    t = torch.tanh(_mm(eq, att, w1r) + b1.to(dt))
+    return _mm("btc,cd->btd", t, w2) + b2.to(dt)
+
+
+def self_attention(
+    x_norm: torch.Tensor, sa: Dict[str, torch.Tensor], cfg: ModelConfig
+) -> torch.Tensor:
+    """Multi-head self-attention for all modalities (x_norm: (M, B, T, C))."""
+    _, _, T, _ = x_norm.shape
+    H, hs = cfg.n_head, cfg.head_size
+    if fused_qkv_attention_active(T, hs, cfg.attn_impl, x_norm.device):
+        w1 = torch.cat([sa["w1_q"], sa["w1_k"], sa["w1_v"]], dim=-1)
+        b1 = torch.cat([sa["b1_q"], sa["b1_k"], sa["b1_v"]], dim=-1)
+        w2 = torch.cat([sa["w2_q"], sa["w2_k"], sa["w2_v"]], dim=1)
+        att_hm = kernels.fused_qkv_attention(
+            x_norm.contiguous(), w1.float(), b1.float(), w2.float(), H
+        )  # (M, H, B, T, hs)
+        return _proj_mlp_heads(
+            att_hm, sa["proj_w1"], sa["proj_b1"], sa["proj_w2"], sa["proj_b2"],
+            H, hs, head_major=True,
+        )
+    q, k, v = _qkv_project_fused(x_norm, sa, H, hs // 2)
+    att = causal_attention_dense(q, k, v)  # (M, B, H, T, hs)
+    return _proj_mlp_heads(
+        att, sa["proj_w1"], sa["proj_b1"], sa["proj_w2"], sa["proj_b2"], H, hs
+    )
+
+
+def cross_attention(
+    query_x: torch.Tensor, kv_x: torch.Tensor, cp: Dict[str, torch.Tensor], cfg: ModelConfig
+) -> torch.Tensor:
+    """Cross-attention for one modality.
+
+    query_x: (B, T, C), the LN_cross output of the querying modality;
+    kv_x: (J, B, T, C), the post-SA/FF activations of the other modalities.
+    q and k/v are emitted head-major, (H, B, T, hs) and (J, H, B, T, hs): the
+    layout the cross kernel takes and the output projection contracts."""
+    H, hs = cfg.n_head, cfg.head_size
+    hs_q = cp["q_w"].shape[-1]
+    q = _mm("btc,hce->hbte", query_x, cp["q_w"])
+    k = _mm("jbtc,jhcf->jhbtf", kv_x, cp["kv_w"][..., :hs_q])
+    v = _mm("jbtc,jhcf->jhbtf", kv_x, cp["kv_w"][..., hs_q:])
+    att = cross_causal_attention(q, k, v, cfg.attn_impl)  # (H, B, T, hs)
+    return _proj_mlp_heads(
+        att, cp["proj_w1"], cp["proj_b1"], cp["proj_w2"], cp["proj_b2"],
+        H, hs, head_major=True,
+    )
+
+
+def feed_forward(x_norm: torch.Tensor, ff: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """C -> 4C -> ReLU -> C."""
+    dt = x_norm.dtype
+    h = torch.relu(_mm("mbtc,mcd->mbtd", x_norm, ff["w1"]) + _bias(ff["b1"], dt))
+    return _mm("mbtd,mdc->mbtc", h, ff["w2"]) + _bias(ff["b2"], dt)
+
+
+def block_forward(x: torch.Tensor, block: Dict[str, Any], cfg: ModelConfig) -> torch.Tensor:
+    """One MultimodalBlock. x: (M, B, T, C)."""
+    x = x + self_attention(
+        layernorm(x, block["ln1"]["scale"], block["ln1"]["bias"]), block["sa"], cfg
+    )
+    x = x + feed_forward(layernorm(x, block["ln2"]["scale"], block["ln2"]["bias"]), block["ffwd"])
+    if block["cross"]:
+        # the KV inputs are x after SA/FF, frozen for every querying modality
+        # before any cross update applies
+        updates = {}
+        for i_str, cp in block["cross"].items():
+            i = int(i_str)
+            kv_idx = cfg.kv_modalities(i)
+            if not kv_idx:
+                continue
+            kv_x = x[list(kv_idx)]
+            y = layernorm(x[i], cp["ln_scale"], cp["ln_bias"])
+            updates[i] = x[i] + cross_attention(y, kv_x, cp, cfg)
+        if updates:
+            x = torch.stack([updates.get(i, x[i]) for i in range(cfg.num_modalities)])
+    return x
+
+
+def _round128(n: int) -> int:
+    return ((n + 127) // 128) * 128
+
+
+def embed(params: Dict[str, Any], cfg: ModelConfig, idx: torch.Tensor) -> torch.Tensor:
+    """Token + shared positional embedding. idx: (M, B, T) -> (M, B, T, C)."""
+    T = idx.shape[-1]
+    pos = params["pre"]["pos_emb"][:T]
+    Vp = _round128(max(cfg.vocab_sizes))
+    tab = torch.stack([F.pad(t, (0, 0, 0, Vp - t.shape[0])) for t in params["pre"]["tok_emb"]])
+    if cfg.compute_dtype == "bfloat16":
+        tab = tab.to(torch.bfloat16)
+        pos = pos.to(torch.bfloat16)
+    mods = torch.arange(tab.shape[0], device=idx.device)[:, None, None]
+    return tab[mods, idx.long()] + pos
+
+
+_HEAD_PAD_NEG = -1e30  # padded-class logit; exp underflows to exactly 0.0
+
+
+def logits_heads_padded(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """All vocab heads in one batched matmul chain over a padded vocab.
+    Padded classes get a -1e30 bias through zeroed weight columns, so softmax
+    and sampling over the real classes equal the unpadded computation.
+    Returns (M, B, T, Vp) logits in f32 (f64 under f64)."""
+    post = params["post"]
+    Vs = list(cfg.vocab_sizes)
+    Vp = _round128(max(Vs))
+    Hp = _round128(max(v // 2 for v in Vs))
+    heads = post["heads"]
+    w1 = torch.stack([F.pad(h["w1"], (0, Hp - h["w1"].shape[1])) for h in heads])
+    b1 = torch.stack([F.pad(h["b1"], (0, Hp - h["b1"].shape[0])) for h in heads])
+    w2 = torch.stack([
+        F.pad(h["w2"], (0, Vp - h["w2"].shape[1], 0, Hp - h["w2"].shape[0])) for h in heads
+    ])
+    b2 = torch.stack([
+        F.pad(h["b2"], (0, Vp - h["b2"].shape[0]), value=_HEAD_PAD_NEG) for h in heads
+    ])
+    h = layernorm(x, post["ln_scale"], post["ln_bias"])
+    dt = h.dtype
+    t = torch.tanh(_mm("mbtc,mch->mbth", h, w1) + _bias(b1, dt))
+    logits = _mm("mbth,mhv->mbtv", t, w2)
+    acc = torch.float64 if dt == torch.float64 else torch.float32
+    return logits.to(acc) + b2.to(acc)[:, None, None, :]
+
+
+def forward(
+    params: Dict[str, Any], cfg: ModelConfig, idx: torch.Tensor, train: bool = False
+) -> Tuple[List[torch.Tensor], Optional[List[torch.Tensor]]]:
+    """Inference forward. idx: (M, B, T) stacked token ids. Returns
+    (per-modality logits (B, T, V_i), None) like the JAX ``forward`` without
+    targets."""
+    if train:
+        raise NotImplementedError("the training forward comes with the training path")
+    x = embed(params, cfg, idx)
+    for block in params["blocks"]:
+        x = block_forward(x, block, cfg)
+    padded = logits_heads_padded(params, cfg, x)
+    return [padded[m, ..., :v] for m, v in enumerate(cfg.vocab_sizes)], None
+
+
+def sample_last(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Multinomial draw from the softmax of (B, V) logits -> (B,) int64."""
+    probs = torch.softmax(logits, dim=-1)
+    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+@torch.inference_mode()
+def generate(
+    params: Dict[str, Any],
+    cfg: ModelConfig,
+    idx_list: Sequence[torch.Tensor],
+    generator: torch.Generator,
+    max_new_tokens: int = 1,
+    modality_to_generate: int = 0,
+) -> List[torch.Tensor]:
+    """Autoregressive sampling for one modality, one full forward per token.
+    Other modalities stay length-consistent by repeating their last token."""
+    seqs = list(idx_list)
+    for _ in range(max_new_tokens):
+        cond = [s[:, -cfg.block_size:] for s in seqs]
+        t = max(c.shape[1] for c in cond)
+        # pad shorter streams on the left by repeating their first token
+        cond = [
+            torch.cat([c[:, :1].expand(-1, t - c.shape[1]), c], dim=1) for c in cond
+        ]
+        logits_list, _ = forward(params, cfg, torch.stack(cond))
+        nxt = sample_last(logits_list[modality_to_generate][:, -1, :], generator)
+        seqs[modality_to_generate] = torch.cat(
+            [seqs[modality_to_generate], nxt[:, None].to(seqs[modality_to_generate].dtype)],
+            dim=1,
+        )
+        target_len = seqs[modality_to_generate].shape[1]
+        for i in range(cfg.num_modalities):
+            if i == modality_to_generate:
+                continue
+            if seqs[i].shape[1] < target_len:
+                seqs[i] = torch.cat([seqs[i], seqs[i][:, -1:]], dim=1)
+            elif seqs[i].shape[1] > target_len:
+                seqs[i] = seqs[i][:, :target_len]
+    return seqs
