@@ -4,14 +4,17 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from the sources in this checkout,
-holds each against its plain PyTorch version on the card, drives the port's
-generation entry point at the production configuration's full width
+holds each against its plain PyTorch version on the card (forward and
+backward, dropout off and on), drives the port's generation entry point and
+its training entry point at the production configuration's full width
 (examples/production_config.yaml: 4 modalities, n_embd 384, 6 heads, 6
-layers, block_size 64, bf16) with seeded random weights on seeded synthetic
-CSVs, checks that the path went through both kernels and that what comes out
-is right, and times batched serving. Each phase prints one line; any failed
-check raises and the script exits non-zero. The last line is
-``{"ok": true, "device": {...}}``.
+layers, block_size 64, batch 32, dropout 0.2, bf16) with seeded random
+weights on seeded synthetic CSVs, checks that each path went through its
+kernels with the expected launch counts and that what comes out is right
+(the card's training step against the CPU's dense step, the training loss
+falling), and times the kernels, batched serving and training. Each phase
+prints one line; any failed check raises and the script exits non-zero. The
+last line is ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device and the port package beside this file; without either it
 exits non-zero before printing any result.
@@ -19,8 +22,13 @@ exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import math
+import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -34,6 +42,17 @@ PKG = "trade_aid_multimodal_transformer_tpu_torch"
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM dense; f32 off the tensor cores
 PEAK_BYTES = 3.35e12
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# backward kernels and dropout forwards: max-abs error <= tol * max(1, max|ref|)
+REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# one training step on the card against the CPU dense step: loss absolute;
+# every gradient leaf by its L2-relative error |g - ref| / |ref|. (A per-leaf
+# max-abs bound relative to the leaf's max failed in f32 at 1.5e-2 on the
+# card's dense path as on its kernel path: summation order moves ReLU
+# pre-activations across zero, which changes single gradient elements.) The
+# gate must also reject planted faults (one backward output 20% off), which
+# the phase runs every time.
+STEP_TOL = {"float32": {"loss": 1e-4, "grad_l2": 1e-2}, "bfloat16": {"loss": 5e-2, "grad_l2": 0.15}}
+SALTS = (123456789, 3141592653)
 SOURCES = {
     "fused_qkv_attention": (
         f"{PKG}/ops/csrc/fused_qkv_attention.cu",
@@ -42,6 +61,14 @@ SOURCES = {
     "short_cross_attention": (
         f"{PKG}/ops/csrc/short_cross_attention.cu",
         "trade_aid_multimodal_transformer_tpu/ops/pallas_attention.py:1643",
+    ),
+    "fused_qkv_attention_bwd": (
+        f"{PKG}/ops/csrc/fused_qkv_attention_bwd.cu",
+        "trade_aid_multimodal_transformer_tpu/ops/pallas_attention.py:1984",
+    ),
+    "short_cross_attention_bwd": (
+        f"{PKG}/ops/csrc/short_cross_attention.cu",
+        "trade_aid_multimodal_transformer_tpu/ops/pallas_attention.py:1694",
     ),
 }
 
@@ -112,6 +139,44 @@ def check_close(name, out, ref, dtype, shape) -> float:
     return err
 
 
+def check_rel(name, out, ref, dtype, shape, rate) -> float:
+    err = (out.float() - ref.float()).abs().max().item()
+    bound = REL_TOL[dtype] * max(1.0, ref.float().abs().max().item())
+    ok = err <= bound
+    emit({"phase": "kernel_check", "kernel": name, "shape": list(shape), "dtype": dtype,
+          "dropout": rate, "max_abs_err": err, "bound": bound, "ok": ok})
+    if not ok:
+        raise AssertionError(f"{name} {shape} {dtype} rate {rate}: max abs err {err} > {bound}")
+    return err
+
+
+def production_config_dir(d: Path, **training) -> None:
+    """examples/production_config.yaml (with the given training_parameters
+    changed) + its schemas + the synthetic stock folder, in d."""
+    text = (REPO / "examples" / "production_config.yaml").read_text()
+    for key, value in training.items():
+        text, n = re.subn(rf"(\n  {key}: )\S+", rf"\g<1>{value}", text)
+        if n != 1:
+            raise AssertionError(f"production config has no single {key}")
+    (d / "config.yaml").write_text(text)
+    shutil.copy(REPO / "examples" / "production_input_schemas.yaml", d / "input_schemas.yaml")
+    write_stock_folder(d / "your_data" / "stocks", n_files=6, rows=1500, seed=1)
+
+
+def expected_evals(max_iters: int, eval_interval: int) -> int:
+    """Evaluations run_training makes: at every multiple of eval_interval
+    and at max_iters - 1, walking its chunk boundaries."""
+    it = n = 0
+    while it < max_iters:
+        if it % eval_interval == 0 or it == max_iters - 1:
+            n += 1
+        nxt = [max_iters, (it // eval_interval + 1) * eval_interval]
+        if it < max_iters - 1:
+            nxt.append(max_iters - 1)
+        it = min(b for b in nxt if b > it)
+    return n
+
+
 def main() -> int:
     import torch
 
@@ -146,7 +211,7 @@ def main() -> int:
     t0 = time.perf_counter()
     per_source = K.build_kernels()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source": per_source})
-    for name in K.KERNELS:
+    for name in K._SIGNATURES:
         for line in K.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 emit(f"  ptxas {name}: {line.strip()}")
@@ -166,14 +231,14 @@ def main() -> int:
     prod_k2 = (3, 6 * 32, 64, 64)
     b1_k1, b1_k2 = (4, 1, 64, 384, 6, 64), (3, 6, 64, 64)  # what a B=1 step gives them
     # edge shapes: T=8 and T=512, hs 32, B=7; T not a multiple of the key
-    # tile, hs 96 / 128 / 256 (smaller tiles), C not a multiple of 8; K2f at
-    # hs 24 (not a multiple of 16: its bf16 FMA body)
+    # tile, hs 96 / 128 / 256 (smaller tiles), C not a multiple of 8; the
+    # cross kernels at hs 24 (not a multiple of 16: the bf16 FMA body)
     k1_shapes = [prod_k1, b1_k1, (2, 3, 8, 32, 2, 16), (1, 2, 512, 384, 6, 64),
                  (2, 5, 64, 96, 3, 32), (4, 7, 64, 384, 6, 64), (1, 5, 72, 96, 3, 32),
                  (1, 2, 136, 64, 2, 128), (1, 2, 40, 64, 1, 256), (1, 3, 200, 100, 2, 96)]
     k2_shapes = [prod_k2, b1_k2, (3, 6, 8, 64), (3, 12, 512, 64), (3, 15, 64, 32),
                  (3, 6 * 7, 64, 64), (3, 5, 72, 32), (2, 3, 200, 128), (2, 2, 64, 256),
-                 (2, 3, 64, 24)]
+                 (2, 3, 64, 24), (2, 3, 64, 96)]
     errs = {}
     for shape in k1_shapes:
         x, w1, b1, w2 = fqkv_inputs(*shape)
@@ -195,6 +260,47 @@ def main() -> int:
             errs[("short_cross_attention", shape, dtype)] = check_close(
                 "short_cross_attention", out, ref, dtype, shape)
 
+    # dropout forwards and backward kernels, dropout off and on; the f32 rows
+    # of the production shape run another batch group (gb) than bf16
+    for shape in k1_shapes:
+        x, w1, b1, w2 = fqkv_inputs(*shape)
+        M_, B_, T_, C_, H_, hs_ = shape
+        dout = randn(M_, H_, B_, T_, hs_)
+        for dtype in ("float32", "bfloat16"):
+            xx, do_ = x.to(getattr(torch, dtype)), dout.to(getattr(torch, dtype))
+            for rate in (0.0, 0.2):
+                salts = SALTS if rate else None
+                out = K.fused_qkv_attention_fwd(xx, w1, b1, w2, H_, rate, salts)
+                grads = K.fused_qkv_attention_bwd(xx, w1, b1, w2, out, do_, H_, rate, salts)
+                torch.cuda.synchronize()
+                if rate:
+                    errs[("fused_qkv_attention", shape, dtype, rate)] = check_rel(
+                        "fused_qkv_attention", out,
+                        K.fused_qkv_attention_plain(xx, w1, b1, w2, H_, rate, salts), dtype, shape, rate)
+                ref = K.fused_qkv_attention_bwd_plain(xx, w1, b1, w2, out, do_, H_, rate, salts)
+                errs[("fused_qkv_attention_bwd", shape, dtype, rate)] = max(
+                    check_rel(f"fused_qkv_attention_bwd.{g}", a, r, dtype, shape, rate)
+                    for g, a, r in zip(("dx", "dw1", "db1", "dw2"), grads, ref))
+    for shape in k2_shapes:
+        J, n, T_, hs_ = shape
+        q, k, v, dout = randn(n, T_, hs_), randn(J, n, T_, hs_), randn(J, n, T_, hs_), randn(n, T_, hs_)
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            qq, kk, vv, do_ = q.to(dt), k.to(dt), v.to(dt), dout.to(dt)
+            for rate in (0.0, 0.2):
+                salts = SALTS if rate else None
+                out = K.short_cross_attention_fwd(qq, kk, vv, rate, salts)
+                grads = K.short_cross_attention_bwd(qq, kk, vv, do_, rate, salts)
+                torch.cuda.synchronize()
+                if rate:
+                    errs[("short_cross_attention", shape, dtype, rate)] = check_rel(
+                        "short_cross_attention", out,
+                        K.short_cross_attention_plain(qq, kk, vv, rate, salts), dtype, shape, rate)
+                ref = K.short_cross_attention_bwd_plain(qq, kk, vv, do_, rate, salts)
+                errs[("short_cross_attention_bwd", shape, dtype, rate)] = max(
+                    check_rel(f"short_cross_attention_bwd.{g}", a, r, dtype, shape, rate)
+                    for g, a, r in zip(("dq", "dk", "dv"), grads, ref))
+
     # times at the production bf16 shapes
     M, B, T, C, H, hs = prod_k1
     hs2, D = hs // 2, H * hs // 2
@@ -213,6 +319,7 @@ def main() -> int:
     x_b1 = x[:, :1].contiguous()  # the shape one B=1 generation step gives the kernel
     timing = {"fused_qkv_attention": dict(
         ms=cuda_ms(lambda: K.fused_qkv_attention(x, w1, b1, w2, H)),
+        ms_dropout=cuda_ms(lambda: K.fused_qkv_attention(x, w1, b1, w2, H, 0.2, SALTS)),
         ms_b1=cuda_ms(lambda: K.fused_qkv_attention(x_b1, w1, b1, w2, H)),
         plain_ms=cuda_ms(lambda: K.fused_qkv_attention_plain(x, w1, b1, w2, H)),
         library_ms=cuda_ms(k1_library),
@@ -230,14 +337,68 @@ def main() -> int:
     q_b1, k_b1, v_b1 = q[:H].contiguous(), k[:, :H].contiguous(), v[:, :H].contiguous()
     timing["short_cross_attention"] = dict(
         ms=cuda_ms(lambda: K.short_cross_attention(q, k, v)),
+        ms_dropout=cuda_ms(lambda: K.short_cross_attention(q, k, v, 0.2, SALTS)),
         ms_b1=cuda_ms(lambda: K.short_cross_attention(q_b1, k_b1, v_b1)),
         plain_ms=cuda_ms(lambda: K.short_cross_attention_plain(q, k, v)),
         library_ms=cuda_ms(k2_library),
         bound=bound_ms(k2_flops, k2_bytes, "bfloat16"),
     )
+    # backward kernels at the production shapes; the library yardsticks are
+    # autograd backwards without dropout
+    rate = 0.2
+    w1g, b1g, w2g = (t.clone().requires_grad_() for t in (w1, b1, w2))
+    xg = x.clone().requires_grad_()
+    out0 = K.fused_qkv_attention_fwd(x, w1, b1, w2, H)
+    out1 = K.fused_qkv_attention_fwd(x, w1, b1, w2, H, rate, SALTS)
+    do1 = randn(*out1.shape).bfloat16()
+    with torch.enable_grad():
+        pre = torch.matmul(xg, w1g.bfloat16()[:, None]) + b1g.bfloat16()[:, None, None, :]
+        tt = torch.tanh(pre).reshape(M, B, T, 3 * H, hs2).permute(0, 3, 1, 2, 4)
+        qkv = torch.matmul(tt, w2g.bfloat16()[:, :, None])
+        q4, k4, v4 = (qkv[:, i * H:(i + 1) * H].reshape(M * H, B, T, hs) for i in range(3))
+        lib1 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    tri = T * (T + 1) // 2
+    k1b_flops = (2 * M * B * T * (C * 3 * D + 3 * H * hs2 * hs)         # recompute the projection
+                 + 5 * 2 * M * B * H * tri * hs                          # QK^T, dO.V^T, dV, dQ, dK
+                 + 2 * 2 * M * B * T * 3 * H * hs2 * hs                  # dt3, dw2
+                 + 2 * 2 * M * B * T * 3 * D * C)                        # dx, dw1
+    k1b_bytes = (2 * M * B * T * C * 2 + 2 * M * H * B * T * hs * 2       # x, dx; o, do
+                 + 4 * 2 * (M * C * 3 * D + M * 3 * D + M * 3 * H * hs2 * hs))  # weights, their grads
+    o_b1, do_b1 = out0[:, :, :1].contiguous(), do1[:, :, :1].contiguous()
+    timing["fused_qkv_attention_bwd"] = dict(
+        ms=cuda_ms(lambda: K.fused_qkv_attention_bwd(x, w1, b1, w2, out0, do1, H)),
+        ms_dropout=cuda_ms(lambda: K.fused_qkv_attention_bwd(x, w1, b1, w2, out1, do1, H, rate, SALTS)),
+        ms_b1=cuda_ms(lambda: K.fused_qkv_attention_bwd(x_b1, w1, b1, w2, o_b1, do_b1, H)),
+        plain_ms=cuda_ms(lambda: K.fused_qkv_attention_bwd_plain(x, w1, b1, w2, out0, do1, H)),
+        library_ms=cuda_ms(lambda: torch.autograd.grad(
+            lib1, (xg, w1g, b1g, w2g), do1.reshape(M, H, B, T, hs).reshape(M * H, B, T, hs),
+            retain_graph=True)),
+        bound=bound_ms(k1b_flops, k1b_bytes, "bfloat16"),
+    )
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    do2 = randn(n, T2, hs_).bfloat16()
+    with torch.enable_grad():
+        lib2 = sum(F.scaled_dot_product_attention(qg[None], kg[j, None], vg[j, None], is_causal=True)
+                   for j in range(J))[0]
+    k2b_flops = J * 5 * 2 * n * (T2 * (T2 + 1) // 2) * hs_
+    # read q, do and each stream's k_j, v_j (2 + 2J); write dq and each
+    # dk_j, dv_j (1 + 2J)
+    k2b_bytes = 2 * n * T2 * hs_ * (3 + 4 * J)
+    do2_b1 = do2[:H].contiguous()
+    timing["short_cross_attention_bwd"] = dict(
+        ms=cuda_ms(lambda: K.short_cross_attention_bwd(q, k, v, do2)),
+        ms_dropout=cuda_ms(lambda: K.short_cross_attention_bwd(q, k, v, do2, rate, SALTS)),
+        ms_b1=cuda_ms(lambda: K.short_cross_attention_bwd(q_b1, k_b1, v_b1, do2_b1)),
+        plain_ms=cuda_ms(lambda: K.short_cross_attention_bwd_plain(q, k, v, do2)),
+        library_ms=cuda_ms(lambda: torch.autograd.grad(lib2, (qg, kg, vg), do2, retain_graph=True)),
+        bound=bound_ms(k2b_flops, k2b_bytes, "bfloat16"),
+    )
+    # kernel_ms, kernel_ms_b1 and plain_ms without dropout (as serving runs
+    # K1f/K2f); kernel_ms_dropout at 0.2, as the training path runs all four
     for name, t in timing.items():
         emit({"phase": "kernel_time", "kernel": name, "card": card, "kernel_ms": t["ms"],
-              "kernel_ms_b1": t["ms_b1"], "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
+              "kernel_ms_dropout": t["ms_dropout"], "kernel_ms_b1": t["ms_b1"],
+              "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
               "bound_ms": t["bound"][0], "bound_by": t["bound"][1]})
 
     # 4. the entry point at production width, and a reference check
@@ -266,8 +427,8 @@ def main() -> int:
     for m in range(1, cfg.num_modalities):
         if not (new[m] == res["last_prompt_tokens"][m]).all():
             raise AssertionError(f"modality {m} did not repeat its last token")
-    want = {"fused_qkv_attention": cfg.n_layer * tokens,
-            "short_cross_attention": 2 * cfg.n_layer * tokens}
+    want = {"fused_qkv_attention": cfg.n_layer * tokens, "fused_qkv_attention_bwd": 0,
+            "short_cross_attention": 2 * cfg.n_layer * tokens, "short_cross_attention_bwd": 0}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     emit({"phase": "entry", "config": "examples/production_config.yaml",
@@ -343,15 +504,181 @@ def main() -> int:
               "top": [[e.key[:72], e.self_device_time_total / 1e3 / n_tok, e.count / n_tok]
                       for e in top]})
 
+    # 7. one production-width training step on the card (kernels forward and
+    # backward) against the CPU's dense step, same params and batch
+    from trade_aid_multimodal_transformer_tpu_torch.config.compat import reset_compatibility_layer
+    from trade_aid_multimodal_transformer_tpu_torch.models.init import (
+        map_tree, tree_leaves, tree_paths)
+    from trade_aid_multimodal_transformer_tpu_torch.models.transformer import total_loss
+    from trade_aid_multimodal_transformer_tpu_torch.train import runner
+    from trade_aid_multimodal_transformer_tpu_torch.train.checkpoint import (
+        load_checkpoint, load_optimizer_state)
+    from trade_aid_multimodal_transformer_tpu_torch.train.steps import StepRng
+
+    B_train = data["sc"]["batch_size"]
+    ids = torch.from_numpy(np.stack(
+        [rng.integers(0, v, (B_train, cfg.block_size + 1)) for v in cfg.vocab_sizes]))
+    xb, yb = ids[..., :-1], ids[..., 1:]
+    step_cfg = dataclasses.replace(cfg, dropout=0.0, compute_dtype="float32")
+    cpu_p = map_tree(lambda t: t.requires_grad_(),
+                     init_params(cfg, torch.Generator().manual_seed(1234), "cpu"))
+    loss_ref, _ = total_loss(cpu_p, step_cfg, xb, yb, None, True)
+    g_ref = torch.autograd.grad(loss_ref, tree_leaves(cpu_p))
+    dev_p = map_tree(lambda t: t.detach().to(dev).requires_grad_(), cpu_p)
+    names = ["/".join(map(str, path)) for path, _ in tree_paths(cpu_p)]
+    ref_norms = [r.norm().item() for r in g_ref]
+    floor = 1e-6 * math.sqrt(sum(n * n for n in ref_norms))
+
+    def leaf_errs(grads):
+        """Per leaf |g - ref| / max(|ref|, 1e-6 |all of ref|), L2 norms."""
+        return [(a.float().cpu() - r).norm().item() / max(n, floor)
+                for a, r, n in zip(grads, g_ref, ref_norms)]
+
+    def step_grads(c, fault=None):
+        """Loss and gradients of one step on the card; ``fault`` = (autograd
+        Function, gradient index) scales that gradient of its backward by 1.2."""
+        real = fault[0].backward if fault else None
+        if fault:
+            def wrong(ctx, dout):
+                grads = list(real(ctx, dout))
+                grads[fault[1]] = grads[fault[1]] * 1.2
+                return tuple(grads)
+            fault[0].backward = staticmethod(wrong)
+        try:
+            loss = total_loss(dev_p, c, xb.to(dev), yb.to(dev), None, True)[0]
+            return loss, torch.autograd.grad(loss, tree_leaves(dev_p))
+        finally:
+            if fault:
+                fault[0].backward = staticmethod(real)
+
+    # planted faults: K1b's db1 20% too large must fail the gate. K2b's dk
+    # 20% too large is printed, not held: dk reaches the parameters only
+    # through the cross key/value projection, whose gradient it shares with
+    # dv, and at these random weights it moves that leaf too little for a
+    # whole-step gate (the kernel_check phase holds dk itself).
+    faults = {"K1b_db1_x1.2": (K.FusedQKVAttention, 2), "K2b_dk_x1.2": (K.ShortCrossAttention, 1)}
+    must_fail = ("K1b_db1_x1.2",)
+    want_step = {"fused_qkv_attention": cfg.n_layer, "fused_qkv_attention_bwd": cfg.n_layer,
+                 "short_cross_attention": 2 * cfg.n_layer, "short_cross_attention_bwd": 2 * cfg.n_layer}
+    failed = []
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(step_cfg, compute_dtype=dtype)
+        # the card's dense cores (no kernel), for scale: how far the card is
+        # from the CPU at this dtype without the kernels
+        dense_err = max(leaf_errs(step_grads(dataclasses.replace(c, attn_impl="jnp"))[1]))
+        K.reset_launch_counts()
+        loss, g = step_grads(c)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        loss_err = abs(loss.item() - loss_ref.item())
+        errs_leaf = leaf_errs(g)
+        grad_err = max(errs_leaf)
+        worst = sorted(zip(errs_leaf, names), reverse=True)[:3]
+        # the smallest error that any one leaf 20% too large reads (leaves
+        # above the floor: below it no relative error is held)
+        one_leaf = min((1.2 * a.float().cpu() - r).norm().item() / n
+                       for a, r, n in zip(g, g_ref, ref_norms) if n >= floor)
+        planted = {f: max(leaf_errs(step_grads(c, faults[f])[1])) for f in faults}
+        tol = STEP_TOL[dtype]
+        ok = (loss_err <= tol["loss"] and grad_err <= tol["grad_l2"] and counts == want_step
+              and math.isfinite(loss.item()) and one_leaf > tol["grad_l2"]
+              and all(planted[f] > tol["grad_l2"] for f in must_fail))
+        emit({"phase": "train_reference", "what": "card training step vs CPU dense step, "
+              "loss and every gradient leaf (dropout 0, TF32 off)", "dtype": dtype,
+              "batch": B_train, "loss_card": loss.item(), "loss_cpu": loss_ref.item(),
+              "loss_abs_err": loss_err, "grad_l2_rel_err_max": grad_err, "worst_leaves": worst,
+              "leaves": len(g), "card_dense_grad_l2_rel_err_max": dense_err,
+              "one_leaf_x1.2_min": one_leaf, "planted": planted, "planted_must_fail": must_fail,
+              "tol": tol, "launches": counts, "ok": ok})
+        if not ok:
+            failed.append(dtype)
+    if failed:
+        raise AssertionError(f"training step on the card disagrees with the CPU, or the gate "
+                             f"passed a planted fault ({', '.join(failed)})")
+    del cpu_p, dev_p, g_ref, g
+
+    # 8. the port's training entry on a copy of the production config: only
+    # max_iters / eval_interval / eval_iters changed (a step-count cut)
+    iters, interval, e_iters = 60, 20, 4
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        production_config_dir(d, max_iters=iters, eval_interval=interval, eval_iters=e_iters)
+        cwd, buf = os.getcwd(), io.StringIO()
+        os.chdir(d)  # config detection is CWD-relative
+        try:
+            reset_compatibility_layer()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                res = runner.run_training(caller_globals={}, seed=7)
+            train_s = time.perf_counter() - t0
+            train_launches = K.launch_counts()
+        finally:
+            os.chdir(cwd)
+            reset_compatibility_layer()
+        ckpt = d / "output" / "model.ckpt"
+        back, back_step = load_checkpoint(str(ckpt), res["cfg"], dev)
+        opt_back = load_optimizer_state(str(ckpt), back, res["trainer"].optimizer)
+    console = buf.getvalue()
+    evals = [(int(m[0]), float(m[1]), float(m[2])) for m in re.findall(
+        r"LOSS METRICS: Step (\d+)/\d+ \| Train: ([-\d.naif]+) \| Val: ([-\d.naif]+)", console)]
+    n_evals = expected_evals(iters, interval)
+    fwd_batches = iters + n_evals * 2 * e_iters
+    want_train = {"fused_qkv_attention": cfg.n_layer * fwd_batches,
+                  "fused_qkv_attention_bwd": cfg.n_layer * iters,
+                  "short_cross_attention": 2 * cfg.n_layer * fwd_batches,
+                  "short_cross_attention_bwd": 2 * cfg.n_layer * iters}
+    timer = res["step_timer"]
+    later = timer.chunks[1:]
+    steps_per_s = sum(n for n, _ in later) / sum(t for _, t in later)
+    finite = all(math.isfinite(v) for e in evals for v in e[1:])
+    reloaded = (back_step == iters and opt_back is not None and opt_back["count"] == iters
+                and all(torch.equal(a.detach().float(), b) for a, b in
+                        zip(tree_leaves(res["params"]), tree_leaves(back))))
+    ok = (train_launches == want_train and len(evals) == n_evals and finite
+          and evals[-1][1] < evals[0][1] and reloaded and "TRAINING COMPLETED SUCCESSFULLY" in console)
+    emit({"phase": "training", "config": "examples/production_config.yaml", "card": card,
+          "max_iters": iters, "eval_interval": interval, "eval_iters": e_iters,
+          "batch": B_train, "dropout": res["cfg"].dropout, "compute_dtype": res["cfg"].compute_dtype,
+          "seconds": train_s, "evals": evals, "launches": train_launches,
+          "expected_launches": want_train, "steps_per_s_after_first_chunk": steps_per_s,
+          "chunks": timer.chunks, "checkpoint_reloaded": reloaded, "ok": ok})
+    if not ok:
+        raise AssertionError("the training run failed its checks")
+
+    # 9. where a training step's time goes (torch.profiler, device events)
+    params, opt_state, trainer = res["params"], res["opt_state"], res["trainer"]
+    step_rng = StepRng(11, dev)
+    trainer.train_chunk(params, opt_state, step_rng, 1)
+    torch.cuda.synchronize()
+    n_prof = 2
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_chunk(params, opt_state, step_rng, n_prof)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_s = sum(e.self_device_time_total for e in kern) / 1e6 / n_prof
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
+    emit({"phase": "profile", "path": "training", "card": card, "batch": B_train,
+          "steps": n_prof, "step_ms_unprofiled": 1e3 / steps_per_s,
+          "device_ms_per_step": 1e3 * dev_s if kern else None,
+          "device_busy_share": dev_s * steps_per_s if kern else None,
+          "kernels_per_step": sum(e.count for e in kern) / n_prof,
+          "top": [[e.key[:72], e.self_device_time_total / 1e3 / n_prof, e.count / n_prof]
+                  for e in top]})
+
     emit(card)
     prod = {"fused_qkv_attention": ("fused_qkv_attention", prod_k1, "bfloat16"),
-            "short_cross_attention": ("short_cross_attention", prod_k2, "bfloat16")}
+            "short_cross_attention": ("short_cross_attention", prod_k2, "bfloat16"),
+            "fused_qkv_attention_bwd": ("fused_qkv_attention_bwd", prod_k1, "bfloat16", 0.2),
+            "short_cross_attention_bwd": ("short_cross_attention_bwd", prod_k2, "bfloat16", 0.2)}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],
-         "launches": launches[name], "max_abs_err": errs[prod[name]],
-         "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
+         "launches": train_launches[name], "max_abs_err": errs[prod[name]],
+         "ms": timing[name]["ms"], "ms_dropout": timing[name]["ms_dropout"],
+         "plain_ms": timing[name]["plain_ms"],
          "bound_ms": timing[name]["bound"][0], "bound_by": timing[name]["bound"][1],
-         "library_ms": timing[name]["library_ms"]}
+         "library_ms": timing[name]["library_ms"],
+         "launches_by_path": {"serving": launches[name], "training": train_launches[name]}}
         for name in K.KERNELS
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

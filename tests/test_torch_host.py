@@ -182,6 +182,22 @@ def test_generate_entry_with_auto_device_raises_without_cuda(folder_config, monk
         port_generate.run(str(folder_config), tokens=1)
 
 
+def test_config_without_device_raises_without_cuda(folder_config, monkeypatch):
+    """A config.yaml with no device key resolves like auto: the card, and a
+    CUDA error without one. Only device: cpu runs on the CPU."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = folder_config / "config.yaml"
+    cfg.write_text(cfg.read_text().replace("  device: cpu\n", ""))
+    assert "device" not in cfg.read_text()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_generate.run(str(folder_config), tokens=1)
+    manager = ConfigManager()
+    manager.load_system_config(cfg)
+    assert manager.system_config.device == "auto"
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

@@ -7,12 +7,16 @@ tests/test_kernels.py runs it. Tolerances: f32 atol 1e-5 (same arithmetic,
 another summation order); bf16 atol 2e-2 (the same rounding points, but a
 different summation order can flip a bf16 rounding of an intermediate).
 The CUDA kernels themselves are held against the plain versions on the card
-by the tests marked ``cuda`` below and by chip_smoke.py.
+by the tests marked ``cuda`` below and by chip_smoke.py, with max-abs error
+<= tol * max(1, max|ref|): f32 1e-4 and bf16 2e-2 for the backward kernels
+and the dropout forwards (other summation orders over up to 2048 rows for
+the weight gradients).
 """
 
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -109,15 +113,106 @@ def test_dense_cross_core_matches_plain_kernel_version():
     )
 
 
-def test_wrappers_raise_on_dropout():
+SALTS = np.array([123456789, 3141592653], np.uint32)
+
+
+def _rel_err(got, ref):
+    ref = np.asarray(ref, np.float32)
+    return np.abs(np.asarray(got, np.float32) - ref).max() / max(1.0, np.abs(ref).max())
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 4, 16, 32, 2, 16), (1, 6, 8, 24, 3, 8)])
+def test_fused_qkv_value_and_grads_match_jax_interpret(shape, dtype, rate):
+    """Forward and (dx, dw1, db1, dw2) of the differentiable entry, dropout
+    off and on with the same raw salts, against the Pallas kernel and its
+    custom VJP in interpret mode. Tolerance: max-abs error <= tol *
+    max(1, max|ref|), tol as TOL (the masks are bit-identical)."""
+    M, B, T, C, H, hs = shape
+    x, w1, b1, w2 = _fqkv_inputs(M, B, T, C, H, hs, seed=sum(shape))
+    do = np.random.default_rng(1).standard_normal((M, H, B, T, hs)).astype(np.float32)
+    salts = SALTS if rate else None
+
+    def f(x_, w1_, b1_, w2_):
+        return jpa.fused_qkv_attention(
+            x_, w1_, b1_, w2_, H, interpret=True, dropout_rate=rate,
+            dropout_key=None if salts is None else jnp.asarray(salts),
+        )
+
+    ref, vjp = jax.vjp(f, _to_jax(x, dtype), jnp.asarray(w1), jnp.asarray(b1), jnp.asarray(w2))
+    ref_grads = vjp(_to_jax(do, dtype))
+    tx = _to_torch(x, dtype).requires_grad_()
+    tw = [torch.from_numpy(a).requires_grad_() for a in (w1, b1, w2)]
+    out = K.fused_qkv_attention(tx, *tw, H, dropout_rate=rate, dropout_salts=salts)
+    out.backward(_to_torch(do, dtype))
+    assert _rel_err(out.detach().float().numpy(), _np(ref)) <= TOL[dtype]
+    for got, want in zip([tx.grad] + [t.grad for t in tw], ref_grads):
+        assert got.dtype == (getattr(torch, dtype) if got is tx.grad else torch.float32)
+        assert _rel_err(got.float().numpy(), _np(want)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(3, 2, 3, 16, 16), (2, 3, 1, 8, 8)])
+def test_short_cross_value_and_grads_match_jax_interpret(shape, dtype, rate):
+    """Forward and (dq, dk, dv) of the cross entry on the model's (H, B, T,
+    hs) query, against ``short_cross_attention_t`` (transposed k/v) and its
+    custom VJP in interpret mode, dropout off and on. Tolerance as above."""
+    J, H, B, T, hs = shape
+    rng = np.random.default_rng(sum(shape))
+    q = rng.standard_normal((H, B, T, hs)).astype(np.float32)
+    k, v = (rng.standard_normal((J, H, B, T, hs)).astype(np.float32) for _ in range(2))
+    do = rng.standard_normal(q.shape).astype(np.float32)
+    salts = SALTS if rate else None
+
+    def f(q_, kT_, vT_):
+        return jpa.short_cross_attention_t(
+            q_, kT_, vT_, interpret=True, dropout_rate=rate,
+            dropout_key=None if salts is None else jnp.asarray(salts),
+        )
+
+    ref, vjp = jax.vjp(f, *(_to_jax(a, dtype) for a in (q, np.swapaxes(k, -1, -2), np.swapaxes(v, -1, -2))))
+    dq_ref, dkT_ref, dvT_ref = vjp(_to_jax(do, dtype))
+    tq, tk, tv = (_to_torch(a, dtype).requires_grad_() for a in (q, k, v))
+    out = K.short_cross_attention(tq, tk, tv, dropout_rate=rate, dropout_salts=salts)
+    out.backward(_to_torch(do, dtype))
+    assert _rel_err(out.detach().float().numpy(), _np(ref)) <= TOL[dtype]
+    assert _rel_err(tq.grad.float().numpy(), _np(dq_ref)) <= TOL[dtype]
+    assert _rel_err(tk.grad.float().numpy(), np.swapaxes(_np(dkT_ref), -1, -2)) <= TOL[dtype]
+    assert _rel_err(tv.grad.float().numpy(), np.swapaxes(_np(dvT_ref), -1, -2)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.2, 0.5])
+def test_hash_keep_mask_is_bit_equal_to_jax(rate):
+    seed = jpa.seed_from_key(jnp.asarray(SALTS))
+    n_idx = np.arange(6).reshape(2, 3, 1, 1)
+    ref = jpa.hash_keep_mask(seed[0], jnp.asarray(n_idx, jnp.int32), 3, 5, (2, 3, 24, 40), rate)
+    got = K.hash_keep_mask(K.seed_from_salts(SALTS), torch.from_numpy(n_idx), 3, 5,
+                           (2, 3, 24, 40), rate)
+    assert int(seed[0]) == K.seed_from_salts(SALTS)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    with np.errstate(over="ignore"):  # int32 wraparound, as in the kernels
+        want = int(np.int32(2**31 - 5) + np.int32(3) * jpa._STREAM_SEED_STRIDE)
+    assert K.stream_seed(2**31 - 5, 2) == want
+
+
+@pytest.mark.parametrize("args", [(32, 6, 64, 64, 384), (7, 2, 16, 16, 32), (64, 6, 512, 64, 384),
+                                  (16, 3, 64, 128, 100)])
+def test_fqkv_pick_gb_equals_jax(args):
+    for itemsize in (2, 4):
+        assert K.fqkv_pick_gb(*args, itemsize) == jpa._fqkv_pick_gb(*args, itemsize)
+
+
+def test_wrappers_require_salts_for_dropout():
     x, w1, b1, w2 = (torch.from_numpy(a) for a in _fqkv_inputs(1, 1, 8, 8, 1, 4, seed=0))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="salts"):
         K.fused_qkv_attention(x, w1, b1, w2, 1, dropout_rate=0.2)
     q, k, v = (torch.from_numpy(a) for a in _cross_inputs(2, 1, 8, 4, seed=0))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="salts"):
         K.short_cross_attention(q, k, v, dropout_rate=0.1)
-    with pytest.raises(NotImplementedError):
-        K.short_cross_attention_t(q, k.transpose(-1, -2), v.transpose(-1, -2), dropout_rate=0.1)
+    with pytest.raises(ValueError):
+        K.short_cross_attention(q, k, v, dropout_rate=1.0, dropout_salts=SALTS)
 
 
 def test_wrappers_take_the_plain_version_only_on_the_cpu():
@@ -125,8 +220,9 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
     reaching the plain version, and CPU calls launch nothing."""
     K.reset_launch_counts()
     q, k, v = (torch.from_numpy(a) for a in _cross_inputs(2, 1, 8, 4, seed=1))
-    K.short_cross_attention(q, k, v)
-    assert K.launch_counts() == {"fused_qkv_attention": 0, "short_cross_attention": 0}
+    K.short_cross_attention(q.requires_grad_(), k, v).sum().backward()
+    assert K.launch_counts() == {"fused_qkv_attention": 0, "fused_qkv_attention_bwd": 0,
+                                 "short_cross_attention": 0, "short_cross_attention_bwd": 0}
     with pytest.raises(ValueError, match="unsupported device"):
         K.short_cross_attention(q.to("meta"), k.to("meta"), v.to("meta"))
     x, w1, b1, w2 = (torch.from_numpy(a).to("meta") for a in _fqkv_inputs(1, 1, 8, 8, 1, 4, 0))
@@ -192,10 +288,10 @@ def test_fused_qkv_kernel_matches_plain_on_card(cuda_device, shape, dtype):
     M, B, T, C, H, hs = shape
     x, w1, b1, w2 = (torch.from_numpy(a).to(cuda_device) for a in _fqkv_inputs(*shape, seed=1))
     x = x.to(getattr(torch, dtype))
-    before = K.fused_qkv_attention.launches
+    before = K.launch_counts()["fused_qkv_attention"]
     out = K.fused_qkv_attention(x, w1, b1, w2, H)
     torch.cuda.synchronize()
-    assert K.fused_qkv_attention.launches == before + 1
+    assert K.launch_counts()["fused_qkv_attention"] == before + 1
     ref = K.fused_qkv_attention_plain(x, w1, b1, w2, H)
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=0)
 
@@ -212,9 +308,75 @@ def test_short_cross_kernel_matches_plain_on_card(cuda_device, shape, dtype):
         torch.from_numpy(a).to(cuda_device).to(getattr(torch, dtype))
         for a in _cross_inputs(*shape, seed=2)
     )
-    before = K.short_cross_attention.launches
+    before = K.launch_counts()["short_cross_attention"]
     out = K.short_cross_attention(q, k, v)
     torch.cuda.synchronize()
-    assert K.short_cross_attention.launches == before + 1
+    assert K.launch_counts()["short_cross_attention"] == before + 1
     ref = K.short_cross_attention_plain(q, k, v)
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=0)
+
+
+CARD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _card_close(name, got, ref, dtype):
+    err = (got.float() - ref.float()).abs().max().item()
+    bound = CARD_TOL[dtype] * max(1.0, ref.float().abs().max().item())
+    assert err <= bound, f"{name}: max abs err {err} > {bound}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "shape",
+    [(4, 32, 64, 384, 6, 64), (4, 1, 64, 384, 6, 64), (2, 3, 8, 32, 2, 16),
+     (1, 2, 512, 64, 2, 64), (1, 5, 72, 96, 3, 32), (1, 2, 40, 64, 1, 256),
+     (1, 3, 64, 100, 2, 96)],
+)
+def test_fused_qkv_fwd_bwd_kernels_match_plain_on_card(cuda_device, shape, dtype, rate):
+    M, B, T, C, H, hs = shape
+    x, w1, b1, w2 = (torch.from_numpy(a).to(cuda_device) for a in _fqkv_inputs(*shape, seed=3))
+    x = x.to(getattr(torch, dtype))
+    salts = SALTS if rate else None
+    dout = torch.randn((M, H, B, T, hs), generator=torch.Generator().manual_seed(4)).to(x)
+    before = K.launch_counts()
+    out = K.fused_qkv_attention_fwd(x, w1, b1, w2, H, rate, salts)
+    grads = K.fused_qkv_attention_bwd(x, w1, b1, w2, out, dout, H, rate, salts)
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    assert after["fused_qkv_attention"] == before["fused_qkv_attention"] + 1
+    assert after["fused_qkv_attention_bwd"] == before["fused_qkv_attention_bwd"] + 1
+    _card_close("K1f", out, K.fused_qkv_attention_plain(x, w1, b1, w2, H, rate, salts), dtype)
+    ref = K.fused_qkv_attention_bwd_plain(x, w1, b1, w2, out, dout, H, rate, salts)
+    for name, g, r in zip(("dx", "dw1", "db1", "dw2"), grads, ref):
+        assert g.dtype == r.dtype
+        _card_close(f"K1b {name}", g, r, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "shape",
+    [(3, 192, 64, 64), (3, 6, 64, 64), (2, 5, 8, 32), (3, 4, 512, 64), (2, 3, 72, 32),
+     (2, 3, 200, 128), (2, 2, 64, 256), (2, 3, 64, 24)],
+)
+def test_short_cross_fwd_bwd_kernels_match_plain_on_card(cuda_device, shape, dtype, rate):
+    q, k, v = (
+        torch.from_numpy(a).to(cuda_device).to(getattr(torch, dtype))
+        for a in _cross_inputs(*shape, seed=5)
+    )
+    salts = SALTS if rate else None
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(6)).to(q)
+    before = K.launch_counts()
+    out = K.short_cross_attention_fwd(q, k, v, rate, salts)
+    grads = K.short_cross_attention_bwd(q, k, v, dout, rate, salts)
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    assert after["short_cross_attention"] == before["short_cross_attention"] + 1
+    assert after["short_cross_attention_bwd"] == before["short_cross_attention_bwd"] + 1
+    _card_close("K2f", out, K.short_cross_attention_plain(q, k, v, rate, salts), dtype)
+    ref = K.short_cross_attention_bwd_plain(q, k, v, dout, rate, salts)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+        _card_close(f"K2b {name}", g, r, dtype)

@@ -201,10 +201,19 @@ def test_cpu_forward_launches_no_kernel():
     _, tcfg, _, tparams = _pair("cross3")
     kernels.reset_launch_counts()
     forward(tparams, tcfg, torch.from_numpy(_ids(tcfg, 1, 16, seed=0)))
-    assert kernels.launch_counts() == {"fused_qkv_attention": 0, "short_cross_attention": 0}
+    assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
 
 
-def test_training_forward_is_not_ported_yet():
+def test_training_forward_returns_losses_and_eval_forward_ignores_the_rng():
+    """train=True with targets gives per-modality losses; without training
+    the rng changes nothing (dropout is the identity)."""
     _, tcfg, _, tparams = _pair("single")
-    with pytest.raises(NotImplementedError):
-        forward(tparams, tcfg, torch.zeros(1, 1, 4, dtype=torch.long), train=True)
+    tcfg = ModelConfig(**dict(CONFIGS["single"], dropout=0.3))
+    idx = torch.from_numpy(_ids(tcfg, 2, 4, seed=3))
+    logits, losses = forward(tparams, tcfg, idx, idx, rng=(1, 2), train=True)
+    assert len(losses) == 1 and torch.isfinite(losses[0])
+    a, _ = forward(tparams, tcfg, idx, rng=(1, 2))
+    b, _ = forward(tparams, tcfg, idx)
+    assert torch.equal(a[0], b[0])
+    c, _ = forward(tparams, tcfg, idx, rng=(1, 2), train=True)
+    assert not torch.equal(a[0], c[0])

@@ -2,16 +2,20 @@
 
 A copy of the JAX package's ``config/system.py``: field names, nesting,
 defaults and validation rules are the same, so one ``config.yaml`` serves
-both packages. The one change is ``resolve_device``: ``'auto' | 'cuda' |
-'gpu'`` resolve to the CUDA device and raise when there is none; ``'cpu'``
-runs on the CPU only when named.
+both packages. Two changes, both about where the work runs: ``resolve_device``
+resolves ``'auto' | 'cuda' | 'gpu'`` to the CUDA device and raises when
+there is none, and a config without a ``device`` key resolves like ``auto``
+(the JAX package defaults the field to ``'cpu'`` but only prints it, and
+runs on its default backend). ``'cpu'`` runs on the CPU only when named.
 
 ``tpu_options`` on the GPU: ``compute_dtype`` selects bf16 activations as on
-the TPU and ``attn_impl: jnp`` keeps the dense attention cores. The other
-keys (``rng_impl``, ``scan_unroll``, ``mesh``, ``fsdp``, ``multihost``,
-``pipeline_microbatches``, ``matmul_precision``, ``remat``, the Adam and
-optimizer keys, ...) are parsed and validated so that every config that
-loads in the JAX package loads here, and have no effect on the serving path.
+the TPU, ``attn_impl: jnp`` keeps the dense attention cores, and the Adam
+dtypes, ``params_dtype``, ``lr_schedule`` and ``grad_accum`` shape training
+as there. ``mesh`` and ``context_parallel`` must resolve to one device.
+The other keys (``rng_impl``, ``scan_unroll``, ``fused_update``, ``fsdp``,
+``multihost``, ``pipeline_microbatches``, ``remat``, ...) are parsed and
+validated so that every config that loads in the JAX package loads here,
+and change nothing in the port.
 """
 
 from __future__ import annotations
@@ -339,7 +343,7 @@ class SystemConfig:
             model_file_name=project.get("model_file_name", "model.pth"),
             create_new_model=bool(project.get("create_new_model", 1)),
             save_model=bool(project.get("save_model", 1)),
-            device=project.get("device", "cpu"),
+            device=project.get("device", "auto"),
             validation_size=float(splitting.get("validation_size", 0.1)),
             num_validation_files=int(splitting.get("num_validation_files", 0)),
             batch_size=int(training.get("batch_size", 32)),

@@ -112,6 +112,26 @@ def map_tree(fn, tree):
     raise TypeError(f"unexpected node {type(tree).__name__} in a parameter tree")
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a tree in ``map_tree``'s order (sorted dict keys), which
+    is the JAX package's flattening order."""
+    out: list = []
+    map_tree(lambda t: out.append(t) or t, tree)
+    return out
+
+
+def tree_paths(tree, path=()):
+    """(path, leaf) for every leaf, in ``tree_leaves``' order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_paths(tree[k], path + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from tree_paths(v, path + (i,))
+    else:
+        yield path, tree
+
+
 def init_params(
     cfg: ModelConfig, generator: torch.Generator, device: str | torch.device
 ) -> Dict[str, Any]:

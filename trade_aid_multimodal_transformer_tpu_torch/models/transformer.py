@@ -1,5 +1,5 @@
-"""The multimodal transformer's inference forward over a parameter tree
-(port of the JAX package's ``models/transformer.py``).
+"""The multimodal transformer's forward over a parameter tree, for inference
+and training (port of the JAX package's ``models/transformer.py``).
 
 Architecture as there (reference model, SURVEY Quirk Q6):
 
@@ -18,8 +18,16 @@ Self-attention, feed-forward and LayerNorm are stacked over a leading
 modality axis M; embeddings, vocab heads and cross-attention unroll per
 modality. On a CUDA device in the kernel band, self-attention is one call of
 the fused projection + attention kernel and the cross core one call of the
-cross kernel (ops/kernels.py); elsewhere the dense cores run. Dropout is the
-identity here: this module is the forward with ``train=False``.
+cross kernel (ops/kernels.py; their backward kernels run in training);
+elsewhere the dense cores run.
+
+Training (``train=True`` with a raw uint32[2] ``rng``) applies hash dropout
+at the JAX package's sites in its order: ``KeyGen(rng)`` gives one key per
+block; inside a block self-attention takes two sites (the attention site is
+taken on the fused path even where its dropout is off), feed-forward one, and
+each cross-attending modality two, so the masks are bit-identical to JAX's.
+``remat`` changes memory, not values, and is not ported: the forward stores
+its activations.
 """
 
 from __future__ import annotations
@@ -35,7 +43,7 @@ from ..ops.attention import (
     cross_causal_attention,
     fused_qkv_attention_active,
 )
-from ..ops.layers import layernorm
+from ..ops.layers import KeyGen, dropout, layernorm
 from .config import ModelConfig
 
 
@@ -87,7 +95,8 @@ def _proj_mlp_heads(
 
 
 def self_attention(
-    x_norm: torch.Tensor, sa: Dict[str, torch.Tensor], cfg: ModelConfig
+    x_norm: torch.Tensor, sa: Dict[str, torch.Tensor], cfg: ModelConfig,
+    keys: KeyGen, train: bool = False,
 ) -> torch.Tensor:
     """Multi-head self-attention for all modalities (x_norm: (M, B, T, C))."""
     _, _, T, _ = x_norm.shape
@@ -96,22 +105,28 @@ def self_attention(
         w1 = torch.cat([sa["w1_q"], sa["w1_k"], sa["w1_v"]], dim=-1)
         b1 = torch.cat([sa["b1_q"], sa["b1_k"], sa["b1_v"]], dim=-1)
         w2 = torch.cat([sa["w2_q"], sa["w2_k"], sa["w2_v"]], dim=1)
+        use_dropout = train and cfg.dropout > 0.0
+        k_att = keys()  # taken unconditionally, as in the JAX package
         att_hm = kernels.fused_qkv_attention(
-            x_norm.contiguous(), w1.float(), b1.float(), w2.float(), H
+            x_norm.contiguous(), w1.float(), b1.float(), w2.float(), H,
+            cfg.dropout if use_dropout else 0.0, k_att if use_dropout else None,
         )  # (M, H, B, T, hs)
-        return _proj_mlp_heads(
+        out = _proj_mlp_heads(
             att_hm, sa["proj_w1"], sa["proj_b1"], sa["proj_w2"], sa["proj_b2"],
             H, hs, head_major=True,
         )
+        return dropout(out, cfg.dropout, keys(), train)
     q, k, v = _qkv_project_fused(x_norm, sa, H, hs // 2)
-    att = causal_attention_dense(q, k, v)  # (M, B, H, T, hs)
-    return _proj_mlp_heads(
+    att = causal_attention_dense(q, k, v, cfg.dropout, keys(), train)  # (M, B, H, T, hs)
+    out = _proj_mlp_heads(
         att, sa["proj_w1"], sa["proj_b1"], sa["proj_w2"], sa["proj_b2"], H, hs
     )
+    return dropout(out, cfg.dropout, keys(), train)
 
 
 def cross_attention(
-    query_x: torch.Tensor, kv_x: torch.Tensor, cp: Dict[str, torch.Tensor], cfg: ModelConfig
+    query_x: torch.Tensor, kv_x: torch.Tensor, cp: Dict[str, torch.Tensor], cfg: ModelConfig,
+    keys: KeyGen, train: bool = False,
 ) -> torch.Tensor:
     """Cross-attention for one modality.
 
@@ -124,38 +139,51 @@ def cross_attention(
     q = _mm("btc,hce->hbte", query_x, cp["q_w"])
     k = _mm("jbtc,jhcf->jhbtf", kv_x, cp["kv_w"][..., :hs_q])
     v = _mm("jbtc,jhcf->jhbtf", kv_x, cp["kv_w"][..., hs_q:])
-    att = cross_causal_attention(q, k, v, cfg.attn_impl)  # (H, B, T, hs)
-    return _proj_mlp_heads(
+    att = cross_causal_attention(
+        q, k, v, cfg.attn_impl, cfg.dropout, keys(), train
+    )  # (H, B, T, hs)
+    out = _proj_mlp_heads(
         att, cp["proj_w1"], cp["proj_b1"], cp["proj_w2"], cp["proj_b2"],
         H, hs, head_major=True,
     )
+    return dropout(out, cfg.dropout, keys(), train)
 
 
-def feed_forward(x_norm: torch.Tensor, ff: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """C -> 4C -> ReLU -> C."""
+def feed_forward(
+    x_norm: torch.Tensor, ff: Dict[str, torch.Tensor], cfg: ModelConfig, keys: KeyGen,
+    train: bool = False,
+) -> torch.Tensor:
+    """C -> 4C -> ReLU -> C -> dropout."""
     dt = x_norm.dtype
     h = torch.relu(_mm("mbtc,mcd->mbtd", x_norm, ff["w1"]) + _bias(ff["b1"], dt))
-    return _mm("mbtd,mdc->mbtc", h, ff["w2"]) + _bias(ff["b2"], dt)
+    h = _mm("mbtd,mdc->mbtc", h, ff["w2"]) + _bias(ff["b2"], dt)
+    return dropout(h, cfg.dropout, keys(), train)
 
 
-def block_forward(x: torch.Tensor, block: Dict[str, Any], cfg: ModelConfig) -> torch.Tensor:
-    """One MultimodalBlock. x: (M, B, T, C)."""
+def block_forward(
+    x: torch.Tensor, block: Dict[str, Any], key, cfg: ModelConfig, train: bool = False
+) -> torch.Tensor:
+    """One MultimodalBlock. x: (M, B, T, C); key: the block's salt pair."""
+    keys = KeyGen(key)
     x = x + self_attention(
-        layernorm(x, block["ln1"]["scale"], block["ln1"]["bias"]), block["sa"], cfg
+        layernorm(x, block["ln1"]["scale"], block["ln1"]["bias"]), block["sa"], cfg, keys, train
     )
-    x = x + feed_forward(layernorm(x, block["ln2"]["scale"], block["ln2"]["bias"]), block["ffwd"])
+    x = x + feed_forward(
+        layernorm(x, block["ln2"]["scale"], block["ln2"]["bias"]), block["ffwd"], cfg, keys, train
+    )
     if block["cross"]:
         # the KV inputs are x after SA/FF, frozen for every querying modality
-        # before any cross update applies
+        # before any cross update applies; modalities in the JAX tree's
+        # (sorted) key order, which fixes their dropout sites
         updates = {}
-        for i_str, cp in block["cross"].items():
+        for i_str, cp in sorted(block["cross"].items()):
             i = int(i_str)
             kv_idx = cfg.kv_modalities(i)
             if not kv_idx:
                 continue
             kv_x = x[list(kv_idx)]
             y = layernorm(x[i], cp["ln_scale"], cp["ln_bias"])
-            updates[i] = x[i] + cross_attention(y, kv_x, cp, cfg)
+            updates[i] = x[i] + cross_attention(y, kv_x, cp, cfg, keys, train)
         if updates:
             x = torch.stack([updates.get(i, x[i]) for i in range(cfg.num_modalities)])
     return x
@@ -207,19 +235,50 @@ def logits_heads_padded(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tenso
     return logits.to(acc) + b2.to(acc)[:, None, None, :]
 
 
+def cross_entropy_padded(logits_pad: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-modality mean CE over padded batched logits (M, B, T, Vp), whose
+    padded classes carry exactly zero probability; targets (M, B, T).
+    Returns (M,)."""
+    logp = torch.log_softmax(logits_pad, dim=-1)
+    nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
+    return nll.mean(dim=(1, 2))
+
+
 def forward(
-    params: Dict[str, Any], cfg: ModelConfig, idx: torch.Tensor, train: bool = False
+    params: Dict[str, Any],
+    cfg: ModelConfig,
+    idx: torch.Tensor,
+    targets: Optional[torch.Tensor] = None,
+    rng=None,
+    train: bool = False,
 ) -> Tuple[List[torch.Tensor], Optional[List[torch.Tensor]]]:
-    """Inference forward. idx: (M, B, T) stacked token ids. Returns
-    (per-modality logits (B, T, V_i), None) like the JAX ``forward`` without
-    targets."""
-    if train:
-        raise NotImplementedError("the training forward comes with the training path")
+    """Full forward. idx: (M, B, T) stacked token ids; rng: a raw uint32[2]
+    key (needed for dropout in training). Returns (per-modality logits
+    (B, T, V_i), per-modality mean losses or None without targets), like the
+    JAX ``forward``."""
+    keys = KeyGen(rng)
     x = embed(params, cfg, idx)
     for block in params["blocks"]:
-        x = block_forward(x, block, cfg)
+        x = block_forward(x, block, keys(), cfg, train)
     padded = logits_heads_padded(params, cfg, x)
-    return [padded[m, ..., :v] for m, v in enumerate(cfg.vocab_sizes)], None
+    logits = [padded[m, ..., :v] for m, v in enumerate(cfg.vocab_sizes)]
+    if targets is None:
+        return logits, None
+    losses = cross_entropy_padded(padded, targets)
+    return logits, [losses[m] for m in range(cfg.num_modalities)]
+
+
+def total_loss(
+    params: Dict[str, Any],
+    cfg: ModelConfig,
+    idx: torch.Tensor,
+    targets: torch.Tensor,
+    rng=None,
+    train: bool = True,
+) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Summed multimodal loss and the per-modality losses."""
+    _, losses = forward(params, cfg, idx, targets, rng, train)
+    return torch.stack(losses).sum(), losses
 
 
 def sample_last(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:

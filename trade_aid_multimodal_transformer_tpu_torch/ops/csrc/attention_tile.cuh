@@ -52,6 +52,45 @@ struct Io<__nv_bfloat16> {
   }
 };
 
+// Attention dropout, as the JAX kernels draw it in interpret mode
+// (pallas_attention.py hash_keep_mask with iq = jk = 0): element (r, c) of
+// collapsed row n_idx is kept when the hash of (seed, n_idx, r, c) is at least
+// thresh = min(floor(rate * 2^32), 2^32 - 1). u32 arithmetic wraps as there.
+struct Dropout {
+  uint32_t seed;    // the row's seed (a cross stream's already offset)
+  uint32_t n_idx;   // collapsed row index of the JAX kernel's mask
+  uint32_t thresh;
+  bool on;
+};
+
+__device__ __forceinline__ bool keep_bit(uint32_t seed, uint32_t n_idx, uint32_t r,
+                                         uint32_t c, uint32_t thresh) {
+  const uint32_t x = (seed * 2654435761u) ^ (n_idx * 40503u);
+  uint32_t h = r * 2246822519u + c * 3266489917u + x;
+  h ^= h >> 13;
+  h *= 2654435761u;
+  h ^= h >> 16;
+  return h >= thresh;
+}
+
+// The seed of cross stream j: seed + (j + 1) * 1000003 in int32 (wrapping).
+__host__ __device__ inline uint32_t stream_seed(uint32_t seed, int j) {
+  return seed + (uint32_t)(j + 1) * 1000003u;
+}
+
+// Zero the dropped entries of an R x R tile of probabilities p (stride ld)
+// whose rows start at query q0 and columns at key k0.
+template <typename P>
+__device__ void drop_tile(P* p, int ld, int R, int q0, int k0, const Dropout& d) {
+  if (!d.on) return;
+  for (int idx = threadIdx.x; idx < R * R; idx += blockDim.x) {
+    const int i = idx / R, j = idx % R;
+    if (!keep_bit(d.seed, d.n_idx, (uint32_t)(q0 + i), (uint32_t)(k0 + j), d.thresh))
+      p[i * ld + j] = P(0.f);
+  }
+  __syncthreads();
+}
+
 // One query tile and one key tile in shared memory, all f32.
 struct Tile {
   float* q;  // R x ld

@@ -1,4 +1,5 @@
-// Fused factored-QKV projection + whole-row causal attention, forward only.
+// Fused factored-QKV projection + whole-row causal attention, forward (the
+// backward is fused_qkv_attention_bwd.cu).
 //
 // Replaces: trade_aid_multimodal_transformer_tpu/ops/pallas_attention.py,
 // _fqkv_fwd_kernel (entry fused_qkv_attention). For every (modality m, batch
@@ -9,7 +10,10 @@
 // with the JAX kernel's rounding points: weights cast to x's type, the first
 // product summed in f32 plus b1 and tanh in f32, t rounded to x's type, q/k/v
 // rounded to x's type, scores / max / exp / row sum in f32, p rounded to v's
-// type before P.V, and out = o / l rounded once.
+// type before P.V, and out = o / (l * (1 - rate)) rounded once. Dropout
+// zeroes p's dropped entries before P.V, keyed as the JAX kernel's
+// interpret-mode mask: row pid * gb * H + h * gb + b % gb of its (m, batch
+// group) programs (FwdDrop, fqkv_dropout).
 //
 // What bounds it on the H100: at the production shape (x 4x32x64x384 bf16,
 // H=6, hs=64) the work is ~4.6 GFLOP, most of it the C=384 -> 3*hs/2
@@ -35,6 +39,23 @@
 namespace tat {
 
 constexpr int kChunk = 32;  // contraction chunk of the first product
+
+// Dropout arguments of a launch: seed (s0 ^ s1 of the site's salts), keep
+// threshold, on/off, 1 - rate as f32, and the JAX kernel's batch group gb.
+struct FwdDrop {
+  uint32_t seed, thresh;
+  int on;
+  float keepf;
+  int gb;
+};
+
+// The mask row of (m, b, h) in the JAX kernel: program pid = m * (B / gb) +
+// b / gb holds gb batch rows of every head, collapsed head-major.
+__device__ inline Dropout fqkv_dropout(const FwdDrop& dr, int m, int b, int h, int B, int H) {
+  const int pid = m * (B / dr.gb) + b / dr.gb;
+  return Dropout{dr.seed, (uint32_t)(pid * dr.gb * H + h * dr.gb + b % dr.gb), dr.thresh,
+                 dr.on != 0};
+}
 
 __host__ __device__ inline size_t fqkv_smem_floats(int R, int hs) {
   const int hs2 = hs / 2;
@@ -319,7 +340,7 @@ __global__ void __launch_bounds__(kThreads)
     fqkv_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w1,
                     const float* __restrict__ b1, const float* __restrict__ w2,
                     T* __restrict__ out, int B, int Tn, int C, int H, int hs,
-                    int R, int n_qt, float scale) {
+                    int R, int n_qt, float scale, FwdDrop dr) {
   extern __shared__ __align__(128) float smem[];
   const int hs2 = hs / 2, D = H * hs2, d3 = 3 * D;
   long long bid = blockIdx.x;
@@ -330,6 +351,7 @@ __global__ void __launch_bounds__(kThreads)
   const int b = (int)(bid % B);
   const int m = (int)(bid / B);
   const int q0 = qt * R;
+  const Dropout d = fqkv_dropout(dr, m, b, h, B, H);
 
   Tile t = carve_tile(smem, R, hs);
   float* sT = smem + tile_floats(R, hs);
@@ -367,6 +389,7 @@ __global__ void __launch_bounds__(kThreads)
         fold_row_max(t);
       } else {
         probabilities<T>(t);
+        drop_tile(t.s, t.lds, R, q0, k0, d);
         accumulate_pv(t, o);
       }
     }
@@ -378,7 +401,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int u = 0; u < kMaxPerThread; ++u) {
       const int i = i0 + u * step, row = q0 + i;
-      if (i < R && row < Tn) Io<T>::store(ob + (size_t)row * hs + e, o[u] / t.l[i]);
+      if (i < R && row < Tn) Io<T>::store(ob + (size_t)row * hs + e, o[u] / (t.l[i] * dr.keepf));
     }
   }
 }
@@ -391,7 +414,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                        const float* __restrict__ w1, const float* __restrict__ b1,
                        const float* __restrict__ w2, __nv_bfloat16* __restrict__ out,
                        int B, int Tn, int C, int H, int hs, int R, int n_qt,
-                       float scale) {
+                       float scale, FwdDrop dr) {
   extern __shared__ __align__(128) char smem_tc[];
   const int hs2 = hs / 2, D = H * hs2, d3 = 3 * D;
   long long bid = blockIdx.x;
@@ -402,6 +425,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int b = (int)(bid % B);
   const int m = (int)(bid / B);
   const int q0 = qt * R;
+  const Dropout d = fqkv_dropout(dr, m, b, h, B, H);
 
   const LayoutTc L = layout_tc(R, hs);
   TileTc t;
@@ -468,6 +492,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         fold_row_max_tc(t);
       } else {
         probabilities_tc(t);
+        drop_tile(t.p, t.ldp, R, q0, k0, d);
         accumulate_pv_tc(t, o);
       }
     }
@@ -478,14 +503,14 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int valid = max(0, min(R, Tn - q0)) * hs;
   for (int idx = threadIdx.x; idx < valid; idx += kThreads) {
     const int i = idx / hs, e = idx % hs;
-    ob[(size_t)q0 * hs + idx] = __float2bfloat16_rn(t.o[i * t.ldo + e] / t.l[i]);
+    ob[(size_t)q0 * hs + idx] = __float2bfloat16_rn(t.o[i * t.ldo + e] / (t.l[i] * dr.keepf));
   }
 }
 
 template <typename T>
 int launch(const void* x, const void* w1, const void* b1, const void* w2,
            void* out, int M, int B, int Tn, int C, int H, int hs, float scale,
-           cudaStream_t stream) {
+           FwdDrop dr, cudaStream_t stream) {
   const int R = tile_rows(hs);
   const int n_qt = (Tn + R - 1) / R;
   const long long blocks = (long long)M * B * H * n_qt;
@@ -497,13 +522,13 @@ int launch(const void* x, const void* w1, const void* b1, const void* w2,
   fqkv_fwd_kernel<T><<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(w1),
       static_cast<const float*>(b1), static_cast<const float*>(w2),
-      static_cast<T*>(out), B, Tn, C, H, hs, R, n_qt, scale);
+      static_cast<T*>(out), B, Tn, C, H, hs, R, n_qt, scale, dr);
   return (int)cudaGetLastError();
 }
 
 int launch_tc(const void* x, const void* w1, const void* b1, const void* w2,
               void* out, int M, int B, int Tn, int C, int H, int hs, float scale,
-              cudaStream_t stream) {
+              FwdDrop dr, cudaStream_t stream) {
   const int R = tile_rows(hs);
   const int n_qt = (Tn + R - 1) / R;
   const long long blocks = (long long)M * B * H * n_qt;
@@ -515,7 +540,7 @@ int launch_tc(const void* x, const void* w1, const void* b1, const void* w2,
   fqkv_fwd_tc_kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(w1),
       static_cast<const float*>(b1), static_cast<const float*>(w2),
-      static_cast<__nv_bfloat16*>(out), B, Tn, C, H, hs, R, n_qt, scale);
+      static_cast<__nv_bfloat16*>(out), B, Tn, C, H, hs, R, n_qt, scale, dr);
   return (int)cudaGetLastError();
 }
 
@@ -523,20 +548,24 @@ int launch_tc(const void* x, const void* w1, const void* b1, const void* w2,
 
 // x (M, B, T, C) bf16 or f32; w1 (M, C, 3*H*hs/2), b1 (M, 3*H*hs/2) and
 // w2 (M, 3H, hs/2, hs) f32; out (M, H, B, T, hs) in x's type. All contiguous.
-// Returns the cudaError_t of the launch.
+// Dropout (rate_on): the JAX kernel's mask rows, with batch groups of gb
+// (_fqkv_pick_gb); keepf = 1 - rate as f32. Returns the cudaError_t.
 extern "C" int tat_fused_qkv_attention_fwd(const void* x, const void* w1,
                                            const void* b1, const void* w2,
                                            void* out, int M, int B, int T,
                                            int C, int H, int hs, int is_bf16,
-                                           float scale, void* stream) {
+                                           float scale, unsigned seed,
+                                           unsigned thresh, int rate_on,
+                                           float keepf, int gb, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const tat::FwdDrop dr{seed, thresh, rate_on, keepf, gb};
   // bf16 with hs % 32 == 0 and C % 8 == 0 (production: hs 64, C 384) and
   // 16-byte aligned x, w1 and w2 (read as 16-byte vectors) take the tensor cores
   const bool aligned = (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w1) |
                         reinterpret_cast<uintptr_t>(w2)) % 16 == 0;
   if (is_bf16 && hs % 32 == 0 && C % 8 == 0 && aligned)
-    return tat::launch_tc(x, w1, b1, w2, out, M, B, T, C, H, hs, scale, s);
+    return tat::launch_tc(x, w1, b1, w2, out, M, B, T, C, H, hs, scale, dr, s);
   if (is_bf16)
-    return tat::launch<__nv_bfloat16>(x, w1, b1, w2, out, M, B, T, C, H, hs, scale, s);
-  return tat::launch<float>(x, w1, b1, w2, out, M, B, T, C, H, hs, scale, s);
+    return tat::launch<__nv_bfloat16>(x, w1, b1, w2, out, M, B, T, C, H, hs, scale, dr, s);
+  return tat::launch<float>(x, w1, b1, w2, out, M, B, T, C, H, hs, scale, dr, s);
 }

@@ -1,1 +1,2 @@
-"""Training-side modules; this slice ports the checkpoint format only."""
+"""Training: steps and optimizer, evaluation, metrics, checkpoints and the
+end-to-end runner."""

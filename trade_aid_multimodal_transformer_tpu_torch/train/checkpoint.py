@@ -1,13 +1,16 @@
-"""Model checkpoints in the JAX package's ``.npz`` format (port of its
-``train/checkpoint.py``, parameters only).
+"""Checkpoints in the JAX package's ``.npz`` format (port of its
+``train/checkpoint.py``).
 
 One ``.npz`` file of flattened leaves keyed by the JAX key-path strings that
 ``jax.tree_util.keystr`` writes, e.g. ``params['blocks'][0]['sa']['w1_q']``;
 bf16 leaves are stored as uint16 bit views under the key plus ``::bf16``.
-The port writes and reads these strings itself. A checkpoint written by
-either package loads in the other. Optimizer state, which the JAX trainer
-also stores, is ignored here; loading the reference model's ``.pth`` is not
-ported yet.
+The port writes and reads these strings itself. The optimizer state goes
+under the ``opt`` prefix in the layout of the JAX optimizer's state:
+``opt[0].count`` / ``opt[0].mu[...]`` / ``opt[0].nu[...]`` for optax.adamw
+(plus ``opt[2].count`` with a schedule), ``opt.count`` / ``opt.mu[...]`` /
+``opt.nu[...]`` for ``_adamw_lowmem``. A checkpoint written by either
+package loads in the other, moments included, so a resumed run continues
+them. Loading the reference model's ``.pth`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -21,10 +24,11 @@ import torch
 
 from ..convert import params_from_jax
 from ..models.config import ModelConfig
-from ..models.init import param_shapes
+from ..models.init import param_shapes, tree_paths
 
 _META_STEP = "__meta_step__"
 _PARAMS_PREFIX = "params"
+_OPT_PREFIX = "opt"
 _BF16_SUFFIX = "::bf16"
 _KEY_PART = re.compile(r"\['((?:[^'\\]|\\.)*)'\]|\[(\d+)\]")
 
@@ -45,30 +49,35 @@ def _parse_keystr(s: str) -> List:
     return parts
 
 
-def _leaves(tree, path=()):
-    """(path, tensor) for every leaf; dict keys in sorted order, as JAX
-    flattens them."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves(tree[k], path + (k,))
-    elif isinstance(tree, list):
-        for i, v in enumerate(tree):
-            yield from _leaves(v, path + (i,))
+def _put(out: Dict[str, np.ndarray], key: str, t: torch.Tensor) -> None:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        out[key + _BF16_SUFFIX] = t.view(torch.int16).numpy().view(np.uint16)
     else:
-        yield path, tree
+        out[key] = t.numpy()
 
 
-def save_checkpoint(path: str, params, step: Optional[int] = None) -> int:
-    """Write the parameters (and optionally the step) as an ``.npz`` that the
-    JAX package's ``load_checkpoint`` reads; returns the file size in bytes."""
+def _opt_prefix(optimizer) -> str:
+    return _OPT_PREFIX + optimizer.jax_state_prefix
+
+
+def save_checkpoint(path: str, params, step: Optional[int] = None, opt_state=None,
+                    optimizer=None) -> int:
+    """Write the parameters (and optionally the step and the optimizer state
+    of ``optimizer``, train/steps.AdamW) as an ``.npz`` that the JAX
+    package's ``load_checkpoint`` reads; returns the file size in bytes."""
     out: Dict[str, np.ndarray] = {}
-    for p, t in _leaves(params):
-        key = _PARAMS_PREFIX + _keystr(p)
-        t = t.detach().cpu()
-        if t.dtype == torch.bfloat16:
-            out[key + _BF16_SUFFIX] = t.view(torch.int16).numpy().view(np.uint16)
-        else:
-            out[key] = t.numpy()
+    for p, t in tree_paths(params):
+        _put(out, _PARAMS_PREFIX + _keystr(p), t)
+    if opt_state is not None:
+        pre = _opt_prefix(optimizer)
+        count = np.asarray(opt_state["count"], np.int32)
+        out[pre + ".count"] = count
+        for name in ("mu", "nu"):
+            for p, t in tree_paths(opt_state[name]):
+                _put(out, f"{pre}.{name}{_keystr(p)}", t)
+        if optimizer.schedule_count:
+            out[_OPT_PREFIX + "[2].count"] = count
     if step is not None:
         out[_META_STEP] = np.asarray(step, np.int64)
     d = os.path.dirname(path)
@@ -137,3 +146,29 @@ def load_checkpoint(
     params = params_from_jax(_conform(tree, param_shapes(cfg), "params"), device)
     step = int(data[_META_STEP]) if _META_STEP in data else None
     return params, step
+
+
+def load_optimizer_state(path: str, params, optimizer) -> Optional[Dict[str, Any]]:
+    """The optimizer state of ``optimizer`` stored in a checkpoint, on the
+    parameters' devices, or None when the checkpoint holds none (a
+    weights-only file, or another optimizer's layout)."""
+    with np.load(path, allow_pickle=False) as z:
+        data = {k: z[k] for k in z.files}
+    pre = _opt_prefix(optimizer)
+    if pre + ".count" not in data:
+        return None
+    state = optimizer.init(params)
+    for name in ("mu", "nu"):
+        for p, t in tree_paths(state[name]):
+            key = f"{pre}.{name}{_keystr(p)}"
+            if key + _BF16_SUFFIX in data:
+                arr = _bf16_bits_to_f32(data[key + _BF16_SUFFIX])
+            elif key in data:
+                arr = data[key]
+            else:
+                return None
+            if tuple(arr.shape) != tuple(t.shape):
+                raise ValueError(f"{key}: shape {arr.shape} != expected {tuple(t.shape)}")
+            t.copy_(torch.from_numpy(np.asarray(arr, np.float32)).to(t.dtype))
+    state["count"] = int(data[pre + ".count"])
+    return state

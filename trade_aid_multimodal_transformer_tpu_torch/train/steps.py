@@ -1,0 +1,299 @@
+"""Training and evaluation steps (port of the JAX package's
+``train/steps.py``), as plain tensor code on one device.
+
+The JAX trainer scans a whole eval interval of steps inside one compiled
+program; here a chunk is a Python loop of eager steps: draw a batch on the
+device, run the forward and backward (the hand-written kernels on the card),
+update in place.
+
+Optimizer: AdamW with torch's defaults (betas 0.9 / 0.999, eps 1e-8, weight
+decay 0.01 on every parameter), written out rather than taken from
+``torch.optim``, whose AdamW cannot store bf16 moments with f32 update math.
+Two variants, as in the JAX package: ``optax.adamw`` semantics (moments f32,
+or mu stored bf16, whose decay product then runs in bf16 as optax's does) and
+``_adamw_lowmem`` (mu and nu stored in their own dtypes, all update math in
+f32), the production path. Learning-rate schedules follow optax's
+warmup-cosine, linear, constant and join semantics, evaluated at the step
+count before the increment. Parameters and moments are updated in place.
+
+Not ported (parsed by config/system.py, listed on the ROADMAP): the
+flat-state ``fused_update`` (off by default in the JAX package too) and
+``rng_impl`` (JAX key implementations). Randomness comes from ``StepRng``:
+a device generator for batches and augmentation and a host generator for the
+dropout salts.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
+
+import torch
+
+from ..models.config import ModelConfig
+from ..models.init import map_tree, tree_leaves
+from ..models.transformer import forward, total_loss
+from ..sampling.feed import BatchFeed
+from .metrics import ModalityMetricSpec, batch_directional_metrics
+
+Schedule = Union[float, Callable[[int], float]]
+_F32 = torch.float32
+
+
+def _f32(v: float) -> float:
+    """A Python float rounded to f32, as a weak-typed JAX scalar becomes."""
+    return float(torch.tensor(v, dtype=_F32))
+
+
+def _linear(init: float, end: float, steps: int, begin: int = 0) -> Callable[[int], float]:
+    """optax.linear_schedule."""
+    if steps <= 0:
+        return lambda count: init
+
+    def schedule(count: int) -> float:
+        c = min(max(count - begin, 0), steps)
+        return (init - end) * (1 - c / steps) + end
+
+    return schedule
+
+
+def _cosine(init: float, decay_steps: int, alpha: float) -> Callable[[int], float]:
+    """optax.cosine_decay_schedule."""
+    if not decay_steps > 0:
+        raise ValueError(f"The cosine_decay_schedule requires positive decay_steps, got {decay_steps}")
+
+    def schedule(count: int) -> float:
+        c = min(float(count), float(decay_steps))
+        return init * ((1 - alpha) * 0.5 * (1 + math.cos(math.pi * c / decay_steps)) + alpha)
+
+    return schedule
+
+
+def _join(schedules: Sequence[Callable], boundaries: Sequence[int]) -> Callable[[int], float]:
+    """optax.join_schedules."""
+
+    def schedule(count: int) -> float:
+        out = schedules[0](count)
+        for boundary, sched in zip(boundaries, schedules[1:]):
+            if count >= boundary:
+                out = sched(count - boundary)
+        return out
+
+    return schedule
+
+
+def build_lr_schedule(learning_rate: float, spec: Optional[Dict[str, Any]]) -> Schedule:
+    """``tpu_options.lr_schedule`` -> a schedule of the step count (or the
+    constant learning rate without one): 'cosine' (default), 'linear' or
+    'constant' after an optional linear warmup; ``decay_steps`` includes the
+    warmup; ``min_lr_ratio`` is the floor as a fraction of the peak."""
+    if not spec:
+        return learning_rate
+    typ = spec.get("type", "cosine")
+    warmup = int(spec.get("warmup_steps", 0))
+    decay = int(spec["decay_steps"])
+    end = learning_rate * float(spec.get("min_lr_ratio", 0.0))
+    if typ == "cosine":
+        init = 0.0 if warmup else learning_rate
+        alpha = 0.0 if learning_rate == 0.0 else end / learning_rate
+        return _join([_linear(init, learning_rate, warmup),
+                      _cosine(learning_rate, decay - warmup, alpha)], [warmup])
+    pieces = []
+    if warmup:
+        pieces.append(_linear(0.0, learning_rate, warmup))
+    if typ == "linear":
+        pieces.append(_linear(learning_rate, end, max(decay - warmup, 1)))
+    elif typ == "constant":
+        pieces.append(lambda count: learning_rate)
+    else:
+        raise ValueError(f"unknown lr_schedule type {typ!r}")
+    return pieces[0] if len(pieces) == 1 else _join(pieces, [warmup])
+
+
+class AdamW:
+    """AdamW over a parameter tree.
+
+    ``lowmem=False``: ``optax.adamw(lr, b1, b2, eps, weight_decay, mu_dtype)``
+    (nu f32). ``lowmem=True``: the JAX package's ``_adamw_lowmem`` (mu and nu
+    in their own dtypes, update math f32). State: {"count": int, "mu": tree,
+    "nu": tree}. ``jax_state_prefix`` and ``schedule_count`` describe where
+    the JAX package's optimizer state keeps these (checkpoint keys)."""
+
+    def __init__(self, learning_rate: Schedule, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8, weight_decay: float = 0.01,
+                 mu_dtype: torch.dtype = _F32, nu_dtype: torch.dtype = _F32,
+                 lowmem: bool = False):
+        if not lowmem and nu_dtype != _F32:
+            raise ValueError("optax.adamw keeps nu in f32; a bf16 nu needs lowmem=True")
+        self.learning_rate = learning_rate
+        self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, weight_decay
+        self.mu_dtype, self.nu_dtype, self.lowmem = mu_dtype, nu_dtype, lowmem
+        # optax.adamw's state is (ScaleByAdamState, add_decayed_weights' empty
+        # state, the schedule's count when the lr is a schedule);
+        # _adamw_lowmem's is the ScaleByAdamState alone
+        self.jax_state_prefix = "" if lowmem else "[0]"
+        self.schedule_count = callable(learning_rate) and not lowmem
+
+    def lr(self, count: int) -> float:
+        lr = self.learning_rate
+        return float(lr(count)) if callable(lr) else float(lr)
+
+    def init(self, params) -> Dict[str, Any]:
+        return {
+            "count": 0,
+            "mu": map_tree(lambda p: torch.zeros_like(p, dtype=self.mu_dtype), params),
+            "nu": map_tree(lambda p: torch.zeros_like(p, dtype=self.nu_dtype), params),
+        }
+
+    @torch.no_grad()
+    def update_(self, params, grads: Sequence[torch.Tensor], state: Dict[str, Any]) -> None:
+        """One step on the leaves of ``params`` (in place), ``grads`` in
+        ``tree_leaves`` order; advances ``state`` in place."""
+        lr_t = _f32(self.lr(state["count"]))
+        state["count"] += 1
+        count = torch.tensor(float(state["count"]), dtype=_F32)
+        b1, b2 = self.b1, self.b2
+        c1 = 1 - torch.tensor(b1, dtype=_F32) ** count
+        c2 = 1 - torch.tensor(b2, dtype=_F32) ** count
+        leaves = tree_leaves(params)
+        for p, g, m, v in zip(leaves, grads, tree_leaves(state["mu"]), tree_leaves(state["nu"])):
+            g32 = g.to(_F32)
+            if self.lowmem:
+                m32 = b1 * m.to(_F32) + (1.0 - b1) * g32
+                v32 = b2 * v.to(_F32) + (1.0 - b2) * g32.square()
+                u = (m32 / c1) / (torch.sqrt(v32 / c2) + self.eps)
+                u = u + self.weight_decay * p.to(_F32)
+                p.add_((-lr_t * u).to(p.dtype))
+            else:
+                # the decay product runs in mu's storage dtype, as optax's
+                # weak-typed scalar times a bf16 moment does
+                m32 = (1.0 - b1) * g32 + (m * torch.tensor(b1, dtype=m.dtype)).to(_F32)
+                v32 = (1.0 - b2) * g32.square() + b2 * v
+                u = (m32 / c1) / (torch.sqrt(v32 / c2) + self.eps)
+                u = u + self.weight_decay * p
+                p.copy_((p + u * -lr_t).to(p.dtype))
+            m.copy_(m32.to(m.dtype))
+            v.copy_(v32.to(v.dtype))
+
+
+def make_optimizer(learning_rate: float, moment_dtype: str = "float32",
+                   nu_dtype: str = "float32", lr_schedule: Optional[Dict[str, Any]] = None,
+                   params_dtype: str = "float32") -> AdamW:
+    """AdamW as the JAX package's ``make_optimizer`` builds it: the lowmem
+    variant when nu or the master params are bf16, else optax.adamw with mu
+    in ``moment_dtype``."""
+    lr = build_lr_schedule(learning_rate, lr_schedule)
+    mu = torch.bfloat16 if moment_dtype == "bfloat16" else _F32
+    nu = torch.bfloat16 if nu_dtype == "bfloat16" else _F32
+    lowmem = nu_dtype == "bfloat16" or params_dtype == "bfloat16"
+    return AdamW(lr, mu_dtype=mu, nu_dtype=nu if lowmem else _F32, lowmem=lowmem)
+
+
+class StepRng:
+    """A run's randomness: ``batch``, a generator on the device for batch
+    starts and augmentation, and ``host``, a CPU generator for the dropout
+    salts (raw uint32[2] per micro-step), both seeded from ``seed``."""
+
+    def __init__(self, seed: int, device: str | torch.device):
+        self.batch = torch.Generator(device=torch.device(device)).manual_seed(seed)
+        self.host = torch.Generator().manual_seed(seed ^ 0x5DEECE66D)
+
+    def salts(self) -> Tuple[int, int]:
+        s = torch.randint(0, 1 << 32, (2,), generator=self.host, dtype=torch.int64)
+        return int(s[0]), int(s[1])
+
+
+class EvalStats(NamedTuple):
+    """Accumulated over one evaluation pass (eval_iters batches)."""
+
+    mean_loss: torch.Tensor          # mean over batches of the summed CE
+    mean_losses: torch.Tensor        # (M,) per-modality mean CE
+    wins: torch.Tensor               # (M,)
+    losses: torch.Tensor             # (M,)
+    certainty: torch.Tensor          # (M,)
+    batches_processed: torch.Tensor  # (M,)
+
+
+class Trainer:
+    """Owns the step functions of one (model, feed, optimizer) run."""
+
+    def __init__(self, cfg: ModelConfig, feed: BatchFeed, optimizer: AdamW,
+                 metric_specs: Sequence[ModalityMetricSpec], eval_iters: int,
+                 grad_accum: int = 1):
+        self.cfg = cfg
+        self.feed = feed
+        self.optimizer = optimizer
+        self.metric_specs = list(metric_specs)
+        self.eval_iters = eval_iters
+        # each step averages gradients over grad_accum microbatch draws
+        self.grad_accum = max(1, int(grad_accum))
+
+    # ------------------------------------------------------------- training
+
+    def loss_and_grads(self, params, batches: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                       salts: Sequence[Tuple[int, int]]) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """Loss and gradients (``tree_leaves`` order) of one step: the mean
+        over its microbatches (xb, yb) with their dropout salts."""
+        leaves = tree_leaves(params)
+        loss_sum, grad_sum = None, None
+        for (xb, yb), key in zip(batches, salts):
+            loss, _ = total_loss(params, self.cfg, xb, yb, key, True)
+            grads = torch.autograd.grad(loss, leaves)
+            if len(batches) == 1:
+                return loss.detach(), list(grads)
+            loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
+            grad_sum = list(grads) if grad_sum is None else [a + b for a, b in zip(grad_sum, grads)]
+        inv = 1.0 / len(batches)
+        return loss_sum * inv, [(g.to(_F32) * inv).to(g.dtype) for g in grad_sum]
+
+    def step(self, params, opt_state, batches, salts) -> torch.Tensor:
+        """One optimization step on given microbatches and salts; updates
+        params and opt_state in place and returns the loss."""
+        loss, grads = self.loss_and_grads(params, batches, salts)
+        self.optimizer.update_(params, grads, opt_state)
+        return loss
+
+    def train_chunk(self, params, opt_state, rng: StepRng, n_steps: int):
+        """n_steps training steps with batches drawn on the device; returns
+        (params, opt_state, per-step losses (n_steps,))."""
+        losses = []
+        for _ in range(n_steps):
+            batches = [self.feed.get_batch(rng.batch, "train", True)
+                       for _ in range(self.grad_accum)]
+            salts = [rng.salts() for _ in range(self.grad_accum)]
+            losses.append(self.step(params, opt_state, batches, salts))
+        return params, opt_state, torch.stack(losses)
+
+    def train_step(self, params, opt_state, rng: StepRng):
+        params, opt_state, losses = self.train_chunk(params, opt_state, rng, 1)
+        return params, opt_state, losses[0]
+
+    # ------------------------------------------------------------ evaluation
+
+    @torch.no_grad()
+    def eval_pass(self, params, rng: StepRng, split: str) -> EvalStats:
+        """eval_iters batches without augmentation: summed CE per batch and
+        the directional metrics of every eligible modality."""
+        M = self.cfg.num_modalities
+        dev = self.feed.device
+        loss_sum = torch.zeros((), device=dev)
+        losses_sum = torch.zeros(M, device=dev)
+        wins = torch.zeros(M, dtype=torch.int64, device=dev)
+        losses_n = torch.zeros(M, dtype=torch.int64, device=dev)
+        cert = torch.zeros(M, device=dev)
+        for _ in range(self.eval_iters):
+            xb, yb = self.feed.sample(rng.batch, split, augment=False)
+            logits, ce = forward(params, self.cfg, xb, yb, train=False)
+            ce = torch.stack(ce)
+            loss_sum = loss_sum + ce.sum()
+            losses_sum = losses_sum + ce
+            for m, spec in enumerate(self.metric_specs):
+                if spec.eligible:
+                    w, l, c = batch_directional_metrics(logits[m][:, -1, :], xb[m][:, -1],
+                                                        yb[m][:, -1], spec)
+                    wins[m] += w
+                    losses_n[m] += l
+                    cert[m] += c
+        processed = torch.tensor([self.eval_iters if s.eligible else 0 for s in self.metric_specs])
+        n = float(self.eval_iters)
+        return EvalStats(loss_sum / n, losses_sum / n, wins, losses_n, cert, processed)
