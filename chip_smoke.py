@@ -5,16 +5,18 @@
 
 Builds the hand-written CUDA kernels from the sources in this checkout,
 holds each against its plain PyTorch version on the card (forward and
-backward, dropout off and on), drives the port's generation entry point and
-its training entry point at the production configuration's full width
-(examples/production_config.yaml: 4 modalities, n_embd 384, 6 heads, 6
+backward, dropout off and on), drives the port's generation entry point
+(full-window sampling and KV-cached serving, ``--serve``, with bf16 and int8
+caches) and its training entry point at the production configuration's full
+width (examples/production_config.yaml: 4 modalities, n_embd 384, 6 heads, 6
 layers, block_size 64, batch 32, dropout 0.2, bf16) with seeded random
 weights on seeded synthetic CSVs, checks that each path went through its
 kernels with the expected launch counts and that what comes out is right
-(the card's training step against the CPU's dense step, the training loss
-falling), and times the kernels, batched serving and training. Each phase
-prints one line; any failed check raises and the script exits non-zero. The
-last line is ``{"ok": true, "device": {...}}``.
+(the card's forward, cached forward and training step against the CPU's,
+the training loss falling), and times the kernels, batched serving, cached
+serving and training. Each phase prints one line; any failed check raises
+and the script exits non-zero. The last line is ``{"ok": true, "device":
+{...}}``.
 
 Needs a CUDA device and the port package beside this file; without either it
 exits non-zero before printing any result.
@@ -70,10 +72,48 @@ SOURCES = {
         f"{PKG}/ops/csrc/short_cross_attention.cu",
         "trade_aid_multimodal_transformer_tpu/ops/pallas_attention.py:1694",
     ),
+    "short_causal_attention": (
+        f"{PKG}/ops/csrc/short_causal_attention.cu",
+        "trade_aid_multimodal_transformer_tpu/ops/pallas_attention.py:1436",
+    ),
+    "decode_attention": (
+        f"{PKG}/ops/csrc/decode_attention.cu",
+        "trade_aid_multimodal_transformer_tpu/ops/pallas_attention.py:2566",
+    ),
+    "decode_attention_packed": (
+        f"{PKG}/ops/csrc/decode_attention.cu",
+        "trade_aid_multimodal_transformer_tpu/ops/pallas_attention.py:2762",
+    ),
+    "decode_attention_packed_q8": (
+        f"{PKG}/ops/csrc/decode_attention.cu",
+        "trade_aid_multimodal_transformer_tpu/ops/pallas_attention.py:2879",
+    ),
 }
+# the path whose launches each kernel's entry of the last line reports
+MAIN_PATH = {"fused_qkv_attention": "training", "fused_qkv_attention_bwd": "training",
+             "short_cross_attention": "training", "short_cross_attention_bwd": "training",
+             "short_causal_attention": "serve", "decode_attention_packed": "serve",
+             "decode_attention_packed_q8": "serve_int8", "decode_attention": "serve_plain"}
+# serve_reference: the card's cached logits against its full-window forward
+# and the CPU's cached f32 forward, max-abs (bf16: 2e-2 against sound
+# readings of 3.9e-3-6.9e-3, NVIDIA H100 80GB HBM3, 700 W). The bf16 logits
+# (|max| 0.5, rms 0.12) round in steps of ~2e-3, and one bf16 ulp anywhere in
+# six layers moves them by 5e-3-7e-3 L2-relative, more than a one-column mask
+# fault does (2.6e-3-6.7e-3 in f32). So in bf16 every kernel call of the
+# cached run is held against its plain version on the same inputs, as
+# |out - plain| / |plain| (L2) <= SERVE_BF16_IN_PATH, and that fault must
+# exceed it
+SERVE_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+SERVE_BF16_IN_PATH = 1e-2
+
+
+T_START = time.perf_counter()
 
 
 def emit(obj) -> None:
+    """Print a string, or a phase's dict with the script's elapsed seconds."""
+    if isinstance(obj, dict) and "phase" in obj:
+        obj = {**obj, "elapsed_s": round(time.perf_counter() - T_START, 1)}
     print(json.dumps(obj) if not isinstance(obj, str) else obj, flush=True)
 
 
@@ -84,17 +124,27 @@ def smi() -> str:
     ).stdout.strip()
 
 
-def cuda_ms(fn, reps: int = 20, inner: int = 10) -> float:
-    """Median over ``reps`` CUDA-event samples of the mean time of ``inner``
-    back-to-back calls, after a warm-up."""
+def device_ms(fn, reps: int = 10, inner: int = 10) -> float:
+    """Device time of one call of ``fn``: the median over ``reps`` samples of
+    CUDA events around ``inner`` back-to-back calls that wait in the queue
+    behind a spin kernel (``torch.cuda._sleep``, twice the host's enqueue
+    time of the calls at 2 GHz), so the window holds their device work and
+    none of the host's launch gaps (which would set the time of a kernel of
+    a few microseconds)."""
     import torch
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(inner):
+        fn()
+    cycles = int(4e9 * (time.perf_counter() - t0)) + 1_000_000
+    torch.cuda.synchronize()
     samples = []
     for _ in range(reps):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
         a.record()
         for _ in range(inner):
             fn()
@@ -148,6 +198,22 @@ def check_rel(name, out, ref, dtype, shape, rate) -> float:
     if not ok:
         raise AssertionError(f"{name} {shape} {dtype} rate {rate}: max abs err {err} > {bound}")
     return err
+
+
+def serve_launches(K, cfg, t0: int, tokens: int, refresh: int, decode: str) -> dict:
+    """Kernel launches of generate_serve from a prompt of t0 tokens: per
+    prefill in the kernel band n_layer K3f and n_layer per cross modality K2f
+    (the exact phase's prefill over t0 tokens, then one per chunk over
+    block_size - refresh), and per generated token n_layer * (1 + cross
+    modalities) launches of the layout's decode kernel."""
+    L, n_cross, S = cfg.n_layer, sum(cfg.cross_attention), cfg.block_size
+    n_exact = max(0, min(tokens, S - t0))
+    lengths = ([t0] if n_exact else []) + [S - refresh] * math.ceil((tokens - n_exact) / refresh)
+    prefills = sum(K.in_band(t, cfg.head_size) for t in lengths)
+    want = dict.fromkeys(K.KERNELS, 0)
+    want.update(short_causal_attention=L * prefills, short_cross_attention=L * n_cross * prefills)
+    want[decode] = tokens * L * (1 + n_cross)
+    return want
 
 
 def production_config_dir(d: Path, **training) -> None:
@@ -232,13 +298,14 @@ def main() -> int:
     b1_k1, b1_k2 = (4, 1, 64, 384, 6, 64), (3, 6, 64, 64)  # what a B=1 step gives them
     # edge shapes: T=8 and T=512, hs 32, B=7; T not a multiple of the key
     # tile, hs 96 / 128 / 256 (smaller tiles), C not a multiple of 8; the
-    # cross kernels at hs 24 (not a multiple of 16: the bf16 FMA body)
+    # cross kernels at hs 24 (not a multiple of 16: the bf16 FMA body) and
+    # at the --serve chunk prefill (T = 56, B = 1 and B = 32)
     k1_shapes = [prod_k1, b1_k1, (2, 3, 8, 32, 2, 16), (1, 2, 512, 384, 6, 64),
                  (2, 5, 64, 96, 3, 32), (4, 7, 64, 384, 6, 64), (1, 5, 72, 96, 3, 32),
                  (1, 2, 136, 64, 2, 128), (1, 2, 40, 64, 1, 256), (1, 3, 200, 100, 2, 96)]
-    k2_shapes = [prod_k2, b1_k2, (3, 6, 8, 64), (3, 12, 512, 64), (3, 15, 64, 32),
-                 (3, 6 * 7, 64, 64), (3, 5, 72, 32), (2, 3, 200, 128), (2, 2, 64, 256),
-                 (2, 3, 64, 24), (2, 3, 64, 96)]
+    k2_shapes = [prod_k2, b1_k2, (3, 6, 56, 64), (3, 6 * 32, 56, 64), (3, 6, 8, 64),
+                 (3, 12, 512, 64), (3, 15, 64, 32), (3, 6 * 7, 64, 64), (3, 5, 72, 32),
+                 (2, 3, 200, 128), (2, 2, 64, 256), (2, 3, 64, 24), (2, 3, 64, 96)]
     errs = {}
     for shape in k1_shapes:
         x, w1, b1, w2 = fqkv_inputs(*shape)
@@ -301,6 +368,57 @@ def main() -> int:
                     check_rel(f"short_cross_attention_bwd.{g}", a, r, dtype, shape, rate)
                     for g, a, r in zip(("dq", "dk", "dv"), grads, ref))
 
+    # K3f: the production prefill (24 B rows, T = 56, hs = 64) at B = 32 and
+    # B = 1, and T in {8, 64, 512} x hs in {16, 24, 64, 128, 256}
+    k3_shapes = [(24 * 32, 56, 64), (24, 56, 64)] + [
+        (3, T_, hs_) for T_ in (8, 64, 512) for hs_ in (16, 24, 64, 128, 256)]
+    for shape in k3_shapes:
+        q, k, v = randn(*shape), randn(*shape), randn(*shape)
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            qq, kk, vv = q.to(dt), k.to(dt), v.to(dt)
+            for rate in (0.0, 0.2):
+                salts = SALTS if rate else None
+                out = K.short_causal_attention(qq, kk, vv, rate, salts)
+                torch.cuda.synchronize()
+                ref = K.short_causal_attention_plain(qq, kk, vv, rate, salts)
+                if rate:
+                    errs[("short_causal_attention", shape, dtype, rate)] = check_rel(
+                        "short_causal_attention", out, ref, dtype, shape, rate)
+                else:
+                    errs[("short_causal_attention", shape, dtype)] = check_close(
+                        "short_causal_attention", out, ref, dtype, shape)
+
+    # the decode kernels: pos in {0, pack - 1, S/2, S - 1}, pack in {1, 2, 4}
+    # (hs = 128 / pack), S in {64, 512}; and the production caches (24 x 32
+    # rows, hs 64: packed by 2 at S = 64, the plain layout at S = 72)
+    def decode_inputs(n, S_, hs_, pack):
+        shape = (n, S_ // pack, pack * hs_)
+        k8 = torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8).to(dev)
+        v8 = torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8).to(dev)
+        ks, vs = ((torch.rand(shape[:-1], generator=gen) * 3.5 + 0.5).to(dev) for _ in range(2))
+        return randn(n, 1, hs_), randn(*shape), randn(*shape), k8, v8, ks, vs
+
+    decode_cases = [(24, S_, 128 // p, p, pos) for S_ in (64, 512) for p in (1, 2, 4)
+                    for pos in sorted({0, p - 1, S_ // 2, S_ - 1})]
+    decode_cases += [(24 * 32, 64, 64, 2, 63), (24 * 32, 72, 64, 1, 71)]
+    for n, S_, hs_, pack, pos in decode_cases:
+        q, kp, vp, k8, v8, ks, vs = decode_inputs(n, S_, hs_, pack)
+        pos_t = torch.tensor([pos], dtype=torch.int32, device=dev)
+        shape = (n, S_, hs_, pack, pos)
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            qq, kk, vv = q.to(dt), kp.to(dt), vp.to(dt)
+            outs = {"decode_attention": K.decode_attention(qq, kk.view(n, S_, hs_), vv.view(n, S_, hs_), pos_t),
+                    "decode_attention_packed": K.decode_attention_packed(qq, kk, vv, pos_t),
+                    "decode_attention_packed_q8": K.decode_attention_packed_q8(qq, k8, v8, ks, vs, pos_t)}
+            torch.cuda.synchronize()
+            refs = {"decode_attention": K.decode_attention_plain(qq, kk.view(n, S_, hs_), vv.view(n, S_, hs_), pos),
+                    "decode_attention_packed": K.decode_attention_packed_plain(qq, kk, vv, pos),
+                    "decode_attention_packed_q8": K.decode_attention_packed_q8_plain(qq, k8, v8, ks, vs, pos)}
+            for name in outs:
+                errs[(name, shape, dtype)] = check_close(name, outs[name], refs[name], dtype, shape)
+
     # times at the production bf16 shapes
     M, B, T, C, H, hs = prod_k1
     hs2, D = hs // 2, H * hs // 2
@@ -318,11 +436,11 @@ def main() -> int:
     k1_bytes = 2 * M * B * T * C + 4 * (M * C * 3 * D + M * 3 * D + M * 3 * H * hs2 * hs) + 2 * M * H * B * T * hs
     x_b1 = x[:, :1].contiguous()  # the shape one B=1 generation step gives the kernel
     timing = {"fused_qkv_attention": dict(
-        ms=cuda_ms(lambda: K.fused_qkv_attention(x, w1, b1, w2, H)),
-        ms_dropout=cuda_ms(lambda: K.fused_qkv_attention(x, w1, b1, w2, H, 0.2, SALTS)),
-        ms_b1=cuda_ms(lambda: K.fused_qkv_attention(x_b1, w1, b1, w2, H)),
-        plain_ms=cuda_ms(lambda: K.fused_qkv_attention_plain(x, w1, b1, w2, H)),
-        library_ms=cuda_ms(k1_library),
+        ms=device_ms(lambda: K.fused_qkv_attention(x, w1, b1, w2, H)),
+        ms_dropout=device_ms(lambda: K.fused_qkv_attention(x, w1, b1, w2, H, 0.2, SALTS)),
+        ms_b1=device_ms(lambda: K.fused_qkv_attention(x_b1, w1, b1, w2, H)),
+        plain_ms=device_ms(lambda: K.fused_qkv_attention_plain(x, w1, b1, w2, H)),
+        library_ms=device_ms(k1_library),
         bound=bound_ms(k1_flops, k1_bytes, "bfloat16"),
     )}
     J, n, T2, hs_ = prod_k2
@@ -336,11 +454,11 @@ def main() -> int:
     k2_bytes = 2 * n * T2 * hs_ * (1 + 2 * J + 1)
     q_b1, k_b1, v_b1 = q[:H].contiguous(), k[:, :H].contiguous(), v[:, :H].contiguous()
     timing["short_cross_attention"] = dict(
-        ms=cuda_ms(lambda: K.short_cross_attention(q, k, v)),
-        ms_dropout=cuda_ms(lambda: K.short_cross_attention(q, k, v, 0.2, SALTS)),
-        ms_b1=cuda_ms(lambda: K.short_cross_attention(q_b1, k_b1, v_b1)),
-        plain_ms=cuda_ms(lambda: K.short_cross_attention_plain(q, k, v)),
-        library_ms=cuda_ms(k2_library),
+        ms=device_ms(lambda: K.short_cross_attention(q, k, v)),
+        ms_dropout=device_ms(lambda: K.short_cross_attention(q, k, v, 0.2, SALTS)),
+        ms_b1=device_ms(lambda: K.short_cross_attention(q_b1, k_b1, v_b1)),
+        plain_ms=device_ms(lambda: K.short_cross_attention_plain(q, k, v)),
+        library_ms=device_ms(k2_library),
         bound=bound_ms(k2_flops, k2_bytes, "bfloat16"),
     )
     # backward kernels at the production shapes; the library yardsticks are
@@ -366,11 +484,11 @@ def main() -> int:
                  + 4 * 2 * (M * C * 3 * D + M * 3 * D + M * 3 * H * hs2 * hs))  # weights, their grads
     o_b1, do_b1 = out0[:, :, :1].contiguous(), do1[:, :, :1].contiguous()
     timing["fused_qkv_attention_bwd"] = dict(
-        ms=cuda_ms(lambda: K.fused_qkv_attention_bwd(x, w1, b1, w2, out0, do1, H)),
-        ms_dropout=cuda_ms(lambda: K.fused_qkv_attention_bwd(x, w1, b1, w2, out1, do1, H, rate, SALTS)),
-        ms_b1=cuda_ms(lambda: K.fused_qkv_attention_bwd(x_b1, w1, b1, w2, o_b1, do_b1, H)),
-        plain_ms=cuda_ms(lambda: K.fused_qkv_attention_bwd_plain(x, w1, b1, w2, out0, do1, H)),
-        library_ms=cuda_ms(lambda: torch.autograd.grad(
+        ms=device_ms(lambda: K.fused_qkv_attention_bwd(x, w1, b1, w2, out0, do1, H)),
+        ms_dropout=device_ms(lambda: K.fused_qkv_attention_bwd(x, w1, b1, w2, out1, do1, H, rate, SALTS)),
+        ms_b1=device_ms(lambda: K.fused_qkv_attention_bwd(x_b1, w1, b1, w2, o_b1, do_b1, H)),
+        plain_ms=device_ms(lambda: K.fused_qkv_attention_bwd_plain(x, w1, b1, w2, out0, do1, H)),
+        library_ms=device_ms(lambda: torch.autograd.grad(
             lib1, (xg, w1g, b1g, w2g), do1.reshape(M, H, B, T, hs).reshape(M * H, B, T, hs),
             retain_graph=True)),
         bound=bound_ms(k1b_flops, k1b_bytes, "bfloat16"),
@@ -386,15 +504,68 @@ def main() -> int:
     k2b_bytes = 2 * n * T2 * hs_ * (3 + 4 * J)
     do2_b1 = do2[:H].contiguous()
     timing["short_cross_attention_bwd"] = dict(
-        ms=cuda_ms(lambda: K.short_cross_attention_bwd(q, k, v, do2)),
-        ms_dropout=cuda_ms(lambda: K.short_cross_attention_bwd(q, k, v, do2, rate, SALTS)),
-        ms_b1=cuda_ms(lambda: K.short_cross_attention_bwd(q_b1, k_b1, v_b1, do2_b1)),
-        plain_ms=cuda_ms(lambda: K.short_cross_attention_bwd_plain(q, k, v, do2)),
-        library_ms=cuda_ms(lambda: torch.autograd.grad(lib2, (qg, kg, vg), do2, retain_graph=True)),
+        ms=device_ms(lambda: K.short_cross_attention_bwd(q, k, v, do2)),
+        ms_dropout=device_ms(lambda: K.short_cross_attention_bwd(q, k, v, do2, rate, SALTS)),
+        ms_b1=device_ms(lambda: K.short_cross_attention_bwd(q_b1, k_b1, v_b1, do2_b1)),
+        plain_ms=device_ms(lambda: K.short_cross_attention_bwd_plain(q, k, v, do2)),
+        library_ms=device_ms(lambda: torch.autograd.grad(lib2, (qg, kg, vg), do2, retain_graph=True)),
         bound=bound_ms(k2b_flops, k2b_bytes, "bfloat16"),
     )
+    # K3f at the production prefill: 24 B rows of T = 56 (B = 32; B = 1)
+    n3, T3 = 24 * 32, 56
+    q3, k3, v3 = (randn(n3, T3, hs).bfloat16() for _ in range(3))
+    q3b, k3b, v3b = q3[:24].contiguous(), k3[:24].contiguous(), v3[:24].contiguous()
+    timing["short_causal_attention"] = dict(
+        ms=device_ms(lambda: K.short_causal_attention(q3, k3, v3)),
+        ms_dropout=device_ms(lambda: K.short_causal_attention(q3, k3, v3, 0.2, SALTS)),
+        ms_b1=device_ms(lambda: K.short_causal_attention(q3b, k3b, v3b)),
+        plain_ms=device_ms(lambda: K.short_causal_attention_plain(q3, k3, v3)),
+        library_ms=device_ms(lambda: F.scaled_dot_product_attention(q3, k3, v3, is_causal=True)),
+        bound=bound_ms(2 * 2 * n3 * T3 * T3 * hs / 2, 4 * n3 * T3 * hs * 2, "bfloat16"),
+    )
+    # the decode kernels at the production self-attention cache of B = 32
+    # (24 B rows, S = 64, hs = 64, packed by 2) with every column visible
+    # (pos = S - 1; the steady decode steps run at pos 56..63), and at B = 1;
+    # K8 on the unpacked view of the same cache. The library yardstick is
+    # SDPA of q against the first pos + 1 rows; no PyTorch call computes K8q.
+    nd, Sd, pack = 24 * 32, 64, 2
+    qd = randn(nd, 1, hs).bfloat16()
+    kp, vp = (randn(nd, Sd // pack, pack * hs).bfloat16() for _ in range(2))
+    kd, vd = kp.view(nd, Sd, hs), vp.view(nd, Sd, hs)
+    k8, v8 = (torch.randint(-127, 128, kp.shape, generator=gen, dtype=torch.int8).to(dev) for _ in range(2))
+    ks, vs = ((torch.rand(kp.shape[:-1], generator=gen) * 3.5 + 0.5).to(dev) for _ in range(2))
+    posd = torch.tensor([Sd - 1], dtype=torch.int32, device=dev)
+    b1 = lambda t: t[:24].contiguous()  # noqa: E731
+    qd1, kp1, vp1, kd1, vd1, k81, v81, ks1, vs1 = map(b1, (qd, kp, vp, kd, vd, k8, v8, ks, vs))
+    dec_flops = 4 * nd * Sd * hs
+    io_bytes = 2 * nd * hs * 2  # q and out
+    timing["decode_attention"] = dict(
+        ms=device_ms(lambda: K.decode_attention(qd, kd, vd, posd)),
+        ms_dropout=None,
+        ms_b1=device_ms(lambda: K.decode_attention(qd1, kd1, vd1, posd)),
+        plain_ms=device_ms(lambda: K.decode_attention_plain(qd, kd, vd, posd)),
+        library_ms=device_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd)),
+        bound=bound_ms(dec_flops, 2 * nd * Sd * hs * 2 + io_bytes, "bfloat16"),
+    )
+    timing["decode_attention_packed"] = dict(
+        ms=device_ms(lambda: K.decode_attention_packed(qd, kp, vp, posd)),
+        ms_dropout=None,
+        ms_b1=device_ms(lambda: K.decode_attention_packed(qd1, kp1, vp1, posd)),
+        plain_ms=device_ms(lambda: K.decode_attention_packed_plain(qd, kp, vp, posd)),
+        library_ms=device_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd)),
+        bound=bound_ms(dec_flops, 2 * nd * Sd * hs * 2 + io_bytes, "bfloat16"),
+    )
+    timing["decode_attention_packed_q8"] = dict(
+        ms=device_ms(lambda: K.decode_attention_packed_q8(qd, k8, v8, ks, vs, posd)),
+        ms_dropout=None,
+        ms_b1=device_ms(lambda: K.decode_attention_packed_q8(qd1, k81, v81, ks1, vs1, posd)),
+        plain_ms=device_ms(lambda: K.decode_attention_packed_q8_plain(qd, k8, v8, ks, vs, posd)),
+        library_ms=None,
+        bound=bound_ms(dec_flops, 2 * nd * Sd * hs + 2 * nd * (Sd // pack) * 4 + io_bytes, "bfloat16"),
+    )
     # kernel_ms, kernel_ms_b1 and plain_ms without dropout (as serving runs
-    # K1f/K2f); kernel_ms_dropout at 0.2, as the training path runs all four
+    # K1f/K2f); kernel_ms_dropout at 0.2, as the training path runs all four.
+    # Every time is device time (device_ms)
     for name, t in timing.items():
         emit({"phase": "kernel_time", "kernel": name, "card": card, "kernel_ms": t["ms"],
               "kernel_ms_dropout": t["ms_dropout"], "kernel_ms_b1": t["ms_b1"],
@@ -427,8 +598,9 @@ def main() -> int:
     for m in range(1, cfg.num_modalities):
         if not (new[m] == res["last_prompt_tokens"][m]).all():
             raise AssertionError(f"modality {m} did not repeat its last token")
-    want = {"fused_qkv_attention": cfg.n_layer * tokens, "fused_qkv_attention_bwd": 0,
-            "short_cross_attention": 2 * cfg.n_layer * tokens, "short_cross_attention_bwd": 0}
+    want = dict.fromkeys(K.KERNELS, 0)
+    want.update(fused_qkv_attention=cfg.n_layer * tokens,
+                short_cross_attention=2 * cfg.n_layer * tokens)
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     emit({"phase": "entry", "config": "examples/production_config.yaml",
@@ -504,7 +676,207 @@ def main() -> int:
               "top": [[e.key[:72], e.self_device_time_total / 1e3 / n_tok, e.count / n_tok]
                       for e in top]})
 
-    # 7. one production-width training step on the card (kernels forward and
+    # 7. the KV-cached serving entry (--serve) on the production config: bf16
+    # and int8 caches (packed by 2: K8p / K8q), and a copy of the config with
+    # block_size 72, whose cache keeps the plain layout (K8), at refresh 8;
+    # each primed with a full window and generating one window of tokens
+    from trade_aid_multimodal_transformer_tpu_torch.models import cache as C
+
+    serve_counts = {}
+    for label, kv, block, refresh, decode in (
+            ("serve", None, None, None, "decode_attention_packed"),
+            ("serve_int8", "int8", None, None, "decode_attention_packed_q8"),
+            ("serve_plain", None, 72, 8, "decode_attention")):
+        with tempfile.TemporaryDirectory() as tmp:
+            d = Path(tmp)
+            production_config_dir(d, **({"block_size": block} if block else {}))
+            data_s = entry.load_config_and_data(str(d))
+            cfg_s = data_s["cfg"]
+            save_checkpoint(str(d / data_s["sc"]["model_file_name"]),
+                            init_params(cfg_s, torch.Generator().manual_seed(1234), dev))
+            tokens_s = cfg_s.block_size
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            res_s = entry.run(str(d), tokens=tokens_s, modality=0, seed=0, serve=True,
+                              refresh=refresh, kv_dtype=kv)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            serve_counts[label] = K.launch_counts()
+        S_s = cfg_s.block_size
+        want = serve_launches(K, cfg_s, S_s, tokens_s, refresh or S_s // 8, decode)
+        new_s = res_s["new"]
+        ok = (str(res_s["device"]) == "cuda" and res_s["model"].startswith("checkpoint")
+              and new_s.shape == (cfg_s.num_modalities, tokens_s)
+              and 0 <= new_s[0].min() and new_s[0].max() < len(res_s["vocabs"][0])
+              and all((new_s[m] == res_s["last_prompt_tokens"][m]).all()
+                      for m in range(1, cfg_s.num_modalities))
+              and serve_counts[label] == want)
+        emit({"phase": "serve_entry", "run": label, "kv_dtype": kv, "block_size": S_s,
+              "cache_pack": C.cache_pack(cfg_s.head_size, S_s), "refresh": refresh or S_s // 8,
+              "tokens": tokens_s, "batch": 1, "seconds": sec, "launches": serve_counts[label],
+              "expected_launches": want, "generated": new_s[0].tolist(), "ok": ok})
+        if not ok:
+            raise AssertionError(f"the --serve entry ({label}) failed its checks")
+
+    # the card's cached logits against the card's full-window forward at the
+    # same prefix and the CPU's cached f32 forward (dense cores): in the
+    # growing phase (a prefill of 8 tokens, then positions 8..63) and in a
+    # steady --serve chunk (a prefill over a window of S - S/8 = 56, then
+    # positions 56..63). f32 is held against both at 1e-4 max-abs; bf16 at
+    # 2e-2 max-abs, and each K3f, K2f and K8p call of its run against the
+    # kernel's plain version on the same inputs (SERVE_BF16_IN_PATH). Both
+    # gates must reject K8p reading one column past pos.
+    S, B_ref, L, n_cross = cfg.block_size, 2, cfg.n_layer, sum(cfg.cross_attention)
+    ids_ref = torch.from_numpy(np.stack([rng.integers(0, v, (B_ref, S)) for v in cfg.vocab_sizes]))
+    ids_dev = ids_ref.to(dev)
+    cases = {"growing": 8, "steady_chunk": S - S // 8}
+
+    def cached_logits(p, c, ids, t_first):
+        with torch.inference_mode():
+            logits, cache = C._prefill(p, c, ids[:, :, :t_first], 0)
+            out = [logits.float().cpu()]
+            for pos in range(t_first, S):
+                logits, cache = C.forward_cached(p, c, ids[:, :, pos:pos + 1], cache, pos, 0)
+                out.append(logits.float().cpu())
+        return torch.stack(out)
+
+    def full_logits(c, t_first):
+        with torch.inference_mode():
+            return torch.stack([forward(params, c, ids_dev[:, :, :n_])[0][0][:, -1].float().cpu()
+                                for n_ in range(t_first, S + 1)])
+
+    def errs_of(got, refs):
+        """Max-abs and L2-relative error of got against each reference."""
+        return {name: {"max_abs": (got - r).abs().max().item(),
+                       "l2_rel": ((got - r).norm() / r.norm()).item()} for name, r in refs.items()}
+
+    @contextlib.contextmanager
+    def patched(**fns):
+        """Swap wrappers of the kernels module for the given functions."""
+        real = {name: getattr(K, name) for name in fns}
+        for name, fn in fns.items():
+            setattr(K, name, fn)
+        try:
+            yield
+        finally:
+            for name, fn in real.items():
+                setattr(K, name, fn)
+
+    real_k8p = K.decode_attention_packed
+
+    def k8p_off_by_one(q, kp, vp, pos):
+        return real_k8p(q, kp, vp, pos + 1)
+
+    k8p_off_by_one.launches = 0  # the wrapper counts on the module name it is patched over
+
+    def checked(name, fn, worst):
+        """``fn`` (a kernel's wrapper, or the planted fault) with each output
+        held against the kernel's plain version on the same inputs; worst[name]
+        keeps the largest L2-relative error |out - plain| / |plain|."""
+        plain_fn = getattr(K, f"{name}_plain")
+
+        def run(*args):
+            out = fn(*args)
+            ref = plain_fn(*args).float()
+            err = ((out.float() - ref).norm() / ref.norm()).item()
+            worst[name] = max(worst.get(name, 0.0), err)
+            return out
+
+        run.launches = 0  # the wrapper counts on the module name it is patched over
+        return run
+
+    path_kernels = ("short_causal_attention", "short_cross_attention", "decode_attention_packed")
+    cpu_cached = {case: cached_logits(cpu_params, f32, ids_ref, t_first)
+                  for case, t_first in cases.items()}
+    failed = []
+    for case, t_first in cases.items():
+        want_ref = dict.fromkeys(K.KERNELS, 0)
+        want_ref.update(short_causal_attention=L, short_cross_attention=n_cross * L,
+                        decode_attention_packed=(S - t_first) * L * (1 + n_cross))
+        for dtype in ("float32", "bfloat16"):
+            c = dataclasses.replace(cfg, compute_dtype=dtype)
+            K.reset_launch_counts()
+            got = cached_logits(params, c, ids_dev, t_first)
+            counts = K.launch_counts()
+            in_path, in_path_bad = {}, {}
+            with patched(decode_attention_packed=checked(
+                    "decode_attention_packed", k8p_off_by_one, in_path_bad)):
+                bad = cached_logits(params, c, ids_dev, t_first)
+            refs = {"vs_card_full": full_logits(c, t_first), "vs_cpu_cached_f32": cpu_cached[case]}
+            sound, planted = errs_of(got, refs), errs_of(bad, refs)
+            ok = (bool(torch.isfinite(got).all()) and counts == want_ref
+                  and all(e["max_abs"] <= SERVE_TOL[dtype] for e in sound.values()))
+            if dtype == "float32":
+                ok = ok and all(e["max_abs"] > SERVE_TOL[dtype] for e in planted.values())
+            else:
+                with patched(**{n: checked(n, getattr(K, n), in_path) for n in path_kernels}):
+                    cached_logits(params, c, ids_dev, t_first)
+                ok = ok and (max(in_path.values()) <= SERVE_BF16_IN_PATH
+                             < in_path_bad["decode_attention_packed"])
+            emit({"phase": "serve_reference", "case": case, "what": f"card cached logits "
+                  f"(prefill of {t_first}, then positions {t_first}..{S - 1}) vs the card's full "
+                  "forward and the CPU's cached f32 forward; bf16: each kernel call against "
+                  "its plain version", "dtype": dtype, "batch": B_ref,
+                  "logits_abs_max": refs["vs_card_full"].abs().max().item(),
+                  "logits_rms": refs["vs_card_full"].pow(2).mean().sqrt().item(),
+                  "err": sound, "tol": SERVE_TOL[dtype], "planted_k8p_pos_plus_1": planted,
+                  "in_path_rel_err": in_path or None,
+                  "in_path_planted_k8p_pos_plus_1": in_path_bad["decode_attention_packed"],
+                  "in_path_tol": SERVE_BF16_IN_PATH if in_path else None,
+                  "launches": counts, "ok": ok})
+            if not ok:
+                failed.append(f"{case} {dtype}")
+    if failed:
+        raise AssertionError(f"cached logits on the card disagree, or the gate passed the "
+                             f"planted fault ({', '.join(failed)})")
+
+    # --serve rates: 64 tokens from a full window (8 chunks of 8) at B = 1 and
+    # B = 32, bf16 and int8 caches, beside generate_fast's of phase 5; then
+    # where a served token's time goes (one chunk profiled: a prefill and 8
+    # decode steps, bf16 cache)
+    cached_s = {}
+    for kv in (None, "int8"):
+        for batch in (1, 32):
+            window = torch.from_numpy(
+                np.stack([rng.integers(0, v, (batch, S)) for v in cfg.vocab_sizes])).to(dev)
+            g = torch.Generator(device=dev).manual_seed(0)
+            C.generate_serve(params, cfg, window, g, 9, 0, kv_dtype=kv)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = C.generate_serve(params, cfg, window, g, 64, 0, kv_dtype=kv)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            if out.shape != (cfg.num_modalities, batch, S + 64):
+                raise AssertionError(f"--serve output shape {tuple(out.shape)}")
+            cached_s[kv, batch] = sec / 64
+            emit({"phase": "serving_cached", "card": card, "batch": batch, "kv_dtype": kv,
+                  "tokens": 64, "refresh": S // 8, "seconds": sec, "ms_per_token": 1e3 * sec / 64,
+                  "tokens_per_s": batch * 64 / sec,
+                  "generate_fast_ms_per_token": 1e3 * served[batch],
+                  "generate_fast_tokens_per_s": batch / served[batch]})
+    for batch in (1, 32):
+        window = torch.from_numpy(
+            np.stack([rng.integers(0, v, (batch, S)) for v in cfg.vocab_sizes])).to(dev)
+        g = torch.Generator(device=dev).manual_seed(0)
+        C.generate_serve(params, cfg, window, g, 9, 0)
+        torch.cuda.synchronize()
+        n_tok = S // 8
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            C.generate_serve(params, cfg, window, g, n_tok, 0)
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        dev_s = sum(e.self_device_time_total for e in kern) / 1e6 / n_tok
+        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
+        emit({"phase": "profile", "path": "serve", "card": card, "batch": batch,
+              "kv_dtype": None, "tokens": n_tok,
+              "step_ms_unprofiled": 1e3 * cached_s[None, batch],
+              "device_ms_per_token": 1e3 * dev_s if kern else None,
+              "device_busy_share": dev_s / cached_s[None, batch] if kern else None,
+              "kernels_per_token": sum(e.count for e in kern) / n_tok,
+              "top": [[e.key[:72], e.self_device_time_total / 1e3 / n_tok, e.count / n_tok]
+                      for e in top]})
+
+    # 8. one production-width training step on the card (kernels forward and
     # backward) against the CPU's dense step, same params and batch
     from trade_aid_multimodal_transformer_tpu_torch.config.compat import reset_compatibility_layer
     from trade_aid_multimodal_transformer_tpu_torch.models.init import (
@@ -558,8 +930,10 @@ def main() -> int:
     # whole-step gate (the kernel_check phase holds dk itself).
     faults = {"K1b_db1_x1.2": (K.FusedQKVAttention, 2), "K2b_dk_x1.2": (K.ShortCrossAttention, 1)}
     must_fail = ("K1b_db1_x1.2",)
-    want_step = {"fused_qkv_attention": cfg.n_layer, "fused_qkv_attention_bwd": cfg.n_layer,
-                 "short_cross_attention": 2 * cfg.n_layer, "short_cross_attention_bwd": 2 * cfg.n_layer}
+    want_step = dict.fromkeys(K.KERNELS, 0)
+    want_step.update(fused_qkv_attention=cfg.n_layer, fused_qkv_attention_bwd=cfg.n_layer,
+                     short_cross_attention=2 * cfg.n_layer,
+                     short_cross_attention_bwd=2 * cfg.n_layer)
     failed = []
     for dtype in ("float32", "bfloat16"):
         c = dataclasses.replace(step_cfg, compute_dtype=dtype)
@@ -597,7 +971,7 @@ def main() -> int:
                              f"passed a planted fault ({', '.join(failed)})")
     del cpu_p, dev_p, g_ref, g
 
-    # 8. the port's training entry on a copy of the production config: only
+    # 9. the port's training entry on a copy of the production config: only
     # max_iters / eval_interval / eval_iters changed (a step-count cut)
     iters, interval, e_iters = 60, 20, 4
     with tempfile.TemporaryDirectory() as tmp:
@@ -624,10 +998,11 @@ def main() -> int:
         r"LOSS METRICS: Step (\d+)/\d+ \| Train: ([-\d.naif]+) \| Val: ([-\d.naif]+)", console)]
     n_evals = expected_evals(iters, interval)
     fwd_batches = iters + n_evals * 2 * e_iters
-    want_train = {"fused_qkv_attention": cfg.n_layer * fwd_batches,
-                  "fused_qkv_attention_bwd": cfg.n_layer * iters,
-                  "short_cross_attention": 2 * cfg.n_layer * fwd_batches,
-                  "short_cross_attention_bwd": 2 * cfg.n_layer * iters}
+    want_train = dict.fromkeys(K.KERNELS, 0)
+    want_train.update(fused_qkv_attention=cfg.n_layer * fwd_batches,
+                      fused_qkv_attention_bwd=cfg.n_layer * iters,
+                      short_cross_attention=2 * cfg.n_layer * fwd_batches,
+                      short_cross_attention_bwd=2 * cfg.n_layer * iters)
     timer = res["step_timer"]
     later = timer.chunks[1:]
     steps_per_s = sum(n for n, _ in later) / sum(t for _, t in later)
@@ -646,7 +1021,7 @@ def main() -> int:
     if not ok:
         raise AssertionError("the training run failed its checks")
 
-    # 9. where a training step's time goes (torch.profiler, device events)
+    # 10. where a training step's time goes (torch.profiler, device events)
     params, opt_state, trainer = res["params"], res["opt_state"], res["trainer"]
     step_rng = StepRng(11, dev)
     trainer.train_chunk(params, opt_state, step_rng, 1)
@@ -670,15 +1045,24 @@ def main() -> int:
     prod = {"fused_qkv_attention": ("fused_qkv_attention", prod_k1, "bfloat16"),
             "short_cross_attention": ("short_cross_attention", prod_k2, "bfloat16"),
             "fused_qkv_attention_bwd": ("fused_qkv_attention_bwd", prod_k1, "bfloat16", 0.2),
-            "short_cross_attention_bwd": ("short_cross_attention_bwd", prod_k2, "bfloat16", 0.2)}
+            "short_cross_attention_bwd": ("short_cross_attention_bwd", prod_k2, "bfloat16", 0.2),
+            "short_causal_attention": ("short_causal_attention", (24 * 32, 56, 64), "bfloat16"),
+            "decode_attention": ("decode_attention", (24 * 32, 72, 64, 1, 71), "bfloat16"),
+            "decode_attention_packed": ("decode_attention_packed", (24 * 32, 64, 64, 2, 63),
+                                        "bfloat16"),
+            "decode_attention_packed_q8": ("decode_attention_packed_q8", (24 * 32, 64, 64, 2, 63),
+                                           "bfloat16")}
+    by_path = {"serving": launches, "training": train_launches, **serve_counts}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],
-         "launches": train_launches[name], "max_abs_err": errs[prod[name]],
-         "ms": timing[name]["ms"], "ms_dropout": timing[name]["ms_dropout"],
-         "plain_ms": timing[name]["plain_ms"],
+         "launches": by_path[MAIN_PATH[name]][name], "main_path": MAIN_PATH[name],
+         "max_abs_err": errs[prod[name]],
+         "ms": timing[name]["ms"],
+         "ms_dropout": timing[name]["ms_dropout"],
+         "ms_b1": timing[name]["ms_b1"], "plain_ms": timing[name]["plain_ms"],
          "bound_ms": timing[name]["bound"][0], "bound_by": timing[name]["bound"][1],
          "library_ms": timing[name]["library_ms"],
-         "launches_by_path": {"serving": launches[name], "training": train_launches[name]}}
+         "launches_by_path": {path: counts[name] for path, counts in by_path.items()}}
         for name in K.KERNELS
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -172,6 +172,33 @@ def test_generate_entry_runs_on_the_cpu_when_asked(folder_config, capsys):
         assert (new[m] == res["last_prompt_tokens"][m]).all()
 
 
+def test_generate_entry_serves_on_the_cpu_when_asked(folder_config, capsys):
+    """``--serve`` on a config that names the CPU (block_size 16, hs 16: the
+    plain cache layout): 20 tokens past a full window in chunks of
+    ``--refresh`` 4, within the target vocabulary, the other modalities
+    repeating their last prompt token, no kernel launched; int8 needs the
+    packed layout and a refresh of block_size is refused, as in the JAX
+    package."""
+    from trade_aid_multimodal_transformer_tpu_torch.ops import kernels
+
+    argv = [str(folder_config), "--tokens", "20", "--modality", "1", "--serve", "--refresh", "4"]
+    kernels.reset_launch_counts()
+    assert port_generate.main(argv) == 0
+    assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == 2 + 20
+    res = port_generate.run(str(folder_config), tokens=20, modality=1, seed=3, serve=True)
+    new, vocabs = res["new"], res["vocabs"]
+    assert new.shape == (4, 20) and str(res["device"]) == "cpu"
+    assert 0 <= new[1].min() and new[1].max() < len(vocabs[1])
+    for m in (0, 2, 3):
+        assert (new[m] == res["last_prompt_tokens"][m]).all()
+    with pytest.raises(ValueError, match="packed"):
+        port_generate.run(str(folder_config), tokens=2, serve=True, kv_dtype="int8")
+    with pytest.raises(ValueError, match="refresh"):
+        port_generate.main([str(folder_config), "--tokens", "2", "--serve", "--refresh", "16"])
+
+
 def test_generate_entry_with_auto_device_raises_without_cuda(folder_config, monkeypatch):
     import torch
 
@@ -180,6 +207,16 @@ def test_generate_entry_with_auto_device_raises_without_cuda(folder_config, monk
     cfg.write_text(cfg.read_text().replace("device: cpu", "device: auto"))
     with pytest.raises(RuntimeError, match="CUDA"):
         port_generate.run(str(folder_config), tokens=1)
+
+
+def test_serve_entry_with_auto_device_raises_without_cuda(folder_config, monkeypatch):
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = folder_config / "config.yaml"
+    cfg.write_text(cfg.read_text().replace("device: cpu", "device: auto"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_generate.main([str(folder_config), "--tokens", "1", "--serve"])
 
 
 def test_config_without_device_raises_without_cuda(folder_config, monkeypatch):

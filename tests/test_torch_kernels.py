@@ -10,7 +10,9 @@ The CUDA kernels themselves are held against the plain versions on the card
 by the tests marked ``cuda`` below and by chip_smoke.py, with max-abs error
 <= tol * max(1, max|ref|): f32 1e-4 and bf16 2e-2 for the backward kernels
 and the dropout forwards (other summation orders over up to 2048 rows for
-the weight gradients).
+the weight gradients). The serving kernels (K3f, the cache prefill, and the
+decode kernels K8, K8p, K8q) are held the same way; the decode kernels'
+plain versions keep each Pallas kernel's own rounding points, which differ.
 """
 
 import numpy as np
@@ -221,8 +223,10 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
     K.reset_launch_counts()
     q, k, v = (torch.from_numpy(a) for a in _cross_inputs(2, 1, 8, 4, seed=1))
     K.short_cross_attention(q.requires_grad_(), k, v).sum().backward()
-    assert K.launch_counts() == {"fused_qkv_attention": 0, "fused_qkv_attention_bwd": 0,
-                                 "short_cross_attention": 0, "short_cross_attention_bwd": 0}
+    K.short_causal_attention(q, q, q)
+    K.decode_attention_packed(q[:, :1], k[0, :, :4].reshape(1, 2, 8), v[0, :, :4].reshape(1, 2, 8), 3)
+    assert K.launch_counts() == dict.fromkeys(K.KERNELS, 0)
+    assert len(K.KERNELS) == 8
     with pytest.raises(ValueError, match="unsupported device"):
         K.short_cross_attention(q.to("meta"), k.to("meta"), v.to("meta"))
     x, w1, b1, w2 = (torch.from_numpy(a).to("meta") for a in _fqkv_inputs(1, 1, 8, 8, 1, 4, 0))
@@ -237,6 +241,16 @@ def test_wrappers_check_shapes():
     q, k, v = (torch.from_numpy(a) for a in _cross_inputs(2, 1, 8, 4, seed=0))
     with pytest.raises(ValueError):
         K.short_cross_attention(q, k[:, :, :4], v[:, :, :4])
+    with pytest.raises(ValueError):
+        K.short_causal_attention(q, k[0], v[0, :, :4])
+    kc = k.reshape(2, 1, 4, 8)
+    with pytest.raises(ValueError):  # two query positions
+        K.decode_attention(q[:, :2], k[0], v[0], 1)
+    with pytest.raises(ValueError):  # lane width not a multiple of hs
+        K.decode_attention_packed(q[:, :1], kc[0, ..., :6], kc[0, ..., :6], 1)
+    scales = torch.ones(2, 4)
+    with pytest.raises(ValueError):  # not an int8 cache
+        K.decode_attention_packed_q8(q[:, :1], kc[0], kc[0], scales[0], scales[0], 1)
 
 
 def test_resolve_device_never_falls_back(monkeypatch):
@@ -263,6 +277,102 @@ def test_kernel_band_dispatch():
     assert not tatt.fused_qkv_attention_active(64, 512, "auto", cuda)
     with pytest.raises(ValueError):
         tatt.fused_qkv_attention_active(64, 64, "xla", cuda)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [8, 56, 72])
+@pytest.mark.parametrize("hs", [16, 24, 64])
+def test_short_causal_plain_matches_jax_interpret(hs, T, dtype, rate):
+    """K3f's plain version against ``short_causal_attention`` in interpret
+    mode, dropout off and on with the same raw salts. Tolerance as the
+    dropout cases above: max-abs error <= tol * max(1, max|ref|)."""
+    rng = np.random.default_rng(hs + T)
+    q, k, v = (rng.standard_normal((2, 3, T, hs)).astype(np.float32) for _ in range(3))
+    salts = SALTS if rate else None
+    ref = jpa.short_causal_attention(
+        *(_to_jax(a, dtype) for a in (q, k, v)), interpret=True, dropout_rate=rate,
+        dropout_key=None if salts is None else jnp.asarray(salts),
+    )
+    out = K.short_causal_attention(*(_to_torch(a, dtype) for a in (q, k, v)), rate, salts)
+    assert out.dtype == getattr(torch, dtype) and tuple(out.shape) == q.shape
+    assert _rel_err(out.float().numpy(), _np(ref)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.2, 0.5])
+def test_short_causal_dropout_mask_is_bit_equal_to_jax(rate):
+    """K3f's mask over (n, T, T): every program of the JAX kernel
+    (``_short_keep_mask`` in interpret mode, g rows per program from
+    ``_short_pick_g``) against the port's, keyed by the collapsed row."""
+    n, T, hs = 24, 56, 64
+    q = torch.zeros(4, 6, T, hs)
+    got = K.causal_mask(q, rate, SALTS).reshape(n, T, T).numpy()
+    seed = jpa.seed_from_key(jnp.asarray(SALTS))[0]
+    g = jpa._short_pick_g(n, T, hs, 2)
+    for pid in range(n // g):
+        ref = jpa._short_keep_mask(seed, jnp.int32(pid), g, (g, T, T), rate, True)
+        np.testing.assert_array_equal(got[pid * g:(pid + 1) * g], np.asarray(ref))
+    assert K.causal_mask(q, 0.0, None) is None
+
+
+def _decode_inputs(n, S, hs, pack, seed, q8=False):
+    """q (n, 1, hs); a cache of S positions as (n, S/pack, pack*hs), f32
+    (int8 values with positive per-row scales when q8)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((n, 1, hs)).astype(np.float32)
+    shape = (n, S // pack, pack * hs)
+    if q8:
+        k, v = (rng.integers(-127, 128, shape).astype(np.int8) for _ in range(2))
+        ks, vs = (rng.uniform(0.5, 4.0, shape[:-1]).astype(np.float32) for _ in range(2))
+        return q, k, v, ks, vs
+    k, v = (rng.standard_normal(shape).astype(np.float32) for _ in range(2))
+    return q, k, v
+
+
+DECODE_POS = ["zero", "pack-1", "half", "last"]
+
+
+def _pos(which, S, pack):
+    return {"zero": 0, "pack-1": pack - 1, "half": S // 2, "last": S - 1}[which]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pack", [1, 2, 4])
+@pytest.mark.parametrize("which", DECODE_POS)
+def test_decode_plain_versions_match_jax_interpret(which, pack, dtype):
+    """The three decode kernels' plain versions against the Pallas kernels in
+    interpret mode (as tests/test_kernels.py runs them), with S = 64 and
+    hs = 128 / pack: the plain layout (K8) on the unpacked cache, the packed
+    layout (K8p), and the int8 packed layout (K8q)."""
+    S, hs, n = 64, 128 // pack, 6
+    pos = _pos(which, S, pack)
+    q, kp, vp = _decode_inputs(n, S, hs, pack, seed=pack + pos)
+    k, v = kp.reshape(n, S, hs), vp.reshape(n, S, hs)
+    tpos = torch.tensor([pos], dtype=torch.int32)
+    ref = jpa.decode_attention(*(_to_jax(a, dtype) for a in (q, k, v)), pos, interpret=True)
+    out = K.decode_attention(*(_to_torch(a, dtype) for a in (q, k, v)), tpos)
+    assert out.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(out.float().numpy(), _np(ref), atol=TOL[dtype], rtol=0)
+    ref = jpa.decode_attention_packed(*(_to_jax(a, dtype) for a in (q, kp, vp)), pos, interpret=True)
+    out = K.decode_attention_packed(*(_to_torch(a, dtype) for a in (q, kp, vp)), pos)
+    np.testing.assert_allclose(out.float().numpy(), _np(ref), atol=TOL[dtype], rtol=0)
+    q, k8, v8, ks, vs = _decode_inputs(n, S, hs, pack, seed=pack + pos, q8=True)
+    ref = jpa.decode_attention_packed_q8(_to_jax(q, dtype), jnp.asarray(k8), jnp.asarray(v8),
+                                         jnp.asarray(ks), jnp.asarray(vs), pos, interpret=True)
+    out = K.decode_attention_packed_q8(_to_torch(q, dtype), torch.from_numpy(k8),
+                                       torch.from_numpy(v8), torch.from_numpy(ks),
+                                       torch.from_numpy(vs), tpos)
+    assert out.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(out.float().numpy(), _np(ref), atol=TOL[dtype], rtol=0)
+
+
+def test_causal_attention_dispatch_on_the_cpu_is_dense():
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 16, 8)).astype(np.float32)) for _ in range(3))
+    np.testing.assert_allclose(tatt.causal_attention(q, k, v).numpy(),
+                               tatt.causal_attention_dense(q, k, v).numpy(), atol=0, rtol=0)
+    np.testing.assert_allclose(K.short_causal_attention(q, k, v).numpy(),
+                               tatt.causal_attention_dense(q, k, v).numpy(), atol=1e-5, rtol=0)
 
 
 # ---------------------------------------------------------------- on the card
@@ -380,3 +490,54 @@ def test_short_cross_fwd_bwd_kernels_match_plain_on_card(cuda_device, shape, dty
     ref = K.short_cross_attention_bwd_plain(q, k, v, dout, rate, salts)
     for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
         _card_close(f"K2b {name}", g, r, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "shape",
+    [(24 * 32, 56, 64), (24, 56, 64), (6, 8, 16), (4, 64, 24), (3, 512, 64), (2, 72, 128),
+     (2, 64, 256)],
+)
+def test_short_causal_kernel_matches_plain_on_card(cuda_device, shape, dtype, rate):
+    q, k, v = (
+        torch.from_numpy(a).to(cuda_device).to(getattr(torch, dtype))
+        for a in _cross_inputs(3, *shape, seed=7)
+    )
+    k, v = k[0], v[1]
+    salts = SALTS if rate else None
+    before = K.launch_counts()["short_causal_attention"]
+    out = K.short_causal_attention(q, k, v, rate, salts)
+    torch.cuda.synchronize()
+    assert K.launch_counts()["short_causal_attention"] == before + 1
+    _card_close("K3f", out, K.short_causal_attention_plain(q, k, v, rate, salts), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [64, 512])
+@pytest.mark.parametrize("pack", [1, 2, 4])
+@pytest.mark.parametrize("which", DECODE_POS)
+def test_decode_kernels_match_plain_on_card(cuda_device, which, pack, S, dtype):
+    """K8, K8p and K8q against their plain versions, pos on the device."""
+    n, hs = 24, 128 // pack
+    pos = _pos(which, S, pack)
+    dt = getattr(torch, dtype)
+    q, kp, vp = (torch.from_numpy(a).to(cuda_device) for a in _decode_inputs(n, S, hs, pack, 8))
+    q, kp, vp = q.to(dt), kp.to(dt), vp.to(dt)
+    k, v = kp.reshape(n, S, hs), vp.reshape(n, S, hs)
+    tpos = torch.tensor([pos], dtype=torch.int32, device=cuda_device)
+    _, k8, v8, ks, vs = (torch.from_numpy(a).to(cuda_device)
+                         for a in _decode_inputs(n, S, hs, pack, 9, q8=True))
+    before = K.launch_counts()
+    outs = [K.decode_attention(q, k, v, tpos), K.decode_attention_packed(q, kp, vp, tpos),
+            K.decode_attention_packed_q8(q, k8, v8, ks, vs, tpos)]
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    for name in ("decode_attention", "decode_attention_packed", "decode_attention_packed_q8"):
+        assert after[name] == before[name] + 1
+    refs = [K.decode_attention_plain(q, k, v, pos), K.decode_attention_packed_plain(q, kp, vp, pos),
+            K.decode_attention_packed_q8_plain(q, k8, v8, ks, vs, pos)]
+    for name, out, ref in zip(("K8", "K8p", "K8q"), outs, refs):
+        torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=0, msg=name)

@@ -1,19 +1,22 @@
 """Inference CLI: load a checkpoint and generate tokens (port of the JAX
-package's ``tools/generate.py`` without ``--serve``).
+package's ``tools/generate.py``).
 
 It reads the zero-flag configuration directory (config.yaml +
 input_schemas.yaml, or a programmatic config.py), re-runs ingestion and
 tokenization so that the vocabularies match training exactly (the vocabulary
 is the tokenizer), loads the ``.npz`` checkpoint named by ``model_file_name``,
 primes the context with the last ``block_size`` tokens of the dataset, and
-samples autoregressively, one full-window forward per token
-(models/sampler.py). It runs on the device the config names: ``auto``,
-``cuda`` and ``gpu`` need a CUDA device and raise without one; ``cpu`` runs
-on the CPU.
+samples autoregressively: one full-window forward per token
+(models/sampler.py), or with ``--serve`` the KV-cached serving sampler
+(models/cache.py: token-exact while the context grows, a chunked refresh
+every ``--refresh`` tokens past a full window, ``--kv-dtype int8`` for an
+int8 cache). It runs on the device the config names: ``auto``, ``cuda`` and
+``gpu`` need a CUDA device and raise without one; ``cpu`` runs on the CPU.
 
 Usage:
     python -m trade_aid_multimodal_transformer_tpu_torch.generate [config_dir]
         [--tokens N] [--modality I] [--seed S] [--checkpoint PATH]
+        [--serve [--refresh R] [--kv-dtype int8]]
 
 Prints one line per generated token: the sampled token id and its decoded
 value in each modality's vocabulary.
@@ -43,6 +46,7 @@ from .config.compat import (
 from .config.schema import InputSchema
 from .data.ingest import load_and_process_modality
 from .data.vocab import numerical_representation
+from .models.cache import generate_serve
 from .models.config import ModelConfig
 from .models.init import init_params
 from .models.sampler import generate_fast
@@ -106,11 +110,16 @@ def run(
     modality: int = 0,
     seed: int = 0,
     checkpoint: Optional[str] = None,
+    serve: bool = False,
+    refresh: Optional[int] = None,
+    kv_dtype: Optional[str] = None,
 ) -> Dict[str, Any]:
     """Generate ``tokens`` tokens for one modality from a configuration
-    directory. Returns what ``load_config_and_data`` returns, plus the
-    checkpoint description (``model``), ``new``: (M, tokens) generated ids,
-    and ``last_prompt_tokens``: (M,) the prompt's last ids."""
+    directory, with ``generate_fast`` or, with ``serve``, ``generate_serve``
+    (``refresh`` and ``kv_dtype`` are its options). Returns what
+    ``load_config_and_data`` returns, plus the checkpoint description
+    (``model``), ``new``: (M, tokens) generated ids, and
+    ``last_prompt_tokens``: (M,) the prompt's last ids."""
     data = load_config_and_data(config_dir)
     cfg, device, ids_list = data["cfg"], data["device"], data["ids"]
     if not 0 <= modality < cfg.num_modalities:
@@ -132,7 +141,12 @@ def run(
     T0 = min(cfg.block_size, len(ids_list[0]))
     idx = torch.from_numpy(np.stack([x[-T0:] for x in ids_list])[:, None, :]).to(device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    out = generate_fast(params, cfg, idx, gen, max_new_tokens=tokens, modality_to_generate=modality)
+    if serve:
+        out = generate_serve(params, cfg, idx, gen, max_new_tokens=tokens,
+                             modality_to_generate=modality, refresh=refresh, kv_dtype=kv_dtype)
+    else:
+        out = generate_fast(params, cfg, idx, gen, max_new_tokens=tokens,
+                            modality_to_generate=modality)
     return dict(
         data, model=trained, new=out[:, 0, T0:].cpu().numpy(),
         last_prompt_tokens=np.stack([x[-1] for x in ids_list]),
@@ -148,8 +162,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--checkpoint", default=None,
                     help="override the config's model_file_name")
+    ap.add_argument("--serve", action="store_true",
+                    help="KV-cached serving sampler (models/cache.py): token-exact while "
+                         "the context grows, chunked-refresh approximation past a full window")
+    ap.add_argument("--refresh", type=int, default=None,
+                    help="--serve refresh period (default block_size // 8)")
+    ap.add_argument("--kv-dtype", default=None, choices=[None, "int8"],
+                    help="--serve KV-cache storage type: int8 (quantized, serving only)")
     args = ap.parse_args(argv)
-    res = run(args.config_dir, args.tokens, args.modality, args.seed, args.checkpoint)
+    res = run(args.config_dir, args.tokens, args.modality, args.seed, args.checkpoint,
+              args.serve, args.refresh, args.kv_dtype)
     cfg, vocabs, names, new = res["cfg"], res["vocabs"], res["names"], res["new"]
     print(f"Model: {res['model']} on {res['device']}", file=sys.stderr)
     print(f"# generated {args.tokens} tokens for modality {args.modality} "

@@ -63,6 +63,23 @@ def _bias(b: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     return b.to(dt)[:, None, None, :]
 
 
+def _qkv_project(h: torch.Tensor, w1, b1, w2, H: int, hs2: int) -> torch.Tensor:
+    """One factored tanh-MLP projection (q, k or v) for all modalities and
+    heads: h (M, B, T, C) -> (M, B, H, T, hs). The KV-cached path projects
+    q, k and v apart so that k and v can go into the cache."""
+    M, B, T, _ = h.shape
+    t = torch.tanh(_mm("mbtc,mcd->mbtd", h, w1) + _bias(b1, h.dtype)).reshape(M, B, T, H, hs2)
+    return _mm("mbthd,mhde->mbhte", t, w2)
+
+
+def _proj_mlp(out: torch.Tensor, w1, b1, w2, b2) -> torch.Tensor:
+    """tanh-MLP projection of one modality (2-D weights, any leading axes):
+    the KV-cached path's vocab head."""
+    dt = out.dtype
+    t = torch.tanh(_mm("...d,de->...e", out, w1) + b1.to(dt))
+    return _mm("...e,ec->...c", t, w2) + b2.to(dt)
+
+
 def _qkv_project_fused(h: torch.Tensor, sa: Dict[str, torch.Tensor], H: int, hs2: int):
     """All three factored q/k/v projections in two einsums. h: (M, B, T, C).
     Returns q, k, v: (M, B, H, T, hs)."""
@@ -80,17 +97,19 @@ def _proj_mlp_heads(
     att: torch.Tensor, w1, b1, w2, b2, H: int, hs: int, head_major: bool = False
 ) -> torch.Tensor:
     """tanh-MLP output projection taking attention output in (..., H, T, hs)
-    layout; ``head_major=True`` takes (M, H, B, T, hs) / (H, B, T, hs)."""
+    layout; ``head_major=True`` takes (M, H, B, T, hs) / (H, B, T, hs).
+
+    The heads are moved next to hs and flattened to (..., B, T, H*hs), one
+    copy (none for T = 1, a decode step), so that both products are plain
+    matmuls against the weights as stored: a contraction over (h, e) in one
+    einsum copies the weight as well."""
     dt = att.dtype
+    att = att.movedim(-4, -2) if head_major else att.transpose(-3, -2)
+    out = att.reshape(*att.shape[:-2], H * hs)
     if w1.ndim == 3:  # stacked over modality
-        M = att.shape[0]
-        w1r = w1.reshape(M, H, hs, w1.shape[-1])
-        eq = "mhbte,mhec->mbtc" if head_major else "mbhte,mhec->mbtc"
-        t = torch.tanh(_mm(eq, att, w1r) + _bias(b1, dt))
+        t = torch.tanh(_mm("mbtd,mdc->mbtc", out, w1) + _bias(b1, dt))
         return _mm("mbtc,mcd->mbtd", t, w2) + _bias(b2, dt)
-    w1r = w1.reshape(H, hs, w1.shape[-1])
-    eq = "hbte,hec->btc" if head_major else "bhte,hec->btc"
-    t = torch.tanh(_mm(eq, att, w1r) + b1.to(dt))
+    t = torch.tanh(_mm("btd,dc->btc", out, w1) + b1.to(dt))
     return _mm("btc,cd->btd", t, w2) + b2.to(dt)
 
 

@@ -13,7 +13,8 @@ bf16 dots. The dispatch keeps the JAX band rules: the hand-written kernels
 8 <= T <= 512, T % 8 == 0 and hs <= 256 (hs even for the fused
 self-attention), and the dense cores run everywhere else, as the JAX package
 leaves shapes outside its band to XLA. ``attn_impl: jnp`` keeps the dense
-cores on the card too.
+cores on the card too. Cached decode attention (one query position against
+the KV cache) dispatches in models/cache.py.
 """
 
 from __future__ import annotations
@@ -65,6 +66,31 @@ def fused_qkv_attention_active(t: int, hs: int, impl: str, device: torch.device)
     (the JAX package's ``fused_qkv_attention_active``, with CUDA in place of
     the TPU)."""
     return _kernel_device(device, impl) and kernels.in_band(t, hs) and hs % 2 == 0
+
+
+def causal_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    impl: str = "auto",
+    dropout_rate: float = 0.0,
+    dropout_key: Optional[Sequence[int]] = None,
+    train: bool = False,
+) -> torch.Tensor:
+    """Causal self-attention over separate q, k, v (..., T, hs), the JAX
+    package's ``causal_attention``: in the band on the card the
+    self-attention kernel (dropout keyed by the collapsed row, as the JAX
+    kernel keys it), the dense core elsewhere. The model's training forward
+    takes the fused kernel instead; this core serves the KV-cache prefill,
+    whose k and v go into the cache."""
+    t, hs = q.shape[-2], q.shape[-1]
+    use_dropout = train and dropout_rate > 0.0
+    if _kernel_device(q.device, impl) and kernels.in_band(t, hs) and q.shape == k.shape == v.shape:
+        return kernels.short_causal_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(),
+            dropout_rate if use_dropout else 0.0, dropout_key if use_dropout else None,
+        )
+    return causal_attention_dense(q, k, v, dropout_rate, dropout_key, train)
 
 
 def cross_causal_attention(

@@ -1,8 +1,9 @@
 """Hand-written CUDA kernels of the serving and training paths, their
 wrappers and their plain PyTorch versions.
 
-Four kernels replace the four Pallas kernel bodies that the JAX package's
-training step runs at production width (ops/pallas_attention.py there):
+Eight kernels replace the Pallas kernel bodies that the JAX package's
+training step and its two serving paths run at production width
+(ops/pallas_attention.py there):
 
 - K1f ``fused_qkv_attention_fwd``: the factored tanh q/k/v projection and
   whole-row causal self-attention in one kernel
@@ -13,13 +14,22 @@ training step runs at production width (ops/pallas_attention.py there):
   streams, each normalised, summed (``csrc/short_cross_attention.cu``,
   replacing ``_short_cross_fwd_kernel``);
 - K2b ``short_cross_attention_bwd``: dq summed over the streams and every
-  dk_j / dv_j (same source, replacing ``_short_cross_bwd_kernel``).
+  dk_j / dv_j (same source, replacing ``_short_cross_bwd_kernel``);
+- K3f ``short_causal_attention``: whole-row causal self-attention over
+  separate q, k, v, forward only: the KV-cache prefill
+  (``csrc/short_causal_attention.cu``, replacing ``_short_fwd_kernel``);
+- K8, K8p, K8q ``decode_attention``, ``decode_attention_packed``,
+  ``decode_attention_packed_q8``: one query position against a KV cache row
+  in the plain, packed and packed int8 layouts (``csrc/decode_attention.cu``,
+  replacing ``_decode_kernel``, ``_decode_p_kernel`` and ``_decode_p8_kernel``).
 
-All four take attention dropout in the kernel, keyed as the JAX kernels key
-it in interpret mode (``hash_keep_mask``), so the masks are bit-identical.
-``fused_qkv_attention`` and ``short_cross_attention`` are the differentiable
-entries (``torch.autograd.Function``: forward kernel, backward kernel; the
-backward regenerates the mask from the salts).
+K1f, K1b, K2f, K2b and K3f take attention dropout in the kernel, keyed as
+the JAX kernels key it in interpret mode (``hash_keep_mask``), so the masks
+are bit-identical. ``fused_qkv_attention`` and ``short_cross_attention`` are
+the differentiable entries (``torch.autograd.Function``: forward kernel,
+backward kernel; the backward regenerates the mask from the salts). K3f and
+the decode kernels are forward only (the model reaches them only in
+serving), and their CUDA paths raise under autograd.
 
 Each wrapper takes its plain version for a tensor on the CPU, and only
 there. For a CUDA tensor it launches the kernel or raises: there is no
@@ -71,6 +81,14 @@ _SIGNATURES = {
     "short_cross_attention": {
         "tat_short_cross_attention_fwd": [_P] * 4 + [_I] * 5 + [_F, _U, _U, _I, _F, _P],
         "tat_short_cross_attention_bwd": [_P] * 8 + [_I] * 5 + [_F, _U, _U, _I, _F, _P],
+    },
+    "short_causal_attention": {
+        "tat_short_causal_attention_fwd": [_P] * 4 + [_I] * 4 + [_F, _U, _U, _I, _F, _P],
+    },
+    "decode_attention": {
+        "tat_decode_attention": [_P] * 5 + [_I] * 4 + [_F, _P],
+        "tat_decode_attention_packed": [_P] * 5 + [_I] * 5 + [_F, _P],
+        "tat_decode_attention_packed_q8": [_P] * 7 + [_I] * 5 + [_F, _P],
     },
 }
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -196,8 +214,8 @@ def _check_cuda_operands(what: str, acts, weights=()) -> None:
 
 
 def in_band(t: int, hs: int) -> bool:
-    """The shapes both kernels take, as the JAX package's short kernels:
-    8 <= T <= 512, T % 8 == 0, 0 < hs <= 256."""
+    """The shapes the whole-row kernels (K1, K2, K3) take, as the JAX
+    package's short kernels: 8 <= T <= 512, T % 8 == 0, 0 < hs <= 256."""
     return SHORT_MIN_SEQ_LEN <= t <= SHORT_MAX_SEQ_LEN and t % 8 == 0 and 0 < hs <= 256
 
 
@@ -409,19 +427,21 @@ def fused_qkv_attention_bwd_plain(x, w1, b1, w2, out, dout, n_head: int,
     return dx, dw1, db1, dw2
 
 
+def _collapsed_rows(q) -> torch.Tensor:
+    """(..., 1, 1) index of each collapsed row of q's leading axes."""
+    lead = q.shape[:-2]
+    return torch.arange(q[..., 0, 0].numel(), device=q.device).reshape(*lead, 1, 1)
+
+
 def _cross_mask(q, J: int, rate: float, salts):
     """(J, ..., T, T) keep-mask of the cross kernel, or None: stream j keyed
     by its stream seed, rows by the collapsed query row."""
     if rate == 0.0:
         return None
-    lead, T = q.shape[:-2], q.shape[-2]
-    n = 1
-    for d_ in lead:
-        n *= d_
-    rows = torch.arange(n, device=q.device).reshape(*lead, 1, 1)
-    seed = seed_from_salts(salts)
+    shape = (*q.shape[:-2], q.shape[-2], q.shape[-2])
+    rows, seed = _collapsed_rows(q), seed_from_salts(salts)
     return torch.stack([
-        hash_keep_mask(stream_seed(seed, j), rows, 0, 0, (*lead, T, T), rate, q.device)
+        hash_keep_mask(stream_seed(seed, j), rows, 0, 0, shape, rate, q.device)
         for j in range(J)
     ])
 
@@ -441,6 +461,87 @@ def short_cross_attention_bwd_plain(q, k, v, dout, dropout_rate: float = 0.0,
     keep = _cross_mask(q, k.shape[0], rate, dropout_salts)
     dq, dk, dv = _attention_bwd(q[None], k, v, dout[None], keep, rate)
     return dq.sum(dim=0).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def causal_mask(q, rate: float, salts):
+    """(..., T, T) keep-mask of the self-attention kernel, or None: keyed by
+    the seed itself (no stream offset) and the collapsed row, as
+    ``_short_keep_mask`` keys it in interpret mode."""
+    if rate == 0.0:
+        return None
+    shape = (*q.shape[:-2], q.shape[-2], q.shape[-2])
+    return hash_keep_mask(seed_from_salts(salts), _collapsed_rows(q), 0, 0, shape, rate, q.device)
+
+
+def short_causal_attention_plain(q, k, v, dropout_rate: float = 0.0, dropout_salts=None):
+    """Plain PyTorch version of the self-attention kernel (same arguments)."""
+    rate = float(dropout_rate)
+    return _whole_row_attention(q, k, v, causal_mask(q, rate, dropout_salts), rate).to(q.dtype)
+
+
+# Decode: one query position (..., 1, hs) against a cache (..., S, hs) whose
+# column c is visible iff c <= pos. A packed cache (..., S/pack, pack*hs) is
+# the row-major view of (..., S, hs): position c at row c // pack, lane block
+# c % pack.
+
+INV127 = 1.0 / 127.0
+
+
+def unpack_cache(c: torch.Tensor, hs: int) -> torch.Tensor:
+    """(..., S/pack, pack*hs) -> the (..., S, hs) view of the same bytes."""
+    return c.reshape(*c.shape[:-2], c.shape[-2] * (c.shape[-1] // hs), hs)
+
+
+def _decode_scores(q, k, pos):
+    """Scores q k^T * hs^-0.5 in f32 (f64 for f64) of (..., 1, hs) against
+    (..., S, hs), and the visible columns; pos is an int or a one-element
+    tensor."""
+    acc = _acc(q.dtype)
+    s = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * q.shape[-1] ** -0.5
+    visible = torch.arange(k.shape[-2], device=q.device) <= pos
+    return s, visible
+
+
+def _row_scales(scale, pack: int):
+    """(..., S/pack) per-row int8 scales -> (..., 1, S) per-position factors
+    scale / 127 in f32."""
+    return (scale.float() * INV127).repeat_interleave(pack, dim=-1)[..., None, :]
+
+
+def decode_attention_plain(q, k, v, pos):
+    """Plain PyTorch version of the plain-layout decode kernel (``_decode_
+    kernel``): w = p / sum(p) rounded to v's type before P.V."""
+    acc = _acc(q.dtype)
+    s, visible = _decode_scores(q, k, pos)
+    p = torch.softmax(s.masked_fill(~visible, float("-inf")), dim=-1)
+    return torch.matmul(p.to(v.dtype).to(acc), v.to(acc)).to(q.dtype)
+
+
+def decode_attention_packed_plain(q, kp, vp, pos):
+    """Plain PyTorch version of the packed decode kernel (``_decode_p_kernel``):
+    one max over all positions, the unnormalised p rounded to v's type before
+    P.V, the sum divided by l."""
+    acc, hs = _acc(q.dtype), q.shape[-1]
+    k, v = unpack_cache(kp, hs), unpack_cache(vp, hs)
+    s, visible = _decode_scores(q, k, pos)
+    s = s.masked_fill(~visible, float("-inf"))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = torch.matmul(p.to(v.dtype).to(acc), v.to(acc))
+    return (o / p.sum(dim=-1, keepdim=True)).to(q.dtype)
+
+
+def decode_attention_packed_q8_plain(q, kp, vp, k_scale, v_scale, pos):
+    """Plain PyTorch version of the int8 packed decode kernel
+    (``_decode_p8_kernel``): s = (q.k * hs^-0.5) * k_scale / 127; p * v_scale
+    / 127 rounded to q's type before P.V; the sum divided by l."""
+    acc, hs = _acc(q.dtype), q.shape[-1]
+    pack = kp.shape[-1] // hs
+    k, v = unpack_cache(kp, hs).to(q.dtype), unpack_cache(vp, hs).to(q.dtype)
+    s, visible = _decode_scores(q, k, pos)
+    s = (s * _row_scales(k_scale, pack)).masked_fill(~visible, float("-inf"))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    w = (p * _row_scales(v_scale, pack)).to(q.dtype).to(acc)
+    return (torch.matmul(w, v.to(acc)) / p.sum(dim=-1, keepdim=True)).to(q.dtype)
 
 
 # ------------------------------------------------------------------ wrappers
@@ -665,11 +766,148 @@ def short_cross_attention_t(q, kT, vT, dropout_rate: float = 0.0, dropout_salts=
     return short_cross_attention(q, k, v, dropout_rate, dropout_salts)
 
 
+def _check_no_grad(what: str, *tensors) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{what}: the CUDA kernel is forward only (no backward kernel)")
+
+
+def short_causal_attention(q, k, v, dropout_rate: float = 0.0, dropout_salts=None):
+    """Whole-row causal self-attention (K3f), forward only. q, k, v:
+    (..., T, hs), one type, bf16 or f32; the leading axes collapse into rows.
+    The plain version for CPU tensors, the CUDA kernel for CUDA tensors in the
+    band. Returns (..., T, hs) in q's type."""
+    what = "short_causal_attention"
+    if q.ndim < 2 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{what}: q, k, v must share one shape (..., T, hs); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    seed, thresh, on, keepf, _ = _dropout_args(what, dropout_rate, dropout_salts)
+    if _on_cpu(q, k, v):
+        return short_causal_attention_plain(q, k, v, dropout_rate, dropout_salts)
+    _check_cuda_operands(what, (q, k, v))
+    _check_no_grad(what, q, k, v)
+    T, hs = q.shape[-2], q.shape[-1]
+    _check_band(what, T, hs)
+    out = torch.empty_like(q)
+    err = _fn("short_causal_attention", "tat_short_causal_attention_fwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        q.numel() // (T * hs), T, hs, int(q.dtype == torch.bfloat16), hs ** -0.5,
+        seed, thresh, on, keepf, _stream(),
+    )
+    _check_launch(err, what)
+    short_causal_attention.launches += 1
+    return out
+
+
+short_causal_attention.launches = 0
+
+
+def _check_decode_shapes(what, q, k, v, hs_mult: bool):
+    """q (..., 1, hs); k, v one shape (..., rows, width) with q's leading
+    axes; width == hs (plain) or a multiple of hs (packed)."""
+    hs = q.shape[-1]
+    if (q.ndim < 3 or q.shape[-2] != 1 or k.shape != v.shape or k.ndim != q.ndim
+            or k.shape[:-2] != q.shape[:-2]
+            or (k.shape[-1] % hs if hs_mult else k.shape[-1] != hs)):
+        raise ValueError(f"{what}: expected q (..., 1, hs) and k, v (..., S, "
+                         f"{'pack*hs' if hs_mult else 'hs'}); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+
+
+def _pos_tensor(what: str, pos, device) -> torch.Tensor:
+    """pos as the kernels read it: a one-element int32 tensor on the device.
+    An int becomes one (a fill on the card, no host-to-device copy)."""
+    if not isinstance(pos, torch.Tensor):
+        return torch.full((1,), int(pos), dtype=torch.int32, device=device)
+    if pos.numel() != 1 or pos.dtype != torch.int32 or pos.device != device:
+        raise ValueError(f"{what}: pos must be an int or a one-element int32 tensor on {device}")
+    return pos.reshape(1)
+
+
+def _decode_launch(what: str, fn_name: str, q, k, v, pos, scales=(), pack=()):
+    """Launch a decode kernel; scales are the q8 kernel's k_scale and v_scale,
+    pack the packed kernels' positions per row."""
+    hs = q.shape[-1]
+    out = torch.empty_like(q)
+    pos_t = _pos_tensor(what, pos, q.device)
+    err = _fn("decode_attention", fn_name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), *(t.data_ptr() for t in scales),
+        pos_t.data_ptr(), out.data_ptr(), q.numel() // hs, k.shape[-2] * (k.shape[-1] // hs),
+        hs, *pack, int(q.dtype == torch.bfloat16), hs ** -0.5, _stream(),
+    )
+    _check_launch(err, what)
+    return out
+
+
+def decode_attention(q, k, v, pos):
+    """Cached-decode attention over a plain (..., S, hs) cache (K8): q
+    (..., 1, hs), columns c <= pos visible; pos an int or a one-element int32
+    tensor on q's device, which the kernel reads on the card. Returns
+    (..., 1, hs) in q's type."""
+    what = "decode_attention"
+    _check_decode_shapes(what, q, k, v, hs_mult=False)
+    if _on_cpu(q, k, v):
+        return decode_attention_plain(q, k, v, pos)
+    _check_cuda_operands(what, (q, k, v))
+    _check_no_grad(what, q, k, v)
+    out = _decode_launch(what, "tat_decode_attention", q, k, v, pos)
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0
+
+
+def decode_attention_packed(q, kp, vp, pos):
+    """Cached-decode attention over a packed (..., S/pack, pack*hs) cache
+    (K8p); otherwise as ``decode_attention``."""
+    what = "decode_attention_packed"
+    _check_decode_shapes(what, q, kp, vp, hs_mult=True)
+    if _on_cpu(q, kp, vp):
+        return decode_attention_packed_plain(q, kp, vp, pos)
+    _check_cuda_operands(what, (q, kp, vp))
+    _check_no_grad(what, q, kp, vp)
+    out = _decode_launch(what, "tat_decode_attention_packed", q, kp, vp, pos,
+                         pack=(kp.shape[-1] // q.shape[-1],))
+    decode_attention_packed.launches += 1
+    return out
+
+
+decode_attention_packed.launches = 0
+
+
+def decode_attention_packed_q8(q, kp, vp, k_scale, v_scale, pos):
+    """Cached-decode attention over a packed int8 cache with one f32 scale per
+    packed row, k_scale and v_scale (..., S/pack) (K8q); q bf16 or f32;
+    otherwise as ``decode_attention_packed``."""
+    what = "decode_attention_packed_q8"
+    _check_decode_shapes(what, q, kp, vp, hs_mult=True)
+    if (kp.dtype != torch.int8 or vp.dtype != torch.int8 or k_scale.shape != kp.shape[:-1]
+            or v_scale.shape != kp.shape[:-1]):
+        raise ValueError(f"{what}: expected int8 k, v and scales of shape {tuple(kp.shape[:-1])}")
+    if _on_cpu(q, kp, vp, k_scale, v_scale):
+        return decode_attention_packed_q8_plain(q, kp, vp, k_scale, v_scale, pos)
+    _check_cuda_operands(what, (q,), (k_scale, v_scale))
+    if not (kp.is_contiguous() and vp.is_contiguous()):
+        raise ValueError(f"{what}: operands must be contiguous")
+    _check_no_grad(what, q)
+    out = _decode_launch(what, "tat_decode_attention_packed_q8", q, kp, vp, pos,
+                         scales=(k_scale, v_scale), pack=(kp.shape[-1] // q.shape[-1],))
+    decode_attention_packed_q8.launches += 1
+    return out
+
+
+decode_attention_packed_q8.launches = 0
+
+
 KERNELS = {
     "fused_qkv_attention": fused_qkv_attention_fwd,
     "fused_qkv_attention_bwd": fused_qkv_attention_bwd,
     "short_cross_attention": short_cross_attention_fwd,
     "short_cross_attention_bwd": short_cross_attention_bwd,
+    "short_causal_attention": short_causal_attention,
+    "decode_attention": decode_attention,
+    "decode_attention_packed": decode_attention_packed,
+    "decode_attention_packed_q8": decode_attention_packed_q8,
 }
 
 def launch_counts() -> Dict[str, int]:
