@@ -10,13 +10,14 @@ backward, dropout off and on), drives the port's generation entry point
 caches) and its training entry point at the production configuration's full
 width (examples/production_config.yaml: 4 modalities, n_embd 384, 6 heads, 6
 layers, block_size 64, batch 32, dropout 0.2, bf16) with seeded random
-weights on seeded synthetic CSVs, checks that each path went through its
-kernels with the expected launch counts and that what comes out is right
-(the card's forward, cached forward and training step against the CPU's,
-the training loss falling), and times the kernels, batched serving, cached
-serving and training. Each phase prints one line; any failed check raises
-and the script exits non-zero. The last line is ``{"ok": true, "device":
-{...}}``.
+weights on seeded synthetic CSVs, then the same config at block_size 1024
+(long context: the flash kernels, training at batch 8), checks that each
+path went through its kernels with the expected launch counts and that what
+comes out is right (the card's forward, cached forward and training step
+against the CPU's, the training loss falling), and times the kernels,
+batched serving, cached serving and training. Each phase prints one line;
+any failed check raises and the script exits non-zero. The last line is
+``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device and the port package beside this file; without either it
 exits non-zero before printing any result.
@@ -88,23 +89,51 @@ SOURCES = {
         f"{PKG}/ops/csrc/decode_attention.cu",
         "trade_aid_multimodal_transformer_tpu/ops/pallas_attention.py:2879",
     ),
+    "flash_attention": (
+        f"{PKG}/ops/csrc/flash_attention.cu",
+        "trade_aid_multimodal_transformer_tpu/ops/pallas_attention.py:164",
+    ),
+    "flash_attention_bwd": (
+        f"{PKG}/ops/csrc/flash_attention.cu",
+        "trade_aid_multimodal_transformer_tpu/ops/pallas_attention.py:627",
+    ),
+    "flash_cross_attention": (
+        f"{PKG}/ops/csrc/flash_cross_attention.cu",
+        "trade_aid_multimodal_transformer_tpu/ops/pallas_attention.py:1054",
+    ),
+    "flash_cross_attention_res": (
+        f"{PKG}/ops/csrc/flash_cross_attention.cu",
+        "trade_aid_multimodal_transformer_tpu/ops/pallas_attention.py:1125",
+    ),
 }
 # the path whose launches each kernel's entry of the last line reports
 MAIN_PATH = {"fused_qkv_attention": "training", "fused_qkv_attention_bwd": "training",
              "short_cross_attention": "training", "short_cross_attention_bwd": "training",
              "short_causal_attention": "serve", "decode_attention_packed": "serve",
-             "decode_attention_packed_q8": "serve_int8", "decode_attention": "serve_plain"}
+             "decode_attention_packed_q8": "serve_int8", "decode_attention": "serve_plain",
+             "flash_attention": "long_training", "flash_attention_bwd": "long_training",
+             "flash_cross_attention": "long_generate", "flash_cross_attention_res": "long_training"}
+# the production shapes of the flash kernels' entries in the last line: the
+# training step at block_size 1024, batch 8 (self-attention 4 x 8 x 6 rows,
+# cross-attention 8 x 6 rows against J = 3 streams)
+LONG_BLOCK = 1024
+FLASH_PROD = (4 * 8 * 6, LONG_BLOCK, 64)
+FLASH_CROSS_PROD = (3, 8 * 6, LONG_BLOCK, 64)
 # serve_reference: the card's cached logits against its full-window forward
-# and the CPU's cached f32 forward, max-abs (bf16: 2e-2 against sound
-# readings of 3.9e-3-6.9e-3, NVIDIA H100 80GB HBM3, 700 W). The bf16 logits
+# and the CPU's cached f32 forward, max-abs (f32: 1e-5 against sound readings
+# of <= 6.4e-7 and the planted fault below reading >= 1.4e-4 at block_size
+# 1024; bf16: 2e-2 against sound readings of 3.9e-3-6.9e-3, NVIDIA H100 80GB
+# HBM3, 700 W). The bf16 logits
 # (|max| 0.5, rms 0.12) round in steps of ~2e-3, and one bf16 ulp anywhere in
 # six layers moves them by 5e-3-7e-3 L2-relative, more than a one-column mask
 # fault does (2.6e-3-6.7e-3 in f32). So in bf16 every kernel call of the
 # cached run is held against its plain version on the same inputs, as
 # |out - plain| / |plain| (L2) <= SERVE_BF16_IN_PATH, and that fault must
-# exceed it
-SERVE_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-SERVE_BF16_IN_PATH = 1e-2
+# exceed it. Sound calls read <= 4.1e-4 at block_size 64 and <= 5.7e-4 at
+# 1024; the fault reads >= 0.0797 at 64 but 6.9e-3 at 1024 (one column of
+# ~1000), so the limit is 2e-3
+SERVE_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+SERVE_BF16_IN_PATH = 2e-3
 
 
 T_START = time.perf_counter()
@@ -202,16 +231,19 @@ def check_rel(name, out, ref, dtype, shape, rate) -> float:
 
 def serve_launches(K, cfg, t0: int, tokens: int, refresh: int, decode: str) -> dict:
     """Kernel launches of generate_serve from a prompt of t0 tokens: per
-    prefill in the kernel band n_layer K3f and n_layer per cross modality K2f
-    (the exact phase's prefill over t0 tokens, then one per chunk over
+    prefill n_layer self-attention and n_layer per cross modality cross
+    kernels, K3f and K2f in the whole-row band and K5f and K6f in the flash
+    band (the exact phase's prefill over t0 tokens, then one per chunk over
     block_size - refresh), and per generated token n_layer * (1 + cross
     modalities) launches of the layout's decode kernel."""
-    L, n_cross, S = cfg.n_layer, sum(cfg.cross_attention), cfg.block_size
+    L, n_cross, S, hs = cfg.n_layer, sum(cfg.cross_attention), cfg.block_size, cfg.head_size
     n_exact = max(0, min(tokens, S - t0))
     lengths = ([t0] if n_exact else []) + [S - refresh] * math.ceil((tokens - n_exact) / refresh)
-    prefills = sum(K.in_band(t, cfg.head_size) for t in lengths)
+    short = sum(K.in_band(t, hs) for t in lengths)
+    flash = sum(K.flash_eligible(t, hs) and not K.in_band(t, hs) for t in lengths)
     want = dict.fromkeys(K.KERNELS, 0)
-    want.update(short_causal_attention=L * prefills, short_cross_attention=L * n_cross * prefills)
+    want.update(short_causal_attention=L * short, short_cross_attention=L * n_cross * short,
+                flash_attention=L * flash, flash_cross_attention=L * n_cross * flash)
     want[decode] = tokens * L * (1 + n_cross)
     return want
 
@@ -241,6 +273,600 @@ def expected_evals(max_iters: int, eval_interval: int) -> int:
             nxt.append(max_iters - 1)
         it = min(b for b in nxt if b > it)
     return n
+
+
+@contextlib.contextmanager
+def patched(K, **fns):
+    """Swap wrappers of the kernels module K for the given functions."""
+    real = {name: getattr(K, name) for name in fns}
+    for name, fn in fns.items():
+        setattr(K, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(K, name, fn)
+
+
+def errs_of(got, refs):
+    """Max-abs and L2-relative error of got against each reference."""
+    return {name: {"max_abs": (got - r).abs().max().item(),
+                   "l2_rel": ((got - r).norm() / r.norm()).item()} for name, r in refs.items()}
+
+
+def checked(K, name, fn, worst, plain=None):
+    """``fn`` (a kernel's wrapper, or a planted fault) with each output held
+    against the kernel's plain version on the same inputs (``plain``, by
+    default ``K.<name>_plain``; of a pair such as (out, lse) the first);
+    worst[name] keeps the largest L2-relative error |out - plain| / |plain|."""
+    plain_fn = plain or getattr(K, f"{name}_plain")
+
+    def run(*args):
+        out = fn(*args)
+        ref = plain_fn(*args)
+        o, r = (out[0], ref[0]) if isinstance(out, tuple) else (out, ref)
+        err = ((o.float() - r.float()).norm() / r.float().norm()).item()
+        worst[name] = max(worst.get(name, 0.0), err)
+        return out
+
+    run.launches = 0  # the wrapper counts on the module name it is patched over
+    return run
+
+
+def k8p_reading_pos_plus_1(K):
+    """The planted fault of the reference phases: K8p reading one column
+    past pos."""
+    real = K.decode_attention_packed
+
+    def wrong(q, kp, vp, pos):
+        return real(q, kp, vp, pos + 1)
+
+    wrong.launches = 0  # the wrapper counts on the module name it is patched over
+    return wrong
+
+
+def cached_logits(C, p, c, ids, t_first, S):
+    """The cached path's logits of modality 0: a prefill over ids[..., :t_first],
+    then one cached step at each position t_first..S-1 (CPU, f32)."""
+    import torch
+
+    with torch.inference_mode():
+        logits, cache = C._prefill(p, c, ids[:, :, :t_first], 0)
+        out = [logits.float().cpu()]
+        for pos in range(t_first, S):
+            logits, cache = C.forward_cached(p, c, ids[:, :, pos:pos + 1], cache, pos, 0)
+            out.append(logits.float().cpu())
+    return torch.stack(out)
+
+
+def full_logits(forward, p, c, ids, t_first, S):
+    """The full forward's last-position logits of modality 0 for each prefix
+    ids[..., :n], n = t_first..S (CPU, f32)."""
+    import torch
+
+    with torch.inference_mode():
+        return torch.stack([forward(p, c, ids[:, :, :n_])[0][0][:, -1].float().cpu()
+                            for n_ in range(t_first, S + 1)])
+
+
+def serve_reference(K, C, forward, params, cpu_params, cfg, ids_ref, cases, prefill_kernels,
+                    phase="serve_reference"):
+    """The card's cached logits (a prefill over ids[..., :t_first], then one
+    cached step at each position up to block_size - 1, for each case) against
+    the card's full forward at the same prefix and the CPU's cached f32
+    forward: f32 at SERVE_TOL max-abs, which K8p reading one column past pos
+    must fail; bf16 at SERVE_TOL max-abs, and every call of the prefill's
+    kernels (``prefill_kernels``: the wrapper's module name -> (its KERNELS
+    name, its plain version, launches per prefill)) and of K8p against its
+    plain version on the same inputs (SERVE_BF16_IN_PATH), which that fault
+    must exceed. Emits one line per case and dtype; returns the failures."""
+    import torch
+
+    S, L, n_cross = cfg.block_size, cfg.n_layer, sum(cfg.cross_attention)
+    dev = params["pre"]["pos_emb"].device
+    ids_dev = ids_ref.to(dev)
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    cpu_cached = {case: cached_logits(C, cpu_params, f32, ids_ref, t_first, S)
+                  for case, t_first in cases.items()}
+    failed = []
+    for case, t_first in cases.items():
+        want_ref = dict.fromkeys(K.KERNELS, 0)
+        want_ref.update({name: n for name, _, n in prefill_kernels.values()})
+        want_ref["decode_attention_packed"] = (S - t_first) * L * (1 + n_cross)
+        for dtype in ("float32", "bfloat16"):
+            c = dataclasses.replace(cfg, compute_dtype=dtype)
+            K.reset_launch_counts()
+            got = cached_logits(C, params, c, ids_dev, t_first, S)
+            counts = K.launch_counts()
+            in_path, in_path_bad = {}, {}
+            with patched(K, decode_attention_packed=checked(
+                    K, "decode_attention_packed", k8p_reading_pos_plus_1(K), in_path_bad)):
+                bad = cached_logits(C, params, c, ids_dev, t_first, S)
+            refs = {"vs_card_full": full_logits(forward, params, c, ids_dev, t_first, S),
+                    "vs_cpu_cached_f32": cpu_cached[case]}
+            sound, planted = errs_of(got, refs), errs_of(bad, refs)
+            ok = (bool(torch.isfinite(got).all()) and counts == want_ref
+                  and all(e["max_abs"] <= SERVE_TOL[dtype] for e in sound.values()))
+            if dtype == "float32":
+                ok = ok and all(e["max_abs"] > SERVE_TOL[dtype] for e in planted.values())
+            else:
+                wrappers = {attr: checked(K, attr, getattr(K, attr), in_path, plain)
+                            for attr, (_, plain, _) in prefill_kernels.items()}
+                wrappers["decode_attention_packed"] = checked(
+                    K, "decode_attention_packed", K.decode_attention_packed, in_path)
+                with patched(K, **wrappers):
+                    cached_logits(C, params, c, ids_dev, t_first, S)
+                ok = ok and (max(in_path.values()) <= SERVE_BF16_IN_PATH
+                             < in_path_bad["decode_attention_packed"])
+            emit({"phase": phase, "case": case, "what": f"card cached logits "
+                  f"(prefill of {t_first}, then positions {t_first}..{S - 1}) vs the card's full "
+                  "forward and the CPU's cached f32 forward; bf16: each kernel call against "
+                  "its plain version", "dtype": dtype, "batch": ids_ref.shape[1],
+                  "block_size": S,
+                  "logits_abs_max": refs["vs_card_full"].abs().max().item(),
+                  "logits_rms": refs["vs_card_full"].pow(2).mean().sqrt().item(),
+                  "err": sound, "tol": SERVE_TOL[dtype], "planted_k8p_pos_plus_1": planted,
+                  "in_path_rel_err": in_path or None,
+                  "in_path_planted_k8p_pos_plus_1": in_path_bad["decode_attention_packed"],
+                  "in_path_tol": SERVE_BF16_IN_PATH if in_path else None,
+                  "launches": counts, "ok": ok})
+            if not ok:
+                failed.append(f"{case} {dtype}")
+    return failed
+
+
+def train_reference(K, cfg, ids, faults, must_fail, want_step, phase="train_reference"):
+    """One training step on the card (the kernels forward and backward)
+    against the CPU's dense step on the same params (seed 1234) and batch
+    ``ids`` (M, B, T + 1), dropout 0, f32 and bf16: the loss and every gradient
+    leaf's L2-relative error within STEP_TOL, the kernels launched as
+    ``want_step`` says, and each planted fault of ``must_fail`` (``faults``:
+    name -> (autograd Function, index of the backward output scaled by 1.2))
+    rejected. Emits one line per dtype; raises on a failure."""
+    import torch
+
+    from trade_aid_multimodal_transformer_tpu_torch.models.init import (
+        init_params, map_tree, tree_leaves, tree_paths)
+    from trade_aid_multimodal_transformer_tpu_torch.models.transformer import total_loss
+
+    dev = torch.device("cuda")
+    xb, yb = ids[..., :-1], ids[..., 1:]
+    step_cfg = dataclasses.replace(cfg, dropout=0.0, compute_dtype="float32")
+    cpu_p = map_tree(lambda t: t.requires_grad_(),
+                     init_params(cfg, torch.Generator().manual_seed(1234), "cpu"))
+    loss_ref, _ = total_loss(cpu_p, step_cfg, xb, yb, None, True)
+    g_ref = torch.autograd.grad(loss_ref, tree_leaves(cpu_p))
+    dev_p = map_tree(lambda t: t.detach().to(dev).requires_grad_(), cpu_p)
+    names = ["/".join(map(str, path)) for path, _ in tree_paths(cpu_p)]
+    ref_norms = [r.norm().item() for r in g_ref]
+    floor = 1e-6 * math.sqrt(sum(n * n for n in ref_norms))
+
+    def leaf_errs(grads):
+        """Per leaf |g - ref| / max(|ref|, 1e-6 |all of ref|), L2 norms."""
+        return [(a.float().cpu() - r).norm().item() / max(n, floor)
+                for a, r, n in zip(grads, g_ref, ref_norms)]
+
+    def step_grads(c, fault=None):
+        """Loss and gradients of one step on the card; ``fault`` = (autograd
+        Function, gradient index) scales that gradient of its backward by 1.2."""
+        real = fault[0].backward if fault else None
+        if fault:
+            def wrong(ctx, dout):
+                grads = list(real(ctx, dout))
+                grads[fault[1]] = grads[fault[1]] * 1.2
+                return tuple(grads)
+            fault[0].backward = staticmethod(wrong)
+        try:
+            loss = total_loss(dev_p, c, xb.to(dev), yb.to(dev), None, True)[0]
+            return loss, torch.autograd.grad(loss, tree_leaves(dev_p))
+        finally:
+            if fault:
+                fault[0].backward = staticmethod(real)
+
+    failed = []
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(step_cfg, compute_dtype=dtype)
+        # the card's dense cores (no kernel), for scale: how far the card is
+        # from the CPU at this dtype without the kernels
+        dense_err = max(leaf_errs(step_grads(dataclasses.replace(c, attn_impl="jnp"))[1]))
+        K.reset_launch_counts()
+        loss, g = step_grads(c)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        loss_err = abs(loss.item() - loss_ref.item())
+        errs_leaf = leaf_errs(g)
+        grad_err = max(errs_leaf)
+        worst = sorted(zip(errs_leaf, names), reverse=True)[:3]
+        # the smallest error that any one leaf 20% too large reads (leaves
+        # above the floor: below it no relative error is held)
+        one_leaf = min((1.2 * a.float().cpu() - r).norm().item() / n
+                       for a, r, n in zip(g, g_ref, ref_norms) if n >= floor)
+        planted = {f: max(leaf_errs(step_grads(c, faults[f])[1])) for f in faults}
+        tol = STEP_TOL[dtype]
+        ok = (loss_err <= tol["loss"] and grad_err <= tol["grad_l2"] and counts == want_step
+              and math.isfinite(loss.item()) and one_leaf > tol["grad_l2"]
+              and all(planted[f] > tol["grad_l2"] for f in must_fail))
+        emit({"phase": phase, "what": "card training step vs CPU dense step, "
+              "loss and every gradient leaf (dropout 0, TF32 off)", "dtype": dtype,
+              "batch": xb.shape[1], "block_size": cfg.block_size, "loss_card": loss.item(),
+              "loss_cpu": loss_ref.item(),
+              "loss_abs_err": loss_err, "grad_l2_rel_err_max": grad_err, "worst_leaves": worst,
+              "leaves": len(g), "card_dense_grad_l2_rel_err_max": dense_err,
+              "one_leaf_x1.2_min": one_leaf, "planted": planted, "planted_must_fail": must_fail,
+              "tol": tol, "launches": counts, "ok": ok})
+        if not ok:
+            failed.append(dtype)
+    if failed:
+        raise AssertionError(f"training step on the card disagrees with the CPU, or the gate "
+                             f"passed a planted fault ({', '.join(failed)})")
+
+
+def training_run(K, card, phase, per_step, per_eval_batch, **config):
+    """``run_training`` on a copy of the production config with ``config``
+    changed, then one profiled step. Asserts the exact launches (``per_step``
+    per training step and ``per_eval_batch`` per evaluated batch: each
+    evaluation runs eval_iters train and eval_iters val batches), the eval
+    train loss falling, the console's completion line and the checkpoint
+    reloading (params and optimizer count). Emits the run's line and the
+    profile's; returns (the launches, steps/s after the first chunk)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from trade_aid_multimodal_transformer_tpu_torch.config.compat import reset_compatibility_layer
+    from trade_aid_multimodal_transformer_tpu_torch.models.init import tree_leaves
+    from trade_aid_multimodal_transformer_tpu_torch.train import runner
+    from trade_aid_multimodal_transformer_tpu_torch.train.checkpoint import (
+        load_checkpoint, load_optimizer_state)
+    from trade_aid_multimodal_transformer_tpu_torch.train.steps import StepRng
+
+    dev = torch.device("cuda")
+    iters, interval, e_iters = config["max_iters"], config["eval_interval"], config["eval_iters"]
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        production_config_dir(d, **config)
+        cwd, buf = os.getcwd(), io.StringIO()
+        os.chdir(d)  # config detection is CWD-relative
+        try:
+            reset_compatibility_layer()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                res = runner.run_training(caller_globals={}, seed=7)
+            train_s = time.perf_counter() - t0
+            launches = K.launch_counts()
+        finally:
+            os.chdir(cwd)
+            reset_compatibility_layer()
+        ckpt = d / "output" / "model.ckpt"
+        back, back_step = load_checkpoint(str(ckpt), res["cfg"], dev)
+        opt_back = load_optimizer_state(str(ckpt), back, res["trainer"].optimizer)
+    console = buf.getvalue()
+    evals = [(int(m[0]), float(m[1]), float(m[2])) for m in re.findall(
+        r"LOSS METRICS: Step (\d+)/\d+ \| Train: ([-\d.naif]+) \| Val: ([-\d.naif]+)", console)]
+    n_evals = expected_evals(iters, interval)
+    eval_batches = n_evals * 2 * e_iters
+    want = dict.fromkeys(K.KERNELS, 0)
+    for name in set(per_step) | set(per_eval_batch):
+        want[name] = per_step.get(name, 0) * iters + per_eval_batch.get(name, 0) * eval_batches
+    timer = res["step_timer"]
+    later = timer.chunks[1:]
+    steps_per_s = sum(n for n, _ in later) / sum(t for _, t in later)
+    finite = all(math.isfinite(v) for e in evals for v in e[1:])
+    reloaded = (back_step == iters and opt_back is not None and opt_back["count"] == iters
+                and all(torch.equal(a.detach().float(), b) for a, b in
+                        zip(tree_leaves(res["params"]), tree_leaves(back))))
+    ok = (launches == want and len(evals) == n_evals and finite
+          and evals[-1][1] < evals[0][1] and reloaded and "TRAINING COMPLETED SUCCESSFULLY" in console)
+    rc = res["cfg"]
+    emit({"phase": phase, "config": "examples/production_config.yaml", "card": card,
+          "changed": config, "batch": res["feed"].batch_size, "block_size": rc.block_size,
+          "dropout": rc.dropout,
+          "compute_dtype": rc.compute_dtype, "seconds": train_s, "evals": evals,
+          "launches": launches, "expected_launches": want,
+          "steps_per_s_after_first_chunk": steps_per_s, "chunks": timer.chunks,
+          "checkpoint_reloaded": reloaded, "ok": ok})
+    if not ok:
+        raise AssertionError(f"the training run ({phase}) failed its checks")
+
+    # where a training step's time goes (torch.profiler, device events)
+    params, opt_state, trainer = res["params"], res["opt_state"], res["trainer"]
+    step_rng = StepRng(11, dev)
+    trainer.train_chunk(params, opt_state, step_rng, 1)
+    torch.cuda.synchronize()
+    n_prof = 2
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.train_chunk(params, opt_state, step_rng, n_prof)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_s = sum(e.self_device_time_total for e in kern) / 1e6 / n_prof
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
+    emit({"phase": "profile", "path": phase, "card": card, "block_size": rc.block_size,
+          "steps": n_prof, "step_ms_unprofiled": 1e3 / steps_per_s,
+          "device_ms_per_step": 1e3 * dev_s if kern else None,
+          "device_busy_share": dev_s * steps_per_s if kern else None,
+          "kernels_per_step": sum(e.count for e in kern) / n_prof,
+          "top": [[e.key[:72], e.self_device_time_total / 1e3 / n_prof, e.count / n_prof]
+                  for e in top]})
+    return launches, steps_per_s
+
+
+def long_context(K, card, gen, timing, errs, by_path):
+    """The production config at block_size 1024 (the JAX package's
+    long-context mode, bench.py's T = 1024 training and --serve cells): the
+    flash kernels K5f, K5b, K6f and K6f-r held against their plain versions
+    (production, edge and tier shapes) and timed; the generation entry, full
+    window and --serve (bf16, int8), with exact launches; the card's logits,
+    a steady --serve chunk and a training step against the CPU; a training
+    run with exact launches; long-context serving rates. Adds to ``timing``,
+    ``errs`` and ``by_path``; raises on a failed check."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from trade_aid_multimodal_transformer_tpu_torch import generate as entry
+    from trade_aid_multimodal_transformer_tpu_torch.models import cache as C
+    from trade_aid_multimodal_transformer_tpu_torch.models.init import init_params
+    from trade_aid_multimodal_transformer_tpu_torch.models.sampler import generate_fast
+    from trade_aid_multimodal_transformer_tpu_torch.models.transformer import forward
+    from trade_aid_multimodal_transformer_tpu_torch.train.checkpoint import save_checkpoint
+
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    def fwd_check(name, out, ref, dtype, shape, rate):
+        if rate:
+            return check_rel(name, out, ref, dtype, shape, rate)
+        return check_close(name, out, ref, dtype, shape)
+
+    # kernel_check: K5f (out, lse), K5b and K6f / K6f-r against their plain
+    # versions at the production shapes (training B = 8, generation B = 1,
+    # the --serve prefill over 896 at B = 16), at T 256 / 640 / 768 / 896 /
+    # 1024 / 2048 (the dropout keyed on JAX blocks of 256 / 128 / 384 / 128 /
+    # 512 / 512) x hs 16 / 64 / 128 / 256, and at the shapes where the JAX
+    # package switches tiers (T 3072 hs 256: the split backward; T 8192
+    # hs 256: the streamed kernels), which the port's kernels also serve
+    cases = [(FLASH_PROD[0], LONG_BLOCK, 64, FLASH_CROSS_PROD[1]), (24, LONG_BLOCK, 64, 6),
+             (24 * 16, 896, 64, 6 * 16)]
+    cases += [(2, t_, hs_, 2) for t_ in (256, 640, 768, 896, 1024, 2048)
+              for hs_ in (16, 64, 128, 256)]
+    cases += [(2, 3072, 256, 0), (2, 8192, 256, 0)]
+    for n, t_, hs_, nc in cases:
+        q, k, v, do = (randn(n, t_, hs_) for _ in range(4))
+        qc, kc, vc = ((randn(nc, t_, hs_), randn(3, nc, t_, hs_), randn(3, nc, t_, hs_)) if nc
+                      else (None,) * 3)
+        shape, cshape = (n, t_, hs_), (3, nc, t_, hs_)
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            qq, kk, vv, dd = (x.to(dt) for x in (q, k, v, do))
+            for rate in (0.0, 0.2):
+                salts = SALTS if rate else None
+                tag = (dtype, rate) if rate else (dtype,)
+                out, lse = K.flash_attention_fwd(qq, kk, vv, rate, salts)
+                grads = K.flash_attention_bwd(qq, kk, vv, out, lse, dd, rate, salts)
+                again = K.flash_attention_bwd(qq, kk, vv, out, lse, dd, rate, salts)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                    raise AssertionError(f"flash_attention_bwd {shape} {dtype}: two runs differ")
+                ref_out, ref_lse = K.flash_attention_plain(qq, kk, vv, rate, salts)
+                errs[("flash_attention", shape) + tag] = fwd_check(
+                    "flash_attention", out, ref_out, dtype, shape, rate)
+                check_rel("flash_attention.lse", lse, ref_lse, "float32", shape, rate)
+                ref = K.flash_attention_bwd_plain(qq, kk, vv, out, lse, dd, rate, salts)
+                errs[("flash_attention_bwd", shape, dtype, rate)] = max(
+                    check_rel(f"flash_attention_bwd.{g}", a, r, dtype, shape, rate)
+                    for g, a, r in zip(("dq", "dk", "dv"), grads, ref))
+                if not nc:
+                    continue
+                qcc, kcc, vcc = (x.to(dt) for x in (qc, kc, vc))
+                out_c = K.flash_cross_attention_fwd(qcc, kcc, vcc, rate, salts)
+                res_c = K.flash_cross_attention_res(qcc, kcc, vcc, rate, salts)
+                torch.cuda.synchronize()
+                if not torch.equal(out_c, res_c[0]):
+                    raise AssertionError(f"K6f and K6f-r sums differ at {cshape} {dtype}")
+                ref_c = K.flash_cross_attention_plain(qcc, kcc, vcc, rate, salts, residuals=True)
+                errs[("flash_cross_attention", cshape) + tag] = fwd_check(
+                    "flash_cross_attention", out_c, ref_c[0], dtype, cshape, rate)
+                errs[("flash_cross_attention_res", cshape) + tag] = fwd_check(
+                    "flash_cross_attention_res.outs", res_c[1], ref_c[1], dtype, cshape, rate)
+                check_rel("flash_cross_attention_res.lses", res_c[2], ref_c[2], "float32", cshape,
+                          rate)
+
+    # kernel_time at the production shapes, bf16: K5f and K5b at the training
+    # step's self-attention (192 rows), B = 1 at generation's (24 rows); K6f
+    # and K6f-r at the training step's cross-attention (48 rows, J = 3), B = 1
+    # at 6 rows. Bounds count the causal half of each product and every
+    # input read once, every output written once.
+    bf = torch.bfloat16
+    n, t_, hs_ = FLASH_PROD
+    tri = t_ * (t_ + 1) // 2
+    q, k, v, do = (randn(n, t_, hs_).to(bf) for _ in range(4))
+    out0, lse0 = K.flash_attention_fwd(q, k, v)
+    out1, lse1 = K.flash_attention_fwd(q, k, v, 0.2, SALTS)
+    q1, k1, v1, o1, l1, d1 = (x[:24].contiguous() for x in (q, k, v, out0, lse0, do))
+    # the library yardsticks take (1, rows, T, hs), the layout of PyTorch's
+    # fused attention kernels
+    qg, kg, vg = (x[None].clone().requires_grad_() for x in (q, k, v))
+    plane = n * t_ * hs_ * 2
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        return torch.autograd.grad(o, (qg, kg, vg), do[None])
+
+    timing["flash_attention"] = dict(
+        ms=device_ms(lambda: K.flash_attention_fwd(q, k, v)),
+        ms_dropout=device_ms(lambda: K.flash_attention_fwd(q, k, v, 0.2, SALTS)),
+        ms_b1=device_ms(lambda: K.flash_attention_fwd(q1, k1, v1)),
+        plain_ms=device_ms(lambda: K.flash_attention_plain(q, k, v)),
+        library_ms=device_ms(lambda: F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                                                    is_causal=True)),
+        bound=bound_ms(2 * 2 * n * tri * hs_, 4 * plane + n * t_ * 4, "bfloat16"),
+    )
+    timing["flash_attention_bwd"] = dict(
+        ms=device_ms(lambda: K.flash_attention_bwd(q, k, v, out0, lse0, do)),
+        ms_dropout=device_ms(lambda: K.flash_attention_bwd(q, k, v, out1, lse1, do, 0.2, SALTS)),
+        ms_b1=device_ms(lambda: K.flash_attention_bwd(q1, k1, v1, o1, l1, d1)),
+        plain_ms=device_ms(lambda: K.flash_attention_bwd_plain(q, k, v, out0, lse0, do)),
+        library_ms=device_ms(sdpa_fwd_bwd),
+        # reads q, k, v, out, dout and lse; writes dq, dk, dv
+        bound=bound_ms(5 * 2 * n * tri * hs_, 8 * plane + n * t_ * 4, "bfloat16"),
+    )
+    J, nc, _, _ = FLASH_CROSS_PROD
+    qc, kc, vc = randn(nc, t_, hs_).to(bf), randn(J, nc, t_, hs_).to(bf), randn(J, nc, t_, hs_).to(bf)
+    qc1, kc1, vc1 = qc[:6].contiguous(), kc[:, :6].contiguous(), vc[:, :6].contiguous()
+    cplane = nc * t_ * hs_ * 2
+    for name, fn_ in (("flash_cross_attention", K.flash_cross_attention_fwd),
+                      ("flash_cross_attention_res", K.flash_cross_attention_res)):
+        res_bytes = (J * cplane + J * nc * t_ * 4) if name.endswith("_res") else 0
+        timing[name] = dict(
+            ms=device_ms(lambda: fn_(qc, kc, vc)),
+            ms_dropout=device_ms(lambda: fn_(qc, kc, vc, 0.2, SALTS)),
+            ms_b1=device_ms(lambda: fn_(qc1, kc1, vc1)),
+            plain_ms=device_ms(lambda: K.flash_cross_attention_plain(
+                qc, kc, vc, residuals=name.endswith("_res"))),
+            library_ms=None,  # no one PyTorch call sums attention over J streams
+            bound=bound_ms(J * 2 * 2 * nc * tri * hs_, (2 + 2 * J) * cplane + res_bytes,
+                           "bfloat16"),
+        )
+    for name in ("flash_attention", "flash_attention_bwd", "flash_cross_attention",
+                 "flash_cross_attention_res"):
+        t = timing[name]
+        emit({"phase": "kernel_time", "kernel": name, "card": card, "kernel_ms": t["ms"],
+              "kernel_ms_dropout": t["ms_dropout"], "kernel_ms_b1": t["ms_b1"],
+              "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
+              "bound_ms": t["bound"][0], "bound_by": t["bound"][1]})
+    del q, k, v, do, out0, out1, qg, kg, vg, qc, kc, vc
+
+    # long_entry: the generation entry at block_size 1024 from the last 1024
+    # tokens: 4 full-window tokens (6 K5f and 12 K6f per token, no whole-row
+    # kernel), and --serve for 128 tokens (one chunk: a prefill over 896 with
+    # 6 K5f and 12 K6f, then 128 decode steps of 18 K8p, or K8q with int8)
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        production_config_dir(d, block_size=LONG_BLOCK)
+        data = entry.load_config_and_data(str(d))
+        cfg = data["cfg"]
+        params = init_params(cfg, torch.Generator().manual_seed(1234), dev)
+        save_checkpoint(str(d / data["sc"]["model_file_name"]), params)
+        S, L, n_cross = cfg.block_size, cfg.n_layer, sum(cfg.cross_attention)
+        for label, tokens, kw, decode in (
+                ("long_generate", 4, {}, None),
+                ("long_serve", 128, dict(serve=True), "decode_attention_packed"),
+                ("long_serve_int8", 128, dict(serve=True, kv_dtype="int8"),
+                 "decode_attention_packed_q8")):
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = entry.run(str(d), tokens=tokens, modality=0, seed=0, **kw)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            counts = K.launch_counts()
+            by_path[label] = counts
+            if decode:
+                want = serve_launches(K, cfg, S, tokens, S // 8, decode)
+            else:
+                want = dict.fromkeys(K.KERNELS, 0)
+                want.update(flash_attention=L * tokens, flash_cross_attention=L * n_cross * tokens)
+            new = res["new"]
+            ok = (str(res["device"]) == "cuda" and res["model"].startswith("checkpoint")
+                  and len(data["ids"][0]) >= S and new.shape == (cfg.num_modalities, tokens)
+                  and 0 <= new[0].min() and new[0].max() < len(res["vocabs"][0])
+                  and all((new[m] == res["last_prompt_tokens"][m]).all()
+                          for m in range(1, cfg.num_modalities))
+                  and counts == want)
+            emit({"phase": "long_entry", "run": label, "block_size": S, "kv_dtype": kw.get("kv_dtype"),
+                  "refresh": S // 8 if decode else None, "tokens": tokens, "batch": 1,
+                  "prompt": S, "seconds": sec, "launches": counts, "expected_launches": want,
+                  "generated": new[0].tolist(), "ok": ok})
+            if not ok:
+                raise AssertionError(f"the long-context entry ({label}) failed its checks")
+
+    # long_reference: the card's logits at T = 1024, B = 2, against the CPU's
+    # dense forward (f32 1e-4, bf16 5e-2); a steady --serve chunk (a prefill
+    # over 896, then positions 896..1023) against the card's full forward and
+    # the CPU's cached f32 forward, f32 and bf16, with the planted K8p fault
+    # (serve_reference; in bf16 every K5f, K6f and K8p call of the run held
+    # against its plain version)
+    rng = np.random.default_rng(9)
+    ids = torch.from_numpy(np.stack([rng.integers(0, v, (2, S)) for v in cfg.vocab_sizes]))
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(1234), "cpu")
+    with torch.inference_mode():
+        ref = forward(cpu_params, f32, ids)[0]
+        K.reset_launch_counts()
+        got = forward(params, f32, ids.to(dev))[0]
+        counts = K.launch_counts()
+        bf_logits = forward(params, cfg, ids.to(dev))[0]
+    f32_err = max((a.cpu() - b).abs().max().item() for a, b in zip(got, ref))
+    bf_err = max((a.float().cpu() - b).abs().max().item() for a, b in zip(bf_logits, ref))
+    finite = all(torch.isfinite(x).all().item() for x in got + bf_logits)
+    want = dict.fromkeys(K.KERNELS, 0)
+    want.update(flash_attention=L, flash_cross_attention=L * n_cross)
+    ok = finite and f32_err <= 1e-4 and bf_err <= 5e-2 and counts == want
+    emit({"phase": "long_reference", "what": "card flash kernels vs CPU dense forward, logits",
+          "block_size": S, "batch": 2, "f32_max_abs_err": f32_err, "f32_tol": 1e-4,
+          "bf16_max_abs_err": bf_err, "bf16_tol": 5e-2, "finite": finite, "launches": counts,
+          "ok": ok})
+    if not ok:
+        raise AssertionError("the long-context forward on the card disagrees with the CPU")
+    failed = serve_reference(K, C, forward, params, cpu_params, cfg, ids,
+                             {"steady_chunk": S - S // 8}, {
+        "flash_attention_fwd": ("flash_attention", K.flash_attention_plain, L),
+        "flash_cross_attention_fwd": ("flash_cross_attention", K.flash_cross_attention_plain,
+                                      L * n_cross)}, phase="long_reference")
+    if failed:
+        raise AssertionError(f"long-context cached logits on the card disagree, or the gate "
+                             f"passed the planted fault ({', '.join(failed)})")
+    del cpu_params
+
+    # long_train_reference: one training step at T = 1024, B = 1, against the
+    # CPU's dense step; K5b's dk 20% too large must fail the gate
+    n_bwd = L * (1 + sum(len(cfg.kv_modalities(i)) for i in range(cfg.num_modalities)
+                         if cfg.cross_attention[i]))
+    want_step = dict.fromkeys(K.KERNELS, 0)
+    want_step.update(flash_attention=L, flash_attention_bwd=n_bwd,
+                     flash_cross_attention_res=L * n_cross)
+    ids = torch.from_numpy(np.stack([rng.integers(0, v, (1, S + 1)) for v in cfg.vocab_sizes]))
+    train_reference(K, cfg, ids, {"K5b_dk_x1.2": (K.FlashCausalAttention, 1)}, ("K5b_dk_x1.2",),
+                    want_step, phase="long_train_reference")
+
+    # long_training: run_training at block_size 1024, batch 8 (per step 6 K5f,
+    # 12 K6f-r and 42 K5b: 6 for self-attention, 3 streams x 12 cross calls;
+    # per evaluated batch 6 K5f and 12 K6f), and a profiled step
+    by_path["long_training"], long_steps = training_run(
+        K, card, "long_training",
+        dict(flash_attention=L, flash_attention_bwd=n_bwd, flash_cross_attention_res=L * n_cross),
+        dict(flash_attention=L, flash_cross_attention=L * n_cross),
+        block_size=LONG_BLOCK, batch_size=8, max_iters=40, eval_interval=20, eval_iters=2)
+
+    # long_serving: ms per token at B = 1 and tokens/s at B = 16 from a full
+    # window of 1024: generate_fast (8 tokens) and --serve (one chunk of 128
+    # tokens, bf16 and int8 caches)
+    for batch in (1, 16):
+        window = torch.from_numpy(
+            np.stack([rng.integers(0, v, (batch, S)) for v in cfg.vocab_sizes])).to(dev)
+        rates = {}
+        for label, n_tok, run in (
+                ("generate_fast", 8, lambda g, n_: generate_fast(params, cfg, window, g, n_, 0)),
+                ("serve", 128, lambda g, n_: C.generate_serve(params, cfg, window, g, n_, 0)),
+                ("serve_int8", 128, lambda g, n_: C.generate_serve(params, cfg, window, g, n_, 0,
+                                                                   kv_dtype="int8"))):
+            g = torch.Generator(device=dev).manual_seed(0)
+            run(g, 2)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run(g, n_tok)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            if out.shape != (cfg.num_modalities, batch, S + n_tok):
+                raise AssertionError(f"long-context {label} output shape {tuple(out.shape)}")
+            rates[label] = {"tokens": n_tok, "seconds": sec, "ms_per_token": 1e3 * sec / n_tok,
+                            "tokens_per_s": batch * n_tok / sec}
+        emit({"phase": "long_serving", "card": card, "block_size": S, "batch": batch,
+              "refresh": S // 8, **rates})
+    emit({"phase": "long_training_rate", "card": card, "block_size": S, "batch": 8,
+          "steps_per_s_after_first_chunk": long_steps})
 
 
 def main() -> int:
@@ -728,104 +1354,12 @@ def main() -> int:
     # gates must reject K8p reading one column past pos.
     S, B_ref, L, n_cross = cfg.block_size, 2, cfg.n_layer, sum(cfg.cross_attention)
     ids_ref = torch.from_numpy(np.stack([rng.integers(0, v, (B_ref, S)) for v in cfg.vocab_sizes]))
-    ids_dev = ids_ref.to(dev)
     cases = {"growing": 8, "steady_chunk": S - S // 8}
 
-    def cached_logits(p, c, ids, t_first):
-        with torch.inference_mode():
-            logits, cache = C._prefill(p, c, ids[:, :, :t_first], 0)
-            out = [logits.float().cpu()]
-            for pos in range(t_first, S):
-                logits, cache = C.forward_cached(p, c, ids[:, :, pos:pos + 1], cache, pos, 0)
-                out.append(logits.float().cpu())
-        return torch.stack(out)
-
-    def full_logits(c, t_first):
-        with torch.inference_mode():
-            return torch.stack([forward(params, c, ids_dev[:, :, :n_])[0][0][:, -1].float().cpu()
-                                for n_ in range(t_first, S + 1)])
-
-    def errs_of(got, refs):
-        """Max-abs and L2-relative error of got against each reference."""
-        return {name: {"max_abs": (got - r).abs().max().item(),
-                       "l2_rel": ((got - r).norm() / r.norm()).item()} for name, r in refs.items()}
-
-    @contextlib.contextmanager
-    def patched(**fns):
-        """Swap wrappers of the kernels module for the given functions."""
-        real = {name: getattr(K, name) for name in fns}
-        for name, fn in fns.items():
-            setattr(K, name, fn)
-        try:
-            yield
-        finally:
-            for name, fn in real.items():
-                setattr(K, name, fn)
-
-    real_k8p = K.decode_attention_packed
-
-    def k8p_off_by_one(q, kp, vp, pos):
-        return real_k8p(q, kp, vp, pos + 1)
-
-    k8p_off_by_one.launches = 0  # the wrapper counts on the module name it is patched over
-
-    def checked(name, fn, worst):
-        """``fn`` (a kernel's wrapper, or the planted fault) with each output
-        held against the kernel's plain version on the same inputs; worst[name]
-        keeps the largest L2-relative error |out - plain| / |plain|."""
-        plain_fn = getattr(K, f"{name}_plain")
-
-        def run(*args):
-            out = fn(*args)
-            ref = plain_fn(*args).float()
-            err = ((out.float() - ref).norm() / ref.norm()).item()
-            worst[name] = max(worst.get(name, 0.0), err)
-            return out
-
-        run.launches = 0  # the wrapper counts on the module name it is patched over
-        return run
-
-    path_kernels = ("short_causal_attention", "short_cross_attention", "decode_attention_packed")
-    cpu_cached = {case: cached_logits(cpu_params, f32, ids_ref, t_first)
-                  for case, t_first in cases.items()}
-    failed = []
-    for case, t_first in cases.items():
-        want_ref = dict.fromkeys(K.KERNELS, 0)
-        want_ref.update(short_causal_attention=L, short_cross_attention=n_cross * L,
-                        decode_attention_packed=(S - t_first) * L * (1 + n_cross))
-        for dtype in ("float32", "bfloat16"):
-            c = dataclasses.replace(cfg, compute_dtype=dtype)
-            K.reset_launch_counts()
-            got = cached_logits(params, c, ids_dev, t_first)
-            counts = K.launch_counts()
-            in_path, in_path_bad = {}, {}
-            with patched(decode_attention_packed=checked(
-                    "decode_attention_packed", k8p_off_by_one, in_path_bad)):
-                bad = cached_logits(params, c, ids_dev, t_first)
-            refs = {"vs_card_full": full_logits(c, t_first), "vs_cpu_cached_f32": cpu_cached[case]}
-            sound, planted = errs_of(got, refs), errs_of(bad, refs)
-            ok = (bool(torch.isfinite(got).all()) and counts == want_ref
-                  and all(e["max_abs"] <= SERVE_TOL[dtype] for e in sound.values()))
-            if dtype == "float32":
-                ok = ok and all(e["max_abs"] > SERVE_TOL[dtype] for e in planted.values())
-            else:
-                with patched(**{n: checked(n, getattr(K, n), in_path) for n in path_kernels}):
-                    cached_logits(params, c, ids_dev, t_first)
-                ok = ok and (max(in_path.values()) <= SERVE_BF16_IN_PATH
-                             < in_path_bad["decode_attention_packed"])
-            emit({"phase": "serve_reference", "case": case, "what": f"card cached logits "
-                  f"(prefill of {t_first}, then positions {t_first}..{S - 1}) vs the card's full "
-                  "forward and the CPU's cached f32 forward; bf16: each kernel call against "
-                  "its plain version", "dtype": dtype, "batch": B_ref,
-                  "logits_abs_max": refs["vs_card_full"].abs().max().item(),
-                  "logits_rms": refs["vs_card_full"].pow(2).mean().sqrt().item(),
-                  "err": sound, "tol": SERVE_TOL[dtype], "planted_k8p_pos_plus_1": planted,
-                  "in_path_rel_err": in_path or None,
-                  "in_path_planted_k8p_pos_plus_1": in_path_bad["decode_attention_packed"],
-                  "in_path_tol": SERVE_BF16_IN_PATH if in_path else None,
-                  "launches": counts, "ok": ok})
-            if not ok:
-                failed.append(f"{case} {dtype}")
+    failed = serve_reference(K, C, forward, params, cpu_params, cfg, ids_ref, cases, {
+        "short_causal_attention": ("short_causal_attention", K.short_causal_attention_plain, L),
+        "short_cross_attention": ("short_cross_attention", K.short_cross_attention_plain,
+                                  n_cross * L)})
     if failed:
         raise AssertionError(f"cached logits on the card disagree, or the gate passed the "
                              f"planted fault ({', '.join(failed)})")
@@ -878,168 +1412,36 @@ def main() -> int:
 
     # 8. one production-width training step on the card (kernels forward and
     # backward) against the CPU's dense step, same params and batch
-    from trade_aid_multimodal_transformer_tpu_torch.config.compat import reset_compatibility_layer
-    from trade_aid_multimodal_transformer_tpu_torch.models.init import (
-        map_tree, tree_leaves, tree_paths)
-    from trade_aid_multimodal_transformer_tpu_torch.models.transformer import total_loss
-    from trade_aid_multimodal_transformer_tpu_torch.train import runner
-    from trade_aid_multimodal_transformer_tpu_torch.train.checkpoint import (
-        load_checkpoint, load_optimizer_state)
-    from trade_aid_multimodal_transformer_tpu_torch.train.steps import StepRng
-
     B_train = data["sc"]["batch_size"]
     ids = torch.from_numpy(np.stack(
         [rng.integers(0, v, (B_train, cfg.block_size + 1)) for v in cfg.vocab_sizes]))
-    xb, yb = ids[..., :-1], ids[..., 1:]
-    step_cfg = dataclasses.replace(cfg, dropout=0.0, compute_dtype="float32")
-    cpu_p = map_tree(lambda t: t.requires_grad_(),
-                     init_params(cfg, torch.Generator().manual_seed(1234), "cpu"))
-    loss_ref, _ = total_loss(cpu_p, step_cfg, xb, yb, None, True)
-    g_ref = torch.autograd.grad(loss_ref, tree_leaves(cpu_p))
-    dev_p = map_tree(lambda t: t.detach().to(dev).requires_grad_(), cpu_p)
-    names = ["/".join(map(str, path)) for path, _ in tree_paths(cpu_p)]
-    ref_norms = [r.norm().item() for r in g_ref]
-    floor = 1e-6 * math.sqrt(sum(n * n for n in ref_norms))
-
-    def leaf_errs(grads):
-        """Per leaf |g - ref| / max(|ref|, 1e-6 |all of ref|), L2 norms."""
-        return [(a.float().cpu() - r).norm().item() / max(n, floor)
-                for a, r, n in zip(grads, g_ref, ref_norms)]
-
-    def step_grads(c, fault=None):
-        """Loss and gradients of one step on the card; ``fault`` = (autograd
-        Function, gradient index) scales that gradient of its backward by 1.2."""
-        real = fault[0].backward if fault else None
-        if fault:
-            def wrong(ctx, dout):
-                grads = list(real(ctx, dout))
-                grads[fault[1]] = grads[fault[1]] * 1.2
-                return tuple(grads)
-            fault[0].backward = staticmethod(wrong)
-        try:
-            loss = total_loss(dev_p, c, xb.to(dev), yb.to(dev), None, True)[0]
-            return loss, torch.autograd.grad(loss, tree_leaves(dev_p))
-        finally:
-            if fault:
-                fault[0].backward = staticmethod(real)
-
     # planted faults: K1b's db1 20% too large must fail the gate. K2b's dk
     # 20% too large is printed, not held: dk reaches the parameters only
     # through the cross key/value projection, whose gradient it shares with
     # dv, and at these random weights it moves that leaf too little for a
     # whole-step gate (the kernel_check phase holds dk itself).
-    faults = {"K1b_db1_x1.2": (K.FusedQKVAttention, 2), "K2b_dk_x1.2": (K.ShortCrossAttention, 1)}
-    must_fail = ("K1b_db1_x1.2",)
     want_step = dict.fromkeys(K.KERNELS, 0)
     want_step.update(fused_qkv_attention=cfg.n_layer, fused_qkv_attention_bwd=cfg.n_layer,
                      short_cross_attention=2 * cfg.n_layer,
                      short_cross_attention_bwd=2 * cfg.n_layer)
-    failed = []
-    for dtype in ("float32", "bfloat16"):
-        c = dataclasses.replace(step_cfg, compute_dtype=dtype)
-        # the card's dense cores (no kernel), for scale: how far the card is
-        # from the CPU at this dtype without the kernels
-        dense_err = max(leaf_errs(step_grads(dataclasses.replace(c, attn_impl="jnp"))[1]))
-        K.reset_launch_counts()
-        loss, g = step_grads(c)
-        torch.cuda.synchronize()
-        counts = K.launch_counts()
-        loss_err = abs(loss.item() - loss_ref.item())
-        errs_leaf = leaf_errs(g)
-        grad_err = max(errs_leaf)
-        worst = sorted(zip(errs_leaf, names), reverse=True)[:3]
-        # the smallest error that any one leaf 20% too large reads (leaves
-        # above the floor: below it no relative error is held)
-        one_leaf = min((1.2 * a.float().cpu() - r).norm().item() / n
-                       for a, r, n in zip(g, g_ref, ref_norms) if n >= floor)
-        planted = {f: max(leaf_errs(step_grads(c, faults[f])[1])) for f in faults}
-        tol = STEP_TOL[dtype]
-        ok = (loss_err <= tol["loss"] and grad_err <= tol["grad_l2"] and counts == want_step
-              and math.isfinite(loss.item()) and one_leaf > tol["grad_l2"]
-              and all(planted[f] > tol["grad_l2"] for f in must_fail))
-        emit({"phase": "train_reference", "what": "card training step vs CPU dense step, "
-              "loss and every gradient leaf (dropout 0, TF32 off)", "dtype": dtype,
-              "batch": B_train, "loss_card": loss.item(), "loss_cpu": loss_ref.item(),
-              "loss_abs_err": loss_err, "grad_l2_rel_err_max": grad_err, "worst_leaves": worst,
-              "leaves": len(g), "card_dense_grad_l2_rel_err_max": dense_err,
-              "one_leaf_x1.2_min": one_leaf, "planted": planted, "planted_must_fail": must_fail,
-              "tol": tol, "launches": counts, "ok": ok})
-        if not ok:
-            failed.append(dtype)
-    if failed:
-        raise AssertionError(f"training step on the card disagrees with the CPU, or the gate "
-                             f"passed a planted fault ({', '.join(failed)})")
-    del cpu_p, dev_p, g_ref, g
+    train_reference(K, cfg, ids, {"K1b_db1_x1.2": (K.FusedQKVAttention, 2),
+                                  "K2b_dk_x1.2": (K.ShortCrossAttention, 1)},
+                    ("K1b_db1_x1.2",), want_step)
 
     # 9. the port's training entry on a copy of the production config: only
-    # max_iters / eval_interval / eval_iters changed (a step-count cut)
-    iters, interval, e_iters = 60, 20, 4
-    with tempfile.TemporaryDirectory() as tmp:
-        d = Path(tmp)
-        production_config_dir(d, max_iters=iters, eval_interval=interval, eval_iters=e_iters)
-        cwd, buf = os.getcwd(), io.StringIO()
-        os.chdir(d)  # config detection is CWD-relative
-        try:
-            reset_compatibility_layer()
-            K.reset_launch_counts()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(buf):
-                res = runner.run_training(caller_globals={}, seed=7)
-            train_s = time.perf_counter() - t0
-            train_launches = K.launch_counts()
-        finally:
-            os.chdir(cwd)
-            reset_compatibility_layer()
-        ckpt = d / "output" / "model.ckpt"
-        back, back_step = load_checkpoint(str(ckpt), res["cfg"], dev)
-        opt_back = load_optimizer_state(str(ckpt), back, res["trainer"].optimizer)
-    console = buf.getvalue()
-    evals = [(int(m[0]), float(m[1]), float(m[2])) for m in re.findall(
-        r"LOSS METRICS: Step (\d+)/\d+ \| Train: ([-\d.naif]+) \| Val: ([-\d.naif]+)", console)]
-    n_evals = expected_evals(iters, interval)
-    fwd_batches = iters + n_evals * 2 * e_iters
-    want_train = dict.fromkeys(K.KERNELS, 0)
-    want_train.update(fused_qkv_attention=cfg.n_layer * fwd_batches,
-                      fused_qkv_attention_bwd=cfg.n_layer * iters,
-                      short_cross_attention=2 * cfg.n_layer * fwd_batches,
-                      short_cross_attention_bwd=2 * cfg.n_layer * iters)
-    timer = res["step_timer"]
-    later = timer.chunks[1:]
-    steps_per_s = sum(n for n, _ in later) / sum(t for _, t in later)
-    finite = all(math.isfinite(v) for e in evals for v in e[1:])
-    reloaded = (back_step == iters and opt_back is not None and opt_back["count"] == iters
-                and all(torch.equal(a.detach().float(), b) for a, b in
-                        zip(tree_leaves(res["params"]), tree_leaves(back))))
-    ok = (train_launches == want_train and len(evals) == n_evals and finite
-          and evals[-1][1] < evals[0][1] and reloaded and "TRAINING COMPLETED SUCCESSFULLY" in console)
-    emit({"phase": "training", "config": "examples/production_config.yaml", "card": card,
-          "max_iters": iters, "eval_interval": interval, "eval_iters": e_iters,
-          "batch": B_train, "dropout": res["cfg"].dropout, "compute_dtype": res["cfg"].compute_dtype,
-          "seconds": train_s, "evals": evals, "launches": train_launches,
-          "expected_launches": want_train, "steps_per_s_after_first_chunk": steps_per_s,
-          "chunks": timer.chunks, "checkpoint_reloaded": reloaded, "ok": ok})
-    if not ok:
-        raise AssertionError("the training run failed its checks")
+    # max_iters / eval_interval / eval_iters changed (a step-count cut); 10.
+    # where a training step's time goes
+    L, n_cross = cfg.n_layer, sum(cfg.cross_attention)
+    train_launches, _ = training_run(
+        K, card, "training",
+        dict(fused_qkv_attention=L, fused_qkv_attention_bwd=L, short_cross_attention=n_cross * L,
+             short_cross_attention_bwd=n_cross * L),
+        dict(fused_qkv_attention=L, short_cross_attention=n_cross * L),
+        max_iters=60, eval_interval=20, eval_iters=4)
 
-    # 10. where a training step's time goes (torch.profiler, device events)
-    params, opt_state, trainer = res["params"], res["opt_state"], res["trainer"]
-    step_rng = StepRng(11, dev)
-    trainer.train_chunk(params, opt_state, step_rng, 1)
-    torch.cuda.synchronize()
-    n_prof = 2
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        trainer.train_chunk(params, opt_state, step_rng, n_prof)
-        torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    dev_s = sum(e.self_device_time_total for e in kern) / 1e6 / n_prof
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
-    emit({"phase": "profile", "path": "training", "card": card, "batch": B_train,
-          "steps": n_prof, "step_ms_unprofiled": 1e3 / steps_per_s,
-          "device_ms_per_step": 1e3 * dev_s if kern else None,
-          "device_busy_share": dev_s * steps_per_s if kern else None,
-          "kernels_per_step": sum(e.count for e in kern) / n_prof,
-          "top": [[e.key[:72], e.self_device_time_total / 1e3 / n_prof, e.count / n_prof]
-                  for e in top]})
+    # 11. long context: the production config at block_size 1024
+    by_path = {"serving": launches, "training": train_launches, **serve_counts}
+    long_context(K, card, gen, timing, errs, by_path)
 
     emit(card)
     prod = {"fused_qkv_attention": ("fused_qkv_attention", prod_k1, "bfloat16"),
@@ -1051,8 +1453,12 @@ def main() -> int:
             "decode_attention_packed": ("decode_attention_packed", (24 * 32, 64, 64, 2, 63),
                                         "bfloat16"),
             "decode_attention_packed_q8": ("decode_attention_packed_q8", (24 * 32, 64, 64, 2, 63),
-                                           "bfloat16")}
-    by_path = {"serving": launches, "training": train_launches, **serve_counts}
+                                           "bfloat16"),
+            "flash_attention": ("flash_attention", FLASH_PROD, "bfloat16"),
+            "flash_attention_bwd": ("flash_attention_bwd", FLASH_PROD, "bfloat16", 0.2),
+            "flash_cross_attention": ("flash_cross_attention", FLASH_CROSS_PROD, "bfloat16"),
+            "flash_cross_attention_res": ("flash_cross_attention_res", FLASH_CROSS_PROD,
+                                          "bfloat16")}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],
          "launches": by_path[MAIN_PATH[name]][name], "main_path": MAIN_PATH[name],

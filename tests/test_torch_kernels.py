@@ -13,6 +13,8 @@ and the dropout forwards (other summation orders over up to 2048 rows for
 the weight gradients). The serving kernels (K3f, the cache prefill, and the
 decode kernels K8, K8p, K8q) are held the same way; the decode kernels'
 plain versions keep each Pallas kernel's own rounding points, which differ.
+The flash kernels (K5f, K5b, K6f, K6f-r) are held the same way on the card;
+their plain versions against the Pallas kernels in tests/test_torch_flash.py.
 """
 
 import numpy as np
@@ -225,8 +227,11 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
     K.short_cross_attention(q.requires_grad_(), k, v).sum().backward()
     K.short_causal_attention(q, q, q)
     K.decode_attention_packed(q[:, :1], k[0, :, :4].reshape(1, 2, 8), v[0, :, :4].reshape(1, 2, 8), 3)
+    fq, fk, fv = (torch.from_numpy(a) for a in _cross_inputs(2, 1, 256, 8, seed=2))
+    K.flash_causal_attention(fq.requires_grad_(), fk[0], fv[0]).sum().backward()
+    K.flash_cross_attention(fq, fk, fv).sum().backward()
     assert K.launch_counts() == dict.fromkeys(K.KERNELS, 0)
-    assert len(K.KERNELS) == 8
+    assert len(K.KERNELS) == 12
     with pytest.raises(ValueError, match="unsupported device"):
         K.short_cross_attention(q.to("meta"), k.to("meta"), v.to("meta"))
     x, w1, b1, w2 = (torch.from_numpy(a).to("meta") for a in _fqkv_inputs(1, 1, 8, 8, 1, 4, 0))
@@ -541,3 +546,63 @@ def test_decode_kernels_match_plain_on_card(cuda_device, which, pack, S, dtype):
             K.decode_attention_packed_q8_plain(q, k8, v8, ks, vs, pos)]
     for name, out, ref in zip(("K8", "K8p", "K8q"), outs, refs):
         torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=0, msg=name)
+
+
+FLASH_SHAPES = [(192, 1024, 64), (24, 896, 64), (3, 256, 16), (2, 640, 128), (2, 768, 24),
+                (2, 1024, 256), (1, 2048, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_fwd_bwd_kernels_match_plain_on_card(cuda_device, shape, dtype, rate):
+    """K5f (out and lse) and K5b against their plain versions on the same
+    inputs; K5b twice gives the same bits (no atomics)."""
+    n, T, hs = shape
+    gen = torch.Generator().manual_seed(n + T + hs)
+    q, k, v, dout = (torch.randn(shape, generator=gen).to(cuda_device, getattr(torch, dtype))
+                     for _ in range(4))
+    salts = SALTS if rate else None
+    before = K.launch_counts()
+    out, lse = K.flash_attention_fwd(q, k, v, rate, salts)
+    grads = K.flash_attention_bwd(q, k, v, out, lse, dout, rate, salts)
+    again = K.flash_attention_bwd(q, k, v, out, lse, dout, rate, salts)
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    assert after["flash_attention"] == before["flash_attention"] + 1
+    assert after["flash_attention_bwd"] == before["flash_attention_bwd"] + 2
+    ref_out, ref_lse = K.flash_attention_plain(q, k, v, rate, salts)
+    _card_close("K5f", out, ref_out, dtype)
+    _card_close("K5f lse", lse, ref_lse, "float32")
+    ref = K.flash_attention_bwd_plain(q, k, v, out, lse, dout, rate, salts)
+    for name, g, r, g2 in zip(("dq", "dk", "dv"), grads, ref, again):
+        assert g.dtype == r.dtype and torch.equal(g, g2)
+        _card_close(f"K5b {name}", g, r, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(3, 48, 1024, 64), (3, 96, 896, 64), (2, 3, 256, 16),
+                                   (3, 4, 768, 24), (2, 2, 1024, 256)])
+def test_flash_cross_kernels_match_plain_on_card(cuda_device, shape, dtype, rate):
+    """K6f and K6f-r against the plain version (sum, each stream's output
+    and logsumexp); both kernels give the same sum."""
+    J, n, T, hs = shape
+    gen = torch.Generator().manual_seed(J + n + T + hs)
+    q = torch.randn((n, T, hs), generator=gen).to(cuda_device, getattr(torch, dtype))
+    k, v = (torch.randn(shape, generator=gen).to(q) for _ in range(2))
+    salts = SALTS if rate else None
+    before = K.launch_counts()
+    out = K.flash_cross_attention_fwd(q, k, v, rate, salts)
+    s, outs, lses = K.flash_cross_attention_res(q, k, v, rate, salts)
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    assert after["flash_cross_attention"] == before["flash_cross_attention"] + 1
+    assert after["flash_cross_attention_res"] == before["flash_cross_attention_res"] + 1
+    ref, ref_outs, ref_lses = K.flash_cross_attention_plain(q, k, v, rate, salts, residuals=True)
+    assert torch.equal(out, s)
+    _card_close("K6f", out, ref, dtype)
+    _card_close("K6f-r outs", outs, ref_outs, dtype)
+    _card_close("K6f-r lses", lses, ref_lses, "float32")

@@ -147,9 +147,10 @@ def test_dropout_forward_and_backward_equal_jax(dtype):
 
 
 def test_dense_cross_dropout_uses_the_jax_site_layout():
-    """The port's head-major dense cross core draws its mask over JAX's
-    (J, B, H, T, T) affinity and permutes it: equal to the JAX dense core on
-    (B, H, T, hs) inputs."""
+    """The port's dense cross core takes q and k/v in the JAX site's
+    (B, H, T, hs) order (the model projects so outside the whole-row kernel
+    band) and draws its mask over JAX's (J, B, H, T, T) affinity: equal to the
+    JAX dense core on the same inputs."""
     from trade_aid_multimodal_transformer_tpu.ops.attention import cross_causal_attention as jcross
     from trade_aid_multimodal_transformer_tpu_torch.ops.attention import cross_causal_attention
 
@@ -159,10 +160,9 @@ def test_dense_cross_dropout_uses_the_jax_site_layout():
     k, v = (rng.standard_normal((J, B, H, T, hs)).astype(np.float32) for _ in range(2))
     ref = jcross(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 0.3,
                  jnp.asarray(SALTS[0], jnp.uint32), True, "jnp")
-    got = cross_causal_attention(
-        torch.from_numpy(q).transpose(0, 1), torch.from_numpy(k).transpose(1, 2),
-        torch.from_numpy(v).transpose(1, 2), "auto", 0.3, SALTS[0], True)
-    np.testing.assert_allclose(got.transpose(0, 1).numpy(), np.asarray(ref), atol=1e-6, rtol=0)
+    got = cross_causal_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                                 "auto", 0.3, SALTS[0], True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-6, rtol=0)
 
 
 # ------------------------------------------------------------------ model

@@ -33,8 +33,9 @@ list it was given.
 
 Prefill (``prefill=True``, start 0, an empty cache) runs self-attention
 through ``ops.attention.causal_attention`` and cross-attention through
-``cross_causal_attention`` over the new tokens (the K3f and K2f kernels in
-the band on the card). A single-position decode step on the card runs one
+``cross_causal_attention`` over the new tokens (on the card the K3f and K2f
+kernels in the whole-row band, K5f and K6f in the flash band: a --serve chunk
+at block_size 1024 prefills 896 tokens). A single-position decode step on the card runs one
 of the three decode kernels per attention (ops/kernels.py: the packed, the
 packed int8 or the plain layout), which read the position from a
 one-element int32 tensor on the device; everywhere else the dense masked

@@ -16,10 +16,14 @@ Architecture as there (reference model, SURVEY Quirk Q6):
 
 Self-attention, feed-forward and LayerNorm are stacked over a leading
 modality axis M; embeddings, vocab heads and cross-attention unroll per
-modality. On a CUDA device in the kernel band, self-attention is one call of
-the fused projection + attention kernel and the cross core one call of the
-cross kernel (ops/kernels.py; their backward kernels run in training);
-elsewhere the dense cores run.
+modality. On a CUDA device in the whole-row band (T <= 512), self-attention
+is one call of the fused projection + attention kernel and the cross core one
+call of the whole-row cross kernel; in the flash band (T >= 256, T % 128 == 0,
+so above 512) both cores are the flash kernels (ops/kernels.py; their
+backward kernels run in training); elsewhere the dense cores run. Outside the
+whole-row band cross-attention projects in the JAX package's (B, H, T, hs)
+order, so that the flash kernels' and the dense core's dropout rows are
+JAX's.
 
 Training (``train=True`` with a raw uint32[2] ``rng``) applies hash dropout
 at the JAX package's sites in its order: ``KeyGen(rng)`` gives one key per
@@ -39,8 +43,9 @@ import torch.nn.functional as F
 
 from ..ops import kernels
 from ..ops.attention import (
-    causal_attention_dense,
+    causal_attention,
     cross_causal_attention,
+    cross_short_kernel_active,
     fused_qkv_attention_active,
 )
 from ..ops.layers import KeyGen, dropout, layernorm
@@ -136,7 +141,7 @@ def self_attention(
         )
         return dropout(out, cfg.dropout, keys(), train)
     q, k, v = _qkv_project_fused(x_norm, sa, H, hs // 2)
-    att = causal_attention_dense(q, k, v, cfg.dropout, keys(), train)  # (M, B, H, T, hs)
+    att = causal_attention(q, k, v, cfg.attn_impl, cfg.dropout, keys(), train)  # (M, B, H, T, hs)
     out = _proj_mlp_heads(
         att, sa["proj_w1"], sa["proj_b1"], sa["proj_w2"], sa["proj_b2"], H, hs
     )
@@ -151,19 +156,22 @@ def cross_attention(
 
     query_x: (B, T, C), the LN_cross output of the querying modality;
     kv_x: (J, B, T, C), the post-SA/FF activations of the other modalities.
-    q and k/v are emitted head-major, (H, B, T, hs) and (J, H, B, T, hs): the
-    layout the cross kernel takes and the output projection contracts."""
+    Where the whole-row cross kernel runs, q and k/v are emitted head-major,
+    (H, B, T, hs) and (J, H, B, T, hs), as the JAX package emits them for its
+    kernel; elsewhere in its (B, H, T, hs) order. The collapsed rows key the
+    attention dropout as the JAX package's do."""
+    T = query_x.shape[1]
     H, hs = cfg.n_head, cfg.head_size
     hs_q = cp["q_w"].shape[-1]
-    q = _mm("btc,hce->hbte", query_x, cp["q_w"])
-    k = _mm("jbtc,jhcf->jhbtf", kv_x, cp["kv_w"][..., :hs_q])
-    v = _mm("jbtc,jhcf->jhbtf", kv_x, cp["kv_w"][..., hs_q:])
-    att = cross_causal_attention(
-        q, k, v, cfg.attn_impl, cfg.dropout, keys(), train
-    )  # (H, B, T, hs)
+    head_major = cross_short_kernel_active(T, hs_q, cfg.attn_impl, query_x.device)
+    lead = "hb" if head_major else "bh"
+    q = _mm(f"btc,hce->{lead}te", query_x, cp["q_w"])
+    k = _mm(f"jbtc,jhcf->j{lead}tf", kv_x, cp["kv_w"][..., :hs_q])
+    v = _mm(f"jbtc,jhcf->j{lead}tf", kv_x, cp["kv_w"][..., hs_q:])
+    att = cross_causal_attention(q, k, v, cfg.attn_impl, cfg.dropout, keys(), train)
     out = _proj_mlp_heads(
         att, cp["proj_w1"], cp["proj_b1"], cp["proj_w2"], cp["proj_b2"],
-        H, hs, head_major=True,
+        H, hs, head_major=head_major,
     )
     return dropout(out, cfg.dropout, keys(), train)
 

@@ -1,9 +1,9 @@
 """Hand-written CUDA kernels of the serving and training paths, their
 wrappers and their plain PyTorch versions.
 
-Eight kernels replace the Pallas kernel bodies that the JAX package's
-training step and its two serving paths run at production width
-(ops/pallas_attention.py there):
+Twelve kernels replace the Pallas kernel bodies that the JAX package's
+training step and its two serving paths run at production width, at the
+short block sizes and at long context (ops/pallas_attention.py there):
 
 - K1f ``fused_qkv_attention_fwd``: the factored tanh q/k/v projection and
   whole-row causal self-attention in one kernel
@@ -21,15 +21,29 @@ training step and its two serving paths run at production width
 - K8, K8p, K8q ``decode_attention``, ``decode_attention_packed``,
   ``decode_attention_packed_q8``: one query position against a KV cache row
   in the plain, packed and packed int8 layouts (``csrc/decode_attention.cu``,
-  replacing ``_decode_kernel``, ``_decode_p_kernel`` and ``_decode_p8_kernel``).
+  replacing ``_decode_kernel``, ``_decode_p_kernel`` and ``_decode_p8_kernel``);
+- K5f ``flash_attention_fwd``: blockwise (flash) causal attention with its
+  logsumexp for long T (``csrc/flash_attention.cu`` with
+  ``csrc/flash_fwd.cuh``, replacing ``_flash_forward`` and
+  ``_flash_forward_streamed``);
+- K5b ``flash_attention_bwd``: its dq, dk, dv (same source, replacing
+  ``_flash_backward_fused``, ``_flash_backward`` and
+  ``_flash_backward_streamed``);
+- K6f, K6f-r ``flash_cross_attention_fwd``, ``flash_cross_attention_res``:
+  the flash forward of one query stream against J key/value streams, summed,
+  and the same with each stream's output and logsumexp for the backward
+  (``csrc/flash_cross_attention.cu``, replacing ``_flash_cross_forward`` and
+  ``_flash_cross_forward_res``).
 
-K1f, K1b, K2f, K2b and K3f take attention dropout in the kernel, keyed as
-the JAX kernels key it in interpret mode (``hash_keep_mask``), so the masks
-are bit-identical. ``fused_qkv_attention`` and ``short_cross_attention`` are
-the differentiable entries (``torch.autograd.Function``: forward kernel,
-backward kernel; the backward regenerates the mask from the salts). K3f and
-the decode kernels are forward only (the model reaches them only in
-serving), and their CUDA paths raise under autograd.
+K1f, K1b, K2f, K2b, K3f, K5f, K5b, K6f and K6f-r take attention dropout in
+the kernel, keyed as the JAX kernels key it in interpret mode
+(``hash_keep_mask``), so the masks are bit-identical. ``fused_qkv_attention``,
+``short_cross_attention``, ``flash_causal_attention`` and
+``flash_cross_attention`` are the differentiable entries
+(``torch.autograd.Function``: forward kernel, backward kernel; the backward
+regenerates the mask from the salts). K3f and the decode kernels are forward
+only (the model reaches them only in serving), and their CUDA paths raise
+under autograd.
 
 Each wrapper takes its plain version for a tensor on the CPU, and only
 there. For a CUDA tensor it launches the kernel or raises: there is no
@@ -39,7 +53,8 @@ library with a plain C interface per source, bound with ``ctypes``.
 
 Every call of a wrapper that launches its kernel adds one to the wrapper's
 ``launches`` attribute, and nothing else does, so a caller can show that a
-run went through the kernels (K1b's one call runs ten CUDA launches).
+run went through the kernels (K1b's one call runs ten CUDA launches, K5b's
+two).
 """
 
 from __future__ import annotations
@@ -59,6 +74,9 @@ from .layers import _U32, _mul32
 
 SHORT_MIN_SEQ_LEN = 8
 SHORT_MAX_SEQ_LEN = 512
+FLASH_MIN_SEQ_LEN = 256
+FLASH_BLOCK_STEP = 128
+FLASH_BLOCK = 512
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
@@ -89,6 +107,14 @@ _SIGNATURES = {
         "tat_decode_attention": [_P] * 5 + [_I] * 4 + [_F, _P],
         "tat_decode_attention_packed": [_P] * 5 + [_I] * 5 + [_F, _P],
         "tat_decode_attention_packed_q8": [_P] * 7 + [_I] * 5 + [_F, _P],
+    },
+    "flash_attention": {
+        "tat_flash_attention_fwd": [_P] * 5 + [_I] * 4 + [_F, _U, _U, _I, _F, _I, _P],
+        "tat_flash_attention_bwd": [_P] * 9 + [_I] * 4 + [_F, _U, _U, _I, _F, _I, _P],
+    },
+    "flash_cross_attention": {
+        "tat_flash_cross_attention_fwd": [_P] * 4 + [_I] * 5 + [_F, _U, _U, _I, _F, _I, _P],
+        "tat_flash_cross_attention_fwd_res": [_P] * 6 + [_I] * 5 + [_F, _U, _U, _I, _F, _I, _P],
     },
 }
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -226,6 +252,28 @@ def _check_band(what: str, t: int, hs: int) -> None:
         )
 
 
+def flash_pick_block(t: int, target: int = FLASH_BLOCK) -> int:
+    """The JAX flash kernels' block (``_pick_block``): the largest multiple of
+    128 <= target dividing t. Their dropout masks are keyed on this grid."""
+    b = min(target, t)
+    while t % b:
+        b -= FLASH_BLOCK_STEP
+    return b
+
+
+def flash_eligible(t: int, hs: int) -> bool:
+    """The shapes the flash kernels (K5, K6) take, as the JAX package's
+    ``flash_attention_eligible`` / ``flash_cross_eligible``: T >= 256,
+    T % 128 == 0, 0 < hs <= 256."""
+    return t >= FLASH_MIN_SEQ_LEN and t % FLASH_BLOCK_STEP == 0 and 0 < hs <= 256
+
+
+def _check_flash(what: str, t: int, hs: int) -> None:
+    if not flash_eligible(t, hs):
+        raise ValueError(f"{what}: T={t}, hs={hs} outside the flash kernels' shapes "
+                         "T >= 256, T % 128 == 0, hs <= 256")
+
+
 # ------------------------------------------------------------------ dropout
 #
 # The JAX kernels draw attention dropout in interpret mode from an integer
@@ -306,6 +354,11 @@ def _dropout_args(what: str, rate: float, salts):
     if salts is None:
         raise ValueError(f"{what}: dropout_rate > 0 requires dropout_salts")
     return seed_from_salts(salts) & _U32, keep_threshold(rate), 1, 1.0 - rate, 1.0 / (1.0 - rate)
+
+
+def _salts(dropout_salts):
+    """The salts as a tuple of ints (what the autograd Functions keep)."""
+    return None if dropout_salts is None else tuple(int(s) for s in dropout_salts)
 
 
 # ------------------------------------------------------------------ plain
@@ -477,6 +530,131 @@ def short_causal_attention_plain(q, k, v, dropout_rate: float = 0.0, dropout_sal
     """Plain PyTorch version of the self-attention kernel (same arguments)."""
     rate = float(dropout_rate)
     return _whole_row_attention(q, k, v, causal_mask(q, rate, dropout_salts), rate).to(q.dtype)
+
+
+# Flash: q, k, v (n, T, hs), the leading axes collapsed into rows n. The plain
+# versions walk the JAX kernels' block grid (bq = bk = flash_pick_block(T)):
+# an online max and sum per key block, the keep-mask on the unnormalised p
+# while l sums unmasked, p rounded to v's type before P.V, out = acc / (l * (1 -
+# rate)) and lse = m + log l; the backward recomputes p = exp(s - lse) per
+# block pair with delta = rowsum(dO * out), masks and divides dp and p by
+# 1 - rate, rounds ds (and the dropped p) to the input type before the
+# products, accumulates dq in f32 and rounds it last. Element (r, c) of block
+# (iq, jk) of row n is kept by the hash of (seed, n, iq, jk, r, c).
+
+
+def _flash_seed(rate: float, salts, stream) -> int:
+    """The u32 seed of a flash launch: 0 without dropout, else the salts'
+    seed, offset for cross stream ``stream`` when it is given."""
+    if rate == 0.0:
+        return 0
+    seed = seed_from_salts(salts)
+    return (seed if stream is None else stream_seed(seed, stream)) & _U32
+
+
+def _flash_keep(seed: int, n: int, iq: int, jk: int, blk: int, rate: float, device):
+    """(n, blk, blk) keep-mask of block (iq, jk) of every collapsed row."""
+    rows = torch.arange(n, device=device).reshape(n, 1, 1)
+    return hash_keep_mask(seed, rows, iq, jk, (n, blk, blk), rate, device)
+
+
+def _flash_fwd_plain(q, k, v, seed: int, rate: float):
+    """``_flash_fwd_kernel``'s arithmetic: (out in q's type, lse (n, 1, T))."""
+    acc = _acc(q.dtype)
+    n, t, hs = q.shape
+    blk = flash_pick_block(t)
+    scale = hs ** -0.5
+    pos = torch.arange(blk, device=q.device)
+    outs, lses = [], []
+    for iq in range(t // blk):
+        qb = q[:, iq * blk:(iq + 1) * blk].to(acc)
+        m = torch.full((n, blk, 1), float("-inf"), dtype=acc, device=q.device)
+        l = torch.zeros((n, blk, 1), dtype=acc, device=q.device)
+        o = torch.zeros((n, blk, hs), dtype=acc, device=q.device)
+        for jk in range(iq + 1):
+            kb, vb = k[:, jk * blk:(jk + 1) * blk], v[:, jk * blk:(jk + 1) * blk]
+            s = torch.matmul(qb, kb.to(acc).transpose(-1, -2)) * scale
+            s = s.masked_fill(jk * blk + pos[None, :] > iq * blk + pos[:, None], float("-inf"))
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1, keepdim=True)
+            if rate > 0.0:
+                keep = _flash_keep(seed, n, iq, jk, blk, rate, q.device)
+                p = torch.where(keep, p, torch.zeros((), dtype=acc, device=q.device))
+            o = o * corr + torch.matmul(p.to(v.dtype).to(acc), vb.to(acc))
+            m = m_new
+        outs.append((o / (l * (1.0 - rate))).to(q.dtype))
+        lses.append((m + torch.log(l))[..., 0].to(torch.float32))
+    return torch.cat(outs, dim=1), torch.cat(lses, dim=-1)[:, None, :]
+
+
+def flash_attention_plain(q, k, v, dropout_rate: float = 0.0, dropout_salts=None):
+    """Plain PyTorch version of the flash forward kernel (K5f): q, k, v
+    (n, T, hs) -> (out (n, T, hs) in q's type, lse (n, 1, T) f32)."""
+    rate = float(dropout_rate)
+    return _flash_fwd_plain(q, k, v, _flash_seed(rate, dropout_salts, None), rate)
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, dropout_rate: float = 0.0,
+                              dropout_salts=None, stream=None):
+    """Plain PyTorch version of the flash backward kernel (K5b, the math of
+    ``_flash_bwd_fused_kernel``): dq, dk, dv in the inputs' type. ``stream``
+    offsets the dropout seed as cross stream ``stream`` (the cross backward)."""
+    rate = float(dropout_rate)
+    seed = _flash_seed(rate, dropout_salts, stream)
+    acc = _acc(q.dtype)
+    zero = torch.zeros((), dtype=acc, device=q.device)
+    n, t, hs = q.shape
+    blk = flash_pick_block(t)
+    nb = t // blk
+    scale = hs ** -0.5
+    pos = torch.arange(blk, device=q.device)
+    delta = (dout.to(acc) * out.to(acc)).sum(dim=-1, keepdim=True)  # (n, T, 1)
+    lse_c = lse.reshape(n, t, 1).to(acc)
+    dq = torch.zeros((n, t, hs), dtype=acc, device=q.device)
+    dks, dvs = [], []
+    for jk in range(nb):
+        kb = k[:, jk * blk:(jk + 1) * blk].to(acc)
+        vb = v[:, jk * blk:(jk + 1) * blk].to(acc)
+        dk = torch.zeros((n, blk, hs), dtype=acc, device=q.device)
+        dv = torch.zeros((n, blk, hs), dtype=acc, device=q.device)
+        for iq in range(jk, nb):
+            sl = slice(iq * blk, (iq + 1) * blk)
+            qb, gb = q[:, sl].to(acc), dout[:, sl].to(acc)
+            s = torch.matmul(qb, kb.transpose(-1, -2)) * scale
+            visible = jk * blk + pos[None, :] <= iq * blk + pos[:, None]
+            p = torch.where(visible, torch.exp(s - lse_c[:, sl]), zero)
+            dp = torch.matmul(gb, vb.transpose(-1, -2))
+            pd = p
+            if rate > 0.0:
+                keep = _flash_keep(seed, n, iq, jk, blk, rate, q.device)
+                pd = torch.where(keep, p / (1.0 - rate), zero)
+                dp = torch.where(keep, dp / (1.0 - rate), zero)
+            dv = dv + torch.matmul(pd.to(dout.dtype).to(acc).transpose(-1, -2), gb)
+            ds = (p * (dp - delta[:, sl])).to(q.dtype).to(acc)
+            dk = dk + torch.matmul(ds.transpose(-1, -2), qb) * scale
+            dq[:, sl] += torch.matmul(ds, kb) * scale
+        dks.append(dk.to(k.dtype))
+        dvs.append(dv.to(v.dtype))
+    return dq.to(q.dtype), torch.cat(dks, dim=1), torch.cat(dvs, dim=1)
+
+
+def flash_cross_attention_plain(q, k, v, dropout_rate: float = 0.0, dropout_salts=None,
+                                residuals: bool = False):
+    """Plain PyTorch version of the flash cross forward kernels (K6f, and with
+    ``residuals`` K6f-r): q (n, T, hs), k, v (J, n, T, hs). Stream j runs the
+    flash forward with its stream seed, its output is rounded to q's type and
+    the streams are summed in q's type in stream order. Returns the sum, or
+    (sum, outs (J, n, T, hs), lses (J, n, 1, T))."""
+    rate = float(dropout_rate)
+    total, outs, lses = None, [], []
+    for j in range(k.shape[0]):
+        o, lse = _flash_fwd_plain(q, k[j], v[j], _flash_seed(rate, dropout_salts, j), rate)
+        total = o if total is None else total + o
+        outs.append(o)
+        lses.append(lse)
+    return (total, torch.stack(outs), torch.stack(lses)) if residuals else total
 
 
 # Decode: one query position (..., 1, hs) against a cache (..., S, hs) whose
@@ -662,8 +840,8 @@ def fused_qkv_attention(x, w1, b1, w2, n_head: int, dropout_rate: float = 0.0,
     concatenated; weights f32. dropout_salts: the site's raw uint32[2] salts
     (needed when dropout_rate > 0). Returns (M, H, B, T, hs) in x's type,
     head-major like the JAX entry ``fused_qkv_attention``."""
-    salts = None if dropout_salts is None else tuple(int(s) for s in dropout_salts)
-    return FusedQKVAttention.apply(x, w1, b1, w2, n_head, float(dropout_rate), salts)
+    return FusedQKVAttention.apply(x, w1, b1, w2, n_head, float(dropout_rate),
+                                   _salts(dropout_salts))
 
 
 def _check_cross_shapes(what, q, k, v):
@@ -751,8 +929,7 @@ def short_cross_attention(q, k, v, dropout_rate: float = 0.0, dropout_salts=None
     differentiable. q: (..., T, hs); k, v: (J, ..., T, hs); one type, bf16 or
     f32. Stream j's dropout is keyed by its stream seed and the collapsed
     query row, as the JAX kernel's. Returns (..., T, hs) in q's type."""
-    salts = None if dropout_salts is None else tuple(int(s) for s in dropout_salts)
-    return ShortCrossAttention.apply(q, k, v, float(dropout_rate), salts)
+    return ShortCrossAttention.apply(q, k, v, float(dropout_rate), _salts(dropout_salts))
 
 
 def short_cross_attention_t(q, kT, vT, dropout_rate: float = 0.0, dropout_salts=None):
@@ -899,6 +1076,209 @@ def decode_attention_packed_q8(q, kp, vp, k_scale, v_scale, pos):
 decode_attention_packed_q8.launches = 0
 
 
+def _check_flash_operands(what, q, k, v, cross: bool = False):
+    """q (n, T, hs); k, v (n, T, hs), or (J, n, T, hs) for the cross kernels."""
+    if q.ndim != 3 or k.shape != v.shape or k.shape[int(cross):] != q.shape or k.ndim != 3 + cross:
+        raise ValueError(f"{what}: expected q (n, T, hs) and k, v "
+                         f"{'(J, n, T, hs)' if cross else '(n, T, hs)'}; got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+
+
+def _flash_launch_args(q, rate: float, salts, stream=None):
+    """(n, T, hs, is_bf16, scale, seed, thresh, on, keepf, JAX block) of a
+    flash launch."""
+    n, t, hs = q.shape
+    _, thresh, on, keepf, _ = _dropout_args("flash", rate, salts)
+    return (n, t, hs, int(q.dtype == torch.bfloat16), hs ** -0.5,
+            _flash_seed(float(rate), salts, stream), thresh, on, keepf, flash_pick_block(t))
+
+
+def flash_attention_fwd(q, k, v, dropout_rate: float = 0.0, dropout_salts=None):
+    """The flash forward kernel (K5f): q, k, v (n, T, hs), one type, bf16 or
+    f32 -> (out (n, T, hs) in q's type, lse (n, 1, T) f32). The plain version
+    for CPU tensors, the CUDA kernel for CUDA tensors with T % 128 == 0,
+    T >= 256, hs <= 256."""
+    what = "flash_attention"
+    _check_flash_operands(what, q, k, v)
+    _dropout_args(what, dropout_rate, dropout_salts)
+    if _on_cpu(q, k, v):
+        return flash_attention_plain(q, k, v, dropout_rate, dropout_salts)
+    _check_cuda_operands(what, (q, k, v))
+    n, t, hs = q.shape
+    _check_flash(what, t, hs)
+    out = torch.empty_like(q)
+    lse = torch.empty((n, 1, t), dtype=torch.float32, device=q.device)
+    err = _fn("flash_attention", "tat_flash_attention_fwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        *_flash_launch_args(q, dropout_rate, dropout_salts), _stream(),
+    )
+    _check_launch(err, what)
+    flash_attention_fwd.launches += 1
+    return out, lse
+
+
+flash_attention_fwd.launches = 0
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, dropout_rate: float = 0.0,
+                        dropout_salts=None, stream=None):
+    """The flash backward kernel (K5b): dq, dk, dv in the inputs' type from
+    the forward's out and lse and the output gradient dout. delta =
+    rowsum(dout * out) is one PyTorch reduction before the launch, as the JAX
+    package computes it outside its kernel. ``stream`` keys the dropout as
+    cross stream ``stream`` (the cross backward, one launch per stream)."""
+    what = "flash_attention_bwd"
+    _check_flash_operands(what, q, k, v)
+    n, t, hs = q.shape
+    if out.shape != q.shape or dout.shape != q.shape or tuple(lse.shape) != (n, 1, t):
+        raise ValueError(f"{what}: out and dout must be {tuple(q.shape)}, lse {(n, 1, t)}")
+    _dropout_args(what, dropout_rate, dropout_salts)
+    if _on_cpu(q, k, v, out, lse, dout):
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout, dropout_rate, dropout_salts,
+                                         stream)
+    _check_cuda_operands(what, (q, k, v, out, dout), (lse,))
+    _check_flash(what, t, hs)
+    delta = (dout.float() * out.float()).sum(dim=-1)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    err = _fn("flash_attention", "tat_flash_attention_bwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *_flash_launch_args(q, dropout_rate, dropout_salts, stream), _stream(),
+    )
+    _check_launch(err, what)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashCausalAttention(torch.autograd.Function):
+    """K5f forward, K5b backward; gradients for q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, dropout_rate, dropout_salts):
+        out, lse = flash_attention_fwd(q, k, v, dropout_rate, dropout_salts)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (dropout_rate, dropout_salts)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(), *ctx.args)
+        return dq, dk, dv, None, None
+
+
+def flash_causal_attention(q, k, v, dropout_rate: float = 0.0, dropout_salts=None):
+    """Blockwise causal self-attention over trailing (T, hs), differentiable,
+    the JAX entry ``flash_causal_attention``: the leading axes collapse into
+    rows, whose index keys the dropout. q, k, v: one shape and type, bf16 or
+    f32. Returns (..., T, hs) in q's type."""
+    if q.ndim < 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"flash_causal_attention: q, k, v must share one shape (..., T, hs); "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    t, hs = q.shape[-2:]
+    q3, k3, v3 = (x.reshape(-1, t, hs).contiguous() for x in (q, k, v))
+    out = FlashCausalAttention.apply(q3, k3, v3, float(dropout_rate), _salts(dropout_salts))
+    return out.reshape(q.shape)
+
+
+def flash_cross_attention_fwd(q, k, v, dropout_rate: float = 0.0, dropout_salts=None):
+    """The flash cross forward kernel (K6f): q (n, T, hs), k, v (J, n, T, hs)
+    -> the sum over streams (n, T, hs) in q's type."""
+    what = "flash_cross_attention"
+    _check_flash_operands(what, q, k, v, cross=True)
+    _dropout_args(what, dropout_rate, dropout_salts)
+    if _on_cpu(q, k, v):
+        return flash_cross_attention_plain(q, k, v, dropout_rate, dropout_salts)
+    _check_cuda_operands(what, (q, k, v))
+    _check_flash(what, q.shape[1], q.shape[2])
+    out = torch.empty_like(q)
+    err = _fn("flash_cross_attention", "tat_flash_cross_attention_fwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), k.shape[0],
+        *_flash_launch_args(q, dropout_rate, dropout_salts), _stream(),
+    )
+    _check_launch(err, what)
+    flash_cross_attention_fwd.launches += 1
+    return out
+
+
+flash_cross_attention_fwd.launches = 0
+
+
+def flash_cross_attention_res(q, k, v, dropout_rate: float = 0.0, dropout_salts=None):
+    """The flash cross forward kernel with residuals (K6f-r): the sum, and
+    each stream's output (J, n, T, hs) in q's type and logsumexp
+    (J, n, 1, T) f32, which the backward reads."""
+    what = "flash_cross_attention_res"
+    _check_flash_operands(what, q, k, v, cross=True)
+    _dropout_args(what, dropout_rate, dropout_salts)
+    if _on_cpu(q, k, v):
+        return flash_cross_attention_plain(q, k, v, dropout_rate, dropout_salts, residuals=True)
+    _check_cuda_operands(what, (q, k, v))
+    n, t, hs = q.shape
+    _check_flash(what, t, hs)
+    out, outs = torch.empty_like(q), torch.empty_like(k)
+    lses = torch.empty((k.shape[0], n, 1, t), dtype=torch.float32, device=q.device)
+    err = _fn("flash_cross_attention", "tat_flash_cross_attention_fwd_res")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), outs.data_ptr(),
+        lses.data_ptr(), k.shape[0],
+        *_flash_launch_args(q, dropout_rate, dropout_salts), _stream(),
+    )
+    _check_launch(err, what)
+    flash_cross_attention_res.launches += 1
+    return out, outs, lses
+
+
+flash_cross_attention_res.launches = 0
+
+
+class FlashCrossAttention(torch.autograd.Function):
+    """K6f-r forward; per stream j a K5b launch on (q, k_j, v_j, out_j,
+    lse_j, dout) keyed by stream j's seed, dq summed over the streams in q's
+    type in stream order (the JAX package's ``_flash_cross_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, dropout_rate, dropout_salts):
+        out, outs, lses = flash_cross_attention_res(q, k, v, dropout_rate, dropout_salts)
+        ctx.save_for_backward(q, k, v, outs, lses)
+        ctx.args = (dropout_rate, dropout_salts)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, outs, lses = ctx.saved_tensors
+        dout = dout.contiguous()
+        dq = torch.zeros_like(q)
+        dks, dvs = [], []
+        for j in range(k.shape[0]):
+            dq_j, dk_j, dv_j = flash_attention_bwd(q, k[j], v[j], outs[j], lses[j], dout,
+                                                   *ctx.args, stream=j)
+            dq = dq + dq_j
+            dks.append(dk_j)
+            dvs.append(dv_j)
+        return dq, torch.stack(dks), torch.stack(dvs), None, None
+
+
+def flash_cross_attention(q, k, v, dropout_rate: float = 0.0, dropout_salts=None):
+    """Sum over J key/value streams of blockwise causal attention, the JAX
+    entry ``flash_cross_attention``: q (..., T, hs), k, v (J, ..., T, hs),
+    the leading axes of q collapsed into the rows that key the dropout.
+    Differentiable (K6f-r forward, K5b per stream backward); where no input
+    needs a gradient the forward is K6f. Returns (..., T, hs) in q's type."""
+    _check_cross_shapes("flash_cross_attention", q, k, v)
+    t, hs = q.shape[-2:]
+    q3 = q.reshape(-1, t, hs).contiguous()
+    k4, v4 = (x.reshape(k.shape[0], -1, t, hs).contiguous() for x in (k, v))
+    rate, salts = float(dropout_rate), _salts(dropout_salts)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        out = FlashCrossAttention.apply(q3, k4, v4, rate, salts)
+    else:
+        out = flash_cross_attention_fwd(q3, k4, v4, rate, salts)
+    return out.reshape(q.shape)
+
+
 KERNELS = {
     "fused_qkv_attention": fused_qkv_attention_fwd,
     "fused_qkv_attention_bwd": fused_qkv_attention_bwd,
@@ -908,6 +1288,10 @@ KERNELS = {
     "decode_attention": decode_attention,
     "decode_attention_packed": decode_attention_packed,
     "decode_attention_packed_q8": decode_attention_packed_q8,
+    "flash_attention": flash_attention_fwd,
+    "flash_attention_bwd": flash_attention_bwd,
+    "flash_cross_attention": flash_cross_attention_fwd,
+    "flash_cross_attention_res": flash_cross_attention_res,
 }
 
 def launch_counts() -> Dict[str, int]:

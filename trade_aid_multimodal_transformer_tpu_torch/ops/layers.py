@@ -109,16 +109,6 @@ def dropout_salts(key) -> Tuple[int, int]:
     return vals[0], vals[-1]
 
 
-def _keep_mask(x: torch.Tensor, s1: int, s2: int, rate: float, layout) -> torch.Tensor:
-    """x's keep-mask; ``layout = (shape, perm)`` builds it over another shape
-    and permutes it onto x (a JAX site whose tensor the port holds in another
-    axis order), else it is built over x's own shape."""
-    if layout is None:
-        return hash_keep_mask_nd(s1, s2, x.shape, rate, x.device)
-    shape, perm = layout
-    return hash_keep_mask_nd(s1, s2, shape, rate, x.device).permute(*perm)
-
-
 def _masked_scale(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
     # x / keep with keep held in x's type, as the JAX package's weak-typed
     # scalar divides (bf16 activations divide by bf16(0.8) there)
@@ -131,18 +121,18 @@ class _HashDropout(torch.autograd.Function):
     two salts (the JAX package's ``_dropout_cv``): no mask tensor is kept."""
 
     @staticmethod
-    def forward(ctx, x, s1, s2, rate, layout):
-        ctx.args = (s1, s2, rate, layout)
-        return _masked_scale(x, _keep_mask(x, s1, s2, rate, layout), rate)
+    def forward(ctx, x, s1, s2, rate):
+        ctx.args = (s1, s2, rate)
+        return _masked_scale(x, hash_keep_mask_nd(s1, s2, x.shape, rate, x.device), rate)
 
     @staticmethod
     def backward(ctx, g):
-        s1, s2, rate, layout = ctx.args
-        return _masked_scale(g, _keep_mask(g, s1, s2, rate, layout), rate), None, None, None, None
+        s1, s2, rate = ctx.args
+        keep = hash_keep_mask_nd(s1, s2, g.shape, rate, g.device)
+        return _masked_scale(g, keep, rate), None, None, None
 
 
-def dropout(x: torch.Tensor, rate: float, key: Optional[Sequence[int]], train: bool,
-            layout=None) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, key: Optional[Sequence[int]], train: bool) -> torch.Tensor:
     """Inverted hash dropout; the identity when not training or rate == 0.
     ``key`` is a site's raw uint32[2] salt pair (from ``KeyGen``)."""
     if not train or rate == 0.0:
@@ -150,7 +140,7 @@ def dropout(x: torch.Tensor, rate: float, key: Optional[Sequence[int]], train: b
     if key is None:
         raise ValueError("dropout in training needs a key")
     s1, s2 = dropout_salts(key)
-    return _HashDropout.apply(x, s1, s2, float(rate), layout)
+    return _HashDropout.apply(x, s1, s2, float(rate))
 
 
 class KeyGen:
