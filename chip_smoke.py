@@ -21,6 +21,12 @@ any failed check raises and the script exits non-zero. The last line is
 
 Needs a CUDA device and the port package beside this file; without either it
 exits non-zero before printing any result.
+
+    python3 chip_smoke.py --multi-card
+
+on a machine with 2 or 4 cards instead runs the training entry with
+context parallelism, one card per rank over NCCL, against the same run on
+one card (``multi_card``).
 """
 
 from __future__ import annotations
@@ -105,6 +111,10 @@ SOURCES = {
         f"{PKG}/ops/csrc/flash_cross_attention.cu",
         "trade_aid_multimodal_transformer_tpu/ops/pallas_attention.py:1125",
     ),
+    **{f"flash_chunk_{d}_{m}": (
+        f"{PKG}/ops/csrc/flash_attention.cu",
+        f"trade_aid_multimodal_transformer_tpu/ops/pallas_attention.py:{3078 if d == 'fwd' else 3098}",
+    ) for d in ("fwd", "bwd") for m in ("causal", "full")},
 }
 # the path whose launches each kernel's entry of the last line reports
 MAIN_PATH = {"fused_qkv_attention": "training", "fused_qkv_attention_bwd": "training",
@@ -112,7 +122,9 @@ MAIN_PATH = {"fused_qkv_attention": "training", "fused_qkv_attention_bwd": "trai
              "short_causal_attention": "serve", "decode_attention_packed": "serve",
              "decode_attention_packed_q8": "serve_int8", "decode_attention": "serve_plain",
              "flash_attention": "long_training", "flash_attention_bwd": "long_training",
-             "flash_cross_attention": "long_generate", "flash_cross_attention_res": "long_training"}
+             "flash_cross_attention": "long_generate", "flash_cross_attention_res": "long_training",
+             **{f"flash_chunk_{d}_{m}": "cp_training" for d in ("fwd", "bwd")
+                for m in ("causal", "full")}}
 # the production shapes of the flash kernels' entries in the last line: the
 # training step at block_size 1024, batch 8 (self-attention 4 x 8 x 6 rows,
 # cross-attention 8 x 6 rows against J = 3 streams)
@@ -134,6 +146,13 @@ FLASH_CROSS_PROD = (3, 8 * 6, LONG_BLOCK, 64)
 # ~1000), so the limit is 2e-3
 SERVE_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 SERVE_BF16_IN_PATH = 2e-3
+# context parallelism (tpu_options.context_parallel) at block_size 1024: the
+# ring's chunk pairs at context_parallel 2 (chunks of 512), self-attention
+# 4 x 8 x 6 rows and cross-attention 8 x 6 rows per stream at batch 8
+CP_SELF = (4 * 8 * 6, 512, 512, 64)
+CP_CROSS = (8 * 6, 512, 512, 64)
+# the phases' rank processes share the one card; each spawn is stopped after
+RANK_TIMEOUT = 420.0
 
 
 T_START = time.perf_counter()
@@ -869,6 +888,513 @@ def long_context(K, card, gen, timing, errs, by_path):
           "steps_per_s_after_first_chunk": long_steps})
 
 
+def cp_want(K, cfg, rank: int, per: str) -> dict:
+    """K7 launches of one rank of a ring over the sequence axis: per forward
+    n_layer x (1 + cross streams) rings, each one causal chunk and one
+    full-mask chunk per earlier rank (later ranks are skipped); the backward
+    the same. ``per``: "step" (forward and backward) or "forward"."""
+    rings = cfg.n_layer * (1 + sum(len(cfg.kv_modalities(i)) for i in range(cfg.num_modalities)
+                                   if cfg.cross_attention[i]))
+    want = dict.fromkeys(K.KERNELS, 0)
+    want.update(flash_chunk_fwd_causal=rings, flash_chunk_fwd_full=rings * rank)
+    if per == "step":
+        want.update(flash_chunk_bwd_causal=rings, flash_chunk_bwd_full=rings * rank)
+    return want
+
+
+def k7b_full_dk_x1_2(K):
+    """The planted fault of cp_reference: the first full-mask K7b call of a
+    self-attention ring in the step (q (M, B, H, c, hs); the last layer's)
+    returns dk 20% too large: one chunk pair."""
+    real, done = K.flash_chunk_bwd, []
+
+    def wrong(q, k, v, out, lse, g, causal, seed=None, rate=0.0):
+        dq, dk, dv = real(q, k, v, out, lse, g, causal, seed, rate)
+        if not causal and q.dim() == 5 and not done:
+            done.append(True)
+            dk = dk * 1.2
+        return dq, dk, dv
+
+    return wrong
+
+
+def k7_in_path(K, worst, planted: bool = False):
+    """K7f and K7b (with ``planted``, K7b with the planted fault) wrapped so
+    that every call of a step is held against its plain version on the same
+    inputs: worst[output] keeps the largest |out - plain| / |plain| (L2).
+    The real wrappers launch and count; the plain versions do not count."""
+    fwd, bwd = K.flash_chunk_fwd, k7b_full_dk_x1_2(K) if planted else K.flash_chunk_bwd
+
+    def note(name, a, b):
+        err = ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+        worst[name] = max(worst.get(name, 0.0), err)
+
+    def fwd_checked(q, k, v, causal, seed=None, rate=0.0):
+        out = fwd(q, k, v, causal, seed, rate)
+        note("K7f.out", out[0], K.flash_chunk_fwd_plain(q, k, v, causal, seed, rate)[0])
+        return out
+
+    def bwd_checked(q, k, v, out, lse, g, causal, seed=None, rate=0.0):
+        got = bwd(q, k, v, out, lse, g, causal, seed, rate)
+        ref = K.flash_chunk_bwd_plain(q, k, v, out, lse, g, causal, seed, rate)
+        for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+            note(f"K7b.{name}", a, b)
+        return got
+
+    return dict(flash_chunk_fwd=fwd_checked, flash_chunk_bwd=bwd_checked)
+
+
+def cp_rank(rank: int, world: int, job: dict):
+    """One rank of the context-parallel phases, in a process of its own. All
+    ranks share the one card, so the group is gloo and the ring's hops and
+    gathers go through host memory; every chunk runs K7 on the card.
+
+    job "reference": one step per variant (name, dtype, dropout, change:
+    None, "planted" or "plain" K7) on batch ``job["batch"]``; rank 0 holds
+    each against ``job["refs"][dtype]`` (the card's single-rank step) or, at
+    dropout, the variant computed with K7's plain versions. job "training":
+    ``job["steps"]`` steps of the production training step, one eval batch,
+    and a profiled step. Returns what the parent checks."""
+    sys.path.insert(0, str(REPO))
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from trade_aid_multimodal_transformer_tpu_torch.models.init import (
+        init_params, map_tree, tree_leaves, tree_paths)
+    from trade_aid_multimodal_transformer_tpu_torch.ops import kernels as K
+    from trade_aid_multimodal_transformer_tpu_torch.parallel import mesh as pmesh
+    from trade_aid_multimodal_transformer_tpu_torch.parallel.trainer import make_sharded_trainer
+    from trade_aid_multimodal_transformer_tpu_torch.sampling.feed import BatchFeed
+    from trade_aid_multimodal_transformer_tpu_torch.train.steps import StepRng, make_optimizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    mesh = pmesh.seq_mesh(world, staged=True)
+    cfg = job["cfg"]
+    if job["kind"] == "reference":
+        xb, yb = (x.to(dev) for x in job["batch"])
+        got, out = {}, {}
+        for name, dtype, rate, change in job["variants"]:
+            c = dataclasses.replace(cfg, compute_dtype=dtype, dropout=rate)
+            params = map_tree(lambda t: t.detach().to(dev).clone().requires_grad_(), job["params"])
+            trainer = make_sharded_trainer(c, None, make_optimizer(1e-3), [], 1, mesh)
+            worst = {}
+            fns = (dict(flash_chunk_fwd=K.flash_chunk_fwd_plain,
+                        flash_chunk_bwd=K.flash_chunk_bwd_plain) if change == "plain"
+                   else k7_in_path(K, worst, planted=change == "planted"))
+            with patched(K, **fns):
+                K.reset_launch_counts()
+                loss, grads = trainer.loss_and_grads(params, [(xb, yb)], [SALTS])
+                torch.cuda.synchronize()
+                counts = K.launch_counts()
+            got[name] = (loss.item(), [g.float() for g in grads])
+            out[name] = {"loss": loss.item(), "launches": counts, "in_path": worst}
+        if rank != 0:
+            return out
+        for name, dtype, rate, change in job["variants"]:
+            if change == "plain":
+                continue
+            loss, grads = got[name]
+            ref_loss, ref = job["refs"][dtype] if not rate else got[name + "_plain"]
+            norms = [r.norm().item() for r in ref]
+            floor = 1e-6 * math.sqrt(sum(n * n for n in norms))
+            errs_leaf = [(g - r.to(dev)).norm().item() / max(n, floor)
+                         for g, r, n in zip(grads, ref, norms)]
+            names = ["/".join(map(str, path)) for path, _ in tree_paths(job["params"])]
+            out[name].update(against="K7 plain on the card" if rate else
+                             "single-rank step on the card (K5/K6)",
+                             loss_ref=float(ref_loss), loss_abs_err=abs(loss - float(ref_loss)),
+                             grad_l2_rel_err_max=max(errs_leaf),
+                             worst_leaves=sorted(zip(errs_leaf, names), reverse=True)[:3])
+        return out
+
+    # training: the production step at block_size 1024, batch 8
+    feed = BatchFeed(job["train"], job["val"], [len(job["train"][0]) + len(job["val"][0])],
+                     cfg.block_size, job["batch_size"], False, [None] * cfg.num_modalities,
+                     list(cfg.vocab_sizes), device=dev)
+    params = map_tree(lambda t: t.to(dev).requires_grad_(),
+                      init_params(cfg, torch.Generator().manual_seed(1234), "cpu"))
+    opt = make_optimizer(job["lr"], moment_dtype="bfloat16", nu_dtype="bfloat16")
+    state = opt.init(params)
+    trainer = make_sharded_trainer(cfg, feed, opt, [], job["eval_iters"], mesh)
+    rng = StepRng(7, dev)
+    K.reset_launch_counts()
+    losses = trainer.train_chunk(params, state, rng, 2)[2].tolist()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += trainer.train_chunk(params, state, rng, job["steps"] - 2)[2].tolist()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    train_counts = K.launch_counts()
+    K.reset_launch_counts()
+    ev = trainer.eval_pass(params, rng, "train")
+    torch.cuda.synchronize()
+    eval_counts = K.launch_counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        trainer.train_chunk(params, state, rng, 1)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t1
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_s = sum(e.self_device_time_total for e in kern) / 1e6
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    return {"losses": losses, "steps_per_s": (job["steps"] - 2) / sec,
+            "eval_train_loss": ev.mean_loss.item(), "train_launches": train_counts,
+            "eval_launches": eval_counts,
+            "param_sums": [float(p.detach().double().sum()) for p in tree_leaves(params)],
+            "profile": {"step_ms_profiled": 1e3 * prof_s,
+                        "device_ms": 1e3 * dev_s if kern else None,
+                        "kernels": sum(e.count for e in kern),
+                        "top": [[e.key[:60], e.self_device_time_total / 1e3, e.count]
+                                for e in top]}}
+
+
+def context_parallel(K, card, gen, timing, errs, by_path):
+    """Context parallelism (tpu_options.context_parallel) at block_size 1024:
+    the ring's chunk kernels K7f and K7b held against their plain versions
+    (production chunk pairs, t_q != t_k, hs 16 / 128 / 256, the backward from
+    a logsumexp merged over two chunks and run twice for the same bits) and
+    timed; one context-parallel step over P ranks against the card's
+    single-rank step (P = 2 at full depth, P = 4 at depth 2), with a planted
+    fault; a context-parallel training run over 2 ranks with exact launches
+    per rank and a profiled step. The ranks are processes that share the
+    card (gloo through host memory), started below the training entry's
+    card-count check. Adds to ``timing``, ``errs`` and ``by_path``; raises on
+    a failed check."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from trade_aid_multimodal_transformer_tpu_torch import generate as entry
+    from trade_aid_multimodal_transformer_tpu_torch.data.vocab import create_train_val_datasets
+    from trade_aid_multimodal_transformer_tpu_torch.models.init import (
+        init_params, map_tree, tree_leaves)
+    from trade_aid_multimodal_transformer_tpu_torch.models.transformer import total_loss
+    from trade_aid_multimodal_transformer_tpu_torch.parallel import mesh as pmesh
+
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    # kernel_check: K7f (out, lse) and K7b, causal and full mask, dropout 0
+    # and 0.2, f32 and bf16; the backward given the output and logsumexp
+    # merged with a second (full-mask) chunk, as the ring gives them
+    shapes = [CP_SELF, (4 * 8 * 6, 256, 256, 64), CP_CROSS, (2, 128, 512, 64),
+              (2, 512, 256, 64), (2, 384, 1024, 64), (2, 256, 256, 16), (2, 256, 256, 128),
+              (2, 256, 256, 256)]
+    for n, tq, tk, hs in shapes:
+        q, do = randn(n, tq, hs), randn(n, tq, hs)
+        k, v, k2, v2 = (randn(n, tk, hs) for _ in range(4))
+        shape = (n, tq, tk, hs)
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            qq, dd, kk, vv, kk2, vv2 = (x.to(dt) for x in (q, do, k, v, k2, v2))
+            for rate in (0.0, 0.2):
+                seed = 1234567 if rate else None
+                for causal in (True, False):
+                    mask = "causal" if causal else "full"
+                    tag = (dtype, rate) if rate else (dtype,)
+                    out, lse = K.flash_chunk_fwd(qq, kk, vv, causal, seed, rate)
+                    out2, lse2 = K.flash_chunk_fwd(qq, kk2, vv2, False, seed, rate)
+                    m = torch.logaddexp(lse, lse2)
+                    o = (out.float() * torch.exp(lse - m)[..., None]
+                         + out2.float() * torch.exp(lse2 - m)[..., None]).to(dt)
+                    grads = K.flash_chunk_bwd(qq, kk, vv, o, m, dd, causal, seed, rate)
+                    again = K.flash_chunk_bwd(qq, kk, vv, o, m, dd, causal, seed, rate)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                        raise AssertionError(f"flash_chunk_bwd {shape} {dtype}: two runs differ")
+                    ref_out, ref_lse = K.flash_chunk_fwd_plain(qq, kk, vv, causal, seed, rate)
+                    name = f"flash_chunk_fwd_{mask}"
+                    errs[(name, shape) + tag] = (
+                        check_rel(name, out, ref_out, dtype, shape, rate) if rate else
+                        check_close(name, out, ref_out, dtype, shape))
+                    check_rel(f"{name}.lse", lse, ref_lse, "float32", shape, rate)
+                    ref = K.flash_chunk_bwd_plain(qq, kk, vv, o, m, dd, causal, seed, rate)
+                    name = f"flash_chunk_bwd_{mask}"
+                    errs[(name, shape, dtype, rate)] = max(
+                        check_rel(f"{name}.{g}", a, r, dtype, shape, rate)
+                        for g, a, r in zip(("dq", "dk", "dv"), grads, ref))
+
+    # kernel_time at the production chunk pair (192 rows, 512 x 512, bf16;
+    # B = 1: 24 rows): bounds count the visible pairs (all of them without
+    # the mask, t(t + 1) / 2 with it), every input read once, every output
+    # written once; the library yardstick is SDPA over the same pair
+    bf = torch.bfloat16
+    n, tq, tk, hs = CP_SELF
+    q, k, v, do = (randn(n, tq, hs).to(bf) for _ in range(4))
+    qg, kg, vg = (x[None].clone().requires_grad_() for x in (q, k, v))
+    plane = n * tq * hs * 2
+    for causal in (True, False):
+        mask = "causal" if causal else "full"
+        pairs = tq * (tq + 1) // 2 if causal else tq * tk
+        out0, lse0 = K.flash_chunk_fwd(q, k, v, causal)
+        out1, lse1 = K.flash_chunk_fwd(q, k, v, causal, 99, 0.2)
+        q1, k1, v1, o1, l1, d1 = (x[:24].contiguous() for x in (q, k, v, out0, lse0, do))
+
+        def sdpa_fwd_bwd(causal=causal):
+            o_ = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+            return torch.autograd.grad(o_, (qg, kg, vg), do[None])
+
+        timing[f"flash_chunk_fwd_{mask}"] = dict(
+            ms=device_ms(lambda: K.flash_chunk_fwd(q, k, v, causal)),
+            ms_dropout=device_ms(lambda: K.flash_chunk_fwd(q, k, v, causal, 99, 0.2)),
+            ms_b1=device_ms(lambda: K.flash_chunk_fwd(q1, k1, v1, causal)),
+            plain_ms=device_ms(lambda: K.flash_chunk_fwd_plain(q, k, v, causal)),
+            library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                q[None], k[None], v[None], is_causal=causal)),
+            bound=bound_ms(2 * 2 * n * pairs * hs, 4 * plane + n * tq * 4, "bfloat16"))
+        timing[f"flash_chunk_bwd_{mask}"] = dict(
+            ms=device_ms(lambda: K.flash_chunk_bwd(q, k, v, out0, lse0, do, causal)),
+            ms_dropout=device_ms(lambda: K.flash_chunk_bwd(q, k, v, out1, lse1, do, causal, 99,
+                                                           0.2)),
+            ms_b1=device_ms(lambda: K.flash_chunk_bwd(q1, k1, v1, o1, l1, d1, causal)),
+            plain_ms=device_ms(lambda: K.flash_chunk_bwd_plain(q, k, v, out0, lse0, do, causal)),
+            library_ms=device_ms(sdpa_fwd_bwd),
+            # reads q, k, v, out, dout and lse; writes dq, dk, dv
+            bound=bound_ms(5 * 2 * n * pairs * hs, 8 * plane + n * tq * 4, "bfloat16"))
+        for name in (f"flash_chunk_fwd_{mask}", f"flash_chunk_bwd_{mask}"):
+            t = timing[name]
+            emit({"phase": "kernel_time", "kernel": name, "card": card, "shape": list(CP_SELF),
+                  "kernel_ms": t["ms"], "kernel_ms_dropout": t["ms_dropout"],
+                  "kernel_ms_b1": t["ms_b1"], "plain_ms": t["plain_ms"],
+                  "library_ms": t["library_ms"], "bound_ms": t["bound"][0],
+                  "bound_by": t["bound"][1]})
+    del q, k, v, do, qg, kg, vg
+
+    # the production config at block_size 1024: data, and the parameters of
+    # the reference steps (seed 1234)
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        production_config_dir(d, block_size=LONG_BLOCK)
+        data = entry.load_config_and_data(str(d))
+    cfg, sc = data["cfg"], data["sc"]
+    emit({"phase": "cp_setup", "card": card, "backend": "gloo (hops and gathers through host "
+          "memory)", "ranks_on_one_card": [2, 4], "cards": torch.cuda.device_count(),
+          "entry_plan_check": "below it: the ranks share one card"})
+
+    # cp_reference: one step (B = 1, T = 1024, dropout 0) over P ranks against
+    # the card's single-rank step (K5f, K6f-r, K5b), f32 and bf16, every
+    # gradient leaf within STEP_TOL; the planted K7b fault (full-mask dk x 1.2
+    # on one chunk pair) must fail the f32 gate; at dropout 0.2 the step
+    # against the same step with K7 replaced by its plain versions
+    rng = np.random.default_rng(11)
+    ids = torch.from_numpy(np.stack([rng.integers(0, v, (1, cfg.block_size + 1))
+                                     for v in cfg.vocab_sizes]))
+    xb, yb = ids[..., :-1], ids[..., 1:]
+    for p_size, depth in ((2, cfg.n_layer), (4, 2)):
+        c = dataclasses.replace(cfg, n_layer=depth, dropout=0.0)
+        cpu_p = init_params(c, torch.Generator().manual_seed(1234), "cpu")
+        refs = {}
+        for dtype in ("float32", "bfloat16"):
+            cd = dataclasses.replace(c, compute_dtype=dtype)
+            dev_p = map_tree(lambda t: t.detach().to(dev).requires_grad_(), cpu_p)
+            loss = total_loss(dev_p, cd, xb.to(dev), yb.to(dev), None, True)[0]
+            refs[dtype] = (loss.item(), [g.float().cpu() for g in
+                                         torch.autograd.grad(loss, tree_leaves(dev_p))])
+            del dev_p, loss
+        variants = [("f32", "float32", 0.0, None), ("f32_planted", "float32", 0.0, "planted"),
+                    ("bf16", "bfloat16", 0.0, None)]
+        if p_size == 2:
+            variants += [("bf16_dropout_plain", "bfloat16", 0.2, "plain"),
+                         ("bf16_dropout", "bfloat16", 0.2, None)]
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res = pmesh.run_ranks(cp_rank, p_size, (dict(
+            kind="reference", cfg=c, params=cpu_p, batch=(xb, yb), refs=refs,
+            variants=variants),), timeout=RANK_TIMEOUT)
+        sec = time.perf_counter() - t0
+        failed = []
+        for name, dtype, rate, change in variants:
+            want = [cp_want(K, c, r, "step") for r in range(p_size)]
+            counts_ok = change == "plain" or all(res[r][name]["launches"] == want[r]
+                                                for r in range(p_size))
+            line = res[0][name]
+            if change == "plain":
+                continue
+            tol = STEP_TOL[dtype]
+            in_path = {k_: max(res[r][name]["in_path"][k_] for r in range(p_size)
+                               if k_ in res[r][name]["in_path"])
+                       for k_ in set().union(*(res[r][name]["in_path"] for r in range(p_size)))}
+            in_path_ok = max(in_path.values()) <= REL_TOL[dtype]
+            step_ok = (line["loss_abs_err"] <= tol["loss"]
+                       and line["grad_l2_rel_err_max"] <= tol["grad_l2"])
+            # the planted fault must fail the in-path gate; its whole-step
+            # reading is printed, not held (a chunk pair's dk is a few per
+            # cent of its layer's key gradient at random weights)
+            ok = counts_ok and (not in_path_ok if change == "planted" else in_path_ok and step_ok)
+            emit({"phase": "cp_reference", "ranks": p_size, "n_layer": depth, "variant": name,
+                  "dtype": dtype, "dropout": rate, "batch": 1, "block_size": c.block_size,
+                  "must_fail": change == "planted", "tol": tol,
+                  "in_path_l2_rel": in_path, "in_path_tol": REL_TOL[dtype],
+                  "step_gate_passed": step_ok, "launches_by_rank": [
+                      {k_: v_ for k_, v_ in res[r][name]["launches"].items() if v_}
+                      for r in range(p_size)], "launches_exact": counts_ok,
+                  "losses_by_rank": [res[r][name]["loss"] for r in range(p_size)],
+                  "seconds_all_variants": sec, **{k_: line[k_] for k_ in (
+                      "against", "loss_ref", "loss_abs_err", "grad_l2_rel_err_max", "worst_leaves")},
+                  "ok": ok})
+            if not ok:
+                failed.append(f"P={p_size} {name}")
+        if failed:
+            raise AssertionError(f"context-parallel step disagrees, miscounts, or the gate "
+                                 f"passed the planted fault: {', '.join(failed)}")
+
+    # cp_training: the production training step at block_size 1024, batch 8,
+    # dropout 0.2, bf16, over 2 ranks: 16 steps, one eval batch, exact K7
+    # launches per rank, the loss falling, a profiled step on every rank. The
+    # synthetic series is split 80/20 (the config's file split leaves one
+    # training file), without augmentation
+    splits = [create_train_val_datasets(x, 0.2, 0, [len(x)]) for x in data["ids"]]
+    steps, p_size = 16, 2
+    job = dict(kind="training", cfg=cfg, train=[np.asarray(a) for a, _ in splits],
+               val=[np.asarray(b) for _, b in splits], batch_size=8, lr=sc["learning_rate"],
+               eval_iters=1, steps=steps)
+    torch.cuda.empty_cache()  # the ranks' activations need the card's memory
+    t0 = time.perf_counter()
+    res = pmesh.run_ranks(cp_rank, p_size, (job,), timeout=RANK_TIMEOUT)
+    sec = time.perf_counter() - t0
+    want_train = [{k_: steps * v_ for k_, v_ in cp_want(K, cfg, r, "step").items()}
+                  for r in range(p_size)]
+    want_eval = [cp_want(K, cfg, r, "forward") for r in range(p_size)]
+    counts_ok = all(res[r]["train_launches"] == want_train[r]
+                    and res[r]["eval_launches"] == want_eval[r] for r in range(p_size))
+    emit({"phase": "cp_entry", "ranks": p_size, "steps": steps, "eval_batches": 1,
+          "launches_per_rank_train": [{k_: v_ for k_, v_ in res[r]["train_launches"].items() if v_}
+                                      for r in range(p_size)],
+          "launches_per_rank_eval": [{k_: v_ for k_, v_ in res[r]["eval_launches"].items() if v_}
+                                     for r in range(p_size)],
+          "ok": counts_ok})
+    by_path["cp_training"] = {k_: sum(res[r]["train_launches"][k_] + res[r]["eval_launches"][k_]
+                                      for r in range(p_size)) for k_ in K.KERNELS}
+    losses = res[0]["losses"]
+    finite = all(math.isfinite(x) for x in losses)
+    falls = finite and statistics.mean(losses[-4:]) < statistics.mean(losses[:4])
+    same = all(res[r]["losses"] == losses for r in range(p_size))
+    drift = max(abs(a - b) for r in range(1, p_size)
+                for a, b in zip(res[r]["param_sums"], res[0]["param_sums"]))
+    ok = counts_ok and falls and math.isfinite(res[0]["eval_train_loss"])
+    prof = [res[r]["profile"] for r in range(p_size)]
+    steps_per_s = res[0]["steps_per_s"]
+    emit({"phase": "cp_training", "config": "examples/production_config.yaml", "card": card,
+          "changed": {"block_size": LONG_BLOCK, "batch_size": job["batch_size"],
+                      "context_parallel": p_size},
+          "ranks_on_one_card": p_size, "backend": "gloo through host memory",
+          "dropout": cfg.dropout, "compute_dtype": cfg.compute_dtype, "steps": steps,
+          "losses": losses, "same_losses_on_every_rank": same,
+          "param_sum_max_diff_between_ranks": drift, "eval_train_loss": res[0]["eval_train_loss"],
+          "steps_per_s_after_two": steps_per_s, "seconds_with_spawn": sec,
+          "split": "80/20 of the series", "augmentation": "off", "ok": ok})
+    emit({"phase": "profile", "path": "cp_training", "card": card, "block_size": LONG_BLOCK,
+          "steps": 1, "step_ms_unprofiled": 1e3 / steps_per_s,
+          "device_ms_per_step_by_rank": [p_["device_ms"] for p_ in prof],
+          "device_busy_share_of_card": (sum(p_["device_ms"] for p_ in prof) * steps_per_s / 1e3
+                                        if all(p_["device_ms"] for p_ in prof) else None),
+          "kernels_per_step_by_rank": [p_["kernels"] for p_ in prof],
+          "step_ms_profiled_by_rank": [p_["step_ms_profiled"] for p_ in prof],
+          "top_rank1": prof[-1]["top"]})
+    if not ok:
+        raise AssertionError("the context-parallel training run failed its checks")
+
+
+def multi_card(card: str) -> int:
+    """``python3 chip_smoke.py --multi-card`` on a machine with 2 or more
+    cards: the training entry with ``context_parallel`` P = 2 (and 4 where
+    there are 4 cards), one card per rank over NCCL, on the production config
+    at block_size 1024, batch 8, dropout 0 (8 steps, evaluations at steps 0,
+    4 and 7), against the same run on one card: rank 0's final evaluation
+    losses within STEP_TOL's bf16 loss limit of the single-card run's, the
+    ring's kernels launched, the loss falling."""
+    import torch
+
+    from trade_aid_multimodal_transformer_tpu_torch.config.compat import reset_compatibility_layer
+    from trade_aid_multimodal_transformer_tpu_torch.ops import kernels as K
+    from trade_aid_multimodal_transformer_tpu_torch.train import runner
+
+    n_cards = torch.cuda.device_count()
+    emit({"phase": "multi_card", "cards": n_cards, "smi": card, "backend": "nccl"})
+    if n_cards < 2:
+        print("chip_smoke --multi-card: needs 2 or more cards", file=sys.stderr)
+        return 2
+    K.build_kernels()
+    runs = {}
+    for p_size in [1, 2] + ([4] if n_cards >= 4 else []):
+        with tempfile.TemporaryDirectory() as tmp:
+            d = Path(tmp)
+            production_config_dir(d, block_size=LONG_BLOCK, batch_size=8, max_iters=8,
+                                  eval_interval=4, eval_iters=2, dropout=0.0)
+            text = (d / "config.yaml").read_text()
+            text = text.replace("  mesh: auto", "  mesh: \"off\"")
+            text = text.replace("  # context_parallel: 4", f"  context_parallel: {p_size}")
+            (d / "config.yaml").write_text(text)
+            cwd = os.getcwd()
+            os.chdir(d)
+            try:
+                reset_compatibility_layer()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    res = runner.run_training(caller_globals={}, seed=5, rank_timeout=RANK_TIMEOUT)
+                sec = time.perf_counter() - t0
+            finally:
+                os.chdir(cwd)
+                reset_compatibility_layer()
+        timer = res["step_timer"]
+        later = timer.chunks[1:]
+        runs[p_size] = {"losses": res["losses"], "seconds": sec,
+                        "steps_per_s_after_first_chunk": sum(n for n, _ in later)
+                        / sum(t for _, t in later),
+                        "plan": res["plan"].describe(), "launches_rank0": res.get("launches")}
+    # more ranks than cards raises as the JAX package's plan_mesh raises for devices
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        production_config_dir(d, block_size=LONG_BLOCK)
+        text = (d / "config.yaml").read_text().replace(
+            "  # context_parallel: 4", f"  context_parallel: {2 * n_cards}")
+        (d / "config.yaml").write_text(text)
+        cwd = os.getcwd()
+        os.chdir(d)
+        try:
+            reset_compatibility_layer()
+            runner.run_training(caller_globals={}, seed=5)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        finally:
+            os.chdir(cwd)
+            reset_compatibility_layer()
+    emit({"phase": "multi_card_refusal", "context_parallel": 2 * n_cards, "cards": n_cards,
+          "error": refused, "ok": refused is not None and "device(s) are available" in refused})
+    base = runs[1]["losses"]
+    failed = [] if refused is not None else ["refusal"]
+    for p_size, r in runs.items():
+        errs_ = {k_: abs(r["losses"][k_] - base[k_]) for k_ in ("train", "val")}
+        k7 = (r["launches_rank0"] or {}).get("flash_chunk_fwd_causal", 0)
+        ok = (all(e <= STEP_TOL["bfloat16"]["loss"] for e in errs_.values())
+              and all(math.isfinite(v) for v in r["losses"].values())
+              and (p_size == 1 or k7 > 0))
+        emit({"phase": "multi_card_training", "card": card, "context_parallel": p_size,
+              "config": "examples/production_config.yaml", "changed": {
+                  "block_size": LONG_BLOCK, "batch_size": 8, "max_iters": 8, "dropout": 0.0,
+                  "mesh": "off", "context_parallel": p_size},
+              "final_eval_losses": r["losses"], "abs_err_vs_one_card": errs_,
+              "tol": STEP_TOL["bfloat16"]["loss"], "plan": r["plan"],
+              "steps_per_s_after_first_chunk": r["steps_per_s_after_first_chunk"],
+              "seconds": r["seconds"], "launches_rank0": {
+                  k_: v_ for k_, v_ in (r["launches_rank0"] or {}).items() if v_},
+              "ok": ok})
+        if not ok:
+            failed.append(p_size)
+    if failed:
+        raise AssertionError(f"context-parallel training on {failed} cards disagrees")
+    emit(card)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": n_cards}})
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -879,6 +1405,8 @@ def main() -> int:
         print(f"chip_smoke: the {PKG} package is not beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    if sys.argv[1:] == ["--multi-card"]:
+        return multi_card(smi())
     import numpy as np
     import torch.nn.functional as F
 
@@ -1443,6 +1971,9 @@ def main() -> int:
     by_path = {"serving": launches, "training": train_launches, **serve_counts}
     long_context(K, card, gen, timing, errs, by_path)
 
+    # 12. context parallelism at block_size 1024
+    context_parallel(K, card, gen, timing, errs, by_path)
+
     emit(card)
     prod = {"fused_qkv_attention": ("fused_qkv_attention", prod_k1, "bfloat16"),
             "short_cross_attention": ("short_cross_attention", prod_k2, "bfloat16"),
@@ -1458,7 +1989,10 @@ def main() -> int:
             "flash_attention_bwd": ("flash_attention_bwd", FLASH_PROD, "bfloat16", 0.2),
             "flash_cross_attention": ("flash_cross_attention", FLASH_CROSS_PROD, "bfloat16"),
             "flash_cross_attention_res": ("flash_cross_attention_res", FLASH_CROSS_PROD,
-                                          "bfloat16")}
+                                          "bfloat16"),
+            **{f"flash_chunk_{d}_{m}": (f"flash_chunk_{d}_{m}", CP_SELF, "bfloat16",
+                                        *((0.2,) if d == "bwd" else ()))
+               for d in ("fwd", "bwd") for m in ("causal", "full")}}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],
          "launches": by_path[MAIN_PATH[name]][name], "main_path": MAIN_PATH[name],

@@ -94,7 +94,7 @@ def test_flash_keep_mask_is_bit_equal_to_jax(t, rate):
         jseed = seed if stream is None else seed + (stream + 1) * jpa._STREAM_SEED_STRIDE
         tseed = K._flash_seed(rate, SALTS, stream)
         for iq, jk in ((0, 0), (t // blk - 1, 0), (t // blk - 1, t // blk - 1)):
-            got = K._flash_keep(tseed, 3, iq, jk, blk, rate, None)
+            got = K._flash_keep(tseed, 3, iq, jk, blk, blk, rate, None)
             for n in range(3):
                 ref = jpa._keep_mask(jseed, n, iq, jk, (blk, blk), rate, True)
                 np.testing.assert_array_equal(got[n].numpy(), np.asarray(ref))

@@ -13,8 +13,9 @@ and the dropout forwards (other summation orders over up to 2048 rows for
 the weight gradients). The serving kernels (K3f, the cache prefill, and the
 decode kernels K8, K8p, K8q) are held the same way; the decode kernels'
 plain versions keep each Pallas kernel's own rounding points, which differ.
-The flash kernels (K5f, K5b, K6f, K6f-r) are held the same way on the card;
-their plain versions against the Pallas kernels in tests/test_torch_flash.py.
+The flash kernels (K5f, K5b, K6f, K6f-r) and the ring's chunk kernels (K7f,
+K7b) are held the same way on the card; their plain versions against the
+Pallas kernels in tests/test_torch_flash.py and tests/test_torch_ring.py.
 """
 
 import numpy as np
@@ -230,8 +231,11 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
     fq, fk, fv = (torch.from_numpy(a) for a in _cross_inputs(2, 1, 256, 8, seed=2))
     K.flash_causal_attention(fq.requires_grad_(), fk[0], fv[0]).sum().backward()
     K.flash_cross_attention(fq, fk, fv).sum().backward()
+    for causal in (True, False):
+        out, lse = K.flash_chunk_fwd(fq, fk[0], fv[0], causal)
+        K.flash_chunk_bwd(fq, fk[0], fv[0], out, lse, fq, causal)
     assert K.launch_counts() == dict.fromkeys(K.KERNELS, 0)
-    assert len(K.KERNELS) == 12
+    assert len(K.KERNELS) == 16
     with pytest.raises(ValueError, match="unsupported device"):
         K.short_cross_attention(q.to("meta"), k.to("meta"), v.to("meta"))
     x, w1, b1, w2 = (torch.from_numpy(a).to("meta") for a in _fqkv_inputs(1, 1, 8, 8, 1, 4, 0))
@@ -606,3 +610,47 @@ def test_flash_cross_kernels_match_plain_on_card(cuda_device, shape, dtype, rate
     _card_close("K6f", out, ref, dtype)
     _card_close("K6f-r outs", outs, ref_outs, dtype)
     _card_close("K6f-r lses", lses, ref_lses, "float32")
+
+
+# the ring's chunk pairs: production self (192 rows, chunks of 512 and 256)
+# and cross (48 rows) shapes, t_q != t_k, hs 16 / 128 / 256
+CHUNK_SHAPES = [(192, 512, 512, 64), (192, 256, 256, 64), (48, 512, 512, 64),
+                (2, 128, 512, 64), (2, 512, 256, 16), (2, 384, 1024, 128), (2, 256, 256, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", CHUNK_SHAPES)
+def test_flash_chunk_kernels_match_plain_on_card(cuda_device, shape, dtype, rate, causal):
+    """K7f (out and lse) and K7b against their plain versions, the backward
+    given the logsumexp and output merged over two chunks (as the ring
+    gives them); K7b twice gives the same bits."""
+    n, tq, tk, hs = shape
+    gen = torch.Generator().manual_seed(n + tq + tk + hs)
+    q, dout = (torch.randn((n, tq, hs), generator=gen).to(cuda_device, getattr(torch, dtype))
+               for _ in range(2))
+    k, v, k2, v2 = (torch.randn((n, tk, hs), generator=gen).to(q) for _ in range(4))
+    seed = 1234567 if rate else None
+    before = K.launch_counts()
+    out, lse = K.flash_chunk_fwd(q, k, v, causal, seed, rate)
+    out2, lse2 = K.flash_chunk_fwd(q, k2, v2, False, seed, rate)
+    torch.cuda.synchronize()
+    mask = "causal" if causal else "full"
+    ref_out, ref_lse = K.flash_chunk_fwd_plain(q, k, v, causal, seed, rate)
+    _card_close("K7f", out, ref_out, dtype)
+    _card_close("K7f lse", lse, ref_lse, "float32")
+    merged = torch.logaddexp(lse, lse2)
+    o = (out.float() * torch.exp(lse - merged)[..., None]
+         + out2.float() * torch.exp(lse2 - merged)[..., None]).to(q.dtype)
+    grads = K.flash_chunk_bwd(q, k, v, o, merged, dout, causal, seed, rate)
+    again = K.flash_chunk_bwd(q, k, v, o, merged, dout, causal, seed, rate)
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    assert after[f"flash_chunk_fwd_{mask}"] == before[f"flash_chunk_fwd_{mask}"] + 1 + (not causal)
+    assert after[f"flash_chunk_bwd_{mask}"] == before[f"flash_chunk_bwd_{mask}"] + 2
+    ref = K.flash_chunk_bwd_plain(q, k, v, o, merged, dout, causal, seed, rate)
+    for name, g, r, g2 in zip(("dq", "dk", "dv"), grads, ref, again):
+        assert g.dtype == r.dtype and torch.equal(g, g2)
+        _card_close(f"K7b {name}", g, r, dtype)

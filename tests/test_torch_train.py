@@ -16,6 +16,7 @@ parameters cross over through ``convert.params_from_jax``. Tolerances:
   never updates reads 1.0.
 """
 
+import re
 from pathlib import Path
 
 import numpy as np
@@ -72,7 +73,8 @@ from trade_aid_multimodal_transformer_tpu_torch.train.metrics import (
     ModalityMetricSpec,
     batch_directional_metrics,
 )
-from trade_aid_multimodal_transformer_tpu_torch.train.runner import resolve_mesh, run_training
+from trade_aid_multimodal_transformer_tpu_torch.parallel.resolve import plan_mesh
+from trade_aid_multimodal_transformer_tpu_torch.train.runner import run_training
 from trade_aid_multimodal_transformer_tpu_torch.train.steps import (
     StepRng,
     Trainer,
@@ -583,12 +585,58 @@ def test_run_training_resumes_from_its_checkpoint(train_folder, capsys):
     assert res["opt_state"]["count"] == 6  # three more steps on the loaded moments
 
 
+_PLAN_KW = dict(batch_size=8, block_size=64, n_head=6, num_modalities=4, n_layer=6)
+
+
 def test_mesh_that_needs_more_devices_raises():
+    """On one card the trivial plans resolve and a plan that needs more
+    devices raises as the JAX package's (``ValueError``); on the CPU the
+    ranks of ``context_parallel`` are processes, so ``("auto", 2)`` resolves
+    to the sequence axis."""
     for ok in ("auto", "off", None, 1, {"data": 1, "model": 1}):
-        resolve_mesh(ok, 1)
+        assert plan_mesh(ok, 1, n_devices=1, **_PLAN_KW).trivial
     for bad, cp in ((2, 1), ({"data": 2}, 1), ("auto", 2)):
-        with pytest.raises(NotImplementedError, match="slice 5"):
-            resolve_mesh(bad, cp)
+        with pytest.raises(ValueError, match="device"):
+            plan_mesh(bad, cp, n_devices=1, **_PLAN_KW)
+    plan = plan_mesh("auto", 2, n_devices=2, **_PLAN_KW)
+    assert (plan.seq, plan.n_devices, plan.describe()) == (2, 2, "context x2")
+
+
+# (mesh, context_parallel, devices, fsdp): JAX's plan or error, in the port
+# the same plan where it has only a sequence axis, the same error where JAX
+# raises, and NotImplementedError (a later slice) where JAX's plan has a
+# data, tensor, modality or pipeline axis
+PLAN_CASES = [
+    ("auto", 1, 1, False), ("off", 1, 1, False), (None, 1, 1, False), (1, 1, 1, False),
+    ({"data": 1, "model": 1}, 1, 1, False), ("auto", 2, 2, False), ("off", 2, 2, False),
+    ("off", 4, 8, False), ("auto", 4, 4, False), ({"data": 1}, 2, 2, False),
+    ("auto", 2, 1, False), ("auto", 3, 4, False), (2, 1, 1, False), ({"data": 2}, 1, 1, False),
+    ("auto", 1, 2, False), ("auto", 2, 8, False), ("auto", 1, 4, True), ({"data": 2}, 1, 2, False),
+    ({"model": 2}, 1, 2, False), ({"mod": 2}, 1, 2, False), ({"pipe": 2}, 1, 2, False),
+    ({"mod": 3}, 1, 4, False), ({"pipe": 4}, 1, 4, False), ({"data": 3}, 1, 4, False),
+    ({"bogus": 2}, 1, 2, False), ({"data": 0}, 1, 2, False), ("sideways", 1, 1, False),
+    ({"data": 1}, 2, 2, True),
+]
+
+
+@pytest.mark.parametrize("mesh,cp,n,fsdp", PLAN_CASES)
+def test_plan_mesh_matches_jax(mesh, cp, n, fsdp):
+    from trade_aid_multimodal_transformer_tpu.parallel.resolve import plan_mesh as jax_plan_mesh
+
+    kw = dict(_PLAN_KW, pipeline_microbatches=4, fsdp=fsdp)
+    try:
+        ref = jax_plan_mesh(mesh, cp, devices=[object()] * n, **kw)
+    except ValueError as e:
+        with pytest.raises(ValueError, match=re.escape(str(e))):
+            plan_mesh(mesh, cp, n_devices=n, **kw)
+        return
+    if ref.n_devices != ref.seq or ref.fsdp:
+        with pytest.raises(NotImplementedError, match="later slice"):
+            plan_mesh(mesh, cp, n_devices=n, **kw)
+        return
+    got = plan_mesh(mesh, cp, n_devices=n, **kw)
+    assert (got.describe(), got.n_devices, got.seq, got.trivial) == (
+        ref.describe(), ref.n_devices, ref.seq, ref.trivial)
 
 
 def test_trainer_chunk_and_step_draw_from_the_feed():

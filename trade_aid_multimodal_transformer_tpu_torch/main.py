@@ -5,7 +5,10 @@
 
 The counterpart of the repository's ``main.py`` for the port: everything is
 configured in the directory's files (or a programmatic ``config.py``), and
-training runs on the card unless ``config.yaml`` says ``device: cpu``.
+training runs on the card unless ``config.yaml`` says ``device: cpu``. With
+``tpu_options.context_parallel: P`` it starts P rank processes, one card each
+(``torchrun --nproc-per-node P -m trade_aid_multimodal_transformer_tpu_torch.main``
+runs the same inside torchrun's group).
 """
 
 import sys

@@ -23,7 +23,10 @@ so above 512) both cores are the flash kernels (ops/kernels.py; their
 backward kernels run in training); elsewhere the dense cores run. Outside the
 whole-row band cross-attention projects in the JAX package's (B, H, T, hs)
 order, so that the flash kernels' and the dense core's dropout rows are
-JAX's.
+JAX's. Inside a context-parallel scope (ops/attention.py) the whole-row
+kernels are off, as in the JAX package: self-attention projects q, k, v and
+cross-attention projects in JAX's (B, H, T, hs) order, and both cores go
+through ring attention, whose chunk rows are then JAX's.
 
 Training (``train=True`` with a raw uint32[2] ``rng``) applies hash dropout
 at the JAX package's sites in its order: ``KeyGen(rng)`` gives one key per

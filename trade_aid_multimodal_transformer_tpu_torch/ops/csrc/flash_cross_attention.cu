@@ -31,7 +31,7 @@ int cross_fwd(const void* q, const void* k, const void* v, void* out, void* outs
   tat::flash::FwdArgs a{};
   a.q = q; a.k = k; a.v = v; a.out = out; a.lse = nullptr;
   a.outs = outs; a.lses = static_cast<float*>(lses);
-  a.J = J; a.n = n; a.T = T; a.hs = hs; a.blk = blk;
+  a.J = J; a.n = n; a.Tq = T; a.Tk = T; a.hs = hs; a.bq = blk; a.bk = blk; a.causal = 1;
   a.scale = scale; a.keepf = keepf; a.seed = seed; a.thresh = thresh; a.on = rate_on;
   a.stream_seeds = 1;
   return tat::flash::launch_flash_fwd(a, is_bf16, static_cast<cudaStream_t>(stream));

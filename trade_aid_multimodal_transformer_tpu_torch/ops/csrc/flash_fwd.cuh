@@ -1,9 +1,15 @@
 // Forward of blockwise (flash) causal attention, shared by the self-attention
-// kernel (K5f, J = 1, with the logsumexp) and the cross kernels (K6f, K6f-r:
-// one query stream against J key/value streams, summed):
+// kernel (K5f, J = 1, with the logsumexp), the cross kernels (K6f, K6f-r:
+// one query stream against J key/value streams, summed) and the ring
+// attention chunk kernel (K7f: J = 1, t_q query rows against t_k key rows,
+// with the causal mask of the diagonal chunk or none):
 //
-//   out_j[r] = softmax_causal(q[r] k_j[r]^T * hs^-0.5) . v_j[r],
-//   lse_j[r] = logsumexp of the row's scores,  out[r] = sum_j out_j[r].
+//   out_j[r] = softmax_mask(q[r] k_j[r]^T * hs^-0.5) . v_j[r],
+//   lse_j[r] = logsumexp of the row's scores,  out[r] = sum_j out_j[r],
+//
+// the mask the top-left causal one (key column c visible from query row i
+// iff c <= i, also where t_q != t_k) or, for the chunks of earlier ring
+// ranks, every key visible (kCausal = false).
 //
 // Arithmetic of the JAX kernels (_flash_fwd_kernel, _flash_cross_kernel,
 // _flash_cross_kernel_res): scores in f32 from products in the input type
@@ -14,14 +20,16 @@
 // (each stream's rounded output added to the rounded running sum), so the sum
 // is kept in the output array itself. Dropout of stream j is keyed by seed +
 // (j + 1) * 1000003 for the cross kernels and by the seed itself for
-// self-attention, on the JAX block grid (flash_tile.cuh keep()). The tiles
-// differ from the JAX blocks, so p is rounded relative to another running
-// max: agreement with the JAX kernel is to tolerance, not to the bit.
+// self-attention and the chunks, on the JAX block grid (flash_tile.cuh
+// keep(): query blocks bq, key blocks bk, which differ where t_q != t_k). The
+// tiles differ from the JAX blocks, so p is rounded relative to another
+// running max: agreement with the JAX kernel is to tolerance, not to the bit.
 //
 // One block per (collapsed row, query tile of R rows), the longest rows of a
 // collapsed row first; it holds q in shared memory and walks the streams and
-// the key tiles up to the diagonal, keeping m, l and the f32 accumulator on
-// chip. Nothing of size T^2 reaches device memory.
+// the key tiles up to the diagonal (every key tile without the mask),
+// keeping m, l and the f32 accumulator on chip. Nothing of size t_q * t_k
+// reaches device memory.
 #pragma once
 
 #include "flash_tile.cuh"
@@ -33,11 +41,12 @@ struct FwdArgs {
   const void* q;
   const void* k;
   const void* v;
-  void* out;     // (n, T, hs): the output, or the sum over the J streams
-  float* lse;    // (n, 1, T), or null
-  void* outs;    // (J, n, T, hs) each stream's output, or null
-  float* lses;   // (J, n, 1, T) each stream's logsumexp, or null
-  int J, n, T, hs, R, blk;
+  void* out;     // (n, Tq, hs): the output, or the sum over the J streams
+  float* lse;    // (n, 1, Tq), or null
+  void* outs;    // (J, n, Tq, hs) each stream's output, or null
+  float* lses;   // (J, n, 1, Tq) each stream's logsumexp, or null
+  int J, n, Tq, Tk, hs, R, bq, bk;  // k, v: (J, n, Tk, hs); bq, bk the JAX blocks
+  int causal;
   float scale, keepf;
   uint32_t seed, thresh;
   int on, stream_seeds, vec;
@@ -64,8 +73,10 @@ struct FwdLayout {
   }
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FwdArgs a) {
+// At most 85 registers a thread, so that three blocks of the bf16 hs-64
+// layout (~72 KB of shared memory each) stay resident on an SM.
+template <typename T, bool kCausal>
+__global__ void __launch_bounds__(kThreads, 3) flash_fwd_kernel(const FwdArgs a) {
   extern __shared__ __align__(128) char smem[];
   const FwdLayout<T> L(a.R, a.hs);
   T* sq = reinterpret_cast<T*>(smem);
@@ -79,18 +90,20 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FwdArgs a) {
   float* sc = sl + a.R;                                     // this tile's correction
 
   const int R = a.R, hs = a.hs, hsp = L.hsp;
-  const int n_qt = a.T / R;
+  const int n_qt = a.Tq / R;
   const int qt = n_qt - 1 - (int)(blockIdx.x % n_qt);
   const int row = (int)(blockIdx.x / n_qt);
   const int q0 = qt * R;
+  // the last key tile: the diagonal one under the causal mask, else all
+  const int kt_end = kCausal ? min(qt, a.Tk / R - 1) : a.Tk / R - 1;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t plane = (size_t)a.T * hs;
-  const T* q = static_cast<const T*>(a.q) + row * plane;
-  T* out = static_cast<T*>(a.out) + row * plane;
+  const size_t qplane = (size_t)a.Tq * hs, kplane = (size_t)a.Tk * hs;
+  const T* q = static_cast<const T*>(a.q) + row * qplane;
+  T* out = static_cast<T*>(a.out) + row * qplane;
 
   load_tile<T>(q + (size_t)q0 * hs, R, hs, hsp, sq, L.ldh, a.vec);
   for (int j = 0; j < a.J; ++j) {
-    const size_t at = ((size_t)j * a.n + row) * plane;
+    const size_t at = ((size_t)j * a.n + row) * kplane;
     const T* kj = static_cast<const T*>(a.k) + at;
     const T* vj = static_cast<const T*>(a.v) + at;
     const uint32_t seed = a.stream_seeds ? stream_seed(a.seed, j) : a.seed;
@@ -98,7 +111,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FwdArgs a) {
       sm[i] = -INFINITY;
       sl[i] = 0.f;
     }
-    for (int kt = 0; kt <= qt; ++kt) {
+    for (int kt = 0; kt <= kt_end; ++kt) {
       const int k0 = kt * R;
       load_tile<T>(kj + (size_t)k0 * hs, R, hs, hsp, sk, L.ldh, a.vec);
       load_tile<T>(vj + (size_t)k0 * hs, R, hs, hsp, sv, L.ldh, a.vec);
@@ -110,17 +123,18 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FwdArgs a) {
         float* srow = ss + i * L.lds;
         float mx = -INFINITY;
         for (int c = lane; c < R; c += 32) {
-          const float x = (k0 + c <= r) ? srow[c] * a.scale : -INFINITY;
+          const float x = (!kCausal || k0 + c <= r) ? srow[c] * a.scale : -INFINITY;
           srow[c] = x;
           mx = fmaxf(mx, x);
         }
         const float m_old = sm[i], m_new = fmaxf(m_old, warp_max(mx));
         float sum = 0.f;
+        const KeepRow kr(a.on, seed, (uint32_t)row, (uint32_t)a.bq, (uint32_t)a.bk,
+                         (uint32_t)r, (uint32_t)k0, a.thresh);
         for (int c = lane; c < R; c += 32) {
           const float p = expf(srow[c] - m_new);
           sum += p;
-          const bool kept = !a.on || keep(seed, (uint32_t)row, (uint32_t)a.blk, (uint32_t)r,
-                                          (uint32_t)(k0 + c), a.thresh);
+          const bool kept = !a.on || kr((uint32_t)c);
           sp[i * L.ldp + c] = from_f32<T>(kept ? p : 0.f);
         }
         sum = warp_sum(sum);
@@ -142,7 +156,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FwdArgs a) {
       Mma<T>::template run<false, false>(sp, L.ldp, sv, L.ldh, sacc, L.lda, R, hsp, R, kt > 0);
     }
     // stream j's output, rounded to q's type, and its logsumexp
-    T* outs = a.outs ? static_cast<T*>(a.outs) + at : nullptr;
+    T* outs = a.outs ? static_cast<T*>(a.outs) + ((size_t)j * a.n + row) * qplane : nullptr;
     for (int idx = threadIdx.x; idx < R * hs; idx += kThreads) {
       const int i = idx / hs, e = idx - i * hs;
       const float o = Io<T>::round(sacc[i * L.lda + e] / (sl[i] * a.keepf));
@@ -152,32 +166,36 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FwdArgs a) {
     }
     for (int i = threadIdx.x; i < R; i += kThreads) {
       const float lse = sm[i] + logf(sl[i]);
-      if (a.lse) a.lse[(size_t)row * a.T + q0 + i] = lse;
-      if (a.lses) a.lses[((size_t)j * a.n + row) * a.T + q0 + i] = lse;
+      if (a.lse) a.lse[(size_t)row * a.Tq + q0 + i] = lse;
+      if (a.lses) a.lses[((size_t)j * a.n + row) * a.Tq + q0 + i] = lse;
     }
     __syncthreads();
   }
 }
 
-template <typename T>
+template <typename T, bool kCausal>
 int launch_flash_fwd_t(FwdArgs a, cudaStream_t stream) {
   a.R = pick_rows<FwdLayout<T>>(a.hs);
-  if (a.R == 0 || a.T % a.R != 0 || a.blk % a.R != 0) return (int)cudaErrorInvalidValue;
-  const long long blocks = (long long)a.n * (a.T / a.R);
+  if (a.R == 0 || a.Tq % a.R != 0 || a.Tk % a.R != 0 || a.bq % a.R != 0 || a.bk % a.R != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = (long long)a.n * (a.Tq / a.R);
   if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   const size_t smem = FwdLayout<T>(a.R, a.hs).bytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, kCausal>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  flash_fwd_kernel<T><<<(unsigned)blocks, kThreads, smem, stream>>>(a);
+  flash_fwd_kernel<T, kCausal><<<(unsigned)blocks, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// bf16 on the tensor cores, f32 on FMAs.
+// bf16 on the tensor cores, f32 on FMAs; the causal mask or none.
 inline int launch_flash_fwd(FwdArgs a, int is_bf16, cudaStream_t stream) {
   a.vec = is_bf16 && a.hs % 8 == 0 && aligned16({a.q, a.k, a.v});
-  if (is_bf16) return launch_flash_fwd_t<__nv_bfloat16>(a, stream);
-  return launch_flash_fwd_t<float>(a, stream);
+  if (is_bf16)
+    return a.causal ? launch_flash_fwd_t<__nv_bfloat16, true>(a, stream)
+                    : launch_flash_fwd_t<__nv_bfloat16, false>(a, stream);
+  return a.causal ? launch_flash_fwd_t<float, true>(a, stream)
+                  : launch_flash_fwd_t<float, false>(a, stream);
 }
 
 }  // namespace flash

@@ -56,19 +56,43 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 
 // Dropout keep bit of score (row, col) of collapsed row n, as the JAX flash
 // kernels draw it in interpret mode (pallas_attention.py _keep_mask ->
-// hash_keep_mask): keyed by (seed, n, iq, jk) with iq = row / blk and
-// jk = col / blk on the JAX block grid, and (r, c) = (row % blk, col % blk)
-// inside the block. u32 arithmetic wraps as there.
-__device__ __forceinline__ bool keep(uint32_t seed, uint32_t n, uint32_t blk, uint32_t row,
-                                     uint32_t col, uint32_t thresh) {
-  const uint32_t iq = row / blk, jk = col / blk;
+// hash_keep_mask): keyed by (seed, n, iq, jk) with iq = row / bq and
+// jk = col / bk on the JAX block grid (query block bq, key block bk), and
+// (r, c) = (row % bq, col % bk) inside the block. u32 arithmetic wraps as
+// there.
+__device__ __forceinline__ bool keep(uint32_t seed, uint32_t n, uint32_t bq, uint32_t bk,
+                                     uint32_t row, uint32_t col, uint32_t thresh) {
+  const uint32_t iq = row / bq, jk = col / bk;
   const uint32_t x = (seed * 2654435761u) ^ (n * 40503u) ^ (iq * 1000003u) ^ (jk * 97u);
-  uint32_t h = (row - iq * blk) * 2246822519u + (col - jk * blk) * 3266489917u + x;
+  uint32_t h = (row - iq * bq) * 2246822519u + (col - jk * bk) * 3266489917u + x;
   h ^= h >> 13;
   h *= 2654435761u;
   h ^= h >> 16;
   return h >= thresh;
 }
+
+// keep() for the columns col0 .. col0 + R - 1 of one row, R dividing bk: the
+// key block jk and everything but the column's term of the hash are fixed,
+// so they are computed once (the u32 sum wraps as keep()'s), and only where
+// dropout is on.
+struct KeepRow {
+  uint32_t base = 0, thresh;
+  __device__ __forceinline__ KeepRow(bool on, uint32_t seed, uint32_t n, uint32_t bq,
+                                     uint32_t bk, uint32_t row, uint32_t col0, uint32_t thresh_)
+      : thresh(thresh_) {
+    if (!on) return;
+    const uint32_t iq = row / bq, jk = col0 / bk;
+    const uint32_t x = (seed * 2654435761u) ^ (n * 40503u) ^ (iq * 1000003u) ^ (jk * 97u);
+    base = (row - iq * bq) * 2246822519u + (col0 - jk * bk) * 3266489917u + x;
+  }
+  __device__ __forceinline__ bool operator()(uint32_t c) const {
+    uint32_t h = base + c * 3266489917u;
+    h ^= h >> 13;
+    h *= 2654435761u;
+    h ^= h >> 16;
+    return h >= thresh;
+  }
+};
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll

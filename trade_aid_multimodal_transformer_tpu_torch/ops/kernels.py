@@ -33,9 +33,15 @@ short block sizes and at long context (ops/pallas_attention.py there):
   the flash forward of one query stream against J key/value streams, summed,
   and the same with each stream's output and logsumexp for the backward
   (``csrc/flash_cross_attention.cu``, replacing ``_flash_cross_forward`` and
-  ``_flash_cross_forward_res``).
+  ``_flash_cross_forward_res``);
+- K7f, K7b ``flash_chunk_fwd``, ``flash_chunk_bwd``: one (query chunk, key
+  chunk) pair of ring (context-parallel) attention, t_q and t_k apart, with
+  the causal mask or none; the backward from a logsumexp given by the caller
+  (the ring-merged one) (``csrc/flash_attention.cu``, replacing
+  ``flash_chunk_fwd`` and ``flash_chunk_bwd``, which run the K5 Pallas
+  kernels at chunk granularity).
 
-K1f, K1b, K2f, K2b, K3f, K5f, K5b, K6f and K6f-r take attention dropout in
+K1f, K1b, K2f, K2b, K3f, K5f, K5b, K6f, K6f-r, K7f and K7b take attention dropout in
 the kernel, keyed as the JAX kernels key it in interpret mode
 (``hash_keep_mask``), so the masks are bit-identical. ``fused_qkv_attention``,
 ``short_cross_attention``, ``flash_causal_attention`` and
@@ -54,7 +60,8 @@ library with a plain C interface per source, bound with ``ctypes``.
 Every call of a wrapper that launches its kernel adds one to the wrapper's
 ``launches`` attribute, and nothing else does, so a caller can show that a
 run went through the kernels (K1b's one call runs ten CUDA launches, K5b's
-two).
+and K7b's two). K7 counts its causal and full-mask launches apart
+(``KERNELS`` names ``flash_chunk_{fwd,bwd}_{causal,full}``).
 """
 
 from __future__ import annotations
@@ -66,6 +73,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from types import SimpleNamespace
 from typing import Dict
 
 import torch
@@ -111,6 +119,8 @@ _SIGNATURES = {
     "flash_attention": {
         "tat_flash_attention_fwd": [_P] * 5 + [_I] * 4 + [_F, _U, _U, _I, _F, _I, _P],
         "tat_flash_attention_bwd": [_P] * 9 + [_I] * 4 + [_F, _U, _U, _I, _F, _I, _P],
+        "tat_flash_chunk_fwd": [_P] * 5 + [_I] * 6 + [_F, _U, _U, _I, _F, _I, _I, _P],
+        "tat_flash_chunk_bwd": [_P] * 9 + [_I] * 6 + [_F, _U, _U, _I, _F, _I, _I, _P],
     },
     "flash_cross_attention": {
         "tat_flash_cross_attention_fwd": [_P] * 4 + [_I] * 5 + [_F, _U, _U, _I, _F, _I, _P],
@@ -552,41 +562,96 @@ def _flash_seed(rate: float, salts, stream) -> int:
     return (seed if stream is None else stream_seed(seed, stream)) & _U32
 
 
-def _flash_keep(seed: int, n: int, iq: int, jk: int, blk: int, rate: float, device):
-    """(n, blk, blk) keep-mask of block (iq, jk) of every collapsed row."""
+def _flash_keep(seed: int, n: int, iq: int, jk: int, bq: int, bk: int, rate: float, device):
+    """(n, bq, bk) keep-mask of block (iq, jk) of every collapsed row."""
     rows = torch.arange(n, device=device).reshape(n, 1, 1)
-    return hash_keep_mask(seed, rows, iq, jk, (n, blk, blk), rate, device)
+    return hash_keep_mask(seed, rows, iq, jk, (n, bq, bk), rate, device)
 
 
-def _flash_fwd_plain(q, k, v, seed: int, rate: float):
-    """``_flash_fwd_kernel``'s arithmetic: (out in q's type, lse (n, 1, T))."""
+def _hidden(causal: bool, iq: int, bq: int, jk: int, bk: int, device):
+    """(bq, bk) mask of the scores of block (iq, jk) that the top-left causal
+    mask hides (key column > query row), or None without the mask."""
+    if not causal:
+        return None
+    rows = iq * bq + torch.arange(bq, device=device)[:, None]
+    return jk * bk + torch.arange(bk, device=device)[None, :] > rows
+
+
+def _flash_fwd_plain(q, k, v, seed: int, rate: float, causal: bool = True):
+    """``_flash_fwd_kernel``'s arithmetic: q (n, t_q, hs), k, v (n, t_k, hs)
+    on JAX's blocks bq = pick(t_q), bk = pick(t_k), the causal mask or none
+    -> (out in q's type, lse (n, 1, t_q))."""
     acc = _acc(q.dtype)
-    n, t, hs = q.shape
-    blk = flash_pick_block(t)
+    n, tq, hs = q.shape
+    tk = k.shape[1]
+    bq, bk = flash_pick_block(tq), flash_pick_block(tk)
     scale = hs ** -0.5
-    pos = torch.arange(blk, device=q.device)
     outs, lses = [], []
-    for iq in range(t // blk):
-        qb = q[:, iq * blk:(iq + 1) * blk].to(acc)
-        m = torch.full((n, blk, 1), float("-inf"), dtype=acc, device=q.device)
-        l = torch.zeros((n, blk, 1), dtype=acc, device=q.device)
-        o = torch.zeros((n, blk, hs), dtype=acc, device=q.device)
-        for jk in range(iq + 1):
-            kb, vb = k[:, jk * blk:(jk + 1) * blk], v[:, jk * blk:(jk + 1) * blk]
+    for iq in range(tq // bq):
+        qb = q[:, iq * bq:(iq + 1) * bq].to(acc)
+        m = torch.full((n, bq, 1), float("-inf"), dtype=acc, device=q.device)
+        l = torch.zeros((n, bq, 1), dtype=acc, device=q.device)
+        o = torch.zeros((n, bq, hs), dtype=acc, device=q.device)
+        n_kv = min((iq * bq + bq + bk - 1) // bk, tk // bk) if causal else tk // bk
+        for jk in range(n_kv):
+            kb, vb = k[:, jk * bk:(jk + 1) * bk], v[:, jk * bk:(jk + 1) * bk]
             s = torch.matmul(qb, kb.to(acc).transpose(-1, -2)) * scale
-            s = s.masked_fill(jk * blk + pos[None, :] > iq * blk + pos[:, None], float("-inf"))
+            hidden = _hidden(causal, iq, bq, jk, bk, q.device)
+            if hidden is not None:
+                s = s.masked_fill(hidden, float("-inf"))
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
             p = torch.exp(s - m_new)
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(dim=-1, keepdim=True)
             if rate > 0.0:
-                keep = _flash_keep(seed, n, iq, jk, blk, rate, q.device)
+                keep = _flash_keep(seed, n, iq, jk, bq, bk, rate, q.device)
                 p = torch.where(keep, p, torch.zeros((), dtype=acc, device=q.device))
             o = o * corr + torch.matmul(p.to(v.dtype).to(acc), vb.to(acc))
             m = m_new
         outs.append((o / (l * (1.0 - rate))).to(q.dtype))
         lses.append((m + torch.log(l))[..., 0].to(torch.float32))
     return torch.cat(outs, dim=1), torch.cat(lses, dim=-1)[:, None, :]
+
+
+def _flash_bwd_plain(q, k, v, out, lse, dout, seed: int, rate: float, causal: bool = True):
+    """``_flash_bwd_fused_kernel``'s arithmetic on JAX's blocks: dq, dk, dv
+    in the inputs' types, from lse (n, 1, t_q), whatever logsumexp it is."""
+    acc = _acc(q.dtype)
+    zero = torch.zeros((), dtype=acc, device=q.device)
+    n, tq, hs = q.shape
+    tk = k.shape[1]
+    bq, bk = flash_pick_block(tq), flash_pick_block(tk)
+    scale = hs ** -0.5
+    delta = (dout.to(acc) * out.to(acc)).sum(dim=-1, keepdim=True)  # (n, t_q, 1)
+    lse_c = lse.reshape(n, tq, 1).to(acc)
+    dq = torch.zeros((n, tq, hs), dtype=acc, device=q.device)
+    dks, dvs = [], []
+    for jk in range(tk // bk):
+        kb = k[:, jk * bk:(jk + 1) * bk].to(acc)
+        vb = v[:, jk * bk:(jk + 1) * bk].to(acc)
+        dk = torch.zeros((n, bk, hs), dtype=acc, device=q.device)
+        dv = torch.zeros((n, bk, hs), dtype=acc, device=q.device)
+        for iq in range((jk * bk) // bq if causal else 0, tq // bq):
+            sl = slice(iq * bq, (iq + 1) * bq)
+            qb, gb = q[:, sl].to(acc), dout[:, sl].to(acc)
+            s = torch.matmul(qb, kb.transpose(-1, -2)) * scale
+            p = torch.exp(s - lse_c[:, sl])
+            hidden = _hidden(causal, iq, bq, jk, bk, q.device)
+            if hidden is not None:
+                p = torch.where(hidden, zero, p)
+            dp = torch.matmul(gb, vb.transpose(-1, -2))
+            pd = p
+            if rate > 0.0:
+                keep = _flash_keep(seed, n, iq, jk, bq, bk, rate, q.device)
+                pd = torch.where(keep, p / (1.0 - rate), zero)
+                dp = torch.where(keep, dp / (1.0 - rate), zero)
+            dv = dv + torch.matmul(pd.to(dout.dtype).to(acc).transpose(-1, -2), gb)
+            ds = (p * (dp - delta[:, sl])).to(q.dtype).to(acc)
+            dk = dk + torch.matmul(ds.transpose(-1, -2), qb) * scale
+            dq[:, sl] += torch.matmul(ds, kb) * scale
+        dks.append(dk.to(k.dtype))
+        dvs.append(dv.to(v.dtype))
+    return dq.to(q.dtype), torch.cat(dks, dim=1), torch.cat(dvs, dim=1)
 
 
 def flash_attention_plain(q, k, v, dropout_rate: float = 0.0, dropout_salts=None):
@@ -602,42 +667,8 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, dropout_rate: float = 0.0
     ``_flash_bwd_fused_kernel``): dq, dk, dv in the inputs' type. ``stream``
     offsets the dropout seed as cross stream ``stream`` (the cross backward)."""
     rate = float(dropout_rate)
-    seed = _flash_seed(rate, dropout_salts, stream)
-    acc = _acc(q.dtype)
-    zero = torch.zeros((), dtype=acc, device=q.device)
-    n, t, hs = q.shape
-    blk = flash_pick_block(t)
-    nb = t // blk
-    scale = hs ** -0.5
-    pos = torch.arange(blk, device=q.device)
-    delta = (dout.to(acc) * out.to(acc)).sum(dim=-1, keepdim=True)  # (n, T, 1)
-    lse_c = lse.reshape(n, t, 1).to(acc)
-    dq = torch.zeros((n, t, hs), dtype=acc, device=q.device)
-    dks, dvs = [], []
-    for jk in range(nb):
-        kb = k[:, jk * blk:(jk + 1) * blk].to(acc)
-        vb = v[:, jk * blk:(jk + 1) * blk].to(acc)
-        dk = torch.zeros((n, blk, hs), dtype=acc, device=q.device)
-        dv = torch.zeros((n, blk, hs), dtype=acc, device=q.device)
-        for iq in range(jk, nb):
-            sl = slice(iq * blk, (iq + 1) * blk)
-            qb, gb = q[:, sl].to(acc), dout[:, sl].to(acc)
-            s = torch.matmul(qb, kb.transpose(-1, -2)) * scale
-            visible = jk * blk + pos[None, :] <= iq * blk + pos[:, None]
-            p = torch.where(visible, torch.exp(s - lse_c[:, sl]), zero)
-            dp = torch.matmul(gb, vb.transpose(-1, -2))
-            pd = p
-            if rate > 0.0:
-                keep = _flash_keep(seed, n, iq, jk, blk, rate, q.device)
-                pd = torch.where(keep, p / (1.0 - rate), zero)
-                dp = torch.where(keep, dp / (1.0 - rate), zero)
-            dv = dv + torch.matmul(pd.to(dout.dtype).to(acc).transpose(-1, -2), gb)
-            ds = (p * (dp - delta[:, sl])).to(q.dtype).to(acc)
-            dk = dk + torch.matmul(ds.transpose(-1, -2), qb) * scale
-            dq[:, sl] += torch.matmul(ds, kb) * scale
-        dks.append(dk.to(k.dtype))
-        dvs.append(dv.to(v.dtype))
-    return dq.to(q.dtype), torch.cat(dks, dim=1), torch.cat(dvs, dim=1)
+    return _flash_bwd_plain(q, k, v, out, lse, dout, _flash_seed(rate, dropout_salts, stream),
+                            rate)
 
 
 def flash_cross_attention_plain(q, k, v, dropout_rate: float = 0.0, dropout_salts=None,
@@ -655,6 +686,50 @@ def flash_cross_attention_plain(q, k, v, dropout_rate: float = 0.0, dropout_salt
         outs.append(o)
         lses.append(lse)
     return (total, torch.stack(outs), torch.stack(lses)) if residuals else total
+
+
+def flash_chunk_eligible(t_q: int, t_k: int, hs: int) -> bool:
+    """The chunk shapes K7 takes, as the JAX package's ``flash_chunk_eligible``:
+    t_q and t_k multiples of 128, hs <= 256 (the caller adds its own floor on
+    the chunk length)."""
+    return t_q % FLASH_BLOCK_STEP == 0 and t_k % FLASH_BLOCK_STEP == 0 and 0 < hs <= 256
+
+
+def _chunk_seed(seed, rate: float) -> int:
+    """The u32 seed of a chunk launch from the chunk pair's int32 seed."""
+    if rate == 0.0:
+        return 0
+    if seed is None:
+        raise ValueError("flash_chunk: dropout rate > 0 requires the chunk pair's seed")
+    return int(seed) & _U32
+
+
+def _collapse(x):
+    """(..., t, hs) -> (n, t, hs) contiguous, and the leading shape."""
+    return x.reshape(-1, *x.shape[-2:]).contiguous(), x.shape[:-2]
+
+
+def flash_chunk_fwd_plain(q, k, v, causal: bool, seed=None, rate: float = 0.0):
+    """Plain PyTorch version of the chunk forward kernel (K7f): q
+    (..., t_q, hs), k, v (..., t_k, hs), the top-left causal mask or none,
+    dropout keyed by the chunk pair's int32 ``seed`` on JAX's blocks of t_q
+    and t_k -> (out (..., t_q, hs) in q's type, lse (..., t_q) f32)."""
+    rate = float(rate)
+    (q3, lead), (k3, _), (v3, _) = _collapse(q), _collapse(k), _collapse(v)
+    out, lse = _flash_fwd_plain(q3, k3, v3, _chunk_seed(seed, rate), rate, causal)
+    return out.reshape(q.shape), lse.reshape(*lead, q.shape[-2])
+
+
+def flash_chunk_bwd_plain(q, k, v, out, lse, dout, causal: bool, seed=None, rate: float = 0.0):
+    """Plain PyTorch version of the chunk backward kernel (K7b): dq, dk, dv
+    in the inputs' types from the output and logsumexp ``lse`` (..., t_q)
+    merged over the ring (delta = rowsum(dout * out) of that output)."""
+    rate = float(rate)
+    (q3, _), (k3, _), (v3, _) = _collapse(q), _collapse(k), _collapse(v)
+    o3, g3 = _collapse(out)[0], _collapse(dout)[0]
+    lse3 = lse.reshape(q3.shape[0], 1, q3.shape[1])
+    dq, dk, dv = _flash_bwd_plain(q3, k3, v3, o3, lse3, g3, _chunk_seed(seed, rate), rate, causal)
+    return dq.reshape(q.shape), dk.reshape(k.shape), dv.reshape(v.shape)
 
 
 # Decode: one query position (..., 1, hs) against a cache (..., S, hs) whose
@@ -1279,6 +1354,93 @@ def flash_cross_attention(q, k, v, dropout_rate: float = 0.0, dropout_salts=None
     return out.reshape(q.shape)
 
 
+# K7's launch counts, its causal and full-mask kernels apart
+CHUNK_LAUNCHES = {(name, causal): SimpleNamespace(launches=0)
+                  for name in ("fwd", "bwd") for causal in (True, False)}
+
+
+def _check_chunk(what, q, k, v, rate: float, seed, acts=(), f32=()):
+    """Checks a chunk call; True where it takes the plain version (CPU)."""
+    if (q.ndim < 2 or k.shape != v.shape or k.shape[:-2] != q.shape[:-2]
+            or k.shape[-1] != q.shape[-1]):
+        raise ValueError(f"{what}: expected q (..., t_q, hs) and k, v (..., t_k, hs) with the "
+                         f"same leading axes; got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if not 0.0 <= float(rate) < 1.0:
+        raise ValueError(f"{what}: dropout rate must be in [0, 1), got {rate}")
+    _chunk_seed(seed, float(rate))
+    if _on_cpu(q, k, v, *acts, *f32):
+        return True
+    _check_cuda_operands(what, (q, k, v, *acts), f32)
+    t_q, t_k, hs = q.shape[-2], k.shape[-2], q.shape[-1]
+    if not flash_chunk_eligible(t_q, t_k, hs):
+        raise ValueError(f"{what}: t_q={t_q}, t_k={t_k}, hs={hs} outside the chunk kernels' "
+                         "shapes t_q % 128 == 0, t_k % 128 == 0, hs <= 256")
+    return False
+
+
+def _chunk_launch_args(q, k, causal: bool, seed, rate: float):
+    """(n, t_q, t_k, hs, causal, is_bf16, scale, seed, thresh, on, keepf, bq,
+    bk) of a chunk launch."""
+    *_, t_q, hs = q.shape
+    t_k = k.shape[-2]
+    rate = float(rate)
+    on = int(rate > 0.0)
+    return (q.numel() // (t_q * hs), t_q, t_k, hs, int(bool(causal)),
+            int(q.dtype == torch.bfloat16), hs ** -0.5, _chunk_seed(seed, rate),
+            keep_threshold(rate) if on else 0, on, 1.0 - rate,
+            flash_pick_block(t_q), flash_pick_block(t_k))
+
+
+def flash_chunk_fwd(q, k, v, causal: bool, seed=None, rate: float = 0.0):
+    """The chunk forward kernel (K7f): q (..., t_q, hs), k, v (..., t_k, hs),
+    one type, bf16 or f32; ``causal``: the top-left causal mask (the diagonal
+    chunk of a ring), else every key; ``seed``: the chunk pair's int32
+    dropout seed. Returns (out (..., t_q, hs) in q's type, lse (..., t_q)
+    f32). The plain version for CPU tensors, the CUDA kernel for CUDA tensors
+    with t_q % 128 == 0, t_k % 128 == 0, hs <= 256."""
+    what = "flash_chunk_fwd"
+    if _check_chunk(what, q, k, v, rate, seed):
+        return flash_chunk_fwd_plain(q, k, v, causal, seed, rate)
+    (q3, lead), (k3, _), (v3, _) = _collapse(q), _collapse(k), _collapse(v)
+    out = torch.empty_like(q3)
+    lse = torch.empty((q3.shape[0], 1, q3.shape[1]), dtype=torch.float32, device=q.device)
+    err = _fn("flash_attention", "tat_flash_chunk_fwd")(
+        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        *_chunk_launch_args(q3, k3, causal, seed, rate), _stream(),
+    )
+    _check_launch(err, what)
+    CHUNK_LAUNCHES["fwd", bool(causal)].launches += 1
+    return out.reshape(q.shape), lse.reshape(*lead, q.shape[-2])
+
+
+def flash_chunk_bwd(q, k, v, out, lse, dout, causal: bool, seed=None, rate: float = 0.0):
+    """The chunk backward kernel (K7b): dq (..., t_q, hs), dk, dv
+    (..., t_k, hs) in the inputs' type, from the output ``out`` and
+    logsumexp ``lse`` (..., t_q) merged over the whole ring and the output
+    gradient ``dout``; mask and dropout as the forward's. delta =
+    rowsum(dout * out) is one PyTorch reduction before the launch. Two runs
+    give the same bits (no atomics)."""
+    what = "flash_chunk_bwd"
+    if out.shape != q.shape or dout.shape != q.shape or tuple(lse.shape) != tuple(q.shape[:-1]):
+        raise ValueError(f"{what}: out and dout must be {tuple(q.shape)}, lse "
+                         f"{tuple(q.shape[:-1])}")
+    if _check_chunk(what, q, k, v, rate, seed, (out, dout), (lse,)):
+        return flash_chunk_bwd_plain(q, k, v, out, lse, dout, causal, seed, rate)
+    q3, k3, v3, o3, g3 = (_collapse(x)[0] for x in (q, k, v, out, dout))
+    lse3 = lse.reshape(q3.shape[0], 1, q3.shape[1]).contiguous()
+    delta = (g3.float() * o3.float()).sum(dim=-1)
+    dq, dk, dv = torch.empty_like(q3), torch.empty_like(k3), torch.empty_like(v3)
+    err = _fn("flash_attention", "tat_flash_chunk_bwd")(
+        q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), g3.data_ptr(), lse3.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *_chunk_launch_args(q3, k3, causal, seed, rate), _stream(),
+    )
+    _check_launch(err, what)
+    CHUNK_LAUNCHES["bwd", bool(causal)].launches += 1
+    return dq.reshape(q.shape), dk.reshape(k.shape), dv.reshape(v.shape)
+
+
 KERNELS = {
     "fused_qkv_attention": fused_qkv_attention_fwd,
     "fused_qkv_attention_bwd": fused_qkv_attention_bwd,
@@ -1292,6 +1454,10 @@ KERNELS = {
     "flash_attention_bwd": flash_attention_bwd,
     "flash_cross_attention": flash_cross_attention_fwd,
     "flash_cross_attention_res": flash_cross_attention_res,
+    "flash_chunk_fwd_causal": CHUNK_LAUNCHES["fwd", True],
+    "flash_chunk_fwd_full": CHUNK_LAUNCHES["fwd", False],
+    "flash_chunk_bwd_causal": CHUNK_LAUNCHES["bwd", True],
+    "flash_chunk_bwd_full": CHUNK_LAUNCHES["bwd", False],
 }
 
 def launch_counts() -> Dict[str, int]:

@@ -8,11 +8,16 @@ and the same eval / checkpoint boundaries: evaluate and save at every
 multiple of eval_interval and at max_iters - 1, train in chunks between
 them, save once more at the end.
 
-It runs on one device, the card unless the config says ``device: cpu``.
-``mesh: auto`` / ``off`` resolve to that one device; a mesh or context
-parallelism that needs more than one device raises (multi-device training
-is slice 5 of the port). ``multihost`` prints that it is unavailable and
-trains single-process, as the JAX package does without a pod.
+It runs on the card unless the config says ``device: cpu``. The
+parallelism plan resolves as the JAX package's (parallel/resolve.py).
+``tpu_options.context_parallel: P`` trains with the sequence sharded over P
+ranks (ring attention): ``run_training`` starts the P rank processes itself,
+one card each over NCCL (on the CPU, P gloo processes), after building the
+kernels once; inside a process group that already exists (``torchrun``) it
+runs as that group's rank. Rank 0 alone prints the console, writes the log
+and the checkpoints, and returns the result. Plans with other axes raise
+(a later slice of the port). ``multihost`` prints that it is unavailable
+and trains single-process, as the JAX package does without a pod.
 f32 products run in full f32 (PyTorch's default, TF32 off) whatever
 ``matmul_precision`` says. ``TAT_SEED`` pins the run seed; ``TAT_TIMING``
 prints the training rate.
@@ -23,12 +28,14 @@ from __future__ import annotations
 import math
 import numbers
 import os
+import sys
 import time
 from datetime import datetime
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config.compat import (
     compatibility_layer,
@@ -45,6 +52,9 @@ from ..data.vocab import create_train_val_datasets, numerical_representation
 from ..models.config import ModelConfig
 from ..models.init import init_params, map_tree
 from ..models.param_count import estimate_model_params
+from ..ops import kernels
+from ..parallel import mesh as pmesh
+from ..parallel.resolve import available_devices, plan_mesh
 from ..sampling.feed import BatchFeed, resolve_rand_sizes
 from .checkpoint import load_checkpoint, load_optimizer_state, save_checkpoint
 from .evaluate import estimate_loss
@@ -141,28 +151,99 @@ class StepTimer:
         return f"{self.steps} steps in {sec:.2f} s ({self.steps / sec:.2f} steps/s)"
 
 
-def resolve_mesh(mesh_cfg, context_parallel: int) -> None:
-    """The parallelism plan on one device: 'auto', 'off', 1 or a mapping of
-    ones is the trivial plan; anything that needs more devices raises."""
-    if mesh_cfg in (None, "auto", "off") and int(context_parallel) <= 1:
-        return
-    sizes = [mesh_cfg] if isinstance(mesh_cfg, int) else (
-        list(mesh_cfg.values()) if isinstance(mesh_cfg, dict) else [1])
-    if all(int(v) == 1 for v in sizes) and int(context_parallel) <= 1:
-        return
-    raise NotImplementedError(
-        f"tpu_options.mesh={mesh_cfg!r}, context_parallel={context_parallel} needs more than "
-        "one device; multi-device training is slice 5 of the port (ROADMAP)"
+def _plan(sc: Dict[str, Any], num_modalities: int):
+    """The run's parallelism plan (parallel/resolve.py) over the devices
+    of the config's device."""
+    cp = int(sc.get("context_parallel", 1))
+    return plan_mesh(
+        sc.get("mesh", "auto"), cp,
+        fsdp=bool(sc.get("fsdp", False)),
+        batch_size=sc["batch_size"], block_size=sc["block_size"], n_head=sc["n_head"],
+        num_modalities=num_modalities, n_layer=sc["n_layer"],
+        pipeline_microbatches=int(sc.get("pipeline_microbatches", 4)),
+        n_devices=available_devices(sc["device"], cp),
     )
+
+
+def _run_seed(seed: Optional[int]) -> int:
+    if seed is None and os.environ.get("TAT_SEED"):
+        # harness hook (tools/parity.py): pin the run seed from the
+        # environment without touching the zero-flag CLI surface
+        seed = int(os.environ["TAT_SEED"])
+    if seed is None:
+        seed = int.from_bytes(os.urandom(4), "little")
+    return seed
+
+
+def _picklable(caller_globals: Optional[dict]) -> dict:
+    """The plain values of a caller's globals (what programmatic mode
+    reads), to hand to the rank processes."""
+    plain = (bool, int, float, str, list, tuple, dict, type(None))
+    return {k: v for k, v in (caller_globals or {}).items()
+            if not k.startswith("__") and isinstance(v, plain)}
+
+
+def _rank_entry(rank: int, world: int, caller_globals: dict, seed: int):
+    """One rank of a context-parallel run: the workflow, silent but on
+    rank 0; rank 0 returns its result with the tensors on the CPU."""
+    if rank != 0:
+        sys.stdout = open(os.devnull, "w")
+    if dist.get_backend() == "gloo":
+        torch.set_num_threads(max(1, torch.get_num_threads() // world))  # P ranks share the cores
+    res = _run_training(caller_globals, seed, rank)
+    sys.stdout.flush()
+    if rank != 0:
+        return None
+    cpu = lambda t: t.detach().cpu()  # noqa: E731
+    state = res["opt_state"]
+    return {"params": map_tree(cpu, res["params"]),
+            "opt_state": {"count": state["count"], "mu": map_tree(cpu, state["mu"]),
+                          "nu": map_tree(cpu, state["nu"])},
+            "launches": kernels.launch_counts(),
+            **{k: res[k] for k in ("cfg", "losses", "vocabularies", "step_timer", "plan")}}
 
 
 # ---------------------------------------------------------------------------
 # the workflow
 # ---------------------------------------------------------------------------
 
-def run_training(caller_globals: Optional[dict] = None, seed: Optional[int] = None) -> Dict[str, Any]:
+def run_training(caller_globals: Optional[dict] = None, seed: Optional[int] = None,
+                 rank_timeout: Optional[float] = None) -> Dict[str, Any]:
     """Run the full workflow; returns a summary dict (final params, losses,
-    vocabularies) for programmatic callers."""
+    vocabularies) for programmatic callers. With ``context_parallel`` > 1
+    and no process group yet, the ranks run in processes of their own (each
+    given at most ``rank_timeout`` seconds, where set) and the result is
+    rank 0's, on the CPU, without the trainer and the feed, with rank 0's
+    kernel launches (``launches``)."""
+    if pmesh.init_from_env():
+        rank = dist.get_rank()
+        if torch.cuda.is_available():
+            if rank == 0:
+                kernels.build_kernels()  # once; the other ranks load it after the barrier
+            dist.barrier()
+        if seed is None:
+            box = [_run_seed(None)]
+            dist.broadcast_object_list(box, src=0)
+            seed = box[0]
+        if rank != 0:
+            sys.stdout = open(os.devnull, "w")
+        return _run_training(caller_globals, seed, rank)
+    initialize_compatibility_layer(caller_globals if caller_globals is not None else {})
+    sc = get_system_configuration()
+    if int(sc.get("context_parallel", 1)) <= 1:
+        return _run_training(caller_globals, seed)
+    plan = _plan(sc, len(get_modality_parameters()))
+    cpu = str(sc["device"]).startswith("cpu")
+    if not cpu:
+        kernels.build_kernels()  # once, before the ranks load the libraries
+    results = pmesh.run_ranks(
+        _rank_entry, plan.seq, (_picklable(caller_globals), _run_seed(seed)),
+        backend="gloo" if cpu else "nccl", timeout=rank_timeout)
+    return results[0]
+
+
+def _run_training(caller_globals: Optional[dict], seed: Optional[int],
+                  rank: int = 0) -> Dict[str, Any]:
     print("TRADE-AID MULTIMODAL TRANSFORMER")
     print("=" * 45)
     print("Initializing configuration system...")
@@ -191,7 +272,7 @@ def run_training(caller_globals: Optional[dict] = None, seed: Optional[int] = No
     if sc.get("multihost", False):
         # as the JAX package does where no pod is found
         print("Multi-host: initialization unavailable (multi-host training is "
-              "slice 5 of the port); continuing single-process")
+              "a later slice of the port); continuing single-process")
 
     batch_size = sc["batch_size"]
     block_size = sc["block_size"]
@@ -341,12 +422,7 @@ def run_training(caller_globals: Optional[dict] = None, seed: Optional[int] = No
     print()
 
     cfg = ModelConfig.from_modality_params(sc, all_vocab_sizes, modality_params_list)
-    if seed is None and os.environ.get("TAT_SEED"):
-        # harness hook (tools/parity.py): pin the run seed from the
-        # environment without touching the zero-flag CLI surface
-        seed = int(os.environ["TAT_SEED"])
-    if seed is None:
-        seed = int.from_bytes(os.urandom(4), "little")
+    seed = _run_seed(seed)
     dev = torch.device(device)
     init_gen = torch.Generator().manual_seed(seed)
     rng = StepRng(seed + 1, dev)
@@ -412,9 +488,23 @@ def run_training(caller_globals: Optional[dict] = None, seed: Optional[int] = No
     )
 
     # ----------------------------------------------------- parallelism plan
-    resolve_mesh(sc.get("mesh", "auto"), int(sc.get("context_parallel", 1)))
-    trainer = Trainer(cfg, feed, optimizer, metric_specs, eval_iters,
-                      grad_accum=sc.get("grad_accum", 1))
+    plan = _plan(sc, num_modalities)
+    if plan.trivial:
+        trainer = Trainer(cfg, feed, optimizer, metric_specs, eval_iters,
+                          grad_accum=sc.get("grad_accum", 1))
+    else:
+        from ..parallel.trainer import make_sharded_trainer
+        from ..utils.memory import format_train_state_memory
+
+        if not dist.is_initialized():
+            raise RuntimeError(f"context_parallel={plan.seq} runs in a process group of "
+                               f"{plan.seq} ranks; run_training starts them itself")
+        print(f"Parallelism: {plan.describe()} over {plan.n_devices} devices")
+        trainer = make_sharded_trainer(cfg, feed, optimizer, metric_specs, eval_iters,
+                                       pmesh.seq_mesh(plan.seq),
+                                       grad_accum=sc.get("grad_accum", 1))
+        print(f"Parallelism: {format_train_state_memory(params, opt_state, optimizer)}")
+    writer = rank == 0  # only rank 0 writes the log and the checkpoints
 
     hyperparams = {
         "n_embd": sc["n_embd"], "n_head": sc["n_head"], "n_layer": sc["n_layer"],
@@ -480,10 +570,11 @@ def run_training(caller_globals: Optional[dict] = None, seed: Optional[int] = No
     run_stats = {"Model parameter size (M)": round(model_params_estimate / 1e6, 1)}
     output_file_path = project_file_path + "output/" + output_file_name
     output_dir = os.path.dirname(output_file_path)
-    if output_dir and not os.path.exists(output_dir):
+    if writer and output_dir and not os.path.exists(output_dir):
         os.makedirs(output_dir, exist_ok=True)
+    log_to = output_file_path if writer and output_file_name != "" else ""
 
-    if output_file_name != "":
+    if log_to:
         write_initial_run_details(
             output_file_path, hyperparams, data_info, modality_configs, run_stats
         )
@@ -517,7 +608,7 @@ def run_training(caller_globals: Optional[dict] = None, seed: Optional[int] = No
             all_file_info=all_file_infos,
             batch_size=batch_size,
             eval_iters=eval_iters,
-            output_file_path=output_file_path if output_file_name != "" else "",
+            output_file_path=log_to,
             current_step=it, max_steps=max_iters,
         )
         current_time = datetime.now().strftime("%H:%M:%S")
@@ -528,7 +619,7 @@ def run_training(caller_globals: Optional[dict] = None, seed: Optional[int] = No
                 f"Time: {current_time}"
             )
             print("-" * 80)
-            if output_file_name != "":
+            if log_to:
                 with open(output_file_path, "a", encoding="utf-8") as f:
                     progress_pct = (it / max_iters) * 100
                     f.write(
@@ -556,7 +647,7 @@ def run_training(caller_globals: Optional[dict] = None, seed: Optional[int] = No
         current_time = datetime.now().strftime("%H:%M:%S")
         size = save_checkpoint(
             model_file_name, params, step=it, opt_state=opt_state, optimizer=optimizer
-        )
+        ) if writer else 0
         print()
         print(f"Saved: Model checkpoint ({round(size/1024**2, 2)} MB) | {current_time}")
         print()
@@ -609,7 +700,7 @@ def run_training(caller_globals: Optional[dict] = None, seed: Optional[int] = No
         print(f"Final Save: Model checkpoint | {current_time}")
         size = save_checkpoint(
             model_file_name, params, step=max_iters, opt_state=opt_state, optimizer=optimizer
-        )
+        ) if writer else 0
         print(f"Final Save: {round(size/1024**2, 2)} MB complete")
 
     return {
@@ -622,6 +713,7 @@ def run_training(caller_globals: Optional[dict] = None, seed: Optional[int] = No
         "feed": feed,
         "modalities": modalities,
         "step_timer": timer,
+        "plan": plan,
     }
 
 

@@ -25,6 +25,7 @@ dropout salts.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
@@ -215,11 +216,14 @@ class EvalStats(NamedTuple):
 
 
 class Trainer:
-    """Owns the step functions of one (model, feed, optimizer) run."""
+    """Owns the step functions of one (model, feed, optimizer) run.
+    ``scope``: a zero-argument context-manager factory entered around every
+    training step and evaluation pass (the context-parallel trainer's
+    attention scope, parallel/trainer.py)."""
 
     def __init__(self, cfg: ModelConfig, feed: BatchFeed, optimizer: AdamW,
                  metric_specs: Sequence[ModalityMetricSpec], eval_iters: int,
-                 grad_accum: int = 1):
+                 grad_accum: int = 1, scope: Optional[Callable] = None):
         self.cfg = cfg
         self.feed = feed
         self.optimizer = optimizer
@@ -227,6 +231,7 @@ class Trainer:
         self.eval_iters = eval_iters
         # each step averages gradients over grad_accum microbatch draws
         self.grad_accum = max(1, int(grad_accum))
+        self.scope = scope or contextlib.nullcontext
 
     # ------------------------------------------------------------- training
 
@@ -237,8 +242,9 @@ class Trainer:
         leaves = tree_leaves(params)
         loss_sum, grad_sum = None, None
         for (xb, yb), key in zip(batches, salts):
-            loss, _ = total_loss(params, self.cfg, xb, yb, key, True)
-            grads = torch.autograd.grad(loss, leaves)
+            with self.scope():
+                loss, _ = total_loss(params, self.cfg, xb, yb, key, True)
+                grads = torch.autograd.grad(loss, leaves)
             if len(batches) == 1:
                 return loss.detach(), list(grads)
             loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
@@ -283,7 +289,8 @@ class Trainer:
         cert = torch.zeros(M, device=dev)
         for _ in range(self.eval_iters):
             xb, yb = self.feed.sample(rng.batch, split, augment=False)
-            logits, ce = forward(params, self.cfg, xb, yb, train=False)
+            with self.scope():
+                logits, ce = forward(params, self.cfg, xb, yb, train=False)
             ce = torch.stack(ce)
             loss_sum = loss_sum + ce.sum()
             losses_sum = losses_sum + ce
