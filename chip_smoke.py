@@ -11,13 +11,18 @@ caches) and its training entry point at the production configuration's full
 width (examples/production_config.yaml: 4 modalities, n_embd 384, 6 heads, 6
 layers, block_size 64, batch 32, dropout 0.2, bf16) with seeded random
 weights on seeded synthetic CSVs, then the same config at block_size 1024
-(long context: the flash kernels, training at batch 8), checks that each
-path went through its kernels with the expected launch counts and that what
-comes out is right (the card's forward, cached forward and training step
-against the CPU's, the training loss falling), and times the kernels,
-batched serving, cached serving and training. Each phase prints one line;
-any failed check raises and the script exits non-zero. The last line is
-``{"ok": true, "device": {...}}``.
+(long context: the flash kernels, training at batch 8) and under context
+parallelism (ring attention over ranks sharing the card), drives the public
+ops and the tool that reach the remaining kernels (``causal_attention``
+differentiated in the whole-row band through the port of
+tools/flash_crossover.py, ``causal_attention_packed``, ``decode_attention_t``),
+checks that each path went through its kernels with the expected launch
+counts and that what comes out is right (the card's forward, cached forward
+and training step against the CPU's, every backward kernel call of the
+T = 64 step against its plain version, the training loss falling), and
+times the kernels, batched serving, cached serving and training. Each phase
+prints one line; any failed check raises and the script exits non-zero. The
+last line is ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device and the port package beside this file; without either it
 exits non-zero before printing any result.
@@ -26,7 +31,7 @@ exits non-zero before printing any result.
 
 on a machine with 2 or 4 cards instead runs the training entry with
 context parallelism, one card per rank over NCCL, against the same run on
-one card (``multi_card``).
+one card, and compares every rank's parameters (``multi_card``).
 """
 
 from __future__ import annotations
@@ -83,9 +88,25 @@ SOURCES = {
         f"{PKG}/ops/csrc/short_causal_attention.cu",
         "trade_aid_multimodal_transformer_tpu/ops/pallas_attention.py:1436",
     ),
+    "short_causal_attention_bwd": (
+        f"{PKG}/ops/csrc/short_causal_attention.cu",
+        "trade_aid_multimodal_transformer_tpu/ops/pallas_attention.py:1456",
+    ),
+    "short_causal_attention_packed": (
+        f"{PKG}/ops/csrc/short_causal_attention.cu",
+        "trade_aid_multimodal_transformer_tpu/ops/pallas_attention.py:2257",
+    ),
+    "short_causal_attention_packed_bwd": (
+        f"{PKG}/ops/csrc/short_causal_attention.cu",
+        "trade_aid_multimodal_transformer_tpu/ops/pallas_attention.py:2281",
+    ),
     "decode_attention": (
         f"{PKG}/ops/csrc/decode_attention.cu",
         "trade_aid_multimodal_transformer_tpu/ops/pallas_attention.py:2566",
+    ),
+    "decode_attention_t": (
+        f"{PKG}/ops/csrc/decode_attention.cu",
+        "trade_aid_multimodal_transformer_tpu/ops/pallas_attention.py:2667",
     ),
     "decode_attention_packed": (
         f"{PKG}/ops/csrc/decode_attention.cu",
@@ -119,7 +140,10 @@ SOURCES = {
 # the path whose launches each kernel's entry of the last line reports
 MAIN_PATH = {"fused_qkv_attention": "training", "fused_qkv_attention_bwd": "training",
              "short_cross_attention": "training", "short_cross_attention_bwd": "training",
-             "short_causal_attention": "serve", "decode_attention_packed": "serve",
+             "short_causal_attention": "serve", "short_causal_attention_bwd": "crossover",
+             "short_causal_attention_packed": "packed_op",
+             "short_causal_attention_packed_bwd": "packed_op", "decode_attention_t": "decode_t_op",
+             "decode_attention_packed": "serve",
              "decode_attention_packed_q8": "serve_int8", "decode_attention": "serve_plain",
              "flash_attention": "long_training", "flash_attention_bwd": "long_training",
              "flash_cross_attention": "long_generate", "flash_cross_attention_res": "long_training",
@@ -153,6 +177,13 @@ CP_SELF = (4 * 8 * 6, 512, 512, 64)
 CP_CROSS = (8 * 6, 512, 512, 64)
 # the phases' rank processes share the one card; each spawn is stopped after
 RANK_TIMEOUT = 420.0
+# the kernels that only public ops and tools reach: K3b at the
+# production training step's self-attention rows (M B H = 4 x 32 x 6, T 64,
+# hs 64), K4 over the same rows packed (nb = M B = 128, H = 6), K9 at the
+# long-context serving rows (24 B at B = 16, hs 64, S = 1024)
+K3B_PROD = (4 * 32 * 6, 64, 64)
+K4_PROD = (4 * 32, 6, 64, 64)
+K9_PROD = (24 * 16, 64, 1024)
 
 
 T_START = time.perf_counter()
@@ -313,19 +344,32 @@ def errs_of(got, refs):
                    "l2_rel": ((got - r).norm() / r.norm()).item()} for name, r in refs.items()}
 
 
+# the tuple-valued wrappers held in-path output by output, by output name
+OUTPUTS = {"fused_qkv_attention_bwd": ("dx", "dw1", "db1", "dw2"),
+           "short_cross_attention_bwd": ("dq", "dk", "dv"),
+           "short_causal_attention_bwd": ("dq", "dk", "dv"),
+           "flash_chunk_bwd": ("dq", "dk", "dv")}
+
+
 def checked(K, name, fn, worst, plain=None):
     """``fn`` (a kernel's wrapper, or a planted fault) with each output held
     against the kernel's plain version on the same inputs (``plain``, by
-    default ``K.<name>_plain``; of a pair such as (out, lse) the first);
-    worst[name] keeps the largest L2-relative error |out - plain| / |plain|."""
+    default ``K.<name>_plain``): worst keeps the largest L2-relative error
+    |out - plain| / |plain|, under "<name>.<output>" for each output of a
+    wrapper in OUTPUTS, else under name for the output (of a pair such as
+    (out, lse), the first)."""
     plain_fn = plain or getattr(K, f"{name}_plain")
 
     def run(*args):
         out = fn(*args)
         ref = plain_fn(*args)
-        o, r = (out[0], ref[0]) if isinstance(out, tuple) else (out, ref)
-        err = ((o.float() - r.float()).norm() / r.float().norm()).item()
-        worst[name] = max(worst.get(name, 0.0), err)
+        if name in OUTPUTS:
+            pairs = [(f"{name}.{o}", a, r) for o, a, r in zip(OUTPUTS[name], out, ref)]
+        else:
+            pairs = [(name,) + ((out[0], ref[0]) if isinstance(out, tuple) else (out, ref))]
+        for key, a, r in pairs:
+            err = ((a.float() - r.float()).norm() / r.float().norm().clamp_min(1e-30)).item()
+            worst[key] = max(worst.get(key, 0.0), err)
         return out
 
     run.launches = 0  # the wrapper counts on the module name it is patched over
@@ -341,6 +385,28 @@ def k8p_reading_pos_plus_1(K):
         return real(q, kp, vp, pos + 1)
 
     wrong.launches = 0  # the wrapper counts on the module name it is patched over
+    return wrong
+
+
+def k9_reading_pos_plus_1(K):
+    """The planted fault of the K9 check: K9 reading one column past pos."""
+    real = K.decode_attention_t
+
+    def wrong(q, kT, vT, pos):
+        return real(q, kT, vT, pos + 1)
+
+    return wrong
+
+
+def k2b_dk_x1_2(K):
+    """The planted fault of train_reference's in-path gate: K2b returning dk
+    20% too large on every call."""
+    real = K.short_cross_attention_bwd
+
+    def wrong(*args):
+        dq, dk, dv = real(*args)
+        return dq, dk * 1.2, dv
+
     return wrong
 
 
@@ -434,14 +500,20 @@ def serve_reference(K, C, forward, params, cpu_params, cfg, ids_ref, cases, pref
     return failed
 
 
-def train_reference(K, cfg, ids, faults, must_fail, want_step, phase="train_reference"):
+def train_reference(K, cfg, ids, faults, must_fail, want_step, phase="train_reference",
+                    in_path=(), in_path_faults=None):
     """One training step on the card (the kernels forward and backward)
     against the CPU's dense step on the same params (seed 1234) and batch
     ``ids`` (M, B, T + 1), dropout 0, f32 and bf16: the loss and every gradient
     leaf's L2-relative error within STEP_TOL, the kernels launched as
-    ``want_step`` says, and each planted fault of ``must_fail`` (``faults``:
-    name -> (autograd Function, index of the backward output scaled by 1.2))
-    rejected. Emits one line per dtype; raises on a failure."""
+    ``want_step`` says, every call of the backward wrappers ``in_path`` held
+    against its plain version within REL_TOL (L2-relative, each output), and
+    each planted fault of ``must_fail`` rejected: a fault of ``faults`` (name
+    -> (autograd Function, index of the backward output scaled by 1.2)) by
+    the step gate, one of ``in_path_faults`` (name -> {wrapper name: a
+    function of K giving the planted wrapper}) by the in-path gate. Emits one
+    line per dtype; raises on a failure."""
+    in_path_faults = in_path_faults or {}
     import torch
 
     from trade_aid_multimodal_transformer_tpu_torch.models.init import (
@@ -492,6 +564,9 @@ def train_reference(K, cfg, ids, faults, must_fail, want_step, phase="train_refe
         loss, g = step_grads(c)
         torch.cuda.synchronize()
         counts = K.launch_counts()
+        in_path_worst = {}  # the same step again, each in-path call beside its plain version
+        with patched(K, **{n: checked(K, n, getattr(K, n), in_path_worst) for n in in_path}):
+            step_grads(c)
         loss_err = abs(loss.item() - loss_ref.item())
         errs_leaf = leaf_errs(g)
         grad_err = max(errs_leaf)
@@ -501,10 +576,20 @@ def train_reference(K, cfg, ids, faults, must_fail, want_step, phase="train_refe
         one_leaf = min((1.2 * a.float().cpu() - r).norm().item() / n
                        for a, r, n in zip(g, g_ref, ref_norms) if n >= floor)
         planted = {f: max(leaf_errs(step_grads(c, faults[f])[1])) for f in faults}
+        planted_in_path = {}
+        for f, makers in in_path_faults.items():
+            bad = {}
+            with patched(K, **{n: checked(K, n, makers[n](K) if n in makers else getattr(K, n), bad)
+                               for n in in_path}):
+                planted[f] = max(leaf_errs(step_grads(c)[1]))
+            planted_in_path[f] = max(bad.values())
         tol = STEP_TOL[dtype]
+        rejected = {f: (planted_in_path[f] > REL_TOL[dtype] if f in planted_in_path
+                        else planted[f] > tol["grad_l2"]) for f in must_fail}
         ok = (loss_err <= tol["loss"] and grad_err <= tol["grad_l2"] and counts == want_step
               and math.isfinite(loss.item()) and one_leaf > tol["grad_l2"]
-              and all(planted[f] > tol["grad_l2"] for f in must_fail))
+              and all(v <= REL_TOL[dtype] for v in in_path_worst.values())
+              and all(rejected.values()))
         emit({"phase": phase, "what": "card training step vs CPU dense step, "
               "loss and every gradient leaf (dropout 0, TF32 off)", "dtype": dtype,
               "batch": xb.shape[1], "block_size": cfg.block_size, "loss_card": loss.item(),
@@ -512,7 +597,10 @@ def train_reference(K, cfg, ids, faults, must_fail, want_step, phase="train_refe
               "loss_abs_err": loss_err, "grad_l2_rel_err_max": grad_err, "worst_leaves": worst,
               "leaves": len(g), "card_dense_grad_l2_rel_err_max": dense_err,
               "one_leaf_x1.2_min": one_leaf, "planted": planted, "planted_must_fail": must_fail,
-              "tol": tol, "launches": counts, "ok": ok})
+              "tol": tol, "in_path_l2_rel": in_path_worst or None,
+              "in_path_tol": REL_TOL[dtype] if in_path else None,
+              "planted_in_path": planted_in_path or None, "planted_rejected": rejected,
+              "launches": counts, "ok": ok})
         if not ok:
             failed.append(dtype)
     if failed:
@@ -758,6 +846,41 @@ def long_context(K, card, gen, timing, errs, by_path):
               "bound_ms": t["bound"][0], "bound_by": t["bound"][1]})
     del q, k, v, do, out0, out1, qg, kg, vg, qc, kc, vc
 
+    # kernel_time at the JAX package's K5 tier shapes (hs 256; T 3072 takes
+    # its split backward, T 8192 its streamed forward and backward), which
+    # K5f and K5b serve: their rows of the kernel table
+    for n, t_, hs_ in ((2, 3072, 256), (2, 8192, 256)):
+        tri = t_ * (t_ + 1) // 2
+        q, k, v, do = (randn(n, t_, hs_).to(bf) for _ in range(4))
+        out0, lse0 = K.flash_attention_fwd(q, k, v)
+        qg, kg, vg = (x[None].clone().requires_grad_() for x in (q, k, v))
+        plane = n * t_ * hs_ * 2
+
+        def sdpa_tier_fwd_bwd():
+            o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+            return torch.autograd.grad(o, (qg, kg, vg), do[None])
+
+        tiers = {
+            "flash_attention": dict(
+                ms=device_ms(lambda: K.flash_attention_fwd(q, k, v), reps=5, inner=4),
+                plain_ms=device_ms(lambda: K.flash_attention_plain(q, k, v), reps=3, inner=2),
+                library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                    q[None], k[None], v[None], is_causal=True), reps=5, inner=4),
+                bound=bound_ms(2 * 2 * n * tri * hs_, 4 * plane + n * t_ * 4, "bfloat16")),
+            "flash_attention_bwd": dict(
+                ms=device_ms(lambda: K.flash_attention_bwd(q, k, v, out0, lse0, do), reps=5,
+                             inner=4),
+                plain_ms=device_ms(lambda: K.flash_attention_bwd_plain(q, k, v, out0, lse0, do),
+                                   reps=3, inner=2),
+                library_ms=device_ms(sdpa_tier_fwd_bwd, reps=5, inner=4),
+                bound=bound_ms(5 * 2 * n * tri * hs_, 8 * plane + n * t_ * 4, "bfloat16"))}
+        for name, t in tiers.items():
+            emit({"phase": "kernel_time", "kernel": name, "tier_shape": True, "card": card,
+                  "shape": [n, t_, hs_], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+                  "library_ms": t["library_ms"], "bound_ms": t["bound"][0],
+                  "bound_by": t["bound"][1]})
+        del q, k, v, do, out0, lse0, qg, kg, vg
+
     # long_entry: the generation entry at block_size 1024 from the last 1024
     # tokens: 4 full-window tokens (6 K5f and 12 K6f per token, no whole-row
     # kernel), and --serve for 128 tokens (one chunk: a prefill over 896 with
@@ -918,32 +1041,6 @@ def k7b_full_dk_x1_2(K):
     return wrong
 
 
-def k7_in_path(K, worst, planted: bool = False):
-    """K7f and K7b (with ``planted``, K7b with the planted fault) wrapped so
-    that every call of a step is held against its plain version on the same
-    inputs: worst[output] keeps the largest |out - plain| / |plain| (L2).
-    The real wrappers launch and count; the plain versions do not count."""
-    fwd, bwd = K.flash_chunk_fwd, k7b_full_dk_x1_2(K) if planted else K.flash_chunk_bwd
-
-    def note(name, a, b):
-        err = ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
-        worst[name] = max(worst.get(name, 0.0), err)
-
-    def fwd_checked(q, k, v, causal, seed=None, rate=0.0):
-        out = fwd(q, k, v, causal, seed, rate)
-        note("K7f.out", out[0], K.flash_chunk_fwd_plain(q, k, v, causal, seed, rate)[0])
-        return out
-
-    def bwd_checked(q, k, v, out, lse, g, causal, seed=None, rate=0.0):
-        got = bwd(q, k, v, out, lse, g, causal, seed, rate)
-        ref = K.flash_chunk_bwd_plain(q, k, v, out, lse, g, causal, seed, rate)
-        for name, a, b in zip(("dq", "dk", "dv"), got, ref):
-            note(f"K7b.{name}", a, b)
-        return got
-
-    return dict(flash_chunk_fwd=fwd_checked, flash_chunk_bwd=bwd_checked)
-
-
 def cp_rank(rank: int, world: int, job: dict):
     """One rank of the context-parallel phases, in a process of its own. All
     ranks share the one card, so the group is gloo and the ring's hops and
@@ -981,9 +1078,11 @@ def cp_rank(rank: int, world: int, job: dict):
             params = map_tree(lambda t: t.detach().to(dev).clone().requires_grad_(), job["params"])
             trainer = make_sharded_trainer(c, None, make_optimizer(1e-3), [], 1, mesh)
             worst = {}
+            bwd = k7b_full_dk_x1_2(K) if change == "planted" else K.flash_chunk_bwd
             fns = (dict(flash_chunk_fwd=K.flash_chunk_fwd_plain,
                         flash_chunk_bwd=K.flash_chunk_bwd_plain) if change == "plain"
-                   else k7_in_path(K, worst, planted=change == "planted"))
+                   else dict(flash_chunk_fwd=checked(K, "flash_chunk_fwd", K.flash_chunk_fwd, worst),
+                             flash_chunk_bwd=checked(K, "flash_chunk_bwd", bwd, worst)))
             with patched(K, **fns):
                 K.reset_launch_counts()
                 loss, grads = trainer.loss_and_grads(params, [(xb, yb)], [SALTS])
@@ -1307,7 +1406,9 @@ def multi_card(card: str) -> int:
     at block_size 1024, batch 8, dropout 0 (8 steps, evaluations at steps 0,
     4 and 7), against the same run on one card: rank 0's final evaluation
     losses within STEP_TOL's bf16 loss limit of the single-card run's, the
-    ring's kernels launched, the loss falling."""
+    ring's kernels launched, the loss falling; and at dropout 0 and 0.2 every
+    rank's parameter checksum (float64 sum and SHA-256 of the bytes) equal,
+    since the ranks keep their parameters equal with no all-reduce."""
     import torch
 
     from trade_aid_multimodal_transformer_tpu_torch.config.compat import reset_compatibility_layer
@@ -1321,11 +1422,12 @@ def multi_card(card: str) -> int:
         return 2
     K.build_kernels()
     runs = {}
-    for p_size in [1, 2] + ([4] if n_cards >= 4 else []):
+    sizes = [2] + ([4] if n_cards >= 4 else [])
+    for p_size, rate in [(1, 0.0)] + [(p_, r_) for r_ in (0.0, 0.2) for p_ in sizes]:
         with tempfile.TemporaryDirectory() as tmp:
             d = Path(tmp)
             production_config_dir(d, block_size=LONG_BLOCK, batch_size=8, max_iters=8,
-                                  eval_interval=4, eval_iters=2, dropout=0.0)
+                                  eval_interval=4, eval_iters=2, dropout=rate)
             text = (d / "config.yaml").read_text()
             text = text.replace("  mesh: auto", "  mesh: \"off\"")
             text = text.replace("  # context_parallel: 4", f"  context_parallel: {p_size}")
@@ -1343,10 +1445,11 @@ def multi_card(card: str) -> int:
                 reset_compatibility_layer()
         timer = res["step_timer"]
         later = timer.chunks[1:]
-        runs[p_size] = {"losses": res["losses"], "seconds": sec,
-                        "steps_per_s_after_first_chunk": sum(n for n, _ in later)
-                        / sum(t for _, t in later),
-                        "plan": res["plan"].describe(), "launches_rank0": res.get("launches")}
+        runs[p_size, rate] = {"losses": res["losses"], "seconds": sec,
+                              "steps_per_s_after_first_chunk": sum(n for n, _ in later)
+                              / sum(t for _, t in later),
+                              "plan": res["plan"].describe(), "launches_rank0": res.get("launches"),
+                              "param_checksums": res.get("param_checksums")}
     # more ranks than cards raises as the JAX package's plan_mesh raises for devices
     with tempfile.TemporaryDirectory() as tmp:
         d = Path(tmp)
@@ -1367,32 +1470,338 @@ def multi_card(card: str) -> int:
             reset_compatibility_layer()
     emit({"phase": "multi_card_refusal", "context_parallel": 2 * n_cards, "cards": n_cards,
           "error": refused, "ok": refused is not None and "device(s) are available" in refused})
-    base = runs[1]["losses"]
+    base = runs[1, 0.0]["losses"]
     failed = [] if refused is not None else ["refusal"]
-    for p_size, r in runs.items():
-        errs_ = {k_: abs(r["losses"][k_] - base[k_]) for k_ in ("train", "val")}
+    for (p_size, rate), r in runs.items():
+        # at dropout 0.2 the ring keys its masks per chunk pair, so only the
+        # ranks' agreement is held, not the one-card run's losses
+        errs_ = ({k_: abs(r["losses"][k_] - base[k_]) for k_ in ("train", "val")} if not rate
+                 else None)
         k7 = (r["launches_rank0"] or {}).get("flash_chunk_fwd_causal", 0)
-        ok = (all(e <= STEP_TOL["bfloat16"]["loss"] for e in errs_.values())
+        sums = r["param_checksums"]
+        ranks_equal = p_size == 1 or (len(sums or []) == p_size
+                                      and all(c_ == sums[0] for c_ in sums))
+        ok = ((errs_ is None or all(e <= STEP_TOL["bfloat16"]["loss"] for e in errs_.values()))
               and all(math.isfinite(v) for v in r["losses"].values())
-              and (p_size == 1 or k7 > 0))
+              and (p_size == 1 or k7 > 0) and ranks_equal)
         emit({"phase": "multi_card_training", "card": card, "context_parallel": p_size,
               "config": "examples/production_config.yaml", "changed": {
-                  "block_size": LONG_BLOCK, "batch_size": 8, "max_iters": 8, "dropout": 0.0,
+                  "block_size": LONG_BLOCK, "batch_size": 8, "max_iters": 8, "dropout": rate,
                   "mesh": "off", "context_parallel": p_size},
               "final_eval_losses": r["losses"], "abs_err_vs_one_card": errs_,
               "tol": STEP_TOL["bfloat16"]["loss"], "plan": r["plan"],
+              "param_checksums_by_rank": sums, "ranks_equal": ranks_equal,
               "steps_per_s_after_first_chunk": r["steps_per_s_after_first_chunk"],
               "seconds": r["seconds"], "launches_rank0": {
                   k_: v_ for k_, v_ in (r["launches_rank0"] or {}).items() if v_},
               "ok": ok})
         if not ok:
-            failed.append(p_size)
+            failed.append(f"P={p_size} dropout {rate}")
     if failed:
         raise AssertionError(f"context-parallel training on {failed} cards disagrees")
     emit(card)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": n_cards}})
     return 0
+
+
+def short_kernels(K, card, gen, timing, errs, by_path):
+    """The kernels that only the port's public ops and tools reach: K3b (the
+    backward of the differentiable whole-row ``short_causal_attention``),
+    K4f / K4b (``causal_attention_packed``) and K9 (``decode_attention_t``),
+    held against their plain versions (K3b and K4b run twice for the same
+    bits; K9 reading one column past pos must fail) and timed; the packed op
+    and the transposed decode driven through their entries with exact
+    launches (``packed_op``, ``decode_t_op``). Adds to ``timing``, ``errs``
+    and ``by_path``; raises on a failed check."""
+    import torch
+    import torch.nn.functional as F
+
+    from trade_aid_multimodal_transformer_tpu_torch.ops import attention as tatt
+
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    def same_bits(name, a, b, shape):
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"{name} {shape}: two runs differ")
+
+    # kernel_check: K3b at the production rows, at the crossover's rows (4 x 6
+    # at each T of the band it sweeps, hs 64) and T 8 / 64 / 512 x hs 16 / 64
+    # / 256, from K3f's output
+    for shape in ([K3B_PROD] + [(24, t_, 64) for t_ in (64, 128, 256, 512)]
+                  + [(3, t_, hs_) for t_ in (8, 64, 512) for hs_ in (16, 64, 256)]):
+        q, k, v, do = (randn(*shape) for _ in range(4))
+        for dtype in ("float32", "bfloat16"):
+            qq, kk, vv, dd = (x.to(getattr(torch, dtype)) for x in (q, k, v, do))
+            for rate in (0.0, 0.2):
+                salts = SALTS if rate else None
+                out = K.short_causal_attention_fwd(qq, kk, vv, rate, salts)
+                grads = K.short_causal_attention_bwd(qq, kk, vv, out, dd, rate, salts)
+                again = K.short_causal_attention_bwd(qq, kk, vv, out, dd, rate, salts)
+                torch.cuda.synchronize()
+                same_bits("short_causal_attention_bwd", grads, again, shape)
+                ref = K.short_causal_attention_bwd_plain(qq, kk, vv, out, dd, rate, salts)
+                errs[("short_causal_attention_bwd", shape, dtype, rate)] = max(
+                    check_rel(f"short_causal_attention_bwd.{g}", a, r, dtype, shape, rate)
+                    for g, a, r in zip(("dq", "dk", "dv"), grads, ref))
+
+    # K4f and K4b: the production rows packed, and nb 1 / 3, H 1 / 6, T 8 /
+    # 512, hs 16 / 24 (the bf16 FMA bodies) / 256
+    for shape in [K4_PROD, (1, 1, 8, 64), (3, 6, 512, 64), (1, 6, 8, 16), (3, 1, 512, 256),
+                  (3, 2, 72, 24)]:
+        nb, H, t_, hs_ = shape
+        qkv, do = randn(nb, 3 * H, t_, hs_), randn(nb, H, t_, hs_)
+        for dtype in ("float32", "bfloat16"):
+            x, dd = (a.to(getattr(torch, dtype)) for a in (qkv, do))
+            for rate in (0.0, 0.2):
+                salts = SALTS if rate else None
+                out = K.short_causal_attention_packed_fwd(x, H, rate, salts)
+                dqkv = K.short_causal_attention_packed_bwd(x, out, dd, H, rate, salts)
+                again = K.short_causal_attention_packed_bwd(x, out, dd, H, rate, salts)
+                torch.cuda.synchronize()
+                same_bits("short_causal_attention_packed_bwd", (dqkv,), (again,), shape)
+                ref = K.short_causal_attention_packed_plain(x, H, rate, salts)
+                tag = (dtype, rate) if rate else (dtype,)
+                errs[("short_causal_attention_packed", shape) + tag] = (
+                    check_rel("short_causal_attention_packed", out, ref, dtype, shape, rate) if rate
+                    else check_close("short_causal_attention_packed", out, ref, dtype, shape))
+                errs[("short_causal_attention_packed_bwd", shape, dtype, rate)] = check_rel(
+                    "short_causal_attention_packed_bwd.dqkv", dqkv,
+                    K.short_causal_attention_packed_bwd_plain(x, out, dd, H, rate, salts), dtype,
+                    shape, rate)
+
+    # K9 at the long-context serving rows (S 1024) and at S 128, pos 0 / 127 /
+    # S/2 / S - 1 read on the device; the planted fault (one column past pos)
+    # must fail the same check wherever there is such a column
+    n9, hs9, S9 = K9_PROD
+    for S in (S9, 128):
+        q, kT, vT = randn(n9, 1, hs9), randn(n9, hs9, S), randn(n9, hs9, S)
+        for dtype in ("float32", "bfloat16"):
+            qq, kk, vv = (x.to(getattr(torch, dtype)) for x in (q, kT, vT))
+            for pos in (0, 127, S // 2, S - 1):
+                shape = (n9, hs9, S, pos)
+                pos_t = torch.tensor([pos], dtype=torch.int32, device=dev)
+                out = K.decode_attention_t(qq, kk, vv, pos_t)
+                torch.cuda.synchronize()
+                ref = K.decode_attention_t_plain(qq, kk, vv, pos)
+                errs[("decode_attention_t", shape, dtype)] = check_close(
+                    "decode_attention_t", out, ref, dtype, shape)
+                if pos == S - 1:
+                    continue
+                bad = k9_reading_pos_plus_1(K)(qq, kk, vv, pos_t)
+                err = (bad.float() - ref.float()).abs().max().item()
+                emit({"phase": "kernel_check", "kernel": "decode_attention_t.planted_pos_plus_1",
+                      "shape": list(shape), "dtype": dtype, "max_abs_err": err, "tol": TOL[dtype],
+                      "must_fail": True, "ok": err > TOL[dtype]})
+                if err <= TOL[dtype]:
+                    raise AssertionError(f"K9 check passed the planted fault at {shape} {dtype}")
+
+    # packed_op: causal_attention_packed at the production rows, bf16,
+    # training with dropout 0.2, forward and backward (one K4f, one K4b);
+    # against the plain versions and against the split path (the same mask
+    # rows b H + h through K3f / K3b)
+    nb, H, t_, hs_ = K4_PROD
+    x = randn(nb, 3 * H, t_, hs_).bfloat16().requires_grad_()
+    do = randn(nb, H, t_, hs_).bfloat16()
+    K.reset_launch_counts()
+    out = tatt.causal_attention_packed(x, H, 0.2, SALTS, True)
+    (dqkv,) = torch.autograd.grad(out, (x,), do)
+    torch.cuda.synchronize()
+    by_path["packed_op"] = counts = K.launch_counts()
+    want = dict.fromkeys(K.KERNELS, 0)
+    want.update(short_causal_attention_packed=1, short_causal_attention_packed_bwd=1)
+    xs = x.detach().clone().requires_grad_()
+    split = tatt.causal_attention(xs[:, :H], xs[:, H:2 * H], xs[:, 2 * H:], "auto", 0.2, SALTS, True)
+    (dsplit,) = torch.autograd.grad(split, (xs,), do)
+    refs = {"plain": (K.short_causal_attention_packed_plain(x.detach(), H, 0.2, SALTS),
+                      K.short_causal_attention_packed_bwd_plain(x.detach(), out.detach(), do, H,
+                                                                0.2, SALTS)),
+            "split_K3": (split, dsplit)}
+    got = {}
+    for name, (ro, rd) in refs.items():
+        for what, a, b in (("out", out, ro), ("dqkv", dqkv, rd)):
+            err = (a.float() - b.float()).abs().max().item()
+            got[f"{name}.{what}"] = {"max_abs": err,
+                                     "bound": REL_TOL["bfloat16"] * max(1.0, b.float().abs().max().item())}
+    ok = (counts == want and all(e["max_abs"] <= e["bound"] for e in got.values())
+          and bool(torch.isfinite(out).all()) and tuple(out.shape) == (nb, H, t_, hs_))
+    emit({"phase": "packed_op", "what": "causal_attention_packed forward + backward, bf16, "
+          "dropout 0.2, vs the plain versions and the split K3f/K3b path",
+          "shape": list(K4_PROD), "errs": got, "launches": {k_: v_ for k_, v_ in counts.items() if v_},
+          "ok": ok})
+    if not ok:
+        raise AssertionError("causal_attention_packed on the card failed its checks")
+
+    # decode_t_op: decode_attention_t at the production rows for the last 4
+    # positions, pos advanced on the device (as a captured decode loop would)
+    qd, kT, vT = randn(n9, 1, hs9).bfloat16(), randn(n9, hs9, S9).bfloat16(), randn(n9, hs9, S9).bfloat16()
+    pos_t = torch.full((1,), S9 - 4, dtype=torch.int32, device=dev)
+    K.reset_launch_counts()
+    outs = []
+    for _ in range(4):
+        outs.append(K.decode_attention_t(qd, kT, vT, pos_t))
+        pos_t += 1
+    torch.cuda.synchronize()
+    by_path["decode_t_op"] = counts = K.launch_counts()
+    want = dict.fromkeys(K.KERNELS, 0)
+    want.update(decode_attention_t=4)
+    err = max((o.float() - K.decode_attention_t_plain(qd, kT, vT, S9 - 4 + i).float()).abs().max().item()
+              for i, o in enumerate(outs))
+    ok = counts == want and err <= TOL["bfloat16"] and all(bool(torch.isfinite(o).all()) for o in outs)
+    emit({"phase": "decode_t_op", "what": "decode_attention_t, positions S-4..S-1, bf16",
+          "shape": list(K9_PROD), "max_abs_err": err, "tol": TOL["bfloat16"],
+          "launches": {k_: v_ for k_, v_ in counts.items() if v_}, "ok": ok})
+    if not ok:
+        raise AssertionError("decode_attention_t on the card failed its checks")
+
+    # kernel_time at the production shapes, bf16 (B = 1: 24 rows for K3b, 4
+    # packed rows for K4, 24 for K9). Bounds count the causal half of each
+    # product (5 for a backward), every input read once and every output
+    # written once; K9 at pos = S - 1 reads the whole cache. Library
+    # yardsticks: SDPA (is_causal) forward + backward for K3b, over the split
+    # views for K4; SDPA over the transposed-back cache with a column mask
+    # for K9.
+    bf = torch.bfloat16
+    n, t_, hs_ = K3B_PROD
+    tri = t_ * (t_ + 1) // 2
+    q, k, v, do = (randn(n, t_, hs_).to(bf) for _ in range(4))
+    out0 = K.short_causal_attention_fwd(q, k, v)
+    out1 = K.short_causal_attention_fwd(q, k, v, 0.2, SALTS)
+    q1, k1, v1, o1, d1 = (a[:24].contiguous() for a in (q, k, v, out0, do))
+    qg, kg, vg = (a.clone().requires_grad_() for a in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        return torch.autograd.grad(o, (qg, kg, vg), do)
+
+    plane = n * t_ * hs_ * 2
+    timing["short_causal_attention_bwd"] = dict(
+        ms=device_ms(lambda: K.short_causal_attention_bwd(q, k, v, out0, do)),
+        ms_dropout=device_ms(lambda: K.short_causal_attention_bwd(q, k, v, out1, do, 0.2, SALTS)),
+        ms_b1=device_ms(lambda: K.short_causal_attention_bwd(q1, k1, v1, o1, d1)),
+        plain_ms=device_ms(lambda: K.short_causal_attention_bwd_plain(q, k, v, out0, do)),
+        library_ms=device_ms(sdpa_fwd_bwd),
+        bound=bound_ms(5 * 2 * n * tri * hs_, 8 * plane, "bfloat16"))
+    nb, H, t_, hs_ = K4_PROD
+    x = randn(nb, 3 * H, t_, hs_).to(bf)
+    do = randn(nb, H, t_, hs_).to(bf)
+    o4 = K.short_causal_attention_packed_fwd(x, H)
+    o4d = K.short_causal_attention_packed_fwd(x, H, 0.2, SALTS)
+    x1, o41, d41 = (a[:4].contiguous() for a in (x, o4, do))
+    xg = x.clone().requires_grad_()
+
+    def sdpa_packed_fwd_bwd():
+        o = F.scaled_dot_product_attention(xg[:, :H], xg[:, H:2 * H], xg[:, 2 * H:], is_causal=True)
+        return torch.autograd.grad(o, (xg,), do)
+
+    plane = nb * H * t_ * hs_ * 2
+    timing["short_causal_attention_packed"] = dict(
+        ms=device_ms(lambda: K.short_causal_attention_packed_fwd(x, H)),
+        ms_dropout=device_ms(lambda: K.short_causal_attention_packed_fwd(x, H, 0.2, SALTS)),
+        ms_b1=device_ms(lambda: K.short_causal_attention_packed_fwd(x1, H)),
+        plain_ms=device_ms(lambda: K.short_causal_attention_packed_plain(x, H)),
+        library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+            x[:, :H], x[:, H:2 * H], x[:, 2 * H:], is_causal=True)),
+        bound=bound_ms(2 * 2 * nb * H * tri * hs_, 4 * plane, "bfloat16"))
+    timing["short_causal_attention_packed_bwd"] = dict(
+        ms=device_ms(lambda: K.short_causal_attention_packed_bwd(x, o4, do, H)),
+        ms_dropout=device_ms(lambda: K.short_causal_attention_packed_bwd(x, o4d, do, H, 0.2, SALTS)),
+        ms_b1=device_ms(lambda: K.short_causal_attention_packed_bwd(x1, o41, d41, H)),
+        plain_ms=device_ms(lambda: K.short_causal_attention_packed_bwd_plain(x, o4, do, H)),
+        library_ms=device_ms(sdpa_packed_fwd_bwd),
+        # reads qkv, out and dout; writes d(qkv)
+        bound=bound_ms(5 * 2 * nb * H * tri * hs_, 8 * plane, "bfloat16"))
+    posd = torch.tensor([S9 - 1], dtype=torch.int32, device=dev)
+    visible = (torch.arange(S9, device=dev) <= S9 - 1)[None, :]
+    qd1, kT1, vT1 = (a[:24].contiguous() for a in (qd, kT, vT))
+    timing["decode_attention_t"] = dict(
+        ms=device_ms(lambda: K.decode_attention_t(qd, kT, vT, posd)),
+        ms_dropout=None,
+        ms_b1=device_ms(lambda: K.decode_attention_t(qd1, kT1, vT1, posd)),
+        plain_ms=device_ms(lambda: K.decode_attention_t_plain(qd, kT, vT, posd)),
+        library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+            qd, kT.transpose(-1, -2), vT.transpose(-1, -2), attn_mask=visible)),
+        bound=bound_ms(4 * n9 * S9 * hs9, 2 * n9 * S9 * hs9 * 2 + 2 * n9 * hs9 * 2, "bfloat16"))
+    for name, shape in (("short_causal_attention_bwd", K3B_PROD),
+                        ("short_causal_attention_packed", K4_PROD),
+                        ("short_causal_attention_packed_bwd", K4_PROD),
+                        ("decode_attention_t", K9_PROD)):
+        t = timing[name]
+        emit({"phase": "kernel_time", "kernel": name, "card": card, "shape": list(shape),
+              "kernel_ms": t["ms"], "kernel_ms_dropout": t["ms_dropout"], "kernel_ms_b1": t["ms_b1"],
+              "plain_ms": t["plain_ms"], "library_ms": t["library_ms"], "bound_ms": t["bound"][0],
+              "bound_by": t["bound"][1]})
+
+
+def crossover(K, card, by_path):
+    """The port of tools/flash_crossover.py on the card: its sweep (bf16,
+    batch 4, 6 heads, hs 64, T 64..8192), each table row printed on its own
+    line. Per timed application exactly one K3f and one K3b launch for the
+    whole-row core (in the band) and one K5f and one K5b for the flash core
+    (where eligible), none for the dense core; every time finite. At T 256
+    and 512, where both kernels run, the whole-row core's q, k, v gradients
+    against the flash core's on the same inputs (REL_TOL, bf16); at every T
+    of the band one application with K3b held in-path against its plain
+    version (L2-relative, REL_TOL). Adds ``by_path["crossover"]``; raises on
+    a failed check."""
+    import torch
+
+    from trade_aid_multimodal_transformer_tpu_torch import flash_crossover as X
+
+    batch, heads, hs = 4, 6, 64
+    for line in X.header(batch, heads, hs, "bfloat16", "cuda").splitlines():
+        emit(line)
+    rows, failed = [], []
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    for t_ in X.T_LIST:
+        row = X.crossover_row(t_, batch, heads, hs, torch.bfloat16, "cuda")
+        emit(X.format_row(row))
+        want = {core: {kn: row["applications"][core] for kn in X.CORE_KERNELS[core]}
+                for core in X.cores(t_, hs)}
+        finite = all(math.isfinite(row[c]) for c in ("dense_ms", "flash_ms", "short_ms")
+                     if row[c] is not None)
+        if row["launches"] != want or not finite:
+            failed.append(t_)
+        rows.append(row)
+    sweep_s = time.perf_counter() - t0
+    by_path["crossover"] = counts = K.launch_counts()
+    total = dict.fromkeys(K.KERNELS, 0)
+    for row in rows:
+        for per_core in row["launches"].values():
+            for kn, c in per_core.items():
+                total[kn] += c
+    in_path = {}  # one application per T of the band: K3b against its plain version
+    band = [t_ for t_ in X.T_LIST if K.in_band(t_, hs)]
+    for t_ in band:
+        worst = {}
+        with patched(K, short_causal_attention_bwd=checked(
+                K, "short_causal_attention_bwd", K.short_causal_attention_bwd, worst)):
+            X.grads(K.short_causal_attention, *X.inputs(t_, batch, heads, hs, torch.bfloat16, "cuda"))
+        in_path.update({f"T{t_}.{k_.split('.')[-1]}": v_ for k_, v_ in worst.items()})
+    agree = {}
+    for t_ in (256, 512):
+        q, k, v = X.inputs(t_, batch, heads, hs, torch.bfloat16, "cuda")
+        short_g = X.grads(K.short_causal_attention, q, k, v)
+        flash_g = X.grads(K.flash_causal_attention, q, k, v)
+        for name, a, b in zip(("dq", "dk", "dv"), short_g, flash_g):
+            agree[f"T{t_}.{name}"] = {
+                "max_abs": (a.float() - b.float()).abs().max().item(),
+                "bound": REL_TOL["bfloat16"] * max(1.0, b.float().abs().max().item())}
+    ok = (not failed and counts == total and len(in_path) == 3 * len(band)
+          and all(v_ <= REL_TOL["bfloat16"] for v_ in in_path.values())
+          and all(e["max_abs"] <= e["bound"] for e in agree.values()))
+    emit({"phase": "crossover", "card": card, "tool": f"python -m {PKG}.flash_crossover",
+          "shape": [batch, heads, "T", hs], "dtype": "bfloat16", "seconds": sweep_s,
+          "rows": [{k_: v_ for k_, v_ in r.items() if k_ != "launches"} for r in rows],
+          "launches": {k_: v_ for k_, v_ in counts.items() if v_}, "launches_exact": not failed,
+          "in_path_k3b_l2_rel": in_path, "in_path_tol": REL_TOL["bfloat16"],
+          "short_vs_flash_grads": agree, "ok": ok})
+    if not ok:
+        raise AssertionError(f"the crossover sweep failed its checks (rows {failed})")
 
 
 def main() -> int:
@@ -1726,6 +2135,10 @@ def main() -> int:
               "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
               "bound_ms": t["bound"][0], "bound_by": t["bound"][1]})
 
+    # 3b. the kernels that only public ops and tools reach: K3b, K4f / K4b, K9
+    by_path = {}
+    short_kernels(K, card, gen, timing, errs, by_path)
+
     # 4. the entry point at production width, and a reference check
     tokens = 32
     with tempfile.TemporaryDirectory() as tmp:
@@ -1943,18 +2356,20 @@ def main() -> int:
     B_train = data["sc"]["batch_size"]
     ids = torch.from_numpy(np.stack(
         [rng.integers(0, v, (B_train, cfg.block_size + 1)) for v in cfg.vocab_sizes]))
-    # planted faults: K1b's db1 20% too large must fail the gate. K2b's dk
-    # 20% too large is printed, not held: dk reaches the parameters only
-    # through the cross key/value projection, whose gradient it shares with
-    # dv, and at these random weights it moves that leaf too little for a
-    # whole-step gate (the kernel_check phase holds dk itself).
+    # every K1b and K2b call of the step is held in-path against its plain
+    # version. Planted faults: K1b's db1 20% too large must fail the step
+    # gate; K2b's dk 20% too large must fail the in-path gate. (At these
+    # random weights dk moves the cross key/value leaf too little for the
+    # step gate: it reaches the parameters only through that projection,
+    # whose gradient it shares with dv; its step reading is printed.)
     want_step = dict.fromkeys(K.KERNELS, 0)
     want_step.update(fused_qkv_attention=cfg.n_layer, fused_qkv_attention_bwd=cfg.n_layer,
                      short_cross_attention=2 * cfg.n_layer,
                      short_cross_attention_bwd=2 * cfg.n_layer)
-    train_reference(K, cfg, ids, {"K1b_db1_x1.2": (K.FusedQKVAttention, 2),
-                                  "K2b_dk_x1.2": (K.ShortCrossAttention, 1)},
-                    ("K1b_db1_x1.2",), want_step)
+    train_reference(K, cfg, ids, {"K1b_db1_x1.2": (K.FusedQKVAttention, 2)},
+                    ("K1b_db1_x1.2", "K2b_dk_x1.2"), want_step,
+                    in_path=("fused_qkv_attention_bwd", "short_cross_attention_bwd"),
+                    in_path_faults={"K2b_dk_x1.2": {"short_cross_attention_bwd": k2b_dk_x1_2}})
 
     # 9. the port's training entry on a copy of the production config: only
     # max_iters / eval_interval / eval_iters changed (a step-count cut); 10.
@@ -1968,11 +2383,14 @@ def main() -> int:
         max_iters=60, eval_interval=20, eval_iters=4)
 
     # 11. long context: the production config at block_size 1024
-    by_path = {"serving": launches, "training": train_launches, **serve_counts}
+    by_path.update({"serving": launches, "training": train_launches, **serve_counts})
     long_context(K, card, gen, timing, errs, by_path)
 
     # 12. context parallelism at block_size 1024
     context_parallel(K, card, gen, timing, errs, by_path)
+
+    # 13. the crossover tool (K3f + K3b against K5f + K5b and the dense core)
+    crossover(K, card, by_path)
 
     emit(card)
     prod = {"fused_qkv_attention": ("fused_qkv_attention", prod_k1, "bfloat16"),
@@ -1980,7 +2398,12 @@ def main() -> int:
             "fused_qkv_attention_bwd": ("fused_qkv_attention_bwd", prod_k1, "bfloat16", 0.2),
             "short_cross_attention_bwd": ("short_cross_attention_bwd", prod_k2, "bfloat16", 0.2),
             "short_causal_attention": ("short_causal_attention", (24 * 32, 56, 64), "bfloat16"),
+            "short_causal_attention_bwd": ("short_causal_attention_bwd", K3B_PROD, "bfloat16", 0.2),
+            "short_causal_attention_packed": ("short_causal_attention_packed", K4_PROD, "bfloat16"),
+            "short_causal_attention_packed_bwd": ("short_causal_attention_packed_bwd", K4_PROD,
+                                                  "bfloat16", 0.2),
             "decode_attention": ("decode_attention", (24 * 32, 72, 64, 1, 71), "bfloat16"),
+            "decode_attention_t": ("decode_attention_t", (*K9_PROD, K9_PROD[2] - 1), "bfloat16"),
             "decode_attention_packed": ("decode_attention_packed", (24 * 32, 64, 64, 2, 63),
                                         "bfloat16"),
             "decode_attention_packed_q8": ("decode_attention_packed_q8", (24 * 32, 64, 64, 2, 63),
@@ -1993,6 +2416,9 @@ def main() -> int:
             **{f"flash_chunk_{d}_{m}": (f"flash_chunk_{d}_{m}", CP_SELF, "bfloat16",
                                         *((0.2,) if d == "bwd" else ()))
                for d in ("fwd", "bwd") for m in ("causal", "full")}}
+    unlaunched = [name for name in K.KERNELS if not by_path[MAIN_PATH[name]][name]]
+    if unlaunched:
+        raise AssertionError(f"kernels never launched on their main path: {unlaunched}")
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],
          "launches": by_path[MAIN_PATH[name]][name], "main_path": MAIN_PATH[name],

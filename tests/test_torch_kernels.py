@@ -11,8 +11,11 @@ by the tests marked ``cuda`` below and by chip_smoke.py, with max-abs error
 <= tol * max(1, max|ref|): f32 1e-4 and bf16 2e-2 for the backward kernels
 and the dropout forwards (other summation orders over up to 2048 rows for
 the weight gradients). The serving kernels (K3f, the cache prefill, and the
-decode kernels K8, K8p, K8q) are held the same way; the decode kernels'
+decode kernels K8, K8p, K8q, K9) are held the same way; the decode kernels'
 plain versions keep each Pallas kernel's own rounding points, which differ.
+The differentiable whole-row kernels (K3f + K3b, and the packed K4f + K4b)
+are held the same way; their plain versions against the Pallas kernels in
+tests/test_torch_short.py.
 The flash kernels (K5f, K5b, K6f, K6f-r) and the ring's chunk kernels (K7f,
 K7b) are held the same way on the card; their plain versions against the
 Pallas kernels in tests/test_torch_flash.py and tests/test_torch_ring.py.
@@ -227,7 +230,10 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
     q, k, v = (torch.from_numpy(a) for a in _cross_inputs(2, 1, 8, 4, seed=1))
     K.short_cross_attention(q.requires_grad_(), k, v).sum().backward()
     K.short_causal_attention(q, q, q)
+    K.short_causal_attention(q, k[0], v[0]).sum().backward()
+    K.short_causal_attention_packed(torch.cat([q, k[0], v[0]]).requires_grad_(), 1).sum().backward()
     K.decode_attention_packed(q[:, :1], k[0, :, :4].reshape(1, 2, 8), v[0, :, :4].reshape(1, 2, 8), 3)
+    K.decode_attention_t(q[:, :1], k[0].transpose(-1, -2), v[0].transpose(-1, -2), 3)
     fq, fk, fv = (torch.from_numpy(a) for a in _cross_inputs(2, 1, 256, 8, seed=2))
     K.flash_causal_attention(fq.requires_grad_(), fk[0], fv[0]).sum().backward()
     K.flash_cross_attention(fq, fk, fv).sum().backward()
@@ -235,7 +241,7 @@ def test_wrappers_take_the_plain_version_only_on_the_cpu():
         out, lse = K.flash_chunk_fwd(fq, fk[0], fv[0], causal)
         K.flash_chunk_bwd(fq, fk[0], fv[0], out, lse, fq, causal)
     assert K.launch_counts() == dict.fromkeys(K.KERNELS, 0)
-    assert len(K.KERNELS) == 16
+    assert len(K.KERNELS) == 20
     with pytest.raises(ValueError, match="unsupported device"):
         K.short_cross_attention(q.to("meta"), k.to("meta"), v.to("meta"))
     x, w1, b1, w2 = (torch.from_numpy(a).to("meta") for a in _fqkv_inputs(1, 1, 8, 8, 1, 4, 0))
@@ -550,6 +556,88 @@ def test_decode_kernels_match_plain_on_card(cuda_device, which, pack, S, dtype):
             K.decode_attention_packed_q8_plain(q, k8, v8, ks, vs, pos)]
     for name, out, ref in zip(("K8", "K8p", "K8q"), outs, refs):
         torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=0, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "shape", [(768, 64, 64), (6, 8, 16), (4, 64, 24), (3, 512, 64), (2, 72, 128), (2, 64, 256)])
+def test_short_causal_fwd_bwd_kernels_match_plain_on_card(cuda_device, shape, dtype, rate):
+    """K3f and K3b through the differentiable entry against their plain
+    versions: one launch each per forward and backward; K3b run twice gives
+    the same bits."""
+    q, k, v = (
+        torch.from_numpy(a).to(cuda_device).to(getattr(torch, dtype))
+        for a in _cross_inputs(3, *shape, seed=17)
+    )
+    k, v, do = k[0], v[1], k[2]
+    salts = SALTS if rate else None
+    before = K.launch_counts()
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    out = K.short_causal_attention(qg, kg, vg, rate, salts)
+    grads = torch.autograd.grad(out, (qg, kg, vg), do)
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    assert after["short_causal_attention"] == before["short_causal_attention"] + 1
+    assert after["short_causal_attention_bwd"] == before["short_causal_attention_bwd"] + 1
+    _card_close("K3f", out, K.short_causal_attention_plain(q, k, v, rate, salts), dtype)
+    again = K.short_causal_attention_bwd(q, k, v, out.detach(), do, rate, salts)
+    ref = K.short_causal_attention_bwd_plain(q, k, v, out.detach(), do, rate, salts)
+    for name, g, r, g2 in zip(("dq", "dk", "dv"), grads, ref, again):
+        assert g.dtype == r.dtype and torch.equal(g, g2)
+        _card_close(f"K3b {name}", g, r, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(128, 6, 64, 64), (1, 1, 8, 16), (3, 6, 512, 64),
+                                   (3, 2, 72, 24)])
+def test_short_packed_kernels_match_plain_on_card(cuda_device, shape, dtype, rate):
+    """K4f and K4b through ``short_causal_attention_packed`` against their
+    plain versions, one launch each; K4b twice gives the same bits."""
+    nb, H, T, hs = shape
+    gen = torch.Generator().manual_seed(sum(shape))
+    qkv = torch.randn((nb, 3 * H, T, hs), generator=gen).to(cuda_device, getattr(torch, dtype))
+    do = torch.randn((nb, H, T, hs), generator=gen).to(qkv)
+    salts = SALTS if rate else None
+    before = K.launch_counts()
+    xg = qkv.clone().requires_grad_()
+    out = K.short_causal_attention_packed(xg, H, rate, salts)
+    (dqkv,) = torch.autograd.grad(out, (xg,), do)
+    torch.cuda.synchronize()
+    after = K.launch_counts()
+    for name in ("short_causal_attention_packed", "short_causal_attention_packed_bwd"):
+        assert after[name] == before[name] + 1
+    _card_close("K4f", out, K.short_causal_attention_packed_plain(qkv, H, rate, salts), dtype)
+    again = K.short_causal_attention_packed_bwd(qkv, out.detach(), do, H, rate, salts)
+    assert torch.equal(dqkv, again)
+    _card_close("K4b", dqkv, K.short_causal_attention_packed_bwd_plain(
+        qkv, out.detach(), do, H, rate, salts), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,hs,S", [(384, 64, 1024), (24, 64, 128), (5, 256, 256), (7, 16, 128)])
+def test_decode_t_kernel_matches_plain_on_card(cuda_device, n, hs, S, dtype):
+    """K9 against its plain version at pos 0, 127, S/2 and S - 1 read on the
+    device; one column past pos must differ where there is one."""
+    gen = torch.Generator().manual_seed(n + S)
+    dt = getattr(torch, dtype)
+    q = torch.randn((n, 1, hs), generator=gen).to(cuda_device, dt)
+    kT, vT = (torch.randn((n, hs, S), generator=gen).to(cuda_device, dt) for _ in range(2))
+    for pos in (0, 127, S // 2, S - 1):
+        tpos = torch.tensor([pos], dtype=torch.int32, device=cuda_device)
+        before = K.launch_counts()["decode_attention_t"]
+        out = K.decode_attention_t(q, kT, vT, tpos)
+        torch.cuda.synchronize()
+        assert K.launch_counts()["decode_attention_t"] == before + 1
+        ref = K.decode_attention_t_plain(q, kT, vT, pos)
+        torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=0)
+        if pos < S - 1:
+            wrong = K.decode_attention_t(q, kT, vT, tpos + 1)
+            assert (wrong.float() - ref.float()).abs().max().item() > TOL[dtype]
 
 
 FLASH_SHAPES = [(192, 1024, 64), (24, 896, 64), (3, 256, 16), (2, 640, 128), (2, 768, 24),

@@ -362,3 +362,28 @@ def test_run_training_with_context_parallel_matches_jax_entry(tmp_path, monkeypa
     assert res["vocabularies"][1] == jres["vocabularies"][1] == [-3, 0, 2]
     assert np.isfinite(res["losses"]["train"]) and res["plan"].seq == 2
     assert isinstance(res["params"]["pre"]["pos_emb"], torch.Tensor)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_run_training_ranks_end_with_equal_parameters(tmp_path, monkeypatch, capfd, rate):
+    """The context-parallel entry keeps every rank's parameters equal with
+    no all-reduce: each of the 2 gloo ranks returns its parameters' checksum
+    (float64 sum and SHA-256 of the bytes), which must be equal, at dropout 0
+    and 0.2. One thread per rank (a thread split that varies with the load
+    changes last bits between ranks on the CPU)."""
+    d = _demo_dir(tmp_path)
+    text = (d / "config.yaml").read_text()
+    assert text.count("dropout: 0.1") == 1
+    (d / "config.yaml").write_text(text.replace("dropout: 0.1", f"dropout: {rate}"))
+    monkeypatch.chdir(d)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    try:
+        port_compat.reset_compatibility_layer()
+        res = runner.run_training(caller_globals={}, seed=3, rank_timeout=RANK_TIMEOUT)
+    finally:
+        port_compat.reset_compatibility_layer()
+    capfd.readouterr()
+    sums = res["param_checksums"]
+    assert len(sums) == 2 and sums[0] == sums[1], sums
+    assert sums[0] == runner.param_checksum(res["params"])
+    assert np.isfinite(sums[0]["sum"]) and np.isfinite(res["losses"]["train"])

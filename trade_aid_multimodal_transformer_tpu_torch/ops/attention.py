@@ -10,11 +10,12 @@ probabilities cast to the value dtype before P.V. On the CPU bf16 inputs run
 the whole core in f32, as the JAX package does where the backend lacks mixed
 bf16 dots. The dispatch keeps the JAX package's order for CUDA tensors: the
 whole-row kernels (ops/kernels.py, with in-kernel dropout) for 8 <= T <= 512,
-T % 8 == 0 and hs <= 256 (hs even for the fused self-attention); then the
-flash kernels for T >= 256, T % 128 == 0 and hs <= 256 (so above 512); the
-dense cores everywhere else, as the JAX package leaves shapes outside both
-to XLA. ``attn_impl: jnp`` keeps the dense cores on the card too. Cached
-decode attention (one query position against the KV cache) dispatches in
+T % 8 == 0 and hs <= 256 (hs even for the fused self-attention; over one
+packed q|k|v operand in ``causal_attention_packed``); then the flash kernels
+for T >= 256, T % 128 == 0 and hs <= 256 (so above 512); the dense cores
+everywhere else, as the JAX package leaves shapes outside both to XLA.
+``attn_impl: jnp`` keeps the dense cores on the card too. Cached decode
+attention (one query position against the KV cache) dispatches in
 models/cache.py.
 
 Inside ``context_parallel_scope`` (opened by the context-parallel trainer,
@@ -150,11 +151,11 @@ def causal_attention(
 ) -> torch.Tensor:
     """Causal self-attention over separate q, k, v (..., T, hs), the JAX
     package's ``causal_attention``. On the card: in the band the
-    self-attention kernel (K3f, forward only: the KV-cache prefill; the
-    model's training forward takes the fused kernel there), in the flash band
-    the differentiable flash kernels (K5f forward, K5b backward), the
-    collapsed leading axes keying the dropout as the JAX kernels key it; the
-    dense core elsewhere."""
+    differentiable whole-row kernels (K3f forward, K3b backward; the
+    KV-cache prefill runs K3f alone, and the model's training forward takes
+    the fused kernel there), in the flash band the differentiable flash
+    kernels (K5f forward, K5b backward), the collapsed leading axes keying
+    the dropout as the JAX kernels key it; the dense core elsewhere."""
     mesh = _cp_active(q)
     if mesh is not None and q.shape == k.shape:
         return _cp_self_attention(q, k, v, mesh, dropout_rate, dropout_key, train, impl)
@@ -168,6 +169,39 @@ def causal_attention(
         if kernels.flash_eligible(t, hs) and q.ndim >= 3:
             return kernels.flash_causal_attention(q, k, v, rate, key)
     return causal_attention_dense(q, k, v, dropout_rate, dropout_key, train)
+
+
+def packed_attention_active(t: int, hs: int, impl: str, device: torch.device) -> bool:
+    """True when ``causal_attention_packed`` runs the packed whole-row
+    kernels (the JAX package's ``packed_attention_active``, with CUDA in
+    place of the TPU); never inside a context-parallel scope."""
+    return (_CP_SCOPE is None and _kernel_device(device, impl)
+            and kernels.short_packed_eligible(t, hs))
+
+
+def causal_attention_packed(
+    qkv: torch.Tensor,
+    n_head: int,
+    dropout_rate: float = 0.0,
+    dropout_key: Optional[Sequence[int]] = None,
+    train: bool = False,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Causal self-attention over packed (..., 3H, T, hs) q/k/v head groups,
+    the JAX package's ``causal_attention_packed``: on the card in the band one
+    kernel operand in and one packed gradient out (K4f / K4b, mask rows
+    b * H + h of the collapsed (..., H) axes); elsewhere the packed axis is
+    split and ``causal_attention`` runs. Returns (..., H, T, hs). (The JAX
+    model's packed branch is never taken, the fused kernel covers the same
+    band first, so the port's model does not call this.)"""
+    H = n_head
+    t, hs = qkv.shape[-2], qkv.shape[-1]
+    if packed_attention_active(t, hs, impl, qkv.device):
+        use_dropout = train and dropout_rate > 0.0
+        return kernels.short_causal_attention_packed(
+            qkv, H, dropout_rate if use_dropout else 0.0, dropout_key if use_dropout else None)
+    q, k, v = qkv[..., :H, :, :], qkv[..., H:2 * H, :, :], qkv[..., 2 * H:, :, :]
+    return causal_attention(q, k, v, impl, dropout_rate, dropout_key, train)
 
 
 def cross_causal_attention(

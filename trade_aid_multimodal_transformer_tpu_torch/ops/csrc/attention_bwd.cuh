@@ -1,6 +1,7 @@
 // Backward of whole-row causal attention, shared by the cross-attention
-// backward (short_cross_attention.cu) and the fused QKV attention backward
-// (fused_qkv_attention_bwd.cu).
+// backward (short_cross_attention.cu), the fused QKV attention backward
+// (fused_qkv_attention_bwd.cu) and the self-attention backwards over
+// separate and packed q, k, v (short_causal_attention.cu).
 //
 // One block of 256 threads per collapsed row r walks every stream j and every
 // (query tile, key tile) pair with tiles of R rows, all in f32 shared memory
@@ -10,13 +11,22 @@
 //   l  = rowsum(p)                                    (f32, unmasked)
 //   w  = keep ? p * (inv / l) : 0   (p / l without dropout), rounded to T
 //   dp = keep ? (do v^T) * inv : 0  (do v^T without dropout)
-//   D  = rowsum(w * do v^T) (cross) or rowsum(do * o) (fused)
+//   D  = rowsum(w * do v^T) (cross) or rowsum(do * o) (every self layout)
 //   ds = ((p / l) * (dp - D)) rounded to T
 //   dv_j = w^T do, dk_j = scale * ds^T q, dq = sum_j scale * ds k_j
 // Row statistics (m, l, D) take two or three passes over the key tiles of a
 // query tile; the gradient pass walks key tiles outermost so that dk_j and
 // dv_j stay in registers, and dq gathers in an f32 workspace that only this
 // block touches (a fixed summation order: two runs give the same bits).
+//
+// The row layout (``BwdArgs::layout``) says where row r's q, k_j and v_j
+// planes lie and which mask row keys it; every layout but the cross one
+// takes the unoffset seed and D = rowsum(do * o). Each gradient
+// lands at its input's offset in its own buffer (the fused and packed
+// layouts pass one d(qkv) buffer as dq, dk and dv); dout and the output o of
+// row r are plane r. The layout is a run-time argument read once, in the
+// prologue: as a template parameter it made the compiler schedule the
+// shared body otherwise, and K1b and K2b ran 15-17% slower (NVIDIA H100).
 //
 // What bounds it: at the production shapes every (row, stream) is one 64 x 64
 // tile pair; the block's FMA products and barriers, not device memory, set
@@ -27,11 +37,22 @@
 
 namespace tat {
 
+// Row layouts of the backward:
+//   kCrossRows   q (n, T, hs), k and v (J, n, T, hs); stream j keyed by
+//                seed + (j + 1) * 1000003, mask row r; D = rowsum(w * do v^T)
+//   kFusedRows   q, k, v in one (M, 3H, B, T, hs) buffer, r = (m H + h) B + b;
+//                mask row of the JAX fused kernel's batch groups (gb)
+//   kSelfRows    q, k, v (n, T, hs); mask row r
+//   kPackedRows  one (nb, 3H, T, hs) operand, r = b H + h: q at [b, h], k at
+//                [b, H + h], v at [b, 2H + h]; mask row r
+// Every layout but kCrossRows has J = 1, the unoffset seed and D = rowsum(do * o).
+enum BwdLayout { kCrossRows = 0, kFusedRows = 1, kSelfRows = 2, kPackedRows = 3 };
+
 struct BwdArgs {
   const void* q;
   const void* k;
   const void* v;
-  const void* o;     // fused: the forward output (for D); unused by cross
+  const void* o;     // the forward output (for D); unused by kCrossRows
   const void* dout;
   void* dq;
   void* dk;
@@ -42,8 +63,8 @@ struct BwdArgs {
   int rate_on;
   uint32_t seed, thresh;
   float inv;         // 1 / (1 - rate) as f32
-  // fused layout: r = (m * H + h) * B + b over q/k/v in (M, 3H, B, T, hs)
-  int fused, B, H, gb;
+  int layout;        // a BwdLayout
+  int B, H, gb;      // kFusedRows: B, H, gb; kPackedRows: H
 };
 
 __host__ __device__ inline size_t attn_bwd_smem_floats(int R, int hs, int n_t) {
@@ -127,9 +148,10 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(BwdArgs a) {
   const int r = blockIdx.x;
   const size_t plane = (size_t)Tn * hs;
 
-  size_t q_off, k_off, v_off;
+  const bool self_rows = a.layout != kCrossRows;  // J = 1, q's k and v, D = rowsum(do * o)
+  size_t q_off, k_off, v_off;  // k_off, v_off: of every layout but the cross one
   uint32_t n_idx;
-  if (a.fused) {
+  if (a.layout == kFusedRows) {
     const int b = r % a.B, h = (r / a.B) % a.H, m = r / (a.B * a.H);
     const size_t head = (size_t)a.B * plane;  // one virtual head of (M, 3H, B, T, hs)
     q_off = ((size_t)m * 3 * a.H + h) * head + b * plane;
@@ -137,9 +159,14 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(BwdArgs a) {
     v_off = k_off + (size_t)a.H * head;
     const int pid = m * (a.B / a.gb) + b / a.gb;
     n_idx = (uint32_t)(pid * a.gb * a.H + h * a.gb + b % a.gb);
+  } else if (a.layout == kPackedRows) {
+    q_off = ((size_t)(r / a.H) * 3 * a.H + r % a.H) * plane;
+    k_off = q_off + (size_t)a.H * plane;
+    v_off = k_off + (size_t)a.H * plane;
+    n_idx = (uint32_t)r;
   } else {
     q_off = (size_t)r * plane;
-    k_off = v_off = 0;
+    k_off = v_off = a.layout == kSelfRows ? q_off : 0;
     n_idx = (uint32_t)r;
   }
   const T* Q = static_cast<const T*>(a.q) + q_off;
@@ -190,9 +217,9 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(BwdArgs a) {
   };
 
   for (int jj = 0; jj < a.J; ++jj) {
-    const T* Kj = static_cast<const T*>(a.k) + (a.fused ? k_off : ((size_t)jj * a.n + r) * plane);
-    const T* Vj = static_cast<const T*>(a.v) + (a.fused ? v_off : ((size_t)jj * a.n + r) * plane);
-    const Dropout d{a.fused ? a.seed : stream_seed(a.seed, jj), n_idx, a.thresh, a.rate_on != 0};
+    const T* Kj = static_cast<const T*>(a.k) + (self_rows ? k_off : ((size_t)jj * a.n + r) * plane);
+    const T* Vj = static_cast<const T*>(a.v) + (self_rows ? v_off : ((size_t)jj * a.n + r) * plane);
+    const Dropout d{self_rows ? a.seed : stream_seed(a.seed, jj), n_idx, a.thresh, a.rate_on != 0};
 
     // ---- row statistics: m, l and D of every query row
     for (int qt = 0; qt < n_t; ++qt) {
@@ -228,7 +255,7 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(BwdArgs a) {
         __syncthreads();
       }
       load_rows<T>(Do, Tn, q0, R, hs, sDo, ld);
-      if (a.fused) {  // D = rowsum(do * o)
+      if (self_rows) {  // D = rowsum(do * o)
         const T* O = static_cast<const T*>(a.o) + (size_t)r * plane;
         if (tid < R && q0 + tid < Tn) {
           float acc = 0.f;
@@ -295,12 +322,8 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(BwdArgs a) {
         }
         __syncthreads();
       }
-      T* dK = static_cast<T*>(a.dk) + (a.fused ? k_off : ((size_t)jj * a.n + r) * plane);
-      T* dV = static_cast<T*>(a.dv) + (a.fused ? v_off : ((size_t)jj * a.n + r) * plane);
-      if (a.fused) {  // dk / dv of the fused path live in the dqkv buffer (dq's)
-        dK = static_cast<T*>(a.dq) + k_off;
-        dV = static_cast<T*>(a.dq) + v_off;
-      }
+      T* dK = static_cast<T*>(a.dk) + (self_rows ? k_off : ((size_t)jj * a.n + r) * plane);
+      T* dV = static_cast<T*>(a.dv) + (self_rows ? v_off : ((size_t)jj * a.n + r) * plane);
       if (actH) {
 #pragma unroll
         for (int u = 0; u < kMaxPerThread; ++u) {

@@ -1,18 +1,19 @@
 // Cached-decode attention: one new query position against a KV cache row,
-// cache column c visible iff c <= pos, in three forms:
+// cache column c visible iff c <= pos, in four forms:
 //
 //   plain   q (n, hs), k and v (n, S, hs)
+//   transposed  k and v (n, hs, S): feature e of position c at e * S + c
 //   packed  k and v (n, S / pack, pack * hs): position c at row c / pack, lane
 //           block c % pack, which is the row-major (n, S, hs) array itself
 //   q8      the packed form in int8 with one f32 scale per packed row,
 //           k_scale and v_scale (n, S / pack)
 //
 // Replaces: trade_aid_multimodal_transformer_tpu/ops/pallas_attention.py,
-// _decode_kernel (decode_attention), _decode_p_kernel
-// (decode_attention_packed) and _decode_p8_kernel (decode_attention_packed_q8).
-// Each keeps its JAX kernel's rounding points:
-//   plain:  s = q.k * hs^-0.5 in f32; w = p / sum(p) rounded to v's type; out =
-//           sum_c w_c v_c in f32, rounded once;
+// _decode_kernel (decode_attention), _decode_t_kernel (decode_attention_t),
+// _decode_p_kernel (decode_attention_packed) and _decode_p8_kernel
+// (decode_attention_packed_q8). Each keeps its JAX kernel's rounding points:
+//   plain and transposed:  s = q.k * hs^-0.5 in f32; w = p / sum(p) rounded to
+//           v's type; out = sum_c w_c v_c in f32, rounded once;
 //   packed: one max over every position; the unnormalised p_c rounded to v's
 //           type; out = (sum_c p_c v_c in f32) / l, rounded once;
 //   q8:     s = (q.k_c * hs^-0.5) * (k_scale_c / 127) with k upcast exactly;
@@ -34,7 +35,12 @@
 // strided columns, combined in shared memory in a fixed order. Columns past
 // pos are never read. At serving shapes (24 * B or 18 * B rows, S = 64,
 // hs = 64) a block moves 16 KB, so the launch and one block's latency, not
-// bandwidth, set the time.
+// bandwidth, set the time. The transposed form is the same body: its tile
+// loader reads runs of consecutive positions per feature (coalesced) and
+// stores them position-major with a row stride of hs + 1 (no bank
+// conflicts), so the score and P.V steps are the plain form's. The JAX
+// package keeps this layout for the TPU's lane tiling; no caller of the port
+// uses it, it stands beside the other forms for users of the op.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -46,7 +52,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBatch = 8;           // loads in flight per thread
 constexpr int kTileFloats = 8192;   // 32 KB of cache rows per tile
-enum Variant { kPlain = 0, kPacked = 1, kQ8 = 2 };
+enum Variant { kPlain = 0, kPacked = 1, kQ8 = 2, kTransposed = 3 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -81,24 +87,28 @@ __device__ float block_reduce(float x, float* scratch) {
   return r;
 }
 
-// Copy cache rows [c0, c0 + nc) of one row's (S, hs) cache into tile (f32),
-// every thread issuing kBatch independent loads before it stores any: one
-// load at a time would wait a device-memory latency per element.
-template <typename KV>
-__device__ void load_tile(const KV* __restrict__ src, int c0, int nc, int hs, float* tile) {
+// Copy cache positions [c0, c0 + nc) of one row's cache into tile (f32,
+// position c0 + j at tile[j * ldt]), every thread issuing kBatch independent
+// loads before it stores any: one load at a time would wait a device-memory
+// latency per element. The (S, hs) layouts read the tile's bytes in order
+// (ldt = hs); the transposed (hs, S) layout reads feature e's run of nc
+// positions at e * S + c0 (ldt = hs + 1).
+template <bool kTrans, typename KV>
+__device__ void load_tile(const KV* __restrict__ src, int c0, int nc, int hs, int S, int ldt,
+                          float* tile) {
   const int n = nc * hs;
-  const KV* base = src + (size_t)c0 * hs;
   for (int i0 = threadIdx.x; i0 < n; i0 += kThreads * kBatch) {
     float v[kBatch];
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const int idx = i0 + u * kThreads;
-      v[u] = idx < n ? to_f(base[idx]) : 0.f;
+      const size_t at = kTrans ? (size_t)(idx / nc) * S + c0 + idx % nc : (size_t)c0 * hs + idx;
+      v[u] = idx < n ? to_f(src[at]) : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const int idx = i0 + u * kThreads;
-      if (idx < n) tile[idx] = v[u];
+      if (idx < n) tile[kTrans ? (idx % nc) * ldt + idx / nc : idx] = v[u];
     }
   }
   __syncthreads();
@@ -116,8 +126,10 @@ __global__ void __launch_bounds__(kThreads)
                   const float* __restrict__ v_scale, const int* __restrict__ pos_p,
                   T* __restrict__ out, int S, int hs, int pack, float scale) {
   extern __shared__ float sm[];
+  constexpr bool kTrans = kVariant == kTransposed;
   const int groups = kThreads / hs;
-  const int tc = min(S, kTileFloats / hs);  // cache rows per tile
+  const int ldt = kTrans ? hs + 1 : hs;      // tile row stride
+  const int tc = min(S, kTileFloats / ldt);  // cache positions per tile
   float* qs = sm;
   float* s = qs + hs;
   float* tile = s + S;
@@ -138,10 +150,10 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int c0 = 0; c0 < n_vis; c0 += tc) {
     const int nc = min(tc, n_vis - c0);
-    load_tile(kr, c0, nc, hs, tile);  // its barrier also publishes qs
+    load_tile<kTrans>(kr, c0, nc, hs, S, ldt, tile);  // its barrier also publishes qs
     for (int j = warp; j < nc; j += kWarps) {
       float dot = 0.f;
-      for (int e = lane; e < hs; e += 32) dot = fmaf(qs[e], tile[j * hs + e], dot);
+      for (int e = lane; e < hs; e += 32) dot = fmaf(qs[e], tile[j * ldt + e], dot);
       for (int o = 16; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
       if (lane == 0) {
         const int c = c0 + j;
@@ -165,7 +177,7 @@ __global__ void __launch_bounds__(kThreads)
   const float l = block_reduce<false>(sum, scratch);  // its barrier publishes s
   // the weights that multiply v, at their variant's rounding point
   for (int c = threadIdx.x; c < n_vis; c += kThreads) {
-    if (kVariant == kPlain) s[c] = round_to<T>(s[c] / l);
+    if (kVariant == kPlain || kTrans) s[c] = round_to<T>(s[c] / l);
     else if (kVariant == kPacked) s[c] = round_to<T>(s[c]);
     else s[c] = round_to<T>(s[c] * (v_scale[row * sp + c / pack] * inv127));
   }
@@ -176,9 +188,9 @@ __global__ void __launch_bounds__(kThreads)
   float acc = 0.f;
   for (int c0 = 0; c0 < n_vis; c0 += tc) {
     const int nc = min(tc, n_vis - c0);
-    load_tile(vr, c0, nc, hs, tile);
+    load_tile<kTrans>(vr, c0, nc, hs, S, ldt, tile);
     if (g < groups)
-      for (int j = g; j < nc; j += groups) acc = fmaf(s[c0 + j], tile[j * hs + e], acc);
+      for (int j = g; j < nc; j += groups) acc = fmaf(s[c0 + j], tile[j * ldt + e], acc);
     __syncthreads();
   }
   if (g < groups) part[g * hs + e] = acc;
@@ -186,7 +198,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int f = threadIdx.x; f < hs; f += kThreads) {
     float o = 0.f;
     for (int gg = 0; gg < groups; ++gg) o += part[gg * hs + f];
-    if (kVariant != kPlain) o = o / l;
+    if (kVariant == kPacked || kVariant == kQ8) o = o / l;
     store(out + row * hs + f, o);
   }
 }
@@ -256,4 +268,18 @@ extern "C" int tat_decode_attention_packed_q8(const void* q, const void* k, cons
                                               pack, scale, s);
   return launch<float, int8_t, kQ8>(q, k, v, k_scale, v_scale, pos, out, n, S, hs, pack,
                                     scale, s);
+}
+
+// q (n, 1, hs); k, v (n, hs, S), the transposed cache; pos a device int32[1];
+// out (n, 1, hs). One type, bf16 or f32, contiguous (K9).
+extern "C" int tat_decode_attention_t(const void* q, const void* k, const void* v,
+                                      const void* pos, void* out, int n, int S, int hs,
+                                      int is_bf16, float scale, void* stream) {
+  using namespace tat_decode;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch<__nv_bfloat16, __nv_bfloat16, kTransposed>(q, k, v, nullptr, nullptr, pos,
+                                                             out, n, S, hs, 1, scale, s);
+  return launch<float, float, kTransposed>(q, k, v, nullptr, nullptr, pos, out, n, S, hs, 1,
+                                           scale, s);
 }

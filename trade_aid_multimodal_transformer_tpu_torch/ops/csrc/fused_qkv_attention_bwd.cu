@@ -227,7 +227,7 @@ int fqkv_bwd(const void* x, const void* w1, const void* b1, const void* w2, cons
   a.seed = seed;
   a.thresh = thresh;
   a.inv = inv;
-  a.fused = 1;
+  a.layout = kFusedRows;
   a.B = B;
   a.H = H;
   a.gb = gb;

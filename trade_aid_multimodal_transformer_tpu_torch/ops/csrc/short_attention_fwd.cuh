@@ -18,11 +18,41 @@
 // held, and the stream sum stays on chip so the output is written once. For
 // bf16 with hs % 16 == 0, QK^T and P.V run on the tensor cores (WMMA);
 // otherwise they are f32 FMAs.
+//
+// The kernels are templated on the row addressing (where row r's q, k_j and
+// v_j planes lie): ``SeparateRows`` for q (n, T, hs) and k, v (J, n, T, hs),
+// ``PackedRows`` for one packed (nb, 3H, T, hs) q|k|v operand (J = 1, the
+// packed self-attention kernel). The output of row r is always plane r.
 #pragma once
 
 #include "attention_tile.cuh"
 
 namespace tat {
+
+// q (n, T, hs), k and v (J, n, T, hs): element offsets of row r's planes.
+struct SeparateRows {
+  int n;
+  __device__ __forceinline__ size_t q(int r, size_t plane) const { return (size_t)r * plane; }
+  __device__ __forceinline__ size_t k(int j, int r, size_t plane) const {
+    return ((size_t)j * n + r) * plane;
+  }
+  __device__ __forceinline__ size_t v(int j, int r, size_t plane) const { return k(j, r, plane); }
+};
+
+// One packed (nb, 3H, T, hs) operand, J = 1: row r = b * H + h takes q at
+// [b, h], k at [b, H + h] and v at [b, 2H + h].
+struct PackedRows {
+  int H;
+  __device__ __forceinline__ size_t q(int r, size_t plane) const {
+    return ((size_t)(r / H) * 3 * H + r % H) * plane;
+  }
+  __device__ __forceinline__ size_t k(int, int r, size_t plane) const {
+    return q(r, plane) + (size_t)H * plane;
+  }
+  __device__ __forceinline__ size_t v(int, int r, size_t plane) const {
+    return q(r, plane) + (size_t)2 * H * plane;
+  }
+};
 
 // Dropout of stream j: the cross kernels offset the seed per stream, the
 // self-attention kernel does not.
@@ -30,10 +60,10 @@ __device__ __forceinline__ uint32_t fwd_stream_seed(uint32_t seed, int j, int st
   return stream_seeds ? stream_seed(seed, j) : seed;
 }
 
-template <typename T>
+template <typename T, typename Rows>
 __global__ void __launch_bounds__(kThreads)
     short_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out, int J, int n,
+                     const T* __restrict__ v, T* __restrict__ out, int J, Rows rows,
                      int Tn, int hs, int R, int n_qt, float scale, uint32_t seed,
                      uint32_t thresh, int rate_on, float keepf, int stream_seeds) {
   extern __shared__ float smem[];
@@ -44,7 +74,7 @@ __global__ void __launch_bounds__(kThreads)
   Tile t = carve_tile(smem, R, hs);
 
   const size_t plane = (size_t)Tn * hs;
-  load_rows<T>(q + r * plane, Tn, q0, R, hs, t.q, t.ld);
+  load_rows<T>(q + rows.q(r, plane), Tn, q0, R, hs, t.q, t.ld);
 
   const int n_kt = qt + 1;  // causal: keys up to the end of this query tile
   const bool held = n_kt == 1;
@@ -55,8 +85,8 @@ __global__ void __launch_bounds__(kThreads)
   const bool active = threadIdx.x < step * hs;
 
   for (int jj = 0; jj < J; ++jj) {
-    const T* kj = k + ((size_t)jj * n + r) * plane;
-    const T* vj = v + ((size_t)jj * n + r) * plane;
+    const T* kj = k + rows.k(jj, r, plane);
+    const T* vj = v + rows.v(jj, r, plane);
     const Dropout d{fwd_stream_seed(seed, jj, stream_seeds), (uint32_t)r, thresh, rate_on != 0};
     reset_rows(t);
     float o[kMaxPerThread];
@@ -102,11 +132,12 @@ __global__ void __launch_bounds__(kThreads)
 
 // The same function for bf16 and hs a multiple of 16, QK^T and P.V on the
 // tensor cores.
+template <typename Rows>
 __global__ void __launch_bounds__(kThreads)
     short_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v,
-                        __nv_bfloat16* __restrict__ out, int J, int n, int Tn, int hs,
+                        __nv_bfloat16* __restrict__ out, int J, Rows rows, int Tn, int hs,
                         int R, int n_qt, float scale, uint32_t seed, uint32_t thresh,
                         int rate_on, float keepf, int stream_seeds) {
   extern __shared__ __align__(128) char smem_tc[];
@@ -117,14 +148,14 @@ __global__ void __launch_bounds__(kThreads)
   const TileTc t = carve_tile_tc(smem_tc, R, hs, true);
 
   const size_t plane = (size_t)Tn * hs;
-  load_rows_bf16(q + r * plane, Tn, q0, R, hs, t.q, t.ldh);
+  load_rows_bf16(q + rows.q(r, plane), Tn, q0, R, hs, t.q, t.ldh);
   for (int idx = threadIdx.x; idx < R * t.ldo; idx += kThreads) t.a[idx] = 0.f;
 
   const int n_kt = qt + 1;  // causal: keys up to the end of this query tile
   const bool held = n_kt == 1;
   for (int jj = 0; jj < J; ++jj) {
-    const __nv_bfloat16* kj = k + ((size_t)jj * n + r) * plane;
-    const __nv_bfloat16* vj = v + ((size_t)jj * n + r) * plane;
+    const __nv_bfloat16* kj = k + rows.k(jj, r, plane);
+    const __nv_bfloat16* vj = v + rows.v(jj, r, plane);
     const Dropout d{fwd_stream_seed(seed, jj, stream_seeds), (uint32_t)r, thresh, rate_on != 0};
     reset_rows_tc(t);
     Frag o[kOutFrags];
@@ -169,27 +200,28 @@ struct FwdDrop {
   float keepf;
 };
 
-inline int launch_short_fwd_tc(const void* q, const void* k, const void* v, void* out, int J,
-                               int n, int Tn, int hs, float scale, FwdDrop dr,
-                               int stream_seeds, cudaStream_t stream) {
+template <typename Rows>
+int launch_short_fwd_tc(const void* q, const void* k, const void* v, void* out, int J,
+                        int n, Rows rows, int Tn, int hs, float scale, FwdDrop dr,
+                        int stream_seeds, cudaStream_t stream) {
   const int R = tile_rows(hs);
   const int n_qt = (Tn + R - 1) / R;
   const long long blocks = (long long)n * n_qt;
   if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   const size_t smem = tile_tc_bytes(R, hs, true);
   cudaError_t err = cudaFuncSetAttribute(
-      short_fwd_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      short_fwd_tc_kernel<Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  short_fwd_tc_kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
+  short_fwd_tc_kernel<Rows><<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), J, n,
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), J, rows,
       Tn, hs, R, n_qt, scale, dr.seed, dr.thresh, dr.on, dr.keepf, stream_seeds);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename Rows>
 int launch_short_fwd(const void* q, const void* k, const void* v, void* out, int J, int n,
-                     int Tn, int hs, float scale, FwdDrop dr, int stream_seeds,
+                     Rows rows, int Tn, int hs, float scale, FwdDrop dr, int stream_seeds,
                      cudaStream_t stream) {
   const int R = tile_rows(hs);
   const int n_qt = (Tn + R - 1) / R;
@@ -197,26 +229,28 @@ int launch_short_fwd(const void* q, const void* k, const void* v, void* out, int
   if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   const size_t smem = tile_floats(R, hs) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      short_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      short_fwd_kernel<T, Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  short_fwd_kernel<T><<<(unsigned)blocks, kThreads, smem, stream>>>(
+  short_fwd_kernel<T, Rows><<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), J, n, Tn, hs, R, n_qt, scale, dr.seed, dr.thresh, dr.on,
+      static_cast<T*>(out), J, rows, Tn, hs, R, n_qt, scale, dr.seed, dr.thresh, dr.on,
       dr.keepf, stream_seeds);
   return (int)cudaGetLastError();
 }
 
-// Dispatch of one forward launch: bf16 with hs a multiple of 16 (production:
-// hs 64) takes the tensor cores, other shapes and f32 the FMA body.
-inline int launch_short_forward(const void* q, const void* k, const void* v, void* out,
-                                int J, int n, int Tn, int hs, int is_bf16, float scale,
-                                FwdDrop dr, int stream_seeds, cudaStream_t s) {
+// Dispatch of one forward launch over n rows addressed by ``rows``: bf16 with
+// hs a multiple of 16 (production: hs 64) takes the tensor cores, other
+// shapes and f32 the FMA body.
+template <typename Rows>
+int launch_short_forward(const void* q, const void* k, const void* v, void* out, int J,
+                         int n, Rows rows, int Tn, int hs, int is_bf16, float scale,
+                         FwdDrop dr, int stream_seeds, cudaStream_t s) {
   if (is_bf16 && hs % 16 == 0)
-    return launch_short_fwd_tc(q, k, v, out, J, n, Tn, hs, scale, dr, stream_seeds, s);
+    return launch_short_fwd_tc(q, k, v, out, J, n, rows, Tn, hs, scale, dr, stream_seeds, s);
   if (is_bf16)
-    return launch_short_fwd<__nv_bfloat16>(q, k, v, out, J, n, Tn, hs, scale, dr,
+    return launch_short_fwd<__nv_bfloat16>(q, k, v, out, J, n, rows, Tn, hs, scale, dr,
                                            stream_seeds, s);
-  return launch_short_fwd<float>(q, k, v, out, J, n, Tn, hs, scale, dr, stream_seeds, s);
+  return launch_short_fwd<float>(q, k, v, out, J, n, rows, Tn, hs, scale, dr, stream_seeds, s);
 }
 
 }  // namespace tat

@@ -42,8 +42,9 @@ extern "C" int tat_short_cross_attention_fwd(const void* q, const void* k,
                                              unsigned thresh, int rate_on,
                                              float keepf, void* stream) {
   const tat::FwdDrop dr{seed, thresh, rate_on, keepf};
-  return tat::launch_short_forward(q, k, v, out, J, n, T, hs, is_bf16, scale, dr,
-                                   /*stream_seeds=*/1, static_cast<cudaStream_t>(stream));
+  return tat::launch_short_forward(q, k, v, out, J, n, tat::SeparateRows{n}, T, hs, is_bf16,
+                                   scale, dr, /*stream_seeds=*/1,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 // Backward of the above: dq (n, T, hs) summed over the streams, dk and dv
@@ -61,7 +62,7 @@ extern "C" int tat_short_cross_attention_bwd(const void* q, const void* k,
   a.dq = dq; a.dk = dk; a.dv = dv; a.dq_ws = static_cast<float*>(dq_ws);
   a.J = J; a.n = n; a.Tn = T; a.hs = hs; a.scale = scale;
   a.rate_on = rate_on; a.seed = seed; a.thresh = thresh; a.inv = inv;
-  a.fused = 0; a.B = a.H = a.gb = 1;
+  a.layout = tat::kCrossRows; a.B = a.H = a.gb = 1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) return tat::launch_attn_bwd<__nv_bfloat16>(a, s);
   return tat::launch_attn_bwd<float>(a, s);

@@ -1,9 +1,11 @@
 """Hand-written CUDA kernels of the serving and training paths, their
 wrappers and their plain PyTorch versions.
 
-Twelve kernels replace the Pallas kernel bodies that the JAX package's
-training step and its two serving paths run at production width, at the
-short block sizes and at long context (ops/pallas_attention.py there):
+These kernels replace every Pallas kernel body of the JAX package
+(ops/pallas_attention.py there): those its training step and its two
+serving paths run at production width, at the short block sizes, at long
+context and under context parallelism, and those that only its public ops
+and tools reach:
 
 - K1f ``fused_qkv_attention_fwd``: the factored tanh q/k/v projection and
   whole-row causal self-attention in one kernel
@@ -15,13 +17,21 @@ short block sizes and at long context (ops/pallas_attention.py there):
   replacing ``_short_cross_fwd_kernel``);
 - K2b ``short_cross_attention_bwd``: dq summed over the streams and every
   dk_j / dv_j (same source, replacing ``_short_cross_bwd_kernel``);
-- K3f ``short_causal_attention``: whole-row causal self-attention over
-  separate q, k, v, forward only: the KV-cache prefill
-  (``csrc/short_causal_attention.cu``, replacing ``_short_fwd_kernel``);
-- K8, K8p, K8q ``decode_attention``, ``decode_attention_packed``,
-  ``decode_attention_packed_q8``: one query position against a KV cache row
-  in the plain, packed and packed int8 layouts (``csrc/decode_attention.cu``,
-  replacing ``_decode_kernel``, ``_decode_p_kernel`` and ``_decode_p8_kernel``);
+- K3f ``short_causal_attention_fwd``: whole-row causal self-attention over
+  separate q, k, v: the KV-cache prefill, and the forward of the
+  differentiable ``short_causal_attention`` (``csrc/short_causal_attention.cu``,
+  replacing ``_short_fwd_kernel``);
+- K3b ``short_causal_attention_bwd``: its dq, dk, dv (same source, replacing
+  ``_short_bwd_kernel``);
+- K4f, K4b ``short_causal_attention_packed_fwd`` / ``_bwd``: the same over one
+  packed (..., 3H, T, hs) q|k|v operand, the backward writing d(qkv) packed
+  (same source, replacing ``_short_packed_fwd_kernel`` and
+  ``_short_packed_bwd_kernel``);
+- K8, K8p, K8q, K9 ``decode_attention``, ``decode_attention_packed``,
+  ``decode_attention_packed_q8``, ``decode_attention_t``: one query position
+  against a KV cache row in the plain, packed, packed int8 and transposed
+  layouts (``csrc/decode_attention.cu``, replacing ``_decode_kernel``,
+  ``_decode_p_kernel``, ``_decode_p8_kernel`` and ``_decode_t_kernel``);
 - K5f ``flash_attention_fwd``: blockwise (flash) causal attention with its
   logsumexp for long T (``csrc/flash_attention.cu`` with
   ``csrc/flash_fwd.cuh``, replacing ``_flash_forward`` and
@@ -41,15 +51,15 @@ short block sizes and at long context (ops/pallas_attention.py there):
   ``flash_chunk_fwd`` and ``flash_chunk_bwd``, which run the K5 Pallas
   kernels at chunk granularity).
 
-K1f, K1b, K2f, K2b, K3f, K5f, K5b, K6f, K6f-r, K7f and K7b take attention dropout in
-the kernel, keyed as the JAX kernels key it in interpret mode
-(``hash_keep_mask``), so the masks are bit-identical. ``fused_qkv_attention``,
-``short_cross_attention``, ``flash_causal_attention`` and
-``flash_cross_attention`` are the differentiable entries
-(``torch.autograd.Function``: forward kernel, backward kernel; the backward
-regenerates the mask from the salts). K3f and the decode kernels are forward
-only (the model reaches them only in serving), and their CUDA paths raise
-under autograd.
+All but the decode kernels take attention dropout in the kernel, keyed as
+the JAX kernels key it in interpret mode (``hash_keep_mask``), so the masks
+are bit-identical. ``fused_qkv_attention``, ``short_cross_attention``,
+``short_causal_attention``, ``short_causal_attention_packed``,
+``flash_causal_attention`` and ``flash_cross_attention`` are the
+differentiable entries (``torch.autograd.Function``: forward kernel, backward
+kernel; the backward regenerates the mask from the salts). The decode kernels
+are forward only (the model reaches them only in serving), and their CUDA
+paths raise under autograd.
 
 Each wrapper takes its plain version for a tensor on the CPU, and only
 there. For a CUDA tensor it launches the kernel or raises: there is no
@@ -110,9 +120,13 @@ _SIGNATURES = {
     },
     "short_causal_attention": {
         "tat_short_causal_attention_fwd": [_P] * 4 + [_I] * 4 + [_F, _U, _U, _I, _F, _P],
+        "tat_short_causal_attention_bwd": [_P] * 9 + [_I] * 4 + [_F, _U, _U, _I, _F, _P],
+        "tat_short_packed_attention_fwd": [_P] * 2 + [_I] * 5 + [_F, _U, _U, _I, _F, _P],
+        "tat_short_packed_attention_bwd": [_P] * 5 + [_I] * 5 + [_F, _U, _U, _I, _F, _P],
     },
     "decode_attention": {
         "tat_decode_attention": [_P] * 5 + [_I] * 4 + [_F, _P],
+        "tat_decode_attention_t": [_P] * 5 + [_I] * 4 + [_F, _P],
         "tat_decode_attention_packed": [_P] * 5 + [_I] * 5 + [_F, _P],
         "tat_decode_attention_packed_q8": [_P] * 7 + [_I] * 5 + [_F, _P],
     },
@@ -542,6 +556,42 @@ def short_causal_attention_plain(q, k, v, dropout_rate: float = 0.0, dropout_sal
     return _whole_row_attention(q, k, v, causal_mask(q, rate, dropout_salts), rate).to(q.dtype)
 
 
+def short_causal_attention_bwd_plain(q, k, v, out, dout, dropout_rate: float = 0.0,
+                                     dropout_salts=None):
+    """Plain PyTorch version of the self-attention backward kernel (K3b, the
+    math of ``_short_bwd_kernel``: D = rowsum(dout * out)): dq, dk, dv in the
+    inputs' type."""
+    rate = float(dropout_rate)
+    dq, dk, dv = _attention_bwd(q, k, v, dout, causal_mask(q, rate, dropout_salts), rate, o=out)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _split_packed(qkv, n_head: int):
+    """The q, k and v head groups of a packed (..., 3H, T, hs) tensor (views)."""
+    H = n_head
+    if qkv.ndim < 3 or qkv.shape[-3] != 3 * H:
+        raise ValueError(f"short_causal_attention_packed: expected qkv (..., 3H, T, hs) with "
+                         f"H={H}; got {tuple(qkv.shape)}")
+    return qkv[..., :H, :, :], qkv[..., H:2 * H, :, :], qkv[..., 2 * H:, :, :]
+
+
+def short_causal_attention_packed_plain(qkv, n_head: int, dropout_rate: float = 0.0,
+                                        dropout_salts=None):
+    """Plain PyTorch version of the packed self-attention kernel (K4f): qkv
+    (..., 3H, T, hs) -> (..., H, T, hs); mask row b * H + h of the collapsed
+    (..., H) axes, as ``_short_packed_fwd_kernel`` keys it."""
+    return short_causal_attention_plain(*_split_packed(qkv, n_head), dropout_rate, dropout_salts)
+
+
+def short_causal_attention_packed_bwd_plain(qkv, out, dout, n_head: int,
+                                            dropout_rate: float = 0.0, dropout_salts=None):
+    """Plain PyTorch version of the packed backward kernel (K4b): d(qkv)
+    (..., 3H, T, hs) in qkv's type."""
+    q, k, v = _split_packed(qkv, n_head)
+    grads = short_causal_attention_bwd_plain(q, k, v, out, dout, dropout_rate, dropout_salts)
+    return torch.cat(grads, dim=-3)
+
+
 # Flash: q, k, v (n, T, hs), the leading axes collapsed into rows n. The plain
 # versions walk the JAX kernels' block grid (bq = bk = flash_pick_block(T)):
 # an online max and sum per key block, the keep-mask on the unnormalised p
@@ -768,6 +818,13 @@ def decode_attention_plain(q, k, v, pos):
     s, visible = _decode_scores(q, k, pos)
     p = torch.softmax(s.masked_fill(~visible, float("-inf")), dim=-1)
     return torch.matmul(p.to(v.dtype).to(acc), v.to(acc)).to(q.dtype)
+
+
+def decode_attention_t_plain(q, kT, vT, pos):
+    """Plain PyTorch version of the transposed-cache decode kernel
+    (``_decode_t_kernel``): ``decode_attention_plain`` on the (..., S, hs)
+    views of kT and vT (..., hs, S), the same rounding points."""
+    return decode_attention_plain(q, kT.transpose(-1, -2), vT.transpose(-1, -2), pos)
 
 
 def decode_attention_packed_plain(q, kp, vp, pos):
@@ -1018,39 +1075,212 @@ def short_cross_attention_t(q, kT, vT, dropout_rate: float = 0.0, dropout_salts=
     return short_cross_attention(q, k, v, dropout_rate, dropout_salts)
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def _check_no_grad(what: str, *tensors) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    if _needs_grad(*tensors):
         raise RuntimeError(f"{what}: the CUDA kernel is forward only (no backward kernel)")
 
 
-def short_causal_attention(q, k, v, dropout_rate: float = 0.0, dropout_salts=None):
-    """Whole-row causal self-attention (K3f), forward only. q, k, v:
-    (..., T, hs), one type, bf16 or f32; the leading axes collapse into rows.
-    The plain version for CPU tensors, the CUDA kernel for CUDA tensors in the
-    band. Returns (..., T, hs) in q's type."""
-    what = "short_causal_attention"
+def _check_self_shapes(what, q, k, v):
     if q.ndim < 2 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"{what}: q, k, v must share one shape (..., T, hs); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    seed, thresh, on, keepf, _ = _dropout_args(what, dropout_rate, dropout_salts)
+
+
+def _short_args(what, q, rate: float, salts, rows: int):
+    """(rows, T, hs, is_bf16, scale, seed, thresh, on, keepf or inv) of a
+    whole-row self-attention launch; raises outside the band."""
+    T, hs = q.shape[-2], q.shape[-1]
+    _check_band(what, T, hs)
+    seed, thresh, on, keepf, inv = _dropout_args(what, rate, salts)
+    return rows, T, hs, int(q.dtype == torch.bfloat16), hs ** -0.5, seed, thresh, on, keepf, inv
+
+
+def short_causal_attention_fwd(q, k, v, dropout_rate: float = 0.0, dropout_salts=None):
+    """The self-attention forward kernel (K3f): q, k, v (..., T, hs), one
+    type, bf16 or f32; the leading axes collapse into rows. The plain version
+    for CPU tensors, the CUDA kernel for CUDA tensors in the band. Returns
+    (..., T, hs) in q's type."""
+    what = "short_causal_attention"
+    _check_self_shapes(what, q, k, v)
+    _dropout_args(what, dropout_rate, dropout_salts)
     if _on_cpu(q, k, v):
         return short_causal_attention_plain(q, k, v, dropout_rate, dropout_salts)
     _check_cuda_operands(what, (q, k, v))
-    _check_no_grad(what, q, k, v)
-    T, hs = q.shape[-2], q.shape[-1]
-    _check_band(what, T, hs)
+    n, T, hs, bf, scale, seed, thresh, on, keepf, _ = _short_args(
+        what, q, dropout_rate, dropout_salts, q.numel() // (q.shape[-2] * q.shape[-1]))
     out = torch.empty_like(q)
     err = _fn("short_causal_attention", "tat_short_causal_attention_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        q.numel() // (T * hs), T, hs, int(q.dtype == torch.bfloat16), hs ** -0.5,
-        seed, thresh, on, keepf, _stream(),
+        n, T, hs, bf, scale, seed, thresh, on, keepf, _stream(),
     )
     _check_launch(err, what)
-    short_causal_attention.launches += 1
+    short_causal_attention_fwd.launches += 1
     return out
 
 
-short_causal_attention.launches = 0
+short_causal_attention_fwd.launches = 0
+
+
+def short_causal_attention_bwd(q, k, v, out, dout, dropout_rate: float = 0.0,
+                               dropout_salts=None):
+    """The self-attention backward kernel (K3b): dq, dk, dv (..., T, hs) in
+    the inputs' type from the forward's out and the output gradient dout,
+    the mask regenerated from the salts. Two runs give the same bits."""
+    what = "short_causal_attention_bwd"
+    _check_self_shapes(what, q, k, v)
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"{what}: out and dout must be {tuple(q.shape)}")
+    _dropout_args(what, dropout_rate, dropout_salts)
+    if _on_cpu(q, k, v, out, dout):
+        return short_causal_attention_bwd_plain(q, k, v, out, dout, dropout_rate, dropout_salts)
+    _check_cuda_operands(what, (q, k, v, out, dout))
+    n, T, hs, bf, scale, seed, thresh, on, _, inv = _short_args(
+        what, q, dropout_rate, dropout_salts, q.numel() // (q.shape[-2] * q.shape[-1]))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    ws = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    err = _fn("short_causal_attention", "tat_short_causal_attention_bwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ws.data_ptr(),
+        n, T, hs, bf, scale, seed, thresh, on, inv, _stream(),
+    )
+    _check_launch(err, what)
+    short_causal_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+short_causal_attention_bwd.launches = 0
+
+
+class ShortCausalAttention(torch.autograd.Function):
+    """K3f forward, K3b backward; gradients for q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, dropout_rate, dropout_salts):
+        out = short_causal_attention_fwd(q, k, v, dropout_rate, dropout_salts)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.args = (dropout_rate, dropout_salts)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = short_causal_attention_bwd(q, k, v, out, dout.contiguous(), *ctx.args)
+        return dq, dk, dv, None, None
+
+
+def short_causal_attention(q, k, v, dropout_rate: float = 0.0, dropout_salts=None):
+    """Whole-row causal self-attention, differentiable, the JAX entry
+    ``short_causal_attention``: q, k, v (..., T, hs), one type, bf16 or f32;
+    the leading axes collapse into the rows that key the dropout. K3f forward
+    and K3b backward; where no input needs a gradient (the KV-cache prefill)
+    the forward alone. Returns (..., T, hs) in q's type."""
+    _check_self_shapes("short_causal_attention", q, k, v)
+    rate, salts = float(dropout_rate), _salts(dropout_salts)
+    if _needs_grad(q, k, v):
+        return ShortCausalAttention.apply(q, k, v, rate, salts)
+    return short_causal_attention_fwd(q, k, v, rate, salts)
+
+
+def short_packed_eligible(t: int, hs: int) -> bool:
+    """The shapes the packed kernels (K4) take, the JAX package's
+    ``short_packed_eligible``: the whole-row band."""
+    return in_band(t, hs)
+
+
+def _packed_rows(qkv, n_head: int):
+    """(nb, H) of a packed (..., 3H, T, hs) operand."""
+    _split_packed(qkv, n_head)
+    return qkv.numel() // (3 * n_head * qkv.shape[-2] * qkv.shape[-1]), n_head
+
+
+def short_causal_attention_packed_fwd(qkv, n_head: int, dropout_rate: float = 0.0,
+                                      dropout_salts=None):
+    """The packed self-attention forward kernel (K4f): qkv (..., 3H, T, hs),
+    the q, k and v head groups along the packed axis, read in place by the
+    kernel -> (..., H, T, hs) in qkv's type. Mask row b * H + h."""
+    what = "short_causal_attention_packed"
+    nb, H = _packed_rows(qkv, n_head)
+    _dropout_args(what, dropout_rate, dropout_salts)
+    if _on_cpu(qkv):
+        return short_causal_attention_packed_plain(qkv, H, dropout_rate, dropout_salts)
+    _check_cuda_operands(what, (qkv,))
+    _, T, hs, bf, scale, seed, thresh, on, keepf, _ = _short_args(
+        what, qkv, dropout_rate, dropout_salts, nb)
+    out = torch.empty((*qkv.shape[:-3], H, T, hs), dtype=qkv.dtype, device=qkv.device)
+    err = _fn("short_causal_attention", "tat_short_packed_attention_fwd")(
+        qkv.data_ptr(), out.data_ptr(), nb, H, T, hs, bf, scale, seed, thresh, on, keepf,
+        _stream(),
+    )
+    _check_launch(err, what)
+    short_causal_attention_packed_fwd.launches += 1
+    return out
+
+
+short_causal_attention_packed_fwd.launches = 0
+
+
+def short_causal_attention_packed_bwd(qkv, out, dout, n_head: int, dropout_rate: float = 0.0,
+                                      dropout_salts=None):
+    """The packed backward kernel (K4b): d(qkv) (..., 3H, T, hs) written
+    packed, in qkv's type, from the forward's out and dout (..., H, T, hs)."""
+    what = "short_causal_attention_packed_bwd"
+    nb, H = _packed_rows(qkv, n_head)
+    want = (*qkv.shape[:-3], H, *qkv.shape[-2:])
+    if tuple(out.shape) != want or tuple(dout.shape) != want:
+        raise ValueError(f"{what}: out and dout must be {want}")
+    _dropout_args(what, dropout_rate, dropout_salts)
+    if _on_cpu(qkv, out, dout):
+        return short_causal_attention_packed_bwd_plain(qkv, out, dout, H, dropout_rate,
+                                                       dropout_salts)
+    _check_cuda_operands(what, (qkv, out, dout))
+    _, T, hs, bf, scale, seed, thresh, on, _, inv = _short_args(
+        what, qkv, dropout_rate, dropout_salts, nb)
+    dqkv = torch.empty_like(qkv)
+    ws = torch.empty(out.shape, dtype=torch.float32, device=qkv.device)
+    err = _fn("short_causal_attention", "tat_short_packed_attention_bwd")(
+        qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), ws.data_ptr(),
+        nb, H, T, hs, bf, scale, seed, thresh, on, inv, _stream(),
+    )
+    _check_launch(err, what)
+    short_causal_attention_packed_bwd.launches += 1
+    return dqkv
+
+
+short_causal_attention_packed_bwd.launches = 0
+
+
+class ShortCausalAttentionPacked(torch.autograd.Function):
+    """K4f forward, K4b backward; the gradient of the packed qkv."""
+
+    @staticmethod
+    def forward(ctx, qkv, n_head, dropout_rate, dropout_salts):
+        out = short_causal_attention_packed_fwd(qkv, n_head, dropout_rate, dropout_salts)
+        ctx.save_for_backward(qkv, out)
+        ctx.args = (n_head, dropout_rate, dropout_salts)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, out = ctx.saved_tensors
+        return short_causal_attention_packed_bwd(qkv, out, dout.contiguous(), *ctx.args), \
+            None, None, None
+
+
+def short_causal_attention_packed(qkv, n_head: int, dropout_rate: float = 0.0,
+                                  dropout_salts=None):
+    """Whole-row causal self-attention over a packed qkv (..., 3H, T, hs),
+    differentiable, the JAX entry ``short_causal_attention_packed``: K4f
+    forward, K4b backward (d(qkv) packed). Returns (..., H, T, hs)."""
+    _packed_rows(qkv, n_head)
+    qkv = qkv.contiguous()
+    rate, salts = float(dropout_rate), _salts(dropout_salts)
+    if _needs_grad(qkv):
+        return ShortCausalAttentionPacked.apply(qkv, n_head, rate, salts)
+    return short_causal_attention_packed_fwd(qkv, n_head, rate, salts)
 
 
 def _check_decode_shapes(what, q, k, v, hs_mult: bool):
@@ -1075,15 +1305,17 @@ def _pos_tensor(what: str, pos, device) -> torch.Tensor:
     return pos.reshape(1)
 
 
-def _decode_launch(what: str, fn_name: str, q, k, v, pos, scales=(), pack=()):
+def _decode_launch(what: str, fn_name: str, q, k, v, pos, scales=(), pack=(), S=None):
     """Launch a decode kernel; scales are the q8 kernel's k_scale and v_scale,
-    pack the packed kernels' positions per row."""
+    pack the packed kernels' positions per row, S the cache's positions (by
+    default those of a (..., S / pack, pack * hs) cache)."""
     hs = q.shape[-1]
     out = torch.empty_like(q)
     pos_t = _pos_tensor(what, pos, q.device)
     err = _fn("decode_attention", fn_name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), *(t.data_ptr() for t in scales),
-        pos_t.data_ptr(), out.data_ptr(), q.numel() // hs, k.shape[-2] * (k.shape[-1] // hs),
+        pos_t.data_ptr(), out.data_ptr(), q.numel() // hs,
+        k.shape[-2] * (k.shape[-1] // hs) if S is None else S,
         hs, *pack, int(q.dtype == torch.bfloat16), hs ** -0.5, _stream(),
     )
     _check_launch(err, what)
@@ -1107,6 +1339,40 @@ def decode_attention(q, k, v, pos):
 
 
 decode_attention.launches = 0
+
+
+def decode_attention_t_eligible(q, kT) -> bool:
+    """The JAX package's ``decode_attention_t_eligible``: q (..., 1, hs)
+    against a transposed cache kT (..., hs, S) with q's leading axes,
+    hs <= 256 and S a multiple of 128."""
+    if q.ndim != kT.ndim or q.ndim < 3 or q.shape[-2] != 1:
+        return False
+    if q.shape[:-2] != kT.shape[:-2] or q.shape[-1] != kT.shape[-2]:
+        return False
+    return q.shape[-1] <= 256 and kT.shape[-1] % 128 == 0
+
+
+def decode_attention_t(q, kT, vT, pos):
+    """Cached-decode attention over a transposed (..., hs, S) cache (K9): q
+    (..., 1, hs), columns c <= pos visible; pos an int or a one-element int32
+    tensor on q's device, which the kernel reads on the card. The numerics of
+    ``decode_attention``. Returns (..., 1, hs) in q's type."""
+    what = "decode_attention_t"
+    hs = q.shape[-1]
+    if (q.ndim < 3 or q.shape[-2] != 1 or kT.shape != vT.shape or kT.ndim != q.ndim
+            or kT.shape[:-2] != q.shape[:-2] or kT.shape[-2] != hs):
+        raise ValueError(f"{what}: expected q (..., 1, hs) and kT, vT (..., hs, S); got "
+                         f"{tuple(q.shape)}, {tuple(kT.shape)}, {tuple(vT.shape)}")
+    if _on_cpu(q, kT, vT):
+        return decode_attention_t_plain(q, kT, vT, pos)
+    _check_cuda_operands(what, (q, kT, vT))
+    _check_no_grad(what, q, kT, vT)
+    out = _decode_launch(what, "tat_decode_attention_t", q, kT, vT, pos, S=kT.shape[-1])
+    decode_attention_t.launches += 1
+    return out
+
+
+decode_attention_t.launches = 0
 
 
 def decode_attention_packed(q, kp, vp, pos):
@@ -1347,7 +1613,7 @@ def flash_cross_attention(q, k, v, dropout_rate: float = 0.0, dropout_salts=None
     q3 = q.reshape(-1, t, hs).contiguous()
     k4, v4 = (x.reshape(k.shape[0], -1, t, hs).contiguous() for x in (k, v))
     rate, salts = float(dropout_rate), _salts(dropout_salts)
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+    if _needs_grad(q, k, v):
         out = FlashCrossAttention.apply(q3, k4, v4, rate, salts)
     else:
         out = flash_cross_attention_fwd(q3, k4, v4, rate, salts)
@@ -1446,8 +1712,12 @@ KERNELS = {
     "fused_qkv_attention_bwd": fused_qkv_attention_bwd,
     "short_cross_attention": short_cross_attention_fwd,
     "short_cross_attention_bwd": short_cross_attention_bwd,
-    "short_causal_attention": short_causal_attention,
+    "short_causal_attention": short_causal_attention_fwd,
+    "short_causal_attention_bwd": short_causal_attention_bwd,
+    "short_causal_attention_packed": short_causal_attention_packed_fwd,
+    "short_causal_attention_packed_bwd": short_causal_attention_packed_bwd,
     "decode_attention": decode_attention,
+    "decode_attention_t": decode_attention_t,
     "decode_attention_packed": decode_attention_packed,
     "decode_attention_packed_q8": decode_attention_packed_q8,
     "flash_attention": flash_attention_fwd,

@@ -25,6 +25,7 @@ prints the training rate.
 
 from __future__ import annotations
 
+import hashlib
 import math
 import numbers
 import os
@@ -50,7 +51,7 @@ from ..data.loader import cleanup_cache
 from ..data.runlog import write_initial_run_details
 from ..data.vocab import create_train_val_datasets, numerical_representation
 from ..models.config import ModelConfig
-from ..models.init import init_params, map_tree
+from ..models.init import init_params, map_tree, tree_leaves
 from ..models.param_count import estimate_model_params
 from ..ops import kernels
 from ..parallel import mesh as pmesh
@@ -183,20 +184,36 @@ def _picklable(caller_globals: Optional[dict]) -> dict:
             if not k.startswith("__") and isinstance(v, plain)}
 
 
+def param_checksum(params) -> Dict[str, Any]:
+    """A rank's parameters in two numbers: the float64 sum of every leaf and
+    the SHA-256 of every leaf's bytes in tree order. The ranks of a
+    context-parallel run keep equal parameters with no all-reduce, so these
+    must be equal on every rank."""
+    h = hashlib.sha256()
+    total = 0.0
+    for leaf in tree_leaves(params):
+        t = leaf.detach().cpu().contiguous()
+        total += float(t.double().sum())
+        h.update(t.view(torch.uint8).numpy().tobytes() if t.numel() else b"")
+    return {"sum": total, "sha256": h.hexdigest()}
+
+
 def _rank_entry(rank: int, world: int, caller_globals: dict, seed: int):
     """One rank of a context-parallel run: the workflow, silent but on
-    rank 0; rank 0 returns its result with the tensors on the CPU."""
+    rank 0; rank 0 returns its result with the tensors on the CPU, every
+    rank its parameters' checksum."""
     if rank != 0:
         sys.stdout = open(os.devnull, "w")
     if dist.get_backend() == "gloo":
         torch.set_num_threads(max(1, torch.get_num_threads() // world))  # P ranks share the cores
     res = _run_training(caller_globals, seed, rank)
     sys.stdout.flush()
+    checksum = param_checksum(res["params"])
     if rank != 0:
-        return None
+        return {"param_checksum": checksum}
     cpu = lambda t: t.detach().cpu()  # noqa: E731
     state = res["opt_state"]
-    return {"params": map_tree(cpu, res["params"]),
+    return {"param_checksum": checksum, "params": map_tree(cpu, res["params"]),
             "opt_state": {"count": state["count"], "mu": map_tree(cpu, state["mu"]),
                           "nu": map_tree(cpu, state["nu"])},
             "launches": kernels.launch_counts(),
@@ -214,7 +231,8 @@ def run_training(caller_globals: Optional[dict] = None, seed: Optional[int] = No
     and no process group yet, the ranks run in processes of their own (each
     given at most ``rank_timeout`` seconds, where set) and the result is
     rank 0's, on the CPU, without the trainer and the feed, with rank 0's
-    kernel launches (``launches``)."""
+    kernel launches (``launches``) and every rank's ``param_checksum``
+    (``param_checksums``, in rank order)."""
     if pmesh.init_from_env():
         rank = dist.get_rank()
         if torch.cuda.is_available():
@@ -239,7 +257,7 @@ def run_training(caller_globals: Optional[dict] = None, seed: Optional[int] = No
     results = pmesh.run_ranks(
         _rank_entry, plan.seq, (_picklable(caller_globals), _run_seed(seed)),
         backend="gloo" if cpu else "nccl", timeout=rank_timeout)
-    return results[0]
+    return {**results[0], "param_checksums": [r["param_checksum"] for r in results]}
 
 
 def _run_training(caller_globals: Optional[dict], seed: Optional[int],
