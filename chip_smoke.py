@@ -233,6 +233,25 @@ def device_ms(fn, reps: int = 10, inner: int = 10) -> float:
     return statistics.median(samples)
 
 
+def ptxas_report(log: str) -> list:
+    """Registers a thread and spill bytes of each kernel (entry function) in
+    what ``nvcc -Xptxas -v`` printed for one source."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = {"function": m.group(1)}
+            out.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+    return out
+
+
 def bound_ms(flops: float, nbytes: float, dtype: str):
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
@@ -732,13 +751,17 @@ def long_context(K, card, gen, timing, errs, by_path):
     # versions at the production shapes (training B = 8, generation B = 1,
     # the --serve prefill over 896 at B = 16), at T 256 / 640 / 768 / 896 /
     # 1024 / 2048 (the dropout keyed on JAX blocks of 256 / 128 / 384 / 128 /
-    # 512 / 512) x hs 16 / 64 / 128 / 256, and at the shapes where the JAX
-    # package switches tiers (T 3072 hs 256: the split backward; T 8192
-    # hs 256: the streamed kernels), which the port's kernels also serve
+    # 512 / 512) x hs 16 / 64 / 128 / 256, at T 256 / 1024 x hs 36 / 96 /
+    # 200, and at the shapes where the JAX package switches tiers (T 3072
+    # hs 256: the split backward; T 8192 hs 256: the streamed kernels), which
+    # the port's kernels also serve
     cases = [(FLASH_PROD[0], LONG_BLOCK, 64, FLASH_CROSS_PROD[1]), (24, LONG_BLOCK, 64, 6),
              (24 * 16, 896, 64, 6 * 16)]
     cases += [(2, t_, hs_, 2) for t_ in (256, 640, 768, 896, 1024, 2048)
               for hs_ in (16, 64, 128, 256)]
+    # the bf16 forward's template edges: hs 36 (not a multiple of 8: the
+    # element loader and stores), 96 and 200 (zeros up to D = 128 and 256)
+    cases += [(2, t_, hs_, 2) for t_ in (256, 1024) for hs_ in (36, 96, 200)]
     cases += [(2, 3072, 256, 0), (2, 8192, 256, 0)]
     for n, t_, hs_, nc in cases:
         q, k, v, do = (randn(n, t_, hs_) for _ in range(4))
@@ -1181,9 +1204,12 @@ def context_parallel(K, card, gen, timing, errs, by_path):
     # kernel_check: K7f (out, lse) and K7b, causal and full mask, dropout 0
     # and 0.2, f32 and bf16; the backward given the output and logsumexp
     # merged with a second (full-mask) chunk, as the ring gives them
+    # (hs 200 and 256: key tiles of 32 rows against 64 query rows a block, so
+    # under the causal mask the block's last key tile is wholly masked for
+    # two of its warps)
     shapes = [CP_SELF, (4 * 8 * 6, 256, 256, 64), CP_CROSS, (2, 128, 512, 64),
               (2, 512, 256, 64), (2, 384, 1024, 64), (2, 256, 256, 16), (2, 256, 256, 128),
-              (2, 256, 256, 256)]
+              (2, 256, 256, 256), (2, 256, 512, 200), (2, 512, 384, 256)]
     for n, tq, tk, hs in shapes:
         q, do = randn(n, tq, hs), randn(n, tq, hs)
         k, v, k2, v2 = (randn(n, tk, hs) for _ in range(4))
@@ -1841,9 +1867,7 @@ def main() -> int:
     per_source = K.build_kernels()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source": per_source})
     for name in K._SIGNATURES:
-        for line in K.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                emit(f"  ptxas {name}: {line.strip()}")
+        emit({"phase": "ptxas", "source": name, "functions": ptxas_report(K.build_log(name))})
 
     # 3. each kernel against its plain version
     gen = torch.Generator().manual_seed(0)

@@ -640,8 +640,10 @@ def test_decode_t_kernel_matches_plain_on_card(cuda_device, n, hs, S, dtype):
             assert (wrong.float() - ref.float()).abs().max().item() > TOL[dtype]
 
 
+# the bf16 forward's template edges too: each padded head size D (64, 128,
+# 256) and hs 36, not a multiple of 8 (element loads and stores)
 FLASH_SHAPES = [(192, 1024, 64), (24, 896, 64), (3, 256, 16), (2, 640, 128), (2, 768, 24),
-                (2, 1024, 256), (1, 2048, 64)]
+                (2, 1024, 256), (1, 2048, 64), (2, 256, 36), (2, 1024, 96), (2, 256, 200)]
 
 
 @pytest.mark.cuda
@@ -677,7 +679,9 @@ def test_flash_fwd_bwd_kernels_match_plain_on_card(cuda_device, shape, dtype, ra
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(3, 48, 1024, 64), (3, 96, 896, 64), (2, 3, 256, 16),
-                                   (3, 4, 768, 24), (2, 2, 1024, 256)])
+                                   (3, 4, 768, 24), (2, 2, 1024, 256), (1, 2, 1024, 36),
+                                   (3, 2, 256, 36), (1, 2, 256, 96), (3, 2, 1024, 96),
+                                   (1, 2, 256, 200), (3, 2, 256, 200)])
 def test_flash_cross_kernels_match_plain_on_card(cuda_device, shape, dtype, rate):
     """K6f and K6f-r against the plain version (sum, each stream's output
     and logsumexp); both kernels give the same sum."""
@@ -701,9 +705,13 @@ def test_flash_cross_kernels_match_plain_on_card(cuda_device, shape, dtype, rate
 
 
 # the ring's chunk pairs: production self (192 rows, chunks of 512 and 256)
-# and cross (48 rows) shapes, t_q != t_k, hs 16 / 128 / 256
+# and cross (48 rows) shapes, t_q != t_k, hs 16 / 128 / 256; t_q != t_k at
+# hs 200 (key tiles of 32 rows against 64 query rows a block: under the
+# causal mask the block's last key tile is wholly masked for two warps)
+# and at hs 36
 CHUNK_SHAPES = [(192, 512, 512, 64), (192, 256, 256, 64), (48, 512, 512, 64),
-                (2, 128, 512, 64), (2, 512, 256, 16), (2, 384, 1024, 128), (2, 256, 256, 256)]
+                (2, 128, 512, 64), (2, 512, 256, 16), (2, 384, 1024, 128), (2, 256, 256, 256),
+                (2, 256, 512, 200), (2, 512, 384, 36)]
 
 
 @pytest.mark.cuda

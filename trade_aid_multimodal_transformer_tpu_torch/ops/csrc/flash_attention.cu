@@ -34,19 +34,22 @@
 //
 // What bounds them on the H100: at the production training shape (n = 192
 // rows, T = 1024, hs 64, bf16) the forward moves ~100 MB (q, k, v, out once)
-// for ~26 GFLOP of causal products, ~0.03 ms at 3.35 TB/s, and the backward
+// for ~26 GFLOP of causal products, ~0.030 ms at 3.35 TB/s, and the backward
 // does five such products (~64 GFLOP, ~0.065 ms at 989 TFLOP/s). A ring chunk
 // pair at context_parallel 2 (n = 192, t_q = t_k = 512, no mask) does 12.9
 // GFLOP forward (~0.013 ms, operations) and 32 GFLOP in five products
-// backward (~0.033 ms). The design keeps every T^2 quantity on chip and runs
-// the products on the tensor cores (WMMA, bf16; f32 on FMAs). The backward is two kernels with no atomics, so
+// backward (~0.033 ms). Both keep every T^2 quantity on chip. The forward's
+// bf16 body (flash_fwd.cuh, on mma.sync with S, P and the output in
+// registers and the next key/value tile prefetched by cp.async) says there
+// what it does about its bound. The backward runs its products on the tensor
+// cores (WMMA, bf16; f32 on FMAs) and is two kernels with no atomics, so
 // two runs give the same bits: a dq kernel (one block per query tile, walking
 // the key tiles up to the diagonal) and a dk/dv kernel (one block per key
 // tile, walking the query tiles from the diagonal down); each recomputes p,
 // as the JAX package's split tier does. delta is one PyTorch reduction before
-// the launch, as the JAX package computes it outside its kernel. A first,
-// simple version: WMMA with accumulators staged through shared memory, no
-// TMA, no wgmma, no double buffering.
+// the launch, as the JAX package computes it outside its kernel. The backward
+// is a first, simple version: WMMA with accumulators staged through shared
+// memory, no TMA, no wgmma, no double buffering.
 #include "flash_fwd.cuh"
 
 namespace tat {
