@@ -257,6 +257,25 @@ def bound_ms(flops: float, nbytes: float, dtype: str):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def sdpa_backward_ms(fwd, inputs, dout, reps: int = 10, inner: int = 10):
+    """The library yardsticks of a backward kernel: device ms of the backward
+    alone of ``fwd(*inputs)`` (a PyTorch fused attention call), its graph
+    built once and differentiated with ``retain_graph`` as K1b's and K2b's
+    rows do, and of forward plus backward (reported beside it)."""
+    import torch
+
+    leaves = [x.detach().clone().requires_grad_() for x in inputs]
+    with torch.enable_grad():
+        out = fwd(*leaves)
+
+    def fwd_bwd():
+        with torch.enable_grad():
+            return torch.autograd.grad(fwd(*leaves), leaves, dout)
+
+    bwd = device_ms(lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True), reps, inner)
+    return bwd, device_ms(fwd_bwd, reps, inner)
+
+
 def write_stock_folder(folder: Path, n_files: int, rows: int, seed: int) -> None:
     """Synthetic per-stock CSVs with a header and 14 columns: hour of day in
     column 6, close in column 13, volume in column 14 (1-based)."""
@@ -818,13 +837,12 @@ def long_context(K, card, gen, timing, errs, by_path):
     q1, k1, v1, o1, l1, d1 = (x[:24].contiguous() for x in (q, k, v, out0, lse0, do))
     # the library yardsticks take (1, rows, T, hs), the layout of PyTorch's
     # fused attention kernels
-    qg, kg, vg = (x[None].clone().requires_grad_() for x in (q, k, v))
     plane = n * t_ * hs_ * 2
 
-    def sdpa_fwd_bwd():
-        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-        return torch.autograd.grad(o, (qg, kg, vg), do[None])
+    def sdpa_causal(a, b, c):
+        return F.scaled_dot_product_attention(a, b, c, is_causal=True)
 
+    lib_bwd, lib_fwd_bwd = sdpa_backward_ms(sdpa_causal, (q[None], k[None], v[None]), do[None])
     timing["flash_attention"] = dict(
         ms=device_ms(lambda: K.flash_attention_fwd(q, k, v)),
         ms_dropout=device_ms(lambda: K.flash_attention_fwd(q, k, v, 0.2, SALTS)),
@@ -839,7 +857,8 @@ def long_context(K, card, gen, timing, errs, by_path):
         ms_dropout=device_ms(lambda: K.flash_attention_bwd(q, k, v, out1, lse1, do, 0.2, SALTS)),
         ms_b1=device_ms(lambda: K.flash_attention_bwd(q1, k1, v1, o1, l1, d1)),
         plain_ms=device_ms(lambda: K.flash_attention_bwd_plain(q, k, v, out0, lse0, do)),
-        library_ms=device_ms(sdpa_fwd_bwd),
+        library_ms=lib_bwd,
+        library_fwd_bwd_ms=lib_fwd_bwd,
         # reads q, k, v, out, dout and lse; writes dq, dk, dv
         bound=bound_ms(5 * 2 * n * tri * hs_, 8 * plane + n * t_ * 4, "bfloat16"),
     )
@@ -866,8 +885,9 @@ def long_context(K, card, gen, timing, errs, by_path):
         emit({"phase": "kernel_time", "kernel": name, "card": card, "kernel_ms": t["ms"],
               "kernel_ms_dropout": t["ms_dropout"], "kernel_ms_b1": t["ms_b1"],
               "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
+              "library_fwd_bwd_ms": t.get("library_fwd_bwd_ms"),
               "bound_ms": t["bound"][0], "bound_by": t["bound"][1]})
-    del q, k, v, do, out0, out1, qg, kg, vg, qc, kc, vc
+    del q, k, v, do, out0, out1, qc, kc, vc
 
     # kernel_time at the JAX package's K5 tier shapes (hs 256; T 3072 takes
     # its split backward, T 8192 its streamed forward and backward), which
@@ -876,12 +896,9 @@ def long_context(K, card, gen, timing, errs, by_path):
         tri = t_ * (t_ + 1) // 2
         q, k, v, do = (randn(n, t_, hs_).to(bf) for _ in range(4))
         out0, lse0 = K.flash_attention_fwd(q, k, v)
-        qg, kg, vg = (x[None].clone().requires_grad_() for x in (q, k, v))
         plane = n * t_ * hs_ * 2
-
-        def sdpa_tier_fwd_bwd():
-            o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-            return torch.autograd.grad(o, (qg, kg, vg), do[None])
+        lib_bwd, lib_fwd_bwd = sdpa_backward_ms(sdpa_causal, (q[None], k[None], v[None]),
+                                                do[None], reps=5, inner=4)
 
         tiers = {
             "flash_attention": dict(
@@ -895,14 +912,16 @@ def long_context(K, card, gen, timing, errs, by_path):
                              inner=4),
                 plain_ms=device_ms(lambda: K.flash_attention_bwd_plain(q, k, v, out0, lse0, do),
                                    reps=3, inner=2),
-                library_ms=device_ms(sdpa_tier_fwd_bwd, reps=5, inner=4),
+                library_ms=lib_bwd,
+                library_fwd_bwd_ms=lib_fwd_bwd,
                 bound=bound_ms(5 * 2 * n * tri * hs_, 8 * plane + n * t_ * 4, "bfloat16"))}
         for name, t in tiers.items():
             emit({"phase": "kernel_time", "kernel": name, "tier_shape": True, "card": card,
                   "shape": [n, t_, hs_], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
-                  "library_ms": t["library_ms"], "bound_ms": t["bound"][0],
+                  "library_ms": t["library_ms"],
+                  "library_fwd_bwd_ms": t.get("library_fwd_bwd_ms"), "bound_ms": t["bound"][0],
                   "bound_by": t["bound"][1]})
-        del q, k, v, do, out0, lse0, qg, kg, vg
+        del q, k, v, do, out0, lse0
 
     # long_entry: the generation entry at block_size 1024 from the last 1024
     # tokens: 4 full-window tokens (6 K5f and 12 K6f per token, no whole-row
@@ -1247,11 +1266,11 @@ def context_parallel(K, card, gen, timing, errs, by_path):
     # kernel_time at the production chunk pair (192 rows, 512 x 512, bf16;
     # B = 1: 24 rows): bounds count the visible pairs (all of them without
     # the mask, t(t + 1) / 2 with it), every input read once, every output
-    # written once; the library yardstick is SDPA over the same pair
+    # written once; the library yardstick is SDPA over the same pair (for
+    # K7b its backward alone, forward + backward in library_fwd_bwd_ms)
     bf = torch.bfloat16
     n, tq, tk, hs = CP_SELF
     q, k, v, do = (randn(n, tq, hs).to(bf) for _ in range(4))
-    qg, kg, vg = (x[None].clone().requires_grad_() for x in (q, k, v))
     plane = n * tq * hs * 2
     for causal in (True, False):
         mask = "causal" if causal else "full"
@@ -1260,9 +1279,10 @@ def context_parallel(K, card, gen, timing, errs, by_path):
         out1, lse1 = K.flash_chunk_fwd(q, k, v, causal, 99, 0.2)
         q1, k1, v1, o1, l1, d1 = (x[:24].contiguous() for x in (q, k, v, out0, lse0, do))
 
-        def sdpa_fwd_bwd(causal=causal):
-            o_ = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
-            return torch.autograd.grad(o_, (qg, kg, vg), do[None])
+        def sdpa_chunk(a, b, c, causal=causal):
+            return F.scaled_dot_product_attention(a, b, c, is_causal=causal)
+
+        lib_bwd, lib_fwd_bwd = sdpa_backward_ms(sdpa_chunk, (q[None], k[None], v[None]), do[None])
 
         timing[f"flash_chunk_fwd_{mask}"] = dict(
             ms=device_ms(lambda: K.flash_chunk_fwd(q, k, v, causal)),
@@ -1278,7 +1298,8 @@ def context_parallel(K, card, gen, timing, errs, by_path):
                                                            0.2)),
             ms_b1=device_ms(lambda: K.flash_chunk_bwd(q1, k1, v1, o1, l1, d1, causal)),
             plain_ms=device_ms(lambda: K.flash_chunk_bwd_plain(q, k, v, out0, lse0, do, causal)),
-            library_ms=device_ms(sdpa_fwd_bwd),
+            library_ms=lib_bwd,
+            library_fwd_bwd_ms=lib_fwd_bwd,
             # reads q, k, v, out, dout and lse; writes dq, dk, dv
             bound=bound_ms(5 * 2 * n * pairs * hs, 8 * plane + n * tq * 4, "bfloat16"))
         for name in (f"flash_chunk_fwd_{mask}", f"flash_chunk_bwd_{mask}"):
@@ -1286,9 +1307,10 @@ def context_parallel(K, card, gen, timing, errs, by_path):
             emit({"phase": "kernel_time", "kernel": name, "card": card, "shape": list(CP_SELF),
                   "kernel_ms": t["ms"], "kernel_ms_dropout": t["ms_dropout"],
                   "kernel_ms_b1": t["ms_b1"], "plain_ms": t["plain_ms"],
-                  "library_ms": t["library_ms"], "bound_ms": t["bound"][0],
+                  "library_ms": t["library_ms"],
+                  "library_fwd_bwd_ms": t.get("library_fwd_bwd_ms"), "bound_ms": t["bound"][0],
                   "bound_by": t["bound"][1]})
-    del q, k, v, do, qg, kg, vg
+    del q, k, v, do
 
     # the production config at block_size 1024: data, and the parameters of
     # the reference steps (seed 1234)
@@ -1687,7 +1709,8 @@ def short_kernels(K, card, gen, timing, errs, by_path):
     # packed rows for K4, 24 for K9). Bounds count the causal half of each
     # product (5 for a backward), every input read once and every output
     # written once; K9 at pos = S - 1 reads the whole cache. Library
-    # yardsticks: SDPA (is_causal) forward + backward for K3b, over the split
+    # yardsticks: SDPA (is_causal) for K3f and its backward alone for K3b
+    # (forward + backward in library_fwd_bwd_ms), the same over the split
     # views for K4; SDPA over the transposed-back cache with a column mask
     # for K9.
     bf = torch.bfloat16
@@ -1697,11 +1720,8 @@ def short_kernels(K, card, gen, timing, errs, by_path):
     out0 = K.short_causal_attention_fwd(q, k, v)
     out1 = K.short_causal_attention_fwd(q, k, v, 0.2, SALTS)
     q1, k1, v1, o1, d1 = (a[:24].contiguous() for a in (q, k, v, out0, do))
-    qg, kg, vg = (a.clone().requires_grad_() for a in (q, k, v))
-
-    def sdpa_fwd_bwd():
-        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-        return torch.autograd.grad(o, (qg, kg, vg), do)
+    k3_lib = sdpa_backward_ms(
+        lambda a, b, c: F.scaled_dot_product_attention(a, b, c, is_causal=True), (q, k, v), do)
 
     plane = n * t_ * hs_ * 2
     timing["short_causal_attention_bwd"] = dict(
@@ -1709,7 +1729,8 @@ def short_kernels(K, card, gen, timing, errs, by_path):
         ms_dropout=device_ms(lambda: K.short_causal_attention_bwd(q, k, v, out1, do, 0.2, SALTS)),
         ms_b1=device_ms(lambda: K.short_causal_attention_bwd(q1, k1, v1, o1, d1)),
         plain_ms=device_ms(lambda: K.short_causal_attention_bwd_plain(q, k, v, out0, do)),
-        library_ms=device_ms(sdpa_fwd_bwd),
+        library_ms=k3_lib[0],
+        library_fwd_bwd_ms=k3_lib[1],
         bound=bound_ms(5 * 2 * n * tri * hs_, 8 * plane, "bfloat16"))
     nb, H, t_, hs_ = K4_PROD
     x = randn(nb, 3 * H, t_, hs_).to(bf)
@@ -1717,11 +1738,8 @@ def short_kernels(K, card, gen, timing, errs, by_path):
     o4 = K.short_causal_attention_packed_fwd(x, H)
     o4d = K.short_causal_attention_packed_fwd(x, H, 0.2, SALTS)
     x1, o41, d41 = (a[:4].contiguous() for a in (x, o4, do))
-    xg = x.clone().requires_grad_()
-
-    def sdpa_packed_fwd_bwd():
-        o = F.scaled_dot_product_attention(xg[:, :H], xg[:, H:2 * H], xg[:, 2 * H:], is_causal=True)
-        return torch.autograd.grad(o, (xg,), do)
+    k4_lib = sdpa_backward_ms(lambda a: F.scaled_dot_product_attention(
+        a[:, :H], a[:, H:2 * H], a[:, 2 * H:], is_causal=True), (x,), do)
 
     plane = nb * H * t_ * hs_ * 2
     timing["short_causal_attention_packed"] = dict(
@@ -1737,7 +1755,8 @@ def short_kernels(K, card, gen, timing, errs, by_path):
         ms_dropout=device_ms(lambda: K.short_causal_attention_packed_bwd(x, o4d, do, H, 0.2, SALTS)),
         ms_b1=device_ms(lambda: K.short_causal_attention_packed_bwd(x1, o41, d41, H)),
         plain_ms=device_ms(lambda: K.short_causal_attention_packed_bwd_plain(x, o4, do, H)),
-        library_ms=device_ms(sdpa_packed_fwd_bwd),
+        library_ms=k4_lib[0],
+        library_fwd_bwd_ms=k4_lib[1],
         # reads qkv, out and dout; writes d(qkv)
         bound=bound_ms(5 * 2 * nb * H * tri * hs_, 8 * plane, "bfloat16"))
     posd = torch.tensor([S9 - 1], dtype=torch.int32, device=dev)
@@ -1758,7 +1777,8 @@ def short_kernels(K, card, gen, timing, errs, by_path):
         t = timing[name]
         emit({"phase": "kernel_time", "kernel": name, "card": card, "shape": list(shape),
               "kernel_ms": t["ms"], "kernel_ms_dropout": t["ms_dropout"], "kernel_ms_b1": t["ms_b1"],
-              "plain_ms": t["plain_ms"], "library_ms": t["library_ms"], "bound_ms": t["bound"][0],
+              "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
+              "library_fwd_bwd_ms": t.get("library_fwd_bwd_ms"), "bound_ms": t["bound"][0],
               "bound_by": t["bound"][1]})
 
 

@@ -640,10 +640,12 @@ def test_decode_t_kernel_matches_plain_on_card(cuda_device, n, hs, S, dtype):
             assert (wrong.float() - ref.float()).abs().max().item() > TOL[dtype]
 
 
-# the bf16 forward's template edges too: each padded head size D (64, 128,
-# 256) and hs 36, not a multiple of 8 (element loads and stores)
-FLASH_SHAPES = [(192, 1024, 64), (24, 896, 64), (3, 256, 16), (2, 640, 128), (2, 768, 24),
-                (2, 1024, 256), (1, 2048, 64), (2, 256, 36), (2, 1024, 96), (2, 256, 200)]
+# the bf16 bodies' template edges too: each padded head size D (64, 128,
+# 256) and hs 36, not a multiple of 8 (element loads and stores); the
+# training step's rows at B = 8 and B = 1 (192, 24)
+FLASH_SHAPES = [(192, 1024, 64), (24, 1024, 64), (24, 896, 64), (3, 256, 16), (2, 640, 128),
+                (2, 768, 24), (2, 1024, 256), (1, 2048, 64), (2, 256, 36), (2, 1024, 96),
+                (2, 256, 200)]
 
 
 @pytest.mark.cuda
@@ -676,6 +678,28 @@ def test_flash_fwd_bwd_kernels_match_plain_on_card(cuda_device, shape, dtype, ra
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(48, 1024, 64), (3, 256, 200)])
+def test_flash_bwd_stream_seeds_match_plain_on_card(cuda_device, shape, dtype):
+    """K5b as the cross backward launches it, once per stream j with the
+    dropout keyed by stream j's seed, against the plain version given the
+    same stream; the streams draw different masks."""
+    gen = torch.Generator().manual_seed(sum(shape))
+    q, k, v, dout = (torch.randn(shape, generator=gen).to(cuda_device, getattr(torch, dtype))
+                     for _ in range(4))
+    out, lse = K.flash_attention_fwd(q, k, v, 0.2, SALTS)
+    dqs = []
+    for j in range(3):
+        grads = K.flash_attention_bwd(q, k, v, out, lse, dout, 0.2, SALTS, stream=j)
+        torch.cuda.synchronize()
+        ref = K.flash_attention_bwd_plain(q, k, v, out, lse, dout, 0.2, SALTS, stream=j)
+        for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
+            _card_close(f"K5b stream {j} {name}", g, r, dtype)
+        dqs.append(grads[0])
+    assert not torch.equal(dqs[0], dqs[1]) and not torch.equal(dqs[1], dqs[2])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(3, 48, 1024, 64), (3, 96, 896, 64), (2, 3, 256, 16),
@@ -705,13 +729,14 @@ def test_flash_cross_kernels_match_plain_on_card(cuda_device, shape, dtype, rate
 
 
 # the ring's chunk pairs: production self (192 rows, chunks of 512 and 256)
-# and cross (48 rows) shapes, t_q != t_k, hs 16 / 128 / 256; t_q != t_k at
+# and cross (48 rows) shapes, t_q != t_k (t_k > t_q at 24 rows: under the
+# causal mask the key tiles past t_q store zeros), hs 16 / 128 / 256; t_q != t_k at
 # hs 200 (key tiles of 32 rows against 64 query rows a block: under the
 # causal mask the block's last key tile is wholly masked for two warps)
 # and at hs 36
 CHUNK_SHAPES = [(192, 512, 512, 64), (192, 256, 256, 64), (48, 512, 512, 64),
-                (2, 128, 512, 64), (2, 512, 256, 16), (2, 384, 1024, 128), (2, 256, 256, 256),
-                (2, 256, 512, 200), (2, 512, 384, 36)]
+                (2, 128, 512, 64), (24, 256, 1024, 64), (2, 512, 256, 16), (2, 384, 1024, 128),
+                (2, 256, 256, 256), (2, 256, 512, 200), (2, 512, 384, 36)]
 
 
 @pytest.mark.cuda

@@ -56,7 +56,7 @@
 // f32 (the correctness gates only) runs flash_fwd_kernel: one block per
 // (collapsed row, query tile of R rows) holds q in shared memory and walks
 // the streams and the key tiles up to the diagonal with block-wide products
-// on FMAs (flash_tile.cuh Mma<float>), keeping m, l and the f32 accumulator
+// on FMAs (flash_tile.cuh mma_f32), keeping m, l and the f32 accumulator
 // in shared memory and the J-stream sum in the output array.
 #pragma once
 
@@ -81,21 +81,19 @@ struct FwdArgs {
   int on, stream_seeds, vec;
 };
 
-template <typename T>
 struct FwdLayout {
-  int R, hsp, ldh, ldp, lds, lda;
+  int R, ldh, ldp, lds, lda;
   size_t off_k, off_v, off_p, off_s, off_acc, off_row, bytes;
   __host__ __device__ FwdLayout(int R_, int hs) : R(R_) {
-    hsp = Lay<T>::hsp(hs);
-    ldh = Lay<T>::ldh(hs);
-    ldp = Lay<T>::ldp(R);
+    ldh = ldh_of(hs);
+    ldp = ldp_of(R);
     lds = lds_of(R);
-    lda = lda_of(hsp);
-    const size_t tile = up128((size_t)R * ldh * sizeof(T));
+    lda = lda_of(hs);
+    const size_t tile = up128((size_t)R * ldh * sizeof(float));
     off_k = tile;  // q at 0
     off_v = off_k + tile;
     off_p = off_v + tile;
-    off_s = off_p + up128((size_t)R * ldp * sizeof(T));
+    off_s = off_p + up128((size_t)R * ldp * sizeof(float));
     off_acc = off_s + up128((size_t)R * lds * sizeof(float));
     off_row = off_acc + up128((size_t)R * lda * sizeof(float));
     bytes = off_row + 3 * (size_t)R * sizeof(float);
@@ -103,21 +101,21 @@ struct FwdLayout {
 };
 
 // The f32 body. At most 85 registers a thread.
-template <typename T, bool kCausal>
+template <bool kCausal>
 __global__ void __launch_bounds__(kThreads, 3) flash_fwd_kernel(const FwdArgs a) {
   extern __shared__ __align__(128) char smem[];
-  const FwdLayout<T> L(a.R, a.hs);
-  T* sq = reinterpret_cast<T*>(smem);
-  T* sk = reinterpret_cast<T*>(smem + L.off_k);
-  T* sv = reinterpret_cast<T*>(smem + L.off_v);
-  T* sp = reinterpret_cast<T*>(smem + L.off_p);
+  const FwdLayout L(a.R, a.hs);
+  float* sq = reinterpret_cast<float*>(smem);
+  float* sk = reinterpret_cast<float*>(smem + L.off_k);
+  float* sv = reinterpret_cast<float*>(smem + L.off_v);
+  float* sp = reinterpret_cast<float*>(smem + L.off_p);
   float* ss = reinterpret_cast<float*>(smem + L.off_s);
   float* sacc = reinterpret_cast<float*>(smem + L.off_acc);
   float* sm = reinterpret_cast<float*>(smem + L.off_row);  // running max
   float* sl = sm + a.R;                                     // running row sum
   float* sc = sl + a.R;                                     // this tile's correction
 
-  const int R = a.R, hs = a.hs, hsp = L.hsp;
+  const int R = a.R, hs = a.hs;
   const int n_qt = a.Tq / R;
   const int qt = n_qt - 1 - (int)(blockIdx.x % n_qt);
   const int row = (int)(blockIdx.x / n_qt);
@@ -126,14 +124,14 @@ __global__ void __launch_bounds__(kThreads, 3) flash_fwd_kernel(const FwdArgs a)
   const int kt_end = kCausal ? min(qt, a.Tk / R - 1) : a.Tk / R - 1;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t qplane = (size_t)a.Tq * hs, kplane = (size_t)a.Tk * hs;
-  const T* q = static_cast<const T*>(a.q) + row * qplane;
-  T* out = static_cast<T*>(a.out) + row * qplane;
+  const float* q = static_cast<const float*>(a.q) + row * qplane;
+  float* out = static_cast<float*>(a.out) + row * qplane;
 
-  load_tile<T>(q + (size_t)q0 * hs, R, hs, hsp, sq, L.ldh, a.vec);
+  load_tile(q + (size_t)q0 * hs, R, hs, sq, L.ldh);
   for (int j = 0; j < a.J; ++j) {
     const size_t at = ((size_t)j * a.n + row) * kplane;
-    const T* kj = static_cast<const T*>(a.k) + at;
-    const T* vj = static_cast<const T*>(a.v) + at;
+    const float* kj = static_cast<const float*>(a.k) + at;
+    const float* vj = static_cast<const float*>(a.v) + at;
     const uint32_t seed = a.stream_seeds ? stream_seed(a.seed, j) : a.seed;
     for (int i = threadIdx.x; i < R; i += kThreads) {
       sm[i] = -INFINITY;
@@ -141,10 +139,10 @@ __global__ void __launch_bounds__(kThreads, 3) flash_fwd_kernel(const FwdArgs a)
     }
     for (int kt = 0; kt <= kt_end; ++kt) {
       const int k0 = kt * R;
-      load_tile<T>(kj + (size_t)k0 * hs, R, hs, hsp, sk, L.ldh, a.vec);
-      load_tile<T>(vj + (size_t)k0 * hs, R, hs, hsp, sv, L.ldh, a.vec);
+      load_tile(kj + (size_t)k0 * hs, R, hs, sk, L.ldh);
+      load_tile(vj + (size_t)k0 * hs, R, hs, sv, L.ldh);
       __syncthreads();
-      Mma<T>::template run<false, true>(sq, L.ldh, sk, L.ldh, ss, L.lds, R, R, hsp, false);
+      mma_f32<false, true>(sq, L.ldh, sk, L.ldh, ss, L.lds, R, R, hs, false);
       // online softmax, one warp per query row
       for (int i = warp; i < R; i += kWarps) {
         const int r = q0 + i;
@@ -163,7 +161,7 @@ __global__ void __launch_bounds__(kThreads, 3) flash_fwd_kernel(const FwdArgs a)
           const float p = expf(srow[c] - m_new);
           sum += p;
           const bool kept = !a.on || kr((uint32_t)c);
-          sp[i * L.ldp + c] = from_f32<T>(kept ? p : 0.f);
+          sp[i * L.ldp + c] = kept ? p : 0.f;
         }
         sum = warp_sum(sum);
         if (lane == 0) {
@@ -175,22 +173,23 @@ __global__ void __launch_bounds__(kThreads, 3) flash_fwd_kernel(const FwdArgs a)
       }
       __syncthreads();
       if (kt > 0) {
-        for (int idx = threadIdx.x; idx < R * hsp; idx += kThreads) {
-          const int i = idx / hsp;
-          sacc[i * L.lda + idx - i * hsp] *= sc[i];
+        for (int idx = threadIdx.x; idx < R * hs; idx += kThreads) {
+          const int i = idx / hs;
+          sacc[i * L.lda + idx - i * hs] *= sc[i];
         }
         __syncthreads();
       }
-      Mma<T>::template run<false, false>(sp, L.ldp, sv, L.ldh, sacc, L.lda, R, hsp, R, kt > 0);
+      mma_f32<false, false>(sp, L.ldp, sv, L.ldh, sacc, L.lda, R, hs, R, kt > 0);
     }
-    // stream j's output, rounded to q's type, and its logsumexp
-    T* outs = a.outs ? static_cast<T*>(a.outs) + ((size_t)j * a.n + row) * qplane : nullptr;
+    // stream j's output and its logsumexp
+    float* outs = a.outs ? static_cast<float*>(a.outs) + ((size_t)j * a.n + row) * qplane
+                         : nullptr;
     for (int idx = threadIdx.x; idx < R * hs; idx += kThreads) {
       const int i = idx / hs, e = idx - i * hs;
-      const float o = Io<T>::round(sacc[i * L.lda + e] / (sl[i] * a.keepf));
+      const float o = sacc[i * L.lda + e] / (sl[i] * a.keepf);
       const size_t off = (size_t)(q0 + i) * hs + e;
-      if (outs) Io<T>::store(outs + off, o);
-      Io<T>::store(out + off, j == 0 ? o : Io<T>::load(out + off) + o);
+      if (outs) outs[off] = o;
+      out[off] = j == 0 ? o : out[off] + o;
     }
     for (int i = threadIdx.x; i < R; i += kThreads) {
       const float lse = sm[i] + logf(sl[i]);
@@ -201,18 +200,18 @@ __global__ void __launch_bounds__(kThreads, 3) flash_fwd_kernel(const FwdArgs a)
   }
 }
 
-template <typename T, bool kCausal>
-int launch_flash_fwd_t(FwdArgs a, cudaStream_t stream) {
-  a.R = pick_rows<FwdLayout<T>>(a.hs);
+template <bool kCausal>
+int launch_flash_fwd_f32(FwdArgs a, cudaStream_t stream) {
+  a.R = pick_rows<FwdLayout>(a.hs);
   if (a.R == 0 || a.Tq % a.R != 0 || a.Tk % a.R != 0 || a.bq % a.R != 0 || a.bk % a.R != 0)
     return (int)cudaErrorInvalidValue;
   const long long blocks = (long long)a.n * (a.Tq / a.R);
   if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  const size_t smem = FwdLayout<T>(a.R, a.hs).bytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, kCausal>,
+  const size_t smem = FwdLayout(a.R, a.hs).bytes;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<kCausal>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  flash_fwd_kernel<T, kCausal><<<(unsigned)blocks, kThreads, smem, stream>>>(a);
+  flash_fwd_kernel<kCausal><<<(unsigned)blocks, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -269,35 +268,40 @@ __device__ __forceinline__ void load_rows_async(__nv_bfloat16* dst, const __nv_b
   }
 }
 
-// 16 output rows (rows of a (Tq, hs) plane from dst on), each thread's
-// elements of fragment rows g and g + 8 packed in v[dt][0], v[dt][1] for
-// columns 8 dt + 2 (lane % 4) + {0, 1}, written through 16 rows of shared
-// memory that only this warp uses (stage, rows kLd apart) so that device
-// memory sees 16-byte stores (vec), else element stores.
-template <int D>
+// 16 output rows (rows of a (T, hs) plane from dst on), columns c0 ..
+// c0 + kN - 1 of the padded D: each thread's elements of fragment rows g and
+// g + 8 packed in v[dt][0], v[dt][1] for columns c0 + 8 dt + 2 (lane % 4) +
+// {0, 1}, written through 16 rows of shared memory (stage, rows kLd apart)
+// whose columns c0 .. c0 + kN - 1 only this warp uses, so that device memory
+// sees 16-byte stores (vec), else element stores. Columns from hs on are
+// not stored.
+template <int D, int kN = D>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, __nv_bfloat16* stage,
-                                           const uint32_t (&v)[D / 8][2], int hs, bool vec,
-                                           int lane) {
+                                           const uint32_t (&v)[kN / 8][2], int hs, bool vec,
+                                           int lane, int c0 = 0) {
   constexpr int kLd = D + 8;
   __syncwarp();
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
+  for (int dt = 0; dt < kN / 8; ++dt)
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<uint32_t*>(stage + mma::frag_row(lane, 2 * h) * kLd + 8 * dt +
+      *reinterpret_cast<uint32_t*>(stage + mma::frag_row(lane, 2 * h) * kLd + c0 + 8 * dt +
                                    mma::frag_col(lane, 0)) = v[dt][h];
   __syncwarp();
+  // columns to store: hs for a whole row (the forward's stores, whose
+  // registers the general form below would disturb)
+  const int w = kN == D ? hs : min(c0 + kN, hs) - c0;
   if (vec) {
-    const int chunks = hs / 8;
+    const int chunks = w / 8;
     for (int idx = lane; idx < 16 * chunks; idx += 32) {
-      const int r = idx / chunks, c = idx - r * chunks;
-      *reinterpret_cast<uint4*>(dst + (size_t)r * hs + c * 8) =
-          *reinterpret_cast<const uint4*>(stage + r * kLd + c * 8);
+      const int r = idx / chunks, c = c0 + 8 * (idx - r * chunks);
+      *reinterpret_cast<uint4*>(dst + (size_t)r * hs + c) =
+          *reinterpret_cast<const uint4*>(stage + r * kLd + c);
     }
   } else {
-    for (int idx = lane; idx < 16 * hs; idx += 32) {
-      const int r = idx / hs;
-      dst[idx] = stage[r * kLd + idx - r * hs];
+    for (int idx = lane; idx < 16 * w; idx += 32) {
+      const int r = idx / w, c = c0 + idx - r * w;
+      dst[r * hs + c] = stage[r * kLd + c];
     }
   }
   __syncwarp();
@@ -574,8 +578,8 @@ inline int launch_flash_fwd(FwdArgs a, int is_bf16, cudaStream_t stream) {
                          : launch_flash_fwd_d<256>(a, stream);
   }
   a.vec = 0;
-  return a.causal ? launch_flash_fwd_t<float, true>(a, stream)
-                  : launch_flash_fwd_t<float, false>(a, stream);
+  return a.causal ? launch_flash_fwd_f32<true>(a, stream)
+                  : launch_flash_fwd_f32<false>(a, stream);
 }
 
 }  // namespace flash

@@ -1,5 +1,5 @@
 // Register-fragment building blocks for Hopper (sm_90a) tensor-core kernels
-// on mma.sync: 16-byte asynchronous copies into shared memory (cp.async),
+// on mma.sync: 16- and 4-byte asynchronous copies into shared memory (cp.async),
 // fragment loads from shared memory (ldmatrix), the bf16 m16n8k16 product
 // with f32 accumulators, and the maps between a fragment and its (row,
 // column) elements.
@@ -32,6 +32,13 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool fill) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(fill ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes from global src to shared dst, asynchronously (f32 rows of any
+// alignment).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
                : "memory");
 }
 

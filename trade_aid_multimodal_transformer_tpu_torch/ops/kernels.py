@@ -1479,7 +1479,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, dropout_rate: float = 0.0,
                                          stream)
     _check_cuda_operands(what, (q, k, v, out, dout), (lse,))
     _check_flash(what, t, hs)
-    delta = (dout.float() * out.float()).sum(dim=-1)
+    delta = dout.to(torch.float32, copy=True).mul_(out).sum(dim=-1)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     err = _fn("flash_attention", "tat_flash_attention_bwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
@@ -1695,7 +1695,7 @@ def flash_chunk_bwd(q, k, v, out, lse, dout, causal: bool, seed=None, rate: floa
         return flash_chunk_bwd_plain(q, k, v, out, lse, dout, causal, seed, rate)
     q3, k3, v3, o3, g3 = (_collapse(x)[0] for x in (q, k, v, out, dout))
     lse3 = lse.reshape(q3.shape[0], 1, q3.shape[1]).contiguous()
-    delta = (g3.float() * o3.float()).sum(dim=-1)
+    delta = g3.to(torch.float32, copy=True).mul_(o3).sum(dim=-1)
     dq, dk, dv = torch.empty_like(q3), torch.empty_like(k3), torch.empty_like(v3)
     err = _fn("flash_attention", "tat_flash_chunk_bwd")(
         q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), g3.data_ptr(), lse3.data_ptr(),
