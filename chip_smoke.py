@@ -32,6 +32,11 @@ exits non-zero before printing any result.
 on a machine with 2 or 4 cards instead runs the training entry with
 context parallelism, one card per rank over NCCL, against the same run on
 one card, and compares every rank's parameters (``multi_card``).
+
+    python3 chip_smoke.py --k1b-split
+
+builds the kernels and prints only the device time of each kernel one
+production K1b call launches (``k1b_split``; the full run prints it too).
 """
 
 from __future__ import annotations
@@ -315,6 +320,71 @@ def check_rel(name, out, ref, dtype, shape, rate) -> float:
     if not ok:
         raise AssertionError(f"{name} {shape} {dtype} rate {rate}: max abs err {err} > {bound}")
     return err
+
+
+def same_bits(name, a, b, shape) -> None:
+    """Two runs of a kernel gave the same bits in every output."""
+    import torch
+
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise AssertionError(f"{name} {shape}: two runs differ")
+
+
+def launch_split(fn, reps: int = 20) -> list:
+    """Device time of each kernel that one call of ``fn`` launches:
+    ``torch.profiler`` over ``reps`` calls after a warm-up, the device ms
+    per call of each launch in launch order (``launch``); where the calls
+    did not all launch the same kernels in the same order, per kernel name
+    its launches per call and their device ms, the longest first."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    names = [e.name for e in kernels]
+    per, rest = divmod(len(kernels), reps)
+    if per and not rest and all(n == names[i % per] for i, n in enumerate(names)):
+        return [{"kernel": names[i], "launch": i,
+                 "ms": sum(kernels[i + r * per].time_range.elapsed_us() for r in range(reps))
+                 / reps / 1e3} for i in range(per)]
+    by_name = {}
+    for e in kernels:
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    return sorted(({"kernel": k, "launches": n / reps, "ms": us / 1e3 / reps}
+                   for k, (n, us) in by_name.items()), key=lambda k: -k["ms"])
+
+
+def k1b_split(K, card: str) -> list:
+    """The device time of each kernel launched by one K1b call at the
+    production shape (bf16, dropout 0.2, as the training step runs it),
+    emitted as phase ``k1b_split``."""
+    import torch
+
+    M, B, T, C, H, hs = 4, 32, 64, 384, 6, 64
+    gen = torch.Generator().manual_seed(7)
+    dev = torch.device("cuda")
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    x = randn(M, B, T, C).bfloat16()
+    w1, b1 = randn(M, C, 3 * H * hs // 2, scale=0.05), randn(M, 3 * H * hs // 2, scale=0.05)
+    w2 = randn(M, 3 * H, hs // 2, hs, scale=0.2)
+    out = K.fused_qkv_attention_fwd(x, w1, b1, w2, H, 0.2, SALTS)
+    dout = randn(*out.shape).bfloat16()
+    split = launch_split(lambda: K.fused_qkv_attention_bwd(x, w1, b1, w2, out, dout, H, 0.2, SALTS))
+    emit({"phase": "k1b_split", "card": card, "shape": [M, B, T, C, H, hs], "dropout": 0.2,
+          "total_ms": sum(k["ms"] for k in split), "kernels": split})
+    return split
 
 
 def serve_launches(K, cfg, t0: int, tokens: int, refresh: int, decode: str) -> dict:
@@ -1572,10 +1642,6 @@ def short_kernels(K, card, gen, timing, errs, by_path):
     def randn(*shape):
         return torch.randn(shape, generator=gen).to(dev)
 
-    def same_bits(name, a, b, shape):
-        if not all(torch.equal(x, y) for x, y in zip(a, b)):
-            raise AssertionError(f"{name} {shape}: two runs differ")
-
     # kernel_check: K3b at the production rows, at the crossover's rows (4 x 6
     # at each T of the band it sweeps, hs 64) and T 8 / 64 / 512 x hs 16 / 64
     # / 256, from K3f's output
@@ -1862,6 +1928,14 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     if sys.argv[1:] == ["--multi-card"]:
         return multi_card(smi())
+    if sys.argv[1:] == ["--k1b-split"]:
+        from trade_aid_multimodal_transformer_tpu_torch.ops import kernels as K
+
+        card = smi()
+        emit(card)
+        K.build_kernels()
+        k1b_split(K, card)
+        return 0
     import numpy as np
     import torch.nn.functional as F
 
@@ -1946,7 +2020,9 @@ def main() -> int:
                 salts = SALTS if rate else None
                 out = K.fused_qkv_attention_fwd(xx, w1, b1, w2, H_, rate, salts)
                 grads = K.fused_qkv_attention_bwd(xx, w1, b1, w2, out, do_, H_, rate, salts)
+                again = K.fused_qkv_attention_bwd(xx, w1, b1, w2, out, do_, H_, rate, salts)
                 torch.cuda.synchronize()
+                same_bits("fused_qkv_attention_bwd", grads, again, shape)
                 if rate:
                     errs[("fused_qkv_attention", shape, dtype, rate)] = check_rel(
                         "fused_qkv_attention", out,
@@ -1965,7 +2041,9 @@ def main() -> int:
                 salts = SALTS if rate else None
                 out = K.short_cross_attention_fwd(qq, kk, vv, rate, salts)
                 grads = K.short_cross_attention_bwd(qq, kk, vv, do_, rate, salts)
+                again = K.short_cross_attention_bwd(qq, kk, vv, do_, rate, salts)
                 torch.cuda.synchronize()
+                same_bits("short_cross_attention_bwd", grads, again, shape)
                 if rate:
                     errs[("short_cross_attention", shape, dtype, rate)] = check_rel(
                         "short_cross_attention", out,
@@ -2100,6 +2178,7 @@ def main() -> int:
             retain_graph=True)),
         bound=bound_ms(k1b_flops, k1b_bytes, "bfloat16"),
     )
+    k1b_split(K, card)
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
     do2 = randn(n, T2, hs_).bfloat16()
     with torch.enable_grad():

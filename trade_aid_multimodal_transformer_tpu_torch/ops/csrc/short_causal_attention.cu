@@ -34,10 +34,10 @@
 // dq, dk, dv out) for 5 causal products, ~17 FLOP per byte: memory too. The
 // forward is short_attention_fwd.cuh's with one stream: one block per (row,
 // query tile), k and v held on chip when T fits one tile, WMMA for bf16 with
-// hs % 16 == 0. The backward is attention_bwd.cuh's: one block per row, FMA
-// products, dq summed in a per-row f32 workspace in a fixed order (two runs
-// give the same bits). In both, n blocks of one tile's latency each, not
-// bandwidth, set the time.
+// hs % 16 == 0; n blocks of one tile's latency each, not bandwidth, set
+// its time. The backward is attention_bwd.cuh's: for bf16 one block of 4
+// warps per row on mma.sync at T <= 64, a dq and a dk/dv kernel above;
+// no atomics (two runs give the same bits).
 #include "attention_bwd.cuh"
 #include "short_attention_fwd.cuh"
 
@@ -72,9 +72,9 @@ extern "C" int tat_short_causal_attention_fwd(const void* q, const void* k, cons
 }
 
 // Backward of the above (K3b): dq, dk, dv (n, T, hs) in the inputs' type from
-// q, k, v, the forward's out and the output gradient dout; dq_ws is an
-// (n, T, hs) f32 workspace; inv is 1 / (1 - rate) as f32. Returns the
-// cudaError_t.
+// q, k, v, the forward's out and the output gradient dout; dq_ws is the f32
+// workspace of bwd_ws_floats(n, T, hs) floats; inv is 1 / (1 - rate) as
+// f32. Returns the cudaError_t.
 extern "C" int tat_short_causal_attention_bwd(const void* q, const void* k, const void* v,
                                               const void* out, const void* dout, void* dq,
                                               void* dk, void* dv, void* dq_ws, int n, int T,
@@ -102,8 +102,8 @@ extern "C" int tat_short_packed_attention_fwd(const void* qkv, void* out, int nb
 }
 
 // K4b: d(qkv) (nb, 3H, T, hs) packed, from qkv, the forward's out and dout
-// (nb, H, T, hs); dq_ws an (nb, H, T, hs) f32 workspace. Returns the
-// cudaError_t.
+// (nb, H, T, hs); dq_ws the f32 workspace of bwd_ws_floats(nb H, T, hs)
+// floats. Returns the cudaError_t.
 extern "C" int tat_short_packed_attention_bwd(const void* qkv, const void* out,
                                               const void* dout, void* dqkv, void* dq_ws, int nb,
                                               int H, int T, int hs, int is_bf16, float scale,

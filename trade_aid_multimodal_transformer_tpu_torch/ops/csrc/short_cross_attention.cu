@@ -26,8 +26,9 @@
 // once. For bf16 with hs % 16 == 0 (production) QK^T and P.V run on the
 // tensor cores (WMMA); otherwise they are f32 FMAs. With only n blocks (192 at
 // production, 6 at B=1) and the streams walked in turn, a block's latency,
-// not bandwidth, sets the time. The backward is attention_bwd.cuh's kernel
-// (one block per row, FMAs).
+// not bandwidth, sets the time. The backward is attention_bwd.cuh's (bf16:
+// one block of 4 warps per row on mma.sync at T <= 64, the streams in
+// turn with dq held in registers across them).
 #include "attention_bwd.cuh"
 #include "short_attention_fwd.cuh"
 
@@ -48,8 +49,9 @@ extern "C" int tat_short_cross_attention_fwd(const void* q, const void* k,
 }
 
 // Backward of the above: dq (n, T, hs) summed over the streams, dk and dv
-// (J, n, T, hs) per stream, in the inputs' type; dq_ws is an (n, T, hs) f32
-// workspace. inv is 1 / (1 - rate) as f32. Returns the cudaError_t.
+// (J, n, T, hs) per stream, in the inputs' type; dq_ws is the f32 workspace
+// of bwd_ws_floats(n, T, hs, J) floats. inv is 1 / (1 - rate) as f32.
+// Returns the cudaError_t.
 extern "C" int tat_short_cross_attention_bwd(const void* q, const void* k,
                                              const void* v, const void* dout,
                                              void* dq, void* dk, void* dv,

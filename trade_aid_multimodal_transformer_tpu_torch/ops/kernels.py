@@ -857,6 +857,15 @@ def decode_attention_packed_q8_plain(q, kp, vp, k_scale, v_scale, pos):
 # ------------------------------------------------------------------ wrappers
 
 
+def _bwd_workspace(n: int, t: int, hs: int, streams: int, device, extra: int = 0) -> torch.Tensor:
+    """The f32 workspace of the whole-row backward (attention_bwd.cuh
+    ``bwd_ws_floats``): the FMA body's dq (n, T, hs), or the bf16 body's row
+    statistics at T > 64 (three planes of J n T), rounded up to 8 floats;
+    then ``extra`` floats."""
+    floats = -(-n * t * max(hs, 3 * streams) // 8) * 8
+    return torch.empty(floats + extra, dtype=torch.float32, device=device)
+
+
 def _check_fqkv_shapes(what, x, w1, b1, w2, H):
     if x.ndim != 4 or w1.ndim != 3 or b1.ndim != 2 or w2.ndim != 4:
         raise ValueError(f"{what}: expected x 4-D, w1 3-D, b1 2-D, w2 4-D")
@@ -927,7 +936,10 @@ def fused_qkv_attention_bwd(x, w1, b1, w2, out, dout, n_head: int,
     ws += [torch.empty((M, B * T, d3), dtype=dt, device=dev)]
     ws += [torch.empty((M, 3 * H, B, T, hs), dtype=dt, device=dev) for _ in range(2)]
     ws += [torch.empty((M, B * T, d3), dtype=dt, device=dev)]
-    ws += [torch.empty((M * H * B, T, hs), dtype=f32, device=dev)]
+    # then, in bf16, the weights rounded to bf16: w1 padded to 8, and w2
+    n_w1 = M * C * d3
+    extra = (-(-n_w1 // 8) * 8 + M * 3 * H * hs2 * hs + 1) // 2 if dt == torch.bfloat16 else 0
+    ws += [_bwd_workspace(M * H * B, T, hs, 1, dev, extra)]
     err = _fn("fused_qkv_attention_bwd", "tat_fused_qkv_attention_bwd")(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), out.data_ptr(),
         dout.data_ptr(), dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(),
@@ -1024,7 +1036,7 @@ def short_cross_attention_bwd(q, k, v, dout, dropout_rate: float = 0.0, dropout_
     _check_band(what, T, hs)
     J, n = k.shape[0], q.numel() // (T * hs)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    ws = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    ws = _bwd_workspace(n, T, hs, J, q.device)
     err = _fn("short_cross_attention", "tat_short_cross_attention_bwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), ws.data_ptr(),
@@ -1141,7 +1153,7 @@ def short_causal_attention_bwd(q, k, v, out, dout, dropout_rate: float = 0.0,
     n, T, hs, bf, scale, seed, thresh, on, _, inv = _short_args(
         what, q, dropout_rate, dropout_salts, q.numel() // (q.shape[-2] * q.shape[-1]))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    ws = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    ws = _bwd_workspace(n, T, hs, 1, q.device)
     err = _fn("short_causal_attention", "tat_short_causal_attention_bwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ws.data_ptr(),
@@ -1240,7 +1252,7 @@ def short_causal_attention_packed_bwd(qkv, out, dout, n_head: int, dropout_rate:
     _, T, hs, bf, scale, seed, thresh, on, _, inv = _short_args(
         what, qkv, dropout_rate, dropout_salts, nb)
     dqkv = torch.empty_like(qkv)
-    ws = torch.empty(out.shape, dtype=torch.float32, device=qkv.device)
+    ws = _bwd_workspace(nb * H, T, hs, 1, qkv.device)
     err = _fn("short_causal_attention", "tat_short_packed_attention_bwd")(
         qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), ws.data_ptr(),
         nb, H, T, hs, bf, scale, seed, thresh, on, inv, _stream(),
