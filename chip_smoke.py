@@ -330,6 +330,13 @@ def same_bits(name, a, b, shape) -> None:
         raise AssertionError(f"{name} {shape}: two runs differ")
 
 
+def mma_forward(dtype: str, hs: int) -> bool:
+    """Whether the whole-row forwards (K2f, K3f, K4f) run the mma.sync body
+    at this type and head size (bf16, hs % 16 == 0, hs <= 128), whose two
+    runs must give the same bits."""
+    return dtype == "bfloat16" and hs % 16 == 0 and hs <= 128
+
+
 def launch_split(fn, reps: int = 20) -> list:
     """Device time of each kernel that one call of ``fn`` launches:
     ``torch.profiler`` over ``reps`` calls after a warm-up, the device ms
@@ -989,7 +996,8 @@ def long_context(K, card, gen, timing, errs, by_path):
             emit({"phase": "kernel_time", "kernel": name, "tier_shape": True, "card": card,
                   "shape": [n, t_, hs_], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
                   "library_ms": t["library_ms"],
-                  "library_fwd_bwd_ms": t.get("library_fwd_bwd_ms"), "bound_ms": t["bound"][0],
+                  "library_fwd_bwd_ms": t.get("library_fwd_bwd_ms"),
+              "library_3d_ms": t.get("library_3d_ms"), "bound_ms": t["bound"][0],
                   "bound_by": t["bound"][1]})
         del q, k, v, do, out0, lse0
 
@@ -1378,7 +1386,8 @@ def context_parallel(K, card, gen, timing, errs, by_path):
                   "kernel_ms": t["ms"], "kernel_ms_dropout": t["ms_dropout"],
                   "kernel_ms_b1": t["ms_b1"], "plain_ms": t["plain_ms"],
                   "library_ms": t["library_ms"],
-                  "library_fwd_bwd_ms": t.get("library_fwd_bwd_ms"), "bound_ms": t["bound"][0],
+                  "library_fwd_bwd_ms": t.get("library_fwd_bwd_ms"),
+              "library_3d_ms": t.get("library_3d_ms"), "bound_ms": t["bound"][0],
                   "bound_by": t["bound"][1]})
     del q, k, v, do
 
@@ -1662,10 +1671,13 @@ def short_kernels(K, card, gen, timing, errs, by_path):
                     check_rel(f"short_causal_attention_bwd.{g}", a, r, dtype, shape, rate)
                     for g, a, r in zip(("dq", "dk", "dv"), grads, ref))
 
-    # K4f and K4b: the production rows packed, and nb 1 / 3, H 1 / 6, T 8 /
-    # 512, hs 16 / 24 (the bf16 FMA bodies) / 256
-    for shape in [K4_PROD, (1, 1, 8, 64), (3, 6, 512, 64), (1, 6, 8, 16), (3, 1, 512, 256),
-                  (3, 2, 72, 24)]:
+    # K4f and K4b: the production rows packed and B = 1 (nb 4), nb 1 / 3, H 1
+    # / 6, T 8 / 512, hs 16 / 24 (the bf16 FMA bodies) / 256, and T 200 x hs
+    # 64 (two passes of the mma.sync forward), T 72 x hs 96, T 56 x hs 128,
+    # hs 32
+    for shape in [K4_PROD, (4, 6, 64, 64), (1, 1, 8, 64), (3, 6, 512, 64), (1, 6, 8, 16),
+                  (3, 1, 512, 256), (3, 2, 72, 24), (2, 3, 200, 64), (1, 2, 72, 96),
+                  (2, 2, 56, 128), (1, 3, 64, 32)]:
         nb, H, t_, hs_ = shape
         qkv, do = randn(nb, 3 * H, t_, hs_), randn(nb, H, t_, hs_)
         for dtype in ("float32", "bfloat16"):
@@ -1673,6 +1685,9 @@ def short_kernels(K, card, gen, timing, errs, by_path):
             for rate in (0.0, 0.2):
                 salts = SALTS if rate else None
                 out = K.short_causal_attention_packed_fwd(x, H, rate, salts)
+                if mma_forward(dtype, hs_):
+                    same_bits("short_causal_attention_packed", (out,),
+                              (K.short_causal_attention_packed_fwd(x, H, rate, salts),), shape)
                 dqkv = K.short_causal_attention_packed_bwd(x, out, dd, H, rate, salts)
                 again = K.short_causal_attention_packed_bwd(x, out, dd, H, rate, salts)
                 torch.cuda.synchronize()
@@ -1786,7 +1801,9 @@ def short_kernels(K, card, gen, timing, errs, by_path):
     out0 = K.short_causal_attention_fwd(q, k, v)
     out1 = K.short_causal_attention_fwd(q, k, v, 0.2, SALTS)
     q1, k1, v1, o1, d1 = (a[:24].contiguous() for a in (q, k, v, out0, do))
-    k3_lib = sdpa_backward_ms(
+    k3_lib = sdpa_backward_ms(lambda a, b, c: F.scaled_dot_product_attention(
+        a[None], b[None], c[None], is_causal=True), (q, k, v), do[None])
+    k3_lib_3d = sdpa_backward_ms(
         lambda a, b, c: F.scaled_dot_product_attention(a, b, c, is_causal=True), (q, k, v), do)
 
     plane = n * t_ * hs_ * 2
@@ -1797,6 +1814,7 @@ def short_kernels(K, card, gen, timing, errs, by_path):
         plain_ms=device_ms(lambda: K.short_causal_attention_bwd_plain(q, k, v, out0, do)),
         library_ms=k3_lib[0],
         library_fwd_bwd_ms=k3_lib[1],
+        library_3d_ms=k3_lib_3d[0],
         bound=bound_ms(5 * 2 * n * tri * hs_, 8 * plane, "bfloat16"))
     nb, H, t_, hs_ = K4_PROD
     x = randn(nb, 3 * H, t_, hs_).to(bf)
@@ -1844,7 +1862,8 @@ def short_kernels(K, card, gen, timing, errs, by_path):
         emit({"phase": "kernel_time", "kernel": name, "card": card, "shape": list(shape),
               "kernel_ms": t["ms"], "kernel_ms_dropout": t["ms_dropout"], "kernel_ms_b1": t["ms_b1"],
               "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
-              "library_fwd_bwd_ms": t.get("library_fwd_bwd_ms"), "bound_ms": t["bound"][0],
+              "library_fwd_bwd_ms": t.get("library_fwd_bwd_ms"),
+              "library_3d_ms": t.get("library_3d_ms"), "bound_ms": t["bound"][0],
               "bound_by": t["bound"][1]})
 
 
@@ -1853,7 +1872,8 @@ def crossover(K, card, by_path):
     batch 4, 6 heads, hs 64, T 64..8192), each table row printed on its own
     line. Per timed application exactly one K3f and one K3b launch for the
     whole-row core (in the band) and one K5f and one K5b for the flash core
-    (where eligible), none for the dense core; every time finite. At T 256
+    (where eligible), none for the dense core; per timed forward
+    application (the forward alone) one K3f or one K5f; every time finite. At T 256
     and 512, where both kernels run, the whole-row core's q, k, v gradients
     against the flash core's on the same inputs (REL_TOL, bf16); at every T
     of the band one application with K3b held in-path against its plain
@@ -1874,16 +1894,18 @@ def crossover(K, card, by_path):
         emit(X.format_row(row))
         want = {core: {kn: row["applications"][core] for kn in X.CORE_KERNELS[core]}
                 for core in X.cores(t_, hs)}
-        finite = all(math.isfinite(row[c]) for c in ("dense_ms", "flash_ms", "short_ms")
-                     if row[c] is not None)
-        if row["launches"] != want or not finite:
+        want_fwd = {core: {kn: row["fwd_applications"][core] for kn in X.CORE_FWD_KERNELS[core]}
+                    for core in X.cores(t_, hs)}
+        finite = all(math.isfinite(row[f"{c}_{tag}ms"]) for c in X.CORE_KERNELS
+                     for tag in ("", "fwd_") if row[f"{c}_{tag}ms"] is not None)
+        if row["launches"] != want or row["fwd_launches"] != want_fwd or not finite:
             failed.append(t_)
         rows.append(row)
     sweep_s = time.perf_counter() - t0
     by_path["crossover"] = counts = K.launch_counts()
     total = dict.fromkeys(K.KERNELS, 0)
     for row in rows:
-        for per_core in row["launches"].values():
+        for per_core in (*row["launches"].values(), *row["fwd_launches"].values()):
             for kn, c in per_core.items():
                 total[kn] += c
     in_path = {}  # one application per T of the band: K3b against its plain version
@@ -1908,7 +1930,8 @@ def crossover(K, card, by_path):
           and all(e["max_abs"] <= e["bound"] for e in agree.values()))
     emit({"phase": "crossover", "card": card, "tool": f"python -m {PKG}.flash_crossover",
           "shape": [batch, heads, "T", hs], "dtype": "bfloat16", "seconds": sweep_s,
-          "rows": [{k_: v_ for k_, v_ in r.items() if k_ != "launches"} for r in rows],
+          "rows": [{k_: v_ for k_, v_ in r.items() if k_ not in ("launches", "fwd_launches")}
+                   for r in rows],
           "launches": {k_: v_ for k_, v_ in counts.items() if v_}, "launches_exact": not failed,
           "in_path_k3b_l2_rel": in_path, "in_path_tol": REL_TOL["bfloat16"],
           "short_vs_flash_grads": agree, "ok": ok})
@@ -1979,14 +2002,16 @@ def main() -> int:
     b1_k1, b1_k2 = (4, 1, 64, 384, 6, 64), (3, 6, 64, 64)  # what a B=1 step gives them
     # edge shapes: T=8 and T=512, hs 32, B=7; T not a multiple of the key
     # tile, hs 96 / 128 / 256 (smaller tiles), C not a multiple of 8; the
-    # cross kernels at hs 24 (not a multiple of 16: the bf16 FMA body) and
-    # at the --serve chunk prefill (T = 56, B = 1 and B = 32)
+    # cross kernels at hs 24 (not a multiple of 16: the bf16 FMA body), at
+    # the --serve chunk prefill (T = 56, B = 1 and B = 32), at T 136 x hs
+    # 128 (two passes of the mma.sync forward) and at hs 16
     k1_shapes = [prod_k1, b1_k1, (2, 3, 8, 32, 2, 16), (1, 2, 512, 384, 6, 64),
                  (2, 5, 64, 96, 3, 32), (4, 7, 64, 384, 6, 64), (1, 5, 72, 96, 3, 32),
                  (1, 2, 136, 64, 2, 128), (1, 2, 40, 64, 1, 256), (1, 3, 200, 100, 2, 96)]
     k2_shapes = [prod_k2, b1_k2, (3, 6, 56, 64), (3, 6 * 32, 56, 64), (3, 6, 8, 64),
                  (3, 12, 512, 64), (3, 15, 64, 32), (3, 6 * 7, 64, 64), (3, 5, 72, 32),
-                 (2, 3, 200, 128), (2, 2, 64, 256), (2, 3, 64, 24), (2, 3, 64, 96)]
+                 (2, 3, 200, 128), (2, 2, 64, 256), (2, 3, 64, 24), (2, 3, 64, 96),
+                 (2, 3, 136, 128), (2, 3, 64, 16)]
     errs = {}
     for shape in k1_shapes:
         x, w1, b1, w2 = fqkv_inputs(*shape)
@@ -2003,6 +2028,10 @@ def main() -> int:
         for dtype in ("float32", "bfloat16"):
             dt = getattr(torch, dtype)
             out = K.short_cross_attention(q.to(dt), k.to(dt), v.to(dt))
+            if mma_forward(dtype, hs):
+                again = K.short_cross_attention(q.to(dt), k.to(dt), v.to(dt))
+                torch.cuda.synchronize()
+                same_bits("short_cross_attention", (out,), (again,), shape)
             torch.cuda.synchronize()
             ref = K.short_cross_attention_plain(q.to(dt), k.to(dt), v.to(dt))
             errs[("short_cross_attention", shape, dtype)] = check_close(
@@ -2040,6 +2069,9 @@ def main() -> int:
             for rate in (0.0, 0.2):
                 salts = SALTS if rate else None
                 out = K.short_cross_attention_fwd(qq, kk, vv, rate, salts)
+                if rate and mma_forward(dtype, hs_):
+                    same_bits("short_cross_attention", (out,),
+                              (K.short_cross_attention_fwd(qq, kk, vv, rate, salts),), shape)
                 grads = K.short_cross_attention_bwd(qq, kk, vv, do_, rate, salts)
                 again = K.short_cross_attention_bwd(qq, kk, vv, do_, rate, salts)
                 torch.cuda.synchronize()
@@ -2054,9 +2086,11 @@ def main() -> int:
                     for g, a, r in zip(("dq", "dk", "dv"), grads, ref))
 
     # K3f: the production prefill (24 B rows, T = 56, hs = 64) at B = 32 and
-    # B = 1, and T in {8, 64, 512} x hs in {16, 24, 64, 128, 256}
+    # B = 1, T in {8, 64, 512} x hs in {16, 24, 64, 128, 256}, and T 72 x
+    # hs 32, T 200 x hs 96 (two passes of the mma.sync forward)
     k3_shapes = [(24 * 32, 56, 64), (24, 56, 64)] + [
-        (3, T_, hs_) for T_ in (8, 64, 512) for hs_ in (16, 24, 64, 128, 256)]
+        (3, T_, hs_) for T_ in (8, 64, 512) for hs_ in (16, 24, 64, 128, 256)] + [
+        (3, 72, 32), (3, 200, 96)]
     for shape in k3_shapes:
         q, k, v = randn(*shape), randn(*shape), randn(*shape)
         for dtype in ("float32", "bfloat16"):
@@ -2065,6 +2099,10 @@ def main() -> int:
             for rate in (0.0, 0.2):
                 salts = SALTS if rate else None
                 out = K.short_causal_attention(qq, kk, vv, rate, salts)
+                if mma_forward(dtype, shape[2]):
+                    again = K.short_causal_attention(qq, kk, vv, rate, salts)
+                    torch.cuda.synchronize()
+                    same_bits("short_causal_attention", (out,), (again,), shape)
                 torch.cuda.synchronize()
                 ref = K.short_causal_attention_plain(qq, kk, vv, rate, salts)
                 if rate:
@@ -2206,7 +2244,9 @@ def main() -> int:
         ms_dropout=device_ms(lambda: K.short_causal_attention(q3, k3, v3, 0.2, SALTS)),
         ms_b1=device_ms(lambda: K.short_causal_attention(q3b, k3b, v3b)),
         plain_ms=device_ms(lambda: K.short_causal_attention_plain(q3, k3, v3)),
-        library_ms=device_ms(lambda: F.scaled_dot_product_attention(q3, k3, v3, is_causal=True)),
+        library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+            q3[None], k3[None], v3[None], is_causal=True)),
+        library_3d_ms=device_ms(lambda: F.scaled_dot_product_attention(q3, k3, v3, is_causal=True)),
         bound=bound_ms(2 * 2 * n3 * T3 * T3 * hs / 2, 4 * n3 * T3 * hs * 2, "bfloat16"),
     )
     # the decode kernels at the production self-attention cache of B = 32
@@ -2256,6 +2296,7 @@ def main() -> int:
         emit({"phase": "kernel_time", "kernel": name, "card": card, "kernel_ms": t["ms"],
               "kernel_ms_dropout": t["ms_dropout"], "kernel_ms_b1": t["ms_b1"],
               "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
+              "library_3d_ms": t.get("library_3d_ms"),
               "bound_ms": t["bound"][0], "bound_by": t["bound"][1]})
 
     # 3b. the kernels that only public ops and tools reach: K3b, K4f / K4b, K9

@@ -488,7 +488,8 @@ def test_fused_qkv_fwd_bwd_kernels_match_plain_on_card(cuda_device, shape, dtype
 @pytest.mark.parametrize(
     "shape",
     [(3, 192, 64, 64), (3, 6, 64, 64), (3, 6, 56, 64), (3, 192, 56, 64), (2, 5, 8, 32),
-     (3, 4, 512, 64), (2, 3, 72, 32), (2, 3, 200, 128), (2, 2, 64, 256), (2, 3, 64, 24)],
+     (3, 4, 512, 64), (2, 3, 72, 32), (2, 3, 200, 128), (2, 2, 64, 256), (2, 3, 64, 24),
+     (2, 3, 136, 128), (2, 3, 64, 16), (2, 3, 64, 96)],
 )
 def test_short_cross_fwd_bwd_kernels_match_plain_on_card(cuda_device, shape, dtype, rate):
     q, k, v = (
@@ -507,6 +508,7 @@ def test_short_cross_fwd_bwd_kernels_match_plain_on_card(cuda_device, shape, dty
     assert after["short_cross_attention_bwd"] == before["short_cross_attention_bwd"] + 2
     for g, h in zip(grads, again):  # no float atomics: the same bits
         assert torch.equal(g, h)
+    assert torch.equal(out, K.short_cross_attention_fwd(q, k, v, rate, salts))
     _card_close("K2f", out, K.short_cross_attention_plain(q, k, v, rate, salts), dtype)
     ref = K.short_cross_attention_bwd_plain(q, k, v, dout, rate, salts)
     for name, g, r in zip(("dq", "dk", "dv"), grads, ref):
@@ -519,7 +521,7 @@ def test_short_cross_fwd_bwd_kernels_match_plain_on_card(cuda_device, shape, dty
 @pytest.mark.parametrize(
     "shape",
     [(24 * 32, 56, 64), (24, 56, 64), (6, 8, 16), (4, 64, 24), (3, 512, 64), (2, 72, 128),
-     (2, 64, 256)],
+     (2, 64, 256), (3, 72, 32), (2, 200, 96), (2, 136, 128)],
 )
 def test_short_causal_kernel_matches_plain_on_card(cuda_device, shape, dtype, rate):
     q, k, v = (
@@ -532,6 +534,7 @@ def test_short_causal_kernel_matches_plain_on_card(cuda_device, shape, dtype, ra
     out = K.short_causal_attention(q, k, v, rate, salts)
     torch.cuda.synchronize()
     assert K.launch_counts()["short_causal_attention"] == before + 1
+    assert torch.equal(out, K.short_causal_attention(q, k, v, rate, salts))  # the same bits
     _card_close("K3f", out, K.short_causal_attention_plain(q, k, v, rate, salts), dtype)
 
 
@@ -599,10 +602,11 @@ def test_short_causal_fwd_bwd_kernels_match_plain_on_card(cuda_device, shape, dt
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(128, 6, 64, 64), (1, 1, 8, 16), (3, 6, 512, 64),
-                                   (3, 2, 72, 24)])
+                                   (3, 2, 72, 24), (4, 6, 64, 64), (2, 3, 200, 64),
+                                   (1, 2, 72, 96), (2, 2, 56, 128), (1, 3, 64, 32)])
 def test_short_packed_kernels_match_plain_on_card(cuda_device, shape, dtype, rate):
     """K4f and K4b through ``short_causal_attention_packed`` against their
-    plain versions, one launch each; K4b twice gives the same bits."""
+    plain versions, one launch each; K4f and K4b twice give the same bits."""
     nb, H, T, hs = shape
     gen = torch.Generator().manual_seed(sum(shape))
     qkv = torch.randn((nb, 3 * H, T, hs), generator=gen).to(cuda_device, getattr(torch, dtype))
@@ -619,6 +623,7 @@ def test_short_packed_kernels_match_plain_on_card(cuda_device, shape, dtype, rat
     _card_close("K4f", out, K.short_causal_attention_packed_plain(qkv, H, rate, salts), dtype)
     again = K.short_causal_attention_packed_bwd(qkv, out.detach(), do, H, rate, salts)
     assert torch.equal(dqkv, again)
+    assert torch.equal(out.detach(), K.short_causal_attention_packed_fwd(qkv, H, rate, salts))
     _card_close("K4b", dqkv, K.short_causal_attention_packed_bwd_plain(
         qkv, out.detach(), do, H, rate, salts), dtype)
 

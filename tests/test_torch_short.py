@@ -344,9 +344,10 @@ def test_decode_t_checks_shapes_and_launches_nothing_on_the_cpu():
 def test_crossover_row_on_the_cpu(t):
     """The tool's per-T row with ``--device cpu`` at batch 1, 2 heads, hs 16:
     every eligible core timed (dense always, the whole-row kernels in the
-    band, the flash kernels from 256), finite times, the ratios, no launch
-    on the CPU; and the cores' gradients of the tool's loss agree (the
-    plain versions of K3b and K5b against the dense core's autograd)."""
+    band, the flash kernels from 256), forward + backward and the forward
+    alone, finite times, the ratios, no launch on the CPU; and the cores'
+    gradients of the tool's loss agree (the plain versions of K3b and K5b
+    against the dense core's autograd)."""
     row = X.crossover_row(t, batch=1, heads=2, hs=16, dtype=torch.float32, device="cpu")
     assert row["T"] == t
     assert row["applications"] == {c: 4 * X.reps_for(t) for c in X.cores(t, 16)}
@@ -355,6 +356,12 @@ def test_crossover_row_on_the_cpu(t):
     assert all(np.isfinite(x) and x > 0 for x in times)
     assert row["dense/short"] == pytest.approx(row["dense_ms"] / row["short_ms"])
     assert row["launches"] == {c: {} for c in X.cores(t, 16)}
+    assert row["fwd_applications"] == row["applications"]
+    assert row["fwd_launches"] == row["launches"]
+    assert all((row[f"{c}_fwd_ms"] is None) == (row[f"{c}_ms"] is None) for c in X.CORE_KERNELS)
+    fwd = [row[f"{c}_fwd_ms"] for c in X.CORE_KERNELS if row[f"{c}_fwd_ms"] is not None]
+    assert all(np.isfinite(x) and x > 0 for x in fwd)
+    assert row["fwd_dense/short"] == pytest.approx(row["dense_fwd_ms"] / row["short_fwd_ms"])
     assert str(t) in X.format_row(row)
     q, k, v = X.inputs(t, 1, 2, 16, torch.float32, "cpu")
     ref = X.grads(X.cores(t, 16)["dense"], q, k, v)

@@ -23,6 +23,7 @@ def ring_cases(rank, world, cases):
     """Each case (q, k, v, g, impl, rate, salts): the whole output of ring
     attention over the group and the gradients of q, k, v for output
     gradient g, as numpy."""
+    torch.set_num_threads(1)  # no thread split to vary with the machine's load: the same bits
     mesh = pmesh.seq_mesh(world)
     out = []
     for q, k, v, g, impl, rate, salts in cases:

@@ -8,7 +8,9 @@ elsewhere, in the JAX package's order: whole-row first where both are
 eligible. That order was chosen on a TPU. This sweeps forward + backward
 time for the three cores across sequence lengths at the production head
 shape and prints ms and the dense/kernel ratios per T: the data behind
-FLASH_MIN_SEQ_LEN and the whole-row band on this card.
+FLASH_MIN_SEQ_LEN and the whole-row band on this card. Beside them it
+times the forward alone (what the KV-cache prefill runs), each application
+the core's output, normalised, as the next q.
 
 Timing method, as the JAX tool's: each timed unit is ``reps`` forward +
 backward applications of ``(core(q, k, v) ** 2).sum()`` chained through q
@@ -39,9 +41,12 @@ from .ops import kernels
 from .ops.attention import causal_attention_dense
 
 T_LIST = (64, 128, 256, 512, 1024, 2048, 4096, 8192)
-# the kernels each core launches once per forward + backward application
+# the kernels each core launches once per forward + backward application,
+# and once per forward application
 CORE_KERNELS = {"dense": (), "flash": ("flash_attention", "flash_attention_bwd"),
                 "short": ("short_causal_attention", "short_causal_attention_bwd")}
+CORE_FWD_KERNELS = {"dense": (), "flash": ("flash_attention",),
+                    "short": ("short_causal_attention",)}
 
 
 def reps_for(t: int) -> int:
@@ -76,39 +81,48 @@ def application(core: Callable, q, k, v):
     return dq * torch.rsqrt(dq.float().pow(2).mean() + 1e-6).to(dq.dtype)
 
 
-def time_core(core: Callable, q, k, v, reps: int):
-    """Seconds per application, the best of 3 units of ``reps`` chained
-    applications after a warm-up unit (on the card each timed behind a spin
-    kernel, see the module docstring), and the applications run in all."""
+def forward_application(core: Callable, q, k, v):
+    """One forward application, without a graph; returns the next q, the
+    normalised output."""
+    with torch.no_grad():
+        o = core(q, k, v)
+    return o * torch.rsqrt(o.float().pow(2).mean() + 1e-6).to(o.dtype)
+
+
+def time_core(core: Callable, q, k, v, reps: int, step: Callable = application):
+    """Seconds per application (``step``: forward + backward, or the
+    forward alone), the best of 3 units of ``reps`` chained applications
+    after a warm-up unit (on the card each timed behind a spin kernel, see
+    the module docstring), and the applications run in all."""
     if q.device.type != "cuda":
         for _ in range(reps):
-            q = application(core, q, k, v)
+            q = step(core, q, k, v)
         best = float("inf")
         for _ in range(3):
             t0 = time.perf_counter()
             for _ in range(reps):
-                q = application(core, q, k, v)
+                q = step(core, q, k, v)
             best = min(best, (time.perf_counter() - t0) / reps)
         return best, 4 * reps
-    q = application(core, q, k, v)  # the first call builds and caches
+    q = step(core, q, k, v)  # the first call builds and caches
     enqueue = 0.0  # the longest host enqueue of the rest of the warm-up unit
     for _ in range(reps - 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        q = application(core, q, k, v)
+        q = step(core, q, k, v)
         enqueue = max(enqueue, time.perf_counter() - t0)
     cycles = int(4e9 * enqueue) + 1_000_000
     best, runs = float("inf"), reps
     for _ in range(3):
         ms = 0.0
         for _ in range(reps):
-            ms_app, q, tries = _window(core, q, k, v, cycles)
+            ms_app, q, tries = _window(core, q, k, v, cycles, step)
             ms, runs = ms + ms_app, runs + tries
         best = min(best, ms / 1e3 / reps)
     return best, runs
 
 
-def _window(core: Callable, q, k, v, cycles: int):
+def _window(core: Callable, q, k, v, cycles: int, step: Callable = application):
     """Device ms of one application queued behind a spin of ``cycles``, the
     next q and the applications run. Where the spin ended before the host had
     queued the application (the window could hold a host gap), the same
@@ -118,7 +132,7 @@ def _window(core: Callable, q, k, v, cycles: int):
         torch.cuda.synchronize()
         torch.cuda._sleep(cycles)
         a.record()
-        nxt = application(core, q, k, v)
+        nxt = step(core, q, k, v)
         b.record()
         covered = not a.query()
         torch.cuda.synchronize()
@@ -138,34 +152,41 @@ def inputs(t: int, batch: int, heads: int, hs: int, dtype: torch.dtype, device, 
 
 def crossover_row(t: int, batch: int = 4, heads: int = 6, hs: int = 64,
                   dtype: torch.dtype = torch.bfloat16, device="cuda") -> dict:
-    """One T of the sweep: ms per application of each eligible core (None
-    where a core is not eligible), the dense/flash and dense/short ratios,
-    the applications each core ran (warm-up and timed; on the card one more
-    for each window timed again) and the kernel launches each core made
-    meanwhile."""
+    """One T of the sweep: ms per forward + backward application of each
+    eligible core (None where a core is not eligible), the dense/flash and
+    dense/short ratios, the applications each core ran (warm-up and timed;
+    on the card one more for each window timed again) and the kernel
+    launches each core made meanwhile; then the same for the forward alone
+    (``*_fwd_ms``, ``fwd_applications``, ``fwd_launches``)."""
     reps = reps_for(t)
     q, k, v = inputs(t, batch, heads, hs, dtype, device)
-    ms, runs, launches = {}, {}, {}
-    for name, core in cores(t, hs).items():
-        before = kernels.launch_counts()
-        sec, runs[name] = time_core(core, q, k, v, reps)
-        ms[name] = 1e3 * sec
-        after = kernels.launch_counts()
-        launches[name] = {kn: after[kn] - before[kn] for kn in after if after[kn] != before[kn]}
-    row = {"T": t, "dense_ms": ms["dense"], "flash_ms": ms.get("flash"),
-           "short_ms": ms.get("short")}
-    row["dense/flash"] = ms["dense"] / ms["flash"] if "flash" in ms else None
-    row["dense/short"] = ms["dense"] / ms["short"] if "short" in ms else None
-    row["applications"] = runs
-    row["launches"] = launches
+    row = {"T": t}
+    for tag, step in (("", application), ("fwd_", forward_application)):
+        ms, runs, launches = {}, {}, {}
+        for name, core in cores(t, hs).items():
+            before = kernels.launch_counts()
+            sec, runs[name] = time_core(core, q, k, v, reps, step)
+            ms[name] = 1e3 * sec
+            after = kernels.launch_counts()
+            launches[name] = {kn: after[kn] - before[kn] for kn in after
+                              if after[kn] != before[kn]}
+        for name in CORE_KERNELS:
+            row[f"{name}_{tag}ms"] = ms.get(name)
+        for name in ("flash", "short"):
+            row[f"{tag}dense/{name}"] = (
+                ms["dense"] / ms[name] if name in ms else None)
+        row[f"{tag}applications"] = runs
+        row[f"{tag}launches"] = launches
     return row
 
 
 def header(batch: int, heads: int, hs: int, dtype: str, device) -> str:
     return (f"device={device} shape=(B={batch},H={heads},T,hs={hs}) dtype={dtype} "
-            f"(chained, device time per application, best of 3)\n"
+            f"(chained, device time per application, best of 3; forward + backward, "
+            f"then the forward alone)\n"
             f"{'T':>6} {'dense ms':>10} {'flash ms':>10} {'short ms':>10} "
-            f"{'dense/flash':>12} {'dense/short':>12}")
+            f"{'dense/flash':>12} {'dense/short':>12} {'fwd dense':>10} {'fwd flash':>10} "
+            f"{'fwd short':>10}")
 
 
 def format_row(row: dict) -> str:
@@ -174,7 +195,8 @@ def format_row(row: dict) -> str:
 
     return (f"{row['T']:>6} {row['dense_ms']:>10.3f} {cell(row['flash_ms'], 10, '.3f')} "
             f"{cell(row['short_ms'], 10, '.3f')} {cell(row['dense/flash'], 12, '.2f')} "
-            f"{cell(row['dense/short'], 12, '.2f')}")
+            f"{cell(row['dense/short'], 12, '.2f')} {row['dense_fwd_ms']:>10.4f} "
+            f"{cell(row['flash_fwd_ms'], 10, '.4f')} {cell(row['short_fwd_ms'], 10, '.4f')}")
 
 
 def main(argv=None) -> None:

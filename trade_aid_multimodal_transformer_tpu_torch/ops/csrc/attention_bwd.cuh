@@ -25,7 +25,8 @@
 // 3; K1b: 768 rows; T = 64, hs = 64, bf16) every (row, stream) is one 64 x 64
 // tile pair of five products, ~17 FLOP a byte moved, so memory bounds it
 // (K2b 22.5 MB, 0.0070 ms at 3.35 TB/s). What the bf16 body (every model
-// path, hs <= 128) does about it, on mma.sync m16n8k16 (flash_mma.cuh):
+// path, hs <= 128) does about it, on mma.sync m16n8k16 (flash_mma.cuh; the
+// pieces it shares with the forward in whole_row_mma.cuh):
 // - T <= 64 (attn_bwd_row_kernel): one block of 4 warps per collapsed row
 //   holds the whole row on chip and reads every input once. q and dout are
 //   copied once into shared memory as bf16 by cp.async, each stream's k_j and
@@ -59,8 +60,7 @@
 // the same bits.
 #pragma once
 
-#include "flash_mma.cuh"
-#include "flash_tile.cuh"
+#include "whole_row_mma.cuh"
 
 namespace tat {
 
@@ -402,11 +402,6 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_kernel(BwdArgs a) {
 
 namespace wr {
 
-using bf16 = __nv_bfloat16;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kThreadsW = 128;  // 4 warps
-constexpr int kRows = 64;       // query rows of a block (and keys of a row's tile at T <= 64)
-
 // Tiles for the padded head size D (64 or 128): operand rows kLd bf16
 // apart; the split kernels' key tiles of kBc rows (64 at D = 64, 32 at
 // D = 128: dk and dv of 16 keys x 64 columns a warp); the w and ds tiles
@@ -428,99 +423,6 @@ struct Cfg {
   static constexpr size_t kStage = 2 * kOp + 3 * kRows * sizeof(float);
   static constexpr size_t kDkvBytes = 2 * kKv + 2 * kStage + 2 * (size_t)kRows * kLwKv * 2;
 };
-
-// keep_bit() along one query row r: everything but the column's term of
-// the hash is fixed per row, so it is computed once (the u32 sum wraps as
-// keep_bit()'s), and only where dropout is on.
-struct KeepRowW {
-  uint32_t base = 0, thresh;
-  __device__ __forceinline__ KeepRowW(bool on, uint32_t seed, uint32_t n_idx, uint32_t r,
-                                      uint32_t thresh_)
-      : thresh(thresh_) {
-    if (on) base = r * 2246822519u + ((seed * 2654435761u) ^ (n_idx * 40503u));
-  }
-  __device__ __forceinline__ bool operator()(uint32_t c) const {
-    uint32_t h = base + c * 3266489917u;
-    h ^= h >> 13;
-    h *= 2654435761u;
-    h ^= h >> 16;
-    return h >= thresh;
-  }
-};
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// Rows [0, kR) of a (rows, hs) bf16 array from src (the tile's first row)
-// into dst (rows D + 8 apart), zeros beyond hs and from row `valid` on;
-// vec: 16-byte cp.async (the caller commits and waits), else element
-// copies.
-template <int D, int kR>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int hs, int valid,
-                                          bool vec) {
-  constexpr int kLd = D + 8;
-  if (vec) {
-    constexpr int kChunks = D / 8;
-    static_assert(kR * kChunks % kThreadsW == 0, "a whole number of chunks a thread");
-#pragma unroll
-    for (int u = 0; u < kR * kChunks / kThreadsW; ++u) {
-      const int idx = (int)threadIdx.x + u * kThreadsW;
-      const int r = idx / kChunks, c = idx % kChunks;
-      const bool in = r < valid && c * 8 < hs;
-      mma::cp_async16(dst + r * kLd + c * 8, in ? src + (size_t)r * hs + c * 8 : src, in);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < kR * D; idx += kThreadsW) {
-      const int r = idx / D, c = idx % D;
-      dst[r * kLd + c] = (r < valid && c < hs) ? src[(size_t)r * hs + c] : __float2bfloat16_rn(0.f);
-    }
-  }
-}
-
-// A warp's 16 result rows (v[dt][h]: fragment row g + 8h, columns c0 + 8dt
-// + 2t and + 1, packed bf16) to rows [0, valid) of dst (the warp's first
-// row of a (rows, hs) array), columns below hs, staged through the warp's
-// own 16 rows of stage (kLd apart) so that device memory sees 16-byte
-// stores (vec), else element stores.
-template <int kLd, int kN8>
-__device__ __forceinline__ void store_warp_rows(bf16* dst, bf16* stage,
-                                                const uint32_t (&v)[kN8][2], int hs, int valid,
-                                                bool vec, int lane, int c0) {
-  __syncwarp();
-#pragma unroll
-  for (int dt = 0; dt < kN8; ++dt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<uint32_t*>(stage + mma::frag_row(lane, 2 * h) * kLd + c0 + 8 * dt +
-                                   mma::frag_col(lane, 0)) = v[dt][h];
-  __syncwarp();
-  const int w = min(c0 + 8 * kN8, hs) - c0, rows = min(16, valid);
-  if (vec) {
-    const int chunks = w / 8;
-    for (int idx = lane; idx < rows * chunks; idx += 32) {
-      const int r = idx / chunks, c = c0 + 8 * (idx - r * chunks);
-      *reinterpret_cast<uint4*>(dst + (size_t)r * hs + c) =
-          *reinterpret_cast<const uint4*>(stage + r * kLd + c);
-    }
-  } else {
-    for (int idx = lane; idx < rows * w; idx += 32) {
-      const int r = idx / w, c = c0 + idx - r * w;
-      dst[(size_t)r * hs + c] = stage[r * kLd + c];
-    }
-  }
-  __syncwarp();
-}
 
 // S = q k^T (and with kDp dP = dout v^T) of a warp's 16 query rows (sq,
 // sdo: their first row) against key slabs 0 .. ns - 1 of 16 rows (sk, sv:
@@ -552,27 +454,6 @@ __device__ __forceinline__ void scores(float (&s)[kSn][4], float (&dp)[kSn][4], 
           mma::mma_bf16(dp[2 * kk], da, b[0], b[1]);
           mma::mma_bf16(dp[2 * kk + 1], da, b[2], b[3]);
         }
-      }
-    }
-  }
-}
-
-// s <- s * sl2 where key k0 + c <= query row (rows[h] for fragment half h),
-// else -inf; returns nothing, folds each row's max into m[h] (this thread's
-// part; the caller reduces over the quad).
-template <int kSn>
-__device__ __forceinline__ void mask_scale(float (&s)[kSn][4], int ns, int k0,
-                                           const int (&rows)[2], float sl2, float (&m)[2],
-                                           int lane) {
-#pragma unroll
-  for (int nt = 0; nt < kSn; ++nt) {
-    if (nt < 2 * ns) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int h = i >> 1, c = k0 + 8 * nt + mma::frag_col(lane, i);
-        const float x = c <= rows[h] ? s[nt][i] * sl2 : -INFINITY;
-        s[nt][i] = x;
-        m[h] = fmaxf(m[h], x);
       }
     }
   }
@@ -636,26 +517,6 @@ __device__ __forceinline__ void dscores(const float (&s)[kSn][4], const float (&
           *reinterpret_cast<uint32_t*>(sds + g * ldw + c) = da[kk][2 * u];
           *reinterpret_cast<uint32_t*>(sds + (g + 8) * ldw + c) = da[kk][2 * u + 1];
         }
-      }
-    }
-  }
-}
-
-// dq (16 rows x D) += dS (16 x 16 ns keys, A fragments da) . K (the key
-// tile's first row in sk), with K's B fragments through ldmatrix.trans.
-template <int D, int kSn>
-__device__ __forceinline__ void dq_product(float (&dq)[D / 8][4], const uint32_t (&da)[kSn / 2][4],
-                                           const bf16* sk, int ns, int lane) {
-  constexpr int kLd = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < kSn / 2; ++kk) {
-    if (kk < ns) {
-#pragma unroll
-      for (int dt = 0; dt < D / 8; dt += 2) {
-        uint32_t b[4];
-        mma::ldsm_x4_trans(b, mma::a_frag_addr(sk, kLd, 16 * kk, 8 * dt, lane));
-        mma::mma_bf16(dq[dt], da[kk], b[0], b[1]);
-        mma::mma_bf16(dq[dt + 1], da[kk], b[2], b[3]);
       }
     }
   }
@@ -830,7 +691,7 @@ __global__ void __launch_bounds__(kThreadsW) attn_bwd_row_kernel(const BwdArgs a
       for (int h = 0; h < 2; ++h) dc[h] = pl.self ? dself[h] : quad_sum(dsum[h]);
       uint32_t da[kSn / 2][4];
       dscores<kSn>(s, dp, ns, dc, da, sds + w0 * kLw, kLw, lane);
-      dq_product<D, kSn>(dq, da, sk, ns, lane);
+      tile_product<D, kSn>(dq, da, sk, ns, lane);
     }
     __syncthreads();  // w and ds of every row are in shared memory
 
@@ -991,7 +852,7 @@ __global__ void __launch_bounds__(kThreadsW) attn_bwd_dq_kernel(const BwdArgs a)
         for (int h = 0; h < 2; ++h) dc[h] = pl.self ? dself[h] : dsum[h];
         uint32_t da[kSn / 2][4];
         dscores<kSn>(s, dp, ns, dc, da, nullptr, 0, lane);
-        dq_product<D, kSn>(dq, da, sk, ns, lane);
+        tile_product<D, kSn>(dq, da, sk, ns, lane);
       }
     }
     if (st % per_stream == per_stream - 1 && (lane & 3) == 0) {  // the stream's statistics

@@ -12,12 +12,19 @@
 // seed + (j + 1) * 1000003 for the cross kernel and the seed itself for the
 // self-attention kernel, as the JAX kernels key them in interpret mode.
 //
-// One block per (row r, query tile of R rows) holds q in shared memory and
-// walks the streams and the key tiles in two passes (row max, then exp / row
-// sum / P.V); with a single key tile (T <= R) k_j and v_j are loaded once and
-// held, and the stream sum stays on chip so the output is written once. For
-// bf16 with hs % 16 == 0, QK^T and P.V run on the tensor cores (WMMA);
-// otherwise they are f32 FMAs.
+// Three bodies, by type and head size:
+// - bf16 with hs % 16 == 0 and hs <= 128 (every model path):
+//   short_fwd_mma_kernel on mma.sync (whole_row_mma.cuh). Warps own 16
+//   query rows each; S, p and the stream sum stay in registers (see the
+//   note above the kernel).
+// - bf16 with hs % 16 == 0 above 128: short_fwd_tc_kernel, QK^T and P.V on
+//   WMMA through f32 tiles in shared memory.
+// - f32, and bf16 with hs % 16 != 0: short_fwd_kernel on f32 FMAs.
+// The last two hold one block per (row r, query tile of R rows), q in
+// shared memory, and walk the streams and the key tiles in two passes (row
+// max, then exp / row sum / P.V); with a single key tile (T <= R) k_j and
+// v_j are loaded once and held, and the stream sum stays on chip so the
+// output is written once.
 //
 // The kernels are templated on the row addressing (where row r's q, k_j and
 // v_j planes lie): ``SeparateRows`` for q (n, T, hs) and k, v (J, n, T, hs),
@@ -25,7 +32,7 @@
 // packed self-attention kernel). The output of row r is always plane r.
 #pragma once
 
-#include "attention_tile.cuh"
+#include "whole_row_mma.cuh"
 
 namespace tat {
 
@@ -192,6 +199,261 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------------------------- bf16 mma body
+
+namespace wr {
+
+// The forward on mma.sync m16n8k16, bf16 with hs % 16 == 0 and hs <= 128
+// (D = 64 or 128, the padded head size). One block of kFwdWarps warps per
+// (row r, chunk of kFwdRows query rows), the chunks that see the most keys
+// first; warp w owns query rows 16w..16w+15 of the chunk and, at D = 64,
+// holds q's A fragments in registers for the whole launch (at D = 128 it
+// reads them from shared memory per key tile: held, they would spill).
+// Per stream j:
+// - The chunk's keys (up to its last row) come in key tiles of kFwdKeys rows
+//   through a ring of kFwdStages shared-memory stages filled by 16-byte
+//   cp.async: the next two steps' k_j (and v_j) tiles are in flight while
+//   this one is computed, so at T <= 64 all three streams of the cross
+//   layout load at once. Rows past T are zeros, which add nothing.
+// - Where the chunk's keys fit one tile (T <= 64), one pass: S = q k^T for
+//   the key slabs up to the warp's last row in C fragments (16 x up to 64),
+//   scaled by scale * log2(e) and masked in place, the exact row max by
+//   quad shuffles, p = exp2(s - m) with l = sum p of the f32 values, the
+//   dropout bit per element (p dropped after l is summed), p rounded and
+//   packed to bf16 as P.V's A fragments without leaving registers, V's B
+//   fragments through ldmatrix.trans, o += P V in f32.
+// - Above 64, two passes over the key tiles: the first forms S for the row
+//   max only, the second forms S again and p at the whole row's max, then
+//   l and P.V as above. p is rounded at the whole row's max, as the JAX
+//   kernels round it (an online softmax would round it at running maxima).
+// o_j / (l_j (1 - rate)) is added to an f32 register accumulator in stream
+// order j = 0..J-1, and the sum is rounded once and written through the
+// warp's own rows of q (16-byte stores). The division is o_j times the
+// reciprocal of l_j (1 - rate) rounded once, as the backward forms 1 / l
+// (within two f32 ulps of the quotient; 32 divisions a thread cost a K2f
+// block ~1 us a stream). exp2 of the log2-scaled scores is the backward's
+// form (attention_bwd.cuh), so both directions form the same p. No
+// atomics: two runs give the same bits.
+constexpr int kFwdWarps = 4;
+constexpr int kFwdThreads = 32 * kFwdWarps;
+constexpr int kFwdRows = 16 * kFwdWarps;  // query rows of a block
+constexpr int kFwdKeys = 64;              // keys of a tile
+constexpr int kFwdStages = 3;             // the ring's depth: steps in flight + 1
+
+// Shared memory of a launch: the chunk's q, then `stages` stages of one key
+// tile and one value tile, rows D + 8 apart.
+template <int D>
+constexpr size_t fwd_smem_bytes(int stages) {
+  return ((size_t)kFwdRows + 2 * (size_t)stages * kFwdKeys) * (D + 8) * 2;
+}
+
+struct FwdMmaArgs {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  bf16* out;
+  int J, n, Tn, hs;
+  float sl2;      // scale * log2(e)
+  uint32_t seed, thresh;
+  int on;         // dropout
+  float keepf;    // 1 - rate as f32
+  int stream_seeds;
+  int vec;        // 16-byte copies (every pointer 16-byte aligned)
+};
+
+// Whether q's A fragments stay in registers (D = 64) or are read from the
+// warp's rows of q in shared memory per key tile (D = 128).
+template <int D>
+constexpr bool kHoldQ = D <= 64;
+
+// S = q k^T of a warp's 16 query rows (q's A fragments qa, column block kd
+// of 16, or with kHoldQ false from sq, the warp's first row of q) against
+// key slabs 0 .. ns - 1 of the tile in sk, in C fragments (n8 tile nt: keys
+// 8nt .. 8nt + 7 of the tile); slabs from ns on are zero.
+template <int D, int kSn>
+__device__ __forceinline__ void qk_scores(float (&s)[kSn][4],
+                                          const uint32_t (&qa)[kHoldQ<D> ? D / 16 : 1][4],
+                                          const bf16* sq, const bf16* sk, int ns, int lane) {
+  constexpr int kLd = D + 8;
+#pragma unroll
+  for (int nt = 0; nt < kSn; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd) {
+    uint32_t a[4];
+    if constexpr (kHoldQ<D>) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = qa[kd][i];
+    } else {
+      mma::ldsm_x4(a, mma::a_frag_addr(sq, kLd, 0, 16 * kd, lane));
+    }
+#pragma unroll
+    for (int kk = 0; kk < kSn / 2; ++kk) {
+      if (kk < ns) {
+        uint32_t b[4];
+        mma::ldsm_x4(b, mma::bt_frag_addr(sk, kLd, 16 * kk, 16 * kd, lane));
+        mma::mma_bf16(s[2 * kk], a, b[0], b[1]);
+        mma::mma_bf16(s[2 * kk + 1], a, b[2], b[3]);
+      }
+    }
+  }
+}
+
+template <int D, typename Rows>
+__global__ void __launch_bounds__(kFwdThreads) short_fwd_mma_kernel(const FwdMmaArgs a,
+                                                                    const Rows rows) {
+  constexpr int kLd = D + 8, kSn = kFwdKeys / 8;
+  extern __shared__ __align__(128) char smem[];
+  bf16* sq = reinterpret_cast<bf16*>(smem);
+  bf16* stages = sq + kFwdRows * kLd;  // stage s: k at stages + 2 s kFwdKeys kLd, v after it
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int Tn = a.Tn, hs = a.hs, n_qc = (Tn + kFwdRows - 1) / kFwdRows;
+  const int qc = n_qc - 1 - (int)(blockIdx.x / a.n), r = (int)(blockIdx.x % a.n);
+  const int q0 = qc * kFwdRows, valid_q = min(kFwdRows, Tn - q0);
+  const int keys = q0 + valid_q;  // the keys the chunk's last row sees
+  const int n_kt = (keys + kFwdKeys - 1) / kFwdKeys;
+  const bool one = n_kt == 1;  // one pass a stream
+  const int per_stream = one ? 1 : 2 * n_kt, steps = a.J * per_stream;
+  const bool vec = a.vec != 0;
+  const size_t plane = (size_t)Tn * hs;
+  const int w0 = 16 * warp;
+  const bool active = w0 < valid_q;
+  const int qrow[2] = {q0 + w0 + (lane >> 2), q0 + w0 + (lane >> 2) + 8};  // this thread's rows
+
+  // step st: stream st / per_stream; pass 0 (the max: k only) or 1 (k and v)
+  auto load_step = [&](int st) {
+    if (st < steps) {
+      const int j = st / per_stream, at = st % per_stream;
+      const int kt = one ? 0 : at % n_kt;
+      const bool with_v = one || at >= n_kt;
+      bf16* dst = stages + (st % kFwdStages) * 2 * kFwdKeys * kLd;
+      const int k0 = kt * kFwdKeys, valid = min(kFwdKeys, keys - k0);
+      const int slab_rows = (valid + 15) & ~15;  // rows of the slabs a warp reads
+      const size_t off = (size_t)k0 * hs;
+      load_tile<D, kFwdKeys, kFwdThreads>(dst, a.k + rows.k(j, r, plane) + off, hs, valid, vec,
+                                          slab_rows);
+      if (with_v)
+        load_tile<D, kFwdKeys, kFwdThreads>(dst + kFwdKeys * kLd, a.v + rows.v(j, r, plane) + off,
+                                            hs, valid, vec, slab_rows);
+    }
+    mma::cp_async_commit();
+  };
+  load_tile<D, kFwdRows, kFwdThreads>(sq, a.q + rows.q(r, plane) + (size_t)q0 * hs, hs, valid_q,
+                                      vec);
+  for (int st = 0; st < kFwdStages - 1; ++st) load_step(st);
+
+  const bool on = a.on != 0;
+  uint32_t qa[kHoldQ<D> ? D / 16 : 1][4];
+  float acc[D / 8][4], o[D / 8][4], m2[2], l[2];
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[dt][i] = 0.f;
+
+  for (int st = 0; st < steps; ++st) {
+    mma::cp_async_wait<kFwdStages - 2>();
+    __syncthreads();  // step st landed; every warp is done with step st - 1's stage
+    load_step(st + kFwdStages - 1);
+    if (!active) continue;
+    const int j = st / per_stream, at = st % per_stream;
+    const int kt = one ? 0 : at % n_kt, k0 = kt * kFwdKeys;
+    const bool p_pass = one || at >= n_kt;
+    if constexpr (kHoldQ<D>) {
+      if (st == 0)
+#pragma unroll
+        for (int kd = 0; kd < D / 16; ++kd)
+          mma::ldsm_x4(qa[kd], mma::a_frag_addr(sq + w0 * kLd, kLd, 0, 16 * kd, lane));
+    }
+    if (at == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        m2[h] = -INFINITY;
+        l[h] = 0.f;
+      }
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) o[dt][i] = 0.f;
+    }
+    const bf16* sk = stages + (st % kFwdStages) * 2 * kFwdKeys * kLd;
+    const int reach = q0 + w0 + 15 - k0;  // key slabs of this tile the warp's rows see
+    const int ns = reach < 0 ? 0 : min(kSn / 2, reach / 16 + 1);
+    if (ns > 0) {
+      float s[kSn][4];
+      qk_scores<D, kSn>(s, qa, sq + w0 * kLd, sk, ns, lane);
+      float mt[2] = {-INFINITY, -INFINITY};
+      mask_scale<kSn>(s, ns, k0, qrow, a.sl2, mt, lane);
+      if (!p_pass || one)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) m2[h] = fmaxf(m2[h], mt[h]);
+      if (p_pass) {
+        if (kt == 0)  // the row's max is complete: reduce it over the quad
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            m2[h] = quad_max(m2[h]);
+            if (m2[h] == -INFINITY) m2[h] = 0.f;
+          }
+        const uint32_t seed = a.stream_seeds ? stream_seed(a.seed, j) : a.seed;
+        const KeepRowW kr[2] = {KeepRowW(on, seed, (uint32_t)r, (uint32_t)qrow[0], a.thresh),
+                                KeepRowW(on, seed, (uint32_t)r, (uint32_t)qrow[1], a.thresh)};
+        uint32_t pa[kSn / 2][4];
+#pragma unroll
+        for (int nt = 0; nt < kSn; ++nt) {
+          if (nt < 2 * ns) {
+            float p[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              p[i] = mma::exp2_approx(s[nt][i] - m2[i >> 1]);
+              l[i >> 1] += p[i];
+              if (on && !kr[i >> 1]((uint32_t)(k0 + 8 * nt + mma::frag_col(lane, i)))) p[i] = 0.f;
+            }
+            pa[nt >> 1][2 * (nt & 1)] = mma::pack_bf16(p[0], p[1]);
+            pa[nt >> 1][2 * (nt & 1) + 1] = mma::pack_bf16(p[2], p[3]);
+          }
+        }
+        tile_product<D, kSn>(o, pa, sk + kFwdKeys * kLd, ns, lane);
+      }
+    }
+    if (at == per_stream - 1) {  // the stream's end: o_j / (l_j (1 - rate)) into the sum
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l[h] = __frcp_rn(quad_sum(l[h]) * a.keepf);
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[dt][i] += o[dt][i] * l[i >> 1];
+    }
+  }
+
+  if (active) {  // the sum through the warp's own rows of q (only this warp read them)
+    uint32_t out[D / 8][2];
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) out[dt][h] = mma::pack_bf16(acc[dt][2 * h], acc[dt][2 * h + 1]);
+    store_warp_rows<kLd, D / 8>(a.out + (size_t)r * plane + (size_t)(q0 + w0) * hs, sq + w0 * kLd,
+                                out, hs, Tn - q0 - w0, vec, lane, 0);
+  }
+}
+
+template <int D, typename Rows>
+int launch_fwd_mma(const FwdMmaArgs& a, Rows rows, cudaStream_t stream) {
+  const long long blocks = (long long)a.n * ((a.Tn + kFwdRows - 1) / kFwdRows);
+  if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  // as many stages as the most steps a block runs, at most kFwdStages
+  const int n_kt = (a.Tn + kFwdKeys - 1) / kFwdKeys;
+  const long long steps = (long long)a.J * (n_kt == 1 ? 1 : 2 * n_kt);
+  const size_t smem = fwd_smem_bytes<D>((int)(steps < kFwdStages ? steps : kFwdStages));
+  const cudaError_t err = cudaFuncSetAttribute(
+      short_fwd_mma_kernel<D, Rows>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  short_fwd_mma_kernel<D, Rows><<<(unsigned)blocks, kFwdThreads, smem, stream>>>(a, rows);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wr
+
 // Dropout arguments of a forward launch: the base seed (s0 ^ s1 of the site's
 // salts), the keep threshold, whether dropout is on, and 1 - rate as f32.
 struct FwdDrop {
@@ -238,13 +500,34 @@ int launch_short_fwd(const void* q, const void* k, const void* v, void* out, int
   return (int)cudaGetLastError();
 }
 
-// Dispatch of one forward launch over n rows addressed by ``rows``: bf16 with
-// hs a multiple of 16 (production: hs 64) takes the tensor cores, other
-// shapes and f32 the FMA body.
+// bf16 with hs % 16 == 0 and hs <= 128 on the mma.sync body.
+template <typename Rows>
+int launch_short_fwd_mma(const void* q, const void* k, const void* v, void* out, int J, int n,
+                         Rows rows, int Tn, int hs, float scale, FwdDrop dr, int stream_seeds,
+                         cudaStream_t stream) {
+  wr::FwdMmaArgs a{};
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.k = static_cast<const __nv_bfloat16*>(k);
+  a.v = static_cast<const __nv_bfloat16*>(v);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.J = J; a.n = n; a.Tn = Tn; a.hs = hs;
+  a.sl2 = scale * wr::kLog2e;
+  a.seed = dr.seed; a.thresh = dr.thresh; a.on = dr.on; a.keepf = dr.keepf;
+  a.stream_seeds = stream_seeds;
+  a.vec = flash::aligned16({q, k, v, out});
+  return hs <= 64 ? wr::launch_fwd_mma<64>(a, rows, stream)
+                  : wr::launch_fwd_mma<128>(a, rows, stream);
+}
+
+// Dispatch of one forward launch over n rows addressed by ``rows``: bf16
+// with hs a multiple of 16 up to 128 (every model path: hs 64) takes the
+// mma.sync body, above 128 the WMMA body; other shapes and f32 the FMA body.
 template <typename Rows>
 int launch_short_forward(const void* q, const void* k, const void* v, void* out, int J,
                          int n, Rows rows, int Tn, int hs, int is_bf16, float scale,
                          FwdDrop dr, int stream_seeds, cudaStream_t s) {
+  if (is_bf16 && hs % 16 == 0 && hs <= 128)
+    return launch_short_fwd_mma(q, k, v, out, J, n, rows, Tn, hs, scale, dr, stream_seeds, s);
   if (is_bf16 && hs % 16 == 0)
     return launch_short_fwd_tc(q, k, v, out, J, n, rows, Tn, hs, scale, dr, stream_seeds, s);
   if (is_bf16)

@@ -32,10 +32,11 @@
 // half: 0.31 GFLOP), ~14 FLOP per byte, far under the ~295 ridge: memory
 // bounds it. The backward moves 8 * n * T * hs * 2 bytes (q, k, v, o, do in;
 // dq, dk, dv out) for 5 causal products, ~17 FLOP per byte: memory too. The
-// forward is short_attention_fwd.cuh's with one stream: one block per (row,
-// query tile), k and v held on chip when T fits one tile, WMMA for bf16 with
-// hs % 16 == 0; n blocks of one tile's latency each, not bandwidth, set
-// its time. The backward is attention_bwd.cuh's: for bf16 one block of 4
+// forward is short_attention_fwd.cuh's with one stream: for bf16 with hs %
+// 16 == 0 and hs <= 128 one block of 4 warps per (row, 64-row query chunk)
+// on mma.sync with S and p in registers (two passes over the key tiles
+// above T = 64), else the FMA or WMMA body; n blocks of one tile's latency
+// each, not bandwidth, set its time. The backward is attention_bwd.cuh's: for bf16 one block of 4
 // warps per row on mma.sync at T <= 64, a dq and a dk/dv kernel above;
 // no atomics (two runs give the same bits).
 #include "attention_bwd.cuh"

@@ -17,18 +17,16 @@
 // bf16, J=3) it moves ~12.6 MB (q once, every k_j and v_j once, out once) for
 // ~0.3 GFLOP (causal half), so memory bounds it (~25 FLOP/byte, far under
 // the ~295 ridge). The forward's device code is short_attention_fwd.cuh,
-// shared with the self-attention kernel (short_causal_attention.cu). The
-// design reads each input once per pass: one block per
-// (row r, query tile of R rows) holds q in shared memory and walks the
-// streams and the key tiles in two passes (row max, then exp / row sum /
-// P.V); with a single key tile (T <= R, production) k_j and v_j are loaded
-// once and held, and the stream sum stays on chip so the output is written
-// once. For bf16 with hs % 16 == 0 (production) QK^T and P.V run on the
-// tensor cores (WMMA); otherwise they are f32 FMAs. With only n blocks (192 at
-// production, 6 at B=1) and the streams walked in turn, a block's latency,
-// not bandwidth, sets the time. The backward is attention_bwd.cuh's (bf16:
-// one block of 4 warps per row on mma.sync at T <= 64, the streams in
-// turn with dq held in registers across them).
+// shared with the self-attention kernel (short_causal_attention.cu), and
+// reads each input once: for bf16 with hs % 16 == 0 and hs <= 128 (every
+// model path) one block of 4 warps per (row, 64-row query chunk) on
+// mma.sync, S, p and the stream sum in registers, every stream's k_j and
+// v_j in flight at once through a ring of three cp.async stages at T <= 64;
+// f32 and the other head sizes keep the FMA and WMMA bodies. With only n
+// blocks (192 at production, 6 at B=1) and the streams walked in turn, a
+// block's latency, not bandwidth, sets the time. The backward is
+// attention_bwd.cuh's (bf16: one block of 4 warps per row on mma.sync at
+// T <= 64, the streams in turn with dq held in registers across them).
 #include "attention_bwd.cuh"
 #include "short_attention_fwd.cuh"
 
