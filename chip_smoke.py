@@ -188,6 +188,8 @@ RANK_TIMEOUT = 420.0
 # long-context serving rows (24 B at B = 16, hs 64, S = 1024)
 K3B_PROD = (4 * 32 * 6, 64, 64)
 K4_PROD = (4 * 32, 6, 64, 64)
+# K1f and K1b at the production training step: x (M, B, T, C), H heads of hs
+PROD_K1 = (4, 32, 64, 384, 6, 64)
 K9_PROD = (24 * 16, 64, 1024)
 
 
@@ -928,6 +930,7 @@ def long_context(K, card, gen, timing, errs, by_path):
         library_ms=device_ms(lambda: F.scaled_dot_product_attention(q[None], k[None], v[None],
                                                                     is_causal=True)),
         bound=bound_ms(2 * 2 * n * tri * hs_, 4 * plane + n * t_ * 4, "bfloat16"),
+        bound_b1=bound_ms(2 * 2 * 24 * tri * hs_, 4 * plane * 24 // n + 24 * t_ * 4, "bfloat16"),
     )
     timing["flash_attention_bwd"] = dict(
         ms=device_ms(lambda: K.flash_attention_bwd(q, k, v, out0, lse0, do)),
@@ -938,6 +941,7 @@ def long_context(K, card, gen, timing, errs, by_path):
         library_fwd_bwd_ms=lib_fwd_bwd,
         # reads q, k, v, out, dout and lse; writes dq, dk, dv
         bound=bound_ms(5 * 2 * n * tri * hs_, 8 * plane + n * t_ * 4, "bfloat16"),
+        bound_b1=bound_ms(5 * 2 * 24 * tri * hs_, 8 * plane * 24 // n + 24 * t_ * 4, "bfloat16"),
     )
     J, nc, _, _ = FLASH_CROSS_PROD
     qc, kc, vc = randn(nc, t_, hs_).to(bf), randn(J, nc, t_, hs_).to(bf), randn(J, nc, t_, hs_).to(bf)
@@ -946,6 +950,7 @@ def long_context(K, card, gen, timing, errs, by_path):
     for name, fn_ in (("flash_cross_attention", K.flash_cross_attention_fwd),
                       ("flash_cross_attention_res", K.flash_cross_attention_res)):
         res_bytes = (J * cplane + J * nc * t_ * 4) if name.endswith("_res") else 0
+        res_b1 = res_bytes * 6 // nc
         timing[name] = dict(
             ms=device_ms(lambda: fn_(qc, kc, vc)),
             ms_dropout=device_ms(lambda: fn_(qc, kc, vc, 0.2, SALTS)),
@@ -955,6 +960,8 @@ def long_context(K, card, gen, timing, errs, by_path):
             library_ms=None,  # no one PyTorch call sums attention over J streams
             bound=bound_ms(J * 2 * 2 * nc * tri * hs_, (2 + 2 * J) * cplane + res_bytes,
                            "bfloat16"),
+            bound_b1=bound_ms(J * 2 * 2 * 6 * tri * hs_, (2 + 2 * J) * cplane * 6 // nc + res_b1,
+                              "bfloat16"),
         )
     for name in ("flash_attention", "flash_attention_bwd", "flash_cross_attention",
                  "flash_cross_attention_res"):
@@ -963,7 +970,8 @@ def long_context(K, card, gen, timing, errs, by_path):
               "kernel_ms_dropout": t["ms_dropout"], "kernel_ms_b1": t["ms_b1"],
               "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
               "library_fwd_bwd_ms": t.get("library_fwd_bwd_ms"),
-              "bound_ms": t["bound"][0], "bound_by": t["bound"][1]})
+              "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+              "bound_ms_b1": t["bound_b1"][0]})
     del q, k, v, do, out0, out1, qc, kc, vc
 
     # kernel_time at the JAX package's K5 tier shapes (hs 256; T 3072 takes
@@ -1369,7 +1377,9 @@ def context_parallel(K, card, gen, timing, errs, by_path):
             plain_ms=device_ms(lambda: K.flash_chunk_fwd_plain(q, k, v, causal)),
             library_ms=device_ms(lambda: F.scaled_dot_product_attention(
                 q[None], k[None], v[None], is_causal=causal)),
-            bound=bound_ms(2 * 2 * n * pairs * hs, 4 * plane + n * tq * 4, "bfloat16"))
+            bound=bound_ms(2 * 2 * n * pairs * hs, 4 * plane + n * tq * 4, "bfloat16"),
+            bound_b1=bound_ms(2 * 2 * 24 * pairs * hs, 4 * plane * 24 // n + 24 * tq * 4,
+                              "bfloat16"))
         timing[f"flash_chunk_bwd_{mask}"] = dict(
             ms=device_ms(lambda: K.flash_chunk_bwd(q, k, v, out0, lse0, do, causal)),
             ms_dropout=device_ms(lambda: K.flash_chunk_bwd(q, k, v, out1, lse1, do, causal, 99,
@@ -1379,7 +1389,9 @@ def context_parallel(K, card, gen, timing, errs, by_path):
             library_ms=lib_bwd,
             library_fwd_bwd_ms=lib_fwd_bwd,
             # reads q, k, v, out, dout and lse; writes dq, dk, dv
-            bound=bound_ms(5 * 2 * n * pairs * hs, 8 * plane + n * tq * 4, "bfloat16"))
+            bound=bound_ms(5 * 2 * n * pairs * hs, 8 * plane + n * tq * 4, "bfloat16"),
+            bound_b1=bound_ms(5 * 2 * 24 * pairs * hs, 8 * plane * 24 // n + 24 * tq * 4,
+                              "bfloat16"))
         for name in (f"flash_chunk_fwd_{mask}", f"flash_chunk_bwd_{mask}"):
             t = timing[name]
             emit({"phase": "kernel_time", "kernel": name, "card": card, "shape": list(CP_SELF),
@@ -1387,8 +1399,8 @@ def context_parallel(K, card, gen, timing, errs, by_path):
                   "kernel_ms_b1": t["ms_b1"], "plain_ms": t["plain_ms"],
                   "library_ms": t["library_ms"],
                   "library_fwd_bwd_ms": t.get("library_fwd_bwd_ms"),
-              "library_3d_ms": t.get("library_3d_ms"), "bound_ms": t["bound"][0],
-                  "bound_by": t["bound"][1]})
+                  "library_3d_ms": t.get("library_3d_ms"), "bound_ms": t["bound"][0],
+                  "bound_by": t["bound"][1], "bound_ms_b1": t["bound_b1"][0]})
     del q, k, v, do
 
     # the production config at block_size 1024: data, and the parameters of
@@ -1815,7 +1827,8 @@ def short_kernels(K, card, gen, timing, errs, by_path):
         library_ms=k3_lib[0],
         library_fwd_bwd_ms=k3_lib[1],
         library_3d_ms=k3_lib_3d[0],
-        bound=bound_ms(5 * 2 * n * tri * hs_, 8 * plane, "bfloat16"))
+        bound=bound_ms(5 * 2 * n * tri * hs_, 8 * plane, "bfloat16"),
+        bound_b1=bound_ms(5 * 2 * 24 * tri * hs_, 8 * plane * 24 // n, "bfloat16"))
     nb, H, t_, hs_ = K4_PROD
     x = randn(nb, 3 * H, t_, hs_).to(bf)
     do = randn(nb, H, t_, hs_).to(bf)
@@ -1833,7 +1846,8 @@ def short_kernels(K, card, gen, timing, errs, by_path):
         plain_ms=device_ms(lambda: K.short_causal_attention_packed_plain(x, H)),
         library_ms=device_ms(lambda: F.scaled_dot_product_attention(
             x[:, :H], x[:, H:2 * H], x[:, 2 * H:], is_causal=True)),
-        bound=bound_ms(2 * 2 * nb * H * tri * hs_, 4 * plane, "bfloat16"))
+        bound=bound_ms(2 * 2 * nb * H * tri * hs_, 4 * plane, "bfloat16"),
+        bound_b1=bound_ms(2 * 2 * 4 * H * tri * hs_, 4 * plane * 4 // nb, "bfloat16"))
     timing["short_causal_attention_packed_bwd"] = dict(
         ms=device_ms(lambda: K.short_causal_attention_packed_bwd(x, o4, do, H)),
         ms_dropout=device_ms(lambda: K.short_causal_attention_packed_bwd(x, o4d, do, H, 0.2, SALTS)),
@@ -1842,7 +1856,8 @@ def short_kernels(K, card, gen, timing, errs, by_path):
         library_ms=k4_lib[0],
         library_fwd_bwd_ms=k4_lib[1],
         # reads qkv, out and dout; writes d(qkv)
-        bound=bound_ms(5 * 2 * nb * H * tri * hs_, 8 * plane, "bfloat16"))
+        bound=bound_ms(5 * 2 * nb * H * tri * hs_, 8 * plane, "bfloat16"),
+        bound_b1=bound_ms(5 * 2 * 4 * H * tri * hs_, 8 * plane * 4 // nb, "bfloat16"))
     posd = torch.tensor([S9 - 1], dtype=torch.int32, device=dev)
     visible = (torch.arange(S9, device=dev) <= S9 - 1)[None, :]
     qd1, kT1, vT1 = (a[:24].contiguous() for a in (qd, kT, vT))
@@ -1853,7 +1868,8 @@ def short_kernels(K, card, gen, timing, errs, by_path):
         plain_ms=device_ms(lambda: K.decode_attention_t_plain(qd, kT, vT, posd)),
         library_ms=device_ms(lambda: F.scaled_dot_product_attention(
             qd, kT.transpose(-1, -2), vT.transpose(-1, -2), attn_mask=visible)),
-        bound=bound_ms(4 * n9 * S9 * hs9, 2 * n9 * S9 * hs9 * 2 + 2 * n9 * hs9 * 2, "bfloat16"))
+        bound=bound_ms(4 * n9 * S9 * hs9, 2 * n9 * S9 * hs9 * 2 + 2 * n9 * hs9 * 2, "bfloat16"),
+        bound_b1=bound_ms(4 * 24 * S9 * hs9, 2 * 24 * S9 * hs9 * 2 + 2 * 24 * hs9 * 2, "bfloat16"))
     for name, shape in (("short_causal_attention_bwd", K3B_PROD),
                         ("short_causal_attention_packed", K4_PROD),
                         ("short_causal_attention_packed_bwd", K4_PROD),
@@ -1864,7 +1880,7 @@ def short_kernels(K, card, gen, timing, errs, by_path):
               "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
               "library_fwd_bwd_ms": t.get("library_fwd_bwd_ms"),
               "library_3d_ms": t.get("library_3d_ms"), "bound_ms": t["bound"][0],
-              "bound_by": t["bound"][1]})
+              "bound_by": t["bound"][1], "bound_ms_b1": t["bound_b1"][0]})
 
 
 def crossover(K, card, by_path):
@@ -1997,17 +2013,21 @@ def main() -> int:
         return (randn(M, B, T, C), randn(M, C, 3 * H * hs2, scale=0.05),
                 randn(M, 3 * H * hs2, scale=0.05), randn(M, 3 * H, hs2, hs, scale=0.2))
 
-    prod_k1 = (4, 32, 64, 384, 6, 64)
+    prod_k1 = PROD_K1
     prod_k2 = (3, 6 * 32, 64, 64)
     b1_k1, b1_k2 = (4, 1, 64, 384, 6, 64), (3, 6, 64, 64)  # what a B=1 step gives them
     # edge shapes: T=8 and T=512, hs 32, B=7; T not a multiple of the key
-    # tile, hs 96 / 128 / 256 (smaller tiles), C not a multiple of 8; the
+    # tile, hs 96 / 128 / 256 (smaller tiles), C not a multiple of 8; K1f's
+    # mma.sync body at T 8 / 72 / 512 x hs 32 / 64 / 128, B odd (one batch
+    # row a block) and even (two), every K1f run twice for the same bits; the
     # cross kernels at hs 24 (not a multiple of 16: the bf16 FMA body), at
     # the --serve chunk prefill (T = 56, B = 1 and B = 32), at T 136 x hs
     # 128 (two passes of the mma.sync forward) and at hs 16
     k1_shapes = [prod_k1, b1_k1, (2, 3, 8, 32, 2, 16), (1, 2, 512, 384, 6, 64),
                  (2, 5, 64, 96, 3, 32), (4, 7, 64, 384, 6, 64), (1, 5, 72, 96, 3, 32),
-                 (1, 2, 136, 64, 2, 128), (1, 2, 40, 64, 1, 256), (1, 3, 200, 100, 2, 96)]
+                 (1, 2, 136, 64, 2, 128), (1, 2, 40, 64, 1, 256), (1, 3, 200, 100, 2, 96),
+                 (2, 3, 8, 64, 2, 64), (1, 2, 8, 64, 1, 128), (1, 2, 72, 64, 2, 128),
+                 (1, 2, 512, 96, 2, 32), (1, 1, 512, 64, 1, 128)]
     k2_shapes = [prod_k2, b1_k2, (3, 6, 56, 64), (3, 6 * 32, 56, 64), (3, 6, 8, 64),
                  (3, 12, 512, 64), (3, 15, 64, 32), (3, 6 * 7, 64, 64), (3, 5, 72, 32),
                  (2, 3, 200, 128), (2, 2, 64, 256), (2, 3, 64, 24), (2, 3, 64, 96),
@@ -2018,6 +2038,9 @@ def main() -> int:
         for dtype in ("float32", "bfloat16"):
             xx = x.to(getattr(torch, dtype))
             out = K.fused_qkv_attention(xx, w1, b1, w2, shape[4])
+            again = K.fused_qkv_attention(xx, w1, b1, w2, shape[4])
+            torch.cuda.synchronize()
+            same_bits("fused_qkv_attention", (out,), (again,), shape)
             torch.cuda.synchronize()
             ref = K.fused_qkv_attention_plain(xx, w1, b1, w2, shape[4])
             errs[("fused_qkv_attention", shape, dtype)] = check_close(
@@ -2048,6 +2071,9 @@ def main() -> int:
             for rate in (0.0, 0.2):
                 salts = SALTS if rate else None
                 out = K.fused_qkv_attention_fwd(xx, w1, b1, w2, H_, rate, salts)
+                if rate:
+                    same_bits("fused_qkv_attention", (out,),
+                              (K.fused_qkv_attention_fwd(xx, w1, b1, w2, H_, rate, salts),), shape)
                 grads = K.fused_qkv_attention_bwd(xx, w1, b1, w2, out, do_, H_, rate, salts)
                 again = K.fused_qkv_attention_bwd(xx, w1, b1, w2, out, do_, H_, rate, salts)
                 torch.cuda.synchronize()
@@ -2113,8 +2139,11 @@ def main() -> int:
                         "short_causal_attention", out, ref, dtype, shape)
 
     # the decode kernels: pos in {0, pack - 1, S/2, S - 1}, pack in {1, 2, 4}
-    # (hs = 128 / pack), S in {64, 512}; and the production caches (24 x 32
-    # rows, hs 64: packed by 2 at S = 64, the plain layout at S = 72)
+    # (hs = 128 / pack), S in {64, 512, 1024} (a warp a row up to 128
+    # positions, several above); the production caches (24 x 32 rows, hs 64:
+    # packed by 2 at S = 64, the plain layout at S = 72); rows that do not
+    # fill a block (5, 7), and hs 36 (rows not 16-byte aligned: element
+    # loads) at S 64 and 200. Every call runs twice for the same bits
     def decode_inputs(n, S_, hs_, pack):
         shape = (n, S_ // pack, pack * hs_)
         k8 = torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8).to(dev)
@@ -2122,9 +2151,10 @@ def main() -> int:
         ks, vs = ((torch.rand(shape[:-1], generator=gen) * 3.5 + 0.5).to(dev) for _ in range(2))
         return randn(n, 1, hs_), randn(*shape), randn(*shape), k8, v8, ks, vs
 
-    decode_cases = [(24, S_, 128 // p, p, pos) for S_ in (64, 512) for p in (1, 2, 4)
+    decode_cases = [(24, S_, 128 // p, p, pos) for S_ in (64, 512, 1024) for p in (1, 2, 4)
                     for pos in sorted({0, p - 1, S_ // 2, S_ - 1})]
-    decode_cases += [(24 * 32, 64, 64, 2, 63), (24 * 32, 72, 64, 1, 71)]
+    decode_cases += [(24 * 32, 64, 64, 2, 63), (24 * 32, 72, 64, 1, 71), (5, 64, 64, 2, 40),
+                     (7, 1024, 64, 2, 700), (3, 64, 36, 1, 63), (3, 200, 36, 1, 150)]
     for n, S_, hs_, pack, pos in decode_cases:
         q, kp, vp, k8, v8, ks, vs = decode_inputs(n, S_, hs_, pack)
         pos_t = torch.tensor([pos], dtype=torch.int32, device=dev)
@@ -2132,10 +2162,16 @@ def main() -> int:
         for dtype in ("float32", "bfloat16"):
             dt = getattr(torch, dtype)
             qq, kk, vv = q.to(dt), kp.to(dt), vp.to(dt)
-            outs = {"decode_attention": K.decode_attention(qq, kk.view(n, S_, hs_), vv.view(n, S_, hs_), pos_t),
-                    "decode_attention_packed": K.decode_attention_packed(qq, kk, vv, pos_t),
-                    "decode_attention_packed_q8": K.decode_attention_packed_q8(qq, k8, v8, ks, vs, pos_t)}
+            runs = {"decode_attention": lambda: K.decode_attention(
+                        qq, kk.view(n, S_, hs_), vv.view(n, S_, hs_), pos_t),
+                    "decode_attention_packed": lambda: K.decode_attention_packed(qq, kk, vv, pos_t),
+                    "decode_attention_packed_q8": lambda: K.decode_attention_packed_q8(
+                        qq, k8, v8, ks, vs, pos_t)}
+            outs = {name: run() for name, run in runs.items()}
+            again = {name: run() for name, run in runs.items()}
             torch.cuda.synchronize()
+            for name in outs:
+                same_bits(name, (outs[name],), (again[name],), shape)
             refs = {"decode_attention": K.decode_attention_plain(qq, kk.view(n, S_, hs_), vv.view(n, S_, hs_), pos),
                     "decode_attention_packed": K.decode_attention_packed_plain(qq, kk, vv, pos),
                     "decode_attention_packed_q8": K.decode_attention_packed_q8_plain(qq, k8, v8, ks, vs, pos)}
@@ -2155,8 +2191,11 @@ def main() -> int:
         q4, k4, v4 = (qkv[:, i * H:(i + 1) * H].reshape(M * H, B, T, hs) for i in range(3))
         return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
 
-    k1_flops = 2 * M * B * T * (C * 3 * D + 3 * H * hs2 * hs) + 2 * 2 * M * B * H * (T * (T + 1) // 2) * hs
-    k1_bytes = 2 * M * B * T * C + 4 * (M * C * 3 * D + M * 3 * D + M * 3 * H * hs2 * hs) + 2 * M * H * B * T * hs
+    def k1_bound(b_):  # the least time of K1f at batch b_: every weight read once as f32
+        flops = 2 * M * b_ * T * (C * 3 * D + 3 * H * hs2 * hs) + 2 * 2 * M * b_ * H * (T * (T + 1) // 2) * hs
+        nbytes = 2 * M * b_ * T * C + 4 * (M * C * 3 * D + M * 3 * D + M * 3 * H * hs2 * hs) + 2 * M * H * b_ * T * hs
+        return bound_ms(flops, nbytes, "bfloat16")
+
     x_b1 = x[:, :1].contiguous()  # the shape one B=1 generation step gives the kernel
     timing = {"fused_qkv_attention": dict(
         ms=device_ms(lambda: K.fused_qkv_attention(x, w1, b1, w2, H)),
@@ -2164,7 +2203,8 @@ def main() -> int:
         ms_b1=device_ms(lambda: K.fused_qkv_attention(x_b1, w1, b1, w2, H)),
         plain_ms=device_ms(lambda: K.fused_qkv_attention_plain(x, w1, b1, w2, H)),
         library_ms=device_ms(k1_library),
-        bound=bound_ms(k1_flops, k1_bytes, "bfloat16"),
+        bound=k1_bound(B),
+        bound_b1=k1_bound(1),
     )}
     J, n, T2, hs_ = prod_k2
     q, k, v = randn(n, T2, hs_).bfloat16(), randn(J, n, T2, hs_).bfloat16(), randn(J, n, T2, hs_).bfloat16()
@@ -2173,8 +2213,10 @@ def main() -> int:
         return sum(F.scaled_dot_product_attention(q[None], k[j, None], v[j, None], is_causal=True)
                    for j in range(J))
 
-    k2_flops = J * 2 * 2 * n * (T2 * (T2 + 1) // 2) * hs_
-    k2_bytes = 2 * n * T2 * hs_ * (1 + 2 * J + 1)
+    def k2_bound(n_):
+        return bound_ms(J * 2 * 2 * n_ * (T2 * (T2 + 1) // 2) * hs_, 2 * n_ * T2 * hs_ * (1 + 2 * J + 1),
+                        "bfloat16")
+
     q_b1, k_b1, v_b1 = q[:H].contiguous(), k[:, :H].contiguous(), v[:, :H].contiguous()
     timing["short_cross_attention"] = dict(
         ms=device_ms(lambda: K.short_cross_attention(q, k, v)),
@@ -2182,7 +2224,8 @@ def main() -> int:
         ms_b1=device_ms(lambda: K.short_cross_attention(q_b1, k_b1, v_b1)),
         plain_ms=device_ms(lambda: K.short_cross_attention_plain(q, k, v)),
         library_ms=device_ms(k2_library),
-        bound=bound_ms(k2_flops, k2_bytes, "bfloat16"),
+        bound=k2_bound(n),
+        bound_b1=k2_bound(H),
     )
     # backward kernels at the production shapes; the library yardsticks are
     # autograd backwards without dropout
@@ -2199,12 +2242,16 @@ def main() -> int:
         q4, k4, v4 = (qkv[:, i * H:(i + 1) * H].reshape(M * H, B, T, hs) for i in range(3))
         lib1 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
     tri = T * (T + 1) // 2
-    k1b_flops = (2 * M * B * T * (C * 3 * D + 3 * H * hs2 * hs)         # recompute the projection
-                 + 5 * 2 * M * B * H * tri * hs                          # QK^T, dO.V^T, dV, dQ, dK
-                 + 2 * 2 * M * B * T * 3 * H * hs2 * hs                  # dt3, dw2
-                 + 2 * 2 * M * B * T * 3 * D * C)                        # dx, dw1
-    k1b_bytes = (2 * M * B * T * C * 2 + 2 * M * H * B * T * hs * 2       # x, dx; o, do
-                 + 4 * 2 * (M * C * 3 * D + M * 3 * D + M * 3 * H * hs2 * hs))  # weights, their grads
+
+    def k1b_bound(b_):
+        flops = (2 * M * b_ * T * (C * 3 * D + 3 * H * hs2 * hs)         # recompute the projection
+                 + 5 * 2 * M * b_ * H * tri * hs                          # QK^T, dO.V^T, dV, dQ, dK
+                 + 2 * 2 * M * b_ * T * 3 * H * hs2 * hs                  # dt3, dw2
+                 + 2 * 2 * M * b_ * T * 3 * D * C)                        # dx, dw1
+        nbytes = (2 * M * b_ * T * C * 2 + 2 * M * H * b_ * T * hs * 2     # x, dx; o, do
+                  + 4 * 2 * (M * C * 3 * D + M * 3 * D + M * 3 * H * hs2 * hs))  # weights, their grads
+        return bound_ms(flops, nbytes, "bfloat16")
+
     o_b1, do_b1 = out0[:, :, :1].contiguous(), do1[:, :, :1].contiguous()
     timing["fused_qkv_attention_bwd"] = dict(
         ms=device_ms(lambda: K.fused_qkv_attention_bwd(x, w1, b1, w2, out0, do1, H)),
@@ -2214,7 +2261,8 @@ def main() -> int:
         library_ms=device_ms(lambda: torch.autograd.grad(
             lib1, (xg, w1g, b1g, w2g), do1.reshape(M, H, B, T, hs).reshape(M * H, B, T, hs),
             retain_graph=True)),
-        bound=bound_ms(k1b_flops, k1b_bytes, "bfloat16"),
+        bound=k1b_bound(B),
+        bound_b1=k1b_bound(1),
     )
     k1b_split(K, card)
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
@@ -2222,10 +2270,12 @@ def main() -> int:
     with torch.enable_grad():
         lib2 = sum(F.scaled_dot_product_attention(qg[None], kg[j, None], vg[j, None], is_causal=True)
                    for j in range(J))[0]
-    k2b_flops = J * 5 * 2 * n * (T2 * (T2 + 1) // 2) * hs_
     # read q, do and each stream's k_j, v_j (2 + 2J); write dq and each
     # dk_j, dv_j (1 + 2J)
-    k2b_bytes = 2 * n * T2 * hs_ * (3 + 4 * J)
+    def k2b_bound(n_):
+        return bound_ms(J * 5 * 2 * n_ * (T2 * (T2 + 1) // 2) * hs_, 2 * n_ * T2 * hs_ * (3 + 4 * J),
+                        "bfloat16")
+
     do2_b1 = do2[:H].contiguous()
     timing["short_cross_attention_bwd"] = dict(
         ms=device_ms(lambda: K.short_cross_attention_bwd(q, k, v, do2)),
@@ -2233,7 +2283,8 @@ def main() -> int:
         ms_b1=device_ms(lambda: K.short_cross_attention_bwd(q_b1, k_b1, v_b1, do2_b1)),
         plain_ms=device_ms(lambda: K.short_cross_attention_bwd_plain(q, k, v, do2)),
         library_ms=device_ms(lambda: torch.autograd.grad(lib2, (qg, kg, vg), do2, retain_graph=True)),
-        bound=bound_ms(k2b_flops, k2b_bytes, "bfloat16"),
+        bound=k2b_bound(n),
+        bound_b1=k2b_bound(H),
     )
     # K3f at the production prefill: 24 B rows of T = 56 (B = 32; B = 1)
     n3, T3 = 24 * 32, 56
@@ -2248,6 +2299,7 @@ def main() -> int:
             q3[None], k3[None], v3[None], is_causal=True)),
         library_3d_ms=device_ms(lambda: F.scaled_dot_product_attention(q3, k3, v3, is_causal=True)),
         bound=bound_ms(2 * 2 * n3 * T3 * T3 * hs / 2, 4 * n3 * T3 * hs * 2, "bfloat16"),
+        bound_b1=bound_ms(2 * 2 * 24 * T3 * T3 * hs / 2, 4 * 24 * T3 * hs * 2, "bfloat16"),
     )
     # the decode kernels at the production self-attention cache of B = 32
     # (24 B rows, S = 64, hs = 64, packed by 2) with every column visible
@@ -2263,15 +2315,18 @@ def main() -> int:
     posd = torch.tensor([Sd - 1], dtype=torch.int32, device=dev)
     b1 = lambda t: t[:24].contiguous()  # noqa: E731
     qd1, kp1, vp1, kd1, vd1, k81, v81, ks1, vs1 = map(b1, (qd, kp, vp, kd, vd, k8, v8, ks, vs))
-    dec_flops = 4 * nd * Sd * hs
-    io_bytes = 2 * nd * hs * 2  # q and out
+    def dec_bound(n_, q8=False):  # every visible key and value read once, q read, out written
+        kv_bytes = 2 * n_ * Sd * hs + 2 * n_ * (Sd // pack) * 4 if q8 else 2 * n_ * Sd * hs * 2
+        return bound_ms(4 * n_ * Sd * hs, kv_bytes + 2 * n_ * hs * 2, "bfloat16")
+
     timing["decode_attention"] = dict(
         ms=device_ms(lambda: K.decode_attention(qd, kd, vd, posd)),
         ms_dropout=None,
         ms_b1=device_ms(lambda: K.decode_attention(qd1, kd1, vd1, posd)),
         plain_ms=device_ms(lambda: K.decode_attention_plain(qd, kd, vd, posd)),
         library_ms=device_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd)),
-        bound=bound_ms(dec_flops, 2 * nd * Sd * hs * 2 + io_bytes, "bfloat16"),
+        bound=dec_bound(nd),
+        bound_b1=dec_bound(24),
     )
     timing["decode_attention_packed"] = dict(
         ms=device_ms(lambda: K.decode_attention_packed(qd, kp, vp, posd)),
@@ -2279,7 +2334,8 @@ def main() -> int:
         ms_b1=device_ms(lambda: K.decode_attention_packed(qd1, kp1, vp1, posd)),
         plain_ms=device_ms(lambda: K.decode_attention_packed_plain(qd, kp, vp, posd)),
         library_ms=device_ms(lambda: F.scaled_dot_product_attention(qd, kd, vd)),
-        bound=bound_ms(dec_flops, 2 * nd * Sd * hs * 2 + io_bytes, "bfloat16"),
+        bound=dec_bound(nd),
+        bound_b1=dec_bound(24),
     )
     timing["decode_attention_packed_q8"] = dict(
         ms=device_ms(lambda: K.decode_attention_packed_q8(qd, k8, v8, ks, vs, posd)),
@@ -2287,7 +2343,8 @@ def main() -> int:
         ms_b1=device_ms(lambda: K.decode_attention_packed_q8(qd1, k81, v81, ks1, vs1, posd)),
         plain_ms=device_ms(lambda: K.decode_attention_packed_q8_plain(qd, k8, v8, ks, vs, posd)),
         library_ms=None,
-        bound=bound_ms(dec_flops, 2 * nd * Sd * hs + 2 * nd * (Sd // pack) * 4 + io_bytes, "bfloat16"),
+        bound=dec_bound(nd, q8=True),
+        bound_b1=dec_bound(24, q8=True),
     )
     # kernel_ms, kernel_ms_b1 and plain_ms without dropout (as serving runs
     # K1f/K2f); kernel_ms_dropout at 0.2, as the training path runs all four.
@@ -2297,7 +2354,8 @@ def main() -> int:
               "kernel_ms_dropout": t["ms_dropout"], "kernel_ms_b1": t["ms_b1"],
               "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
               "library_3d_ms": t.get("library_3d_ms"),
-              "bound_ms": t["bound"][0], "bound_by": t["bound"][1]})
+              "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+              "bound_ms_b1": t["bound_b1"][0]})
 
     # 3b. the kernels that only public ops and tools reach: K3b, K4f / K4b, K9
     by_path = {}
@@ -2470,50 +2528,53 @@ def main() -> int:
                              f"planted fault ({', '.join(failed)})")
 
     # --serve rates: 64 tokens from a full window (8 chunks of 8) at B = 1 and
-    # B = 32, bf16 and int8 caches, beside generate_fast's of phase 5; then
-    # where a served token's time goes (one chunk profiled: a prefill and 8
-    # decode steps, bf16 cache)
+    # B = 32, bf16 and int8 caches, beside generate_fast's of phase 5, in two
+    # rounds one after the other (the spread of host time within one run);
+    # then where a served token's time goes (one chunk profiled: a prefill
+    # and 8 decode steps, bf16 and int8 caches), against the first round
     cached_s = {}
+    for rnd in (0, 1):
+        for kv in (None, "int8"):
+            for batch in (1, 32):
+                window = torch.from_numpy(
+                    np.stack([rng.integers(0, v, (batch, S)) for v in cfg.vocab_sizes])).to(dev)
+                g = torch.Generator(device=dev).manual_seed(0)
+                C.generate_serve(params, cfg, window, g, 9, 0, kv_dtype=kv)  # warm-up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = C.generate_serve(params, cfg, window, g, 64, 0, kv_dtype=kv)
+                torch.cuda.synchronize()
+                sec = time.perf_counter() - t0
+                if out.shape != (cfg.num_modalities, batch, S + 64):
+                    raise AssertionError(f"--serve output shape {tuple(out.shape)}")
+                cached_s.setdefault((kv, batch), sec / 64)
+                emit({"phase": "serving_cached", "card": card, "round": rnd, "batch": batch,
+                      "kv_dtype": kv, "tokens": 64, "refresh": S // 8, "seconds": sec,
+                      "ms_per_token": 1e3 * sec / 64, "tokens_per_s": batch * 64 / sec,
+                      "generate_fast_ms_per_token": 1e3 * served[batch],
+                      "generate_fast_tokens_per_s": batch / served[batch]})
     for kv in (None, "int8"):
         for batch in (1, 32):
             window = torch.from_numpy(
                 np.stack([rng.integers(0, v, (batch, S)) for v in cfg.vocab_sizes])).to(dev)
             g = torch.Generator(device=dev).manual_seed(0)
-            C.generate_serve(params, cfg, window, g, 9, 0, kv_dtype=kv)  # warm-up
+            C.generate_serve(params, cfg, window, g, 9, 0, kv_dtype=kv)
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = C.generate_serve(params, cfg, window, g, 64, 0, kv_dtype=kv)
-            torch.cuda.synchronize()
-            sec = time.perf_counter() - t0
-            if out.shape != (cfg.num_modalities, batch, S + 64):
-                raise AssertionError(f"--serve output shape {tuple(out.shape)}")
-            cached_s[kv, batch] = sec / 64
-            emit({"phase": "serving_cached", "card": card, "batch": batch, "kv_dtype": kv,
-                  "tokens": 64, "refresh": S // 8, "seconds": sec, "ms_per_token": 1e3 * sec / 64,
-                  "tokens_per_s": batch * 64 / sec,
-                  "generate_fast_ms_per_token": 1e3 * served[batch],
-                  "generate_fast_tokens_per_s": batch / served[batch]})
-    for batch in (1, 32):
-        window = torch.from_numpy(
-            np.stack([rng.integers(0, v, (batch, S)) for v in cfg.vocab_sizes])).to(dev)
-        g = torch.Generator(device=dev).manual_seed(0)
-        C.generate_serve(params, cfg, window, g, 9, 0)
-        torch.cuda.synchronize()
-        n_tok = S // 8
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            C.generate_serve(params, cfg, window, g, n_tok, 0)
-            torch.cuda.synchronize()
-        kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        dev_s = sum(e.self_device_time_total for e in kern) / 1e6 / n_tok
-        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
-        emit({"phase": "profile", "path": "serve", "card": card, "batch": batch,
-              "kv_dtype": None, "tokens": n_tok,
-              "step_ms_unprofiled": 1e3 * cached_s[None, batch],
-              "device_ms_per_token": 1e3 * dev_s if kern else None,
-              "device_busy_share": dev_s / cached_s[None, batch] if kern else None,
-              "kernels_per_token": sum(e.count for e in kern) / n_tok,
-              "top": [[e.key[:72], e.self_device_time_total / 1e3 / n_tok, e.count / n_tok]
-                      for e in top]})
+            n_tok = S // 8
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                C.generate_serve(params, cfg, window, g, n_tok, 0, kv_dtype=kv)
+                torch.cuda.synchronize()
+            kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            dev_s = sum(e.self_device_time_total for e in kern) / 1e6 / n_tok
+            top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
+            emit({"phase": "profile", "path": "serve", "card": card, "batch": batch,
+                  "kv_dtype": kv, "tokens": n_tok,
+                  "step_ms_unprofiled": 1e3 * cached_s[kv, batch],
+                  "device_ms_per_token": 1e3 * dev_s if kern else None,
+                  "device_busy_share": dev_s / cached_s[kv, batch] if kern else None,
+                  "kernels_per_token": sum(e.count for e in kern) / n_tok,
+                  "top": [[e.key[:72], e.self_device_time_total / 1e3 / n_tok, e.count / n_tok]
+                          for e in top]})
 
     # 8. one production-width training step on the card (kernels forward and
     # backward) against the CPU's dense step, same params and batch

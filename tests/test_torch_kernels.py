@@ -407,7 +407,11 @@ def cuda_device():
 @pytest.mark.parametrize(
     "shape",
     [(4, 32, 64, 384, 6, 64), (4, 1, 64, 384, 6, 64), (2, 3, 8, 32, 2, 16),
-     (1, 2, 512, 64, 2, 64), (1, 2, 40, 64, 1, 256)],
+     (1, 2, 512, 64, 2, 64), (1, 2, 40, 64, 1, 256),
+     # the bf16 mma.sync body's edges: T 8 / 72 (two query chunks) / 512, hs
+     # 32 / 128, C 100 (not a multiple of 8: element loads of x), B odd
+     (2, 3, 8, 64, 2, 64), (1, 5, 72, 96, 3, 32), (1, 2, 72, 64, 2, 128),
+     (1, 2, 512, 96, 2, 32), (1, 1, 512, 64, 1, 128), (1, 3, 64, 100, 2, 96)],
 )
 def test_fused_qkv_kernel_matches_plain_on_card(cuda_device, shape, dtype):
     M, B, T, C, H, hs = shape
@@ -417,6 +421,8 @@ def test_fused_qkv_kernel_matches_plain_on_card(cuda_device, shape, dtype):
     out = K.fused_qkv_attention(x, w1, b1, w2, H)
     torch.cuda.synchronize()
     assert K.launch_counts()["fused_qkv_attention"] == before + 1
+    # no body uses float atomics: the same bits
+    assert torch.equal(out, K.fused_qkv_attention(x, w1, b1, w2, H))
     ref = K.fused_qkv_attention_plain(x, w1, b1, w2, H)
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=0)
 
@@ -457,7 +463,8 @@ def _card_close(name, got, ref, dtype):
     "shape",
     [(4, 32, 64, 384, 6, 64), (4, 1, 64, 384, 6, 64), (4, 1, 56, 384, 6, 64),
      (4, 32, 56, 384, 6, 64), (2, 3, 8, 32, 2, 16), (1, 2, 512, 64, 2, 64),
-     (1, 5, 72, 96, 3, 32), (1, 2, 40, 64, 1, 256), (1, 3, 64, 100, 2, 96)],
+     (1, 5, 72, 96, 3, 32), (1, 2, 40, 64, 1, 256), (1, 3, 64, 100, 2, 96),
+     (2, 3, 8, 64, 2, 64), (1, 2, 72, 64, 2, 128), (1, 2, 512, 96, 2, 32)],
 )
 def test_fused_qkv_fwd_bwd_kernels_match_plain_on_card(cuda_device, shape, dtype, rate):
     M, B, T, C, H, hs = shape
@@ -475,6 +482,7 @@ def test_fused_qkv_fwd_bwd_kernels_match_plain_on_card(cuda_device, shape, dtype
     assert after["fused_qkv_attention_bwd"] == before["fused_qkv_attention_bwd"] + 2
     for g, h in zip(grads, again):  # no float atomics: the same bits
         assert torch.equal(g, h)
+    assert torch.equal(out, K.fused_qkv_attention_fwd(x, w1, b1, w2, H, rate, salts))
     _card_close("K1f", out, K.fused_qkv_attention_plain(x, w1, b1, w2, H, rate, salts), dtype)
     ref = K.fused_qkv_attention_bwd_plain(x, w1, b1, w2, out, dout, H, rate, salts)
     for name, g, r in zip(("dx", "dw1", "db1", "dw2"), grads, ref):
@@ -539,13 +547,16 @@ def test_short_causal_kernel_matches_plain_on_card(cuda_device, shape, dtype, ra
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [24, 5])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("S", [64, 512])
+@pytest.mark.parametrize("S", [64, 512, 1024])
 @pytest.mark.parametrize("pack", [1, 2, 4])
 @pytest.mark.parametrize("which", DECODE_POS)
-def test_decode_kernels_match_plain_on_card(cuda_device, which, pack, S, dtype):
-    """K8, K8p and K8q against their plain versions, pos on the device."""
-    n, hs = 24, 128 // pack
+def test_decode_kernels_match_plain_on_card(cuda_device, which, pack, S, dtype, n):
+    """K8, K8p and K8q against their plain versions, pos on the device: a
+    warp a row up to 128 positions, several above; n = 5 rows do not fill a
+    block of 4 rows. Two runs give the same bits."""
+    hs = 128 // pack
     pos = _pos(which, S, pack)
     dt = getattr(torch, dtype)
     q, kp, vp = (torch.from_numpy(a).to(cuda_device) for a in _decode_inputs(n, S, hs, pack, 8))
@@ -561,6 +572,10 @@ def test_decode_kernels_match_plain_on_card(cuda_device, which, pack, S, dtype):
     after = K.launch_counts()
     for name in ("decode_attention", "decode_attention_packed", "decode_attention_packed_q8"):
         assert after[name] == before[name] + 1
+    again = [K.decode_attention(q, k, v, tpos), K.decode_attention_packed(q, kp, vp, tpos),
+             K.decode_attention_packed_q8(q, k8, v8, ks, vs, tpos)]
+    for out, out2 in zip(outs, again):
+        assert torch.equal(out, out2)
     refs = [K.decode_attention_plain(q, k, v, pos), K.decode_attention_packed_plain(q, kp, vp, pos),
             K.decode_attention_packed_q8_plain(q, k8, v8, ks, vs, pos)]
     for name, out, ref in zip(("K8", "K8p", "K8q"), outs, refs):

@@ -36,10 +36,11 @@ class ModelConfig:
     # f32 master params, bf16 activations/matmul inputs, f32 accumulation,
     # f32 layernorm/softmax).
     compute_dtype: str = "float32"
-    # Training options, read from the same config files as the JAX package
-    # reads them: rematerialise each block in the backward pass. The port's
-    # forward is inference-only so far, and ``remat`` and ``dropout`` have no
-    # effect on it.
+    # Training option, read from the same config files as the JAX package
+    # reads it: rematerialise each block in the backward pass. ``remat``
+    # changes memory, not values, and is not ported: it has no effect here.
+    # ``dropout`` above applies in the forward of a training step
+    # (``forward(..., train=True)``, models/transformer.py).
     remat: bool = False
 
     def __post_init__(self):

@@ -47,6 +47,7 @@
 // gemm_kernel (any strides), elementwise tanh and dpre kernels, and the
 // column sum for db1 over every row.
 #include "attention_bwd.cuh"
+#include "round_weights.cuh"
 
 namespace tat {
 
@@ -453,19 +454,6 @@ __global__ void sum_splits_kernel(const float* __restrict__ part_a, float* out_a
   }
 }
 
-// The weights rounded to bf16 once a call: n1 values of a, then n2 of b.
-__global__ void round_weights_kernel(const float* __restrict__ a, long long n1,
-                                     const float* __restrict__ b, long long n2, bf16* out_a,
-                                     bf16* out_b) {
-  for (long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x; idx < n1 + n2;
-       idx += (long long)gridDim.x * blockDim.x) {
-    if (idx < n1)
-      out_a[idx] = __float2bfloat16_rn(a[idx]);
-    else
-      out_b[idx - n1] = __float2bfloat16_rn(b[idx - n1]);
-  }
-}
-
 }  // namespace gm
 
 #define TAT_TRY(expr)             \
@@ -498,9 +486,8 @@ int fqkv_bwd(const void* x, const void* w1, const void* b1, const void* w2, cons
     w1b = reinterpret_cast<__nv_bfloat16*>(static_cast<float*>(ws_dq) +
                                            bwd_ws_floats((long long)M * H * B, Tn, hs));
     w2b = w1b + (n_w1 + 7) / 8 * 8;
-    gm::round_weights_kernel<<<grid_for(n_w1 + n_w2), kThreads, 0, s>>>(
-        static_cast<const float*>(w1), n_w1, static_cast<const float*>(w2), n_w2, w1b, w2b);
-    TAT_TRY((int)cudaGetLastError());
+    TAT_TRY(gm::round_weights(static_cast<const float*>(w1), n_w1, static_cast<const float*>(w2),
+                              n_w2, w1b, w2b, s));
   }
   const void* w1_op = kBf16 ? static_cast<const void*>(w1b) : w1;
   const void* w2_op = kBf16 ? static_cast<const void*>(w2b) : w2;

@@ -261,45 +261,6 @@ struct FwdMmaArgs {
   int vec;        // 16-byte copies (every pointer 16-byte aligned)
 };
 
-// Whether q's A fragments stay in registers (D = 64) or are read from the
-// warp's rows of q in shared memory per key tile (D = 128).
-template <int D>
-constexpr bool kHoldQ = D <= 64;
-
-// S = q k^T of a warp's 16 query rows (q's A fragments qa, column block kd
-// of 16, or with kHoldQ false from sq, the warp's first row of q) against
-// key slabs 0 .. ns - 1 of the tile in sk, in C fragments (n8 tile nt: keys
-// 8nt .. 8nt + 7 of the tile); slabs from ns on are zero.
-template <int D, int kSn>
-__device__ __forceinline__ void qk_scores(float (&s)[kSn][4],
-                                          const uint32_t (&qa)[kHoldQ<D> ? D / 16 : 1][4],
-                                          const bf16* sq, const bf16* sk, int ns, int lane) {
-  constexpr int kLd = D + 8;
-#pragma unroll
-  for (int nt = 0; nt < kSn; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
-#pragma unroll
-  for (int kd = 0; kd < D / 16; ++kd) {
-    uint32_t a[4];
-    if constexpr (kHoldQ<D>) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qa[kd][i];
-    } else {
-      mma::ldsm_x4(a, mma::a_frag_addr(sq, kLd, 0, 16 * kd, lane));
-    }
-#pragma unroll
-    for (int kk = 0; kk < kSn / 2; ++kk) {
-      if (kk < ns) {
-        uint32_t b[4];
-        mma::ldsm_x4(b, mma::bt_frag_addr(sk, kLd, 16 * kk, 16 * kd, lane));
-        mma::mma_bf16(s[2 * kk], a, b[0], b[1]);
-        mma::mma_bf16(s[2 * kk + 1], a, b[2], b[3]);
-      }
-    }
-  }
-}
-
 template <int D, typename Rows>
 __global__ void __launch_bounds__(kFwdThreads) short_fwd_mma_kernel(const FwdMmaArgs a,
                                                                     const Rows rows) {
@@ -398,22 +359,7 @@ __global__ void __launch_bounds__(kFwdThreads) short_fwd_mma_kernel(const FwdMma
         const uint32_t seed = a.stream_seeds ? stream_seed(a.seed, j) : a.seed;
         const KeepRowW kr[2] = {KeepRowW(on, seed, (uint32_t)r, (uint32_t)qrow[0], a.thresh),
                                 KeepRowW(on, seed, (uint32_t)r, (uint32_t)qrow[1], a.thresh)};
-        uint32_t pa[kSn / 2][4];
-#pragma unroll
-        for (int nt = 0; nt < kSn; ++nt) {
-          if (nt < 2 * ns) {
-            float p[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              p[i] = mma::exp2_approx(s[nt][i] - m2[i >> 1]);
-              l[i >> 1] += p[i];
-              if (on && !kr[i >> 1]((uint32_t)(k0 + 8 * nt + mma::frag_col(lane, i)))) p[i] = 0.f;
-            }
-            pa[nt >> 1][2 * (nt & 1)] = mma::pack_bf16(p[0], p[1]);
-            pa[nt >> 1][2 * (nt & 1) + 1] = mma::pack_bf16(p[2], p[3]);
-          }
-        }
-        tile_product<D, kSn>(o, pa, sk + kFwdKeys * kLd, ns, lane);
+        softmax_pv<D, kSn>(o, l, s, m2, kr, on, k0, sk + kFwdKeys * kLd, ns, lane);
       }
     }
     if (at == per_stream - 1) {  // the stream's end: o_j / (l_j (1 - rate)) into the sum

@@ -1,7 +1,7 @@
 // Register-fragment pieces shared by the bf16 whole-row attention kernels
-// on mma.sync (flash_mma.cuh): the forward (short_attention_fwd.cuh, K2f,
-// K3f, K4f) and the backward (attention_bwd.cuh, K2b, K1b's attention, K3b,
-// K4b). A warp holds 16 query rows of S = q k^T in C fragments; the row
+// on mma.sync (flash_mma.cuh): the forwards (short_attention_fwd.cuh, K2f,
+// K3f, K4f; fused_qkv_attention.cu, K1f) and the backward (attention_bwd.cuh,
+// K2b, K1b's attention, K3b, K4b). A warp holds 16 query rows of S = q k^T in C fragments; the row
 // max and sum are exact by quad shuffles (the four lanes of a fragment row);
 // scores are scaled by scale * log2(e) and masked in place so that both
 // directions form p = exp2(s - m) alike; the dropout bit is the JAX kernels'
@@ -157,6 +157,75 @@ __device__ __forceinline__ void tile_product(float (&dq)[D / 8][4],
       }
     }
   }
+}
+
+// Whether q's A fragments stay in registers (D = 64) or are read from the
+// warp's rows of q in shared memory per key tile (D = 128).
+template <int D>
+constexpr bool kHoldQ = D <= 64;
+
+// S = q k^T of a warp's 16 query rows (q's A fragments qa, column block kd
+// of 16, or with kHoldQ false from sq, the warp's first row of q) against
+// key slabs 0 .. ns - 1 of the tile in sk, in C fragments (n8 tile nt: keys
+// 8nt .. 8nt + 7 of the tile); slabs from ns on are zero.
+template <int D, int kSn>
+__device__ __forceinline__ void qk_scores(float (&s)[kSn][4],
+                                          const uint32_t (&qa)[kHoldQ<D> ? D / 16 : 1][4],
+                                          const bf16* sq, const bf16* sk, int ns, int lane) {
+  constexpr int kLd = D + 8;
+#pragma unroll
+  for (int nt = 0; nt < kSn; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd) {
+    uint32_t a[4];
+    if constexpr (kHoldQ<D>) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = qa[kd][i];
+    } else {
+      mma::ldsm_x4(a, mma::a_frag_addr(sq, kLd, 0, 16 * kd, lane));
+    }
+#pragma unroll
+    for (int kk = 0; kk < kSn / 2; ++kk) {
+      if (kk < ns) {
+        uint32_t b[4];
+        mma::ldsm_x4(b, mma::bt_frag_addr(sk, kLd, 16 * kk, 16 * kd, lane));
+        mma::mma_bf16(s[2 * kk], a, b[0], b[1]);
+        mma::mma_bf16(s[2 * kk + 1], a, b[2], b[3]);
+      }
+    }
+  }
+}
+
+// The forwards' probability pass over one key tile for a warp's 16 query
+// rows: p = exp2(s - m) (s scaled and masked by mask_scale, m[h] the whole
+// row's max of fragment half h), l += p before dropout, the dropout bit per
+// element (kr, keyed by the tile's first key k0), p rounded and packed to
+// bf16 as P.V's A fragments without leaving registers, and o += P V (V's
+// rows from sv, B fragments through ldmatrix.trans). Key slabs from ns on
+// are skipped.
+template <int D, int kSn>
+__device__ __forceinline__ void softmax_pv(float (&o)[D / 8][4], float (&l)[2],
+                                           const float (&s)[kSn][4], const float (&m)[2],
+                                           const KeepRowW (&kr)[2], bool on, int k0,
+                                           const bf16* sv, int ns, int lane) {
+  uint32_t pa[kSn / 2][4];
+#pragma unroll
+  for (int nt = 0; nt < kSn; ++nt) {
+    if (nt < 2 * ns) {
+      float p[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        p[i] = mma::exp2_approx(s[nt][i] - m[i >> 1]);
+        l[i >> 1] += p[i];
+        if (on && !kr[i >> 1]((uint32_t)(k0 + 8 * nt + mma::frag_col(lane, i)))) p[i] = 0.f;
+      }
+      pa[nt >> 1][2 * (nt & 1)] = mma::pack_bf16(p[0], p[1]);
+      pa[nt >> 1][2 * (nt & 1) + 1] = mma::pack_bf16(p[2], p[3]);
+    }
+  }
+  tile_product<D, kSn>(o, pa, sv, ns, lane);
 }
 
 }  // namespace wr

@@ -69,8 +69,8 @@ library with a plain C interface per source, bound with ``ctypes``.
 
 Every call of a wrapper that launches its kernel adds one to the wrapper's
 ``launches`` attribute, and nothing else does, so a caller can show that a
-run went through the kernels (K1b's one call runs ten CUDA launches, K5b's
-and K7b's two). K7 counts its causal and full-mask launches apart
+run went through the kernels (K1b's one call runs ten CUDA launches, K1f's,
+K5b's and K7b's two). K7 counts its causal and full-mask launches apart
 (``KERNELS`` names ``flash_chunk_{fwd,bwd}_{causal,full}``).
 """
 
@@ -108,7 +108,7 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _SIGNATURES = {
     "fused_qkv_attention": {
         "tat_fused_qkv_attention_fwd":
-            [_P] * 5 + [_I] * 7 + [_F, _U, _U, _I, _F, _I, _P],
+            [_P] * 6 + [_I] * 7 + [_F, _U, _U, _I, _F, _I, _P],
     },
     "fused_qkv_attention_bwd": {
         "tat_fused_qkv_attention_bwd":
@@ -883,7 +883,11 @@ def _check_fqkv_shapes(what, x, w1, b1, w2, H):
 def fused_qkv_attention_fwd(x, w1, b1, w2, n_head: int, dropout_rate: float = 0.0,
                             dropout_salts=None):
     """The forward kernel (K1f): the plain version for CPU tensors, the CUDA
-    kernel for CUDA tensors. Returns (M, H, B, T, hs) in x's type."""
+    kernel for CUDA tensors. Returns (M, H, B, T, hs) in x's type. On the
+    mma.sync body (bf16, hs % 16 == 0, hs <= 128: every model path) one
+    call launches two CUDA kernels (the weights rounded to bf16 into the
+    workspace, then the forward) and counts one launch; the C entry picks
+    the body, so every call passes the workspace."""
     what = "fused_qkv_attention"
     H = n_head
     _check_fqkv_shapes(what, x, w1, b1, w2, H)
@@ -896,9 +900,12 @@ def fused_qkv_attention_fwd(x, w1, b1, w2, n_head: int, dropout_rate: float = 0.
     _check_band(what, T, hs)
     gb = fqkv_pick_gb(B, H, T, hs, C, x.element_size())
     out = torch.empty((M, H, B, T, hs), dtype=x.dtype, device=x.device)
+    # the weights rounded to bf16 once a call: w1 (padded to 8), then w2
+    ws = torch.empty(-(-w1.numel() // 8) * 8 + w2.numel(), dtype=torch.bfloat16,
+                     device=x.device)
     err = _fn("fused_qkv_attention", "tat_fused_qkv_attention_fwd")(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), out.data_ptr(),
-        M, B, T, C, H, hs, int(x.dtype == torch.bfloat16), hs ** -0.5,
+        ws.data_ptr(), M, B, T, C, H, hs, int(x.dtype == torch.bfloat16), hs ** -0.5,
         seed, thresh, on, keepf, gb, _stream(),
     )
     _check_launch(err, what)

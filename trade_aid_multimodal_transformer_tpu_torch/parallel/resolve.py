@@ -23,7 +23,8 @@ from typing import Dict, Optional, Union
 
 MESH_AXES = ("data", "model", "mod", "pipe")
 LATER_SLICE = ("multi-device training beyond context parallelism (data, tensor, modality and "
-               "pipeline axes, FSDP, multi-host) is a later slice of the port (ROADMAP 1.5b)")
+               "pipeline axes, FSDP, multi-host) is a later slice of the port (ROADMAP.md, queue 1, "
+               "item 1: data parallelism)")
 
 
 @dataclass
