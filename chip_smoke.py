@@ -1714,30 +1714,46 @@ def short_kernels(K, card, gen, timing, errs, by_path):
                     K.short_causal_attention_packed_bwd_plain(x, out, dd, H, rate, salts), dtype,
                     shape, rate)
 
-    # K9 at the long-context serving rows (S 1024) and at S 128, pos 0 / 127 /
-    # S/2 / S - 1 read on the device; the planted fault (one column past pos)
-    # must fail the same check wherever there is such a column
+    # K9 at the long-context serving rows (S 1024) and at S 128, at B = 1 (24
+    # rows), at S 8192, hs 256 and S 130 (element loads), pos 0 / 127 / S/2 /
+    # S - 1 and the edges of the launcher's chunks (chunk - 1, chunk, 2 chunk
+    # - 1) read on the device; every check run twice for the same bits. The
+    # planted fault (one column past pos) must fail the same check at the
+    # production rows' pos 0 / 127 / S/2 at S 1024 and 128, and wherever one
+    # more visible column moves the plain version by more than 1.5 times the
+    # limit (in bf16 one column of ~500 at 24 rows can stay within it)
     n9, hs9, S9 = K9_PROD
-    for S in (S9, 128):
-        q, kT, vT = randn(n9, 1, hs9), randn(n9, hs9, S), randn(n9, hs9, S)
+    for n_, hs_, S in ((n9, hs9, S9), (n9, hs9, 128), (24, hs9, S9), (24, hs9, 8192),
+                       (3, 256, 2048), (7, 16, 130)):
+        q, kT, vT = randn(n_, 1, hs_), randn(n_, hs_, S), randn(n_, hs_, S)
         for dtype in ("float32", "bfloat16"):
             qq, kk, vv = (x.to(getattr(torch, dtype)) for x in (q, kT, vT))
-            for pos in (0, 127, S // 2, S - 1):
-                shape = (n9, hs9, S, pos)
+            plan = K.decode_attention_t_plan(qq, kk, vv)
+            ch = plan["chunk"]
+            edges = {ch - 1, ch, 2 * ch - 1} if plan["cluster"] > 1 else set()
+            for pos in sorted({0, 127, S // 2, S - 1} | {p_ for p_ in edges if p_ < S}):
+                shape = (n_, hs_, S, pos)
                 pos_t = torch.tensor([pos], dtype=torch.int32, device=dev)
                 out = K.decode_attention_t(qq, kk, vv, pos_t)
+                again = K.decode_attention_t(qq, kk, vv, pos_t)
                 torch.cuda.synchronize()
+                same_bits("decode_attention_t", (out,), (again,), shape)
                 ref = K.decode_attention_t_plain(qq, kk, vv, pos)
                 errs[("decode_attention_t", shape, dtype)] = check_close(
                     "decode_attention_t", out, ref, dtype, shape)
                 if pos == S - 1:
                     continue
+                moved = (K.decode_attention_t_plain(qq, kk, vv, pos + 1).float()
+                         - ref.float()).abs().max().item()
+                must = (n_ == n9 and S in (S9, 128) and pos in (0, 127, S // 2)
+                        or moved > 1.5 * TOL[dtype])
                 bad = k9_reading_pos_plus_1(K)(qq, kk, vv, pos_t)
                 err = (bad.float() - ref.float()).abs().max().item()
                 emit({"phase": "kernel_check", "kernel": "decode_attention_t.planted_pos_plus_1",
-                      "shape": list(shape), "dtype": dtype, "max_abs_err": err, "tol": TOL[dtype],
-                      "must_fail": True, "ok": err > TOL[dtype]})
-                if err <= TOL[dtype]:
+                      "shape": list(shape), "dtype": dtype, "plan": plan, "max_abs_err": err,
+                      "plain_moves": moved, "tol": TOL[dtype], "must_fail": must,
+                      "ok": err > TOL[dtype] or not must})
+                if must and err <= TOL[dtype]:
                     raise AssertionError(f"K9 check passed the planted fault at {shape} {dtype}")
 
     # packed_op: causal_attention_packed at the production rows, bf16,
@@ -1862,6 +1878,7 @@ def short_kernels(K, card, gen, timing, errs, by_path):
     visible = (torch.arange(S9, device=dev) <= S9 - 1)[None, :]
     qd1, kT1, vT1 = (a[:24].contiguous() for a in (qd, kT, vT))
     timing["decode_attention_t"] = dict(
+        plan=K.decode_attention_t_plan(qd, kT, vT), plan_b1=K.decode_attention_t_plan(qd1, kT1, vT1),
         ms=device_ms(lambda: K.decode_attention_t(qd, kT, vT, posd)),
         ms_dropout=None,
         ms_b1=device_ms(lambda: K.decode_attention_t(qd1, kT1, vT1, posd)),
@@ -1880,7 +1897,8 @@ def short_kernels(K, card, gen, timing, errs, by_path):
               "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
               "library_fwd_bwd_ms": t.get("library_fwd_bwd_ms"),
               "library_3d_ms": t.get("library_3d_ms"), "bound_ms": t["bound"][0],
-              "bound_by": t["bound"][1], "bound_ms_b1": t["bound_b1"][0]})
+              "bound_by": t["bound"][1], "bound_ms_b1": t["bound_b1"][0],
+              **{k_: t[k_] for k_ in ("plan", "plan_b1") if k_ in t}})
 
 
 def crossover(K, card, by_path):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Variants of the port's mma.sync and warp-per-row bodies on one NVIDIA GPU.
 
-    python3 chip_variants.py [group ...]
+    python3 chip_variants.py [group ...] [--against DIR]
 
 Copies the port's kernel sources into a temporary directory once per
 variant, edits a line or two of one source, builds each copy of the sources
@@ -44,10 +44,28 @@ dropout 0.2. Groups (all by default):
   ``pos_plus_1``: reading column pos + 1 (mutation); ``one_position``
   (diagnostic: every row read to position 0 only, the time of a row's
   fixed chain).
+- ``decode_t``: the transposed-cache decode body (K9, ``decode_t_kernel`` in
+  ``ops/csrc/decode_attention.cu``) at the production rows (384, hs 64, S
+  1024) and at B = 1 (24 rows), timed and gated at pos = S - 1 and gated at
+  pos = 2. ``cluster1`` .. ``cluster8``: that many blocks a row in place of
+  the launcher's choice; ``chunk128``, ``chunk256``, ``chunk512``: that
+  many positions a block; ``blocks3``: registers capped for three blocks
+  an SM in place of two; ``values_smem``: the first value batch by
+  ``cp.async`` into shared memory in place of registers; ``v_early``: the
+  first value batch issued with the first key batch in place of after the
+  scores; ``pos_plus_1`` (mutation, must fail at pos 2) and
+  ``local_softmax`` (mutation: each block rounds w against its own max and
+  l; must fail at S - 1 wherever a row has more than one block);
+  ``one_position`` (diagnostic: every row read to position 0 only).
+  ``--against DIR`` adds the variant ``against``: the K9 body of the
+  sources in DIR (``trade_aid_multimodal_transformer_tpu_torch/ops/csrc``
+  of another checkout, such as the parent commit unpacked with ``git
+  archive``), timed first and last, beside ``base``.
 
 Exits non-zero when a variant does not build, a variant but a mutation or a
-diagnostic fails a gate, or a mutation passes one. Needs a CUDA device and the port
-package beside this file; the last line is a JSON summary.
+diagnostic fails a gate, or a mutation passes one where it must fail. Needs
+a CUDA device and the port package beside this file; the last line is a JSON
+summary.
 """
 
 from __future__ import annotations
@@ -72,17 +90,53 @@ K1_WAIT = ("    mma::cp_async_wait<kStages - 2>();\n    __syncthreads();  // chu
 DEC_REGS = "  Raw kv[kNB][kMaxC];\n  float sc[kNB];\n"
 DEC_V = "  load(kv, sc, vr, a.v_scale, j_begin);  // the values, in flight while the softmax runs\n"
 DEC_NB = "static constexpr int kNB = kVec ? (sizeof(KV) == 2 ? 16 : 8) : 4;"
+T_VIS = "const int vis = max(0, min(__ldg(ta.pos_p) + 1, S));"
+T_MAX = "for (int i = 0; i < C * kTWarps; ++i) mx = fmaxf(mx, cm[i]);"
+T_SUM = "for (int i = 0; i < C * kTWarps; ++i) lt += cl[i];"
+T_OWN = "for (int i = rank * kTWarps; i < (rank + 1) * kTWarps; ++i)"
+T_CHUNK = "    int chunk = (S + C - 1) / C;"
+T_V = "  if (nb > 0) load(vb, vr, 0, 0);  // the first values, in flight during the exchanges\n"
+T_K = "  if (nb > 0) load(kb, kr, 0, 0);\n"
+T_PO = "  float* po = cl + C * kTWarps;\n"
+T_ACC = "    if (pass == 0)\n#pragma unroll\n      for (int i = 0; i < kTFeat; ++i) acc[i] = 0.f;\n"
+T_SMEM = "  return sizeof(float) * (hp + 2 * kTWarps * kP + sl + 2 * C * kTWarps + C * hp);"
+# values_smem: the first value batch (16-byte loads only) by cp.async into
+# shared memory after the blocks' P.V sums (an offset of a multiple of 16
+# floats), waited for at the first P.V batch
+T_CP = """  if (nb > 0) {
+    if constexpr (kVec) {
+      const int c = min(c0 + lane * kE, last);
+#pragma unroll
+      for (int i = 0; i < kTFeat; ++i) {
+        const unsigned dst = (unsigned)__cvta_generic_to_shared(vsm + (warp * kTFeat + i) * 32 + lane);
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\\n" ::"r"(dst),
+                     "l"(vr + (size_t)min(warp * kTFeat + i, hs - 1) * S + c) : "memory");
+      }
+      asm volatile("cp.async.commit_group;\\n" ::: "memory");
+    } else {
+      load(vb, vr, 0, 0);
+    }
+  }
+"""
+T_WAIT = """    if constexpr (kVec) {
+      if (b == 0) {
+        asm volatile("cp.async.wait_all;\\n" ::: "memory");
+#pragma unroll
+        for (int i = 0; i < kTFeat; ++i) vb[i] = vsm[(warp * kTFeat + i) * 32 + lane];
+      }
+    }
+"""
 
 # group -> the edited source, the sources built from it, the body's
-# kernels (for the registers), the mutation, the diagnostic variants (timed,
+# kernels (for the registers), the mutations, the diagnostic variants (timed,
 # not gated: their output is not the function), and per variant its (line,
 # replacement) pairs
 GROUPS = {
     "whole_row": {
         "file": "short_attention_fwd.cuh",
         "sources": ("short_cross_attention", "short_causal_attention"),
-        "kernel": "short_fwd_mma_kernel",
-        "mutation": "mask_late",
+        "kernels": ("short_fwd_mma_kernel",),
+        "mutations": ("mask_late",),
         "diagnostic": (),
         "edits": {
             "base": [],
@@ -100,8 +154,8 @@ GROUPS = {
     "fused_qkv": {
         "file": "fused_qkv_attention.cu",
         "sources": ("fused_qkv_attention",),
-        "kernel": "fqkv_fwd_mma_kernel",
-        "mutation": "mask_late",
+        "kernels": ("fqkv_fwd_mma_kernel",),
+        "mutations": ("mask_late",),
         "diagnostic": ("no_loads",),
         "edits": {
             "base": [],
@@ -122,8 +176,8 @@ GROUPS = {
     "decode": {
         "file": "decode_attention.cu",
         "sources": ("decode_attention",),
-        "kernel": "decode_warp_kernel",
-        "mutation": "pos_plus_1",
+        "kernels": ("decode_warp_kernel",),
+        "mutations": ("pos_plus_1",),
         "diagnostic": ("one_position",),
         "edits": {
             "base": [],
@@ -142,13 +196,37 @@ GROUPS = {
             "one_position": [(DEC_VIS, "const int n_vis = min(1, max(0, min(__ldg(a.pos_p) + 1, S)));")],
         },
     },
+    "decode_t": {
+        "file": "decode_attention.cu",
+        "sources": ("decode_attention",),
+        "kernels": ("decode_t_kernel", "decode_kernel"),  # and the first body's (--against)
+        "mutations": ("pos_plus_1", "local_softmax"),
+        "diagnostic": ("one_position",),
+        "edits": {
+            "base": [],
+            **{f"cluster{c}": [(T_CHUNK, f"    int chunk = (S + {c} - 1) / {c};")]
+               for c in (1, 2, 4, 8)},
+            **{f"chunk{c}": [(T_CHUNK, f"    int chunk = {c};")] for c in (128, 256, 512)},
+            "blocks3": [("__launch_bounds__(kTThreads, 2) decode_t_kernel",
+                         "__launch_bounds__(kTThreads, 3) decode_t_kernel")],
+            "values_smem": [(T_PO, T_PO + "  uint4* vsm = reinterpret_cast<uint4*>(po + C * hp);\n"),
+                            (T_V, T_CP), (T_ACC, T_WAIT + T_ACC),
+                            (T_SMEM, T_SMEM[:-1] + " + (kVec ? sizeof(uint4) * kTThreads * kTFeat : 0);")],
+            "v_early": [(T_V, ""), (T_K, T_K + "  if (nb > 0) load(vb, vr, 0, 0);\n")],
+            "pos_plus_1": [(T_VIS, "const int vis = max(0, min(__ldg(ta.pos_p) + 2, S));")],
+            "local_softmax": [(T_MAX, T_OWN + " mx = fmaxf(mx, cm[i]);"),
+                              (T_SUM, T_OWN + " lt += cl[i];")],
+            "one_position": [(T_VIS, "const int vis = min(1, max(0, min(__ldg(ta.pos_p) + 1, S)));")],
+        },
+    },
 }
 
 
 def entries(group, K, S, dev, gen):
     """name -> (run(*dropout), run at B = 1 or None, plain, has dropout,
-    whether the group's mutation must fail its gate) of a group's entries
-    at their production shapes."""
+    the mutations that must fail its gate: a set, or a function that gives
+    it from the variant's build) of a group's entries at their production
+    shapes."""
     import torch
 
     def randn(*shape, scale=1.0):
@@ -166,15 +244,15 @@ def entries(group, K, S, dev, gen):
             "short_cross_attention": (
                 lambda *r: K.short_cross_attention(q2, k2, v2, *r),
                 lambda: K.short_cross_attention(*b2),
-                lambda: K.short_cross_attention_plain(q2, k2, v2), True, True),
+                lambda: K.short_cross_attention_plain(q2, k2, v2), True, {"mask_late"}),
             "short_causal_attention": (
                 lambda *r: K.short_causal_attention(*x3, *r),
                 lambda: K.short_causal_attention(*b3),
-                lambda: K.short_causal_attention_plain(*x3), True, True),
+                lambda: K.short_causal_attention_plain(*x3), True, {"mask_late"}),
             "short_causal_attention_packed": (
                 lambda *r: K.short_causal_attention_packed_fwd(x4, 6, *r),
                 lambda: K.short_causal_attention_packed_fwd(b4, 6),
-                lambda: K.short_causal_attention_packed_plain(x4, 6), True, True),
+                lambda: K.short_causal_attention_packed_plain(x4, 6), True, {"mask_late"}),
         }
     if group == "fused_qkv":
         M, B, T, C, H, hs = S.PROD_K1
@@ -185,7 +263,9 @@ def entries(group, K, S, dev, gen):
         return {"fused_qkv_attention": (
             lambda *r: K.fused_qkv_attention_fwd(x, w1, b1, w2, H, *r),
             lambda: K.fused_qkv_attention_fwd(x_b1, w1, b1, w2, H),
-            lambda: K.fused_qkv_attention_plain(x, w1, b1, w2, H), True, True)}
+            lambda: K.fused_qkv_attention_plain(x, w1, b1, w2, H), True, {"mask_late"})}
+    if group == "decode_t":
+        return decode_t_entries(K, S, dev, randn)
     # decode: the production --serve cache (24 B rows, S 64, hs 64, packed by
     # 2) and the long rows (18 B rows at B = 16, S 1024), timed and gated at
     # pos = S - 2 and gated at pos = 2. The mutation (reading pos + 1) must
@@ -210,7 +290,7 @@ def entries(group, K, S, dev, gen):
             pos = torch.tensor([at], dtype=torch.int32, device=dev)
             name = tag + ("" if at == s_len - 2 else "_pos2")
             timed = at == s_len - 2
-            catches = not (timed and s_len > 64)
+            catches = set() if timed and s_len > 64 else {"pos_plus_1"}
             out[f"decode_attention{name}"] = (
                 lambda q=q, kd=kd, vd=vd, pos=pos: K.decode_attention(q, kd, vd, pos),
                 (lambda q1=q1, kd1=kd1, vd1=vd1, pos=pos: K.decode_attention(q1, kd1, vd1, pos))
@@ -234,6 +314,37 @@ def entries(group, K, S, dev, gen):
     return out
 
 
+def decode_t_entries(K, S, dev, randn):
+    """K9 at the production rows (chip_smoke.py's K9_PROD, bf16) and at B = 1
+    (24 rows), each timed at pos = S - 1 (the whole cache, as
+    ``kernel_time``) and gated there and at pos = 2. Reading pos + 1 must
+    fail at pos 2; rounding against each block's own max and l must fail at
+    S - 1 wherever the launcher splits a row over more than one block."""
+    import torch
+
+    n, hs, s_len = S.K9_PROD
+    prod = (randn(n, 1, hs).bfloat16(), randn(n, hs, s_len).bfloat16(),
+            randn(n, hs, s_len).bfloat16())
+    b1 = tuple(t[:24].contiguous() for t in prod)
+    out = {}
+    for tag, ops in (("", prod), ("_b1", b1)):
+        for at in (s_len - 1, 2):
+            pos = torch.tensor([at], dtype=torch.int32, device=dev)
+
+            def run(ops=ops, pos=pos):
+                return K.decode_attention_t(*ops, pos)
+
+            def split(ops=ops):
+                return {"local_softmax"} if K.decode_attention_t_plan(*ops)["cluster"] > 1 else set()
+
+            timed = tag == "" and at == s_len - 1
+            out["decode_attention_t" + tag + ("" if at == s_len - 1 else "_pos2")] = (
+                run, (lambda pos=pos: K.decode_attention_t(*b1, pos)) if timed else None,
+                lambda ops=ops, at=at: K.decode_attention_t_plain(*ops, at), False,
+                split if at == s_len - 1 else {"pos_plus_1"})
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -244,10 +355,27 @@ def main() -> int:
         print("chip_variants: chip_smoke.py and the port package are not beside this script",
               file=sys.stderr)
         return 2
-    groups = sys.argv[1:] or list(GROUPS)
+    args = sys.argv[1:]
+    against = None
+    if "--against" in args:
+        i = args.index("--against")
+        if i + 1 >= len(args):
+            print("chip_variants: --against needs a directory", file=sys.stderr)
+            return 2
+        against = Path(args[i + 1]).resolve()
+        del args[i:i + 2]
+        if (against / "trade_aid_multimodal_transformer_tpu_torch").is_dir():
+            against = against / "trade_aid_multimodal_transformer_tpu_torch" / "ops" / "csrc"
+        if not (against / GROUPS["decode_t"]["file"]).is_file():
+            print(f"chip_variants: no {GROUPS['decode_t']['file']} in {against}", file=sys.stderr)
+            return 2
+    groups = args or list(GROUPS)
     unknown = [g for g in groups if g not in GROUPS]
     if unknown:
         print(f"chip_variants: unknown groups {unknown}; known: {list(GROUPS)}", file=sys.stderr)
+        return 2
+    if against is not None and "decode_t" not in groups:
+        print("chip_variants: --against times the decode_t group", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
     import chip_smoke as S
@@ -258,6 +386,9 @@ def main() -> int:
     work = Path(tempfile.mkdtemp(prefix="tat_variants_"))
     try:
         trees = {}
+        if against is not None:
+            trees[("decode_t", "against")] = work / "decode_t" / "against" / "csrc"
+            shutil.copytree(against, trees[("decode_t", "against")])
         for group in groups:
             spec = GROUPS[group]
             for tag, edit in spec["edits"].items():
@@ -271,9 +402,12 @@ def main() -> int:
                 (csrc / spec["file"]).write_text(src)
                 trees[(group, tag)] = csrc
 
-        def use(key):  # point the kernels module at a variant's sources
+        def use(key):  # point the kernels module at a variant's sources and their C entries
             K._CSRC, K._BUILD = trees[key], trees[key].parent / "_build"
-            K._SIGNATURES = {n: signatures[n] for n in GROUPS[key[0]]["sources"]}
+            K._SIGNATURES = {}
+            for n in GROUPS[key[0]]["sources"]:
+                text = (K._CSRC / f"{n}.cu").read_text()
+                K._SIGNATURES[n] = {f: a for f, a in signatures[n].items() if f"{f}(" in text}
             K._libs.clear()
 
         procs = []
@@ -292,7 +426,7 @@ def main() -> int:
             if proc.returncode != 0:
                 raise RuntimeError(f"variant {key}, {name}: nvcc exit {proc.returncode}:\n{log}")
             for f in S.ptxas_report(log):
-                if GROUPS[key[0]]["kernel"] in f["function"]:
+                if any(k_ in f["function"] for k_ in GROUPS[key[0]]["kernels"]):
                     registers.setdefault(key, {})[f["function"]] = (
                         f["registers"], f.get("spill_stores", 0))
 
@@ -302,10 +436,14 @@ def main() -> int:
         for group in groups:
             spec = GROUPS[group]
             runs = entries(group, K, S, dev, gen)
-            for tag in list(spec["edits"]) + ["base"]:
+            tags = list(spec["edits"]) + ["base"]
+            if (group, "against") in trees:
+                tags = ["against"] + tags + ["against"]
+            for tag in tags:
                 use((group, tag))
                 K.build_kernels()
-                row = {"group": group, "variant": tag, "registers_spill": registers[(group, tag)],
+                row = {"group": group, "variant": tag,
+                       "registers_spill": registers.get((group, tag), {}),
                        "diagnostic": tag in spec["diagnostic"]}
                 for name, (run, run_b1, plain, drops, catches) in runs.items():
                     out, again = run(), run()
@@ -313,9 +451,11 @@ def main() -> int:
                     err = (out.float() - plain().float()).abs().max().item()
                     same = bool(torch.equal(out, again))
                     ok = err <= S.TOL["bfloat16"] and same
-                    if tag not in spec["diagnostic"] and (
-                            ok if tag == spec["mutation"] else not ok) and (
-                            catches or tag != spec["mutation"]):
+                    if tag in spec["mutations"]:
+                        must_fail = catches() if callable(catches) else catches
+                        if ok and tag in must_fail:
+                            failed.append((group, tag, name))
+                    elif tag not in spec["diagnostic"] and not ok:
                         failed.append((group, tag, name))
                     row[name] = {"max_abs_err": err, "same_bits": same, "ok": ok}
                     if run_b1 is not None:

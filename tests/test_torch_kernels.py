@@ -643,17 +643,27 @@ def test_short_packed_kernels_match_plain_on_card(cuda_device, shape, dtype, rat
         qkv, out.detach(), do, H, rate, salts), dtype)
 
 
+K9_FIRST_SHAPES = [(384, 64, 1024), (24, 64, 128), (5, 256, 256), (7, 16, 128)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n,hs,S", [(384, 64, 1024), (24, 64, 128), (5, 256, 256), (7, 16, 128)])
+@pytest.mark.parametrize("n,hs,S", [(384, 64, 1024), (24, 64, 128), (5, 256, 256), (7, 16, 128),
+                                    (24, 64, 1024), (24, 64, 8192), (3, 256, 2048),
+                                    (7, 16, 130)])
 def test_decode_t_kernel_matches_plain_on_card(cuda_device, n, hs, S, dtype):
-    """K9 against its plain version at pos 0, 127, S/2 and S - 1 read on the
-    device; one column past pos must differ where there is one."""
+    """K9 against its plain version at pos 0, 127, S/2, S - 1 and the edges
+    of the launcher's chunks (chunk - 1, chunk, 2 chunk - 1) read on the
+    device, one launch each; two runs give the same bits. One column past
+    pos must differ at pos 0, 127 and S/2 of the first four shapes and
+    wherever it moves the plain version by more than 1.5 times the limit
+    (S 130: element loads)."""
     gen = torch.Generator().manual_seed(n + S)
     dt = getattr(torch, dtype)
     q = torch.randn((n, 1, hs), generator=gen).to(cuda_device, dt)
     kT, vT = (torch.randn((n, hs, S), generator=gen).to(cuda_device, dt) for _ in range(2))
-    for pos in (0, 127, S // 2, S - 1):
+    ch = K.decode_attention_t_plan(q, kT, vT)["chunk"]
+    for pos in sorted({0, 127, S // 2, S - 1} | {p for p in (ch - 1, ch, 2 * ch - 1) if p < S}):
         tpos = torch.tensor([pos], dtype=torch.int32, device=cuda_device)
         before = K.launch_counts()["decode_attention_t"]
         out = K.decode_attention_t(q, kT, vT, tpos)
@@ -661,7 +671,13 @@ def test_decode_t_kernel_matches_plain_on_card(cuda_device, n, hs, S, dtype):
         assert K.launch_counts()["decode_attention_t"] == before + 1
         ref = K.decode_attention_t_plain(q, kT, vT, pos)
         torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=0)
-        if pos < S - 1:
+        assert torch.equal(out, K.decode_attention_t(q, kT, vT, tpos))
+        if pos == S - 1:
+            continue
+        moved = (K.decode_attention_t_plain(q, kT, vT, pos + 1).float()
+                 - ref.float()).abs().max().item()
+        if ((n, hs, S) in K9_FIRST_SHAPES and pos in (0, 127, S // 2)
+                or moved > 1.5 * TOL[dtype]):
             wrong = K.decode_attention_t(q, kT, vT, tpos + 1)
             assert (wrong.float() - ref.float()).abs().max().item() > TOL[dtype]
 

@@ -284,15 +284,17 @@ def test_packed_attention_active_matches_jax(t, hs, impl):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("S", [128, 256])
-@pytest.mark.parametrize("which", ["zero", "seven", "127", "last"])
+@pytest.mark.parametrize("S", [128, 256, 1024, 2048])
+@pytest.mark.parametrize("which", ["zero", "seven", "127", "last", "255", "256"])
 def test_decode_t_plain_matches_jax_interpret(which, S, dtype):
     """K9's plain version against ``decode_attention_t`` in interpret mode,
-    q (2, 3, 1, hs) against transposed caches (2, 3, hs, S), pos 0, 7, 127
-    and S - 1 (an int and a one-element int32 tensor)."""
-    pos = {"zero": 0, "seven": 7, "127": 127, "last": S - 1}[which]
+    q (2, 3, 1, hs) against transposed caches (2, 3, hs, S): hs 32 at S 128
+    and 256, 64 at S 1024, 256 at S 2048; pos 0, 7, 127, 255, 256 (the edges
+    of the card's chunks of 256; past the cache at S 128) and S - 1 (an int
+    and a one-element int32 tensor)."""
+    pos = {"zero": 0, "seven": 7, "127": 127, "last": S - 1, "255": 255, "256": 256}[which]
     rng = np.random.default_rng(S + pos)
-    hs = 32
+    hs = {128: 32, 256: 32, 1024: 64, 2048: 256}[S]
     q = rng.standard_normal((2, 3, 1, hs)).astype(np.float32)
     kT, vT = (rng.standard_normal((2, 3, hs, S)).astype(np.float32) for _ in range(2))
     ref = jpa.decode_attention_t(*(_to_jax(a, dtype) for a in (q, kT, vT)), pos, interpret=True)

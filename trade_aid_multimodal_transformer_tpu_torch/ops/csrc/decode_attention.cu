@@ -9,9 +9,9 @@
 //           k_scale and v_scale (n, S / pack)
 //
 // Replaces: trade_aid_multimodal_transformer_tpu/ops/pallas_attention.py,
-// _decode_kernel (decode_attention), _decode_t_kernel (decode_attention_t),
-// _decode_p_kernel (decode_attention_packed) and _decode_p8_kernel
-// (decode_attention_packed_q8). Each keeps its JAX kernel's rounding points:
+// the bodies of decode_attention (:2602), decode_attention_t (:2698),
+// decode_attention_packed (:2811) and decode_attention_packed_q8 (:2925).
+// Each keeps its JAX kernel's rounding points:
 //   plain and transposed:  s = q.k * hs^-0.5 in f32; w = p / sum(p) rounded to
 //           v's type; out = sum_c w_c v_c in f32, rounded once;
 //   packed: one max over every position; the unnormalised p_c rounded to v's
@@ -30,7 +30,9 @@
 // bounds it by far. At the serving shapes (24 * B or 18 * B rows, S = 64,
 // hs = 64) a row is 16 KB, so the latency of one row's loads, not bandwidth,
 // sets the time; the design keeps every load of a row in flight at once and
-// no barrier between the keys and the values.
+// no barrier between the keys and the values. The transposed form's rows
+// are long (S 1024 at hs 64: 256 KB a row in bf16): at 384 rows bandwidth
+// sets its time, at 24 rows one wave of loads over the whole card.
 //
 // The plain, packed and q8 forms run decode_warp_kernel: a warp per cache
 // row (rows of up to 128 positions; 4 rows a block, no block barrier), or W
@@ -52,16 +54,31 @@
 // the same bits. The host picks W and the rows a block from S, hs and the
 // rows that fit on the card at once (launch_warp).
 //
-// The transposed form (K9) keeps the first body, decode_kernel: one block
-// of 256 threads per row; the keys, then the values, pass through shared
-// memory in tiles of up to 32 KB, its loader reading runs of consecutive
-// positions per feature (coalesced) and storing them position-major with a
-// row stride of hs + 1 (no bank conflicts); a warp per key column computes
-// the scores from the tile, a block reduction the max and the row sum, and
-// groups of hs threads the P.V product over strided columns, combined in
-// shared memory in a fixed order. The JAX package keeps this layout for the
-// TPU's lane tiling; no caller of the port uses it, it stands beside the
-// other forms for users of the op.
+// The transposed form (K9) runs decode_t_kernel: a row is split into runs
+// of consecutive positions ("chunks"), one a block, and the C blocks of a
+// row form a thread block cluster (C <= 8). The lanes of a warp take
+// consecutive 16-byte loads along S (8 bf16 or 4 f32 positions a lane; one
+// element where a feature's run is not 16-byte aligned), coalesced, and
+// each of the block's 8 warps takes 8 features of a round of 64 (hs > 64:
+// several rounds), so a batch of loads is 8 a thread, issued at clamped
+// addresses, the next batch before the current one is summed. A lane keeps
+// its positions' partial scores in registers; the warps' partials of a pass
+// are summed in warp order through shared memory. The first batch of
+// values is in flight while the max and the row sum are exchanged: each
+// warp's max, then its sum of p, go by shuffles to every block of the
+// cluster (distributed shared memory), which each reduce them in (block,
+// warp) order, so every block holds the row's own max and l before it
+// rounds w = p / l (the JAX rounding point; no block rescales a partial
+// result). P.V: each lane sums its positions per feature, a reduce-scatter
+// over the warp's lanes (reduce_scatter) gives each lane one feature's sum,
+// and the blocks' sums go to rank 0, which adds them in rank order and
+// writes o once. No float atomics: two runs give the same bits. Blocks whose
+// run lies past pos exchange a max of -inf and an l of 0. The host picks C
+// and the chunk from n, S, hs and the clusters the card holds at once
+// (plan_t). The JAX package keeps this layout for the TPU's lane tiling; no
+// caller of the port uses it, it stands beside the other forms for users of
+// the op.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -71,11 +88,8 @@
 
 namespace tat_decode {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBatch = 8;           // loads in flight per thread (decode_kernel)
-constexpr int kTileFloats = 8192;   // 32 KB of cache rows per tile
-enum Variant { kPlain = 0, kPacked = 1, kQ8 = 2, kTransposed = 3 };
+constexpr int kMaxHs = 256;  // the largest head size of every form
+enum Variant { kPlain = 0, kPacked = 1, kQ8 = 2 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -375,7 +389,7 @@ template <typename T, typename KV, int kVariant>
 int launch_warp(const void* q, const void* k, const void* v, const void* k_scale,
                 const void* v_scale, const void* pos, void* out, int n, int S, int hs,
                 int pack, float scale, cudaStream_t stream) {
-  if (n <= 0 || hs <= 0 || hs > kThreads || S <= 0 || pack <= 0 || S % pack != 0)
+  if (n <= 0 || hs <= 0 || hs > kMaxHs || S <= 0 || pack <= 0 || S % pack != 0)
     return (int)cudaErrorInvalidValue;
   // 16-byte loads where every position of k and v starts on a 16-byte boundary
   constexpr int kE = 16 / (int)sizeof(KV);
@@ -426,164 +440,341 @@ int launch_warp(const void* q, const void* k, const void* v, const void* k_scale
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------ transposed (K9): a block per row
+// ------------------------------------------------ transposed (K9): a row over a cluster
 
-// The first body of this file, as it was: the template of every form, now
-// instantiated for the transposed one only (K9 keeps it until its own
-// redesign; a copy pruned to that form compiled to a loader that took twice
-// the time on an NVIDIA H100).
+constexpr int kTWarps = 8;                   // warps of a K9 block
+constexpr int kTThreads = 32 * kTWarps;
+constexpr int kTFeat = 8;                    // features a warp takes in a round
+constexpr int kTRound = kTWarps * kTFeat;    // features a round (hs > 64: several rounds)
+constexpr int kTMaxCluster = 8;              // blocks a row: the portable cluster size
 
-// Block-wide max or sum of one value per thread; every thread gets the result.
-template <bool kMax>
-__device__ float block_reduce(float x, float* scratch) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const float y = __shfl_xor_sync(0xffffffffu, x, o);
-    x = kMax ? fmaxf(x, y) : x + y;
-  }
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) scratch[warp] = x;
-  __syncthreads();
-  float r = scratch[0];
-  for (int w = 1; w < kWarps; ++w) r = kMax ? fmaxf(r, scratch[w]) : r + scratch[w];
-  __syncthreads();
-  return r;
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+// Every thread of every block of the cluster arrives; the stores before it
+// (to this block's or another block's shared memory) are seen after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-// Copy cache positions [c0, c0 + nc) of one row's cache into tile (f32,
-// position c0 + j at tile[j * ldt]), every thread issuing kBatch independent
-// loads before it stores any: one load at a time would wait a device-memory
-// latency per element. The (S, hs) layouts read the tile's bytes in order
-// (ldt = hs); the transposed (hs, S) layout reads feature e's run of nc
-// positions at e * S + c0 (ldt = hs + 1).
-template <bool kTrans, typename KV>
-__device__ void load_tile(const KV* __restrict__ src, int c0, int nc, int hs, int S, int ldt,
-                          float* tile) {
-  const int n = nc * hs;
-  for (int i0 = threadIdx.x; i0 < n; i0 += kThreads * kBatch) {
-    float v[kBatch];
+// The kN partial sums a of this lane (feature i of its warp slice in a[i]),
+// summed over the warp's 32 lanes: each halving step keeps half the
+// features and sends the other half to the lane at xor o, then a tree sums
+// the rest (kN = 8: 4 + 2 + 1 + 2 shuffles where 8 trees would take 40).
+// The lane returns feature (lane >> 2) & 7 for kN = 8, in general the
+// feature whose index is the lane's bits 16, 8, ... read high to low. The
+// order of every sum is fixed: two runs give the same bits.
+template <int kN>
+__device__ __forceinline__ float reduce_scatter(float (&a)[kN], int lane) {
+  static_assert(kN >= 1 && kN <= 32 && (kN & (kN - 1)) == 0, "kN a power of two up to 32");
+  int o = 16;
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int idx = i0 + u * kThreads;
-      const size_t at = kTrans ? (size_t)(idx / nc) * S + c0 + idx % nc : (size_t)c0 * hs + idx;
-      v[u] = idx < n ? to_f(src[at]) : 0.f;
-    }
+  for (int h = kN / 2; h >= 1; h /= 2, o /= 2) {
+    const bool up = lane & o;
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const int idx = i0 + u * kThreads;
-      if (idx < n) tile[kTrans ? (idx % nc) * ldt + idx / nc : idx] = v[u];
+    for (int i = 0; i < h; ++i) {
+      const float send = up ? a[i] : a[i + h];
+      const float keep = up ? a[i + h] : a[i];
+      a[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
     }
   }
-  __syncthreads();
+  float v = a[0];
+#pragma unroll
+  for (; o >= 1; o /= 2) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
 }
 
-// T: the query and output type (bf16 or f32); KV: the cache type (T, or int8
-// for q8). Shared memory: q (hs), scores / probabilities (S), a tile of
-// cache rows (kTileFloats), P.V partial sums (groups * hs), reduction
-// scratch (kWarps). Keys pass through the tile once for the scores, values
-// once for P.V.
-template <typename T, typename KV, int kVariant>
-__global__ void __launch_bounds__(kThreads)
-    decode_kernel(const T* __restrict__ q, const KV* __restrict__ k,
-                  const KV* __restrict__ v, const float* __restrict__ k_scale,
-                  const float* __restrict__ v_scale, const int* __restrict__ pos_p,
-                  T* __restrict__ out, int S, int hs, int pack, float scale) {
-  extern __shared__ float sm[];
-  constexpr bool kTrans = kVariant == kTransposed;
-  const int groups = kThreads / hs;
-  const int ldt = kTrans ? hs + 1 : hs;      // tile row stride
-  const int tc = min(S, kTileFloats / ldt);  // cache positions per tile
-  float* qs = sm;
-  float* s = qs + hs;
-  float* tile = s + S;
-  float* part = tile + kTileFloats;
-  float* scratch = part + groups * hs;
-  const size_t row = blockIdx.x;
-  const KV* kr = k + row * (size_t)S * hs;
-  const KV* vr = v + row * (size_t)S * hs;
-  const int sp = S / pack;
-  const float inv127 = (float)(1.0 / 127.0);  // the f32 of JAX's Python 1.0 / 127.0
+struct TArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int* pos_p;
+  void* out;
+  int S, hs;
+  int C;      // blocks a row: the cluster
+  int chunk;  // positions a block: block r of a row takes [r chunk, (r + 1) chunk)
+  float scale;
+};
 
-  const int pos = __ldg(pos_p);
-  const int n_vis = max(0, min(pos + 1, S));  // columns 0..pos; the rest are masked
+// The lanes of a warp take consecutive loads along S (kE positions each, 16
+// bytes where kVec, else one element): a pass of the block covers kP = 32 kE
+// positions; each warp takes kTFeat features of a round, so a load batch is
+// kTFeat loads a thread, one per feature, all at clamped addresses. Shared
+// memory: q (hp floats, zero past hs), the warps' partial scores of a pass
+// (two buffers of kTWarps x kP), the chunk's scores, then p (sl), the
+// warps' maxima and row sums of every block of the cluster (written there
+// by each block), and the blocks' P.V partial sums (C x hp, read on rank 0).
+// Registers are capped for two blocks an SM (a cap for three spills, and
+// ran slower on an NVIDIA H100: chip_variants.py decode_t, blocks3).
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kTThreads, 2) decode_t_kernel(const TArgs ta) {
+  using Raw = typename std::conditional<kVec, uint4, T>::type;
+  constexpr int kE = kVec ? 16 / (int)sizeof(T) : 1;
+  constexpr int kP = 32 * kE;
+  extern __shared__ __align__(16) float smt[];
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster_arrive_relaxed();  // its wait comes before the first store to another block
 
-  for (int e = threadIdx.x; e < hs; e += kThreads) qs[e] = to_f(q[row * hs + e]);
-
-  // scores, one warp per column of the tile
+  const int S = ta.S, hs = ta.hs, C = ta.C;
+  const int rounds = (hs + kTRound - 1) / kTRound, hp = rounds * kTRound;
+  const int sl = (ta.chunk + kP - 1) / kP * kP;
+  float* qs = smt;
+  float* sp = qs + hp;
+  float* s = sp + 2 * kTWarps * kP;
+  float* cm = s + sl;
+  float* cl = cm + C * kTWarps;
+  float* po = cl + C * kTWarps;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int c0 = 0; c0 < n_vis; c0 += tc) {
-    const int nc = min(tc, n_vis - c0);
-    load_tile<kTrans>(kr, c0, nc, hs, S, ldt, tile);  // its barrier also publishes qs
-    for (int j = warp; j < nc; j += kWarps) {
-      float dot = 0.f;
-      for (int e = lane; e < hs; e += 32) dot = fmaf(qs[e], tile[j * ldt + e], dot);
-      for (int o = 16; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
-      if (lane == 0) {
-        const int c = c0 + j;
-        float sc = dot * scale;
-        if (kVariant == kQ8) sc = sc * (k_scale[row * sp + c / pack] * inv127);
-        s[c] = sc;
+  const int rank = blockIdx.x % C;
+  const size_t row = blockIdx.x / C;
+  const T* qr = static_cast<const T*>(ta.q) + row * hs;
+  const T* kr = static_cast<const T*>(ta.k) + row * hs * S;
+  const T* vr = static_cast<const T*>(ta.v) + row * hs * S;
+
+  for (int e = threadIdx.x; e < hp; e += kTThreads) qs[e] = e < hs ? to_f(qr[min(e, hs - 1)]) : 0.f;
+  for (int i = threadIdx.x; i < C * hp; i += kTThreads) po[i] = 0.f;  // blocks with no position
+  const int vis = max(0, min(__ldg(ta.pos_p) + 1, S));  // columns 0..pos; the rest unread
+  const int c0 = rank * ta.chunk, c1 = min(c0 + ta.chunk, vis);  // this block's visible run
+  const int len = max(0, c1 - c0);
+  const int passes = (len + kP - 1) / kP, nb = passes * rounds;
+  const int last = c0 + max(0, len - 1) / kE * kE;  // the run's last load
+
+  // the batch of (pass, round): this lane's load of each of its warp's
+  // features; a load past the run or a feature past hs reads the run's last
+  // load or feature hs - 1 (no load waits behind a condition)
+  auto load = [&](Raw (&r)[kTFeat], const T* base, int pass, int rd) {
+    const int c = min(c0 + pass * kP + lane * kE, last);
+#pragma unroll
+    for (int i = 0; i < kTFeat; ++i) {
+      const size_t at = (size_t)min(rd * kTRound + warp * kTFeat + i, hs - 1) * S + c;
+      if constexpr (kVec)
+        r[i] = __ldg(reinterpret_cast<const uint4*>(base + at));
+      else
+        r[i] = base[at];
+    }
+  };
+
+  // scores: batch b is pass b / rounds, round b % rounds; the next batch's
+  // loads are issued before this one is summed. A pass's partial scores go
+  // through shared memory, summed over the warps in warp order.
+  Raw kb[kTFeat], kn[kTFeat], vb[kTFeat], vn[kTFeat];
+  float sc[kE];
+  if (nb > 0) load(kb, kr, 0, 0);
+  __syncthreads();  // qs
+  for (int b = 0; b < nb; ++b) {
+    const int pass = b / rounds, rd = b - pass * rounds;
+    if (b + 1 < nb) load(kn, kr, (b + 1) / rounds, (b + 1) % rounds);
+    if (rd == 0)
+#pragma unroll
+      for (int j = 0; j < kE; ++j) sc[j] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kTFeat; ++i) {
+      const float qv = qs[rd * kTRound + warp * kTFeat + i];
+      float f[kE];
+      to_floats<T>(kb[i], f);
+#pragma unroll
+      for (int j = 0; j < kE; ++j) sc[j] = fmaf(qv, f[j], sc[j]);
+    }
+    if (rd == rounds - 1) {
+      float* spp = sp + (pass & 1) * kTWarps * kP;
+#pragma unroll
+      for (int j = 0; j < kE; ++j) spp[warp * kP + lane * kE + j] = sc[j];
+      __syncthreads();
+      if (threadIdx.x < kP) {
+        float t = 0.f;
+#pragma unroll
+        for (int w = 0; w < kTWarps; ++w) t += spp[w * kP + threadIdx.x];
+        const int at = pass * kP + threadIdx.x;
+        s[at] = c0 + at < c1 ? t * ta.scale : -INFINITY;
       }
     }
-    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kTFeat; ++i) kb[i] = kn[i];
   }
 
+  if (nb > 0) load(vb, vr, 0, 0);  // the first values, in flight during the exchanges
+
+  // the row max: this block's warps' maxima go to every block of the
+  // cluster, which each take the max over all of them in (block, warp) order
+  float m = -INFINITY;
+  if (threadIdx.x < kP)
+    for (int pass = 0; pass < passes; ++pass) m = fmaxf(m, s[pass * kP + threadIdx.x]);
+  m = warp_max(m);
+  cluster_wait();  // every block of the cluster has started
+  if (lane < C) *cluster.map_shared_rank(cm + rank * kTWarps + warp, lane) = m;
+  cluster_sync();
   float mx = -INFINITY;
-  for (int c = threadIdx.x; c < n_vis; c += kThreads) mx = fmaxf(mx, s[c]);
-  mx = block_reduce<true>(mx, scratch);
-  float sum = 0.f;
-  for (int c = threadIdx.x; c < n_vis; c += kThreads) {
-    const float p = expf(s[c] - mx);
-    s[c] = p;
-    sum += p;
-  }
-  const float l = block_reduce<false>(sum, scratch);  // its barrier publishes s
-  // the weights that multiply v, at their variant's rounding point
-  for (int c = threadIdx.x; c < n_vis; c += kThreads) {
-    if (kVariant == kPlain || kTrans) s[c] = round_to<T>(s[c] / l);
-    else if (kVariant == kPacked) s[c] = round_to<T>(s[c]);
-    else s[c] = round_to<T>(s[c] * (v_scale[row * sp + c / pack] * inv127));
-  }
-  // (load_tile's barrier publishes the weights)
+  for (int i = 0; i < C * kTWarps; ++i) mx = fmaxf(mx, cm[i]);
 
-  // P.V: thread (g, e) sums the tile's rows g, g + groups, ... of feature e
-  const int g = threadIdx.x / hs, e = threadIdx.x % hs;
-  float acc = 0.f;
-  for (int c0 = 0; c0 < n_vis; c0 += tc) {
-    const int nc = min(tc, n_vis - c0);
-    load_tile<kTrans>(vr, c0, nc, hs, S, ldt, tile);
-    if (g < groups)
-      for (int j = g; j < nc; j += groups) acc = fmaf(s[c0 + j], tile[j * ldt + e], acc);
-    __syncthreads();
+  // p = exp(s - max) and the row sum l, exchanged as the max
+  float l = 0.f;
+  if (threadIdx.x < kP)
+    for (int pass = 0; pass < passes; ++pass) {
+      const int at = pass * kP + threadIdx.x;
+      const float p = expf(s[at] - mx);
+      s[at] = p;
+      l += p;
+    }
+  l = warp_sum(l);
+  if (lane < C) *cluster.map_shared_rank(cl + rank * kTWarps + warp, lane) = l;
+  cluster_sync();
+  float lt = 0.f;
+  for (int i = 0; i < C * kTWarps; ++i) lt += cl[i];
+
+  // P.V with w = p / l rounded to T (the row's own max and l: the JAX
+  // kernel's rounding point). Batch b is round b / passes, pass b % passes;
+  // each round's partial sums per feature go over the warp's lanes
+  // (reduce_scatter) to rank 0's shared memory, which adds the blocks'
+  // sums in rank order and writes o once.
+  float acc[kTFeat];
+  for (int b = 0; b < nb; ++b) {
+    const int rd = b / passes, pass = b - rd * passes;
+    if (b + 1 < nb) load(vn, vr, (b + 1) % passes, (b + 1) / passes);
+    if (pass == 0)
+#pragma unroll
+      for (int i = 0; i < kTFeat; ++i) acc[i] = 0.f;
+    const int at = pass * kP + lane * kE, nv = c1 - c0 - at;  // positions of the load in the run
+    float w[kE];
+#pragma unroll
+    for (int j = 0; j < kE; ++j) w[j] = j < nv ? round_to<T>(s[at + j] / lt) : 0.f;
+#pragma unroll
+    for (int i = 0; i < kTFeat; ++i) {
+      float f[kE];
+      to_floats<T>(vb[i], f);
+#pragma unroll
+      for (int j = 0; j < kE; ++j) acc[i] = fmaf(w[j], j < nv ? f[j] : 0.f, acc[i]);
+    }
+    if (pass == passes - 1) {
+      const float o = reduce_scatter<kTFeat>(acc, lane);
+      const int e = rd * kTRound + warp * kTFeat + (lane >> 2);
+      if ((lane & 3) == 0 && e < hs) *cluster.map_shared_rank(po + rank * hp + e, 0) = o;
+    }
+#pragma unroll
+    for (int i = 0; i < kTFeat; ++i) vb[i] = vn[i];
   }
-  if (g < groups) part[g * hs + e] = acc;
-  __syncthreads();
-  for (int f = threadIdx.x; f < hs; f += kThreads) {
-    float o = 0.f;
-    for (int gg = 0; gg < groups; ++gg) o += part[gg * hs + f];
-    if (kVariant == kPacked || kVariant == kQ8) o = o / l;
-    store(out + row * hs + f, o);
+  cluster_sync();
+  if (rank == 0) {
+    T* orow = static_cast<T*>(ta.out) + row * hs;
+    for (int e = threadIdx.x; e < hs; e += kTThreads) {
+      float o = 0.f;
+      for (int r = 0; r < C; ++r) o += po[r * hp + e];
+      store(orow + e, o);
+    }
   }
 }
 
-template <typename T, typename KV, int kVariant>
-int launch(const void* q, const void* k, const void* v, const void* k_scale,
-           const void* v_scale, const void* pos, void* out, int n, int S, int hs,
-           int pack, float scale, cudaStream_t stream) {
-  if (n <= 0 || hs <= 0 || hs > kThreads || S <= 0 || pack <= 0 || S % pack != 0)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * ((size_t)hs + S + kTileFloats +
-                                       (size_t)(kThreads / hs) * hs + kWarps);
-  auto kernel = decode_kernel<T, KV, kVariant>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+template <typename T, bool kVec>
+size_t smem_t(int chunk, int C, int hs) {
+  constexpr int kE = kVec ? 16 / (int)sizeof(T) : 1, kP = 32 * kE;
+  const size_t hp = (hs + kTRound - 1) / kTRound * kTRound, sl = (chunk + kP - 1) / kP * kP;
+  return sizeof(float) * (hp + 2 * kTWarps * kP + sl + 2 * C * kTWarps + C * hp);
+}
+
+// K9's blocks a row (C, the cluster) and positions a block (chunk) at these
+// shapes: each C of 1, 2, 4, 8 (chunk = S / C, rounded up to whole loads)
+// costs the waves of clusters that the card holds at once times the passes
+// a block takes, the chain of a block's dependent steps; the least cost
+// wins, the smaller C on a tie. The shapes and the card alone decide, so
+// two runs give the same bits.
+struct TPlan {
+  int C, chunk;
+  size_t smem;
+};
+
+template <typename T, bool kVec>
+cudaError_t plan_t(int n, int S, int hs, TPlan* plan) {
+  constexpr int kE = kVec ? 16 / (int)sizeof(T) : 1, kP = 32 * kE;
+  auto kernel = decode_t_kernel<T, kVec>;
+  int dev = 0, max_smem = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  const int least = (S + kTMaxCluster - 1) / kTMaxCluster;  // the chunk of the largest cluster
+  long long best = -1;
+  int prev = 0;
+  for (int C = 1; C <= kTMaxCluster; C *= 2) {
+    int chunk = (S + C - 1) / C;
+    chunk = (max(chunk, least) + kE - 1) / kE * kE;
+    const int c = (S + chunk - 1) / chunk;  // every block holds a position
+    if (c == prev) continue;
+    prev = c;
+    const size_t smem = smem_t<T, kVec>(chunk, c, hs);
+    if (smem > (size_t)max_smem) continue;
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return err;
+    }
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = c;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(c);
+    cfg.blockDim = dim3(kTThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    if (clusters <= 0) continue;
+    const long long cost = (long long)((n + clusters - 1) / clusters) * ((chunk + kP - 1) / kP);
+    if (best < 0 || cost < best) {
+      best = cost;
+      *plan = TPlan{c, chunk, smem};
+    }
   }
-  kernel<<<(unsigned)n, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v),
-      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
-      static_cast<const int*>(pos), static_cast<T*>(out), S, hs, pack, scale);
-  return (int)cudaGetLastError();
+  return best < 0 ? cudaErrorInvalidConfiguration : cudaSuccess;
+}
+
+// 16-byte loads where every feature's run of positions starts on a 16-byte
+// boundary (S a multiple of the positions a load, k and v aligned)
+template <typename T>
+bool vec_t(const void* k, const void* v, int S) {
+  return S % (16 / (int)sizeof(T)) == 0 &&
+         (reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16 == 0;
+}
+
+template <typename T>
+int plan_of(int n, int S, int hs, bool vec, TPlan* plan) {
+  if (n <= 0 || hs <= 0 || hs > kMaxHs || S <= 0) return (int)cudaErrorInvalidValue;
+  return (int)(vec ? plan_t<T, true>(n, S, hs, plan) : plan_t<T, false>(n, S, hs, plan));
+}
+
+template <typename T>
+int launch_t(const void* q, const void* k, const void* v, const void* pos, void* out, int n,
+             int S, int hs, float scale, cudaStream_t stream) {
+  const bool vec = vec_t<T>(k, v, S);
+  TPlan plan;
+  const int err = plan_of<T>(n, S, hs, vec, &plan);
+  if (err != 0) return err;
+  auto kernel = vec ? decode_t_kernel<T, true> : decode_t_kernel<T, false>;
+  if (plan.smem > 48 * 1024) {  // planning may have left a smaller limit set
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)plan.smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = plan.C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((long long)n * plan.C));
+  cfg.blockDim = dim3(kTThreads);
+  cfg.dynamicSmemBytes = plan.smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const TArgs a{q, k, v, static_cast<const int*>(pos), out, S, hs, plan.C, plan.chunk, scale};
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 }  // namespace tat_decode
@@ -639,9 +830,22 @@ extern "C" int tat_decode_attention_t(const void* q, const void* k, const void* 
                                       int is_bf16, float scale, void* stream) {
   using namespace tat_decode;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch<__nv_bfloat16, __nv_bfloat16, kTransposed>(q, k, v, nullptr, nullptr, pos,
-                                                             out, n, S, hs, 1, scale, s);
-  return launch<float, float, kTransposed>(q, k, v, nullptr, nullptr, pos, out, n, S, hs, 1,
-                                           scale, s);
+  if (is_bf16) return launch_t<__nv_bfloat16>(q, k, v, pos, out, n, S, hs, scale, s);
+  return launch_t<float>(q, k, v, pos, out, n, S, hs, scale, s);
+}
+
+// What tat_decode_attention_t launches for these operands: plan[0] the
+// blocks a row (the cluster), plan[1] the positions a block, plan[2] 1 where
+// the loads are 16 bytes wide. Returns the cudaError_t of the planning.
+extern "C" int tat_decode_attention_t_plan(const void* k, const void* v, int n, int S, int hs,
+                                           int is_bf16, int* plan) {
+  using namespace tat_decode;
+  const bool vec = is_bf16 ? vec_t<__nv_bfloat16>(k, v, S) : vec_t<float>(k, v, S);
+  TPlan p{};
+  const int err = is_bf16 ? plan_of<__nv_bfloat16>(n, S, hs, vec, &p)
+                          : plan_of<float>(n, S, hs, vec, &p);
+  plan[0] = p.C;
+  plan[1] = p.chunk;
+  plan[2] = vec;
+  return err;
 }

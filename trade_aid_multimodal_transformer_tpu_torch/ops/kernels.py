@@ -127,6 +127,7 @@ _SIGNATURES = {
     "decode_attention": {
         "tat_decode_attention": [_P] * 5 + [_I] * 4 + [_F, _P],
         "tat_decode_attention_t": [_P] * 5 + [_I] * 4 + [_F, _P],
+        "tat_decode_attention_t_plan": [_P] * 2 + [_I] * 4 + [_P],
         "tat_decode_attention_packed": [_P] * 5 + [_I] * 5 + [_F, _P],
         "tat_decode_attention_packed_q8": [_P] * 7 + [_I] * 5 + [_F, _P],
     },
@@ -1392,6 +1393,25 @@ def decode_attention_t(q, kT, vT, pos):
 
 
 decode_attention_t.launches = 0
+
+
+def decode_attention_t_plan(q, kT, vT) -> Dict[str, int]:
+    """How ``decode_attention_t`` splits these CUDA operands: ``cluster``
+    blocks a cache row (a thread block cluster), ``chunk`` consecutive
+    positions a block, ``vec`` 1 where its loads are 16 bytes wide. The
+    shapes and the card decide it; the result does not depend on it beyond
+    rounding. Launches nothing."""
+    what = "decode_attention_t_plan"
+    if _on_cpu(q, kT, vT):
+        raise ValueError(f"{what}: the plan is the CUDA kernel's; the operands lie on the CPU")
+    _check_cuda_operands(what, (q, kT, vT))
+    hs = q.shape[-1]
+    plan = (ctypes.c_int * 3)()
+    err = _fn("decode_attention", "tat_decode_attention_t_plan")(
+        kT.data_ptr(), vT.data_ptr(), q.numel() // hs, kT.shape[-1], hs,
+        int(q.dtype == torch.bfloat16), plan)
+    _check_launch(err, what)
+    return {"cluster": plan[0], "chunk": plan[1], "vec": plan[2]}
 
 
 def decode_attention_packed(q, kp, vp, pos):
