@@ -1,0 +1,127 @@
+#!/usr/bin/env python3
+"""Device times of the training path's kernels in two checkouts, on one card.
+
+    python3 chip_compare.py PARENT_DIR [--rounds 1]
+
+PARENT_DIR is another checkout of this repository (for instance the parent
+commit, unpacked with ``git archive HEAD | tar -x -C dev_scratch/parent``).
+In turns (parent, this checkout, this checkout, parent; ``--rounds``
+times), a process of its own for each checkout builds that checkout's
+kernels into its own ``ops/_build/`` and times K1f, K1b, K2f, K2b, K5f, K5b
+and K6f-r at the production shapes of ``chip_smoke.py`` (bf16, dropout 0 and
+0.2; device time behind a spin kernel, ``chip_smoke.device_ms``), and, where
+the checkout's flash kernels take a row map (data parallelism), K5f and K5b
+on half the self-attention rows with and without one. Prints one JSON line
+per process (the checkout, the card, the times, the flash kernels'
+registers and spills at D = 64) and, last, the change's median over the
+parent's for each time. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import inspect
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+
+
+def time_checkout(root: Path, label: str) -> dict:
+    """The times of one checkout's kernels (run in a process of its own)."""
+    sys.path.insert(0, str(root))
+    import torch
+
+    import chip_smoke as S
+    from trade_aid_multimodal_transformer_tpu_torch.ops import kernels as K
+
+    if not Path(K.__file__).resolve().is_relative_to(root):
+        raise RuntimeError(f"imported {K.__file__}, not the kernels of {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    K.build_kernels()
+    regs = [(f["function"][:64], f.get("registers"), f.get("spill_stores"))
+            for f in S.ptxas_report(K.build_log("flash_attention")) if "ILi64" in f["function"]]
+    g = torch.Generator().manual_seed(0)
+    dev, bf = torch.device("cuda"), torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dev)
+
+    M, B, T, C, H, hs = S.PROD_K1
+    x, do1 = randn(M, B, T, C).to(bf), randn(M, H, B, T, hs).to(bf)
+    w1, b1 = randn(M, C, 3 * H * hs // 2, scale=0.05), randn(M, 3 * H * hs // 2, scale=0.05)
+    w2 = randn(M, 3 * H, hs // 2, hs, scale=0.2)
+    o1 = K.fused_qkv_attention_fwd(x, w1, b1, w2, H, 0.2, S.SALTS)
+    J2, n2 = 3, 6 * 32
+    q2, d2 = randn(n2, 64, 64).to(bf), randn(n2, 64, 64).to(bf)
+    k2, v2 = randn(J2, n2, 64, 64).to(bf), randn(J2, n2, 64, 64).to(bf)
+    n5, T5, h5 = S.FLASH_PROD
+    q5, k5, v5, d5 = (randn(n5, T5, h5).to(bf) for _ in range(4))
+    o5, l5 = K.flash_attention_fwd(q5, k5, v5, 0.2, S.SALTS)
+    J6, n6, T6, h6 = S.FLASH_CROSS_PROD
+    q6 = randn(n6, T6, h6).to(bf)
+    k6, v6 = randn(J6, n6, T6, h6).to(bf), randn(J6, n6, T6, h6).to(bf)
+    t = {}
+    for rate in (0.0, 0.2):
+        s = S.SALTS if rate else None
+        t[f"K1f_{rate}"] = S.device_ms(
+            lambda: K.fused_qkv_attention_fwd(x, w1, b1, w2, H, rate, s))
+        t[f"K1b_{rate}"] = S.device_ms(
+            lambda: K.fused_qkv_attention_bwd(x, w1, b1, w2, o1, do1, H, rate, s))
+        t[f"K2f_{rate}"] = S.device_ms(lambda: K.short_cross_attention_fwd(q2, k2, v2, rate, s))
+        t[f"K2b_{rate}"] = S.device_ms(
+            lambda: K.short_cross_attention_bwd(q2, k2, v2, d2, rate, s))
+        t[f"K5f_{rate}"] = S.device_ms(lambda: K.flash_attention_fwd(q5, k5, v5, rate, s))
+        t[f"K5b_{rate}"] = S.device_ms(
+            lambda: K.flash_attention_bwd(q5, k5, v5, o5, l5, d5, rate, s))
+        t[f"K6fr_{rate}"] = S.device_ms(lambda: K.flash_cross_attention_res(q6, k6, v6, rate, s))
+    if "rows" in inspect.signature(K.flash_attention_fwd).parameters:
+        # as many rows as data rank 1 of 2 holds of the (M 4, B 8, H 6) rows,
+        # with its map (span, skip and base B/2 H = 24) and without one
+        half, rows = n5 // 2, (4 * 6,) * 3
+        qh, kh, vh, dh = (a[:half].contiguous() for a in (q5, k5, v5, d5))
+        oh, lh = K.flash_attention_fwd(qh, kh, vh, 0.2, S.SALTS)
+        for name, rw in (("one_rank", None), ("mapped", rows)):
+            t[f"K5f_half_{name}"] = S.device_ms(
+                lambda: K.flash_attention_fwd(qh, kh, vh, 0.2, S.SALTS, rw))
+            t[f"K5b_half_{name}"] = S.device_ms(
+                lambda: K.flash_attention_bwd(qh, kh, vh, oh, lh, dh, 0.2, S.SALTS, rows=rw))
+    return {"checkout": label, "root": str(root), "card": S.smi(), "ms": t, "flash_d64": regs}
+
+
+def main() -> int:
+    if sys.argv[1:2] == ["--child"]:
+        print(json.dumps(time_checkout(Path(sys.argv[2]).resolve(), sys.argv[3])), flush=True)
+        return 0
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("parent", type=Path)
+    ap.add_argument("--rounds", type=int, default=1)
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_compare: no CUDA device", file=sys.stderr)
+        return 2
+    order = [("parent", args.parent.resolve()), ("change", HERE),
+             ("change", HERE), ("parent", args.parent.resolve())] * max(1, args.rounds)
+    runs = []
+    for label, root in order:
+        out = subprocess.run([sys.executable, __file__, "--child", str(root), label],
+                             capture_output=True, text=True, check=True).stdout
+        runs.append(json.loads(out.strip().splitlines()[-1]))
+        print(json.dumps(runs[-1]), flush=True)
+    ratio = {}
+    for key in runs[0]["ms"]:
+        par = statistics.median(r["ms"][key] for r in runs if r["checkout"] == "parent")
+        chg = statistics.median(r["ms"][key] for r in runs if r["checkout"] == "change")
+        ratio[key] = chg / par
+    print(json.dumps({"change_over_parent": ratio}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -24,14 +24,23 @@ times the kernels, batched serving, cached serving and training. Each phase
 prints one line; any failed check raises and the script exits non-zero. The
 last line is ``{"ok": true, "device": {...}}``.
 
+Data parallelism (``tpu_options.mesh: {data: P}``) runs on the one card too:
+the kernels of both training steps called on half a batch with the
+global-row arguments against the global call's rows (``dp_kernel_check``),
+one production step over two ranks sharing the card against the one-rank
+step on the global batch (``dp_reference``), and the training entry over
+those two ranks (``dp_training``).
+
 Needs a CUDA device and the port package beside this file; without either it
 exits non-zero before printing any result.
 
     python3 chip_smoke.py --multi-card
 
 on a machine with 2 or 4 cards instead runs the training entry with
-context parallelism, one card per rank over NCCL, against the same run on
-one card, and compares every rank's parameters (``multi_card``).
+context parallelism, data parallelism (``{data: 2}``, ``{data: 4}`` and
+``mesh: auto``) and, on 4 cards, data x sequence, one card per rank over
+NCCL, against the same run on one card, and compares every rank's
+parameters (``multi_card``).
 
     python3 chip_smoke.py --k1b-split
 
@@ -1196,7 +1205,7 @@ def cp_rank(rank: int, world: int, job: dict):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    mesh = pmesh.seq_mesh(world, staged=True)
+    mesh = pmesh.make_mesh(seq=world, staged=True)
     cfg = job["cfg"]
     if job["kind"] == "reference":
         xb, yb = (x.to(dev) for x in job["batch"])
@@ -1538,16 +1547,435 @@ def context_parallel(K, card, gen, timing, errs, by_path):
         raise AssertionError("the context-parallel training run failed its checks")
 
 
+# data parallelism: the second half of the batch is the rank whose row offset
+# matters (the first half's offset is 0 either way)
+DP_RANKS = 2
+
+
+def dp_row_map(lead, axis: int, start: int, total: int):
+    """The global-row launch arguments (span, skip, base) of collapsed rows
+    of the leading axes ``lead`` whose axis ``axis`` holds rows
+    [start, start + lead[axis]) of a global batch of ``total`` rows."""
+    from trade_aid_multimodal_transformer_tpu_torch.ops.layers import (
+        batch_row_map, batch_slice_scope)
+
+    with batch_slice_scope(start, total):
+        return batch_row_map(lead, axis)
+
+
+def rel_err(out, ref) -> float:
+    """check_rel's measure: max-abs error over max(1, max|ref|)."""
+    ref = ref.float()
+    return ((out.float() - ref).abs().max() / ref.abs().max().clamp_min(1.0)).item()
+
+
+def dp_kernel_check(K, card, gen):
+    """kernel_check under data parallelism: K1f and K1b (the production
+    step's x (4, 32, 64, 384), 6 heads), K2f and K2b (its head-major cross
+    rows (6, 32, 64, 64) against 3 streams), K5f and K5b (the long step's
+    self-attention rows (4, 8, 6, 1024, 64)) and K6f-r (its cross rows
+    (8, 6, 1024, 64) against 3 streams), bf16, dropout 0.2, each called on
+    the second half of the batch with the global-row arguments. Held against
+    the same rows of the one call on the global batch: outputs and
+    gradients whose rows depend on no other row (recorded bit-equal or not;
+    the gate is the backward gate REL_TOL), weight gradients as the two
+    halves' sum; and against the plain version on the same inputs (REL_TOL).
+    The offset forced to 0 must fail against the global rows. One line per
+    kernel; raises on a failure."""
+    import torch
+
+    from trade_aid_multimodal_transformer_tpu_torch.ops.layers import map_rows
+
+    dev, bf, rate, tol = torch.device("cuda"), torch.bfloat16, 0.2, REL_TOL["bfloat16"]
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    failed = []
+
+    def report(name, shape, vs_global, vs_plain, planted, extra=None):
+        """Each of vs_global, vs_plain, planted: {output: (the half's call's
+        tensor, the reference's)}: the global call's same rows (or, for a
+        weight gradient, the two halves' sum against the global call's), the
+        plain version on the half's inputs, and the call with the offset
+        forced to 0 against the global call's rows."""
+        torch.cuda.synchronize()
+        errs_g = {o: rel_err(a, b) for o, (a, b) in vs_global.items()}
+        errs_p = {o: rel_err(a, b) for o, (a, b) in vs_plain.items()}
+        bits = {o: bool(torch.equal(a, b)) for o, (a, b) in vs_global.items()}
+        offset_0 = max(rel_err(a, b) for a, b in planted.values())
+        ok = max(errs_g.values()) <= tol and max(errs_p.values()) <= tol and offset_0 > tol
+        emit({"phase": "dp_kernel_check", "kernel": name, "card": card, "shape": list(shape),
+              "rows": "second half of the batch, global-row arguments", "dtype": "bfloat16",
+              "dropout": rate, "bit_equal_to_global": bits, "rel_err_vs_global": errs_g,
+              "rel_err_vs_plain": errs_p, "offset_0_rel_err_vs_global": offset_0, "tol": tol,
+              **(extra or {}), "ok": ok})
+        if not ok:
+            failed.append(name)
+
+    # K1f, K1b: the mask's batch group gb comes from the global batch
+    M, B, T, C, H, hs = PROD_K1
+    h = B // DP_RANKS
+    x, w1 = randn(M, B, T, C).to(bf), randn(M, C, 3 * H * hs // 2, scale=0.05)
+    b1, w2 = randn(M, 3 * H * hs // 2, scale=0.05), randn(M, 3 * H, hs // 2, hs, scale=0.2)
+    dout = randn(M, H, B, T, hs).to(bf)
+    g_out = K.fused_qkv_attention_fwd(x, w1, b1, w2, H, rate, SALTS)
+    g_grads = K.fused_qkv_attention_bwd(x, w1, b1, w2, g_out, dout, H, rate, SALTS)
+    halves = []
+    for start in (0, h):
+        xl, dl = x[:, start:start + h].contiguous(), dout[:, :, start:start + h].contiguous()
+        out = K.fused_qkv_attention_fwd(xl, w1, b1, w2, H, rate, SALTS, (start, B))
+        halves.append((xl, dl, out, K.fused_qkv_attention_bwd(xl, w1, b1, w2, out, dl, H, rate,
+                                                              SALTS, (start, B))))
+    xl, dl, out, grads = halves[1]
+    p_out = K.fused_qkv_attention_plain(xl, w1, b1, w2, H, rate, SALTS, (h, B))
+    p_grads = K.fused_qkv_attention_bwd_plain(xl, w1, b1, w2, out, dl, H, rate, SALTS, (h, B))
+    names = ("dx", "dw1", "db1", "dw2")
+    report("fused_qkv_attention + fused_qkv_attention_bwd", PROD_K1,
+           {"out": (out, g_out[:, :, h:]), "dx": (grads[0], g_grads[0][:, h:]),
+            **{o: (a + b, g) for o, a, b, g in zip(names[1:], halves[0][3][1:], grads[1:],
+                                                    g_grads[1:])}},
+           {"out": (out, p_out), **{o: (a, b) for o, a, b in zip(names, grads, p_grads)}},
+           {"out": (K.fused_qkv_attention_fwd(xl, w1, b1, w2, H, rate, SALTS, (0, B)),
+                    g_out[:, :, h:])},
+           {"weight_gradients": "the two halves' sum against the global call's",
+            "gb_global_batch": K.fqkv_pick_gb(B, H, T, hs, C, 2),
+            "gb_half_batch": K.fqkv_pick_gb(h, H, T, hs, C, 2)})
+    del x, dout, g_out, g_grads, halves
+
+    # K2f, K2b: head-major q (H, B, T, hs), k, v (J, H, B, T, hs)
+    J, n, T2, hs2 = 3, 6 * 32, 64, 64
+    H2, B2 = 6, n // 6
+    h2 = B2 // DP_RANKS
+    q, k, v, do = (randn(*s).to(bf) for s in ((H2, B2, T2, hs2), (J, H2, B2, T2, hs2),
+                                                (J, H2, B2, T2, hs2), (H2, B2, T2, hs2)))
+    g_out = K.short_cross_attention_fwd(q, k, v, rate, SALTS)
+    g_grads = K.short_cross_attention_bwd(q, k, v, do, rate, SALTS)
+    ql, dl = q[:, h2:].contiguous(), do[:, h2:].contiguous()
+    kl, vl = k[:, :, h2:].contiguous(), v[:, :, h2:].contiguous()
+    rows = dp_row_map((H2, h2), 1, h2, B2)
+    out = K.short_cross_attention_fwd(ql, kl, vl, rate, SALTS, rows)
+    grads = K.short_cross_attention_bwd(ql, kl, vl, dl, rate, SALTS, rows)
+    p_out = K.short_cross_attention_plain(ql, kl, vl, rate, SALTS, rows)
+    p_grads = K.short_cross_attention_bwd_plain(ql, kl, vl, dl, rate, SALTS, rows)
+    bad = K.short_cross_attention_fwd(ql, kl, vl, rate, SALTS, (rows[0], rows[1], 0))
+    report("short_cross_attention + short_cross_attention_bwd", (J, n, T2, hs2),
+           {"out": (out, g_out[:, h2:]), "dq": (grads[0], g_grads[0][:, h2:]),
+            "dk": (grads[1], g_grads[1][:, :, h2:]), "dv": (grads[2], g_grads[2][:, :, h2:])},
+           {"out": (out, p_out), **{o: (a, b) for o, a, b in zip(("dq", "dk", "dv"), grads,
+                                                                p_grads)}},
+           {"out": (bad, g_out[:, h2:])}, {"row_map": list(rows)})
+    del q, k, v, do
+
+    # K5f, K5b: the long step's self-attention rows (M, B, H) collapsed; the
+    # half's rows are not contiguous in the global call's (M > 1)
+    M5, B5, H5, T5, hs5 = 4, 8, 6, LONG_BLOCK, 64
+    h5 = B5 // DP_RANKS
+    q, k, v, do = (randn(M5, B5, H5, T5, hs5).to(bf) for _ in range(4))
+    flat = lambda t: t.reshape(-1, T5, hs5).contiguous()  # noqa: E731
+    g_out, g_lse = K.flash_attention_fwd(flat(q), flat(k), flat(v), rate, SALTS)
+    g_grads = K.flash_attention_bwd(flat(q), flat(k), flat(v), g_out, g_lse, flat(do), rate,
+                                    SALTS)
+    ql, kl, vl, dl = (flat(t[:, h5:]) for t in (q, k, v, do))
+    rows = dp_row_map((M5, h5, H5), 1, h5, B5)
+    idx = map_rows(torch.arange(ql.shape[0], device=dev), rows)
+    out, lse = K.flash_attention_fwd(ql, kl, vl, rate, SALTS, rows)
+    grads = K.flash_attention_bwd(ql, kl, vl, out, lse, dl, rate, SALTS, rows=rows)
+    p_out, p_lse = K.flash_attention_plain(ql, kl, vl, rate, SALTS, rows)
+    p_grads = K.flash_attention_bwd_plain(ql, kl, vl, out, lse, dl, rate, SALTS, rows=rows)
+    bad = K.flash_attention_fwd(ql, kl, vl, rate, SALTS, (rows[0], rows[1], 0))[0]
+    report("flash_attention + flash_attention_bwd", (M5, B5, H5, T5, hs5),
+           {"out": (out, g_out[idx]), "lse": (lse, g_lse[idx]),
+            **{o: (a, g[idx]) for o, a, g in zip(("dq", "dk", "dv"), grads, g_grads)}},
+           {"out": (out, p_out), "lse": (lse, p_lse),
+            **{o: (a, b) for o, a, b in zip(("dq", "dk", "dv"), grads, p_grads)}},
+           {"out": (bad, g_out[idx])},
+           {"row_map": list(rows), "rows_of_the_global_call": "not contiguous (M > 1)"})
+    del q, k, v, do
+
+    # K6f-r: the long step's cross rows (B, H) in JAX's order against J
+    # streams: each stream's output and logsumexp, and their sum
+    J6, B6, H6 = 3, 8, 6
+    h6 = B6 // DP_RANKS
+    q = randn(B6, H6, T5, hs5).to(bf)
+    k, v = (randn(J6, B6, H6, T5, hs5).to(bf) for _ in range(2))
+    g = K.flash_cross_attention_res(q.reshape(-1, T5, hs5), k.reshape(J6, -1, T5, hs5),
+                                    v.reshape(J6, -1, T5, hs5), rate, SALTS)
+    ql = q[h6:].reshape(-1, T5, hs5).contiguous()
+    kl, vl = (t[:, h6:].reshape(J6, -1, T5, hs5).contiguous() for t in (k, v))
+    rows = dp_row_map((h6, H6), 0, h6, B6)
+    got = K.flash_cross_attention_res(ql, kl, vl, rate, SALTS, rows)
+    plain = K.flash_cross_attention_plain(ql, kl, vl, rate, SALTS, residuals=True, rows=rows)
+    bad = K.flash_cross_attention_res(ql, kl, vl, rate, SALTS, (rows[0], rows[1], 0))[0]
+    rs = slice(h6 * H6, B6 * H6)
+    report("flash_cross_attention_res", (J6, B6 * H6, T5, hs5),
+           {o: (a, b) for o, a, b in zip(("out", "outs", "lses"), got,
+                                         (g[0][rs], g[1][:, rs], g[2][:, rs]))},
+           {o: (a, b) for o, a, b in zip(("out", "outs", "lses"), got, plain)},
+           {"out": (bad, g[0][rs])}, {"row_map": list(rows)})
+    if failed:
+        raise AssertionError(f"data-parallel kernel calls disagree with the global call or "
+                             f"their plain versions, or the zero offset passed: {failed}")
+
+
+def dp_rank(rank: int, world: int, job: dict):
+    """One rank of ``dp_reference``, in a process of its own: the ranks
+    share the one card, so the data axis reduces through host memory (gloo,
+    staged). Rank 0 first takes the one-rank step on the card on the global
+    batch (the plain Trainer); then every rank takes the data-parallel step
+    (its half of the batch, masks keyed by global rows, the gradients
+    averaged) and an AdamW update, sound and with rank 1's row offset forced
+    to 0. Returns each variant's loss, launches, parameter checksum and, on
+    rank 0, its errors against the one-rank step."""
+    sys.path.insert(0, str(REPO))
+    import torch
+
+    from trade_aid_multimodal_transformer_tpu_torch.models.init import (
+        map_tree, tree_leaves, tree_paths)
+    from trade_aid_multimodal_transformer_tpu_torch.ops import kernels as K
+    from trade_aid_multimodal_transformer_tpu_torch.parallel import mesh as pmesh
+    from trade_aid_multimodal_transformer_tpu_torch.parallel.trainer import make_sharded_trainer
+    from trade_aid_multimodal_transformer_tpu_torch.train import steps as tsteps
+    from trade_aid_multimodal_transformer_tpu_torch.train.runner import param_checksum
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = job["cfg"]
+    mesh = pmesh.make_mesh(data=world, staged=True)
+    xb, yb = (t.to(dev) for t in job["batch"])
+
+    def fresh():
+        return map_tree(lambda t: t.detach().to(dev).clone().requires_grad_(), job["params"])
+
+    def optimizer():
+        return tsteps.make_optimizer(job["lr"], moment_dtype="bfloat16", nu_dtype="bfloat16")
+
+    if rank == 0:
+        loss_ref, g_ref = tsteps.Trainer(cfg, None, optimizer(), [], 1).loss_and_grads(
+            fresh(), [(xb, yb)], [SALTS])
+        loss_ref, g_ref = loss_ref.item(), [g.float() for g in g_ref]
+        norms = [r.norm().item() for r in g_ref]
+        names = ["/".join(map(str, path)) for path, _ in tree_paths(job["params"])]
+    out = {}
+    for variant in ("sound", "offset_0"):
+        params, opt = fresh(), optimizer()
+        state = opt.init(params)
+        trainer = make_sharded_trainer(cfg, None, opt, [], 1, mesh)
+        real = tsteps.batch_slice_scope
+        if variant == "offset_0" and rank == 1:
+            tsteps.batch_slice_scope = lambda start, total: real(0, total)
+        try:
+            K.reset_launch_counts()
+            loss, grads = trainer.loss_and_grads(params, [(xb, yb)], [SALTS])
+            torch.cuda.synchronize()
+            counts = K.launch_counts()
+            opt.update_(params, grads, state)
+        finally:
+            tsteps.batch_slice_scope = real
+        res = {"loss": loss.item(), "launches": counts, "checksum": param_checksum(params)}
+        if rank == 0:
+            # each leaf against its own scale; a leaf below a 1e-4 share of
+            # the whole (the key biases' gradients, rounding noise) is held
+            # to that share, as the CPU tests hold theirs. The token tables'
+            # gradients are bf16 scatter-adds over every token of the batch
+            # (the gather's backward, as in the JAX package), which sum 2048
+            # rows in one order on one rank and 1024 a half on two: they
+            # are held apart, at STEP_TOL's bf16 leaf limit
+            floor = 1e-4 * math.sqrt(sum(n_ * n_ for n_ in norms))
+            errs_leaf = [(g.float() - r).norm().item() / max(n_, floor)
+                         for g, r, n_ in zip(grads, g_ref, norms)]
+            table = [name.startswith("pre/tok_emb/") for name in names]
+            res.update(loss_ref=loss_ref, loss_abs_err=abs(loss.item() - loss_ref),
+                       grad_l2_rel_err_max=max(e for e, t in zip(errs_leaf, table) if not t),
+                       token_table_grad_l2_rel_err_max=max(e for e, t in zip(errs_leaf, table)
+                                                           if t),
+                       worst_leaves=sorted(zip(errs_leaf, names), reverse=True)[:4])
+        out[variant] = res
+    return out
+
+
+def dp_entry_rank(rank: int, world: int, caller_globals: dict, seed: int, log: str):
+    """One rank of ``dp_training``: the training entry's rank (``runner.
+    _rank_entry``) with ``mesh: {data: world}`` on ranks that share the one
+    card (the plan counts the ranks as its devices; gloo through host
+    memory), the all-reduce timed (TAT_TIMING); rank 0's console to ``log``."""
+    sys.path.insert(0, str(REPO))
+    os.environ["TAT_TIMING"] = "1"
+    from trade_aid_multimodal_transformer_tpu_torch.train import runner
+
+    runner.available_devices = lambda device, cp, mesh=None: world
+    if rank == 0:
+        sys.stdout = open(log, "w")
+    return runner._rank_entry(rank, world, caller_globals, seed)
+
+
+def data_parallel(K, card, by_path):
+    """Data parallelism (``tpu_options.mesh: {data: 2}``) on the one card,
+    two ranks sharing it (gloo through host memory): ``dp_reference``, one
+    production training step (block_size 64, global batch 32, dropout 0.2,
+    bf16) against the one-rank step on the global batch with the same salts
+    (loss within STEP_TOL, every all-reduced gradient leaf within REL_TOL),
+    which the step with rank 1's row offset forced to 0 must exceed, both
+    ranks' parameters bit-equal after the update; ``dp_training``, the
+    training entry over the two ranks for 8 steps against the one-rank
+    entry with the same seed (final eval losses within STEP_TOL, the ranks'
+    parameter checksums equal, the eval train loss falling, exact launches
+    per rank), with its steps/s and the gradient all-reduce's bytes and
+    milliseconds per step. Adds to ``by_path``; raises on a failed check."""
+    import numpy as np
+    import torch
+
+    from trade_aid_multimodal_transformer_tpu_torch import generate as entry
+    from trade_aid_multimodal_transformer_tpu_torch.config.compat import reset_compatibility_layer
+    from trade_aid_multimodal_transformer_tpu_torch.models.init import init_params
+    from trade_aid_multimodal_transformer_tpu_torch.parallel import mesh as pmesh
+    from trade_aid_multimodal_transformer_tpu_torch.train import runner
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        production_config_dir(d)
+        data = entry.load_config_and_data(str(d))
+    cfg, sc = data["cfg"], data["sc"]
+    L, n_cross = cfg.n_layer, sum(cfg.cross_attention)
+    per_step = dict(fused_qkv_attention=L, fused_qkv_attention_bwd=L,
+                    short_cross_attention=n_cross * L, short_cross_attention_bwd=n_cross * L)
+    want_step = {**dict.fromkeys(K.KERNELS, 0), **per_step}
+
+    # dp_reference
+    rng = np.random.default_rng(13)
+    B = sc["batch_size"]
+    ids = torch.from_numpy(np.stack([rng.integers(0, v, (B, cfg.block_size + 1))
+                                     for v in cfg.vocab_sizes]))
+    params = init_params(cfg, torch.Generator().manual_seed(1234), "cpu")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = pmesh.run_ranks(dp_rank, DP_RANKS, (dict(
+        cfg=cfg, params=params, batch=(ids[..., :-1], ids[..., 1:]), lr=sc["learning_rate"]),),
+        timeout=RANK_TIMEOUT)
+    sec = time.perf_counter() - t0
+    tol = STEP_TOL["bfloat16"]["loss"], REL_TOL["bfloat16"]
+    lines = {}
+    for variant in ("sound", "offset_0"):
+        r0 = res[0][variant]
+        within = (r0["loss_abs_err"] <= tol[0] and r0["grad_l2_rel_err_max"] <= tol[1]
+                  and r0["token_table_grad_l2_rel_err_max"] <= STEP_TOL["bfloat16"]["grad_l2"])
+        equal = all(res[r][variant]["checksum"] == r0["checksum"] for r in range(DP_RANKS))
+        counts_ok = all(res[r][variant]["launches"] == want_step for r in range(DP_RANKS))
+        ok = counts_ok and equal and (within if variant == "sound" else not within)
+        lines[variant] = ok
+        emit({"phase": "dp_reference", "variant": variant, "card": card,
+              "ranks_on_one_card": DP_RANKS, "backend": "gloo through host memory",
+              "config": "examples/production_config.yaml", "global_batch": B,
+              "block_size": cfg.block_size, "dropout": cfg.dropout, "dtype": cfg.compute_dtype,
+              "against": "the one-rank step on the card on the global batch, same salts",
+              "must_fail": variant == "offset_0", "loss_tol": tol[0], "grad_l2_rel_tol": tol[1],
+              "token_table_grad_l2_rel_tol": STEP_TOL["bfloat16"]["grad_l2"],
+              **{k_: r0[k_] for k_ in ("loss_ref", "loss_abs_err", "grad_l2_rel_err_max",
+                                       "token_table_grad_l2_rel_err_max", "worst_leaves")},
+              "losses_by_rank": [res[r][variant]["loss"] for r in range(DP_RANKS)],
+              "params_bit_equal_after_update": equal,
+              "launches_by_rank": [{k_: v_ for k_, v_ in res[r][variant]["launches"].items() if v_}
+                                   for r in range(DP_RANKS)], "launches_exact": counts_ok,
+              "seconds_with_spawn": sec, "ok": ok})
+    if not all(lines.values()):
+        raise AssertionError("the data-parallel step disagrees with the one-rank step, the ranks "
+                             "differ, or the gate passed the zero offset")
+
+    # dp_training: the entry over two ranks, then the one-rank entry, seed 5
+    config = dict(max_iters=8, eval_interval=4, eval_iters=2)
+    runs = {}
+    for mesh in ("{data: 2}", "\"off\""):
+        with tempfile.TemporaryDirectory() as tmp:
+            d = Path(tmp)
+            production_config_dir(d, **config)
+            text = (d / "config.yaml").read_text()
+            if text.count("  mesh: auto") != 1:
+                raise AssertionError("production config has no single mesh: auto")
+            (d / "config.yaml").write_text(text.replace("  mesh: auto", f"  mesh: {mesh}"))
+            cwd = os.getcwd()
+            os.chdir(d)
+            try:
+                reset_compatibility_layer()
+                K.reset_launch_counts()
+                t0 = time.perf_counter()
+                if mesh == "\"off\"":
+                    with contextlib.redirect_stdout(io.StringIO()) as buf:
+                        r = runner.run_training(caller_globals={}, seed=5)
+                    console, r["launches"] = buf.getvalue(), K.launch_counts()
+                else:
+                    ranks = pmesh.run_ranks(dp_entry_rank, DP_RANKS, (
+                        {}, 5, str(d / "rank0.log")), timeout=RANK_TIMEOUT)
+                    r = {**ranks[0], "param_checksums": [x["param_checksum"] for x in ranks]}
+                    console = (d / "rank0.log").read_text()
+                sec = time.perf_counter() - t0
+            finally:
+                os.chdir(cwd)
+                reset_compatibility_layer()
+        later = r["step_timer"].chunks[1:]
+        evals = [(int(m[0]), float(m[1]), float(m[2])) for m in re.findall(
+            r"LOSS METRICS: Step (\d+)/\d+ \| Train: ([-\d.naif]+) \| Val: ([-\d.naif]+)",
+            console)]
+        runs[mesh] = dict(r, console=console, evals=evals, seconds=sec,
+                          steps_per_s=sum(n_ for n_, _ in later) / sum(t for _, t in later))
+    dp, one = runs["{data: 2}"], runs["\"off\""]
+    eval_batches = expected_evals(config["max_iters"], config["eval_interval"]) * 2 * 2
+    per_eval = dict(fused_qkv_attention=L, short_cross_attention=n_cross * L)
+    want = {**dict.fromkeys(K.KERNELS, 0),
+            **{name: n_ * config["max_iters"] + per_eval.get(name, 0) * eval_batches
+               for name, n_ in per_step.items()}}
+    sums = dp["param_checksums"]
+    errs_ = {k_: abs(dp["losses"][k_] - one["losses"][k_]) for k_ in ("train", "val")}
+    ar = dp["allreduce"] or []
+    ok = (len(sums) == DP_RANKS and all(s == sums[0] for s in sums)
+          and all(e <= STEP_TOL["bfloat16"]["loss"] for e in errs_.values())
+          and len(dp["evals"]) == len(one["evals"]) > 1 and dp["evals"][-1][1] < dp["evals"][0][1]
+          and dp["launches"] == want and one["launches"] == want
+          and "Parallelism: data x2 over 2 devices" in dp["console"]
+          and "TRAINING COMPLETED SUCCESSFULLY" in dp["console"] and len(ar) == config["max_iters"])
+    by_path["dp_training"] = dp["launches"]
+    emit({"phase": "dp_training", "config": "examples/production_config.yaml", "card": card,
+          "changed": {**config, "mesh": "{data: 2}"}, "ranks_on_one_card": DP_RANKS,
+          "backend": "gloo through host memory", "plan": dp["plan"].describe(),
+          "global_batch": B, "dropout": cfg.dropout, "evals": dp["evals"],
+          "evals_one_rank": one["evals"], "final_eval_losses": dp["losses"],
+          "final_eval_losses_one_rank": one["losses"], "abs_err_vs_one_rank": errs_,
+          "tol": STEP_TOL["bfloat16"]["loss"], "param_checksums_by_rank": sums,
+          "steps_per_s_after_first_chunk": dp["steps_per_s"],
+          "steps_per_s_one_rank": one["steps_per_s"],
+          "allreduce_bytes_per_step": ar[-1][0] if ar else None,
+          "allreduce_ms_per_step": 1e3 * sum(t for _, t in ar) / len(ar) if ar else None,
+          "allreduce_note": "host clock around the staged gloo all-reduce (copy to the host, "
+                            "reduce, copy back), the card synchronised before and after",
+          "launches_rank0": dp["launches"], "expected_launches_per_rank": want,
+          "seconds_with_spawn": dp["seconds"], "ok": ok})
+    if not ok:
+        raise AssertionError("the data-parallel training entry failed its checks")
+
+
 def multi_card(card: str) -> int:
     """``python3 chip_smoke.py --multi-card`` on a machine with 2 or more
-    cards: the training entry with ``context_parallel`` P = 2 (and 4 where
-    there are 4 cards), one card per rank over NCCL, on the production config
-    at block_size 1024, batch 8, dropout 0 (8 steps, evaluations at steps 0,
-    4 and 7), against the same run on one card: rank 0's final evaluation
-    losses within STEP_TOL's bf16 loss limit of the single-card run's, the
-    ring's kernels launched, the loss falling; and at dropout 0 and 0.2 every
-    rank's parameter checksum (float64 sum and SHA-256 of the bytes) equal,
-    since the ranks keep their parameters equal with no all-reduce."""
+    cards: the training entry over NCCL, one card per rank, 8 steps
+    (evaluations at steps 0, 4 and 7), against the same run on one card:
+    - context parallelism: ``context_parallel`` P = 2 (and 4 where there
+      are 4 cards) on the production config at block_size 1024, batch 8
+      (``mesh: off``), rank 0's final evaluation losses within STEP_TOL's
+      bf16 loss limit of the one-card run's at dropout 0, the ring's kernels
+      launched; at 0.2 the ring keys its masks per chunk pair, so only the
+      ranks' agreement is held;
+    - data parallelism: ``mesh: {data: P}`` (P = 2, and 4 on 4 cards) on the
+      production config at block_size 64, global batch 32, whose final
+      evaluation losses must be within that limit of the one-card run's at
+      dropout 0 and at 0.2 (the masks are the global batch's); ``mesh:
+      auto`` over the machine's cards trains data x(cards);
+    - on 4 cards, ``{data: 2}`` with ``context_parallel: 2`` at block_size
+      1024, batch 8: within the limit of the one-card run at dropout 0; at
+      0.2 the rings fold their keys with the data rank as the JAX package
+      does, so only the ranks' agreement is held.
+    At every rate every rank's parameter checksum (float64 sum and SHA-256 of
+    the bytes) must be equal. Prints each run's steps/s and, under a data
+    axis, the gradient all-reduce's bytes and ms a step (TAT_TIMING: the
+    card synchronised around it)."""
     import torch
 
     from trade_aid_multimodal_transformer_tpu_torch.config.compat import reset_compatibility_layer
@@ -1560,16 +1988,15 @@ def multi_card(card: str) -> int:
         print("chip_smoke --multi-card: needs 2 or more cards", file=sys.stderr)
         return 2
     K.build_kernels()
-    runs = {}
-    sizes = [2] + ([4] if n_cards >= 4 else [])
-    for p_size, rate in [(1, 0.0)] + [(p_, r_) for r_ in (0.0, 0.2) for p_ in sizes]:
+    os.environ["TAT_TIMING"] = "1"  # the ranks time their all-reduce
+
+    def run(mesh: str, cp: int, **config) -> dict:
         with tempfile.TemporaryDirectory() as tmp:
             d = Path(tmp)
-            production_config_dir(d, block_size=LONG_BLOCK, batch_size=8, max_iters=8,
-                                  eval_interval=4, eval_iters=2, dropout=rate)
+            production_config_dir(d, max_iters=8, eval_interval=4, eval_iters=2, **config)
             text = (d / "config.yaml").read_text()
-            text = text.replace("  mesh: auto", "  mesh: \"off\"")
-            text = text.replace("  # context_parallel: 4", f"  context_parallel: {p_size}")
+            text = text.replace("  mesh: auto", f"  mesh: {mesh}")
+            text = text.replace("  # context_parallel: 4", f"  context_parallel: {cp}")
             (d / "config.yaml").write_text(text)
             cwd = os.getcwd()
             os.chdir(d)
@@ -1582,13 +2009,48 @@ def multi_card(card: str) -> int:
             finally:
                 os.chdir(cwd)
                 reset_compatibility_layer()
-        timer = res["step_timer"]
-        later = timer.chunks[1:]
-        runs[p_size, rate] = {"losses": res["losses"], "seconds": sec,
-                              "steps_per_s_after_first_chunk": sum(n for n, _ in later)
-                              / sum(t for _, t in later),
-                              "plan": res["plan"].describe(), "launches_rank0": res.get("launches"),
-                              "param_checksums": res.get("param_checksums")}
+        later = res["step_timer"].chunks[1:]
+        ar = res.get("allreduce") or []
+        return {"losses": res["losses"], "seconds": sec,
+                "allreduce_bytes_per_step": ar[-1][0] if ar else None,
+                "allreduce_ms_per_step": 1e3 * sum(t for _, t in ar) / len(ar) if ar else None,
+                "steps_per_s_after_first_chunk": sum(n for n, _ in later)
+                / sum(t for _, t in later),
+                "plan": res["plan"].describe(), "launches_rank0": res.get("launches"),
+                "param_checksums": res.get("param_checksums")}
+
+    failed = []
+
+    def hold(phase: str, r: dict, base, ranks: int, launched: str, changed: dict, **extra):
+        """One run's line: its final eval losses against ``base``'s (None:
+        the ranks' agreement only), the ranks' checksums, ``launched``
+        launched on rank 0."""
+        errs_ = ({k_: abs(r["losses"][k_] - base["losses"][k_]) for k_ in ("train", "val")}
+                 if base is not None else None)
+        sums = r["param_checksums"]
+        ranks_equal = ranks == 1 or (len(sums or []) == ranks and all(c_ == sums[0] for c_ in sums))
+        ok = ((errs_ is None or all(e <= STEP_TOL["bfloat16"]["loss"] for e in errs_.values()))
+              and all(math.isfinite(v) for v in r["losses"].values())
+              and (r["launches_rank0"] or {}).get(launched, 1) > 0 and ranks_equal)
+        emit({"phase": phase, "card": card, "config": "examples/production_config.yaml",
+              "changed": changed, "plan": r["plan"], "final_eval_losses": r["losses"],
+              "abs_err_vs_one_card": errs_, "tol": STEP_TOL["bfloat16"]["loss"],
+              "param_checksums_by_rank": sums, "ranks_equal": ranks_equal,
+              "steps_per_s_after_first_chunk": r["steps_per_s_after_first_chunk"],
+              "allreduce_bytes_per_step": r["allreduce_bytes_per_step"],
+              "allreduce_ms_per_step": r["allreduce_ms_per_step"],
+              "seconds": r["seconds"], "launches_rank0": {
+                  k_: v_ for k_, v_ in (r["launches_rank0"] or {}).items() if v_},
+              **extra, "ok": ok})
+        if not ok:
+            failed.append(f"{phase} {changed}")
+
+    # context parallelism at block_size 1024, batch 8
+    long = dict(block_size=LONG_BLOCK, batch_size=8)
+    runs = {}
+    sizes = [2] + ([4] if n_cards >= 4 else [])
+    for p_size, rate in [(1, 0.0)] + [(p_, r_) for r_ in (0.0, 0.2) for p_ in sizes]:
+        runs[p_size, rate] = run("\"off\"", p_size, dropout=rate, **long)
     # more ranks than cards raises as the JAX package's plan_mesh raises for devices
     with tempfile.TemporaryDirectory() as tmp:
         d = Path(tmp)
@@ -1609,35 +2071,43 @@ def multi_card(card: str) -> int:
             reset_compatibility_layer()
     emit({"phase": "multi_card_refusal", "context_parallel": 2 * n_cards, "cards": n_cards,
           "error": refused, "ok": refused is not None and "device(s) are available" in refused})
-    base = runs[1, 0.0]["losses"]
-    failed = [] if refused is not None else ["refusal"]
+    if refused is None:
+        failed.append("refusal")
+    base = runs[1, 0.0]
     for (p_size, rate), r in runs.items():
-        # at dropout 0.2 the ring keys its masks per chunk pair, so only the
-        # ranks' agreement is held, not the one-card run's losses
-        errs_ = ({k_: abs(r["losses"][k_] - base[k_]) for k_ in ("train", "val")} if not rate
-                 else None)
-        k7 = (r["launches_rank0"] or {}).get("flash_chunk_fwd_causal", 0)
-        sums = r["param_checksums"]
-        ranks_equal = p_size == 1 or (len(sums or []) == p_size
-                                      and all(c_ == sums[0] for c_ in sums))
-        ok = ((errs_ is None or all(e <= STEP_TOL["bfloat16"]["loss"] for e in errs_.values()))
-              and all(math.isfinite(v) for v in r["losses"].values())
-              and (p_size == 1 or k7 > 0) and ranks_equal)
-        emit({"phase": "multi_card_training", "card": card, "context_parallel": p_size,
-              "config": "examples/production_config.yaml", "changed": {
-                  "block_size": LONG_BLOCK, "batch_size": 8, "max_iters": 8, "dropout": rate,
-                  "mesh": "off", "context_parallel": p_size},
-              "final_eval_losses": r["losses"], "abs_err_vs_one_card": errs_,
-              "tol": STEP_TOL["bfloat16"]["loss"], "plan": r["plan"],
-              "param_checksums_by_rank": sums, "ranks_equal": ranks_equal,
-              "steps_per_s_after_first_chunk": r["steps_per_s_after_first_chunk"],
-              "seconds": r["seconds"], "launches_rank0": {
-                  k_: v_ for k_, v_ in (r["launches_rank0"] or {}).items() if v_},
-              "ok": ok})
-        if not ok:
-            failed.append(f"P={p_size} dropout {rate}")
+        hold("multi_card_training", r, None if rate else base, p_size,
+             "flash_chunk_fwd_causal" if p_size > 1 else "flash_attention",
+             {**long, "dropout": rate, "mesh": "off", "context_parallel": p_size},
+             context_parallel=p_size)
+
+    # data parallelism at block_size 64 (the production config), global batch 32
+    dp_base = {rate: run("\"off\"", 1, dropout=rate) for rate in (0.0, 0.2)}
+    for rate, r in dp_base.items():
+        hold("multi_card_data_parallel", r, None, 1, "fused_qkv_attention",
+             {"dropout": rate, "mesh": "off"}, data=1)
+    for p_size in sizes:
+        for rate in (0.0, 0.2):
+            r = run(f"{{data: {p_size}}}", 1, dropout=rate)
+            hold("multi_card_data_parallel", r, dp_base[rate], p_size, "fused_qkv_attention",
+                 {"dropout": rate, "mesh": f"{{data: {p_size}}}"}, data=p_size)
+    r = run("auto", 1)
+    want = f"data x{n_cards}"
+    hold("multi_card_data_parallel", r, dp_base[0.2], n_cards, "fused_qkv_attention",
+         {"mesh": "auto"}, data=n_cards, plan_expected=want)
+    if r["plan"] != want:
+        failed.append(f"mesh: auto planned {r['plan']}, not {want}")
+
+    # data x sequence on 4 cards: {data: 2} with context_parallel 2 at 1024
+    if n_cards >= 4:
+        for rate in (0.0, 0.2):
+            r = run("{data: 2}", 2, dropout=rate, **long)
+            hold("multi_card_data_x_seq", r, None if rate else base, 4, "flash_chunk_fwd_causal",
+                 {**long, "dropout": rate, "mesh": "{data: 2}", "context_parallel": 2},
+                 plan_expected="data x2 * context x2")
+            if r["plan"] != "data x2 * context x2":
+                failed.append(f"data x seq planned {r['plan']}")
     if failed:
-        raise AssertionError(f"context-parallel training on {failed} cards disagrees")
+        raise AssertionError(f"multi-card training disagrees: {failed}")
     emit(card)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": n_cards}})
@@ -2128,6 +2598,10 @@ def main() -> int:
                 errs[("short_cross_attention_bwd", shape, dtype, rate)] = max(
                     check_rel(f"short_cross_attention_bwd.{g}", a, r, dtype, shape, rate)
                     for g, a, r in zip(("dq", "dk", "dv"), grads, ref))
+
+    # the same kernels (and K5f, K5b, K6f-r) on half a batch with the
+    # global-row arguments of data parallelism
+    dp_kernel_check(K, card, gen)
 
     # K3f: the production prefill (24 B rows, T = 56, hs = 64) at B = 32 and
     # B = 1, T in {8, 64, 512} x hs in {16, 24, 64, 128, 256}, and T 72 x
@@ -2624,6 +3098,10 @@ def main() -> int:
              short_cross_attention_bwd=n_cross * L),
         dict(fused_qkv_attention=L, short_cross_attention=n_cross * L),
         max_iters=60, eval_interval=20, eval_iters=4)
+
+    # 10b. data parallelism on the one card: a step against the one-rank
+    # step, and the training entry over two ranks
+    data_parallel(K, card, by_path)
 
     # 11. long context: the production config at block_size 1024
     by_path.update({"serving": launches, "training": train_launches, **serve_counts})

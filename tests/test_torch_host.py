@@ -252,7 +252,7 @@ def _forbidden(name: str) -> bool:
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "chip_compare.py"],
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_port_imports_no_jax(path):

@@ -603,9 +603,9 @@ def test_mesh_that_needs_more_devices_raises():
 
 
 # (mesh, context_parallel, devices, fsdp): JAX's plan or error, in the port
-# the same plan where it has only a sequence axis, the same error where JAX
-# raises, and NotImplementedError (a later slice) where JAX's plan has a
-# data, tensor, modality or pipeline axis
+# the same plan where it has only data and sequence axes, the same error
+# where JAX raises, and NotImplementedError (a later slice) where JAX's plan
+# has a tensor, modality or pipeline axis, or FSDP on a data axis
 PLAN_CASES = [
     ("auto", 1, 1, False), ("off", 1, 1, False), (None, 1, 1, False), (1, 1, 1, False),
     ({"data": 1, "model": 1}, 1, 1, False), ("auto", 2, 2, False), ("off", 2, 2, False),
@@ -630,13 +630,13 @@ def test_plan_mesh_matches_jax(mesh, cp, n, fsdp):
         with pytest.raises(ValueError, match=re.escape(str(e))):
             plan_mesh(mesh, cp, n_devices=n, **kw)
         return
-    if ref.n_devices != ref.seq or ref.fsdp:
+    if ref.model * ref.mod * ref.pipe != 1 or ref.fsdp:
         with pytest.raises(NotImplementedError, match="later slice"):
             plan_mesh(mesh, cp, n_devices=n, **kw)
         return
     got = plan_mesh(mesh, cp, n_devices=n, **kw)
-    assert (got.describe(), got.n_devices, got.seq, got.trivial) == (
-        ref.describe(), ref.n_devices, ref.seq, ref.trivial)
+    assert (got.describe(), got.n_devices, got.data, got.seq, got.trivial) == (
+        ref.describe(), ref.n_devices, ref.data, ref.seq, ref.trivial)
 
 
 def test_trainer_chunk_and_step_draw_from_the_feed():

@@ -33,6 +33,8 @@ at the JAX package's sites in its order: ``KeyGen(rng)`` gives one key per
 block; inside a block self-attention takes two sites (the attention site is
 taken on the fused path even where its dropout is off), feed-forward one, and
 each cross-attending modality two, so the masks are bit-identical to JAX's.
+Every site names its batch axis, so that inside a data-parallel rank's
+``batch_slice_scope`` (ops/layers.py) its mask is the global batch's rows.
 ``remat`` changes memory, not values, and is not ported: the forward stores
 its activations.
 """
@@ -51,7 +53,7 @@ from ..ops.attention import (
     cross_short_kernel_active,
     fused_qkv_attention_active,
 )
-from ..ops.layers import KeyGen, dropout, layernorm
+from ..ops.layers import KeyGen, batch_slice, dropout, layernorm
 from .config import ModelConfig
 
 
@@ -137,18 +139,20 @@ def self_attention(
         att_hm = kernels.fused_qkv_attention(
             x_norm.contiguous(), w1.float(), b1.float(), w2.float(), H,
             cfg.dropout if use_dropout else 0.0, k_att if use_dropout else None,
+            batch_slice(),
         )  # (M, H, B, T, hs)
         out = _proj_mlp_heads(
             att_hm, sa["proj_w1"], sa["proj_b1"], sa["proj_w2"], sa["proj_b2"],
             H, hs, head_major=True,
         )
-        return dropout(out, cfg.dropout, keys(), train)
+        return dropout(out, cfg.dropout, keys(), train, batch_axis=1)
     q, k, v = _qkv_project_fused(x_norm, sa, H, hs // 2)
-    att = causal_attention(q, k, v, cfg.attn_impl, cfg.dropout, keys(), train)  # (M, B, H, T, hs)
+    att = causal_attention(q, k, v, cfg.attn_impl, cfg.dropout, keys(), train,
+                           batch_axis=1)  # (M, B, H, T, hs)
     out = _proj_mlp_heads(
         att, sa["proj_w1"], sa["proj_b1"], sa["proj_w2"], sa["proj_b2"], H, hs
     )
-    return dropout(out, cfg.dropout, keys(), train)
+    return dropout(out, cfg.dropout, keys(), train, batch_axis=1)
 
 
 def cross_attention(
@@ -171,12 +175,13 @@ def cross_attention(
     q = _mm(f"btc,hce->{lead}te", query_x, cp["q_w"])
     k = _mm(f"jbtc,jhcf->j{lead}tf", kv_x, cp["kv_w"][..., :hs_q])
     v = _mm(f"jbtc,jhcf->j{lead}tf", kv_x, cp["kv_w"][..., hs_q:])
-    att = cross_causal_attention(q, k, v, cfg.attn_impl, cfg.dropout, keys(), train)
+    att = cross_causal_attention(q, k, v, cfg.attn_impl, cfg.dropout, keys(), train,
+                                 batch_axis=1 if head_major else 0)
     out = _proj_mlp_heads(
         att, cp["proj_w1"], cp["proj_b1"], cp["proj_w2"], cp["proj_b2"],
         H, hs, head_major=head_major,
     )
-    return dropout(out, cfg.dropout, keys(), train)
+    return dropout(out, cfg.dropout, keys(), train, batch_axis=0)
 
 
 def feed_forward(
@@ -187,7 +192,7 @@ def feed_forward(
     dt = x_norm.dtype
     h = torch.relu(_mm("mbtc,mcd->mbtd", x_norm, ff["w1"]) + _bias(ff["b1"], dt))
     h = _mm("mbtd,mdc->mbtc", h, ff["w2"]) + _bias(ff["b2"], dt)
-    return dropout(h, cfg.dropout, keys(), train)
+    return dropout(h, cfg.dropout, keys(), train, batch_axis=1)
 
 
 def block_forward(

@@ -16,12 +16,16 @@ for T >= 256, T % 128 == 0 and hs <= 256 (so above 512); the dense cores
 everywhere else, as the JAX package leaves shapes outside both to XLA.
 ``attn_impl: jnp`` keeps the dense cores on the card too. Cached decode
 attention (one query position against the KV cache) dispatches in
-models/cache.py.
+models/cache.py. A core given its batch axis (``batch_axis``) keys its
+dropout by global batch rows inside a data-parallel rank's
+``layers.batch_slice_scope``, in the dense cores and the kernels alike.
 
 Inside ``context_parallel_scope`` (opened by the context-parallel trainer,
 ``tpu_options.context_parallel``) both cores route through ring attention
 (parallel/ring_attention.py) over the scope's sequence group, as the JAX
-package's scope does, and the whole-row kernels are off. The ring's chunk
+package's scope does, and the whole-row kernels are off. With a data axis
+(data x sequence) the ring keys its masks by local rows and the dropout key
+folded with the data rank, as the JAX package's ``shard_map`` body does. The ring's chunk
 core is ``chunk_fwd`` / ``chunk_bwd``: the chunk kernels K7f / K7b where the
 chunk is at least 256 long and eligible on the card (``attn_impl: pallas``:
 wherever eligible; on the CPU that is their plain version), the dense mirror
@@ -37,7 +41,7 @@ from typing import Optional, Sequence
 import torch
 
 from . import kernels
-from .layers import dropout, mix32_const
+from .layers import batch_row_map, dropout, mix32_const
 
 
 def causal_attention_dense(
@@ -47,13 +51,15 @@ def causal_attention_dense(
     dropout_rate: float = 0.0,
     dropout_key: Optional[Sequence[int]] = None,
     train: bool = False,
+    batch_axis: Optional[int] = None,
 ) -> torch.Tensor:
     """Dense causal attention over trailing (T, head_size) axes. Leading axes
-    broadcast (q may have fewer leading dims than k/v)."""
+    broadcast (q may have fewer leading dims than k/v); ``batch_axis`` is
+    q's batch axis (counted from the left of q's shape)."""
     dt = q.dtype
     if dt == torch.bfloat16 and q.device.type == "cpu":
         return causal_attention_dense(
-            q.float(), k.float(), v.float(), dropout_rate, dropout_key, train
+            q.float(), k.float(), v.float(), dropout_rate, dropout_key, train, batch_axis
         ).to(dt)
     acc = torch.float64 if dt == torch.float64 else torch.float32
     t_q, t_k = q.shape[-2], k.shape[-2]
@@ -61,7 +67,8 @@ def causal_attention_dense(
     aff = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
     mask = torch.ones(t_q, t_k, dtype=torch.bool, device=q.device).tril()
     aff = torch.softmax(aff.masked_fill(~mask, float("-inf")), dim=-1)
-    aff = dropout(aff, dropout_rate, dropout_key, train)
+    axis = None if batch_axis is None else batch_axis + aff.ndim - q.ndim
+    aff = dropout(aff, dropout_rate, dropout_key, train, axis)
     return torch.matmul(aff.to(v.dtype).to(acc), v.to(acc)).to(dt)
 
 
@@ -73,16 +80,18 @@ def _kernel_device(device: torch.device, impl: str) -> bool:
 
 # ------------------------------------------------- context-parallel dispatch
 
-_CP_SCOPE = None  # the sequence group (parallel.mesh.SeqMesh) of an open scope
+_CP_SCOPE = None  # (sequence group (parallel.mesh.SeqMesh), data rank) of an open scope
 
 
 @contextlib.contextmanager
-def context_parallel_scope(mesh):
+def context_parallel_scope(mesh, data_rank: Optional[int] = None):
     """Route causal and cross attention through ring attention over
-    ``mesh`` (a ``parallel.mesh.SeqMesh``) while the scope is open."""
+    ``mesh`` (a ``parallel.mesh.SeqMesh``) while the scope is open.
+    ``data_rank``: this rank's place on a data axis of more than one rank
+    (data x sequence), whose index the rings' dropout keys are folded with."""
     global _CP_SCOPE
     prev = _CP_SCOPE
-    _CP_SCOPE = mesh
+    _CP_SCOPE = (mesh, data_rank)
     try:
         yield
     finally:
@@ -90,11 +99,20 @@ def context_parallel_scope(mesh):
 
 
 def _cp_active(q: torch.Tensor):
-    """The scope's mesh where it shards q's sequence axis, else None."""
-    mesh = _CP_SCOPE
-    if mesh is None or mesh.size <= 1 or q.shape[-2] % mesh.size != 0:
+    """The scope's (mesh, data rank) where it shards q's sequence axis, else
+    None."""
+    if _CP_SCOPE is None:
         return None
-    return mesh
+    mesh = _CP_SCOPE[0]
+    if mesh.size <= 1 or q.shape[-2] % mesh.size != 0:
+        return None
+    return _CP_SCOPE
+
+
+def _ring_key(key, data_rank: Optional[int], use_drop: bool):
+    """The rings' dropout key: folded with the data rank under a data axis
+    (JAX's ``shard_map`` body decorrelates its data shards so)."""
+    return fold_key(key, data_rank) if use_drop and data_rank is not None else key
 
 
 def fold_key(key, i: int):
@@ -104,22 +122,28 @@ def fold_key(key, i: int):
     return (s0, s1 ^ mix32_const(int(i)))
 
 
-def _cp_self_attention(q, k, v, mesh, dropout_rate, dropout_key, train, impl):
+def _cp_self_attention(q, k, v, scope, dropout_rate, dropout_key, train, impl):
     """Ring attention over the sequence group, every leading axis local
-    (a sequence-only mesh: JAX's ``_cp_self_attention`` with data and model
-    of size 1)."""
+    (JAX's ``_cp_self_attention`` with a model axis of size 1): this rank's
+    batch rows keyed by their local index, the key folded with the data
+    rank under a data axis."""
     from ..parallel.ring_attention import ring_causal_attention
 
-    return ring_causal_attention(q, k, v, mesh, impl, dropout_rate, dropout_key, train)
+    mesh, data_rank = scope
+    key = _ring_key(dropout_key, data_rank, train and dropout_rate > 0.0)
+    return ring_causal_attention(q, k, v, mesh, impl, dropout_rate, key, train)
 
 
-def _cp_cross_attention(q, k, v, mesh, dropout_rate, dropout_key, train, impl):
-    """Ring attention per key/value stream j with ``fold_key(key, j)``,
-    summed over the streams in q's type (JAX's ``_cp_cross_attention``);
-    q (..., T, hs), k, v (J, ..., T, hs)."""
+def _cp_cross_attention(q, k, v, scope, dropout_rate, dropout_key, train, impl):
+    """Ring attention per key/value stream j with ``fold_key(key, j)`` (the
+    key first folded with the data rank under a data axis), summed over the
+    streams in q's type (JAX's ``_cp_cross_attention``); q (..., T, hs), k,
+    v (J, ..., T, hs)."""
     from ..parallel.ring_attention import ring_cross_attention
 
-    return ring_cross_attention(q, k, v, mesh, impl, dropout_rate, dropout_key, train)
+    mesh, data_rank = scope
+    key = _ring_key(dropout_key, data_rank, train and dropout_rate > 0.0)
+    return ring_cross_attention(q, k, v, mesh, impl, dropout_rate, key, train)
 
 
 def fused_qkv_attention_active(t: int, hs: int, impl: str, device: torch.device) -> bool:
@@ -148,6 +172,7 @@ def causal_attention(
     dropout_rate: float = 0.0,
     dropout_key: Optional[Sequence[int]] = None,
     train: bool = False,
+    batch_axis: Optional[int] = None,
 ) -> torch.Tensor:
     """Causal self-attention over separate q, k, v (..., T, hs), the JAX
     package's ``causal_attention``. On the card: in the band the
@@ -155,20 +180,27 @@ def causal_attention(
     KV-cache prefill runs K3f alone, and the model's training forward takes
     the fused kernel there), in the flash band the differentiable flash
     kernels (K5f forward, K5b backward), the collapsed leading axes keying
-    the dropout as the JAX kernels key it; the dense core elsewhere."""
-    mesh = _cp_active(q)
-    if mesh is not None and q.shape == k.shape:
-        return _cp_self_attention(q, k, v, mesh, dropout_rate, dropout_key, train, impl)
+    the dropout as the JAX kernels key it; the dense core elsewhere.
+    ``batch_axis``: q's batch axis, whose rows key the dropout by their
+    global rows in a data-parallel rank's batch slice scope."""
+    scope = _cp_active(q)
+    if scope is not None and q.shape == k.shape:
+        return _cp_self_attention(q, k, v, scope, dropout_rate, dropout_key, train, impl)
     t, hs = q.shape[-2], q.shape[-1]
     use_dropout = train and dropout_rate > 0.0
     rate, key = (dropout_rate, dropout_key) if use_dropout else (0.0, None)
+    rows = batch_row_map(q.shape[:-2], batch_axis) if use_dropout else None
     if _kernel_device(q.device, impl) and q.shape == k.shape == v.shape:
         if kernels.in_band(t, hs):
+            if rows is not None:
+                raise NotImplementedError(
+                    "the whole-row self-attention kernel (K3) takes no global batch rows: "
+                    "data-parallel dropout there needs the fused kernel (an even head size)")
             return kernels.short_causal_attention(q.contiguous(), k.contiguous(),
                                                   v.contiguous(), rate, key)
         if kernels.flash_eligible(t, hs) and q.ndim >= 3:
-            return kernels.flash_causal_attention(q, k, v, rate, key)
-    return causal_attention_dense(q, k, v, dropout_rate, dropout_key, train)
+            return kernels.flash_causal_attention(q, k, v, rate, key, rows)
+    return causal_attention_dense(q, k, v, dropout_rate, dropout_key, train, batch_axis)
 
 
 def packed_attention_active(t: int, hs: int, impl: str, device: torch.device) -> bool:
@@ -212,6 +244,7 @@ def cross_causal_attention(
     dropout_rate: float = 0.0,
     dropout_key: Optional[Sequence[int]] = None,
     train: bool = False,
+    batch_axis: Optional[int] = None,
 ) -> torch.Tensor:
     """Causal attention of one query stream q (..., T, hs) against J
     key/value streams (J, ..., T, hs), summed over the streams. The collapsed
@@ -224,20 +257,26 @@ def cross_causal_attention(
     stream backward), dropout keyed per stream as the JAX kernels key it.
     Elsewhere the dense core, whose mask is drawn over the (J, B, H, T, T)
     affinity, as the JAX package's dense core draws it. Inside a
-    context-parallel scope: ring attention per stream, summed."""
-    mesh = _cp_active(q)
-    if mesh is not None:
-        return _cp_cross_attention(q, k, v, mesh, dropout_rate, dropout_key, train, impl)
+    context-parallel scope: ring attention per stream, summed.
+    ``batch_axis``: q's batch axis (0 in JAX's order, 1 head-major), whose
+    rows key the dropout by their global rows in a data-parallel rank's
+    batch slice scope."""
+    scope = _cp_active(q)
+    if scope is not None:
+        return _cp_cross_attention(q, k, v, scope, dropout_rate, dropout_key, train, impl)
     t, hs = q.shape[-2], q.shape[-1]
     use_dropout = train and dropout_rate > 0.0
     rate, key = (dropout_rate, dropout_key) if use_dropout else (0.0, None)
+    rows = batch_row_map(q.shape[:-2], batch_axis) if use_dropout else None
     if _kernel_device(q.device, impl):
         if kernels.in_band(t, hs):
             return kernels.short_cross_attention(q.contiguous(), k.contiguous(),
-                                                 v.contiguous(), rate, key)
+                                                 v.contiguous(), rate, key, rows)
         if kernels.flash_eligible(t, hs):
-            return kernels.flash_cross_attention(q, k, v, rate, key)
-    return causal_attention_dense(q[None], k, v, dropout_rate, dropout_key, train).sum(dim=0)
+            return kernels.flash_cross_attention(q, k, v, rate, key, rows)
+    axis = None if batch_axis is None else batch_axis + 1
+    return causal_attention_dense(q[None], k, v, dropout_rate, dropout_key, train,
+                                  axis).sum(dim=0)
 
 
 # ------------------------------------------------- chunk core (ring/CP shared)

@@ -66,10 +66,11 @@ namespace tat {
 
 // Row layouts of the backward:
 //   kCrossRows   q (n, T, hs), k and v (J, n, T, hs); stream j keyed by
-//                seed + (j + 1) * 1000003, mask row r; D = rowsum(w * do v^T)
+//                seed + (j + 1) * 1000003, mask row rm(r); D = rowsum(w * do v^T)
 //   kFusedRows   q, k, v in one (M, 3H, B, T, hs) buffer, r = (m H + h) B + b;
-//                mask row of the JAX fused kernel's batch groups (gb)
-//   kSelfRows    q, k, v (n, T, hs); mask row r
+//                mask row of the JAX fused kernel's batch groups (gb) over the
+//                global batch of Bg rows, whose row b0 + b this b is
+//   kSelfRows    q, k, v (n, T, hs); mask row rm(r)
 //   kPackedRows  one (nb, 3H, T, hs) operand, r = b H + h: q at [b, h], k at
 //                [b, H + h], v at [b, 2H + h]; mask row r
 // Every layout but kCrossRows has J = 1, the unoffset seed and D = rowsum(do * o).
@@ -93,6 +94,8 @@ struct BwdArgs {
   float inv;         // 1 / (1 - rate) as f32
   int layout;        // a BwdLayout
   int B, H, gb;      // kFusedRows: B, H, gb; kPackedRows: H
+  int Bg, b0;        // kFusedRows: the global batch and this launch's first row of it
+  RowMap rm;         // kSelfRows, kCrossRows: the rows' mask rows (data parallelism)
   int vec;           // bf16 body: 16-byte copies (hs % 8 == 0, aligned)
 };
 
@@ -112,8 +115,8 @@ struct RowPlanes {
       q_off = ((size_t)m * 3 * a.H + h) * head + b * plane;
       k_off = q_off + (size_t)a.H * head;
       v_off = k_off + (size_t)a.H * head;
-      const int pid = m * (a.B / a.gb) + b / a.gb;
-      n_idx = (uint32_t)(pid * a.gb * a.H + h * a.gb + b % a.gb);
+      const int bg = a.b0 + b, pid = m * (a.Bg / a.gb) + bg / a.gb;  // the global batch's row
+      n_idx = (uint32_t)(pid * a.gb * a.H + h * a.gb + bg % a.gb);
     } else if (a.layout == kPackedRows) {
       q_off = ((size_t)(r / a.H) * 3 * a.H + r % a.H) * plane;
       k_off = q_off + (size_t)a.H * plane;
@@ -122,7 +125,7 @@ struct RowPlanes {
     } else {
       q_off = (size_t)r * plane;
       k_off = v_off = a.layout == kSelfRows ? q_off : 0;
-      n_idx = (uint32_t)r;
+      n_idx = a.rm(r);
     }
   }
   // offsets of stream j's k and v planes (and of their gradients)

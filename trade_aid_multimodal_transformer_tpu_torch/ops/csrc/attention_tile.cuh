@@ -78,6 +78,29 @@ __host__ __device__ inline uint32_t stream_seed(uint32_t seed, int j) {
   return seed + (uint32_t)(j + 1) * 1000003u;
 }
 
+// The mask row of a launch's collapsed row n under data parallelism. A rank
+// holds batch rows [b0, b0 + B) of a global batch of Bg along one leading
+// axis, so its row n = (o B + b) I + i (I the rows inside a batch row) is row
+// (o Bg + b0 + b) I + i of the global call: n + (n / span) skip + base with
+// span = B I, skip = (Bg - B) I and base = b0 I. All zero (value-initialised)
+// is the identity.
+struct RowMap {
+  int span, skip, base;
+  __host__ __device__ __forceinline__ uint32_t operator()(int n) const {
+    return (uint32_t)(n + (skip != 0 ? n / span * skip : 0) + base);
+  }
+};
+
+// The mask row of a flash kernel's row: mapped in the kMapped instances, the
+// row itself in the one-rank instances, whose code stays as it was before
+// the map. The flash kernels take the map as a parameter of its own: 12
+// more bytes in their argument structs (past 128) made the bf16 ones at
+// D = 64 spill and run slower, whichever instance ran.
+template <bool kMapped>
+__device__ __forceinline__ uint32_t mask_row(RowMap rm, int row) {
+  return kMapped ? rm(row) : (uint32_t)row;
+}
+
 // Zero the dropped entries of an R x R tile of probabilities p (stride ld)
 // whose rows start at query q0 and columns at key k0.
 template <typename P>

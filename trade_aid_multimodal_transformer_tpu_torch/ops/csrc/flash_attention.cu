@@ -133,7 +133,7 @@ template <bool kCausal, bool kPd>
 __device__ void tile_grads(const BwdArgs& a, const BwdLayout<kPd ? 2 : 1>& L, const float* sq,
                            const float* sdo, const float* sk, const float* sv, float* ss,
                            float* sdp, float* sds, float* spd, const float* slse,
-                           const float* sdel, int row, int q0, int k0) {
+                           const float* sdel, uint32_t mrow, int q0, int k0) {
   const int R = a.R;
   mma_f32<false, true>(sq, L.ldh, sk, L.ldh, ss, L.lds, R, R, a.hs, false);
   mma_f32<false, true>(sdo, L.ldh, sv, L.ldh, sdp, L.lds, R, R, a.hs, false);
@@ -144,7 +144,7 @@ __device__ void tile_grads(const BwdArgs& a, const BwdLayout<kPd ? 2 : 1>& L, co
     float dp = sdp[i * L.lds + c];
     float pd = p;
     if (a.on) {
-      const bool kept = keep(a.seed, (uint32_t)row, (uint32_t)a.bq, (uint32_t)a.bk, (uint32_t)r,
+      const bool kept = keep(a.seed, mrow, (uint32_t)a.bq, (uint32_t)a.bk, (uint32_t)r,
                              (uint32_t)col, a.thresh);
       dp = kept ? dp / a.keepf : 0.f;
       pd = kept ? p / a.keepf : 0.f;
@@ -162,7 +162,8 @@ __device__ inline void load_rows_f32(const float* src, int R, float* dst) {
 // dq of one query tile: key tiles 0..qt under the causal mask (every key tile
 // without it), the longest rows first.
 template <bool kCausal>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdArgs a) {
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdArgs a,
+                                                                   const RowMap rm) {
   extern __shared__ __align__(128) char smem[];
   const BwdLayout<1> L(a.R, a.hs);
   float* sq = reinterpret_cast<float*>(smem + L.off_t[0]);
@@ -180,6 +181,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdArgs a)
   const int n_qt = a.Tq / R;
   const int qt = n_qt - 1 - (int)(blockIdx.x % n_qt);
   const int row = (int)(blockIdx.x / n_qt);
+  const uint32_t mrow = rm(row);  // the row's mask row
   const int q0 = qt * R;
   const int kt_end = kCausal ? min(qt, a.Tk / R - 1) : a.Tk / R - 1;
   const size_t qbase = row * (size_t)a.Tq * hs, kbase = row * (size_t)a.Tk * hs;
@@ -195,7 +197,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdArgs a)
     load_tile(k + (size_t)k0 * hs, R, hs, sk, L.ldh);
     load_tile(v + (size_t)k0 * hs, R, hs, sv, L.ldh);
     __syncthreads();
-    tile_grads<kCausal, false>(a, L, sq, sdo, sk, sv, ss, sdp, sds, nullptr, slse, sdel, row, q0,
+    tile_grads<kCausal, false>(a, L, sq, sdo, sk, sv, ss, sdp, sds, nullptr, slse, sdel, mrow, q0,
                                k0);
     mma_f32<false, false>(sds, L.ldp, sk, L.ldh, sdq, L.lda, R, hs, R, kt > 0);
   }
@@ -210,7 +212,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdArgs a)
 // query tile without it). Under the causal mask a key tile past the last
 // query row (t_k > t_q) sees no query: its gradients are zero.
 template <bool kCausal>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const BwdArgs a) {
+__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const BwdArgs a,
+                                                                    const RowMap rm) {
   extern __shared__ __align__(128) char smem[];
   const BwdLayout<2> L(a.R, a.hs);
   float* sk = reinterpret_cast<float*>(smem + L.off_t[0]);
@@ -230,6 +233,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const BwdArgs a
   const int n_kt = a.Tk / R, n_qt = a.Tq / R;
   const int kt = (int)(blockIdx.x % n_kt);  // the longest columns first
   const int row = (int)(blockIdx.x / n_kt);
+  const uint32_t mrow = rm(row);  // the row's mask row
   const int k0 = kt * R;
   const int qt_begin = kCausal ? kt : 0;
   const size_t qbase = row * (size_t)a.Tq * hs, kbase = row * (size_t)a.Tk * hs;
@@ -253,7 +257,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const BwdArgs a
     load_rows_f32(a.lse + (size_t)row * a.Tq + q0, R, slse);
     load_rows_f32(a.delta + (size_t)row * a.Tq + q0, R, sdel);
     __syncthreads();
-    tile_grads<kCausal, true>(a, L, sq, sdo, sk, sv, ss, sdp, sds, spd, slse, sdel, row, q0, k0);
+    tile_grads<kCausal, true>(a, L, sq, sdo, sk, sv, ss, sdp, sds, spd, slse, sdel, mrow, q0, k0);
     // dv += pd^T dout, dk += ds^T q
     mma_f32<true, false>(spd, L.ldp, sdo, L.ldh, sdv, L.lda, R, hs, R, qt > qt_begin);
     mma_f32<true, false>(sds, L.ldp, sq, L.ldh, sdk, L.lda, R, hs, R, qt > qt_begin);
@@ -269,26 +273,26 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const BwdArgs a
 
 template <typename Kernel>
 int launch_bwd(Kernel kernel, int threads, size_t smem, long long blocks, const BwdArgs& a,
-               cudaStream_t stream) {
+               RowMap rm, cudaStream_t stream) {
   if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)blocks, threads, smem, stream>>>(a);
+  kernel<<<(unsigned)blocks, threads, smem, stream>>>(a, rm);
   return (int)cudaGetLastError();
 }
 
 template <bool kCausal>
-int launch_flash_bwd_f32(BwdArgs a, cudaStream_t stream) {
+int launch_flash_bwd_f32(BwdArgs a, RowMap rm, cudaStream_t stream) {
   // one tile height for both kernels: the dk/dv layout is the larger
   a.R = pick_rows<BwdLayout<2>>(a.hs);
   if (a.R == 0 || a.Tq % a.R != 0 || a.Tk % a.R != 0 || a.bq % a.R != 0 || a.bk % a.R != 0)
     return (int)cudaErrorInvalidValue;
   const int err = launch_bwd(flash_bwd_dq_kernel<kCausal>, kThreads, BwdLayout<1>(a.R, a.hs).bytes,
-                             (long long)a.n * (a.Tq / a.R), a, stream);
+                             (long long)a.n * (a.Tq / a.R), a, rm, stream);
   if (err != 0) return err;
   return launch_bwd(flash_bwd_dkv_kernel<kCausal>, kThreads, BwdLayout<2>(a.R, a.hs).bytes,
-                    (long long)a.n * (a.Tk / a.R), a, stream);
+                    (long long)a.n * (a.Tk / a.R), a, rm, stream);
 }
 
 // ------------------------------------------------------------- bf16 body
@@ -334,9 +338,9 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // dq of kRows query rows (see the note at the top): the key tiles up to the
 // diagonal, the longest query tiles first over every collapsed row.
-template <int D, bool kCausal>
+template <int D, bool kCausal, bool kMapped>
 __global__ void __launch_bounds__(MmaBwd<D>::kThreads, MmaBwd<D>::kDqBlocks)
-    flash_bwd_dq_mma_kernel(const BwdArgs a) {
+    flash_bwd_dq_mma_kernel(const BwdArgs a, const RowMap rm) {
   using C = MmaBwd<D>;
   using bf16 = __nv_bfloat16;
   constexpr int kBr = C::kRows, kBc = C::kCols, kLd = C::kLd;
@@ -416,10 +420,10 @@ __global__ void __launch_bounds__(MmaBwd<D>::kThreads, MmaBwd<D>::kDqBlocks)
     const int k0 = kt * kBc;
     // slab by slab of 16 keys (k0 + 16 kk ..): S = q k^T and dP = dout v^T
     // (16 rows x 16 keys), ds, dQ += dS K
-    const KeepRow kr0(a.on, a.seed, (uint32_t)row, (uint32_t)a.bq, (uint32_t)a.bk, (uint32_t)r0,
-                      (uint32_t)k0, a.thresh);
-    const KeepRow kr1(a.on, a.seed, (uint32_t)row, (uint32_t)a.bq, (uint32_t)a.bk, (uint32_t)r1,
-                      (uint32_t)k0, a.thresh);
+    const KeepRow kr0(a.on, a.seed, mask_row<kMapped>(rm, row), (uint32_t)a.bq,
+                      (uint32_t)a.bk, (uint32_t)r0, (uint32_t)k0, a.thresh);
+    const KeepRow kr1(a.on, a.seed, mask_row<kMapped>(rm, row), (uint32_t)a.bq,
+                      (uint32_t)a.bk, (uint32_t)r1, (uint32_t)k0, a.thresh);
 #pragma unroll
     for (int kk = 0; kk < kBc / 16; ++kk) {
       const int c16 = k0 + 16 * kk;
@@ -494,9 +498,9 @@ __global__ void __launch_bounds__(MmaBwd<D>::kThreads, MmaBwd<D>::kDqBlocks)
 // from the diagonal on under the causal mask (a key tile past the last
 // query row sees none, and stores zeros), every query tile without it; the
 // longest key columns first over every collapsed row.
-template <int D, bool kCausal>
+template <int D, bool kCausal, bool kMapped>
 __global__ void __launch_bounds__(MmaBwd<D>::kThreads, MmaBwd<D>::kDkvBlocks)
-    flash_bwd_dkv_mma_kernel(const BwdArgs a) {
+    flash_bwd_dkv_mma_kernel(const BwdArgs a, const RowMap rm) {
   using C = MmaBwd<D>;
   using bf16 = __nv_bfloat16;
   constexpr int kBk = C::kRows, kBq = C::kCols, kLd = C::kLd;
@@ -581,10 +585,10 @@ __global__ void __launch_bounds__(MmaBwd<D>::kThreads, MmaBwd<D>::kDkvBlocks)
     const int q0 = qt * kBq;
     // slab by slab of kSlab queries (q0 + kSlab kk ..): S^T = k q^T, p, pd,
     // dV += pd^T dout, dP^T = v dout^T, ds, dK += dS^T q
-    const KeepCol kc0(a.on, a.seed, (uint32_t)row, (uint32_t)a.bq, (uint32_t)a.bk, (uint32_t)q0,
-                      (uint32_t)kr0, a.thresh);
-    const KeepCol kc1(a.on, a.seed, (uint32_t)row, (uint32_t)a.bq, (uint32_t)a.bk, (uint32_t)q0,
-                      (uint32_t)kr1, a.thresh);
+    const KeepCol kc0(a.on, a.seed, mask_row<kMapped>(rm, row), (uint32_t)a.bq, (uint32_t)a.bk,
+                      (uint32_t)q0, (uint32_t)kr0, a.thresh);
+    const KeepCol kc1(a.on, a.seed, mask_row<kMapped>(rm, row), (uint32_t)a.bq, (uint32_t)a.bk,
+                      (uint32_t)q0, (uint32_t)kr1, a.thresh);
 #pragma unroll
     for (int kk = 0; kk < kBq / kSlab; ++kk) {
       const int js = kSlab * kk, j0 = q0 + js;  // the slab's first query, in the tile and in all
@@ -715,62 +719,69 @@ __global__ void __launch_bounds__(MmaBwd<D>::kThreads, MmaBwd<D>::kDkvBlocks)
 
 // The dq kernel, then the dk/dv kernel. Every tile lies in one JAX block
 // (the dropout keys): kRows and kCols divide bq and bk.
-template <int D, bool kCausal>
-int launch_flash_bwd_mma(const BwdArgs& a, cudaStream_t stream) {
+template <int D, bool kCausal, bool kMapped>
+int launch_flash_bwd_mma(const BwdArgs& a, RowMap rm, cudaStream_t stream) {
   using C = MmaBwd<D>;
   if (a.Tq % C::kRows != 0 || a.Tk % C::kRows != 0 || a.bq % C::kRows != 0 ||
       a.bk % C::kRows != 0)
     return (int)cudaErrorInvalidValue;
-  const int err = launch_bwd(flash_bwd_dq_mma_kernel<D, kCausal>, C::kThreads, C::kBytes,
-                             (long long)a.n * (a.Tq / C::kRows), a, stream);
+  const int err = launch_bwd(flash_bwd_dq_mma_kernel<D, kCausal, kMapped>, C::kThreads, C::kBytes,
+                             (long long)a.n * (a.Tq / C::kRows), a, rm, stream);
   if (err != 0) return err;
-  return launch_bwd(flash_bwd_dkv_mma_kernel<D, kCausal>, C::kThreads, C::kBytes,
-                    (long long)a.n * (a.Tk / C::kRows), a, stream);
+  return launch_bwd(flash_bwd_dkv_mma_kernel<D, kCausal, kMapped>, C::kThreads, C::kBytes,
+                    (long long)a.n * (a.Tk / C::kRows), a, rm, stream);
 }
 
 template <int D>
-int launch_flash_bwd_d(const BwdArgs& a, cudaStream_t stream) {
-  return a.causal ? launch_flash_bwd_mma<D, true>(a, stream)
-                  : launch_flash_bwd_mma<D, false>(a, stream);
+int launch_flash_bwd_d(const BwdArgs& a, RowMap rm, cudaStream_t stream) {
+  // mapped mask rows (data parallelism) come only with the causal mask (K5b),
+  // in instances of their own (flash_fwd_mma_kernel's note)
+  const bool mapped = rm.skip != 0 || rm.base != 0;
+  if (!a.causal)
+    return mapped ? (int)cudaErrorInvalidValue
+                  : launch_flash_bwd_mma<D, false, false>(a, rm, stream);
+  return mapped ? launch_flash_bwd_mma<D, true, true>(a, rm, stream)
+                : launch_flash_bwd_mma<D, true, false>(a, rm, stream);
 }
 
 // bf16 on the tensor cores (mma.sync, hs padded to D = 64, 128 or 256), f32
 // on FMAs; the causal mask or none.
-inline int launch_flash_bwd(BwdArgs a, int is_bf16, cudaStream_t stream) {
+inline int launch_flash_bwd(BwdArgs a, RowMap rm, int is_bf16, cudaStream_t stream) {
   if (is_bf16) {
     a.vec = a.hs % 8 == 0 && aligned16({a.q, a.k, a.v, a.dout, a.dq, a.dk, a.dv});
     if (a.hs <= 0 || a.hs > 256) return (int)cudaErrorInvalidValue;
-    return a.hs <= 64    ? launch_flash_bwd_d<64>(a, stream)
-           : a.hs <= 128 ? launch_flash_bwd_d<128>(a, stream)
-                         : launch_flash_bwd_d<256>(a, stream);
+    return a.hs <= 64    ? launch_flash_bwd_d<64>(a, rm, stream)
+           : a.hs <= 128 ? launch_flash_bwd_d<128>(a, rm, stream)
+                         : launch_flash_bwd_d<256>(a, rm, stream);
   }
   a.vec = 0;
-  return a.causal ? launch_flash_bwd_f32<true>(a, stream)
-                  : launch_flash_bwd_f32<false>(a, stream);
+  return a.causal ? launch_flash_bwd_f32<true>(a, rm, stream)
+                  : launch_flash_bwd_f32<false>(a, rm, stream);
 }
 
 int chunk_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int n, int Tq,
               int Tk, int hs, int causal, int is_bf16, float scale, unsigned seed,
-              unsigned thresh, int rate_on, float keepf, int bq, int bk, void* stream) {
+              unsigned thresh, int rate_on, float keepf, int bq, int bk, RowMap rm,
+              void* stream) {
   FwdArgs a{};
   a.q = q; a.k = k; a.v = v; a.out = out; a.lse = static_cast<float*>(lse);
   a.J = 1; a.n = n; a.Tq = Tq; a.Tk = Tk; a.hs = hs; a.bq = bq; a.bk = bk; a.causal = causal;
   a.scale = scale; a.keepf = keepf; a.seed = seed; a.thresh = thresh; a.on = rate_on;
   a.stream_seeds = 0;
-  return launch_flash_fwd(a, is_bf16, static_cast<cudaStream_t>(stream));
+  return launch_flash_fwd(a, rm, is_bf16, static_cast<cudaStream_t>(stream));
 }
 
 int chunk_bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, void* dq, void* dk, void* dv, int n, int Tq, int Tk, int hs,
               int causal, int is_bf16, float scale, unsigned seed, unsigned thresh, int rate_on,
-              float keepf, int bq, int bk, void* stream) {
+              float keepf, int bq, int bk, RowMap rm, void* stream) {
   BwdArgs a{};
   a.q = q; a.k = k; a.v = v; a.dout = dout;
   a.lse = static_cast<const float*>(lse); a.delta = static_cast<const float*>(delta);
   a.dq = dq; a.dk = dk; a.dv = dv;
   a.n = n; a.Tq = Tq; a.Tk = Tk; a.hs = hs; a.bq = bq; a.bk = bk; a.causal = causal;
   a.scale = scale; a.keepf = keepf; a.seed = seed; a.thresh = thresh; a.on = rate_on;
-  return launch_flash_bwd(a, is_bf16, static_cast<cudaStream_t>(stream));
+  return launch_flash_bwd(a, rm, is_bf16, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace flash
@@ -778,28 +789,34 @@ int chunk_bwd(const void* q, const void* k, const void* v, const void* dout, con
 
 // K5f. q, k, v, out (n, T, hs), one type (bf16 or f32), contiguous; lse
 // (n, 1, T) f32. Dropout (rate_on) keeps score (row, col) of collapsed row i
-// by the hash of (seed, i, row / blk, col / blk, row % blk, col % blk) against
-// thresh, blk the JAX kernels' block (flash_pick_block(T)); keepf is 1 - rate.
-// Returns the cudaError_t of the launch.
+// by the hash of (seed, g(i), row / blk, col / blk, row % blk, col % blk)
+// against thresh, blk the JAX kernels' block (flash_pick_block(T)); keepf is
+// 1 - rate; g(i) = i + (i / span) skip + base is the row's row in the global
+// batch (tat::RowMap; span 1, skip 0, base 0 on one rank). Returns the
+// cudaError_t of the launch.
 extern "C" int tat_flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                        void* lse, int n, int T, int hs, int is_bf16,
                                        float scale, unsigned seed, unsigned thresh, int rate_on,
-                                       float keepf, int blk, void* stream) {
+                                       float keepf, int blk, int span, int skip, int base,
+                                       void* stream) {
   return tat::flash::chunk_fwd(q, k, v, out, lse, n, T, T, hs, 1, is_bf16, scale, seed, thresh,
-                               rate_on, keepf, blk, blk, stream);
+                               rate_on, keepf, blk, blk, tat::RowMap{span, skip, base}, stream);
 }
 
 // K5b. dq, dk, dv (n, T, hs) in the inputs' type from q, k, v, dout, the
 // forward's lse (n, 1, T) and delta = rowsum(dout * out) (n, T), both f32.
-// Dropout as the forward's (seed already offset for a cross stream). Two
-// launches on the stream; returns the first cudaError_t that is not 0.
+// Dropout and mask rows as the forward's (seed already offset for a cross
+// stream). Two launches on the stream; returns the first cudaError_t that is
+// not 0.
 extern "C" int tat_flash_attention_bwd(const void* q, const void* k, const void* v,
                                        const void* dout, const void* lse, const void* delta,
                                        void* dq, void* dk, void* dv, int n, int T, int hs,
                                        int is_bf16, float scale, unsigned seed, unsigned thresh,
-                                       int rate_on, float keepf, int blk, void* stream) {
+                                       int rate_on, float keepf, int blk, int span, int skip,
+                                       int base, void* stream) {
   return tat::flash::chunk_bwd(q, k, v, dout, lse, delta, dq, dk, dv, n, T, T, hs, 1, is_bf16,
-                               scale, seed, thresh, rate_on, keepf, blk, blk, stream);
+                               scale, seed, thresh, rate_on, keepf, blk, blk,
+                               tat::RowMap{span, skip, base}, stream);
 }
 
 // K7f. q, out (n, Tq, hs), k, v (n, Tk, hs), one type (bf16 or f32),
@@ -812,7 +829,7 @@ extern "C" int tat_flash_chunk_fwd(const void* q, const void* k, const void* v, 
                                    int is_bf16, float scale, unsigned seed, unsigned thresh,
                                    int rate_on, float keepf, int bq, int bk, void* stream) {
   return tat::flash::chunk_fwd(q, k, v, out, lse, n, Tq, Tk, hs, causal, is_bf16, scale, seed,
-                               thresh, rate_on, keepf, bq, bk, stream);
+                               thresh, rate_on, keepf, bq, bk, tat::RowMap{}, stream);
 }
 
 // K7b. dq (n, Tq, hs), dk, dv (n, Tk, hs) in the inputs' type from q, k, v,
@@ -826,5 +843,6 @@ extern "C" int tat_flash_chunk_bwd(const void* q, const void* k, const void* v,
                                    unsigned thresh, int rate_on, float keepf, int bq, int bk,
                                    void* stream) {
   return tat::flash::chunk_bwd(q, k, v, dout, lse, delta, dq, dk, dv, n, Tq, Tk, hs, causal,
-                               is_bf16, scale, seed, thresh, rate_on, keepf, bq, bk, stream);
+                               is_bf16, scale, seed, thresh, rate_on, keepf, bq, bk,
+                               tat::RowMap{}, stream);
 }

@@ -21,7 +21,8 @@
 // of stream j is keyed by seed + (j + 1) * 1000003 for the cross kernels and
 // by the seed itself for self-attention and the chunks, on the JAX block
 // grid (flash_tile.cuh keep(): query blocks bq, key blocks bk, which differ
-// where t_q != t_k). The tiles differ from the JAX blocks, so p is rounded
+// where t_q != t_k), at each row's global row under data parallelism (the
+// kernels' RowMap parameter). The tiles differ from the JAX blocks, so p is rounded
 // relative to another running max: agreement with the JAX kernel is to
 // tolerance, not to the bit.
 //
@@ -102,7 +103,8 @@ struct FwdLayout {
 
 // The f32 body. At most 85 registers a thread.
 template <bool kCausal>
-__global__ void __launch_bounds__(kThreads, 3) flash_fwd_kernel(const FwdArgs a) {
+__global__ void __launch_bounds__(kThreads, 3) flash_fwd_kernel(const FwdArgs a,
+                                                                      const RowMap rm) {
   extern __shared__ __align__(128) char smem[];
   const FwdLayout L(a.R, a.hs);
   float* sq = reinterpret_cast<float*>(smem);
@@ -119,6 +121,7 @@ __global__ void __launch_bounds__(kThreads, 3) flash_fwd_kernel(const FwdArgs a)
   const int n_qt = a.Tq / R;
   const int qt = n_qt - 1 - (int)(blockIdx.x % n_qt);
   const int row = (int)(blockIdx.x / n_qt);
+  const uint32_t mrow = rm(row);  // the row's mask row
   const int q0 = qt * R;
   // the last key tile: the diagonal one under the causal mask, else all
   const int kt_end = kCausal ? min(qt, a.Tk / R - 1) : a.Tk / R - 1;
@@ -155,7 +158,7 @@ __global__ void __launch_bounds__(kThreads, 3) flash_fwd_kernel(const FwdArgs a)
         }
         const float m_old = sm[i], m_new = fmaxf(m_old, warp_max(mx));
         float sum = 0.f;
-        const KeepRow kr(a.on, seed, (uint32_t)row, (uint32_t)a.bq, (uint32_t)a.bk,
+        const KeepRow kr(a.on, seed, mrow, (uint32_t)a.bq, (uint32_t)a.bk,
                          (uint32_t)r, (uint32_t)k0, a.thresh);
         for (int c = lane; c < R; c += 32) {
           const float p = expf(srow[c] - m_new);
@@ -201,7 +204,7 @@ __global__ void __launch_bounds__(kThreads, 3) flash_fwd_kernel(const FwdArgs a)
 }
 
 template <bool kCausal>
-int launch_flash_fwd_f32(FwdArgs a, cudaStream_t stream) {
+int launch_flash_fwd_f32(FwdArgs a, RowMap rm, cudaStream_t stream) {
   a.R = pick_rows<FwdLayout>(a.hs);
   if (a.R == 0 || a.Tq % a.R != 0 || a.Tk % a.R != 0 || a.bq % a.R != 0 || a.bk % a.R != 0)
     return (int)cudaErrorInvalidValue;
@@ -211,7 +214,7 @@ int launch_flash_fwd_f32(FwdArgs a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<kCausal>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  flash_fwd_kernel<kCausal><<<(unsigned)blocks, kThreads, smem, stream>>>(a);
+  flash_fwd_kernel<kCausal><<<(unsigned)blocks, kThreads, smem, stream>>>(a, rm);
   return (int)cudaGetLastError();
 }
 
@@ -308,10 +311,11 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, __nv_bfloat16* st
 }
 
 // The bf16 body (see the note at the top). One block per (collapsed row,
-// query tile of kBr rows); kMulti: J > 1 streams summed.
-template <int D, bool kCausal, bool kMulti>
+// query tile of kBr rows); kMulti: J > 1 streams summed; kMapped: the rows'
+// mask rows are mapped (rm, data parallelism; mask_row).
+template <int D, bool kCausal, bool kMulti, bool kMapped>
 __global__ void __launch_bounds__(MmaFwd<D>::kThreads, MmaFwd<D>::kMinBlocks)
-    flash_fwd_mma_kernel(const FwdArgs a) {
+    flash_fwd_mma_kernel(const FwdArgs a, const RowMap rm) {
   using C = MmaFwd<D>;
   using bf16 = __nv_bfloat16;
   constexpr int kBr = C::kBr, kBc = C::kBc, kLd = C::kLd;
@@ -447,10 +451,10 @@ __global__ void __launch_bounds__(MmaFwd<D>::kThreads, MmaFwd<D>::kMinBlocks)
       // p = exp(s - m) into the row sums, the dropped p zeroed, rounded to
       // bf16 and packed as P.V's A fragments
       const uint32_t seed = a.stream_seeds ? stream_seed(a.seed, j) : a.seed;
-      const KeepRow kr0(a.on, seed, (uint32_t)row, (uint32_t)a.bq, (uint32_t)a.bk, (uint32_t)r0,
-                        (uint32_t)k0, a.thresh);
-      const KeepRow kr1(a.on, seed, (uint32_t)row, (uint32_t)a.bq, (uint32_t)a.bk, (uint32_t)r1,
-                        (uint32_t)k0, a.thresh);
+      const KeepRow kr0(a.on, seed, mask_row<kMapped>(rm, row), (uint32_t)a.bq,
+                        (uint32_t)a.bk, (uint32_t)r0, (uint32_t)k0, a.thresh);
+      const KeepRow kr1(a.on, seed, mask_row<kMapped>(rm, row), (uint32_t)a.bq,
+                        (uint32_t)a.bk, (uint32_t)r1, (uint32_t)k0, a.thresh);
       uint32_t pf[kBc / 16][4];
 #pragma unroll
       for (int nt = 0; nt < kSn; ++nt) {
@@ -541,45 +545,51 @@ __global__ void __launch_bounds__(MmaFwd<D>::kThreads, MmaFwd<D>::kMinBlocks)
   }
 }
 
-template <int D, bool kCausal, bool kMulti>
-int launch_flash_fwd_mma(const FwdArgs& a, cudaStream_t stream) {
+template <int D, bool kCausal, bool kMulti, bool kMapped>
+int launch_flash_fwd_mma(const FwdArgs& a, RowMap rm, cudaStream_t stream) {
   using C = MmaFwd<D>;
   if (a.Tq % C::kBr != 0 || a.Tk % C::kBc != 0 || a.bq % C::kBr != 0 || a.bk % C::kBc != 0)
     return (int)cudaErrorInvalidValue;
   const long long blocks = (long long)a.n * (a.Tq / C::kBr);
   if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_mma_kernel<D, kCausal, kMulti>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_mma_kernel<D, kCausal, kMulti, kMapped>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)C::kBytes);
   if (err != cudaSuccess) return (int)err;
-  flash_fwd_mma_kernel<D, kCausal, kMulti><<<(unsigned)blocks, C::kThreads, C::kBytes, stream>>>(a);
+  flash_fwd_mma_kernel<D, kCausal, kMulti, kMapped>
+      <<<(unsigned)blocks, C::kThreads, C::kBytes, stream>>>(a, rm);
   return (int)cudaGetLastError();
 }
 
 // J streams summed under the causal mask (the cross kernels), or one stream
 // with the causal mask or none.
 template <int D>
-int launch_flash_fwd_d(const FwdArgs& a, cudaStream_t stream) {
+int launch_flash_fwd_d(const FwdArgs& a, RowMap rm, cudaStream_t stream) {
+  // mapped mask rows come only with the causal mask (K5f, K6f, K6f-r)
+  const bool mapped = rm.skip != 0 || rm.base != 0;
+  if (!a.causal)
+    return a.J > 1 || mapped ? (int)cudaErrorInvalidValue
+                             : launch_flash_fwd_mma<D, false, false, false>(a, rm, stream);
   if (a.J > 1)
-    return a.causal ? launch_flash_fwd_mma<D, true, true>(a, stream)
-                    : (int)cudaErrorInvalidValue;
-  return a.causal ? launch_flash_fwd_mma<D, true, false>(a, stream)
-                  : launch_flash_fwd_mma<D, false, false>(a, stream);
+    return mapped ? launch_flash_fwd_mma<D, true, true, true>(a, rm, stream)
+                  : launch_flash_fwd_mma<D, true, true, false>(a, rm, stream);
+  return mapped ? launch_flash_fwd_mma<D, true, false, true>(a, rm, stream)
+                : launch_flash_fwd_mma<D, true, false, false>(a, rm, stream);
 }
 
 // bf16 on the tensor cores (mma.sync, hs padded to D = 64, 128 or 256), f32
 // on FMAs; the causal mask or none.
-inline int launch_flash_fwd(FwdArgs a, int is_bf16, cudaStream_t stream) {
+inline int launch_flash_fwd(FwdArgs a, RowMap rm, int is_bf16, cudaStream_t stream) {
   if (is_bf16) {
     a.vec = a.hs % 8 == 0 && aligned16({a.q, a.k, a.v, a.out, a.outs});
     if (a.hs <= 0 || a.hs > 256) return (int)cudaErrorInvalidValue;
-    return a.hs <= 64    ? launch_flash_fwd_d<64>(a, stream)
-           : a.hs <= 128 ? launch_flash_fwd_d<128>(a, stream)
-                         : launch_flash_fwd_d<256>(a, stream);
+    return a.hs <= 64    ? launch_flash_fwd_d<64>(a, rm, stream)
+           : a.hs <= 128 ? launch_flash_fwd_d<128>(a, rm, stream)
+                         : launch_flash_fwd_d<256>(a, rm, stream);
   }
   a.vec = 0;
-  return a.causal ? launch_flash_fwd_f32<true>(a, stream)
-                  : launch_flash_fwd_f32<false>(a, stream);
+  return a.causal ? launch_flash_fwd_f32<true>(a, rm, stream)
+                  : launch_flash_fwd_f32<false>(a, rm, stream);
 }
 
 }  // namespace flash

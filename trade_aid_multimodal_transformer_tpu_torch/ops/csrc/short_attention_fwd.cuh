@@ -10,7 +10,9 @@
 // summed in f32 and the sum rounded once. Dropout keeps p's element (r, c) of
 // stream j of collapsed row i by the hash of (seed_j, i, r, c): seed_j is
 // seed + (j + 1) * 1000003 for the cross kernel and the seed itself for the
-// self-attention kernel, as the JAX kernels key them in interpret mode.
+// self-attention kernel, as the JAX kernels key them in interpret mode. Under
+// data parallelism i is the row's row in the global batch (SeparateRows'
+// RowMap, attention_tile.cuh).
 //
 // Three bodies, by type and head size:
 // - bf16 with hs % 16 == 0 and hs <= 128 (every model path):
@@ -39,6 +41,8 @@ namespace tat {
 // q (n, T, hs), k and v (J, n, T, hs): element offsets of row r's planes.
 struct SeparateRows {
   int n;
+  RowMap rm;  // the rows' mask rows (data parallelism)
+  __device__ __forceinline__ uint32_t mask_row(int r) const { return rm(r); }
   __device__ __forceinline__ size_t q(int r, size_t plane) const { return (size_t)r * plane; }
   __device__ __forceinline__ size_t k(int j, int r, size_t plane) const {
     return ((size_t)j * n + r) * plane;
@@ -50,6 +54,7 @@ struct SeparateRows {
 // [b, h], k at [b, H + h] and v at [b, 2H + h].
 struct PackedRows {
   int H;
+  __device__ __forceinline__ uint32_t mask_row(int r) const { return (uint32_t)r; }
   __device__ __forceinline__ size_t q(int r, size_t plane) const {
     return ((size_t)(r / H) * 3 * H + r % H) * plane;
   }
@@ -94,7 +99,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int jj = 0; jj < J; ++jj) {
     const T* kj = k + rows.k(jj, r, plane);
     const T* vj = v + rows.v(jj, r, plane);
-    const Dropout d{fwd_stream_seed(seed, jj, stream_seeds), (uint32_t)r, thresh, rate_on != 0};
+    const Dropout d{fwd_stream_seed(seed, jj, stream_seeds), rows.mask_row(r), thresh,
+                    rate_on != 0};
     reset_rows(t);
     float o[kMaxPerThread];
 #pragma unroll
@@ -163,7 +169,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int jj = 0; jj < J; ++jj) {
     const __nv_bfloat16* kj = k + rows.k(jj, r, plane);
     const __nv_bfloat16* vj = v + rows.v(jj, r, plane);
-    const Dropout d{fwd_stream_seed(seed, jj, stream_seeds), (uint32_t)r, thresh, rate_on != 0};
+    const Dropout d{fwd_stream_seed(seed, jj, stream_seeds), rows.mask_row(r), thresh,
+                    rate_on != 0};
     reset_rows_tc(t);
     Frag o[kOutFrags];
     zero_frags(o);
@@ -357,8 +364,9 @@ __global__ void __launch_bounds__(kFwdThreads) short_fwd_mma_kernel(const FwdMma
             if (m2[h] == -INFINITY) m2[h] = 0.f;
           }
         const uint32_t seed = a.stream_seeds ? stream_seed(a.seed, j) : a.seed;
-        const KeepRowW kr[2] = {KeepRowW(on, seed, (uint32_t)r, (uint32_t)qrow[0], a.thresh),
-                                KeepRowW(on, seed, (uint32_t)r, (uint32_t)qrow[1], a.thresh)};
+        const uint32_t n_idx = rows.mask_row(r);
+        const KeepRowW kr[2] = {KeepRowW(on, seed, n_idx, (uint32_t)qrow[0], a.thresh),
+                                KeepRowW(on, seed, n_idx, (uint32_t)qrow[1], a.thresh)};
         softmax_pv<D, kSn>(o, l, s, m2, kr, on, k0, sk + kFwdKeys * kLd, ns, lane);
       }
     }

@@ -32,37 +32,43 @@
 
 // q (n, T, hs); k, v (J, n, T, hs); out (n, T, hs); one type for all, bf16 or
 // f32, contiguous. Dropout (rate_on) keeps element (r, c) of stream j of row i
-// by the hash of (seed + (j + 1) * 1000003, i, r, c) against thresh and
-// divides each stream by l * keepf. Returns the cudaError_t of the launch.
+// by the hash of (seed + (j + 1) * 1000003, g(i), r, c) against thresh and
+// divides each stream by l * keepf; g(i) = i + (i / span) skip + base is the
+// row's row in the global batch (tat::RowMap; span 1, skip 0, base 0 on one
+// rank). Returns the cudaError_t of the launch.
 extern "C" int tat_short_cross_attention_fwd(const void* q, const void* k,
                                              const void* v, void* out, int J,
                                              int n, int T, int hs, int is_bf16,
                                              float scale, unsigned seed,
                                              unsigned thresh, int rate_on,
-                                             float keepf, void* stream) {
+                                             float keepf, int span, int skip, int base,
+                                             void* stream) {
   const tat::FwdDrop dr{seed, thresh, rate_on, keepf};
-  return tat::launch_short_forward(q, k, v, out, J, n, tat::SeparateRows{n}, T, hs, is_bf16,
-                                   scale, dr, /*stream_seeds=*/1,
+  return tat::launch_short_forward(q, k, v, out, J, n,
+                                   tat::SeparateRows{n, tat::RowMap{span, skip, base}}, T, hs,
+                                   is_bf16, scale, dr, /*stream_seeds=*/1,
                                    static_cast<cudaStream_t>(stream));
 }
 
 // Backward of the above: dq (n, T, hs) summed over the streams, dk and dv
 // (J, n, T, hs) per stream, in the inputs' type; dq_ws is the f32 workspace
-// of bwd_ws_floats(n, T, hs, J) floats. inv is 1 / (1 - rate) as f32.
-// Returns the cudaError_t.
+// of bwd_ws_floats(n, T, hs, J) floats. inv is 1 / (1 - rate) as f32; the
+// mask rows as the forward's. Returns the cudaError_t.
 extern "C" int tat_short_cross_attention_bwd(const void* q, const void* k,
                                              const void* v, const void* dout,
                                              void* dq, void* dk, void* dv,
                                              void* dq_ws, int J, int n, int T,
                                              int hs, int is_bf16, float scale,
                                              unsigned seed, unsigned thresh,
-                                             int rate_on, float inv, void* stream) {
+                                             int rate_on, float inv, int span, int skip,
+                                             int base, void* stream) {
   tat::BwdArgs a{};
   a.q = q; a.k = k; a.v = v; a.o = nullptr; a.dout = dout;
   a.dq = dq; a.dk = dk; a.dv = dv; a.dq_ws = static_cast<float*>(dq_ws);
   a.J = J; a.n = n; a.Tn = T; a.hs = hs; a.scale = scale;
   a.rate_on = rate_on; a.seed = seed; a.thresh = thresh; a.inv = inv;
   a.layout = tat::kCrossRows; a.B = a.H = a.gb = 1;
+  a.rm = tat::RowMap{span, skip, base};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) return tat::launch_attn_bwd<__nv_bfloat16>(a, s);
   return tat::launch_attn_bwd<float>(a, s);

@@ -53,7 +53,12 @@ and tools reach:
 
 All but the decode kernels take attention dropout in the kernel, keyed as
 the JAX kernels key it in interpret mode (``hash_keep_mask``), so the masks
-are bit-identical. ``fused_qkv_attention``, ``short_cross_attention``,
+are bit-identical. Under data parallelism a rank's rows are rows of a global
+batch, and K1f, K1b, K2f, K2b, K5f, K5b, K6f and K6f-r key each row at its
+global index: K1f and K1b take ``batch`` = (start, total), the rank's first
+row and the global batch (whose batch group gb keys the fused mask), the
+others ``rows`` = (span, skip, base) over their collapsed rows
+(``layers.batch_row_map``); None is the one-rank mask. ``fused_qkv_attention``, ``short_cross_attention``,
 ``short_causal_attention``, ``short_causal_attention_packed``,
 ``flash_causal_attention`` and ``flash_cross_attention`` are the
 differentiable entries (``torch.autograd.Function``: forward kernel, backward
@@ -88,7 +93,7 @@ from typing import Dict
 
 import torch
 
-from .layers import _U32, _mul32
+from .layers import _U32, _mul32, map_rows
 
 SHORT_MIN_SEQ_LEN = 8
 SHORT_MAX_SEQ_LEN = 512
@@ -108,15 +113,17 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _SIGNATURES = {
     "fused_qkv_attention": {
         "tat_fused_qkv_attention_fwd":
-            [_P] * 6 + [_I] * 7 + [_F, _U, _U, _I, _F, _I, _P],
+            [_P] * 6 + [_I] * 7 + [_F, _U, _U, _I, _F, _I, _I, _I, _P],
     },
     "fused_qkv_attention_bwd": {
         "tat_fused_qkv_attention_bwd":
-            [_P] * 17 + [_I] * 7 + [_F, _U, _U, _I, _F, _I, _P],
+            [_P] * 17 + [_I] * 7 + [_F, _U, _U, _I, _F, _I, _I, _I, _P],
     },
     "short_cross_attention": {
-        "tat_short_cross_attention_fwd": [_P] * 4 + [_I] * 5 + [_F, _U, _U, _I, _F, _P],
-        "tat_short_cross_attention_bwd": [_P] * 8 + [_I] * 5 + [_F, _U, _U, _I, _F, _P],
+        "tat_short_cross_attention_fwd": [_P] * 4 + [_I] * 5 + [_F, _U, _U, _I, _F] + [_I] * 3
+        + [_P],
+        "tat_short_cross_attention_bwd": [_P] * 8 + [_I] * 5 + [_F, _U, _U, _I, _F] + [_I] * 3
+        + [_P],
     },
     "short_causal_attention": {
         "tat_short_causal_attention_fwd": [_P] * 4 + [_I] * 4 + [_F, _U, _U, _I, _F, _P],
@@ -132,14 +139,16 @@ _SIGNATURES = {
         "tat_decode_attention_packed_q8": [_P] * 7 + [_I] * 5 + [_F, _P],
     },
     "flash_attention": {
-        "tat_flash_attention_fwd": [_P] * 5 + [_I] * 4 + [_F, _U, _U, _I, _F, _I, _P],
-        "tat_flash_attention_bwd": [_P] * 9 + [_I] * 4 + [_F, _U, _U, _I, _F, _I, _P],
+        "tat_flash_attention_fwd": [_P] * 5 + [_I] * 4 + [_F, _U, _U, _I, _F] + [_I] * 4 + [_P],
+        "tat_flash_attention_bwd": [_P] * 9 + [_I] * 4 + [_F, _U, _U, _I, _F] + [_I] * 4 + [_P],
         "tat_flash_chunk_fwd": [_P] * 5 + [_I] * 6 + [_F, _U, _U, _I, _F, _I, _I, _P],
         "tat_flash_chunk_bwd": [_P] * 9 + [_I] * 6 + [_F, _U, _U, _I, _F, _I, _I, _P],
     },
     "flash_cross_attention": {
-        "tat_flash_cross_attention_fwd": [_P] * 4 + [_I] * 5 + [_F, _U, _U, _I, _F, _I, _P],
-        "tat_flash_cross_attention_fwd_res": [_P] * 6 + [_I] * 5 + [_F, _U, _U, _I, _F, _I, _P],
+        "tat_flash_cross_attention_fwd": [_P] * 4 + [_I] * 5 + [_F, _U, _U, _I, _F] + [_I] * 4
+        + [_P],
+        "tat_flash_cross_attention_fwd_res": [_P] * 6 + [_I] * 5 + [_F, _U, _U, _I, _F]
+        + [_I] * 4 + [_P],
     },
 }
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -359,14 +368,28 @@ def fqkv_pick_gb(nb: int, H: int, t: int, hs: int, c: int, itemsize: int = 2) ->
     return 1
 
 
-def fqkv_mask_rows(M: int, B: int, H: int, gb: int, device=None) -> torch.Tensor:
+def fqkv_mask_rows(M: int, B: int, H: int, gb: int, device=None, batch=None) -> torch.Tensor:
     """(M, H, B, 1, 1) mask row of each (m, h, b) in the JAX fused kernel:
-    pid * gb * H + h * gb + b % gb, with pid = m * (B / gb) + b // gb."""
+    pid * gb * H + h * gb + b % gb, with pid = m * (Bg / gb) + b // gb; with
+    ``batch`` = (start, Bg) the B rows are rows start + b of a global batch
+    of Bg (gb that batch's group), else Bg = B."""
+    start, Bg = batch or (0, B)
     m = torch.arange(M, device=device)[:, None, None]
     h = torch.arange(H, device=device)[None, :, None]
-    b = torch.arange(B, device=device)[None, None, :]
-    pid = m * (B // gb) + b // gb
+    b = start + torch.arange(B, device=device)[None, None, :]
+    pid = m * (Bg // gb) + b // gb
     return (pid * gb * H + h * gb + b % gb)[..., None, None]
+
+
+IDENTITY_ROWS = (1, 0, 0)  # the launch arguments of a one-rank row map
+
+
+def _fqkv_batch(what: str, B: int, batch):
+    """(start, total) of a fused launch's rows in the global batch."""
+    start, total = batch or (0, B)
+    if not (0 <= start and start + B <= total):
+        raise ValueError(f"{what}: rows [{start}, {start + B}) outside a batch of {total}")
+    return int(start), int(total)
 
 
 def _dropout_args(what: str, rate: float, salts):
@@ -449,13 +472,16 @@ def _attention_bwd(q, k, v, do, keep, rate: float, o=None):
     return dq, dk, dv
 
 
-def _fqkv_mask(x, w2, n_head: int, rate: float, salts):
-    """(M, H, B, T, T) keep-mask of the fused kernel, or None without dropout."""
+def _fqkv_mask(x, w2, n_head: int, rate: float, salts, batch=None):
+    """(M, H, B, T, T) keep-mask of the fused kernel, or None without dropout;
+    ``batch`` = (start, total): x holds rows [start, start + B) of a global
+    batch, whose group gb keys the mask."""
     if rate == 0.0:
         return None
     M, B, T, C = x.shape
-    gb = fqkv_pick_gb(B, n_head, T, w2.shape[-1], C, x.element_size())
-    rows = fqkv_mask_rows(M, B, n_head, gb, x.device)
+    start, total = _fqkv_batch("fused_qkv_attention", B, batch)
+    gb = fqkv_pick_gb(total, n_head, T, w2.shape[-1], C, x.element_size())
+    rows = fqkv_mask_rows(M, B, n_head, gb, x.device, (start, total))
     return hash_keep_mask(seed_from_salts(salts), rows, 0, 0, (M, n_head, B, T, T), rate, x.device)
 
 
@@ -473,24 +499,24 @@ def _fqkv_project_plain(x, w1, b1, w2, n_head: int):
 
 
 def fused_qkv_attention_plain(x, w1, b1, w2, n_head: int, dropout_rate: float = 0.0,
-                              dropout_salts=None):
+                              dropout_salts=None, batch=None):
     """Plain PyTorch version of the fused forward kernel (same arguments)."""
     H = n_head
     _, _, qkv = _fqkv_project_plain(x, w1, b1, w2, H)
-    keep = _fqkv_mask(x, w2, H, float(dropout_rate), dropout_salts)
+    keep = _fqkv_mask(x, w2, H, float(dropout_rate), dropout_salts, batch)
     q, k, v = qkv[:, :H], qkv[:, H:2 * H], qkv[:, 2 * H:]
     return _whole_row_attention(q, k, v, keep, float(dropout_rate)).to(x.dtype)
 
 
 def fused_qkv_attention_bwd_plain(x, w1, b1, w2, out, dout, n_head: int,
-                                  dropout_rate: float = 0.0, dropout_salts=None):
+                                  dropout_rate: float = 0.0, dropout_salts=None, batch=None):
     """Plain PyTorch version of the fused backward kernel: returns dx (x's
     type) and dw1, db1, dw2 (f32, f64 for f64), as ``_fqkv_bwd_kernel``."""
     dt, acc = x.dtype, _acc(x.dtype)
     H, rate = n_head, float(dropout_rate)
     M, B, T, C = x.shape
     t2, t3, qkv = _fqkv_project_plain(x, w1, b1, w2, H)
-    keep = _fqkv_mask(x, w2, H, rate, dropout_salts)
+    keep = _fqkv_mask(x, w2, H, rate, dropout_salts, batch)
     q, k, v = qkv[:, :H], qkv[:, H:2 * H], qkv[:, 2 * H:]
     dq, dk, dv = _attention_bwd(q, k, v, dout, keep, rate, o=out)
     dqkv = torch.cat([dq, dk, dv], dim=1).to(dt).to(acc)  # (M, 3H, B, T, hs)
@@ -505,38 +531,41 @@ def fused_qkv_attention_bwd_plain(x, w1, b1, w2, out, dout, n_head: int,
     return dx, dw1, db1, dw2
 
 
-def _collapsed_rows(q) -> torch.Tensor:
-    """(..., 1, 1) index of each collapsed row of q's leading axes."""
+def _collapsed_rows(q, rows=None) -> torch.Tensor:
+    """(..., 1, 1) mask row of each collapsed row of q's leading axes: its
+    index, or its global row under the row map ``rows``."""
     lead = q.shape[:-2]
-    return torch.arange(q[..., 0, 0].numel(), device=q.device).reshape(*lead, 1, 1)
+    n = torch.arange(q[..., 0, 0].numel(), device=q.device)
+    return map_rows(n, rows).reshape(*lead, 1, 1)
 
 
-def _cross_mask(q, J: int, rate: float, salts):
+def _cross_mask(q, J: int, rate: float, salts, rows=None):
     """(J, ..., T, T) keep-mask of the cross kernel, or None: stream j keyed
-    by its stream seed, rows by the collapsed query row."""
+    by its stream seed, rows by the collapsed query row (mapped by ``rows``)."""
     if rate == 0.0:
         return None
     shape = (*q.shape[:-2], q.shape[-2], q.shape[-2])
-    rows, seed = _collapsed_rows(q), seed_from_salts(salts)
+    n, seed = _collapsed_rows(q, rows), seed_from_salts(salts)
     return torch.stack([
-        hash_keep_mask(stream_seed(seed, j), rows, 0, 0, shape, rate, q.device)
+        hash_keep_mask(stream_seed(seed, j), n, 0, 0, shape, rate, q.device)
         for j in range(J)
     ])
 
 
-def short_cross_attention_plain(q, k, v, dropout_rate: float = 0.0, dropout_salts=None):
+def short_cross_attention_plain(q, k, v, dropout_rate: float = 0.0, dropout_salts=None,
+                                rows=None):
     """Plain PyTorch version of the cross forward kernel (same arguments)."""
     rate = float(dropout_rate)
-    keep = _cross_mask(q, k.shape[0], rate, dropout_salts)
+    keep = _cross_mask(q, k.shape[0], rate, dropout_salts, rows)
     return _whole_row_attention(q[None], k, v, keep, rate).sum(dim=0).to(q.dtype)
 
 
 def short_cross_attention_bwd_plain(q, k, v, dout, dropout_rate: float = 0.0,
-                                    dropout_salts=None):
+                                    dropout_salts=None, rows=None):
     """Plain PyTorch version of the cross backward kernel: dq summed over the
     streams, dk and dv per stream, in the inputs' type."""
     rate = float(dropout_rate)
-    keep = _cross_mask(q, k.shape[0], rate, dropout_salts)
+    keep = _cross_mask(q, k.shape[0], rate, dropout_salts, rows)
     dq, dk, dv = _attention_bwd(q[None], k, v, dout[None], keep, rate)
     return dq.sum(dim=0).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
@@ -613,10 +642,12 @@ def _flash_seed(rate: float, salts, stream) -> int:
     return (seed if stream is None else stream_seed(seed, stream)) & _U32
 
 
-def _flash_keep(seed: int, n: int, iq: int, jk: int, bq: int, bk: int, rate: float, device):
-    """(n, bq, bk) keep-mask of block (iq, jk) of every collapsed row."""
-    rows = torch.arange(n, device=device).reshape(n, 1, 1)
-    return hash_keep_mask(seed, rows, iq, jk, (n, bq, bk), rate, device)
+def _flash_keep(seed: int, n: int, iq: int, jk: int, bq: int, bk: int, rate: float, device,
+                rows=None):
+    """(n, bq, bk) keep-mask of block (iq, jk) of every collapsed row, each
+    keyed by its global row under the row map ``rows``."""
+    idx = map_rows(torch.arange(n, device=device), rows).reshape(n, 1, 1)
+    return hash_keep_mask(seed, idx, iq, jk, (n, bq, bk), rate, device)
 
 
 def _hidden(causal: bool, iq: int, bq: int, jk: int, bk: int, device):
@@ -628,7 +659,7 @@ def _hidden(causal: bool, iq: int, bq: int, jk: int, bk: int, device):
     return jk * bk + torch.arange(bk, device=device)[None, :] > rows
 
 
-def _flash_fwd_plain(q, k, v, seed: int, rate: float, causal: bool = True):
+def _flash_fwd_plain(q, k, v, seed: int, rate: float, causal: bool = True, rows=None):
     """``_flash_fwd_kernel``'s arithmetic: q (n, t_q, hs), k, v (n, t_k, hs)
     on JAX's blocks bq = pick(t_q), bk = pick(t_k), the causal mask or none
     -> (out in q's type, lse (n, 1, t_q))."""
@@ -655,7 +686,7 @@ def _flash_fwd_plain(q, k, v, seed: int, rate: float, causal: bool = True):
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(dim=-1, keepdim=True)
             if rate > 0.0:
-                keep = _flash_keep(seed, n, iq, jk, bq, bk, rate, q.device)
+                keep = _flash_keep(seed, n, iq, jk, bq, bk, rate, q.device, rows)
                 p = torch.where(keep, p, torch.zeros((), dtype=acc, device=q.device))
             o = o * corr + torch.matmul(p.to(v.dtype).to(acc), vb.to(acc))
             m = m_new
@@ -664,7 +695,8 @@ def _flash_fwd_plain(q, k, v, seed: int, rate: float, causal: bool = True):
     return torch.cat(outs, dim=1), torch.cat(lses, dim=-1)[:, None, :]
 
 
-def _flash_bwd_plain(q, k, v, out, lse, dout, seed: int, rate: float, causal: bool = True):
+def _flash_bwd_plain(q, k, v, out, lse, dout, seed: int, rate: float, causal: bool = True,
+                     rows=None):
     """``_flash_bwd_fused_kernel``'s arithmetic on JAX's blocks: dq, dk, dv
     in the inputs' types, from lse (n, 1, t_q), whatever logsumexp it is."""
     acc = _acc(q.dtype)
@@ -693,7 +725,7 @@ def _flash_bwd_plain(q, k, v, out, lse, dout, seed: int, rate: float, causal: bo
             dp = torch.matmul(gb, vb.transpose(-1, -2))
             pd = p
             if rate > 0.0:
-                keep = _flash_keep(seed, n, iq, jk, bq, bk, rate, q.device)
+                keep = _flash_keep(seed, n, iq, jk, bq, bk, rate, q.device, rows)
                 pd = torch.where(keep, p / (1.0 - rate), zero)
                 dp = torch.where(keep, dp / (1.0 - rate), zero)
             dv = dv + torch.matmul(pd.to(dout.dtype).to(acc).transpose(-1, -2), gb)
@@ -705,25 +737,25 @@ def _flash_bwd_plain(q, k, v, out, lse, dout, seed: int, rate: float, causal: bo
     return dq.to(q.dtype), torch.cat(dks, dim=1), torch.cat(dvs, dim=1)
 
 
-def flash_attention_plain(q, k, v, dropout_rate: float = 0.0, dropout_salts=None):
+def flash_attention_plain(q, k, v, dropout_rate: float = 0.0, dropout_salts=None, rows=None):
     """Plain PyTorch version of the flash forward kernel (K5f): q, k, v
     (n, T, hs) -> (out (n, T, hs) in q's type, lse (n, 1, T) f32)."""
     rate = float(dropout_rate)
-    return _flash_fwd_plain(q, k, v, _flash_seed(rate, dropout_salts, None), rate)
+    return _flash_fwd_plain(q, k, v, _flash_seed(rate, dropout_salts, None), rate, rows=rows)
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, dropout_rate: float = 0.0,
-                              dropout_salts=None, stream=None):
+                              dropout_salts=None, stream=None, rows=None):
     """Plain PyTorch version of the flash backward kernel (K5b, the math of
     ``_flash_bwd_fused_kernel``): dq, dk, dv in the inputs' type. ``stream``
     offsets the dropout seed as cross stream ``stream`` (the cross backward)."""
     rate = float(dropout_rate)
     return _flash_bwd_plain(q, k, v, out, lse, dout, _flash_seed(rate, dropout_salts, stream),
-                            rate)
+                            rate, rows=rows)
 
 
 def flash_cross_attention_plain(q, k, v, dropout_rate: float = 0.0, dropout_salts=None,
-                                residuals: bool = False):
+                                residuals: bool = False, rows=None):
     """Plain PyTorch version of the flash cross forward kernels (K6f, and with
     ``residuals`` K6f-r): q (n, T, hs), k, v (J, n, T, hs). Stream j runs the
     flash forward with its stream seed, its output is rounded to q's type and
@@ -732,7 +764,8 @@ def flash_cross_attention_plain(q, k, v, dropout_rate: float = 0.0, dropout_salt
     rate = float(dropout_rate)
     total, outs, lses = None, [], []
     for j in range(k.shape[0]):
-        o, lse = _flash_fwd_plain(q, k[j], v[j], _flash_seed(rate, dropout_salts, j), rate)
+        o, lse = _flash_fwd_plain(q, k[j], v[j], _flash_seed(rate, dropout_salts, j), rate,
+                                  rows=rows)
         total = o if total is None else total + o
         outs.append(o)
         lses.append(lse)
@@ -882,24 +915,27 @@ def _check_fqkv_shapes(what, x, w1, b1, w2, H):
 
 
 def fused_qkv_attention_fwd(x, w1, b1, w2, n_head: int, dropout_rate: float = 0.0,
-                            dropout_salts=None):
+                            dropout_salts=None, batch=None):
     """The forward kernel (K1f): the plain version for CPU tensors, the CUDA
     kernel for CUDA tensors. Returns (M, H, B, T, hs) in x's type. On the
     mma.sync body (bf16, hs % 16 == 0, hs <= 128: every model path) one
     call launches two CUDA kernels (the weights rounded to bf16 into the
     workspace, then the forward) and counts one launch; the C entry picks
-    the body, so every call passes the workspace."""
+    the body, so every call passes the workspace. ``batch`` = (start,
+    total): x holds rows [start, start + B) of a global batch of total rows,
+    and the mask is the global call's rows (gb taken from total)."""
     what = "fused_qkv_attention"
     H = n_head
     _check_fqkv_shapes(what, x, w1, b1, w2, H)
     seed, thresh, on, keepf, _ = _dropout_args(what, dropout_rate, dropout_salts)
-    if _on_cpu(x, w1, b1, w2):
-        return fused_qkv_attention_plain(x, w1, b1, w2, H, dropout_rate, dropout_salts)
-    _check_cuda_operands(what, (x,), (w1, b1, w2))
     M, B, T, C = x.shape
+    start, total = _fqkv_batch(what, B, batch)
+    if _on_cpu(x, w1, b1, w2):
+        return fused_qkv_attention_plain(x, w1, b1, w2, H, dropout_rate, dropout_salts, batch)
+    _check_cuda_operands(what, (x,), (w1, b1, w2))
     hs = w2.shape[-1]
     _check_band(what, T, hs)
-    gb = fqkv_pick_gb(B, H, T, hs, C, x.element_size())
+    gb = fqkv_pick_gb(total, H, T, hs, C, x.element_size())
     out = torch.empty((M, H, B, T, hs), dtype=x.dtype, device=x.device)
     # the weights rounded to bf16 once a call: w1 (padded to 8), then w2
     ws = torch.empty(-(-w1.numel() // 8) * 8 + w2.numel(), dtype=torch.bfloat16,
@@ -907,7 +943,7 @@ def fused_qkv_attention_fwd(x, w1, b1, w2, n_head: int, dropout_rate: float = 0.
     err = _fn("fused_qkv_attention", "tat_fused_qkv_attention_fwd")(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), out.data_ptr(),
         ws.data_ptr(), M, B, T, C, H, hs, int(x.dtype == torch.bfloat16), hs ** -0.5,
-        seed, thresh, on, keepf, gb, _stream(),
+        seed, thresh, on, keepf, gb, total, start, _stream(),
     )
     _check_launch(err, what)
     fused_qkv_attention_fwd.launches += 1
@@ -918,8 +954,9 @@ fused_qkv_attention_fwd.launches = 0
 
 
 def fused_qkv_attention_bwd(x, w1, b1, w2, out, dout, n_head: int,
-                            dropout_rate: float = 0.0, dropout_salts=None):
-    """The backward kernel (K1b): dx in x's type and dw1, db1, dw2 in f32."""
+                            dropout_rate: float = 0.0, dropout_salts=None, batch=None):
+    """The backward kernel (K1b): dx in x's type and dw1, db1, dw2 in f32;
+    ``batch`` as the forward's."""
     what = "fused_qkv_attention_bwd"
     H = n_head
     _check_fqkv_shapes(what, x, w1, b1, w2, H)
@@ -928,12 +965,13 @@ def fused_qkv_attention_bwd(x, w1, b1, w2, out, dout, n_head: int,
     hs2, hs = w2.shape[-2], w2.shape[-1]
     if out.shape != (M, H, B, T, hs) or dout.shape != out.shape:
         raise ValueError(f"{what}: out / dout must be {(M, H, B, T, hs)}")
+    start, total = _fqkv_batch(what, B, batch)
     if _on_cpu(x, w1, b1, w2, out, dout):
         return fused_qkv_attention_bwd_plain(x, w1, b1, w2, out, dout, H, dropout_rate,
-                                             dropout_salts)
+                                             dropout_salts, batch)
     _check_cuda_operands(what, (x, out, dout), (w1, b1, w2))
     _check_band(what, T, hs)
-    gb = fqkv_pick_gb(B, H, T, hs, C, x.element_size())
+    gb = fqkv_pick_gb(total, H, T, hs, C, x.element_size())
     dev, dt, f32 = x.device, x.dtype, torch.float32
     d3 = 3 * H * hs2
     dx = torch.empty_like(x)
@@ -953,7 +991,7 @@ def fused_qkv_attention_bwd(x, w1, b1, w2, out, dout, n_head: int,
         dout.data_ptr(), dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(),
         *(w.data_ptr() for w in ws),
         M, B, T, C, H, hs, int(dt == torch.bfloat16), hs ** -0.5,
-        seed, thresh, on, inv, gb, _stream(),
+        seed, thresh, on, inv, gb, total, start, _stream(),
     )
     _check_launch(err, what)
     fused_qkv_attention_bwd.launches += 1
@@ -969,10 +1007,10 @@ class FusedQKVAttention(torch.autograd.Function):
     stored."""
 
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, n_head, dropout_rate, dropout_salts):
-        out = fused_qkv_attention_fwd(x, w1, b1, w2, n_head, dropout_rate, dropout_salts)
+    def forward(ctx, x, w1, b1, w2, n_head, dropout_rate, dropout_salts, batch):
+        out = fused_qkv_attention_fwd(x, w1, b1, w2, n_head, dropout_rate, dropout_salts, batch)
         ctx.save_for_backward(x, w1, b1, w2, out)
-        ctx.args = (n_head, dropout_rate, dropout_salts)
+        ctx.args = (n_head, dropout_rate, dropout_salts, batch)
         return out
 
     @staticmethod
@@ -980,20 +1018,21 @@ class FusedQKVAttention(torch.autograd.Function):
         x, w1, b1, w2, out = ctx.saved_tensors
         dx, dw1, db1, dw2 = fused_qkv_attention_bwd(x, w1, b1, w2, out, dout.contiguous(),
                                                     *ctx.args)
-        return dx, dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype), None, None, None
+        return dx, dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype), None, None, None, None
 
 
 def fused_qkv_attention(x, w1, b1, w2, n_head: int, dropout_rate: float = 0.0,
-                        dropout_salts=None):
+                        dropout_salts=None, batch=None):
     """Factored QKV projection + whole-row causal attention, differentiable.
 
     x: (M, B, T, C) normalised input, bf16 or f32; w1: (M, C, 3D) with
     D = H*hs/2; b1: (M, 3D); w2: (M, 3H, hs/2, hs), the q/k/v head groups
     concatenated; weights f32. dropout_salts: the site's raw uint32[2] salts
-    (needed when dropout_rate > 0). Returns (M, H, B, T, hs) in x's type,
-    head-major like the JAX entry ``fused_qkv_attention``."""
+    (needed when dropout_rate > 0); batch: (start, total) of x's rows in a
+    global batch (data parallelism), or None. Returns (M, H, B, T, hs) in
+    x's type, head-major like the JAX entry ``fused_qkv_attention``."""
     return FusedQKVAttention.apply(x, w1, b1, w2, n_head, float(dropout_rate),
-                                   _salts(dropout_salts))
+                                   _salts(dropout_salts), None if batch is None else tuple(batch))
 
 
 def _check_cross_shapes(what, q, k, v):
@@ -1004,14 +1043,15 @@ def _check_cross_shapes(what, q, k, v):
         )
 
 
-def short_cross_attention_fwd(q, k, v, dropout_rate: float = 0.0, dropout_salts=None):
+def short_cross_attention_fwd(q, k, v, dropout_rate: float = 0.0, dropout_salts=None, rows=None):
     """The forward kernel (K2f): plain version for CPU tensors, CUDA kernel
-    for CUDA tensors. Returns (..., T, hs) in q's type."""
+    for CUDA tensors. Returns (..., T, hs) in q's type. ``rows``: the global
+    rows of q's collapsed rows (``layers.batch_row_map``), or None."""
     what = "short_cross_attention"
     _check_cross_shapes(what, q, k, v)
     seed, thresh, on, keepf, _ = _dropout_args(what, dropout_rate, dropout_salts)
     if _on_cpu(q, k, v):
-        return short_cross_attention_plain(q, k, v, dropout_rate, dropout_salts)
+        return short_cross_attention_plain(q, k, v, dropout_rate, dropout_salts, rows)
     _check_cuda_operands(what, (q, k, v))
     T, hs = q.shape[-2], q.shape[-1]
     _check_band(what, T, hs)
@@ -1020,7 +1060,7 @@ def short_cross_attention_fwd(q, k, v, dropout_rate: float = 0.0, dropout_salts=
     err = _fn("short_cross_attention", "tat_short_cross_attention_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         J, n, T, hs, int(q.dtype == torch.bfloat16), hs ** -0.5,
-        seed, thresh, on, keepf, _stream(),
+        seed, thresh, on, keepf, *(rows or IDENTITY_ROWS), _stream(),
     )
     _check_launch(err, what)
     short_cross_attention_fwd.launches += 1
@@ -1030,15 +1070,17 @@ def short_cross_attention_fwd(q, k, v, dropout_rate: float = 0.0, dropout_salts=
 short_cross_attention_fwd.launches = 0
 
 
-def short_cross_attention_bwd(q, k, v, dout, dropout_rate: float = 0.0, dropout_salts=None):
-    """The backward kernel (K2b): dq (summed over streams), dk, dv."""
+def short_cross_attention_bwd(q, k, v, dout, dropout_rate: float = 0.0, dropout_salts=None,
+                              rows=None):
+    """The backward kernel (K2b): dq (summed over streams), dk, dv; ``rows``
+    as the forward's."""
     what = "short_cross_attention_bwd"
     _check_cross_shapes(what, q, k, v)
     if dout.shape != q.shape:
         raise ValueError(f"{what}: dout {tuple(dout.shape)} != q {tuple(q.shape)}")
     seed, thresh, on, _, inv = _dropout_args(what, dropout_rate, dropout_salts)
     if _on_cpu(q, k, v, dout):
-        return short_cross_attention_bwd_plain(q, k, v, dout, dropout_rate, dropout_salts)
+        return short_cross_attention_bwd_plain(q, k, v, dout, dropout_rate, dropout_salts, rows)
     _check_cuda_operands(what, (q, k, v, dout))
     T, hs = q.shape[-2], q.shape[-1]
     _check_band(what, T, hs)
@@ -1049,7 +1091,7 @@ def short_cross_attention_bwd(q, k, v, dout, dropout_rate: float = 0.0, dropout_
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), ws.data_ptr(),
         J, n, T, hs, int(q.dtype == torch.bfloat16), hs ** -0.5,
-        seed, thresh, on, inv, _stream(),
+        seed, thresh, on, inv, *(rows or IDENTITY_ROWS), _stream(),
     )
     _check_launch(err, what)
     short_cross_attention_bwd.launches += 1
@@ -1063,25 +1105,26 @@ class ShortCrossAttention(torch.autograd.Function):
     """K2f forward, K2b backward; gradients for q, k and v."""
 
     @staticmethod
-    def forward(ctx, q, k, v, dropout_rate, dropout_salts):
-        out = short_cross_attention_fwd(q, k, v, dropout_rate, dropout_salts)
+    def forward(ctx, q, k, v, dropout_rate, dropout_salts, rows):
+        out = short_cross_attention_fwd(q, k, v, dropout_rate, dropout_salts, rows)
         ctx.save_for_backward(q, k, v)
-        ctx.args = (dropout_rate, dropout_salts)
+        ctx.args = (dropout_rate, dropout_salts, rows)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v = ctx.saved_tensors
         dq, dk, dv = short_cross_attention_bwd(q, k, v, dout.contiguous(), *ctx.args)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
-def short_cross_attention(q, k, v, dropout_rate: float = 0.0, dropout_salts=None):
+def short_cross_attention(q, k, v, dropout_rate: float = 0.0, dropout_salts=None, rows=None):
     """Sum over J key/value streams of whole-row causal attention,
     differentiable. q: (..., T, hs); k, v: (J, ..., T, hs); one type, bf16 or
     f32. Stream j's dropout is keyed by its stream seed and the collapsed
-    query row, as the JAX kernel's. Returns (..., T, hs) in q's type."""
-    return ShortCrossAttention.apply(q, k, v, float(dropout_rate), _salts(dropout_salts))
+    query row (its global row under the row map ``rows``), as the JAX
+    kernel's. Returns (..., T, hs) in q's type."""
+    return ShortCrossAttention.apply(q, k, v, float(dropout_rate), _salts(dropout_salts), rows)
 
 
 def short_cross_attention_t(q, kT, vT, dropout_rate: float = 0.0, dropout_salts=None):
@@ -1464,25 +1507,26 @@ def _check_flash_operands(what, q, k, v, cross: bool = False):
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
 
 
-def _flash_launch_args(q, rate: float, salts, stream=None):
-    """(n, T, hs, is_bf16, scale, seed, thresh, on, keepf, JAX block) of a
-    flash launch."""
+def _flash_launch_args(q, rate: float, salts, stream=None, rows=None):
+    """(n, T, hs, is_bf16, scale, seed, thresh, on, keepf, JAX block, the
+    row map) of a flash launch."""
     n, t, hs = q.shape
     _, thresh, on, keepf, _ = _dropout_args("flash", rate, salts)
     return (n, t, hs, int(q.dtype == torch.bfloat16), hs ** -0.5,
-            _flash_seed(float(rate), salts, stream), thresh, on, keepf, flash_pick_block(t))
+            _flash_seed(float(rate), salts, stream), thresh, on, keepf, flash_pick_block(t),
+            *(rows or IDENTITY_ROWS))
 
 
-def flash_attention_fwd(q, k, v, dropout_rate: float = 0.0, dropout_salts=None):
+def flash_attention_fwd(q, k, v, dropout_rate: float = 0.0, dropout_salts=None, rows=None):
     """The flash forward kernel (K5f): q, k, v (n, T, hs), one type, bf16 or
     f32 -> (out (n, T, hs) in q's type, lse (n, 1, T) f32). The plain version
     for CPU tensors, the CUDA kernel for CUDA tensors with T % 128 == 0,
-    T >= 256, hs <= 256."""
+    T >= 256, hs <= 256. ``rows``: the global rows of the n rows, or None."""
     what = "flash_attention"
     _check_flash_operands(what, q, k, v)
     _dropout_args(what, dropout_rate, dropout_salts)
     if _on_cpu(q, k, v):
-        return flash_attention_plain(q, k, v, dropout_rate, dropout_salts)
+        return flash_attention_plain(q, k, v, dropout_rate, dropout_salts, rows)
     _check_cuda_operands(what, (q, k, v))
     n, t, hs = q.shape
     _check_flash(what, t, hs)
@@ -1490,7 +1534,7 @@ def flash_attention_fwd(q, k, v, dropout_rate: float = 0.0, dropout_salts=None):
     lse = torch.empty((n, 1, t), dtype=torch.float32, device=q.device)
     err = _fn("flash_attention", "tat_flash_attention_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        *_flash_launch_args(q, dropout_rate, dropout_salts), _stream(),
+        *_flash_launch_args(q, dropout_rate, dropout_salts, rows=rows), _stream(),
     )
     _check_launch(err, what)
     flash_attention_fwd.launches += 1
@@ -1501,12 +1545,13 @@ flash_attention_fwd.launches = 0
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, dropout_rate: float = 0.0,
-                        dropout_salts=None, stream=None):
+                        dropout_salts=None, stream=None, rows=None):
     """The flash backward kernel (K5b): dq, dk, dv in the inputs' type from
     the forward's out and lse and the output gradient dout. delta =
     rowsum(dout * out) is one PyTorch reduction before the launch, as the JAX
     package computes it outside its kernel. ``stream`` keys the dropout as
-    cross stream ``stream`` (the cross backward, one launch per stream)."""
+    cross stream ``stream`` (the cross backward, one launch per stream);
+    ``rows`` as the forward's."""
     what = "flash_attention_bwd"
     _check_flash_operands(what, q, k, v)
     n, t, hs = q.shape
@@ -1515,7 +1560,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, dropout_rate: float = 0.0,
     _dropout_args(what, dropout_rate, dropout_salts)
     if _on_cpu(q, k, v, out, lse, dout):
         return flash_attention_bwd_plain(q, k, v, out, lse, dout, dropout_rate, dropout_salts,
-                                         stream)
+                                         stream, rows)
     _check_cuda_operands(what, (q, k, v, out, dout), (lse,))
     _check_flash(what, t, hs)
     delta = dout.to(torch.float32, copy=True).mul_(out).sum(dim=-1)
@@ -1523,7 +1568,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, dropout_rate: float = 0.0,
     err = _fn("flash_attention", "tat_flash_attention_bwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_flash_launch_args(q, dropout_rate, dropout_salts, stream), _stream(),
+        *_flash_launch_args(q, dropout_rate, dropout_salts, stream, rows), _stream(),
     )
     _check_launch(err, what)
     flash_attention_bwd.launches += 1
@@ -1537,47 +1582,52 @@ class FlashCausalAttention(torch.autograd.Function):
     """K5f forward, K5b backward; gradients for q, k and v."""
 
     @staticmethod
-    def forward(ctx, q, k, v, dropout_rate, dropout_salts):
-        out, lse = flash_attention_fwd(q, k, v, dropout_rate, dropout_salts)
+    def forward(ctx, q, k, v, dropout_rate, dropout_salts, rows):
+        out, lse = flash_attention_fwd(q, k, v, dropout_rate, dropout_salts, rows)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (dropout_rate, dropout_salts)
+        ctx.args = (dropout_rate, dropout_salts, rows)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(), *ctx.args)
-        return dq, dk, dv, None, None
+        rate, salts, rows = ctx.args
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(), rate, salts,
+                                         rows=rows)
+        return dq, dk, dv, None, None, None
 
 
-def flash_causal_attention(q, k, v, dropout_rate: float = 0.0, dropout_salts=None):
+def flash_causal_attention(q, k, v, dropout_rate: float = 0.0, dropout_salts=None, rows=None):
     """Blockwise causal self-attention over trailing (T, hs), differentiable,
     the JAX entry ``flash_causal_attention``: the leading axes collapse into
-    rows, whose index keys the dropout. q, k, v: one shape and type, bf16 or
-    f32. Returns (..., T, hs) in q's type."""
+    rows, whose index (global row under the row map ``rows``) keys the
+    dropout. q, k, v: one shape and type, bf16 or f32. Returns (..., T, hs)
+    in q's type."""
     if q.ndim < 3 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"flash_causal_attention: q, k, v must share one shape (..., T, hs); "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     t, hs = q.shape[-2:]
     q3, k3, v3 = (x.reshape(-1, t, hs).contiguous() for x in (q, k, v))
-    out = FlashCausalAttention.apply(q3, k3, v3, float(dropout_rate), _salts(dropout_salts))
+    out = FlashCausalAttention.apply(q3, k3, v3, float(dropout_rate), _salts(dropout_salts), rows)
     return out.reshape(q.shape)
 
 
-def flash_cross_attention_fwd(q, k, v, dropout_rate: float = 0.0, dropout_salts=None):
+def flash_cross_attention_fwd(q, k, v, dropout_rate: float = 0.0, dropout_salts=None,
+                              rows=None):
     """The flash cross forward kernel (K6f): q (n, T, hs), k, v (J, n, T, hs)
-    -> the sum over streams (n, T, hs) in q's type."""
+    -> the sum over streams (n, T, hs) in q's type; ``rows``: the global
+    rows of the n rows, or None."""
     what = "flash_cross_attention"
     _check_flash_operands(what, q, k, v, cross=True)
     _dropout_args(what, dropout_rate, dropout_salts)
     if _on_cpu(q, k, v):
-        return flash_cross_attention_plain(q, k, v, dropout_rate, dropout_salts)
+        return flash_cross_attention_plain(q, k, v, dropout_rate, dropout_salts, rows=rows)
     _check_cuda_operands(what, (q, k, v))
     _check_flash(what, q.shape[1], q.shape[2])
     out = torch.empty_like(q)
     err = _fn("flash_cross_attention", "tat_flash_cross_attention_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), k.shape[0],
-        *_flash_launch_args(q, dropout_rate, dropout_salts), _stream(),
+        *_flash_launch_args(q, dropout_rate, dropout_salts, rows=rows), _stream(),
     )
     _check_launch(err, what)
     flash_cross_attention_fwd.launches += 1
@@ -1587,15 +1637,17 @@ def flash_cross_attention_fwd(q, k, v, dropout_rate: float = 0.0, dropout_salts=
 flash_cross_attention_fwd.launches = 0
 
 
-def flash_cross_attention_res(q, k, v, dropout_rate: float = 0.0, dropout_salts=None):
+def flash_cross_attention_res(q, k, v, dropout_rate: float = 0.0, dropout_salts=None,
+                              rows=None):
     """The flash cross forward kernel with residuals (K6f-r): the sum, and
     each stream's output (J, n, T, hs) in q's type and logsumexp
-    (J, n, 1, T) f32, which the backward reads."""
+    (J, n, 1, T) f32, which the backward reads; ``rows`` as K6f's."""
     what = "flash_cross_attention_res"
     _check_flash_operands(what, q, k, v, cross=True)
     _dropout_args(what, dropout_rate, dropout_salts)
     if _on_cpu(q, k, v):
-        return flash_cross_attention_plain(q, k, v, dropout_rate, dropout_salts, residuals=True)
+        return flash_cross_attention_plain(q, k, v, dropout_rate, dropout_salts, residuals=True,
+                                           rows=rows)
     _check_cuda_operands(what, (q, k, v))
     n, t, hs = q.shape
     _check_flash(what, t, hs)
@@ -1604,7 +1656,7 @@ def flash_cross_attention_res(q, k, v, dropout_rate: float = 0.0, dropout_salts=
     err = _fn("flash_cross_attention", "tat_flash_cross_attention_fwd_res")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), outs.data_ptr(),
         lses.data_ptr(), k.shape[0],
-        *_flash_launch_args(q, dropout_rate, dropout_salts), _stream(),
+        *_flash_launch_args(q, dropout_rate, dropout_salts, rows=rows), _stream(),
     )
     _check_launch(err, what)
     flash_cross_attention_res.launches += 1
@@ -1620,10 +1672,11 @@ class FlashCrossAttention(torch.autograd.Function):
     type in stream order (the JAX package's ``_flash_cross_bwd``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, dropout_rate, dropout_salts):
-        out, outs, lses = flash_cross_attention_res(q, k, v, dropout_rate, dropout_salts)
+    def forward(ctx, q, k, v, dropout_rate, dropout_salts, rows):
+        out, outs, lses = flash_cross_attention_res(q, k, v, dropout_rate, dropout_salts, rows)
         ctx.save_for_backward(q, k, v, outs, lses)
         ctx.args = (dropout_rate, dropout_salts)
+        ctx.rows = rows
         return out
 
     @staticmethod
@@ -1634,28 +1687,29 @@ class FlashCrossAttention(torch.autograd.Function):
         dks, dvs = [], []
         for j in range(k.shape[0]):
             dq_j, dk_j, dv_j = flash_attention_bwd(q, k[j], v[j], outs[j], lses[j], dout,
-                                                   *ctx.args, stream=j)
+                                                   *ctx.args, stream=j, rows=ctx.rows)
             dq = dq + dq_j
             dks.append(dk_j)
             dvs.append(dv_j)
-        return dq, torch.stack(dks), torch.stack(dvs), None, None
+        return dq, torch.stack(dks), torch.stack(dvs), None, None, None
 
 
-def flash_cross_attention(q, k, v, dropout_rate: float = 0.0, dropout_salts=None):
+def flash_cross_attention(q, k, v, dropout_rate: float = 0.0, dropout_salts=None, rows=None):
     """Sum over J key/value streams of blockwise causal attention, the JAX
     entry ``flash_cross_attention``: q (..., T, hs), k, v (J, ..., T, hs),
-    the leading axes of q collapsed into the rows that key the dropout.
-    Differentiable (K6f-r forward, K5b per stream backward); where no input
-    needs a gradient the forward is K6f. Returns (..., T, hs) in q's type."""
+    the leading axes of q collapsed into the rows that key the dropout
+    (their global rows under the row map ``rows``). Differentiable (K6f-r
+    forward, K5b per stream backward); where no input needs a gradient the
+    forward is K6f. Returns (..., T, hs) in q's type."""
     _check_cross_shapes("flash_cross_attention", q, k, v)
     t, hs = q.shape[-2:]
     q3 = q.reshape(-1, t, hs).contiguous()
     k4, v4 = (x.reshape(k.shape[0], -1, t, hs).contiguous() for x in (k, v))
     rate, salts = float(dropout_rate), _salts(dropout_salts)
     if _needs_grad(q, k, v):
-        out = FlashCrossAttention.apply(q3, k4, v4, rate, salts)
+        out = FlashCrossAttention.apply(q3, k4, v4, rate, salts, rows)
     else:
-        out = flash_cross_attention_fwd(q3, k4, v4, rate, salts)
+        out = flash_cross_attention_fwd(q3, k4, v4, rate, salts, rows)
     return out.reshape(q.shape)
 
 

@@ -9,10 +9,19 @@ the JAX package; every u32 operation runs here in int64 masked to 32 bits, so
 the masks are bit-identical to JAX's. ``KeyGen`` derives each site's salt
 pair from a raw uint32[2] key (the port never holds a JAX key); ``dropout``
 regenerates the mask in its backward from the two salts and stores no mask.
+
+Under data parallelism a rank holds rows [start, start + B) of a global
+batch, and every mask must be the global call's rows. The data-parallel
+trainer opens ``batch_slice_scope(start, total)``; a site that names its
+batch axis (``dropout(..., batch_axis=...)``, the attention cores and their
+kernels) then hashes each collapsed row at its global index
+(``batch_row_map``). Outside the scope the masks are the one-rank masks.
 """
 
 from __future__ import annotations
 
+import contextlib
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -70,11 +79,61 @@ def mix32_const(i: int) -> int:
     return h
 
 
+# ------------------------------------------------------- global batch rows
+
+_BATCH_SLICE: Optional[Tuple[int, int]] = None  # (start, total) of an open scope
+
+
+@contextlib.contextmanager
+def batch_slice_scope(start: int, total: int):
+    """While open, the batch axes that dropout sites name hold rows
+    [start, start + B) of a global batch of ``total`` rows (one data-parallel
+    rank's share), so their masks are keyed by global rows."""
+    global _BATCH_SLICE
+    prev = _BATCH_SLICE
+    _BATCH_SLICE = (int(start), int(total))
+    try:
+        yield
+    finally:
+        _BATCH_SLICE = prev
+
+
+def batch_slice() -> Optional[Tuple[int, int]]:
+    """(start, total) of the open ``batch_slice_scope``, or None."""
+    return _BATCH_SLICE
+
+
+def batch_row_map(lead: Sequence[int], batch_axis: Optional[int]
+                  ) -> Optional[Tuple[int, int, int]]:
+    """Under a ``batch_slice_scope``, the global row of each collapsed row of
+    the leading axes ``lead`` whose axis ``batch_axis`` is the batch axis, as
+    (span, skip, base): row n = (o B + b) I + i (I the rows inside a batch
+    row) is global row n + (n // span) skip + base = (o Bg + start + b) I + i.
+    None (the identity) outside the scope or without a batch axis."""
+    if _BATCH_SLICE is None or batch_axis is None:
+        return None
+    start, total = _BATCH_SLICE
+    lead = tuple(int(d) for d in lead)
+    inner = math.prod(lead[batch_axis + 1:])
+    B = lead[batch_axis]
+    return B * inner, (total - B) * inner, start * inner
+
+
+def map_rows(n: torch.Tensor, rows: Optional[Tuple[int, int, int]]) -> torch.Tensor:
+    """The global rows (``batch_row_map``) of integer row indices ``n``."""
+    if rows is None:
+        return n
+    span, skip, base = rows
+    return n + torch.div(n, span, rounding_mode="floor") * skip + base
+
+
 def hash_keep_mask_nd(s1: int, s2: int, shape: Sequence[int], rate: float,
-                      device=None) -> torch.Tensor:
+                      device=None, rows: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """Bool keep-mask over ``shape`` from the salts (s1, s2): per-axis salt
     vectors (murmur-mixed iotas) combined per element by adds and a
-    multiply-free avalanche, as the JAX package's ``hash_keep_mask_nd``."""
+    multiply-free avalanche, as the JAX package's ``hash_keep_mask_nd``.
+    ``rows`` (``batch_row_map``) keys the collapsed leading axes by their
+    global rows: the global call's nv vector at this rank's rows, O(N)."""
     threshold = min(int(rate * (1 << 32)), (1 << 32) - 1)
     shape = tuple(int(d) for d in shape)
     shape2 = (1,) * max(0, 2 - len(shape)) + shape
@@ -89,7 +148,7 @@ def hash_keep_mask_nd(s1: int, s2: int, shape: Sequence[int], rate: float,
 
     rv = _mix32((_mul32(iota(R), 2246822519) + s1) & _U32)
     cv = _mix32((_mul32(iota(C), 3266489917) + (s2 ^ 0x9E3779B9)) & _U32)
-    nv = _mix32((_mul32(iota(N), 2654435761) + (s1 ^ ((s2 * 97) & _U32))) & _U32)
+    nv = _mix32((_mul32(map_rows(iota(N), rows), 2654435761) + (s1 ^ ((s2 * 97) & _U32))) & _U32)
     h = (nv[:, None, None] + rv[None, :, None] + cv[None, None, :]) & _U32
     h = (h + (h << 3)) & _U32
     h ^= h >> 11
@@ -121,26 +180,29 @@ class _HashDropout(torch.autograd.Function):
     two salts (the JAX package's ``_dropout_cv``): no mask tensor is kept."""
 
     @staticmethod
-    def forward(ctx, x, s1, s2, rate):
-        ctx.args = (s1, s2, rate)
-        return _masked_scale(x, hash_keep_mask_nd(s1, s2, x.shape, rate, x.device), rate)
+    def forward(ctx, x, s1, s2, rate, rows):
+        ctx.args = (s1, s2, rate, rows)
+        return _masked_scale(x, hash_keep_mask_nd(s1, s2, x.shape, rate, x.device, rows), rate)
 
     @staticmethod
     def backward(ctx, g):
-        s1, s2, rate = ctx.args
-        keep = hash_keep_mask_nd(s1, s2, g.shape, rate, g.device)
-        return _masked_scale(g, keep, rate), None, None, None
+        s1, s2, rate, rows = ctx.args
+        keep = hash_keep_mask_nd(s1, s2, g.shape, rate, g.device, rows)
+        return _masked_scale(g, keep, rate), None, None, None, None
 
 
-def dropout(x: torch.Tensor, rate: float, key: Optional[Sequence[int]], train: bool) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, key: Optional[Sequence[int]], train: bool,
+            batch_axis: Optional[int] = None) -> torch.Tensor:
     """Inverted hash dropout; the identity when not training or rate == 0.
-    ``key`` is a site's raw uint32[2] salt pair (from ``KeyGen``)."""
+    ``key`` is a site's raw uint32[2] salt pair (from ``KeyGen``);
+    ``batch_axis``, x's batch axis (one of its leading axes), keys the mask
+    by global batch rows inside a ``batch_slice_scope``."""
     if not train or rate == 0.0:
         return x
     if key is None:
         raise ValueError("dropout in training needs a key")
     s1, s2 = dropout_salts(key)
-    return _HashDropout.apply(x, s1, s2, float(rate))
+    return _HashDropout.apply(x, s1, s2, float(rate), batch_row_map(x.shape[:-2], batch_axis))
 
 
 class KeyGen:

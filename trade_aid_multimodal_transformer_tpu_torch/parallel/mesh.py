@@ -1,12 +1,23 @@
-"""Process groups of a parallel run, and the processes that hold them.
+"""Process groups of a parallel run, and the processes that hold them
+(port of the JAX package's ``parallel/mesh.py``).
 
 The JAX package lays its devices out as a (pipe, mod, data, model, seq)
-mesh; the port builds the sequence axis ('seq', context parallelism) and
-nothing else yet (parallel/resolve.py refuses the other axes). A run of P
-ranks is P processes in one ``torch.distributed`` group: NCCL with one card
-per rank, gloo on the CPU. ``SeqMesh`` is one rank's view of the axis: the
-ring hop (to rank + 1, from rank - 1) and the all-gather along the sequence
-that ring attention needs.
+mesh; the port builds the data axis (data parallelism) and the sequence axis
+('seq', context parallelism) and nothing else yet (parallel/resolve.py
+refuses the other axes). A run of P ranks is P processes in one
+``torch.distributed`` group: NCCL with one card per rank, gloo on the CPU.
+Ranks are laid out in the JAX package's device order, data outer and
+sequence inner: global rank d * S + s holds data row d and sequence place s
+(``make_mesh``). Every rank creates the same groups in the same order: one
+sequence group per data row (S consecutive ranks) and one data group per
+sequence place.
+
+``SeqMesh`` is one rank's view of the sequence axis: the ring hop (to the
+next place, from the previous one, as global ranks of its group) and the
+all-gather along the sequence that ring attention needs. ``DataAxis`` is its
+view of the data axis: its rows of a global batch (``batch_rows``, the JAX
+package's ``batch_pspec``), the gradient mean over the axis in one flat
+all-reduce in ``tree_leaves`` order, and the sums of an evaluation pass.
 
 Where several ranks share one card (a test arrangement: NCCL refuses two
 ranks on one device), the group is gloo and CUDA tensors travel through
@@ -26,7 +37,7 @@ import socket
 import time
 import traceback
 from dataclasses import dataclass
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -34,31 +45,40 @@ import torch.distributed as dist
 
 @dataclass
 class SeqMesh:
-    """This rank's place on the sequence axis of a context-parallel run."""
+    """This rank's place on the sequence axis of a context-parallel run.
+    ``group``: the axis's process group (None: the default group, the axis
+    being the whole run); ``ranks``: the global ranks of its places in order
+    (None: 0 .. size - 1)."""
 
     rank: int
     size: int
     staged: bool = False  # gloo with CUDA tensors: communicate through host memory
+    group: Any = None
+    ranks: Optional[Tuple[int, ...]] = None
+
+    def _peer(self, place: int) -> int:
+        place %= self.size
+        return place if self.ranks is None else self.ranks[place]
 
     def hop(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        """One ring hop: each tensor goes to rank + 1 and the tensors of
-        rank - 1 come back, in the same shapes and types."""
-        nxt, prv = (self.rank + 1) % self.size, (self.rank - 1) % self.size
+        """One ring hop: each tensor goes to the next place and the tensors
+        of the previous place come back, in the same shapes and types."""
+        nxt, prv = self._peer(self.rank + 1), self._peer(self.rank - 1)
         dev = tensors[0].device
         send = [t.contiguous().cpu() if self.staged else t.contiguous() for t in tensors]
         recv = [torch.empty_like(t) for t in send]
-        ops = [dist.P2POp(dist.isend, t, nxt) for t in send]
-        ops += [dist.P2POp(dist.irecv, t, prv) for t in recv]
+        ops = [dist.P2POp(dist.isend, t, nxt, self.group) for t in send]
+        ops += [dist.P2POp(dist.irecv, t, prv, self.group) for t in recv]
         for work in dist.batch_isend_irecv(ops):
             work.wait()
         return [t.to(dev) for t in recv] if self.staged else recv
 
     def all_gather_seq(self, x: torch.Tensor) -> torch.Tensor:
-        """Every rank's chunk of x along the sequence axis (-2), in rank
+        """Every place's chunk of x along the sequence axis (-2), in place
         order."""
         src = x.contiguous().cpu() if self.staged else x.contiguous()
         parts = [torch.empty_like(src) for _ in range(self.size)]
-        dist.all_gather(parts, src)
+        dist.all_gather(parts, src, group=self.group)
         out = torch.cat(parts, dim=-2)
         return out.to(x.device) if self.staged else out
 
@@ -68,13 +88,132 @@ class SeqMesh:
         return x.narrow(-2, self.rank * c, c).contiguous()
 
 
-def seq_mesh(size: int, staged: bool = False) -> SeqMesh:
-    """The sequence axis of the initialised default group (a sequence-only
-    mesh: the axis is the whole group)."""
-    if dist.get_world_size() != size:
-        raise ValueError(f"a sequence axis of {size} needs a group of {size} ranks, "
-                         f"have {dist.get_world_size()}")
-    return SeqMesh(dist.get_rank(), size, staged)
+def batch_rows(batch_size: int, rank: int, size: int) -> Tuple[int, int]:
+    """The rows [start, stop) of a global batch that data rank ``rank`` of
+    ``size`` holds: the batch axis split evenly over 'data', as the JAX
+    package's ``batch_pspec`` shards its (M, B, T) batches."""
+    if batch_size % size != 0:
+        raise ValueError(f"the data axis ({size}) must divide the batch ({batch_size})")
+    per = batch_size // size
+    return rank * per, (rank + 1) * per
+
+
+@dataclass
+class DataAxis:
+    """This rank's place on the data axis of a data-parallel run: its rows
+    of each global batch, and the means and sums over the axis. ``group``:
+    the axis's process group (None: the default group)."""
+
+    rank: int
+    size: int
+    staged: bool = False  # gloo with CUDA tensors: reduce through host memory
+    group: Any = None
+    # (bytes, seconds) of each gradient all-reduce, the host's clock around
+    # the call (the device synchronised first), kept where timing is on
+    timing: Optional[List[Tuple[int, float]]] = None
+
+    def rows(self, batch_size: int) -> Tuple[int, int]:
+        return batch_rows(batch_size, self.rank, self.size)
+
+    def _all_reduce(self, flat: torch.Tensor) -> torch.Tensor:
+        """The sum over the axis of a flat tensor, the same bits on every
+        rank (each element reduced once, in one order, and shared)."""
+        buf = flat.cpu() if self.staged else flat
+        dist.all_reduce(buf, group=self.group)
+        return buf.to(flat.device) if self.staged else buf
+
+    def mean_grads(self, loss: torch.Tensor, grads: Sequence[torch.Tensor]
+                   ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """The mean over the axis of every rank's loss and gradients
+        (``tree_leaves`` order): one all-reduce of one flat f32 buffer (the
+        leaves, then the loss), divided by the axis size, each leaf back in
+        its own dtype."""
+        flat = torch.cat([g.reshape(-1).float() for g in grads]
+                         + [loss.detach().float().reshape(1)])
+        if self.timing is not None:
+            if flat.is_cuda:
+                torch.cuda.synchronize(flat.device)
+            t0 = time.perf_counter()
+        flat = self._all_reduce(flat) / self.size
+        if self.timing is not None:
+            if flat.is_cuda:
+                torch.cuda.synchronize(flat.device)
+            self.timing.append((flat.numel() * flat.element_size(), time.perf_counter() - t0))
+        out, at = [], 0
+        for g in grads:
+            out.append(flat[at:at + g.numel()].view(g.shape).to(g.dtype))
+            at += g.numel()
+        return flat[at].to(loss.dtype), out
+
+    def sum_eval(self, stats):
+        """An evaluation pass's statistics (``train.steps.EvalStats``) over
+        the global batches: the mean losses averaged over the axis, the win
+        and loss counts and the certainty summed (in one f64 all-reduce; the
+        counts stay exact integers)."""
+        M = stats.wins.numel()
+        flat = torch.cat([stats.mean_loss.reshape(1), stats.mean_losses, stats.certainty,
+                          stats.wins, stats.losses]).double()
+        flat = self._all_reduce(flat)
+        mean_loss = (flat[0] / self.size).to(stats.mean_loss.dtype)
+        mean_losses = (flat[1:1 + M] / self.size).to(stats.mean_losses.dtype)
+        cert = flat[1 + M:1 + 2 * M].to(stats.certainty.dtype)
+        wins = flat[1 + 2 * M:1 + 3 * M].round().to(stats.wins.dtype)
+        losses = flat[1 + 3 * M:].round().to(stats.losses.dtype)
+        return type(stats)(mean_loss, mean_losses, wins, losses, cert, stats.batches_processed)
+
+
+@dataclass
+class RankMesh:
+    """One rank's view of the (pipe, mod, data, model, seq) layout of a run
+    (the JAX package's ``make_mesh``): the axis sizes, this rank's place on
+    each, and its data and sequence groups (None where the axis is 1)."""
+
+    shape: Dict[str, int]
+    coords: Dict[str, int]
+    data: Optional[DataAxis]
+    seq: Optional[SeqMesh]
+
+
+def make_mesh(data: int = 1, model: int = 1, seq: int = 1, mod: int = 1, pipe: int = 1,
+              staged: bool = False) -> RankMesh:
+    """This rank's place in a (pipe, mod, data, model, seq) layout over the
+    initialised default group, whose size must be the product of the axes.
+    Global rank d * seq + s is data row d, sequence place s (the JAX
+    package's device order: data outer, seq inner). Every rank calls this
+    in the same order: it creates every data and sequence group of the run.
+    Model, modality and pipeline axes are a later slice (parallel/resolve.py
+    refuses them)."""
+    if model * mod * pipe != 1:
+        raise NotImplementedError("tensor, modality and pipeline axes are a later slice of "
+                                  "the port (ROADMAP.md, queue 1, items 5 and 6)")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if data * seq != world:
+        raise ValueError(f"mesh data={data} x seq={seq} needs {data * seq} ranks, have {world}")
+    d, s = divmod(rank, seq)
+    seq_axis = data_axis = None
+    if seq > 1:
+        for row in range(data):  # every rank creates every group, in one order
+            ranks = tuple(range(row * seq, (row + 1) * seq))
+            group = dist.new_group(list(ranks)) if data > 1 else None
+            if row == d:
+                seq_axis = SeqMesh(s, seq, staged, group, ranks)
+    if data > 1:
+        for place in range(seq):
+            ranks = list(range(place, world, seq))
+            group = dist.new_group(ranks) if seq > 1 else None
+            if place == s:
+                data_axis = DataAxis(d, data, staged, group)
+    return RankMesh({"pipe": pipe, "mod": mod, "data": data, "model": model, "seq": seq},
+                    {"pipe": 0, "mod": 0, "data": d, "model": 0, "seq": s}, data_axis, seq_axis)
+
+
+def default_mesh_shape(n_devices: int, n_head: int) -> Tuple[int, int]:
+    """Pick (data, model) for n devices: tensor-parallel 2-way when the head
+    count allows it and there are >= 4 devices, else pure data parallel (the
+    JAX package's rule, copied as it is)."""
+    if n_devices >= 4 and n_devices % 2 == 0 and n_head % 2 == 0:
+        return n_devices // 2, 2
+    return n_devices, 1
 
 
 def free_port() -> int:

@@ -7,24 +7,27 @@ parallelism over the devices left after ``context_parallel``, ``"off"`` one
 device (context parallelism still honoured), an int N ``{data: N}``, a
 mapping ``{data, model, mod, pipe}`` explicit axis sizes; impossible
 requests raise ``ValueError``. The devices are the CUDA cards, or on the
-CPU the ``context_parallel`` gloo processes that a run starts.
+CPU the gloo processes that a run starts: as many as an explicit mesh asks
+for times ``context_parallel``, and for ``auto`` and ``off`` the
+``context_parallel`` processes alone (CPU processes are not devices the user
+has, so ``auto`` adds no data axis there).
 
-The port builds the sequence axis (ring attention, parallel/ring_attention.py)
-and nothing else yet: a plan with a data, tensor, modality or pipeline axis
-(including ``mesh: auto`` on a machine with spare cards for data
-parallelism) raises ``NotImplementedError``; ``mesh: off`` keeps such a
-machine to the sequence axis.
+The port builds the data axis (data parallelism, parallel/trainer.py) and
+the sequence axis (ring attention, parallel/ring_attention.py), alone or
+together: a plan with a tensor, modality or pipeline axis, or ``fsdp`` on a
+data axis, raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Dict, Optional, Union
 
 MESH_AXES = ("data", "model", "mod", "pipe")
-LATER_SLICE = ("multi-device training beyond context parallelism (data, tensor, modality and "
-               "pipeline axes, FSDP, multi-host) is a later slice of the port (ROADMAP.md, queue 1, "
-               "item 1: data parallelism)")
+LATER_SLICE = ("multi-device training beyond data and context parallelism is a later slice "
+               "of the port (ROADMAP.md, queue 1: item 4 FSDP / ZeRO-3, item 5 tensor and "
+               "modality parallelism, item 6 pipeline parallelism)")
 
 
 @dataclass
@@ -62,11 +65,18 @@ class MeshPlan:
         return " * ".join(parts) if parts else "single device"
 
 
-def available_devices(device: str, context_parallel: int) -> int:
+def available_devices(device: str, context_parallel: int, mesh_cfg=None) -> int:
     """The devices a plan may use: the CUDA cards, or on the CPU as many
-    gloo processes as ``context_parallel`` asks for."""
+    gloo processes as an explicit ``mesh_cfg`` asks for times
+    ``context_parallel`` (``auto``, ``off`` and no mesh: the
+    ``context_parallel`` processes alone)."""
     if str(device).startswith("cpu"):
-        return max(1, int(context_parallel))
+        cp = max(1, int(context_parallel))
+        if isinstance(mesh_cfg, int) and not isinstance(mesh_cfg, bool):
+            return max(1, mesh_cfg) * cp
+        if isinstance(mesh_cfg, dict):
+            return math.prod(max(1, int(mesh_cfg.get(k, 1))) for k in MESH_AXES) * cp
+        return cp
     import torch
 
     return torch.cuda.device_count()
@@ -146,15 +156,13 @@ def plan_mesh(
     """Resolve the config surface into a MeshPlan over ``n_devices``
     devices (default: the CUDA cards). Raises ``ValueError`` where the JAX
     package's ``plan_mesh`` raises, and ``NotImplementedError`` for a plan
-    with an axis other than the sequence axis."""
+    with a tensor, modality or pipeline axis, or FSDP."""
     seq = max(1, int(context_parallel))
     if n_devices is None:
         n_devices = available_devices("cuda", seq)
     plan = _resolve(mesh_cfg, seq, fsdp, batch_size, block_size, num_modalities, n_layer,
                     pipeline_microbatches, int(n_devices))
-    if plan.n_devices != plan.seq or plan.fsdp:
-        hint = " (tpu_options.mesh: off keeps the run to the sequence axis)" \
-            if mesh_cfg in (None, "auto") else ""
+    if plan.model * plan.mod * plan.pipe != 1 or plan.fsdp:
         raise NotImplementedError(f"parallelism plan {plan.describe()} over {plan.n_devices} "
-                                  f"devices: {LATER_SLICE}{hint}")
+                                  f"devices: {LATER_SLICE}")
     return plan

@@ -9,18 +9,22 @@ multiple of eval_interval and at max_iters - 1, train in chunks between
 them, save once more at the end.
 
 It runs on the card unless the config says ``device: cpu``. The
-parallelism plan resolves as the JAX package's (parallel/resolve.py).
-``tpu_options.context_parallel: P`` trains with the sequence sharded over P
-ranks (ring attention): ``run_training`` starts the P rank processes itself,
-one card each over NCCL (on the CPU, P gloo processes), after building the
-kernels once; inside a process group that already exists (``torchrun``) it
-runs as that group's rank. Rank 0 alone prints the console, writes the log
-and the checkpoints, and returns the result. Plans with other axes raise
-(a later slice of the port). ``multihost`` prints that it is unavailable
-and trains single-process, as the JAX package does without a pod.
-f32 products run in full f32 (PyTorch's default, TF32 off) whatever
-``matmul_precision`` says. ``TAT_SEED`` pins the run seed; ``TAT_TIMING``
-prints the training rate.
+parallelism plan resolves as the JAX package's (parallel/resolve.py):
+``tpu_options.mesh`` (``{data: P}``, or ``auto`` over the cards) trains data
+parallel over P ranks, ``tpu_options.context_parallel: P`` with the sequence
+sharded over P ranks (ring attention), and both together over their product
+(data outer, sequence inner). ``run_training`` starts the plan's rank
+processes itself, one card each over NCCL (on the CPU, gloo processes),
+after building the kernels once; inside a process group that already exists
+(``torchrun``) it runs as that group's rank. Rank 0 alone prints the
+console, writes the log and the checkpoints (the parameters and moments are
+the same on every rank: no gather), and returns the result. Tensor,
+modality, pipeline and FSDP plans raise (a later slice of the port).
+``multihost`` prints that it is unavailable and trains single-process, as
+the JAX package does without a pod. f32 products run in full f32
+(PyTorch's default, TF32 off) whatever ``matmul_precision`` says.
+``TAT_SEED`` pins the run seed; ``TAT_TIMING`` prints the training rate
+and, under a data axis, the gradient all-reduce's bytes and time per step.
 """
 
 from __future__ import annotations
@@ -156,13 +160,14 @@ def _plan(sc: Dict[str, Any], num_modalities: int):
     """The run's parallelism plan (parallel/resolve.py) over the devices
     of the config's device."""
     cp = int(sc.get("context_parallel", 1))
+    mesh = sc.get("mesh", "auto")
     return plan_mesh(
-        sc.get("mesh", "auto"), cp,
+        mesh, cp,
         fsdp=bool(sc.get("fsdp", False)),
         batch_size=sc["batch_size"], block_size=sc["block_size"], n_head=sc["n_head"],
         num_modalities=num_modalities, n_layer=sc["n_layer"],
         pipeline_microbatches=int(sc.get("pipeline_microbatches", 4)),
-        n_devices=available_devices(sc["device"], cp),
+        n_devices=available_devices(sc["device"], cp, mesh),
     )
 
 
@@ -186,9 +191,9 @@ def _picklable(caller_globals: Optional[dict]) -> dict:
 
 def param_checksum(params) -> Dict[str, Any]:
     """A rank's parameters in two numbers: the float64 sum of every leaf and
-    the SHA-256 of every leaf's bytes in tree order. The ranks of a
-    context-parallel run keep equal parameters with no all-reduce, so these
-    must be equal on every rank."""
+    the SHA-256 of every leaf's bytes in tree order. The ranks of a parallel
+    run keep equal parameters (a data axis averages the gradients in one
+    order, shared by every rank), so these must be equal on every rank."""
     h = hashlib.sha256()
     total = 0.0
     for leaf in tree_leaves(params):
@@ -199,9 +204,9 @@ def param_checksum(params) -> Dict[str, Any]:
 
 
 def _rank_entry(rank: int, world: int, caller_globals: dict, seed: int):
-    """One rank of a context-parallel run: the workflow, silent but on
-    rank 0; rank 0 returns its result with the tensors on the CPU, every
-    rank its parameters' checksum."""
+    """One rank of a parallel run: the workflow, silent but on rank 0;
+    rank 0 returns its result with the tensors on the CPU, every rank its
+    parameters' checksum."""
     if rank != 0:
         sys.stdout = open(os.devnull, "w")
     if dist.get_backend() == "gloo":
@@ -217,7 +222,8 @@ def _rank_entry(rank: int, world: int, caller_globals: dict, seed: int):
             "opt_state": {"count": state["count"], "mu": map_tree(cpu, state["mu"]),
                           "nu": map_tree(cpu, state["nu"])},
             "launches": kernels.launch_counts(),
-            **{k: res[k] for k in ("cfg", "losses", "vocabularies", "step_timer", "plan")}}
+            **{k: res[k] for k in ("cfg", "losses", "vocabularies", "step_timer", "plan",
+                                   "allreduce")}}
 
 
 # ---------------------------------------------------------------------------
@@ -227,12 +233,12 @@ def _rank_entry(rank: int, world: int, caller_globals: dict, seed: int):
 def run_training(caller_globals: Optional[dict] = None, seed: Optional[int] = None,
                  rank_timeout: Optional[float] = None) -> Dict[str, Any]:
     """Run the full workflow; returns a summary dict (final params, losses,
-    vocabularies) for programmatic callers. With ``context_parallel`` > 1
-    and no process group yet, the ranks run in processes of their own (each
-    given at most ``rank_timeout`` seconds, where set) and the result is
-    rank 0's, on the CPU, without the trainer and the feed, with rank 0's
-    kernel launches (``launches``) and every rank's ``param_checksum``
-    (``param_checksums``, in rank order)."""
+    vocabularies) for programmatic callers. With a parallel plan (more than
+    one device) and no process group yet, the ranks run in processes of
+    their own (each given at most ``rank_timeout`` seconds, where set) and
+    the result is rank 0's, on the CPU, without the trainer and the feed,
+    with rank 0's kernel launches (``launches``) and every rank's
+    ``param_checksum`` (``param_checksums``, in rank order)."""
     if pmesh.init_from_env():
         rank = dist.get_rank()
         if torch.cuda.is_available():
@@ -248,14 +254,14 @@ def run_training(caller_globals: Optional[dict] = None, seed: Optional[int] = No
         return _run_training(caller_globals, seed, rank)
     initialize_compatibility_layer(caller_globals if caller_globals is not None else {})
     sc = get_system_configuration()
-    if int(sc.get("context_parallel", 1)) <= 1:
-        return _run_training(caller_globals, seed)
     plan = _plan(sc, len(get_modality_parameters()))
+    if plan.trivial:
+        return _run_training(caller_globals, seed)
     cpu = str(sc["device"]).startswith("cpu")
     if not cpu:
         kernels.build_kernels()  # once, before the ranks load the libraries
     results = pmesh.run_ranks(
-        _rank_entry, plan.seq, (_picklable(caller_globals), _run_seed(seed)),
+        _rank_entry, plan.n_devices, (_picklable(caller_globals), _run_seed(seed)),
         backend="gloo" if cpu else "nccl", timeout=rank_timeout)
     return {**results[0], "param_checksums": [r["param_checksum"] for r in results]}
 
@@ -507,6 +513,7 @@ def _run_training(caller_globals: Optional[dict], seed: Optional[int],
 
     # ----------------------------------------------------- parallelism plan
     plan = _plan(sc, num_modalities)
+    allreduce = None  # (bytes, seconds) of each gradient all-reduce, under TAT_TIMING
     if plan.trivial:
         trainer = Trainer(cfg, feed, optimizer, metric_specs, eval_iters,
                           grad_accum=sc.get("grad_accum", 1))
@@ -515,11 +522,16 @@ def _run_training(caller_globals: Optional[dict], seed: Optional[int],
         from ..utils.memory import format_train_state_memory
 
         if not dist.is_initialized():
-            raise RuntimeError(f"context_parallel={plan.seq} runs in a process group of "
-                               f"{plan.seq} ranks; run_training starts them itself")
+            raise RuntimeError(f"the plan {plan.describe()} runs in a process group of "
+                               f"{plan.n_devices} ranks; run_training starts them itself")
         print(f"Parallelism: {plan.describe()} over {plan.n_devices} devices")
-        trainer = make_sharded_trainer(cfg, feed, optimizer, metric_specs, eval_iters,
-                                       pmesh.seq_mesh(plan.seq),
+        # gloo with tensors on a card: ranks that share the card, whose
+        # collectives go through host memory
+        mesh = pmesh.make_mesh(data=plan.data, seq=plan.seq,
+                               staged=dev.type == "cuda" and dist.get_backend() == "gloo")
+        if mesh.data is not None and os.environ.get("TAT_TIMING"):
+            allreduce = mesh.data.timing = []
+        trainer = make_sharded_trainer(cfg, feed, optimizer, metric_specs, eval_iters, mesh,
                                        grad_accum=sc.get("grad_accum", 1))
         print(f"Parallelism: {format_train_state_memory(params, opt_state, optimizer)}")
     writer = rank == 0  # only rank 0 writes the log and the checkpoints
@@ -712,6 +724,9 @@ def _run_training(caller_globals: Optional[dict], seed: Optional[int],
     print("\nTRAINING COMPLETED SUCCESSFULLY")
     if os.environ.get("TAT_TIMING") and timer.steps:
         print(f"Training rate: {timer.summary()}")
+        if allreduce:
+            print(f"Gradient all-reduce: {allreduce[-1][0]} bytes, "
+                  f"{1e3 * sum(t for _, t in allreduce) / len(allreduce):.3f} ms per step")
 
     if save_model:
         current_time = datetime.now().strftime("%H:%M:%S")
@@ -732,6 +747,7 @@ def _run_training(caller_globals: Optional[dict], seed: Optional[int],
         "modalities": modalities,
         "step_timer": timer,
         "plan": plan,
+        "allreduce": allreduce,
     }
 
 

@@ -34,6 +34,7 @@ import torch
 from ..models.config import ModelConfig
 from ..models.init import map_tree, tree_leaves
 from ..models.transformer import forward, total_loss
+from ..ops.layers import batch_slice_scope
 from ..sampling.feed import BatchFeed
 from .metrics import ModalityMetricSpec, batch_directional_metrics
 
@@ -219,11 +220,16 @@ class Trainer:
     """Owns the step functions of one (model, feed, optimizer) run.
     ``scope``: a zero-argument context-manager factory entered around every
     training step and evaluation pass (the context-parallel trainer's
-    attention scope, parallel/trainer.py)."""
+    attention scope, parallel/trainer.py). ``data``: this rank's data axis
+    (``parallel.mesh.DataAxis``) in a data-parallel run: every batch given
+    or drawn is the global batch, of which the rank keeps its rows, with
+    its dropout masks keyed by global rows; each step's loss and gradients
+    are then the means over the axis, and an evaluation pass's statistics
+    its sums."""
 
     def __init__(self, cfg: ModelConfig, feed: BatchFeed, optimizer: AdamW,
                  metric_specs: Sequence[ModalityMetricSpec], eval_iters: int,
-                 grad_accum: int = 1, scope: Optional[Callable] = None):
+                 grad_accum: int = 1, scope: Optional[Callable] = None, data=None):
         self.cfg = cfg
         self.feed = feed
         self.optimizer = optimizer
@@ -232,25 +238,39 @@ class Trainer:
         # each step averages gradients over grad_accum microbatch draws
         self.grad_accum = max(1, int(grad_accum))
         self.scope = scope or contextlib.nullcontext
+        self.data = data
+
+    def _rows(self, xb: torch.Tensor, yb: torch.Tensor):
+        """This rank's rows of a global (M, B, T) batch (all of them without
+        a data axis), and the scope that keys its dropout by global rows."""
+        if self.data is None:
+            return xb, yb, contextlib.nullcontext()
+        total = xb.shape[1]
+        start, stop = self.data.rows(total)
+        return xb[:, start:stop], yb[:, start:stop], batch_slice_scope(start, total)
 
     # ------------------------------------------------------------- training
 
     def loss_and_grads(self, params, batches: Sequence[Tuple[torch.Tensor, torch.Tensor]],
                        salts: Sequence[Tuple[int, int]]) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """Loss and gradients (``tree_leaves`` order) of one step: the mean
-        over its microbatches (xb, yb) with their dropout salts."""
+        over its microbatches (xb, yb) with their dropout salts (and over
+        the data axis)."""
         leaves = tree_leaves(params)
         loss_sum, grad_sum = None, None
         for (xb, yb), key in zip(batches, salts):
-            with self.scope():
+            xb, yb, rows = self._rows(xb, yb)
+            with self.scope(), rows:
                 loss, _ = total_loss(params, self.cfg, xb, yb, key, True)
                 grads = torch.autograd.grad(loss, leaves)
-            if len(batches) == 1:
-                return loss.detach(), list(grads)
             loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
             grad_sum = list(grads) if grad_sum is None else [a + b for a, b in zip(grad_sum, grads)]
-        inv = 1.0 / len(batches)
-        return loss_sum * inv, [(g.to(_F32) * inv).to(g.dtype) for g in grad_sum]
+        if len(batches) > 1:
+            inv = 1.0 / len(batches)
+            loss_sum, grad_sum = loss_sum * inv, [(g.to(_F32) * inv).to(g.dtype) for g in grad_sum]
+        if self.data is None:
+            return loss_sum, grad_sum
+        return self.data.mean_grads(loss_sum, grad_sum)
 
     def step(self, params, opt_state, batches, salts) -> torch.Tensor:
         """One optimization step on given microbatches and salts; updates
@@ -279,7 +299,8 @@ class Trainer:
     @torch.no_grad()
     def eval_pass(self, params, rng: StepRng, split: str) -> EvalStats:
         """eval_iters batches without augmentation: summed CE per batch and
-        the directional metrics of every eligible modality."""
+        the directional metrics of every eligible modality (over the global
+        batches under a data axis)."""
         M = self.cfg.num_modalities
         dev = self.feed.device
         loss_sum = torch.zeros((), device=dev)
@@ -288,8 +309,8 @@ class Trainer:
         losses_n = torch.zeros(M, dtype=torch.int64, device=dev)
         cert = torch.zeros(M, device=dev)
         for _ in range(self.eval_iters):
-            xb, yb = self.feed.sample(rng.batch, split, augment=False)
-            with self.scope():
+            xb, yb, rows = self._rows(*self.feed.sample(rng.batch, split, augment=False))
+            with self.scope(), rows:
                 logits, ce = forward(params, self.cfg, xb, yb, train=False)
             ce = torch.stack(ce)
             loss_sum = loss_sum + ce.sum()
@@ -303,4 +324,5 @@ class Trainer:
                     cert[m] += c
         processed = torch.tensor([self.eval_iters if s.eligible else 0 for s in self.metric_specs])
         n = float(self.eval_iters)
-        return EvalStats(loss_sum / n, losses_sum / n, wins, losses_n, cert, processed)
+        stats = EvalStats(loss_sum / n, losses_sum / n, wins, losses_n, cert, processed)
+        return stats if self.data is None else self.data.sum_eval(stats)
