@@ -31,6 +31,17 @@ one production step over two ranks sharing the card against the one-rank
 step on the global batch (``dp_reference``), and the training entry over
 those two ranks (``dp_training``).
 
+Right after the build, the training entry with ``TAT_PROFILE_DIR`` must
+write a trace holding the training step's kernels (``profile_trace``).
+After the T = 64 training run come the flat-state AdamW (``fused_update``:
+one step's gradients through the per-leaf and the flat update, bit-equal,
+then the entry with ``fused_update: true`` against the per-leaf entry),
+``remat`` (one step at T = 64 and 1024 with and without it: the same
+values, the forward kernels launched twice, less memory at 1024; also one
+step in ``cp_reference``) and ``reference_checkpoint`` (the reference
+fixtures' ``.pth`` files and a production-width one through
+``load_checkpoint``, ``generate.run`` and ``run_training``).
+
 Needs a CUDA device and the port package beside this file; without either it
 exits non-zero before printing any result.
 
@@ -424,14 +435,19 @@ def serve_launches(K, cfg, t0: int, tokens: int, refresh: int, decode: str) -> d
     return want
 
 
-def production_config_dir(d: Path, **training) -> None:
-    """examples/production_config.yaml (with the given training_parameters
-    changed) + its schemas + the synthetic stock folder, in d."""
+def production_config_dir(d: Path, tpu: dict | None = None, **training) -> None:
+    """examples/production_config.yaml (with the given settings changed, and
+    the ``tpu`` ones set under tpu_options) + its schemas + the synthetic
+    stock folder, in d."""
     text = (REPO / "examples" / "production_config.yaml").read_text()
     for key, value in training.items():
         text, n = re.subn(rf"(\n  {key}: )\S+", rf"\g<1>{value}", text)
         if n != 1:
             raise AssertionError(f"production config has no single {key}")
+    for key, value in (tpu or {}).items():
+        text, n = re.subn(rf"(\n  {key}: )\S+", rf"\g<1>{value}", text)
+        if n == 0:
+            text = text.replace("\ntpu_options:\n", f"\ntpu_options:\n  {key}: {value}\n")
     (d / "config.yaml").write_text(text)
     shutil.copy(REPO / "examples" / "production_input_schemas.yaml", d / "input_schemas.yaml")
     write_stock_folder(d / "your_data" / "stocks", n_files=6, rows=1500, seed=1)
@@ -734,14 +750,15 @@ def train_reference(K, cfg, ids, faults, must_fail, want_step, phase="train_refe
                              f"passed a planted fault ({', '.join(failed)})")
 
 
-def training_run(K, card, phase, per_step, per_eval_batch, **config):
+def training_run(K, card, phase, per_step, per_eval_batch, tpu=None, **config):
     """``run_training`` on a copy of the production config with ``config``
-    changed, then one profiled step. Asserts the exact launches (``per_step``
-    per training step and ``per_eval_batch`` per evaluated batch: each
-    evaluation runs eval_iters train and eval_iters val batches), the eval
-    train loss falling, the console's completion line and the checkpoint
-    reloading (params and optimizer count). Emits the run's line and the
-    profile's; returns (the launches, steps/s after the first chunk)."""
+    (and the ``tpu`` options) changed, then one profiled step. Asserts the
+    exact launches (``per_step`` per training step and ``per_eval_batch``
+    per evaluated batch: each evaluation runs eval_iters train and
+    eval_iters val batches), the eval train loss falling, the console's
+    completion line and the checkpoint reloading (params and optimizer
+    count). Emits the run's line and the profile's; returns (the launches,
+    steps/s after the first chunk, the evaluations (step, train, val))."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -757,7 +774,7 @@ def training_run(K, card, phase, per_step, per_eval_batch, **config):
     iters, interval, e_iters = config["max_iters"], config["eval_interval"], config["eval_iters"]
     with tempfile.TemporaryDirectory() as tmp:
         d = Path(tmp)
-        production_config_dir(d, **config)
+        production_config_dir(d, tpu, **config)
         cwd, buf = os.getcwd(), io.StringIO()
         os.chdir(d)  # config detection is CWD-relative
         try:
@@ -793,7 +810,8 @@ def training_run(K, card, phase, per_step, per_eval_batch, **config):
           and evals[-1][1] < evals[0][1] and reloaded and "TRAINING COMPLETED SUCCESSFULLY" in console)
     rc = res["cfg"]
     emit({"phase": phase, "config": "examples/production_config.yaml", "card": card,
-          "changed": config, "batch": res["feed"].batch_size, "block_size": rc.block_size,
+          "changed": {**config, **(tpu or {})}, "fused_update": res["trainer"].fused_update,
+          "batch": res["feed"].batch_size, "block_size": rc.block_size,
           "dropout": rc.dropout,
           "compute_dtype": rc.compute_dtype, "seconds": train_s, "evals": evals,
           "launches": launches, "expected_launches": want,
@@ -821,7 +839,400 @@ def training_run(K, card, phase, per_step, per_eval_batch, **config):
           "kernels_per_step": sum(e.count for e in kern) / n_prof,
           "top": [[e.key[:72], e.self_device_time_total / 1e3 / n_prof, e.count / n_prof]
                   for e in top]})
-    return launches, steps_per_s
+    return launches, steps_per_s, evals
+
+
+def cuda_kernels(fn):
+    """A Counter of the names of the CUDA kernels one call of ``fn``
+    launches, from ``torch.profiler``."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return collections.Counter(e.name for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def flat_update_check(K, card, cfg, ids) -> None:
+    """Phase ``fused_update`` (the update): the gradients of one production
+    training step (B = 32, T = 64, bf16, bf16 moments, dropout 0.2),
+    computed once, given twice over to the per-leaf AdamW update and to the
+    flat-state one (``AdamW.update_flat_``, what ``fused_update: true``
+    runs): every parameter, both moments and the count must be bit-equal,
+    and a planted fault, the weight decay skipped on the last leaf's span of
+    the flat vector, must break that. Each update's kernels a call
+    (``torch.profiler``) and device ms (CUDA events, ``device_ms``) are
+    reported."""
+    import copy
+
+    import torch
+
+    from trade_aid_multimodal_transformer_tpu_torch.models.init import (
+        init_params, map_tree, tree_leaves)
+    from trade_aid_multimodal_transformer_tpu_torch.train.steps import Trainer, make_optimizer
+
+    dev = torch.device("cuda")
+    params = map_tree(lambda t: t.requires_grad_(),
+                      init_params(cfg, torch.Generator().manual_seed(1234), dev))
+    opt = make_optimizer(3e-4, moment_dtype="bfloat16", nu_dtype="bfloat16")
+    _, grads = Trainer(cfg, None, opt, [], 1).loss_and_grads(
+        params, [(ids[..., :-1].to(dev), ids[..., 1:].to(dev))], [SALTS])
+
+    def flat(tree):
+        return torch.cat([t.detach().reshape(-1) for t in tree_leaves(tree)])
+
+    leaf_p = map_tree(lambda t: t.detach().clone(), params)
+    leaf_s = opt.init(leaf_p)
+    g = flat(list(grads))
+    theta, mu, nu, state = flat(params), flat(leaf_s["mu"]), flat(leaf_s["nu"]), {"count": 0}
+    bad = [theta.clone(), mu.clone(), nu.clone(), {"count": 0}]
+    split = theta.numel() - tree_leaves(params)[-1].numel()
+    no_decay = copy.copy(opt)
+    no_decay.weight_decay = 0.0
+    for _ in range(2):
+        opt.update_(leaf_p, grads, leaf_s)
+        opt.update_flat_(theta, g, mu, nu, state)
+        with torch.no_grad():  # the planted flat update
+            lr_t, c1, c2 = opt._advance(bad[3])
+            opt.apply_(*(x[:split] for x in (bad[0], g, bad[1], bad[2])), lr_t, c1, c2)
+            no_decay.apply_(*(x[split:] for x in (bad[0], g, bad[1], bad[2])), lr_t, c1, c2)
+    torch.cuda.synchronize()
+    equal = {"params": torch.equal(flat(leaf_p), theta), "mu": torch.equal(flat(leaf_s["mu"]), mu),
+             "nu": torch.equal(flat(leaf_s["nu"]), nu),
+             "count": leaf_s["count"] == state["count"] == 2}
+    planted_equal = torch.equal(flat(leaf_p), bad[0])
+    # kernels a call (the flat update profiled first: a profile that follows
+    # one of thousands of kernels has been seen to miss some) and device ms
+    n_flat = cuda_kernels(lambda: [opt.update_flat_(theta, g, mu, nu, state)
+                                   for _ in range(3)]).total()
+    n_leaf = cuda_kernels(lambda: opt.update_(leaf_p, grads, leaf_s)).total()
+    ms_flat = device_ms(lambda: opt.update_flat_(theta, g, mu, nu, state), reps=5, inner=3)
+    ms_leaf = device_ms(lambda: opt.update_(leaf_p, grads, leaf_s), reps=5, inner=3)
+    ok = all(equal.values()) and not planted_equal
+    emit({"phase": "fused_update", "part": "update", "card": card,
+          "what": "one production step's gradients through the per-leaf and the flat update",
+          "leaves": len(grads), "elements": theta.numel(), "bit_equal": equal,
+          "planted": "weight decay skipped on the last leaf's span", "planted_bit_equal": planted_equal,
+          "per_leaf": {"kernels": n_leaf, "device_ms": ms_leaf},
+          "flat": {"kernels": n_flat / 3, "device_ms": ms_flat}, "ok": ok})
+    if not ok:
+        raise AssertionError("the flat-state update differs from the per-leaf update, or the "
+                             "planted fault kept the bits")
+
+
+def salt_swapped_recompute(real, blocks):
+    """A ``block_forward`` whose second call for a block (the recompute of a
+    rematerialised block inside the backward) takes the next block's salt
+    pair: the planted fault of phase ``remat``."""
+    first = {}
+
+    def block_forward(x, block, key, cfg, train=False):
+        i = next(j for j, b in enumerate(blocks) if b is block)
+        if i in first:
+            key = first[(i + 1) % len(blocks)]
+        else:
+            first[i] = key
+        return real(x, block, key, cfg, train)
+
+    return block_forward
+
+
+def remat_check(K, card, cfg) -> None:
+    """Phase ``remat``: one production training step (dropout 0.2, bf16) at
+    T = 64 (B = 32) and at T = 1024 (B = 8), with ``remat`` and without, on
+    the same batch and salts: the loss and every gradient leaf within the
+    step gate (STEP_TOL) of the plain step, bit-equality reported per leaf;
+    the forward kernels launched twice (the backward recomputes every
+    block), the backward kernels once; the peak of allocated memory in each
+    step; at T = 1024 the ``remat`` step's peak must be below the plain
+    step's. A planted recompute with the next block's salt pair must fail
+    the gate."""
+    import numpy as np
+    import torch
+
+    from trade_aid_multimodal_transformer_tpu_torch.models import transformer as TM
+    from trade_aid_multimodal_transformer_tpu_torch.models.init import (
+        init_params, map_tree, tree_leaves, tree_paths)
+    from trade_aid_multimodal_transformer_tpu_torch.models.transformer import total_loss
+
+    dev = torch.device("cuda")
+    L, n_cross = cfg.n_layer, sum(cfg.cross_attention)
+    streams = sum(len(cfg.kv_modalities(i)) for i in range(cfg.num_modalities)
+                  if cfg.cross_attention[i])
+    tol = STEP_TOL[cfg.compute_dtype]
+    failed = []
+    for T, B in ((cfg.block_size, 32), (LONG_BLOCK, 8)):
+        c = dataclasses.replace(cfg, block_size=T)
+        rng = np.random.default_rng(T)
+        ids = torch.from_numpy(np.stack([rng.integers(0, v, (B, T + 1))
+                                         for v in c.vocab_sizes])).to(dev)
+        xb, yb = ids[..., :-1], ids[..., 1:]
+        params = map_tree(lambda t: t.requires_grad_(),
+                          init_params(c, torch.Generator().manual_seed(1234), dev))
+        leaves = tree_leaves(params)
+        names = ["/".join(map(str, path)) for path, _ in tree_paths(params)]
+        if K.in_band(T, c.head_size):
+            fwd = dict(fused_qkv_attention=L, short_cross_attention=n_cross * L)
+            bwd = dict(fused_qkv_attention_bwd=L, short_cross_attention_bwd=n_cross * L)
+        else:
+            fwd = dict(flash_attention=L, flash_cross_attention_res=n_cross * L)
+            bwd = dict(flash_attention_bwd=L + streams * L)
+
+        def step(remat, planted=False):
+            real = TM.block_forward
+            if planted:
+                TM.block_forward = salt_swapped_recompute(real, params["blocks"])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launch_counts()
+            try:
+                loss = total_loss(params, dataclasses.replace(c, remat=remat), xb, yb, SALTS, True)[0]
+                grads = torch.autograd.grad(loss, leaves)
+            finally:
+                TM.block_forward = real
+            torch.cuda.synchronize()
+            return loss.detach(), grads, K.launch_counts(), torch.cuda.max_memory_allocated()
+
+        base, rem, bad = step(False), step(True), step(True, planted=True)
+        norms = [g.float().norm().item() for g in base[1]]
+        floor = 1e-6 * math.sqrt(sum(n * n for n in norms))
+
+        def leaf_errs(grads):
+            return [(a.float() - r.float()).norm().item() / max(n, floor)
+                    for a, r, n in zip(grads, base[1], norms)]
+
+        errs, bad_errs = leaf_errs(rem[1]), leaf_errs(bad[1])
+        want = dict.fromkeys(K.KERNELS, 0)
+        want_plain = {**want, **fwd, **bwd}
+        want_remat = {**want, **{k: 2 * v for k, v in fwd.items()}, **bwd}
+        loss_err = abs(rem[0].item() - base[0].item())
+        not_bit_equal = [n for n, a, b in zip(names, rem[1], base[1]) if not torch.equal(a, b)]
+        memory_ok = T <= 64 or rem[3] < base[3]
+        ok = (base[2] == want_plain and rem[2] == want_remat and loss_err <= tol["loss"]
+              and max(errs) <= tol["grad_l2"] and max(bad_errs) > tol["grad_l2"] and memory_ok
+              and math.isfinite(base[0].item()))
+        emit({"phase": "remat", "card": card, "block_size": T, "batch": B, "dropout": c.dropout,
+              "dtype": c.compute_dtype, "loss": base[0].item(), "loss_abs_err": loss_err,
+              "loss_bit_equal": torch.equal(rem[0], base[0]),
+              "grad_l2_rel_err_max": max(errs), "tol": tol, "leaves": len(names),
+              "leaves_not_bit_equal": not_bit_equal,
+              "planted": "recompute with the next block's salt pair",
+              "planted_grad_l2_rel_err_max": max(bad_errs),
+              "launches": {"plain": {k: v for k, v in base[2].items() if v},
+                           "remat": {k: v for k, v in rem[2].items() if v}},
+              "launches_exact": base[2] == want_plain and rem[2] == want_remat,
+              "peak_allocated_bytes": {"plain": base[3], "remat": rem[3]},
+              "peak_ratio": rem[3] / base[3], "ok": ok})
+        if not ok:
+            failed.append(T)
+        del params, leaves, base, rem, bad
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"remat changed a value, miscounted, kept its memory, or the gate "
+                             f"passed the planted fault (block_size {failed})")
+
+
+def wrapper_kernel_names(K) -> dict:
+    """The CUDA functions of the port's sources (with counts) that one call
+    of each of K1f, K1b, K2f and K2b launches at the production training
+    step's shapes (bf16, dropout 0.2)."""
+    import torch
+
+    ours = set()
+    for src in (REPO / PKG / "ops" / "csrc").iterdir():
+        ours |= set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
+                               src.read_text()))
+    # the bare name, in a demangled ("qkv::fqkv_fwd_mma_kernel<64, 2, 1>(...)")
+    # or a mangled ("_ZN3qkv19fqkv_fwd_mma_kernelILi64E...") function name
+    pattern = re.compile(r"(?<![A-Za-z_])(?:" + "|".join(sorted(ours)) + r")(?![a-z0-9_])")
+
+    M, B, T, C, H, hs = PROD_K1
+    gen = torch.Generator().manual_seed(3)
+    dev = torch.device("cuda")
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    x = randn(M, B, T, C).bfloat16()
+    w1, b1 = randn(M, C, 3 * H * hs // 2, scale=0.05), randn(M, 3 * H * hs // 2, scale=0.05)
+    w2 = randn(M, 3 * H, hs // 2, hs, scale=0.2)
+    out = K.fused_qkv_attention_fwd(x, w1, b1, w2, H, 0.2, SALTS)
+    dout = randn(*out.shape).bfloat16()
+    J, n = 3, H * B
+    q, k, v = randn(n, T, hs).bfloat16(), randn(J, n, T, hs).bfloat16(), randn(J, n, T, hs).bfloat16()
+    do = randn(n, T, hs).bfloat16()
+    calls = {"fused_qkv_attention": lambda: K.fused_qkv_attention_fwd(x, w1, b1, w2, H, 0.2, SALTS),
+             "fused_qkv_attention_bwd": lambda: K.fused_qkv_attention_bwd(
+                 x, w1, b1, w2, out, dout, H, 0.2, SALTS),
+             "short_cross_attention": lambda: K.short_cross_attention_fwd(q, k, v, 0.2, SALTS),
+             "short_cross_attention_bwd": lambda: K.short_cross_attention_bwd(
+                 q, k, v, do, 0.2, SALTS)}
+    for fn in calls.values():
+        fn()
+    return {name: {k: n for k, n in cuda_kernels(fn).items() if pattern.search(k)}
+            for name, fn in calls.items()}
+
+
+def profile_trace_check(K, card) -> None:
+    """Phase ``profile_trace``: the training entry on the production config
+    with ``TAT_PROFILE_DIR`` set writes one ``torch.profiler`` trace (of its
+    second chunk) into that directory, whose CUDA kernel events hold K1f,
+    K1b, K2f and K2b: every CUDA function that one call of each launches
+    (profiled alone at the same shapes) appears as often as the chunk's
+    steps launch it. Runs before any other profile of the script: a
+    profile that follows one of thousands of kernels has been seen to miss
+    some of its kernels."""
+    import collections
+
+    from trade_aid_multimodal_transformer_tpu_torch.config.compat import reset_compatibility_layer
+    from trade_aid_multimodal_transformer_tpu_torch.train import runner
+
+    names = wrapper_kernel_names(K)
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        production_config_dir(d, max_iters=4, eval_interval=2, eval_iters=1, save_model=0)
+        prof = d / "trace"
+        cwd, env = os.getcwd(), os.environ.get("TAT_PROFILE_DIR")
+        os.chdir(d)
+        os.environ["TAT_PROFILE_DIR"] = str(prof)
+        try:
+            reset_compatibility_layer()
+            with contextlib.redirect_stdout(io.StringIO()):
+                res = runner.run_training(caller_globals={}, seed=7)
+        finally:
+            os.chdir(cwd)
+            if env is None:
+                del os.environ["TAT_PROFILE_DIR"]
+            else:
+                os.environ["TAT_PROFILE_DIR"] = env
+            reset_compatibility_layer()
+        traces = sorted(prof.glob("*.pt.trace.json"))
+        events = json.loads(traces[0].read_text())["traceEvents"] if len(traces) == 1 else []
+    steps = res["step_timer"].chunks[1][0]
+    L, n_cross = res["cfg"].n_layer, sum(res["cfg"].cross_attention)
+    per_step = dict(fused_qkv_attention=L, fused_qkv_attention_bwd=L,
+                    short_cross_attention=n_cross * L, short_cross_attention_bwd=n_cross * L)
+    seen = collections.Counter(e["name"] for e in events if e.get("cat") == "kernel")
+    want = collections.Counter()
+    for name, counts in names.items():
+        for fn, n in counts.items():
+            want[fn] += steps * per_step[name] * n
+    found = {name: {fn: seen[fn] for fn in counts} for name, counts in names.items()}
+    ok = (len(traces) == 1 and all(names.values())
+          and all(seen[fn] == n for fn, n in want.items()))
+    emit({"phase": "profile_trace", "card": card, "traces": [t.name for t in traces],
+          "traced_steps": steps, "kernel_events": sum(seen.values()),
+          "categories": sorted({e.get("cat") for e in events if e.get("cat")}),
+          "traced_port_functions": {k: n for k, n in seen.items()
+                                    if any(k in c for c in names.values())},
+          "functions_by_kernel": found, "expected": dict(want), "ok": ok})
+    if not ok:
+        raise AssertionError("TAT_PROFILE_DIR wrote no single trace holding the training "
+                             "step's kernels")
+
+
+def reference_checkpoint(K, card) -> None:
+    """Phase ``reference_checkpoint``: the reference model's ``.pth``
+    checkpoints on the card. (1) Both fixtures' state_dicts
+    (tests/fixtures/model_parity*.npz, ``sd::`` keys) written with
+    ``torch.save`` load through ``load_checkpoint``; their f32 logits within
+    1e-4 of the reference model's. (2) A reference-layout state_dict at the
+    production config (the port's seeded weights through
+    ``reference_state_dict``) as ``.pth``: its logits bit-equal to the same
+    weights through ``.npz``, and ``generate.run`` serves it with exact K1f
+    and K2f launches and the ``.npz`` run's tokens. (3) ``run_training``
+    with ``create_new_model: 0`` on it prints the loaded line."""
+    import numpy as np
+    import torch
+
+    from trade_aid_multimodal_transformer_tpu_torch import generate as entry
+    from trade_aid_multimodal_transformer_tpu_torch.config.compat import reset_compatibility_layer
+    from trade_aid_multimodal_transformer_tpu_torch.models.config import ModelConfig
+    from trade_aid_multimodal_transformer_tpu_torch.models.init import init_params
+    from trade_aid_multimodal_transformer_tpu_torch.models.transformer import forward
+    from trade_aid_multimodal_transformer_tpu_torch.train import runner
+    from trade_aid_multimodal_transformer_tpu_torch.train.checkpoint import (
+        load_checkpoint, save_checkpoint)
+    from trade_aid_multimodal_transformer_tpu_torch.utils.torch_compat import reference_state_dict
+
+    dev = torch.device("cuda")
+    failed = []
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        for name in ("model_parity", "model_parity_selective"):
+            z = np.load(REPO / "tests" / "fixtures" / f"{name}.npz")
+            cfg = ModelConfig(vocab_sizes=tuple(z["vocab_sizes"].tolist()),
+                              cross_attention=tuple(bool(c) for c in z["cross"]),
+                              n_embd=int(z["n_embd"]), n_head=int(z["n_head"]),
+                              n_layer=int(z["n_layer"]), block_size=int(z["block_size"]))
+            pth = d / f"{name}.pth"
+            torch.save({k[4:]: torch.from_numpy(z[k]) for k in z.files if k.startswith("sd::")}, pth)
+            params, step = load_checkpoint(str(pth), cfg, dev)
+            K.reset_launch_counts()
+            logits, _ = forward(params, cfg, torch.from_numpy(z["idx"]).to(dev))
+            torch.cuda.synchronize()
+            err = max((logits[m].cpu() - torch.from_numpy(z[f"logits_{m}"])).abs().max().item()
+                      for m in range(cfg.num_modalities))
+            ok = err <= 1e-4 and step is None
+            emit({"phase": "reference_checkpoint", "fixture": name, "card": card,
+                  "f32_logits_max_abs_err": err, "tol": 1e-4, "step": step,
+                  "launches": {k: v for k, v in K.launch_counts().items() if v}, "ok": ok})
+            if not ok:
+                failed.append(name)
+
+        production_config_dir(d, max_iters=2, eval_interval=1, eval_iters=1, save_model=0,
+                              create_new_model=0, model_file_name='"model.pth"')
+        data = entry.load_config_and_data(str(d))
+        cfg = data["cfg"]
+        params = init_params(cfg, torch.Generator().manual_seed(4321), "cpu")
+        torch.save(reference_state_dict(params, cfg), d / "model.pth")
+        save_checkpoint(str(d / "model.npz"), params)
+        rng = np.random.default_rng(9)
+        idx = torch.from_numpy(np.stack([rng.integers(0, v, (2, cfg.block_size))
+                                         for v in cfg.vocab_sizes])).to(dev)
+        logits = [forward(load_checkpoint(str(d / f"model.{ext}"), cfg, dev)[0], cfg, idx)[0]
+                  for ext in ("pth", "npz")]
+        bit_equal = all(torch.equal(a, b) for a, b in zip(*logits))
+        tokens = 8
+        runs = {}
+        for ext in ("pth", "npz"):
+            K.reset_launch_counts()
+            res = entry.run(str(d), tokens=tokens, modality=0, seed=0,
+                            checkpoint=str(d / f"model.{ext}"))
+            runs[ext] = (res, K.launch_counts())
+        want = dict.fromkeys(K.KERNELS, 0)
+        want.update(fused_qkv_attention=cfg.n_layer * tokens,
+                    short_cross_attention=sum(cfg.cross_attention) * cfg.n_layer * tokens)
+        same_tokens = (runs["pth"][0]["new"] == runs["npz"][0]["new"]).all()
+        cwd, buf = os.getcwd(), io.StringIO()
+        os.chdir(d)
+        try:
+            reset_compatibility_layer()
+            with contextlib.redirect_stdout(buf):
+                trained = runner.run_training(caller_globals={}, seed=7)
+        finally:
+            os.chdir(cwd)
+            reset_compatibility_layer()
+    console = buf.getvalue()
+    loaded = ("Model: Loading from model.pth..." in console and "Model: Loaded successfully" in console
+              and "Optimizer: Created with loaded parameters" in console)
+    ok = (bit_equal and runs["pth"][1] == want and bool(same_tokens) and loaded
+          and str(runs["pth"][0]["device"]) == "cuda" and trained["opt_state"]["count"] == 2)
+    emit({"phase": "reference_checkpoint", "config": "examples/production_config.yaml", "card": card,
+          "pth_logits_bit_equal_npz": bit_equal, "generate_tokens": tokens,
+          "generate_launches": {k: v for k, v in runs["pth"][1].items() if v},
+          "expected_launches": {k: v for k, v in want.items() if v},
+          "generated_tokens_equal_npz": bool(same_tokens), "run_training_loaded": loaded,
+          "ok": ok})
+    if not ok:
+        failed.append("production")
+    if failed:
+        raise AssertionError(f"a reference .pth failed on the card: {failed}")
 
 
 def long_context(K, card, gen, timing, errs, by_path):
@@ -1113,7 +1524,7 @@ def long_context(K, card, gen, timing, errs, by_path):
     # long_training: run_training at block_size 1024, batch 8 (per step 6 K5f,
     # 12 K6f-r and 42 K5b: 6 for self-attention, 3 streams x 12 cross calls;
     # per evaluated batch 6 K5f and 12 K6f), and a profiled step
-    by_path["long_training"], long_steps = training_run(
+    by_path["long_training"], long_steps, _ = training_run(
         K, card, "long_training",
         dict(flash_attention=L, flash_attention_bwd=n_bwd, flash_cross_attention_res=L * n_cross),
         dict(flash_attention=L, flash_cross_attention=L * n_cross),
@@ -1184,9 +1595,11 @@ def cp_rank(rank: int, world: int, job: dict):
     gathers go through host memory; every chunk runs K7 on the card.
 
     job "reference": one step per variant (name, dtype, dropout, change:
-    None, "planted" or "plain" K7) on batch ``job["batch"]``; rank 0 holds
-    each against ``job["refs"][dtype]`` (the card's single-rank step) or, at
-    dropout, the variant computed with K7's plain versions. job "training":
+    None, "planted", "plain" K7 or "remat") on batch ``job["batch"]``; rank
+    0 holds each against ``job["refs"][dtype]`` (the card's single-rank
+    step) or, at dropout, the variant computed with K7's plain versions, and
+    a "remat" variant (each block recomputed in the backward, under the
+    ring's scope) against the variant of its name without "_remat". job "training":
     ``job["steps"]`` steps of the production training step, one eval batch,
     and a profiled step. Returns what the parent checks."""
     sys.path.insert(0, str(REPO))
@@ -1211,7 +1624,7 @@ def cp_rank(rank: int, world: int, job: dict):
         xb, yb = (x.to(dev) for x in job["batch"])
         got, out = {}, {}
         for name, dtype, rate, change in job["variants"]:
-            c = dataclasses.replace(cfg, compute_dtype=dtype, dropout=rate)
+            c = dataclasses.replace(cfg, compute_dtype=dtype, dropout=rate, remat=change == "remat")
             params = map_tree(lambda t: t.detach().to(dev).clone().requires_grad_(), job["params"])
             trainer = make_sharded_trainer(c, None, make_optimizer(1e-3), [], 1, mesh)
             worst = {}
@@ -1233,13 +1646,19 @@ def cp_rank(rank: int, world: int, job: dict):
             if change == "plain":
                 continue
             loss, grads = got[name]
-            ref_loss, ref = job["refs"][dtype] if not rate else got[name + "_plain"]
+            if change == "remat":
+                ref_loss, ref = got[name[:-len("_remat")]]
+                out[name]["bit_equal"] = loss == ref_loss and all(
+                    torch.equal(g, r) for g, r in zip(grads, ref))
+            else:
+                ref_loss, ref = job["refs"][dtype] if not rate else got[name + "_plain"]
             norms = [r.norm().item() for r in ref]
             floor = 1e-6 * math.sqrt(sum(n * n for n in norms))
             errs_leaf = [(g - r.to(dev)).norm().item() / max(n, floor)
                          for g, r, n in zip(grads, ref, norms)]
             names = ["/".join(map(str, path)) for path, _ in tree_paths(job["params"])]
-            out[name].update(against="K7 plain on the card" if rate else
+            out[name].update(against="the same step without remat" if change == "remat" else
+                             "K7 plain on the card" if rate else
                              "single-rank step on the card (K5/K6)",
                              loss_ref=float(ref_loss), loss_abs_err=abs(loss - float(ref_loss)),
                              grad_l2_rel_err_max=max(errs_leaf),
@@ -1427,7 +1846,8 @@ def context_parallel(K, card, gen, timing, errs, by_path):
     # the card's single-rank step (K5f, K6f-r, K5b), f32 and bf16, every
     # gradient leaf within STEP_TOL; the planted K7b fault (full-mask dk x 1.2
     # on one chunk pair) must fail the f32 gate; at dropout 0.2 the step
-    # against the same step with K7 replaced by its plain versions
+    # against the same step with K7 replaced by its plain versions, and with
+    # remat against the same step without it
     rng = np.random.default_rng(11)
     ids = torch.from_numpy(np.stack([rng.integers(0, v, (1, cfg.block_size + 1))
                                      for v in cfg.vocab_sizes]))
@@ -1447,7 +1867,8 @@ def context_parallel(K, card, gen, timing, errs, by_path):
                     ("bf16", "bfloat16", 0.0, None)]
         if p_size == 2:
             variants += [("bf16_dropout_plain", "bfloat16", 0.2, "plain"),
-                         ("bf16_dropout", "bfloat16", 0.2, None)]
+                         ("bf16_dropout", "bfloat16", 0.2, None),
+                         ("bf16_dropout_remat", "bfloat16", 0.2, "remat")]
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         res = pmesh.run_ranks(cp_rank, p_size, (dict(
@@ -1457,6 +1878,10 @@ def context_parallel(K, card, gen, timing, errs, by_path):
         failed = []
         for name, dtype, rate, change in variants:
             want = [cp_want(K, c, r, "step") for r in range(p_size)]
+            if change == "remat":  # the backward recomputes every block's rings
+                for w in want:
+                    w["flash_chunk_fwd_causal"] *= 2
+                    w["flash_chunk_fwd_full"] *= 2
             counts_ok = change == "plain" or all(res[r][name]["launches"] == want[r]
                                                 for r in range(p_size))
             line = res[0][name]
@@ -1482,7 +1907,8 @@ def context_parallel(K, card, gen, timing, errs, by_path):
                       for r in range(p_size)], "launches_exact": counts_ok,
                   "losses_by_rank": [res[r][name]["loss"] for r in range(p_size)],
                   "seconds_all_variants": sec, **{k_: line[k_] for k_ in (
-                      "against", "loss_ref", "loss_abs_err", "grad_l2_rel_err_max", "worst_leaves")},
+                      "against", "loss_ref", "loss_abs_err", "grad_l2_rel_err_max", "worst_leaves",
+                      "bit_equal") if k_ in line},
                   "ok": ok})
             if not ok:
                 failed.append(f"P={p_size} {name}")
@@ -2490,6 +2916,9 @@ def main() -> int:
     for name in K._SIGNATURES:
         emit({"phase": "ptxas", "source": name, "functions": ptxas_report(K.build_log(name))})
 
+    # 2b. the training entry's TAT_PROFILE_DIR trace, before any other profile
+    profile_trace_check(K, card)
+
     # 3. each kernel against its plain version
     gen = torch.Generator().manual_seed(0)
 
@@ -3092,19 +3521,43 @@ def main() -> int:
     # max_iters / eval_interval / eval_iters changed (a step-count cut); 10.
     # where a training step's time goes
     L, n_cross = cfg.n_layer, sum(cfg.cross_attention)
-    train_launches, _ = training_run(
-        K, card, "training",
-        dict(fused_qkv_attention=L, fused_qkv_attention_bwd=L, short_cross_attention=n_cross * L,
-             short_cross_attention_bwd=n_cross * L),
-        dict(fused_qkv_attention=L, short_cross_attention=n_cross * L),
+    per_step = dict(fused_qkv_attention=L, fused_qkv_attention_bwd=L,
+                    short_cross_attention=n_cross * L, short_cross_attention_bwd=n_cross * L)
+    per_eval = dict(fused_qkv_attention=L, short_cross_attention=n_cross * L)
+    train_launches, _, train_evals = training_run(
+        K, card, "training", per_step, per_eval, max_iters=60, eval_interval=20, eval_iters=4)
+
+    # 10b. the flat-state AdamW (tpu_options.fused_update): the update alone
+    # on one step's gradients against the per-leaf update, then the entry
+    # against the per-leaf entry above (the same seed: the same batches and
+    # salts; the bf16 token-table scatter-adds keep the runs from the same
+    # bits, so the final eval losses are held within STEP_TOL)
+    flat_update_check(K, card, cfg, ids)
+    fused_launches, _, fused_evals = training_run(
+        K, card, "training_fused", per_step, per_eval, tpu={"fused_update": "true"},
         max_iters=60, eval_interval=20, eval_iters=4)
+    loss_errs = [abs(a - b) for a, b in zip(fused_evals[-1][1:], train_evals[-1][1:])]
+    ok = fused_launches == train_launches and max(loss_errs) <= STEP_TOL["bfloat16"]["loss"]
+    emit({"phase": "fused_update", "part": "entry", "card": card,
+          "launches_equal_per_leaf": fused_launches == train_launches,
+          "final_eval": {"per_leaf": train_evals[-1], "fused": fused_evals[-1]},
+          "final_eval_abs_err": loss_errs, "tol": STEP_TOL["bfloat16"]["loss"], "ok": ok})
+    if not ok:
+        raise AssertionError("the fused_update entry's launches or losses differ from the "
+                             "per-leaf entry's")
+
+    # 10c. remat at T = 64 and 1024; 10d. the reference model's .pth
+    # checkpoints in both entries
+    remat_check(K, card, cfg)
+    reference_checkpoint(K, card)
 
     # 10b. data parallelism on the one card: a step against the one-rank
     # step, and the training entry over two ranks
     data_parallel(K, card, by_path)
 
     # 11. long context: the production config at block_size 1024
-    by_path.update({"serving": launches, "training": train_launches, **serve_counts})
+    by_path.update({"serving": launches, "training": train_launches,
+                    "training_fused": fused_launches, **serve_counts})
     long_context(K, card, gen, timing, errs, by_path)
 
     # 12. context parallelism at block_size 1024

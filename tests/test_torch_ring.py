@@ -271,7 +271,7 @@ def test_cp_training_step_and_trajectory_match_jax(jax_chunks_interpret):
     and salts. Block size 512 gives chunks of 256, so every ring runs K7's
     plain versions (the Pallas chunk kernels in interpret mode there), with
     dropout 0.2. Both ranks end with the same gradients and parameters, with
-    no all-reduce."""
+    no all-reduce. The step with ``remat`` gives the same bits."""
     jcfg = JaxConfig(**CP_MODEL)
     jparams = jax_init(jax.random.PRNGKey(2), jcfg)
     rng = np.random.default_rng(3)
@@ -296,7 +296,11 @@ def test_cp_training_step_and_trajectory_match_jax(jax_chunks_interpret):
                        params_from_jax(jax.tree.map(np.asarray, jparams), "cpu"))
     port = pmesh.run_ranks(torch_rank_bodies.cp_training, 2,
                            (CP_MODEL, tparams, batches, salts, {}), timeout=RANK_TIMEOUT)
-    loss, grads, losses, final = port[0]
+    loss, grads, losses, final, (rloss, rgrads) = port[0]
+    # remat recomputes each block under the ring's scope: the same bits
+    assert rloss == loss
+    for a, b in zip(rgrads, grads, strict=True):
+        np.testing.assert_array_equal(a, b)
     assert abs(loss - float(jloss)) <= 1e-5 * max(1.0, abs(float(jloss)))
     jleaves = jax.tree_util.tree_leaves(jgrads)
     assert len(jleaves) == len(grads)

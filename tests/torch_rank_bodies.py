@@ -6,6 +6,8 @@ functions in spawned processes joined in one gloo group
 port, never JAX: the JAX references are computed in the test process.
 """
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -36,20 +38,26 @@ def ring_cases(rank, world, cases):
 
 def cp_training(rank, world, cfg_kw, params, batches, salts, opt_kw):
     """The context-parallel Trainer over the group: the loss and gradients
-    of one step at ``params`` (batches[0], salts[0]), then a trajectory of
-    one step per batch. Returns (loss, grads, losses, final params) as numpy."""
+    of one step at ``params`` (batches[0], salts[0]), the same with
+    ``remat`` (each block recomputed in the backward, under the ring's
+    scope), then a trajectory of one step per batch. Returns (loss, grads,
+    losses, final params, (remat loss, remat grads)) as numpy."""
     torch.set_num_threads(1)  # no thread split to vary between the ranks: the same bits
     cfg = ModelConfig(**cfg_kw)
     # the ranks receive the parent's tensors in shared memory: each updates its own copy
     params = map_tree(lambda t: t.detach().clone().requires_grad_(), params)
     opt = make_optimizer(1e-3, **opt_kw)
-    trainer = make_sharded_trainer(cfg, None, opt, [], 1, pmesh.make_mesh(seq=world))
+    mesh = pmesh.make_mesh(seq=world)
+    trainer = make_sharded_trainer(cfg, None, opt, [], 1, mesh)
     as_batch = [tuple(torch.from_numpy(a) for a in b) for b in batches]
     loss, grads = trainer.loss_and_grads(params, [as_batch[0]], [salts[0]])
+    remat = make_sharded_trainer(dataclasses.replace(cfg, remat=True), None, opt, [], 1, mesh)
+    rloss, rgrads = remat.loss_and_grads(params, [as_batch[0]], [salts[0]])
     state = opt.init(params)
     losses = [trainer.step(params, state, [b], [s]).item() for b, s in zip(as_batch, salts)]
     return (loss.item(), [g.numpy() for g in grads], losses,
-            [np.asarray(p.detach().numpy()) for p in tree_leaves(params)])
+            [np.asarray(p.detach().numpy()) for p in tree_leaves(params)],
+            (rloss.item(), [g.numpy() for g in rgrads]))
 
 
 def _dp_feed(job):

@@ -10,14 +10,16 @@ runs on its default backend). ``'cpu'`` runs on the CPU only when named.
 
 ``tpu_options`` on the GPU: ``compute_dtype`` selects bf16 activations as on
 the TPU, ``attn_impl: jnp`` keeps the dense attention cores, and the Adam
-dtypes, ``params_dtype``, ``lr_schedule`` and ``grad_accum`` shape training
-as there. ``context_parallel`` runs ring attention over that many ranks, one
-card each (parallel/); a ``mesh`` or ``fsdp`` plan that needs a data, tensor,
-modality or pipeline axis raises (a later slice of the port).
-The other keys (``rng_impl``, ``scan_unroll``, ``fused_update``,
-``multihost``, ``pipeline_microbatches``, ``remat``, ...) are parsed and
-validated so that every config that loads in the JAX package loads here,
-and change nothing in the port.
+dtypes, ``params_dtype``, ``lr_schedule``, ``grad_accum``, ``fused_update``
+(the flat-state AdamW, on one rank) and ``remat`` (each block recomputed in
+the backward) shape training as there. ``context_parallel`` runs ring
+attention over that many ranks and ``mesh`` (``{data: P}``, ``auto``) data
+parallelism, one card a rank (parallel/); a plan that needs a tensor,
+modality or pipeline axis, or ``fsdp``, raises (a later slice of the port).
+The other keys (``rng_impl``, ``scan_unroll``, ``multihost``,
+``pipeline_microbatches``, ...) are parsed and validated so that every
+config that loads in the JAX package loads here, and change nothing in the
+port.
 """
 
 from __future__ import annotations

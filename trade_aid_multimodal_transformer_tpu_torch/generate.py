@@ -4,7 +4,8 @@ package's ``tools/generate.py``).
 It reads the zero-flag configuration directory (config.yaml +
 input_schemas.yaml, or a programmatic config.py), re-runs ingestion and
 tokenization so that the vocabularies match training exactly (the vocabulary
-is the tokenizer), loads the ``.npz`` checkpoint named by ``model_file_name``,
+is the tokenizer), loads the checkpoint named by ``model_file_name`` (an
+``.npz`` of either package, or the reference model's ``.pth`` state_dict),
 primes the context with the last ``block_size`` tokens of the dataset, and
 samples autoregressively: one full-window forward per token
 (models/sampler.py), or with ``--serve`` the KV-cached serving sampler

@@ -36,11 +36,10 @@ class ModelConfig:
     # f32 master params, bf16 activations/matmul inputs, f32 accumulation,
     # f32 layernorm/softmax).
     compute_dtype: str = "float32"
-    # Training option, read from the same config files as the JAX package
-    # reads it: rematerialise each block in the backward pass. ``remat``
-    # changes memory, not values, and is not ported: it has no effect here.
+    # Training option: rematerialise each block in the backward pass
+    # (models/transformer.py ``forward``): changes memory, not values.
     # ``dropout`` above applies in the forward of a training step
-    # (``forward(..., train=True)``, models/transformer.py).
+    # (``forward(..., train=True)``).
     remat: bool = False
 
     def __post_init__(self):

@@ -35,8 +35,13 @@ taken on the fused path even where its dropout is off), feed-forward one, and
 each cross-attending modality two, so the masks are bit-identical to JAX's.
 Every site names its batch axis, so that inside a data-parallel rank's
 ``batch_slice_scope`` (ops/layers.py) its mask is the global batch's rows.
-``remat`` changes memory, not values, and is not ported: the forward stores
-its activations.
+With ``cfg.remat`` a training forward stores only each block's input and
+recomputes the block in the backward (``torch.utils.checkpoint``, the JAX
+package's ``jax.checkpoint`` with ``nothing_saveable``): memory changes, values
+do not. The recompute runs inside the backward, which must therefore run in
+the forward's scopes (context parallelism, ``batch_slice_scope``), as
+train/steps.py runs it; the block's salt pair is an argument of the block, so
+the recompute draws the forward's masks.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import kernels
 from ..ops.attention import (
@@ -294,7 +300,14 @@ def forward(
     keys = KeyGen(rng)
     x = embed(params, cfg, idx)
     for block in params["blocks"]:
-        x = block_forward(x, block, keys(), cfg, train)
+        if cfg.remat and train:
+            # the non-reentrant form, which torch.autograd.grad can
+            # differentiate; dropout is a hash of the salt pair, so the
+            # recompute needs no generator state
+            x = checkpoint(block_forward, x, block, keys(), cfg, train,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = block_forward(x, block, keys(), cfg, train)
     padded = logits_heads_padded(params, cfg, x)
     logits = [padded[m, ..., :v] for m, v in enumerate(cfg.vocab_sizes)]
     if targets is None:

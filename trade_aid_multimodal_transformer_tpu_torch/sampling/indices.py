@@ -14,7 +14,7 @@ positions to starts with one ``searchsorted`` on the device.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -108,6 +108,27 @@ class SplitIndexPlan:
         for start, count in zip(self.file_starts, self.valid_counts):
             out.extend(range(start + self.first_offset, start + self.first_offset + count))
         return np.asarray(out, dtype=np.int64)
+
+
+def generate_batch_starting_indices(
+    data_size: int,
+    block_size: int,
+    batch_size: int,
+    split: str,
+    file_lengths: List[int],
+    is_percents: bool,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """The reference's one-shot signature (reference: training_utils.py:33-181):
+    ``batch_size`` uniform draws over the split's valid starts, on the
+    generator's device (a CPU generator seeded from numpy's global generator
+    when none is given, as the JAX package draws its key)."""
+    if not isinstance(batch_size, int) or batch_size <= 0:
+        raise TypeError("'batch_size' must be a positive integer.")
+    plan = SplitIndexPlan.build(data_size, block_size, split, file_lengths, is_percents)
+    if generator is None:
+        generator = torch.Generator().manual_seed(int(np.random.randint(0, 2**31 - 1)))
+    return plan.sample_starts(generator, batch_size)
 
 
 def gather_windows(data: torch.Tensor, starts: torch.Tensor, block_size: int) -> torch.Tensor:

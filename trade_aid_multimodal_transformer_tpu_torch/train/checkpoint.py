@@ -10,13 +10,17 @@ under the ``opt`` prefix in the layout of the JAX optimizer's state:
 (plus ``opt[2].count`` with a schedule), ``opt.count`` / ``opt.mu[...]`` /
 ``opt.nu[...]`` for ``_adamw_lowmem``. A checkpoint written by either
 package loads in the other, moments included, so a resumed run continues
-them. Loading the reference model's ``.pth`` is not ported yet.
+them. ``load_checkpoint`` also reads the reference model's ``.pth``
+state_dict (utils/torch_compat.py): weights only, no step and no optimizer
+state. A ``.pth`` is a zip as an ``.npz`` is, so a file counts as this
+format only where it holds parameter keys.
 """
 
 from __future__ import annotations
 
 import os
 import re
+import zipfile
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -24,7 +28,8 @@ import torch
 
 from ..convert import params_from_jax
 from ..models.config import ModelConfig
-from ..models.init import param_shapes, tree_paths
+from ..models.init import map_tree, param_shapes, tree_paths
+from ..utils.torch_compat import load_reference_checkpoint
 
 _META_STEP = "__meta_step__"
 _PARAMS_PREFIX = "params"
@@ -124,14 +129,33 @@ def _conform(node, template, where: str):
     return node
 
 
+def _read_native(path: str) -> Optional[Dict[str, np.ndarray]]:
+    """The arrays of a checkpoint in this format, or None for another file
+    (a ``.pth`` zip without parameter keys, or no archive at all)."""
+    try:
+        with np.load(path, allow_pickle=False) as z:
+            data = {k: z[k] for k in z.files}
+    except (ValueError, EOFError, zipfile.BadZipFile):  # not an .npy / .npz archive
+        return None
+    if not any(k.startswith(_PARAMS_PREFIX + "[") for k in data):
+        return None
+    return data
+
+
 def load_checkpoint(
     path: str, cfg: ModelConfig, device: str | torch.device
 ) -> Tuple[Dict[str, Any], Optional[int]]:
-    """Read an ``.npz`` checkpoint into the port's parameter tree on
-    ``device`` (f32 leaves, as the JAX loader casts to its f32 template).
+    """Read a checkpoint into the port's parameter tree on ``device`` (f32
+    leaves, as the JAX loader casts to its f32 template): an ``.npz`` of
+    either package, or else the reference model's ``.pth`` (step None).
     Returns (params, step)."""
-    with np.load(path, allow_pickle=False) as z:
-        data = {k: z[k] for k in z.files}
+    data = _read_native(path)
+    if data is None:
+        params = load_reference_checkpoint(path, cfg)
+        if map_tree(lambda t: tuple(t.shape), params) != map_tree(lambda leaf: leaf[1],
+                                                                  param_shapes(cfg)):
+            raise ValueError(f"{path}: the reference state_dict's shapes are not the config's")
+        return map_tree(lambda t: t.to(device, torch.float32), params), None
     tree: dict = {}
     for key, arr in data.items():
         if not key.startswith(_PARAMS_PREFIX + "["):
@@ -141,8 +165,6 @@ def load_checkpoint(
             key = key[: -len(_BF16_SUFFIX)]
             arr = _bf16_bits_to_f32(arr)
         _insert(tree, _parse_keystr(key), arr.astype(np.float32))
-    if not tree:
-        raise ValueError(f"{path} holds no parameters of the .npz checkpoint format")
     params = params_from_jax(_conform(tree, param_shapes(cfg), "params"), device)
     step = int(data[_META_STEP]) if _META_STEP in data else None
     return params, step
@@ -151,11 +173,11 @@ def load_checkpoint(
 def load_optimizer_state(path: str, params, optimizer) -> Optional[Dict[str, Any]]:
     """The optimizer state of ``optimizer`` stored in a checkpoint, on the
     parameters' devices, or None when the checkpoint holds none (a
-    weights-only file, or another optimizer's layout)."""
-    with np.load(path, allow_pickle=False) as z:
-        data = {k: z[k] for k in z.files}
+    weights-only file, a reference ``.pth``, or another optimizer's
+    layout)."""
+    data = _read_native(path)
     pre = _opt_prefix(optimizer)
-    if pre + ".count" not in data:
+    if data is None or pre + ".count" not in data:
         return None
     state = optimizer.init(params)
     for name in ("mu", "nu"):

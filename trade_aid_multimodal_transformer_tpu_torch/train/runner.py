@@ -24,17 +24,23 @@ modality, pipeline and FSDP plans raise (a later slice of the port).
 the JAX package does without a pod. f32 products run in full f32
 (PyTorch's default, TF32 off) whatever ``matmul_precision`` says.
 ``TAT_SEED`` pins the run seed; ``TAT_TIMING`` prints the training rate
-and, under a data axis, the gradient all-reduce's bytes and time per step.
+and, under a data axis, the gradient all-reduce's bytes and time per step;
+``TAT_PROFILE_DIR`` writes a ``torch.profiler`` trace of the second training
+chunk there (utils/profiling.py). On one rank ``tpu_options.fused_update:
+true`` trains with the flat-state AdamW (train/steps.py), and ``remat``
+recomputes each block in the backward. ``create_new_model: 0`` resumes from
+``model_file_name``: the port's or the JAX package's ``.npz`` (moments
+included), or the reference model's ``.pth`` (weights only).
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import math
 import numbers
 import os
 import sys
-import time
 from datetime import datetime
 from typing import Any, Dict, List, Optional
 
@@ -61,6 +67,7 @@ from ..ops import kernels
 from ..parallel import mesh as pmesh
 from ..parallel.resolve import available_devices, plan_mesh
 from ..sampling.feed import BatchFeed, resolve_rand_sizes
+from ..utils.profiling import StepTimer, annotate, profile_dir_from_env, trace
 from .checkpoint import load_checkpoint, load_optimizer_state, save_checkpoint
 from .evaluate import estimate_loss
 from .metrics import build_metric_specs
@@ -138,22 +145,6 @@ _STEP_DISPLAY = {
     "range_numeric_data": "ranging",
     "bin_numeric_data": "binning",
 }
-
-
-class StepTimer:
-    """Seconds and steps of each training chunk (the device synchronised at
-    the chunk's end)."""
-
-    def __init__(self):
-        self.chunks: List[tuple] = []
-
-    @property
-    def steps(self) -> int:
-        return sum(n for n, _ in self.chunks)
-
-    def summary(self) -> str:
-        sec = sum(t for _, t in self.chunks)
-        return f"{self.steps} steps in {sec:.2f} s ({self.steps / sec:.2f} steps/s)"
 
 
 def _plan(sc: Dict[str, Any], num_modalities: int):
@@ -515,8 +506,12 @@ def _run_training(caller_globals: Optional[dict], seed: Optional[int],
     plan = _plan(sc, num_modalities)
     allreduce = None  # (bytes, seconds) of each gradient all-reduce, under TAT_TIMING
     if plan.trivial:
+        # tpu_options.fused_update: the flat-state AdamW (steps.Trainer);
+        # 'auto' resolves to off, as in the JAX package, and the sharded
+        # trainers below keep per-leaf state
         trainer = Trainer(cfg, feed, optimizer, metric_specs, eval_iters,
-                          grad_accum=sc.get("grad_accum", 1))
+                          grad_accum=sc.get("grad_accum", 1),
+                          fused_update=sc.get("fused_update", "auto") is True)
     else:
         from ..parallel.trainer import make_sharded_trainer
         from ..utils.memory import format_train_state_memory
@@ -683,6 +678,8 @@ def _run_training(caller_globals: Optional[dict], seed: Optional[int],
         print()
 
     timer = StepTimer()
+    profile_dir = profile_dir_from_env()
+    chunks_run = 0
 
     def print_progress(lo: int, hi: int):
         """The reference prints 'Training: Iteration k/N' at every multiple
@@ -714,10 +711,14 @@ def _run_training(caller_globals: Optional[dict], seed: Optional[int],
             next_boundaries.append(max_iters - 1)
         nxt = min(b for b in next_boundaries if b > it)
         n_steps = nxt - it
-        t0 = time.perf_counter()
-        params, opt_state, step_losses = trainer.train_chunk(params, opt_state, rng, n_steps)
-        step_losses = step_losses.cpu()  # waits for the chunk's device work
-        timer.chunks.append((n_steps, time.perf_counter() - t0))
+        timer.start()
+        # trace the second chunk (the first builds the kernels and warms up)
+        with (trace(profile_dir, dev) if profile_dir and chunks_run == 1
+              else contextlib.nullcontext()), annotate("train_chunk"):
+            params, opt_state, step_losses = trainer.train_chunk(params, opt_state, rng, n_steps)
+            step_losses = step_losses.cpu()  # waits for the chunk's device work
+        timer.stop(n_steps)
+        chunks_run += 1
         print_progress(it, nxt)
         it = nxt
 

@@ -16,18 +16,27 @@ f32), the production path. Learning-rate schedules follow optax's
 warmup-cosine, linear, constant and join semantics, evaluated at the step
 count before the increment. Parameters and moments are updated in place.
 
-Not ported (parsed by config/system.py, listed on the ROADMAP): the
-flat-state ``fused_update`` (off by default in the JAX package too) and
-``rng_impl`` (JAX key implementations). Randomness comes from ``StepRng``:
-a device generator for batches and augmentation and a host generator for the
-dropout salts.
+``tpu_options.fused_update: true`` carries the parameters and both moments
+as three flat vectors through a chunk (``Trainer`` with ``fused_update``):
+the per-leaf views are one ``torch.split`` of the flat parameter vector, so
+the backward hands back one flat gradient (one concatenation), and the
+update is one pass of the same elementwise math over the flat vectors
+(``AdamW.update_flat_``), bit-equal to the per-leaf update. As in the JAX
+package it runs only where every leaf has one dtype, off the sharded
+trainers (parallel/trainer.py), and raises a ``TypeError`` on bf16 master
+parameters, whose flat update comes out f32.
+
+Not ported (parsed by config/system.py, listed on the ROADMAP): ``rng_impl``
+(JAX key implementations). Randomness comes from ``StepRng``: a device
+generator for batches and augmentation and a host generator for the dropout
+salts.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -45,6 +54,16 @@ _F32 = torch.float32
 def _f32(v: float) -> float:
     """A Python float rounded to f32, as a weak-typed JAX scalar becomes."""
     return float(torch.tensor(v, dtype=_F32))
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The IEEE (correctly rounded) f32 square root, as XLA's and CUDA's.
+    torch's CPU kernel (SLEEF, 0.5001 ulp) misses it on ~0.6% of elements,
+    and which ones depends on their place in its vector loop, so on the CPU
+    it is taken in f64 and rounded (innocuous double rounding: 53 >= 2 x 24
+    + 2 bits). An element's update is then the same in a leaf and in the
+    flat vector."""
+    return torch.sqrt(x) if x.device.type != "cpu" else torch.sqrt(x.double()).float()
 
 
 def _linear(init: float, end: float, steps: int, begin: int = 0) -> Callable[[int], float]:
@@ -147,35 +166,61 @@ class AdamW:
             "nu": map_tree(lambda p: torch.zeros_like(p, dtype=self.nu_dtype), params),
         }
 
+    def _advance(self, state: Dict[str, Any]) -> Tuple[float, torch.Tensor, torch.Tensor]:
+        """Advance ``state["count"]``; the step's learning rate (the schedule
+        at the count before the increment) and bias corrections."""
+        lr_t = _f32(self.lr(state["count"]))
+        state["count"] += 1
+        count = torch.tensor(float(state["count"]), dtype=_F32)
+        c1 = 1 - torch.tensor(self.b1, dtype=_F32) ** count
+        c2 = 1 - torch.tensor(self.b2, dtype=_F32) ** count
+        return lr_t, c1, c2
+
+    def apply_(self, p, g, m, v, lr_t: float, c1: torch.Tensor, c2: torch.Tensor) -> None:
+        """The update of one tensor (a leaf, or the flat vectors) and its
+        moments, in place. Elementwise, so one call over the flat vectors
+        gives every element the bits of the per-leaf calls."""
+        b1, b2 = self.b1, self.b2
+        g32 = g.to(_F32)
+        if self.lowmem:
+            m32 = b1 * m.to(_F32) + (1.0 - b1) * g32
+            v32 = b2 * v.to(_F32) + (1.0 - b2) * g32.square()
+            u = (m32 / c1) / (_sqrt(v32 / c2) + self.eps)
+            u = u + self.weight_decay * p.to(_F32)
+            p.add_((-lr_t * u).to(p.dtype))
+        else:
+            # the decay product runs in mu's storage dtype, as optax's
+            # weak-typed scalar times a bf16 moment does
+            m32 = (1.0 - b1) * g32 + (m * torch.tensor(b1, dtype=m.dtype)).to(_F32)
+            v32 = (1.0 - b2) * g32.square() + b2 * v
+            u = (m32 / c1) / (_sqrt(v32 / c2) + self.eps)
+            u = u + self.weight_decay * p
+            p.copy_((p + u * -lr_t).to(p.dtype))
+        m.copy_(m32.to(m.dtype))
+        v.copy_(v32.to(v.dtype))
+
     @torch.no_grad()
     def update_(self, params, grads: Sequence[torch.Tensor], state: Dict[str, Any]) -> None:
         """One step on the leaves of ``params`` (in place), ``grads`` in
         ``tree_leaves`` order; advances ``state`` in place."""
-        lr_t = _f32(self.lr(state["count"]))
-        state["count"] += 1
-        count = torch.tensor(float(state["count"]), dtype=_F32)
-        b1, b2 = self.b1, self.b2
-        c1 = 1 - torch.tensor(b1, dtype=_F32) ** count
-        c2 = 1 - torch.tensor(b2, dtype=_F32) ** count
-        leaves = tree_leaves(params)
-        for p, g, m, v in zip(leaves, grads, tree_leaves(state["mu"]), tree_leaves(state["nu"])):
-            g32 = g.to(_F32)
-            if self.lowmem:
-                m32 = b1 * m.to(_F32) + (1.0 - b1) * g32
-                v32 = b2 * v.to(_F32) + (1.0 - b2) * g32.square()
-                u = (m32 / c1) / (torch.sqrt(v32 / c2) + self.eps)
-                u = u + self.weight_decay * p.to(_F32)
-                p.add_((-lr_t * u).to(p.dtype))
-            else:
-                # the decay product runs in mu's storage dtype, as optax's
-                # weak-typed scalar times a bf16 moment does
-                m32 = (1.0 - b1) * g32 + (m * torch.tensor(b1, dtype=m.dtype)).to(_F32)
-                v32 = (1.0 - b2) * g32.square() + b2 * v
-                u = (m32 / c1) / (torch.sqrt(v32 / c2) + self.eps)
-                u = u + self.weight_decay * p
-                p.copy_((p + u * -lr_t).to(p.dtype))
-            m.copy_(m32.to(m.dtype))
-            v.copy_(v32.to(v.dtype))
+        lr_t, c1, c2 = self._advance(state)
+        for p, g, m, v in zip(tree_leaves(params), grads, tree_leaves(state["mu"]),
+                              tree_leaves(state["nu"])):
+            self.apply_(p, g, m, v, lr_t, c1, c2)
+
+    @torch.no_grad()
+    def update_flat_(self, theta: torch.Tensor, grad: torch.Tensor, mu: torch.Tensor,
+                     nu: torch.Tensor, state: Dict[str, Any]) -> None:
+        """One step on flat f32 parameters ``theta`` and moments ``mu``,
+        ``nu`` (in place), ``grad`` flat in the same order; advances
+        ``state["count"]``. The JAX package's fused chunk keeps its flat
+        parameters in the scan carry, whose dtype the f32 update must keep:
+        bf16 master parameters raise there (a ``TypeError`` of the scan), and
+        raise here."""
+        if theta.dtype != _F32:
+            raise TypeError(f"the flat-state update (fused_update) needs float32 parameters: "
+                            f"its update of {theta.dtype} parameters comes out float32")
+        self.apply_(theta, grad, mu, nu, *self._advance(state))
 
 
 def make_optimizer(learning_rate: float, moment_dtype: str = "float32",
@@ -225,11 +270,14 @@ class Trainer:
     or drawn is the global batch, of which the rank keeps its rows, with
     its dropout masks keyed by global rows; each step's loss and gradients
     are then the means over the axis, and an evaluation pass's statistics
-    its sums."""
+    its sums. ``fused_update``: a chunk carries the parameters and moments
+    as flat vectors (``tpu_options.fused_update: true``; the runner gives it
+    only to the one-rank trainer), where every leaf has one dtype."""
 
     def __init__(self, cfg: ModelConfig, feed: BatchFeed, optimizer: AdamW,
                  metric_specs: Sequence[ModalityMetricSpec], eval_iters: int,
-                 grad_accum: int = 1, scope: Optional[Callable] = None, data=None):
+                 grad_accum: int = 1, scope: Optional[Callable] = None, data=None,
+                 fused_update: bool = False):
         self.cfg = cfg
         self.feed = feed
         self.optimizer = optimizer
@@ -239,6 +287,7 @@ class Trainer:
         self.grad_accum = max(1, int(grad_accum))
         self.scope = scope or contextlib.nullcontext
         self.data = data
+        self.fused_update = fused_update
 
     def _rows(self, xb: torch.Tensor, yb: torch.Tensor):
         """This rank's rows of a global (M, B, T) batch (all of them without
@@ -256,21 +305,30 @@ class Trainer:
         """Loss and gradients (``tree_leaves`` order) of one step: the mean
         over its microbatches (xb, yb) with their dropout salts (and over
         the data axis)."""
-        leaves = tree_leaves(params)
+        loss, grads = self._mean_grads(lambda: params, tree_leaves(params), batches, salts)
+        if self.data is None:
+            return loss, grads
+        return self.data.mean_grads(loss, grads)
+
+    def _mean_grads(self, make_params: Callable, wrt: Sequence[torch.Tensor], batches,
+                    salts) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """The mean over the microbatches of the loss and of its gradients
+        with respect to ``wrt``, on the parameter tree ``make_params()``
+        gives (built anew for each microbatch's graph). The backward runs in
+        the scopes of the forward: a rematerialised block (``remat``)
+        recomputes its forward there."""
         loss_sum, grad_sum = None, None
         for (xb, yb), key in zip(batches, salts):
             xb, yb, rows = self._rows(xb, yb)
             with self.scope(), rows:
-                loss, _ = total_loss(params, self.cfg, xb, yb, key, True)
-                grads = torch.autograd.grad(loss, leaves)
+                loss, _ = total_loss(make_params(), self.cfg, xb, yb, key, True)
+                grads = torch.autograd.grad(loss, wrt)
             loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
             grad_sum = list(grads) if grad_sum is None else [a + b for a, b in zip(grad_sum, grads)]
         if len(batches) > 1:
             inv = 1.0 / len(batches)
             loss_sum, grad_sum = loss_sum * inv, [(g.to(_F32) * inv).to(g.dtype) for g in grad_sum]
-        if self.data is None:
-            return loss_sum, grad_sum
-        return self.data.mean_grads(loss_sum, grad_sum)
+        return loss_sum, grad_sum
 
     def step(self, params, opt_state, batches, salts) -> torch.Tensor:
         """One optimization step on given microbatches and salts; updates
@@ -282,13 +340,54 @@ class Trainer:
     def train_chunk(self, params, opt_state, rng: StepRng, n_steps: int):
         """n_steps training steps with batches drawn on the device; returns
         (params, opt_state, per-step losses (n_steps,))."""
-        losses = []
-        for _ in range(n_steps):
-            batches = [self.feed.get_batch(rng.batch, "train", True)
-                       for _ in range(self.grad_accum)]
-            salts = [rng.salts() for _ in range(self.grad_accum)]
-            losses.append(self.step(params, opt_state, batches, salts))
+
+        def draws():
+            for _ in range(n_steps):
+                batches = [self.feed.get_batch(rng.batch, "train", True)
+                           for _ in range(self.grad_accum)]
+                yield batches, [rng.salts() for _ in range(self.grad_accum)]
+
+        return self.run_steps(params, opt_state, draws())
+
+    def run_steps(self, params, opt_state, draws: Iterable):
+        """One optimization step for each (microbatches, salts) of
+        ``draws``; returns (params, opt_state, per-step losses). The
+        per-leaf update works in place and returns the trees it was given;
+        the flat-state update (``fused_update``, where every leaf has one
+        dtype, as the JAX package dispatches) returns trees of views into
+        its flat vectors."""
+        if self.fused_update and len({t.dtype for t in tree_leaves(params)}) == 1:
+            return self._run_steps_flat(params, opt_state, draws)
+        losses = [self.step(params, opt_state, b, s) for b, s in draws]
         return params, opt_state, torch.stack(losses)
+
+    def _run_steps_flat(self, params, opt_state, draws: Iterable):
+        """``run_steps`` with the parameters and moments carried as three
+        flat vectors in ``tree_leaves`` order (the JAX package's
+        ``_train_chunk_fused``): one concatenation each at the start, one
+        update pass over the vectors a step."""
+        sizes = [t.numel() for t in tree_leaves(params)]
+
+        def flat(tree) -> torch.Tensor:
+            return torch.cat([t.detach().reshape(-1) for t in tree_leaves(tree)])
+
+        def views(vec: torch.Tensor):
+            """The tree of ``params`` as views into vec: one split, whose
+            backward is one concatenation of the leaves' gradients (a slice
+            a leaf would write a zero vector of the whole length for each)."""
+            parts = iter(torch.split(vec, sizes))
+            return map_tree(lambda t: next(parts).view(t.shape), params)
+
+        theta = flat(params).requires_grad_()
+        mu, nu = flat(opt_state["mu"]), flat(opt_state["nu"])
+        state = {"count": opt_state["count"]}
+        losses = []
+        for batches, salts in draws:
+            loss, (grad,) = self._mean_grads(lambda: views(theta), [theta], batches, salts)
+            self.optimizer.update_flat_(theta, grad, mu, nu, state)
+            losses.append(loss)
+        params = map_tree(lambda t: t.requires_grad_(), views(theta.detach()))
+        return params, {"count": state["count"], "mu": views(mu), "nu": views(nu)}, torch.stack(losses)
 
     def train_step(self, params, opt_state, rng: StepRng):
         params, opt_state, losses = self.train_chunk(params, opt_state, rng, 1)
