@@ -29,7 +29,11 @@ the kernels of both training steps called on half a batch with the
 global-row arguments against the global call's rows (``dp_kernel_check``),
 one production step over two ranks sharing the card against the one-rank
 step on the global batch (``dp_reference``), and the training entry over
-those two ranks (``dp_training``).
+those two ranks (``dp_training``). So does FSDP (``tpu_options.fsdp:
+true`` on that axis): one production step bit-equal to the data-parallel
+step, with planted faults that must break it (``fsdp_reference``), and the
+entry over the two ranks at dropout 0 and 0.2, its checkpoint and a resume
+(``fsdp_training``).
 
 Right after the build, the training entry with ``TAT_PROFILE_DIR`` must
 write a trace holding the training step's kernels (``profile_trace``).
@@ -49,9 +53,9 @@ exits non-zero before printing any result.
 
 on a machine with 2 or 4 cards instead runs the training entry with
 context parallelism, data parallelism (``{data: 2}``, ``{data: 4}`` and
-``mesh: auto``) and, on 4 cards, data x sequence, one card per rank over
-NCCL, against the same run on one card, and compares every rank's
-parameters (``multi_card``).
+``mesh: auto``, each size also with ``fsdp: true``) and, on 4 cards, data x
+sequence (also with FSDP), one card per rank over NCCL, against the same
+run on one card, and compares every rank's parameters (``multi_card``).
 
     python3 chip_smoke.py --k1b-split
 
@@ -2222,18 +2226,51 @@ def dp_rank(rank: int, world: int, job: dict):
 
 
 def dp_entry_rank(rank: int, world: int, caller_globals: dict, seed: int, log: str):
-    """One rank of ``dp_training``: the training entry's rank (``runner.
-    _rank_entry``) with ``mesh: {data: world}`` on ranks that share the one
-    card (the plan counts the ranks as its devices; gloo through host
-    memory), the all-reduce timed (TAT_TIMING); rank 0's console to ``log``."""
+    """One rank of ``dp_training`` and ``fsdp_training``: the training
+    entry's rank (``runner._rank_entry``) with ``mesh: {data: world}`` on
+    ranks that share the one card (the plan counts the ranks as its
+    devices; gloo through host memory), the collectives timed (TAT_TIMING);
+    rank 0's console to ``log``. Adds the rank's kernel launches and the
+    peak of its allocated device memory."""
     sys.path.insert(0, str(REPO))
     os.environ["TAT_TIMING"] = "1"
+    import torch
+
+    from trade_aid_multimodal_transformer_tpu_torch.ops import kernels as K
     from trade_aid_multimodal_transformer_tpu_torch.train import runner
 
     runner.available_devices = lambda device, cp, mesh=None: world
     if rank == 0:
         sys.stdout = open(log, "w")
-    return runner._rank_entry(rank, world, caller_globals, seed)
+    out = runner._rank_entry(rank, world, caller_globals, seed)
+    return dict(out, launches_rank=K.launch_counts(),
+                max_memory_allocated=torch.cuda.max_memory_allocated())
+
+
+def per_step(collectives, kind: str):
+    """(bytes of the last call, mean ms a call, calls) of one kind of a
+    run's timed collectives (``runner`` result ``collectives``)."""
+    calls = [(n_, t_) for k_, n_, t_ in collectives or [] if k_ == kind]
+    if not calls:
+        return None, None, 0
+    return calls[-1][0], 1e3 * sum(t_ for _, t_ in calls) / len(calls), len(calls)
+
+
+def fsdp_state_bytes(cfg, data: int) -> tuple:
+    """(total, per rank) bytes of the train state the production config
+    trains (f32 parameters, bf16 mu and nu, the int32 count) under FSDP over
+    a data axis of ``data`` ranks, from the tree's shapes and
+    ``param_pspecs``: a leaf it puts on 'data' at 1/data on every rank,
+    every other leaf whole."""
+    from trade_aid_multimodal_transformer_tpu_torch.models.init import param_shapes, tree_leaves
+    from trade_aid_multimodal_transformer_tpu_torch.parallel.mesh import param_pspecs
+
+    shapes = param_shapes(cfg)
+    specs = param_pspecs(shapes, n_head=0, model_axis=False, fsdp_size=data)
+    per_element = 4 + 2 + 2
+    sizes = [math.prod(shape) for _, shape in tree_leaves(shapes)]
+    held = sum(n // data if "data" in spec else n for n, spec in zip(sizes, specs))
+    return per_element * sum(sizes) + 4, per_element * held + 4
 
 
 def data_parallel(K, card, by_path):
@@ -2248,7 +2285,9 @@ def data_parallel(K, card, by_path):
     entry with the same seed (final eval losses within STEP_TOL, the ranks'
     parameter checksums equal, the eval train loss falling, exact launches
     per rank), with its steps/s and the gradient all-reduce's bytes and
-    milliseconds per step. Adds to ``by_path``; raises on a failed check."""
+    milliseconds per step. Adds to ``by_path``; returns the entry runs (the
+    data-parallel one with each rank's result and its last checkpoint's
+    arrays) for ``fsdp_phases``; raises on a failed check."""
     import numpy as np
     import torch
 
@@ -2257,6 +2296,7 @@ def data_parallel(K, card, by_path):
     from trade_aid_multimodal_transformer_tpu_torch.models.init import init_params
     from trade_aid_multimodal_transformer_tpu_torch.parallel import mesh as pmesh
     from trade_aid_multimodal_transformer_tpu_torch.train import runner
+    from trade_aid_multimodal_transformer_tpu_torch.train.checkpoint import _read_native
 
     with tempfile.TemporaryDirectory() as tmp:
         d = Path(tmp)
@@ -2309,6 +2349,7 @@ def data_parallel(K, card, by_path):
                              "differ, or the gate passed the zero offset")
 
     # dp_training: the entry over two ranks, then the one-rank entry, seed 5
+    # (the data-parallel run's last checkpoint kept for fsdp_training)
     config = dict(max_iters=8, eval_interval=4, eval_iters=2)
     runs = {}
     for mesh in ("{data: 2}", "\"off\""):
@@ -2332,7 +2373,9 @@ def data_parallel(K, card, by_path):
                 else:
                     ranks = pmesh.run_ranks(dp_entry_rank, DP_RANKS, (
                         {}, 5, str(d / "rank0.log")), timeout=RANK_TIMEOUT)
-                    r = {**ranks[0], "param_checksums": [x["param_checksum"] for x in ranks]}
+                    r = {**ranks[0], "param_checksums": [x["param_checksum"] for x in ranks],
+                         "ranks": ranks,
+                         "checkpoint": _read_native(str(d / "output" / "model.ckpt"))}
                     console = (d / "rank0.log").read_text()
                 sec = time.perf_counter() - t0
             finally:
@@ -2352,7 +2395,7 @@ def data_parallel(K, card, by_path):
                for name, n_ in per_step.items()}}
     sums = dp["param_checksums"]
     errs_ = {k_: abs(dp["losses"][k_] - one["losses"][k_]) for k_ in ("train", "val")}
-    ar = dp["allreduce"] or []
+    ar = [(n_, t_) for k_, n_, t_ in dp["collectives"] or [] if k_ == "all_reduce"]
     ok = (len(sums) == DP_RANKS and all(s == sums[0] for s in sums)
           and all(e <= STEP_TOL["bfloat16"]["loss"] for e in errs_.values())
           and len(dp["evals"]) == len(one["evals"]) > 1 and dp["evals"][-1][1] < dp["evals"][0][1]
@@ -2377,6 +2420,342 @@ def data_parallel(K, card, by_path):
           "seconds_with_spawn": dp["seconds"], "ok": ok})
     if not ok:
         raise AssertionError("the data-parallel training entry failed its checks")
+    return runs
+
+
+def fsdp_rank(rank: int, world: int, job: dict):
+    """One rank of ``fsdp_reference``, in a process of its own (the ranks
+    share the one card: gloo through host memory). Each variant starts from
+    the same parameters and takes one production step (the data-parallel
+    trainer's ``loss_and_grads`` on the global batch, then the AdamW
+    update): ``dp`` and ``dp_again`` without FSDP, ``fsdp`` with it, and two
+    planted faults: rank 1 holding rank 0's slices, and the reduce-scatter
+    handing each rank the other's chunk. Returns per variant the loss, the
+    launches, the train-state bytes the rank holds (the per-device figure,
+    the tensors' bytes, the allocated bytes they added) and, against
+    ``dp``, whether the gathered parameters, mu, nu and count and the
+    rank's parts (its slices of ``dp``'s) are bit-equal."""
+    sys.path.insert(0, str(REPO))
+    import torch
+
+    from trade_aid_multimodal_transformer_tpu_torch.models.init import map_tree, tree_leaves
+    from trade_aid_multimodal_transformer_tpu_torch.ops import kernels as K
+    from trade_aid_multimodal_transformer_tpu_torch.parallel import mesh as pmesh
+    from trade_aid_multimodal_transformer_tpu_torch.parallel.trainer import (
+        Fsdp, make_sharded_trainer, shard_train_state)
+    from trade_aid_multimodal_transformer_tpu_torch.train import steps as tsteps
+    from trade_aid_multimodal_transformer_tpu_torch.utils.memory import train_state_bytes
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = job["cfg"]
+    mesh = pmesh.make_mesh(data=world, staged=True)
+    xb, yb = (t.to(dev) for t in job["batch"])
+
+    def fresh():
+        return map_tree(lambda t: t.detach().to(dev).clone().requires_grad_(), job["params"])
+
+    def equal(a, b) -> bool:
+        return all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    def max_diff(a, b) -> float:
+        return max((x.float() - y.float()).abs().max().item()
+                   for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    out, ref = {}, None
+    for variant in ("dp", "dp_again", "fsdp", "fsdp_rank1_keeps_rank0_slice",
+                    "fsdp_reduce_scatter_reversed"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        opt = tsteps.make_optimizer(job["lr"], moment_dtype="bfloat16", nu_dtype="bfloat16")
+        params = fresh()
+        params, state, placed = shard_train_state(params, opt.init(params), mesh.data,
+                                                  variant.startswith("fsdp"))
+        if variant == "fsdp_rank1_keeps_rank0_slice" and rank == 1:
+            params = Fsdp(placed.specs, pmesh.DataAxis(0, world)).shard(fresh())
+        torch.cuda.synchronize()
+        held_allocated = torch.cuda.memory_allocated() - base
+        trees = (params, state["mu"], state["nu"])
+        tensors = sum(t.numel() * t.element_size() for tr in trees for t in tree_leaves(tr))
+        total, per_dev = train_state_bytes(params, state, opt,
+                                           placed.parts() if placed else None)
+        trainer = make_sharded_trainer(cfg, None, opt, [], 1, mesh, fsdp=placed)
+        if variant == "fsdp_reduce_scatter_reversed":
+            real = mesh.data.reduce_scatter_flat
+            mesh.data.reduce_scatter_flat = lambda flat, kind="reduce_scatter": real(
+                flat.view(world, -1).flip(0).reshape(-1), kind)
+        try:
+            K.reset_launch_counts()
+            loss, grads = trainer.loss_and_grads(params, [(xb, yb)], [SALTS])
+            torch.cuda.synchronize()
+            counts = K.launch_counts()
+            opt.update_(params, grads, state)
+        finally:
+            mesh.data.__dict__.pop("reduce_scatter_flat", None)
+        res = {"loss": loss.item(), "launches": counts, "count": state["count"],
+               "total_bytes": total, "per_device_bytes": per_dev, "tensor_bytes": tensors,
+               "held_allocated_bytes": held_allocated}
+        whole = [params, state["mu"], state["nu"]]
+        if placed is not None:
+            whole = [placed.gather(t) for t in whole]
+        if ref is None:
+            ref = {"whole": whole, "count": state["count"]}
+        else:
+            res["bit_equal_to_dp"] = {n_: equal(a, b)
+                                      for n_, a, b in zip(("params", "mu", "nu"), whole,
+                                                          ref["whole"])}
+            res["max_abs_diff_to_dp"] = {n_: max_diff(a, b)
+                                         for n_, a, b in zip(("params", "mu", "nu"), whole,
+                                                             ref["whole"])}
+            res["count_equal"] = state["count"] == ref["count"]
+            if placed is not None:
+                mine = Fsdp(placed.specs, mesh.data)
+                res["parts_equal_dp_slices"] = all(
+                    equal(part, mine.shard(w)) for part, w in zip(trees, ref["whole"]))
+        out[variant] = res
+        del params, state, loss, grads, whole, trees, trainer
+    return out
+
+
+def fsdp_phases(K, card, by_path, dp_runs):
+    """FSDP / ZeRO-3 (``mesh: {data: 2}``, ``fsdp: true``) on the one card,
+    two ranks sharing it (gloo through host memory):
+    - ``fsdp_reference``: one production step (bf16, dropout 0.2, global
+      batch 32, bf16 moments) with FSDP against the data-parallel step on
+      the same batch and salts: the gathered parameters, mu, nu and the
+      count bit-equal to it (both ranks), each rank's parts its slices of
+      the data-parallel result, the launches the data-parallel step's, the
+      rank's train-state tensors the per-device figure, that figure the one
+      ``fsdp_state_bytes`` gives (without FSDP the whole), and the allocated
+      bytes they add within 10% of it (the caching allocator hands out
+      blocks up to 1 MB larger than asked; the whole tree left alive would
+      add 2x). The data-parallel step
+      is taken twice (reported). Planted faults that must break the bit
+      equality: rank 1 holding rank 0's slices; the reduce-scatter's chunks
+      handed out in reverse rank order.
+    - ``fsdp_training``: the entry over the two ranks, 8 steps, at dropout
+      0 and 0.2 against the one-rank entry with the same seed (final eval
+      losses within STEP_TOL), every rank's checksum of the gathered
+      parameters equal, exact launches on every rank (those of
+      ``dp_training``'s ranks at 0.2), every rank's train-state bytes those
+      ``fsdp_state_bytes`` gives, one all-gather, one reduce-scatter
+      and one all-reduce a step (their bytes and ms, TAT_TIMING), the peak
+      of allocated memory per rank beside the data-parallel run's, the
+      last checkpoint (dropout 0.2) bit-equal to ``dp_training``'s, and a
+      resume from it (``create_new_model: 0``) under FSDP.
+    Adds ``by_path["fsdp_training"]``; raises on a failed check."""
+    import numpy as np
+    import torch
+
+    from trade_aid_multimodal_transformer_tpu_torch import generate as entry
+    from trade_aid_multimodal_transformer_tpu_torch.config.compat import reset_compatibility_layer
+    from trade_aid_multimodal_transformer_tpu_torch.models.init import init_params
+    from trade_aid_multimodal_transformer_tpu_torch.parallel import mesh as pmesh
+    from trade_aid_multimodal_transformer_tpu_torch.train import runner
+    from trade_aid_multimodal_transformer_tpu_torch.train.checkpoint import _read_native
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        production_config_dir(d)
+        data = entry.load_config_and_data(str(d))
+    cfg, sc = data["cfg"], data["sc"]
+    L, n_cross = cfg.n_layer, sum(cfg.cross_attention)
+    step_launches = dict(fused_qkv_attention=L, fused_qkv_attention_bwd=L,
+                         short_cross_attention=n_cross * L, short_cross_attention_bwd=n_cross * L)
+    want_step = {**dict.fromkeys(K.KERNELS, 0), **step_launches}
+
+    # fsdp_reference
+    rng = np.random.default_rng(13)
+    B = sc["batch_size"]
+    ids = torch.from_numpy(np.stack([rng.integers(0, v, (B, cfg.block_size + 1))
+                                     for v in cfg.vocab_sizes]))
+    params = init_params(cfg, torch.Generator().manual_seed(1234), "cpu")
+    want_bytes = fsdp_state_bytes(cfg, DP_RANKS)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = pmesh.run_ranks(fsdp_rank, DP_RANKS, (dict(
+        cfg=cfg, params=params, batch=(ids[..., :-1], ids[..., 1:]), lr=sc["learning_rate"]),),
+        timeout=RANK_TIMEOUT)
+    sec = time.perf_counter() - t0
+    failed = []
+    for variant in ("dp_again", "fsdp", "fsdp_rank1_keeps_rank0_slice",
+                    "fsdp_reduce_scatter_reversed"):
+        rows = [res[r][variant] for r in range(DP_RANKS)]
+        bit_equal = all(all(x["bit_equal_to_dp"].values()) and x["count_equal"] for x in rows)
+        parts = all(x.get("parts_equal_dp_slices", True) for x in rows)
+        launches = all(x["launches"] == want_step == res[r]["dp"]["launches"]
+                       for r, x in enumerate(rows))
+        held = all(x["tensor_bytes"] + 4 == x["per_device_bytes"]
+                   and (x["total_bytes"], x["per_device_bytes"])
+                   == (want_bytes if variant.startswith("fsdp") else (want_bytes[0],) * 2)
+                   and res[r]["dp"]["per_device_bytes"] == want_bytes[0]
+                   and x["tensor_bytes"] <= x["held_allocated_bytes"]
+                   <= 1.1 * x["tensor_bytes"] for r, x in enumerate(rows))
+        planted = variant.startswith("fsdp_") and variant != "fsdp"
+        sound = bit_equal and parts and launches and held
+        ok = (not bit_equal) if planted else (bit_equal or variant == "dp_again")
+        ok = ok and launches and held
+        if variant == "fsdp":
+            ok = ok and sound
+        emit({"phase": "fsdp_reference", "variant": variant, "card": card,
+              "ranks_on_one_card": DP_RANKS, "backend": "gloo through host memory",
+              "config": "examples/production_config.yaml", "global_batch": B,
+              "block_size": cfg.block_size, "dropout": cfg.dropout, "dtype": cfg.compute_dtype,
+              "moments": "bfloat16", "against": "the data-parallel step on the card, same batch "
+              "and salts", "must_fail": planted,
+              "losses_by_rank": [x["loss"] for x in rows],
+              "loss_dp": res[0]["dp"]["loss"],
+              "bit_equal_to_dp_by_rank": [x["bit_equal_to_dp"] for x in rows],
+              "max_abs_diff_to_dp_by_rank": [x["max_abs_diff_to_dp"] for x in rows],
+              "parts_equal_dp_slices_by_rank": [x.get("parts_equal_dp_slices") for x in rows],
+              "launches_equal_dp": launches,
+              "train_state_bytes_total": rows[0]["total_bytes"],
+              "train_state_bytes_per_rank": [x["per_device_bytes"] for x in rows],
+              "train_state_bytes_expected": want_bytes,
+              "train_state_tensor_bytes_by_rank": [x["tensor_bytes"] for x in rows],
+              "train_state_allocated_bytes_by_rank": [x["held_allocated_bytes"] for x in rows],
+              "train_state_bytes_dp_per_rank": res[0]["dp"]["per_device_bytes"],
+              "seconds_with_spawn": sec, "ok": ok})
+        if not ok:
+            failed.append(variant)
+    if failed:
+        raise AssertionError(f"fsdp_reference failed: {failed}")
+
+    # fsdp_training: the entry over two ranks at dropout 0 and 0.2, then the
+    # one-rank entry at 0 (dp_training ran it at 0.2), seed 5; the run at
+    # 0.2 writes its checkpoint and is resumed from it
+    config = dict(max_iters=8, eval_interval=4, eval_iters=2)
+    one = {0.2: dp_runs["\"off\""]}
+    fs = {}
+
+    def entry_run(d: Path, ranks: int) -> dict:
+        cwd = os.getcwd()
+        os.chdir(d)
+        try:
+            reset_compatibility_layer()
+            K.reset_launch_counts()
+            t0_ = time.perf_counter()
+            if ranks == 1:
+                with contextlib.redirect_stdout(io.StringIO()) as buf:
+                    r = runner.run_training(caller_globals={}, seed=5)
+                r["launches"] = K.launch_counts()
+                r["ranks"] = [dict(launches_rank=r["launches"])]
+                console = buf.getvalue()
+            else:
+                got = pmesh.run_ranks(dp_entry_rank, ranks, ({}, 5, str(d / "rank0.log")),
+                                      timeout=RANK_TIMEOUT)
+                r = {**got[0], "ranks": got,
+                     "param_checksums": [x["param_checksum"] for x in got]}
+                console = (d / "rank0.log").read_text()
+            sec_ = time.perf_counter() - t0_
+        finally:
+            os.chdir(cwd)
+            reset_compatibility_layer()
+        later = r["step_timer"].chunks[1:]
+        evals = [(int(m[0]), float(m[1]), float(m[2])) for m in re.findall(
+            r"LOSS METRICS: Step (\d+)/\d+ \| Train: ([-\d.naif]+) \| Val: ([-\d.naif]+)",
+            console)]
+        return dict(r, console=console, evals=evals, seconds=sec_,
+                    steps_per_s=sum(n_ for n_, _ in later) / sum(t for _, t in later))
+
+    resumed = None
+    for rate in (0.0, 0.2):
+        with tempfile.TemporaryDirectory() as tmp:
+            d = Path(tmp)
+            production_config_dir(d, dropout=rate, tpu={"fsdp": "true"}, **config)
+            text = (d / "config.yaml").read_text()
+            (d / "config.yaml").write_text(text.replace("  mesh: auto", "  mesh: {data: 2}"))
+            fs[rate] = entry_run(d, DP_RANKS)
+            if rate == 0.2:
+                fs[rate]["checkpoint"] = _read_native(str(d / "output" / "model.ckpt"))
+                text = (d / "config.yaml").read_text().replace(
+                    "create_new_model: 1", "create_new_model: 0")
+                for key, v in (("max_iters", 2), ("eval_interval", 1), ("eval_iters", 1)):
+                    text = re.sub(rf"(\n  {key}: )\S+", rf"\g<1>{v}", text)
+                (d / "config.yaml").write_text(text)
+                resumed = entry_run(d, DP_RANKS)
+            else:
+                production_config_dir(d, dropout=rate, **config)
+                text = (d / "config.yaml").read_text()
+                (d / "config.yaml").write_text(text.replace("  mesh: auto", "  mesh: \"off\""))
+                one[rate] = entry_run(d, 1)
+    eval_batches = expected_evals(config["max_iters"], config["eval_interval"]) * 2 * 2
+    per_eval = dict(fused_qkv_attention=L, short_cross_attention=n_cross * L)
+    want = {**dict.fromkeys(K.KERNELS, 0),
+            **{name: n_ * config["max_iters"] + per_eval.get(name, 0) * eval_batches
+               for name, n_ in step_launches.items()}}
+    dp = dp_runs["{data: 2}"]
+    failed = []
+    for rate in (0.0, 0.2):
+        r = fs[rate]
+        sums = r["param_checksums"]
+        errs_ = {k_: abs(r["losses"][k_] - one[rate]["losses"][k_]) for k_ in ("train", "val")}
+        launches = [x["launches_rank"] for x in r["ranks"]]
+        coll = {kind: per_step(r["collectives"], kind)
+                for kind in ("all_gather", "reduce_scatter", "all_reduce")}
+        state_bytes = [tuple(x["train_state_bytes"]) for x in r["ranks"]]
+        ok = (len(sums) == DP_RANKS and all(s_ == sums[0] for s_ in sums)
+              and all(e <= STEP_TOL["bfloat16"]["loss"] for e in errs_.values())
+              and len(r["evals"]) == len(one[rate]["evals"]) > 1
+              and all(x == want for x in launches)
+              and (rate != 0.2 or launches == [x["launches_rank"] for x in dp["ranks"]])
+              and "Parallelism: data x2 (fsdp/zero-3) over 2 devices" in r["console"]
+              and "TRAINING COMPLETED SUCCESSFULLY" in r["console"]
+              and all(c_[2] == config["max_iters"] for c_ in coll.values())
+              and state_bytes == [want_bytes] * DP_RANKS)
+        line = {"phase": "fsdp_training", "config": "examples/production_config.yaml",
+                "card": card, "changed": {**config, "dropout": rate, "mesh": "{data: 2}",
+                                          "fsdp": True},
+                "ranks_on_one_card": DP_RANKS, "backend": "gloo through host memory",
+                "plan": r["plan"].describe(), "global_batch": B, "evals": r["evals"],
+                "evals_one_rank": one[rate]["evals"], "final_eval_losses": r["losses"],
+                "final_eval_losses_one_rank": one[rate]["losses"], "abs_err_vs_one_rank": errs_,
+                "tol": STEP_TOL["bfloat16"]["loss"], "param_checksums_by_rank": sums,
+                "launches_by_rank": [{k_: v_ for k_, v_ in x.items() if v_} for x in launches],
+                "expected_launches_per_rank": {k_: v_ for k_, v_ in want.items() if v_},
+                "train_state_bytes_by_rank": state_bytes,
+                "train_state_bytes_expected": want_bytes,
+                "max_memory_allocated_by_rank": [x["max_memory_allocated"] for x in r["ranks"]],
+                "steps_per_s_after_first_chunk": r["steps_per_s"],
+                "steps_per_s_one_rank": one[rate]["steps_per_s"],
+                **{f"{kind}_bytes_per_step": c_[0] for kind, c_ in coll.items()},
+                **{f"{kind}_ms_per_step": c_[1] for kind, c_ in coll.items()},
+                "collectives_note": "host clock around each staged gloo collective (copy to the "
+                                    "host, collective, copy back), the card synchronised before "
+                                    "and after", "seconds_with_spawn": r["seconds"]}
+        if rate == 0.2:
+            ck, ck_dp = r["checkpoint"], dp["checkpoint"]
+            same_file = sorted(ck) == sorted(ck_dp) and all(
+                np.array_equal(ck[k_], ck_dp[k_]) for k_ in ck)
+            differ = sorted(k_ for k_ in ck if k_ in ck_dp and not np.array_equal(ck[k_], ck_dp[k_]))
+            sums_r = resumed["param_checksums"]
+            resume_ok = ("Model: Loaded successfully" in resumed["console"]
+                         and "TRAINING COMPLETED SUCCESSFULLY" in resumed["console"]
+                         and all(s_ == sums_r[0] for s_ in sums_r)
+                         and all(math.isfinite(v) for v in resumed["losses"].values()))
+            ok = ok and same_file and resume_ok
+            line.update({
+                "data_parallel": {
+                    "launches_by_rank_equal": launches == [x["launches_rank"] for x in dp["ranks"]],
+                    "max_memory_allocated_by_rank": [x.get("max_memory_allocated")
+                                                     for x in dp["ranks"]],
+                    "train_state_bytes_by_rank": [tuple(x["train_state_bytes"])
+                                                  for x in dp["ranks"]],
+                    "steps_per_s_after_first_chunk": dp["steps_per_s"],
+                    "all_reduce": per_step(dp["collectives"], "all_reduce")},
+                "checkpoint_bit_equal_to_dp_training": same_file, "checkpoint_keys": len(ck),
+                "checkpoint_keys_differing": differ[:8],
+                "resume": {"loaded": "Model: Loaded successfully" in resumed["console"],
+                           "param_checksums_by_rank": sums_r, "final_eval_losses":
+                           resumed["losses"], "ok": resume_ok}})
+            by_path["fsdp_training"] = launches[0]
+        line["ok"] = ok
+        emit(line)
+        if not ok:
+            failed.append(rate)
+    if failed:
+        raise AssertionError(f"the FSDP training entry failed its checks at dropout {failed}")
 
 
 def multi_card(card: str) -> int:
@@ -2397,13 +2776,20 @@ def multi_card(card: str) -> int:
     - on 4 cards, ``{data: 2}`` with ``context_parallel: 2`` at block_size
       1024, batch 8: within the limit of the one-card run at dropout 0; at
       0.2 the rings fold their keys with the data rank as the JAX package
-      does, so only the ranks' agreement is held.
+      does, so only the ranks' agreement is held;
+    - FSDP (``fsdp: true``) on ``{data: 2}``, ``{data: 4}`` and, on 4 cards,
+      ``{data: 2}`` x ``context_parallel: 2``: the gates of the same run
+      without it, rank 0's kernel launches equal to that run's, and every
+      rank's train-state bytes (total, held) those ``fsdp_state_bytes``
+      gives for the run's config and data axis.
     At every rate every rank's parameter checksum (float64 sum and SHA-256 of
     the bytes) must be equal. Prints each run's steps/s and, under a data
-    axis, the gradient all-reduce's bytes and ms a step (TAT_TIMING: the
-    card synchronised around it)."""
+    axis, the bytes and ms a step of the gradient all-reduce and, under
+    FSDP, of the all-gather and the reduce-scatter (TAT_TIMING: the card
+    synchronised around each)."""
     import torch
 
+    from trade_aid_multimodal_transformer_tpu_torch import generate as entry
     from trade_aid_multimodal_transformer_tpu_torch.config.compat import reset_compatibility_layer
     from trade_aid_multimodal_transformer_tpu_torch.ops import kernels as K
     from trade_aid_multimodal_transformer_tpu_torch.train import runner
@@ -2414,16 +2800,18 @@ def multi_card(card: str) -> int:
         print("chip_smoke --multi-card: needs 2 or more cards", file=sys.stderr)
         return 2
     K.build_kernels()
-    os.environ["TAT_TIMING"] = "1"  # the ranks time their all-reduce
+    os.environ["TAT_TIMING"] = "1"  # the ranks time their collectives
 
-    def run(mesh: str, cp: int, **config) -> dict:
+    def run(mesh: str, cp: int, fsdp: bool = False, **config) -> dict:
         with tempfile.TemporaryDirectory() as tmp:
             d = Path(tmp)
-            production_config_dir(d, max_iters=8, eval_interval=4, eval_iters=2, **config)
+            production_config_dir(d, max_iters=8, eval_interval=4, eval_iters=2,
+                                  tpu={"fsdp": "true"} if fsdp else None, **config)
             text = (d / "config.yaml").read_text()
             text = text.replace("  mesh: auto", f"  mesh: {mesh}")
             text = text.replace("  # context_parallel: 4", f"  context_parallel: {cp}")
             (d / "config.yaml").write_text(text)
+            cfg = entry.load_config_and_data(str(d))["cfg"] if fsdp else None
             cwd = os.getcwd()
             os.chdir(d)
             try:
@@ -2436,14 +2824,16 @@ def multi_card(card: str) -> int:
                 os.chdir(cwd)
                 reset_compatibility_layer()
         later = res["step_timer"].chunks[1:]
-        ar = res.get("allreduce") or []
+        coll = {kind: per_step(res.get("collectives"), kind)
+                for kind in ("all_reduce", "all_gather", "reduce_scatter")}
         return {"losses": res["losses"], "seconds": sec,
-                "allreduce_bytes_per_step": ar[-1][0] if ar else None,
-                "allreduce_ms_per_step": 1e3 * sum(t for _, t in ar) / len(ar) if ar else None,
+                **{f"{kind}_bytes_per_step": c_[0] for kind, c_ in coll.items()},
+                **{f"{kind}_ms_per_step": c_[1] for kind, c_ in coll.items()},
                 "steps_per_s_after_first_chunk": sum(n for n, _ in later)
                 / sum(t for _, t in later),
                 "plan": res["plan"].describe(), "launches_rank0": res.get("launches"),
-                "param_checksums": res.get("param_checksums")}
+                "param_checksums": res.get("param_checksums"), "cfg": cfg,
+                "train_state_bytes_by_rank": res.get("train_state_bytes_by_rank")}
 
     failed = []
 
@@ -2463,13 +2853,30 @@ def multi_card(card: str) -> int:
               "abs_err_vs_one_card": errs_, "tol": STEP_TOL["bfloat16"]["loss"],
               "param_checksums_by_rank": sums, "ranks_equal": ranks_equal,
               "steps_per_s_after_first_chunk": r["steps_per_s_after_first_chunk"],
-              "allreduce_bytes_per_step": r["allreduce_bytes_per_step"],
-              "allreduce_ms_per_step": r["allreduce_ms_per_step"],
+              **{k_: v_ for k_, v_ in r.items() if k_.endswith("_per_step")},
+              "train_state_bytes_by_rank": r["train_state_bytes_by_rank"],
               "seconds": r["seconds"], "launches_rank0": {
                   k_: v_ for k_, v_ in (r["launches_rank0"] or {}).items() if v_},
               **extra, "ok": ok})
         if not ok:
             failed.append(f"{phase} {changed}")
+
+    def hold_fsdp(r: dict, dp_run: dict, base, ranks: int, data: int, launched: str,
+                  changed: dict, **extra):
+        """An FSDP run's line: ``hold``'s gates, rank 0's launches equal to
+        the same run's without FSDP (``dp_run``), every rank's train-state
+        bytes those ``fsdp_state_bytes`` gives over ``data`` ranks."""
+        same = r["launches_rank0"] == dp_run["launches_rank0"]
+        held = [tuple(b_) for b_ in r["train_state_bytes_by_rank"] or []]
+        want = fsdp_state_bytes(r["cfg"], data)
+        split = held == [want] * ranks
+        hold("multi_card_fsdp", r, base, ranks, launched, {**changed, "fsdp": True},
+             launches_equal_without_fsdp=same, state_split=split,
+             train_state_bytes_expected=want,
+             steps_per_s_without_fsdp=dp_run["steps_per_s_after_first_chunk"],
+             all_reduce_ms_per_step_without_fsdp=dp_run["all_reduce_ms_per_step"], **extra)
+        if not (same and split):
+            failed.append(f"multi_card_fsdp {changed}: launches {same}, state split {split}")
 
     # context parallelism at block_size 1024, batch 8
     long = dict(block_size=LONG_BLOCK, batch_size=8)
@@ -2516,6 +2923,9 @@ def multi_card(card: str) -> int:
             r = run(f"{{data: {p_size}}}", 1, dropout=rate)
             hold("multi_card_data_parallel", r, dp_base[rate], p_size, "fused_qkv_attention",
                  {"dropout": rate, "mesh": f"{{data: {p_size}}}"}, data=p_size)
+            hold_fsdp(run(f"{{data: {p_size}}}", 1, fsdp=True, dropout=rate), r, dp_base[rate],
+                      p_size, p_size, "fused_qkv_attention",
+                      {"dropout": rate, "mesh": f"{{data: {p_size}}}"}, data=p_size)
     r = run("auto", 1)
     want = f"data x{n_cards}"
     hold("multi_card_data_parallel", r, dp_base[0.2], n_cards, "fused_qkv_attention",
@@ -2527,11 +2937,16 @@ def multi_card(card: str) -> int:
     if n_cards >= 4:
         for rate in (0.0, 0.2):
             r = run("{data: 2}", 2, dropout=rate, **long)
+            changed = {**long, "dropout": rate, "mesh": "{data: 2}", "context_parallel": 2}
             hold("multi_card_data_x_seq", r, None if rate else base, 4, "flash_chunk_fwd_causal",
-                 {**long, "dropout": rate, "mesh": "{data: 2}", "context_parallel": 2},
-                 plan_expected="data x2 * context x2")
-            if r["plan"] != "data x2 * context x2":
-                failed.append(f"data x seq planned {r['plan']}")
+                 changed, plan_expected="data x2 * context x2")
+            rf = run("{data: 2}", 2, fsdp=True, dropout=rate, **long)
+            hold_fsdp(rf, r, None if rate else base, 4, 2, "flash_chunk_fwd_causal", changed,
+                      plan_expected="data x2 (fsdp/zero-3) * context x2")
+            for got, want in ((r, "data x2 * context x2"),
+                              (rf, "data x2 (fsdp/zero-3) * context x2")):
+                if got["plan"] != want:
+                    failed.append(f"data x seq planned {got['plan']}")
     if failed:
         raise AssertionError(f"multi-card training disagrees: {failed}")
     emit(card)
@@ -3552,8 +3967,9 @@ def main() -> int:
     reference_checkpoint(K, card)
 
     # 10b. data parallelism on the one card: a step against the one-rank
-    # step, and the training entry over two ranks
-    data_parallel(K, card, by_path)
+    # step, and the training entry over two ranks; then FSDP over them
+    dp_runs = data_parallel(K, card, by_path)
+    fsdp_phases(K, card, by_path, dp_runs)
 
     # 11. long context: the production config at block_size 1024
     by_path.update({"serving": launches, "training": train_launches,

@@ -603,9 +603,9 @@ def test_mesh_that_needs_more_devices_raises():
 
 
 # (mesh, context_parallel, devices, fsdp): JAX's plan or error, in the port
-# the same plan where it has only data and sequence axes, the same error
-# where JAX raises, and NotImplementedError (a later slice) where JAX's plan
-# has a tensor, modality or pipeline axis, or FSDP on a data axis
+# the same plan (FSDP included) where it has only data and sequence axes,
+# the same error where JAX raises, and NotImplementedError (a later slice)
+# where JAX's plan has a tensor, modality or pipeline axis
 PLAN_CASES = [
     ("auto", 1, 1, False), ("off", 1, 1, False), (None, 1, 1, False), (1, 1, 1, False),
     ({"data": 1, "model": 1}, 1, 1, False), ("auto", 2, 2, False), ("off", 2, 2, False),
@@ -615,7 +615,8 @@ PLAN_CASES = [
     ({"model": 2}, 1, 2, False), ({"mod": 2}, 1, 2, False), ({"pipe": 2}, 1, 2, False),
     ({"mod": 3}, 1, 4, False), ({"pipe": 4}, 1, 4, False), ({"data": 3}, 1, 4, False),
     ({"bogus": 2}, 1, 2, False), ({"data": 0}, 1, 2, False), ("sideways", 1, 1, False),
-    ({"data": 1}, 2, 2, True),
+    ({"data": 1}, 2, 2, True), ({"data": 2}, 1, 2, True), ({"data": 2}, 2, 4, True),
+    ({"model": 2}, 1, 2, True),
 ]
 
 
@@ -630,13 +631,13 @@ def test_plan_mesh_matches_jax(mesh, cp, n, fsdp):
         with pytest.raises(ValueError, match=re.escape(str(e))):
             plan_mesh(mesh, cp, n_devices=n, **kw)
         return
-    if ref.model * ref.mod * ref.pipe != 1 or ref.fsdp:
+    if ref.model * ref.mod * ref.pipe != 1:
         with pytest.raises(NotImplementedError, match="later slice"):
             plan_mesh(mesh, cp, n_devices=n, **kw)
         return
     got = plan_mesh(mesh, cp, n_devices=n, **kw)
-    assert (got.describe(), got.n_devices, got.data, got.seq, got.trivial) == (
-        ref.describe(), ref.n_devices, ref.data, ref.seq, ref.trivial)
+    assert (got.describe(), got.n_devices, got.data, got.seq, got.trivial, got.fsdp) == (
+        ref.describe(), ref.n_devices, ref.data, ref.seq, ref.trivial, ref.fsdp)
 
 
 def test_trainer_chunk_and_step_draw_from_the_feed():

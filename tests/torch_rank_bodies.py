@@ -1,6 +1,7 @@
 """What each rank process of the port's parallel tests runs.
 
-The tests (tests/test_torch_ring.py, tests/test_torch_dp.py) start these
+The tests (tests/test_torch_ring.py, tests/test_torch_dp.py,
+tests/test_torch_fsdp.py) start these
 functions in spawned processes joined in one gloo group
 (``parallel.mesh.run_ranks``); a child imports this module, torch and the
 port, never JAX: the JAX references are computed in the test process.
@@ -112,4 +113,77 @@ def dp_cases(rank, world, job):
         step = make_shard_map_dp_step(cfg, feed, opt, mesh.data)
         out["dp_step_loss"] = step(params, state, job["seed"]).item()
         out["dp_step_params"] = [p.detach().numpy().copy() for p in tree_leaves(params)]
+    return out
+
+
+def fsdp_cases(rank, world, job):
+    """One rank of an FSDP run over ``make_mesh(data=world // seq,
+    seq=seq)`` and of the same run without FSDP ("dp"): per variant, from
+    ``job["params"]``, the loss and gradients of one step on the global
+    batch ``job["batches"][0]`` (where ``job["grads"]``; under FSDP the
+    rank's parts), then one AdamW step per batch (and with ``job["accum"]``
+    one of the first two batches as microbatches; losses), the sizes of the
+    rank's params, mu and nu leaves before and after, the rank's parts, and
+    the whole params, mu, nu and count after (gathered under FSDP); with
+    ``job["feed"]`` an evaluation pass of the global validation batches on
+    the initial parameters; with ``job["ckpt"]`` a directory, each
+    variant's whole state saved there by rank 0 (``<variant>.npz``), and
+    the FSDP file read back whole and re-sharded on every rank. Every
+    result as numpy."""
+    from trade_aid_multimodal_transformer_tpu_torch.parallel.trainer import shard_train_state
+    from trade_aid_multimodal_transformer_tpu_torch.train.checkpoint import (
+        load_checkpoint, load_optimizer_state, save_checkpoint)
+    from trade_aid_multimodal_transformer_tpu_torch.train.steps import StepRng
+
+    torch.set_num_threads(1)  # no thread split to vary between the ranks: the same bits
+    seq = job.get("seq", 1)
+    mesh = pmesh.make_mesh(data=world // seq, seq=seq)
+    cfg = ModelConfig(**job["cfg"])
+    feed, specs = _dp_feed(job) if "feed" in job else (None, [])
+    as_batch = [tuple(torch.from_numpy(a) for a in b) for b in job["batches"]]
+    sizes = lambda tree: [t.numel() for t in tree_leaves(tree)]  # noqa: E731
+    numpy = lambda tree: [t.detach().float().numpy().copy() for t in tree_leaves(tree)]  # noqa: E731
+    out = {}
+    for name in ("dp", "fsdp"):
+        opt = make_optimizer(1e-3, **job.get("opt", {}))
+        params = map_tree(lambda t: t.detach().clone().requires_grad_(), job["params"])
+        params, state, placed = shard_train_state(params, opt.init(params), mesh.data,
+                                                  name == "fsdp")
+        trainer = make_sharded_trainer(cfg, feed, opt, specs, job.get("eval_iters", 1), mesh,
+                                       fsdp=placed)
+        res = {"held_before": [sizes(params), sizes(state["mu"]), sizes(state["nu"])]}
+        if feed is not None:
+            ev = trainer.eval_pass(params, StepRng(job["seed"], "cpu"), "val")
+            res["eval"] = {k: v.numpy() for k, v in ev._asdict().items()}
+        if job.get("grads", True):
+            loss, grads = trainer.loss_and_grads(params, [as_batch[0]], [job["salts"][0]])
+            res.update(loss=loss.item(), grads=[g.numpy() for g in grads])
+        res["losses"] = [trainer.step(params, state, [b], [s]).item()
+                         for b, s in zip(as_batch, job["salts"])]
+        if job.get("accum"):  # one step of the first two batches as microbatches
+            res["losses"].append(trainer.step(params, state, as_batch[:2],
+                                              job["salts"][:2]).item())
+        res["held_after"] = [sizes(params), sizes(state["mu"]), sizes(state["nu"])]
+        res["parts"] = [numpy(params), numpy(state["mu"]), numpy(state["nu"])]
+        whole = [params, state["mu"], state["nu"]]
+        if placed is not None:
+            whole = [placed.gather(t) for t in whole]
+            res["specs"] = placed.specs
+        res["whole"] = [numpy(t) for t in whole]
+        res["count"] = state["count"]
+        if job.get("ckpt"):
+            path = f"{job['ckpt']}/{name}.npz"
+            if rank == 0:
+                save_checkpoint(path, whole[0], step=len(as_batch),
+                                opt_state={"count": state["count"], "mu": whole[1], "nu": whole[2]},
+                                optimizer=opt)
+            torch.distributed.barrier()
+            if placed is not None:
+                loaded = load_checkpoint(path, cfg, "cpu")[0]
+                got, got_state, _ = shard_train_state(
+                    loaded, load_optimizer_state(path, loaded, opt), mesh.data, True)
+                res["resumed_parts"] = [numpy(got), numpy(got_state["mu"]),
+                                        numpy(got_state["nu"])]
+                res["resumed_count"] = got_state["count"]
+        out[name] = res
     return out

@@ -1,23 +1,32 @@
-"""Process groups of a parallel run, and the processes that hold them
-(port of the JAX package's ``parallel/mesh.py``).
+"""Process groups of a parallel run, the processes that hold them, and the
+placement of the parameters over them (port of the JAX package's
+``parallel/mesh.py``).
 
 The JAX package lays its devices out as a (pipe, mod, data, model, seq)
-mesh; the port builds the data axis (data parallelism) and the sequence axis
-('seq', context parallelism) and nothing else yet (parallel/resolve.py
-refuses the other axes). A run of P ranks is P processes in one
-``torch.distributed`` group: NCCL with one card per rank, gloo on the CPU.
-Ranks are laid out in the JAX package's device order, data outer and
-sequence inner: global rank d * S + s holds data row d and sequence place s
-(``make_mesh``). Every rank creates the same groups in the same order: one
-sequence group per data row (S consecutive ranks) and one data group per
-sequence place.
+mesh; the port builds the data axis (data parallelism, and FSDP / ZeRO-3
+over it) and the sequence axis ('seq', context parallelism) and nothing
+else yet (parallel/resolve.py refuses the other axes). A run of P ranks is
+P processes in one ``torch.distributed`` group: NCCL with one card per
+rank, gloo on the CPU. Ranks are laid out in the JAX package's device
+order, data outer and sequence inner: global rank d * S + s holds data row
+d and sequence place s (``make_mesh``). Every rank creates the same groups
+in the same order: one sequence group per data row (S consecutive ranks)
+and one data group per sequence place.
 
 ``SeqMesh`` is one rank's view of the sequence axis: the ring hop (to the
 next place, from the previous one, as global ranks of its group) and the
 all-gather along the sequence that ring attention needs. ``DataAxis`` is its
 view of the data axis: its rows of a global batch (``batch_rows``, the JAX
 package's ``batch_pspec``), the gradient mean over the axis in one flat
-all-reduce in ``tree_leaves`` order, and the sums of an evaluation pass.
+all-reduce in ``tree_leaves`` order, the sums of an evaluation pass, and
+FSDP's flat all-gather and reduce-scatter.
+
+``param_pspecs`` is the JAX package's placement table, as a function of
+the leaves' shapes and tree paths: per leaf a tuple of axis names or None
+(``model``, ``mod``, and with ``fsdp_size`` > 1 ``data`` on the largest
+free dimension the axis divides). Under FSDP a rank keeps ``shard_of``
+each leaf: its contiguous slice along the ``data`` dimension
+(``shard_dim``), the slice that device r holds in the JAX package.
 
 Where several ranks share one card (a test arrangement: NCCL refuses two
 ranks on one device), the group is gloo and CUDA tensors travel through
@@ -101,26 +110,69 @@ def batch_rows(batch_size: int, rank: int, size: int) -> Tuple[int, int]:
 @dataclass
 class DataAxis:
     """This rank's place on the data axis of a data-parallel run: its rows
-    of each global batch, and the means and sums over the axis. ``group``:
-    the axis's process group (None: the default group)."""
+    of each global batch, and the means, sums, gathers and scatters over
+    the axis. ``group``: the axis's process group (None: the default
+    group)."""
 
     rank: int
     size: int
-    staged: bool = False  # gloo with CUDA tensors: reduce through host memory
+    staged: bool = False  # gloo with CUDA tensors: communicate through host memory
     group: Any = None
-    # (bytes, seconds) of each gradient all-reduce, the host's clock around
-    # the call (the device synchronised first), kept where timing is on
-    timing: Optional[List[Tuple[int, float]]] = None
+    # (kind, bytes, seconds) of each collective on a flat buffer, the
+    # host's clock around the call (the device synchronised first), kept
+    # where timing is on; kind "all_reduce", or the caller's tag for a
+    # gather or a reduce-scatter
+    timing: Optional[List[Tuple[str, int, float]]] = None
 
     def rows(self, batch_size: int) -> Tuple[int, int]:
         return batch_rows(batch_size, self.rank, self.size)
 
+    def _timed(self, kind: str, flat: torch.Tensor, collective: Callable) -> torch.Tensor:
+        """``collective(flat)`` (through host memory where staged), its
+        bytes (of ``flat``) and time appended to ``timing`` as ``kind``."""
+        if self.timing is not None:
+            if flat.is_cuda:
+                torch.cuda.synchronize(flat.device)
+            t0 = time.perf_counter()
+        out = collective(flat.cpu() if self.staged else flat)
+        out = out.to(flat.device) if self.staged else out
+        if self.timing is not None:
+            if out.is_cuda:
+                torch.cuda.synchronize(out.device)
+            self.timing.append((kind, flat.numel() * flat.element_size(),
+                                time.perf_counter() - t0))
+        return out
+
     def _all_reduce(self, flat: torch.Tensor) -> torch.Tensor:
-        """The sum over the axis of a flat tensor, the same bits on every
-        rank (each element reduced once, in one order, and shared)."""
-        buf = flat.cpu() if self.staged else flat
-        dist.all_reduce(buf, group=self.group)
-        return buf.to(flat.device) if self.staged else buf
+        """The sum over the axis of a flat tensor, in place, the same bits
+        on every rank (each element reduced once, in one order, and
+        shared)."""
+        dist.all_reduce(flat, group=self.group)
+        return flat
+
+    def all_gather_flat(self, flat: torch.Tensor, kind: str = "all_gather") -> torch.Tensor:
+        """Every rank's flat tensor (all of one length) as the rows of a
+        (size, n) tensor, in rank order."""
+
+        def gather(src):
+            out = torch.empty(self.size * src.numel(), dtype=src.dtype, device=src.device)
+            dist.all_gather_into_tensor(out, src.contiguous(), group=self.group)
+            return out.view(self.size, -1)
+
+        return self._timed(kind, flat, gather)
+
+    def reduce_scatter_flat(self, flat: torch.Tensor, kind: str = "reduce_scatter"
+                            ) -> torch.Tensor:
+        """The sum over the axis of this rank's chunk of a flat tensor of
+        size * n elements, rank-major (chunk r is elements [r n, (r + 1) n)):
+        a tensor of n, each element reduced once."""
+
+        def scatter(src):
+            out = torch.empty(src.numel() // self.size, dtype=src.dtype, device=src.device)
+            dist.reduce_scatter_tensor(out, src.contiguous(), group=self.group)
+            return out
+
+        return self._timed(kind, flat, scatter)
 
     def mean_grads(self, loss: torch.Tensor, grads: Sequence[torch.Tensor]
                    ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
@@ -130,15 +182,7 @@ class DataAxis:
         its own dtype."""
         flat = torch.cat([g.reshape(-1).float() for g in grads]
                          + [loss.detach().float().reshape(1)])
-        if self.timing is not None:
-            if flat.is_cuda:
-                torch.cuda.synchronize(flat.device)
-            t0 = time.perf_counter()
-        flat = self._all_reduce(flat) / self.size
-        if self.timing is not None:
-            if flat.is_cuda:
-                torch.cuda.synchronize(flat.device)
-            self.timing.append((flat.numel() * flat.element_size(), time.perf_counter() - t0))
+        flat = self._timed("all_reduce", flat, self._all_reduce) / self.size
         out, at = [], 0
         for g in grads:
             out.append(flat[at:at + g.numel()].view(g.shape).to(g.dtype))
@@ -153,7 +197,7 @@ class DataAxis:
         M = stats.wins.numel()
         flat = torch.cat([stats.mean_loss.reshape(1), stats.mean_losses, stats.certainty,
                           stats.wins, stats.losses]).double()
-        flat = self._all_reduce(flat)
+        flat = self._timed("eval_sum", flat, self._all_reduce)
         mean_loss = (flat[0] / self.size).to(stats.mean_loss.dtype)
         mean_losses = (flat[1:1 + M] / self.size).to(stats.mean_losses.dtype)
         cert = flat[1 + M:1 + 2 * M].to(stats.certainty.dtype)
@@ -181,8 +225,9 @@ def make_mesh(data: int = 1, model: int = 1, seq: int = 1, mod: int = 1, pipe: i
     Global rank d * seq + s is data row d, sequence place s (the JAX
     package's device order: data outer, seq inner). Every rank calls this
     in the same order: it creates every data and sequence group of the run.
-    Model, modality and pipeline axes are a later slice (parallel/resolve.py
-    refuses them)."""
+    The data axis serves data parallelism and FSDP alike (FSDP's collectives
+    run on its groups). Model, modality and pipeline axes are a later slice
+    (parallel/resolve.py refuses them)."""
     if model * mod * pipe != 1:
         raise NotImplementedError("tensor, modality and pipeline axes are a later slice of "
                                   "the port (ROADMAP.md, queue 1, items 5 and 6)")
@@ -214,6 +259,132 @@ def default_mesh_shape(n_devices: int, n_head: int) -> Tuple[int, int]:
     if n_devices >= 4 and n_devices % 2 == 0 and n_head % 2 == 0:
         return n_devices // 2, 2
     return n_devices, 1
+
+
+def _shape(leaf) -> Tuple[int, ...]:
+    """A leaf's shape: a tensor's, or a ``param_shapes`` (kind, shape)."""
+    return tuple(leaf.shape) if hasattr(leaf, "shape") else tuple(leaf[1])
+
+
+def param_pspecs(params, n_head: int, model_axis: bool = True, model_size: int = 1,
+                 mod_axis: bool = False, mod_size: int = 1, fsdp_size: int = 1
+                 ) -> List[Tuple[Optional[str], ...]]:
+    """The JAX package's placement table (its ``param_pspecs``, copied rule
+    for rule): per leaf of ``params`` (tensors or ``param_shapes`` leaves),
+    in ``tree_leaves`` order, the axis name of each dimension or None, as
+    the tuple of its PartitionSpec (``()``: replicated).
+
+    Over 'model' (where ``model_axis``): sa.w1_*/b1_* and ffwd.w1/b1 and
+    heads[i].w1/b1 their last dimension, sa.w2_* and sa.proj_w1 and ffwd.w2
+    dimension 1, heads[i].w2 and tok_emb[i] and cross.q_w / cross.proj_w1
+    dimension 0, cross.kv_w dimension 1; every other leaf replicated. A
+    dimension the axis does not divide leaves the leaf replicated. Unknown
+    leaf names under sa, ffwd, cross and heads raise ``ValueError``. With
+    ``mod_axis`` every M-stacked leaf (sa, ffwd, ln1, ln2, the post norm)
+    also puts 'mod' on its leading dimension where ``mod_size`` divides
+    it. With ``fsdp_size > 1`` (ZeRO-3) each leaf puts 'data' on its
+    largest dimension that is still free and that the axis divides (a tie
+    to the lower index); a leaf without one stays replicated over 'data'.
+    ``n_head`` is unused, as in the JAX package."""
+    del n_head
+    from ..models.init import tree_paths
+
+    mdl = "model" if model_axis else None
+
+    def sharded(shape, axis: int) -> Tuple:
+        if mdl is None or shape[axis] % max(model_size, 1) != 0:
+            return ()
+        spec = [None] * len(shape)
+        spec[axis] = mdl
+        return tuple(spec)
+
+    def with_mod(spec: Tuple, shape) -> Tuple:
+        if not mod_axis or shape[0] % max(mod_size, 1) != 0:
+            return spec
+        dims = list(spec) + [None] * (len(shape) - len(spec))
+        dims[0] = "mod"
+        return tuple(dims)
+
+    def with_fsdp(spec: Tuple, shape) -> Tuple:
+        if fsdp_size <= 1 or len(shape) == 0:
+            return spec
+        dims = list(spec) + [None] * (len(shape) - len(spec))
+        free = [i for i in range(len(shape))
+                if dims[i] is None and shape[i] % fsdp_size == 0 and shape[i] >= fsdp_size]
+        if not free:
+            return spec
+        dims[max(free, key=lambda i: (shape[i], -i))] = "data"
+        return tuple(dims)
+
+    def spec_for(path: Tuple, shape) -> Tuple:
+        joined = "/" + "/".join(str(p) for p in path) + "/"
+        last = str(path[-1])
+        nd = len(shape)
+        stacked = (any(f"/{fam}/" in joined for fam in ("sa", "ffwd", "ln1", "ln2"))
+                   or (last in ("ln_scale", "ln_bias") and "/cross/" not in joined))
+
+        def base() -> Tuple:
+            where = joined.strip("/")
+            if "/sa/" in joined:
+                if last.startswith("w1_") or last.startswith("b1_"):
+                    return sharded(shape, nd - 1)
+                if last.startswith("w2_") or last == "proj_w1":
+                    return sharded(shape, 1)
+                if last in ("proj_w2", "proj_b1", "proj_b2"):
+                    return ()
+                raise ValueError(f"unknown self-attention parameter: {where}")
+            if "/ffwd/" in joined:
+                if last in ("w1", "b1"):
+                    return sharded(shape, nd - 1)
+                if last == "w2":
+                    return sharded(shape, 1)
+                if last == "b2":
+                    return ()
+                raise ValueError(f"unknown feed-forward parameter: {where}")
+            if "/cross/" in joined:
+                if last in ("q_w", "proj_w1"):
+                    return sharded(shape, 0)
+                if last == "kv_w":
+                    return sharded(shape, 1)
+                if last in ("proj_b1", "proj_w2", "proj_b2", "ln_scale", "ln_bias"):
+                    return ()
+                raise ValueError(f"unknown cross-attention parameter: {where}")
+            if "/heads/" in joined:
+                if last in ("w1", "b1"):
+                    return sharded(shape, nd - 1)
+                if last == "w2":
+                    return sharded(shape, 0)
+                if last == "b2":
+                    return ()
+                raise ValueError(f"unknown vocab-head parameter: {where}")
+            if "/tok_emb/" in joined:
+                return sharded(shape, 0)
+            return ()
+
+        spec = base()
+        if stacked:
+            spec = with_mod(spec, shape)
+        return with_fsdp(spec, shape)
+
+    return [spec_for(path, _shape(leaf)) for path, leaf in tree_paths(params)]
+
+
+def shard_dim(spec: Sequence[Optional[str]]) -> Optional[int]:
+    """The dimension a leaf of placement ``spec`` splits over 'data', or
+    None (the leaf whole on every rank of the axis)."""
+    return list(spec).index("data") if "data" in spec else None
+
+
+def shard_of(full: torch.Tensor, spec: Sequence[Optional[str]], rank: int,
+             size: int) -> torch.Tensor:
+    """Data rank ``rank``'s part of a leaf of placement ``spec`` over an
+    axis of ``size``: its contiguous slice along the 'data' dimension (a
+    view; the whole leaf where the spec has none)."""
+    d = shard_dim(spec)
+    if d is None:
+        return full
+    n = full.shape[d] // size
+    return full.narrow(d, rank * n, n)
 
 
 def free_port() -> int:

@@ -12,10 +12,12 @@ for times ``context_parallel``, and for ``auto`` and ``off`` the
 ``context_parallel`` processes alone (CPU processes are not devices the user
 has, so ``auto`` adds no data axis there).
 
-The port builds the data axis (data parallelism, parallel/trainer.py) and
-the sequence axis (ring attention, parallel/ring_attention.py), alone or
-together: a plan with a tensor, modality or pipeline axis, or ``fsdp`` on a
-data axis, raises ``NotImplementedError``.
+The port builds the data axis (data parallelism, parallel/trainer.py, and
+with ``tpu_options.fsdp: true`` FSDP / ZeRO-3 over it) and the sequence axis
+(ring attention, parallel/ring_attention.py), alone or together: a plan
+with a tensor, modality or pipeline axis raises ``NotImplementedError``.
+As in the JAX package, ``fsdp`` takes effect only where the data axis is
+larger than 1.
 """
 
 from __future__ import annotations
@@ -25,9 +27,9 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Union
 
 MESH_AXES = ("data", "model", "mod", "pipe")
-LATER_SLICE = ("multi-device training beyond data and context parallelism is a later slice "
-               "of the port (ROADMAP.md, queue 1: item 4 FSDP / ZeRO-3, item 5 tensor and "
-               "modality parallelism, item 6 pipeline parallelism)")
+LATER_SLICE = ("multi-device training beyond data parallelism (with or without FSDP) and "
+               "context parallelism is a later slice of the port (ROADMAP.md, queue 1: item 5 "
+               "tensor and modality parallelism, item 6 pipeline parallelism)")
 
 
 @dataclass
@@ -156,13 +158,13 @@ def plan_mesh(
     """Resolve the config surface into a MeshPlan over ``n_devices``
     devices (default: the CUDA cards). Raises ``ValueError`` where the JAX
     package's ``plan_mesh`` raises, and ``NotImplementedError`` for a plan
-    with a tensor, modality or pipeline axis, or FSDP."""
+    with a tensor, modality or pipeline axis."""
     seq = max(1, int(context_parallel))
     if n_devices is None:
         n_devices = available_devices("cuda", seq)
     plan = _resolve(mesh_cfg, seq, fsdp, batch_size, block_size, num_modalities, n_layer,
                     pipeline_microbatches, int(n_devices))
-    if plan.model * plan.mod * plan.pipe != 1 or plan.fsdp:
+    if plan.model * plan.mod * plan.pipe != 1:
         raise NotImplementedError(f"parallelism plan {plan.describe()} over {plan.n_devices} "
                                   f"devices: {LATER_SLICE}")
     return plan

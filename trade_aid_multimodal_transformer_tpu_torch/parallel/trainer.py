@@ -1,6 +1,6 @@
 """Parallel training (port of the JAX package's ``parallel/trainer.py``:
-``make_sharded_trainer`` for data and sequence axes, ``_compose_scopes`` and
-``make_shard_map_dp_step``).
+``make_sharded_trainer`` for data and sequence axes, ``shard_train_state``
+for FSDP, ``_compose_scopes`` and ``make_shard_map_dp_step``).
 
 ``make_sharded_trainer`` gives every rank the port's ``Trainer`` on the same
 parameters, batches and dropout salts (the same seed on every rank):
@@ -12,6 +12,16 @@ parameters, batches and dropout salts (the same seed on every rank):
   step computes what the one-rank step computes on the global batch and
   every rank keeps the same parameters. Evaluation sums its statistics over
   the axis.
+- With FSDP / ZeRO-3 on that axis (``tpu_options.fsdp``,
+  ``shard_train_state``) a rank keeps 1/P of the train state: of every leaf
+  that ``parallel.mesh.param_pspecs`` places on 'data', its slice of the
+  parameters and of both Adam moments; the other leaves whole. A step
+  gathers the whole parameter tree in one flat all-gather, computes the
+  data-parallel step's gradients on it, and reduces them back to the
+  rank's slices in one flat reduce-scatter (the whole leaves and the loss
+  in one small all-reduce); the elementwise AdamW then updates the slices,
+  each element as the data-parallel update does. An evaluation pass
+  gathers once (``Fsdp``).
 - On a sequence axis its training steps and evaluation passes run inside
   ``context_parallel_scope``: each attention core goes through ring
   attention over the rank's sequence group, the gradients come out the same
@@ -19,6 +29,9 @@ parameters, batches and dropout salts (the same seed on every rank):
 - Both (data x sequence): the ring keys its masks by the rank's local rows
   with the dropout key folded with the data rank, as the JAX package's
   ``shard_map`` body does; every other site stays keyed by global rows.
+  FSDP's collectives run on the data groups, the ring's hops on the
+  sequence groups, every rank issuing them in one order: the gather before
+  the forward, the reductions after the backward.
 
 ``make_shard_map_dp_step`` is the explicit data-parallel step, kept as a
 cross-check of the trainer: each rank draws its own B / P rows from
@@ -29,27 +42,29 @@ averaged over the axis.
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from ..models.config import ModelConfig
-from ..models.init import tree_leaves
+from ..models.init import map_tree, tree_leaves
 from ..models.transformer import total_loss
 from ..ops.attention import context_parallel_scope, fold_key
 from ..ops.layers import _U32
 from ..sampling.feed import BatchFeed
 from ..train.metrics import ModalityMetricSpec
 from ..train.steps import AdamW, StepRng, Trainer
-from .mesh import DataAxis, RankMesh
+from .mesh import DataAxis, RankMesh, param_pspecs, shard_dim, shard_of
 
 
 def make_sharded_trainer(cfg: ModelConfig, feed: BatchFeed, optimizer: AdamW,
                          metric_specs: Sequence[ModalityMetricSpec], eval_iters: int,
-                         mesh: RankMesh, grad_accum: int = 1) -> Trainer:
+                         mesh: RankMesh, grad_accum: int = 1,
+                         fsdp: Optional["Fsdp"] = None) -> Trainer:
     """A Trainer whose steps run over this rank's data and sequence axes
-    (``parallel.mesh.make_mesh``). block_size must be divisible by the
-    sequence axis."""
+    (``parallel.mesh.make_mesh``), on the train state's shards where
+    ``fsdp`` (``shard_train_state``) is given. block_size must be divisible
+    by the sequence axis."""
     seq, data = mesh.seq, mesh.data
     scopes = []
     if seq is not None and seq.size > 1:
@@ -60,7 +75,122 @@ def make_sharded_trainer(cfg: ModelConfig, feed: BatchFeed, optimizer: AdamW,
         data_rank = data.rank if data is not None else None
         scopes.append(lambda: context_parallel_scope(seq, data_rank))
     return Trainer(cfg, feed, optimizer, metric_specs, eval_iters, grad_accum=grad_accum,
-                   scope=_compose_scopes(scopes) if scopes else None, data=data)
+                   scope=_compose_scopes(scopes) if scopes else None, data=data, fsdp=fsdp)
+
+
+class Fsdp:
+    """The placement of an FSDP run's train state on this rank: ``specs``
+    (``param_pspecs`` per leaf, ``tree_leaves`` order) over the data axis
+    ``data``. A tree that it places holds, for every leaf with a 'data'
+    dimension, this rank's contiguous slice along it (``shard_of``), and
+    every other leaf whole. Its collectives move one flat buffer each,
+    rank-major: rank r's chunk is its slice of every sharded leaf in
+    ``tree_leaves`` order, so a gather's row r and a reduce-scatter's
+    chunk r are rank r's slices."""
+
+    def __init__(self, specs: Sequence[Tuple], data: DataAxis):
+        self.specs = list(specs)
+        self.data = data
+        self.dims = [shard_dim(s) for s in self.specs]
+
+    def parts(self) -> List[int]:
+        """Per leaf, the number of ranks it is split over (1: whole)."""
+        return [1 if d is None else self.data.size for d in self.dims]
+
+    def shard(self, tree):
+        """This rank's part of a whole tree: every sharded leaf's slice as a
+        tensor of its own (the whole leaf no longer referenced), with the
+        leaf's requires_grad; the other leaves as they are."""
+        P, r = self.data.size, self.data.rank
+        specs = iter(self.specs)
+
+        def part(t):
+            spec = next(specs)
+            if shard_dim(spec) is None:
+                return t
+            out = shard_of(t.detach(), spec, r, P).clone(memory_format=torch.contiguous_format)
+            return out.requires_grad_(t.requires_grad)
+
+        return map_tree(part, tree)
+
+    def gather(self, tree, kind: str = "all_gather"):
+        """The whole tree from every rank's part (collective: every rank of
+        the axis calls it, in the same order): one all-gather of the
+        sharded leaves' slices, each leaf reassembled along its 'data'
+        dimension as a new tensor; the whole leaves as they are. The
+        sharded leaves must share one dtype."""
+        leaves = tree_leaves(tree)
+        mine = [t.detach() for t, d in zip(leaves, self.dims) if d is not None]
+        if not mine:
+            return tree
+        if len({t.dtype for t in mine}) != 1:
+            raise TypeError(f"FSDP gathers one dtype a tree, got {sorted({str(t.dtype) for t in mine})}")
+        rows = self.data.all_gather_flat(torch.cat([t.reshape(-1) for t in mine]), kind)
+        P, full, at = self.data.size, [], 0
+        for t, d in zip(leaves, self.dims):
+            if d is None:
+                full.append(t)
+                continue
+            n = t.numel()
+            shape = list(t.shape)
+            shape[d] *= P
+            full.append(rows[:, at:at + n].reshape(P, *t.shape).movedim(0, d).reshape(shape))
+            at += n
+        it = iter(full)
+        return map_tree(lambda _: next(it), tree)
+
+    def reduce_grads(self, loss: torch.Tensor, grads: Sequence[torch.Tensor]
+                     ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """The mean over the axis of every rank's loss and whole-tree
+        gradients (``tree_leaves`` order), as this rank's parts: one f32
+        reduce-scatter of the sharded leaves' gradients (rank-major) divided
+        by the axis size, then the whole leaves' and the loss in one
+        all-reduce (``DataAxis.mean_grads``); each leaf in its own dtype."""
+        P = self.data.size
+        n = sum(g.numel() for g, d in zip(grads, self.dims) if d is not None) // P
+        mine = None
+        if n:
+            # rank r's slices of every sharded gradient in row r, one copy each
+            flat, at = torch.empty(P, n, dtype=torch.float32, device=grads[0].device), 0
+            for g, d in zip(grads, self.dims):
+                if d is not None:
+                    split = g.shape[:d] + (P, g.shape[d] // P) + g.shape[d + 1:]
+                    part = g.reshape(split).movedim(d, 0)
+                    flat[:, at:at + g.numel() // P].view(part.shape).copy_(part)
+                    at += g.numel() // P
+            mine = self.data.reduce_scatter_flat(flat.view(-1)) / P
+        whole = [g for g, d in zip(grads, self.dims) if d is None]
+        loss, whole = self.data.mean_grads(loss, whole)
+        out, at, whole = [], 0, iter(whole)
+        for g, d in zip(grads, self.dims):
+            if d is None:
+                out.append(next(whole))
+                continue
+            shape = list(g.shape)
+            shape[d] //= P
+            n = g.numel() // P
+            out.append(mine[at:at + n].view(shape).to(g.dtype))
+            at += n
+        return loss, out
+
+
+def shard_train_state(params, opt_state: Optional[Dict[str, Any]], data: Optional[DataAxis],
+                      fsdp: bool) -> Tuple[Any, Optional[Dict[str, Any]], Optional[Fsdp]]:
+    """This rank's train state (the JAX package's ``shard_train_state``):
+    from a whole tree (fresh or loaded), with ``fsdp`` over the data axis,
+    the rank's part of ``params`` and of ``opt_state``'s ``mu`` and ``nu``
+    (``Fsdp.shard``: the leaves ``param_pspecs`` places on 'data' sliced,
+    the whole originals freed once the caller drops them; the count
+    shared), and the ``Fsdp`` placement the trainer keeps. Without
+    ``fsdp`` (or a data axis) the state as it is and None."""
+    if not fsdp or data is None or data.size == 1:
+        return params, opt_state, None
+    placed = Fsdp(param_pspecs(params, n_head=0, model_axis=False, fsdp_size=data.size), data)
+    params = placed.shard(params)
+    if opt_state is not None:
+        opt_state = {"count": opt_state["count"], "mu": placed.shard(opt_state["mu"]),
+                     "nu": placed.shard(opt_state["nu"])}
+    return params, opt_state, placed
 
 
 def _compose_scopes(factories: Sequence[Callable]) -> Callable:

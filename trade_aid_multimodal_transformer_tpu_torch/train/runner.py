@@ -11,20 +11,24 @@ them, save once more at the end.
 It runs on the card unless the config says ``device: cpu``. The
 parallelism plan resolves as the JAX package's (parallel/resolve.py):
 ``tpu_options.mesh`` (``{data: P}``, or ``auto`` over the cards) trains data
-parallel over P ranks, ``tpu_options.context_parallel: P`` with the sequence
-sharded over P ranks (ring attention), and both together over their product
-(data outer, sequence inner). ``run_training`` starts the plan's rank
-processes itself, one card each over NCCL (on the CPU, gloo processes),
-after building the kernels once; inside a process group that already exists
-(``torchrun``) it runs as that group's rank. Rank 0 alone prints the
-console, writes the log and the checkpoints (the parameters and moments are
-the same on every rank: no gather), and returns the result. Tensor,
-modality, pipeline and FSDP plans raise (a later slice of the port).
+parallel over P ranks (with ``tpu_options.fsdp: true`` each rank holding
+1/P of the train state, FSDP / ZeRO-3), ``tpu_options.context_parallel: P``
+with the sequence sharded over P ranks (ring attention), and both together
+over their product (data outer, sequence inner). ``run_training`` starts the
+plan's rank processes itself, one card each over NCCL (on the CPU, gloo
+processes), after building the kernels once; inside a process group that
+already exists (``torchrun``) it runs as that group's rank. Rank 0 alone
+prints the console, writes the log and the checkpoints (the parameters and
+moments are the same on every rank; under FSDP every rank takes part in
+gathering them first), and returns the result. A resumed FSDP run reads the
+whole file on every rank and keeps its part. Tensor, modality and pipeline
+plans raise (a later slice of the port).
 ``multihost`` prints that it is unavailable and trains single-process, as
 the JAX package does without a pod. f32 products run in full f32
 (PyTorch's default, TF32 off) whatever ``matmul_precision`` says.
 ``TAT_SEED`` pins the run seed; ``TAT_TIMING`` prints the training rate
-and, under a data axis, the gradient all-reduce's bytes and time per step;
+and, under a data axis, the gradient all-reduce's bytes and time per step
+(under FSDP also the all-gather's and the reduce-scatter's);
 ``TAT_PROFILE_DIR`` writes a ``torch.profiler`` trace of the second training
 chunk there (utils/profiling.py). On one rank ``tpu_options.fused_update:
 true`` trains with the flat-state AdamW (train/steps.py), and ``remat``
@@ -206,7 +210,7 @@ def _rank_entry(rank: int, world: int, caller_globals: dict, seed: int):
     sys.stdout.flush()
     checksum = param_checksum(res["params"])
     if rank != 0:
-        return {"param_checksum": checksum}
+        return {"param_checksum": checksum, "train_state_bytes": res["train_state_bytes"]}
     cpu = lambda t: t.detach().cpu()  # noqa: E731
     state = res["opt_state"]
     return {"param_checksum": checksum, "params": map_tree(cpu, res["params"]),
@@ -214,7 +218,7 @@ def _rank_entry(rank: int, world: int, caller_globals: dict, seed: int):
                           "nu": map_tree(cpu, state["nu"])},
             "launches": kernels.launch_counts(),
             **{k: res[k] for k in ("cfg", "losses", "vocabularies", "step_timer", "plan",
-                                   "allreduce")}}
+                                   "collectives", "train_state_bytes")}}
 
 
 # ---------------------------------------------------------------------------
@@ -228,8 +232,10 @@ def run_training(caller_globals: Optional[dict] = None, seed: Optional[int] = No
     one device) and no process group yet, the ranks run in processes of
     their own (each given at most ``rank_timeout`` seconds, where set) and
     the result is rank 0's, on the CPU, without the trainer and the feed,
-    with rank 0's kernel launches (``launches``) and every rank's
-    ``param_checksum`` (``param_checksums``, in rank order)."""
+    with rank 0's kernel launches (``launches``), every rank's
+    ``param_checksum`` (``param_checksums``, in rank order; of the whole
+    parameters, gathered under FSDP) and the (total, per-device) bytes of
+    the train state each rank held (``train_state_bytes_by_rank``)."""
     if pmesh.init_from_env():
         rank = dist.get_rank()
         if torch.cuda.is_available():
@@ -254,7 +260,8 @@ def run_training(caller_globals: Optional[dict] = None, seed: Optional[int] = No
     results = pmesh.run_ranks(
         _rank_entry, plan.n_devices, (_picklable(caller_globals), _run_seed(seed)),
         backend="gloo" if cpu else "nccl", timeout=rank_timeout)
-    return {**results[0], "param_checksums": [r["param_checksum"] for r in results]}
+    return {**results[0], "param_checksums": [r["param_checksum"] for r in results],
+            "train_state_bytes_by_rank": [r["train_state_bytes"] for r in results]}
 
 
 def _run_training(caller_globals: Optional[dict], seed: Optional[int],
@@ -504,7 +511,10 @@ def _run_training(caller_globals: Optional[dict], seed: Optional[int],
 
     # ----------------------------------------------------- parallelism plan
     plan = _plan(sc, num_modalities)
-    allreduce = None  # (bytes, seconds) of each gradient all-reduce, under TAT_TIMING
+    # (kind, bytes, seconds) of each collective of the data axis, under TAT_TIMING
+    collectives = None
+    fsdp = None  # parallel.trainer.Fsdp: this rank's part of the train state
+    state_bytes = None
     if plan.trivial:
         # tpu_options.fused_update: the flat-state AdamW (steps.Trainer);
         # 'auto' resolves to off, as in the JAX package, and the sharded
@@ -513,8 +523,8 @@ def _run_training(caller_globals: Optional[dict], seed: Optional[int],
                           grad_accum=sc.get("grad_accum", 1),
                           fused_update=sc.get("fused_update", "auto") is True)
     else:
-        from ..parallel.trainer import make_sharded_trainer
-        from ..utils.memory import format_train_state_memory
+        from ..parallel.trainer import make_sharded_trainer, shard_train_state
+        from ..utils.memory import format_train_state_memory, train_state_bytes
 
         if not dist.is_initialized():
             raise RuntimeError(f"the plan {plan.describe()} runs in a process group of "
@@ -525,10 +535,14 @@ def _run_training(caller_globals: Optional[dict], seed: Optional[int],
         mesh = pmesh.make_mesh(data=plan.data, seq=plan.seq,
                                staged=dev.type == "cuda" and dist.get_backend() == "gloo")
         if mesh.data is not None and os.environ.get("TAT_TIMING"):
-            allreduce = mesh.data.timing = []
+            collectives = mesh.data.timing = []
+        # the loaded or fresh whole state -> this rank's part under FSDP
+        params, opt_state, fsdp = shard_train_state(params, opt_state, mesh.data, plan.fsdp)
         trainer = make_sharded_trainer(cfg, feed, optimizer, metric_specs, eval_iters, mesh,
-                                       grad_accum=sc.get("grad_accum", 1))
-        print(f"Parallelism: {format_train_state_memory(params, opt_state, optimizer)}")
+                                       grad_accum=sc.get("grad_accum", 1), fsdp=fsdp)
+        parts = fsdp.parts() if fsdp is not None else None
+        state_bytes = train_state_bytes(params, opt_state, optimizer, parts)
+        print(f"Parallelism: {format_train_state_memory(params, opt_state, optimizer, parts)}")
     writer = rank == 0  # only rank 0 writes the log and the checkpoints
 
     hyperparams = {
@@ -668,10 +682,20 @@ def _run_training(caller_globals: Optional[dict], seed: Optional[int],
                 return True
         return False
 
+    def whole_state(kind: str):
+        """The whole parameters and optimizer state: under FSDP gathered
+        from every rank's part (every rank takes part), else as they are."""
+        if fsdp is None:
+            return params, opt_state
+        return fsdp.gather(params, kind), {"count": opt_state["count"],
+                                           "mu": fsdp.gather(opt_state["mu"], kind),
+                                           "nu": fsdp.gather(opt_state["nu"], kind)}
+
     def handle_save(it: int):
         current_time = datetime.now().strftime("%H:%M:%S")
+        whole_params, whole_opt = whole_state("all_gather_save")
         size = save_checkpoint(
-            model_file_name, params, step=it, opt_state=opt_state, optimizer=optimizer
+            model_file_name, whole_params, step=it, opt_state=whole_opt, optimizer=optimizer
         ) if writer else 0
         print()
         print(f"Saved: Model checkpoint ({round(size/1024**2, 2)} MB) | {current_time}")
@@ -725,10 +749,15 @@ def _run_training(caller_globals: Optional[dict], seed: Optional[int],
     print("\nTRAINING COMPLETED SUCCESSFULLY")
     if os.environ.get("TAT_TIMING") and timer.steps:
         print(f"Training rate: {timer.summary()}")
-        if allreduce:
-            print(f"Gradient all-reduce: {allreduce[-1][0]} bytes, "
-                  f"{1e3 * sum(t for _, t in allreduce) / len(allreduce):.3f} ms per step")
+        for kind, what in (("all_reduce", "Gradient all-reduce"),
+                           ("all_gather", "FSDP all-gather"),
+                           ("reduce_scatter", "FSDP reduce-scatter")):
+            calls = [(n, t) for k, n, t in collectives or [] if k == kind]
+            if calls:
+                print(f"{what}: {calls[-1][0]} bytes, "
+                      f"{1e3 * sum(t for _, t in calls) / len(calls):.3f} ms per step")
 
+    params, opt_state = whole_state("all_gather_save")
     if save_model:
         current_time = datetime.now().strftime("%H:%M:%S")
         print(f"Final Save: Model checkpoint | {current_time}")
@@ -748,7 +777,8 @@ def _run_training(caller_globals: Optional[dict], seed: Optional[int],
         "modalities": modalities,
         "step_timer": timer,
         "plan": plan,
-        "allreduce": allreduce,
+        "collectives": collectives,
+        "train_state_bytes": state_bytes,
     }
 
 

@@ -270,14 +270,20 @@ class Trainer:
     or drawn is the global batch, of which the rank keeps its rows, with
     its dropout masks keyed by global rows; each step's loss and gradients
     are then the means over the axis, and an evaluation pass's statistics
-    its sums. ``fused_update``: a chunk carries the parameters and moments
-    as flat vectors (``tpu_options.fused_update: true``; the runner gives it
-    only to the one-rank trainer), where every leaf has one dtype."""
+    its sums. ``fsdp``: the placement of an FSDP run's train state on this
+    rank (``parallel.trainer.Fsdp``, on the data axis ``data``): the
+    parameters and moments given are the rank's parts; a step gathers the
+    whole parameter tree, takes the data-parallel step's gradients on it
+    and reduces them to the rank's parts, which the update then changes;
+    an evaluation pass gathers once. ``fused_update``: a chunk carries the
+    parameters and moments as flat vectors (``tpu_options.fused_update:
+    true``; the runner gives it only to the one-rank trainer), where every
+    leaf has one dtype."""
 
     def __init__(self, cfg: ModelConfig, feed: BatchFeed, optimizer: AdamW,
                  metric_specs: Sequence[ModalityMetricSpec], eval_iters: int,
                  grad_accum: int = 1, scope: Optional[Callable] = None, data=None,
-                 fused_update: bool = False):
+                 fused_update: bool = False, fsdp=None):
         self.cfg = cfg
         self.feed = feed
         self.optimizer = optimizer
@@ -287,6 +293,7 @@ class Trainer:
         self.grad_accum = max(1, int(grad_accum))
         self.scope = scope or contextlib.nullcontext
         self.data = data
+        self.fsdp = fsdp
         self.fused_update = fused_update
 
     def _rows(self, xb: torch.Tensor, yb: torch.Tensor):
@@ -304,7 +311,12 @@ class Trainer:
                        salts: Sequence[Tuple[int, int]]) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """Loss and gradients (``tree_leaves`` order) of one step: the mean
         over its microbatches (xb, yb) with their dropout salts (and over
-        the data axis)."""
+        the data axis; under FSDP of the rank's parts of ``params``)."""
+        if self.fsdp is not None:
+            full = map_tree(lambda t: t if t.requires_grad else t.requires_grad_(),
+                            self.fsdp.gather(params))
+            loss, grads = self._mean_grads(lambda: full, tree_leaves(full), batches, salts)
+            return self.fsdp.reduce_grads(loss, grads)
         loss, grads = self._mean_grads(lambda: params, tree_leaves(params), batches, salts)
         if self.data is None:
             return loss, grads
@@ -399,7 +411,10 @@ class Trainer:
     def eval_pass(self, params, rng: StepRng, split: str) -> EvalStats:
         """eval_iters batches without augmentation: summed CE per batch and
         the directional metrics of every eligible modality (over the global
-        batches under a data axis)."""
+        batches under a data axis; under FSDP on the whole tree, gathered
+        once)."""
+        if self.fsdp is not None:
+            params = self.fsdp.gather(params, "all_gather_eval")
         M = self.cfg.num_modalities
         dev = self.feed.device
         loss_sum = torch.zeros((), device=dev)
