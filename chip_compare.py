@@ -11,7 +11,9 @@ kernels into its own ``ops/_build/`` and times K1f, K1b, K2f, K2b, K5f, K5b
 and K6f-r at the production shapes of ``chip_smoke.py`` (bf16, dropout 0 and
 0.2; device time behind a spin kernel, ``chip_smoke.device_ms``), and, where
 the checkout's flash kernels take a row map (data parallelism), K5f and K5b
-on half the self-attention rows with and without one. Prints one JSON line
+on half the self-attention rows with and without one, and with a map of two
+levels (a head level inside the batch level, data x tensor parallelism)
+where they take one. Prints one JSON line
 per process (the checkout, the card, the times, the flash kernels'
 registers and spills at D = 64) and, last, the change's median over the
 parent's for each time. Needs a CUDA device.
@@ -83,7 +85,13 @@ def time_checkout(root: Path, label: str) -> dict:
         half, rows = n5 // 2, (4 * 6,) * 3
         qh, kh, vh, dh = (a[:half].contiguous() for a in (q5, k5, v5, d5))
         oh, lh = K.flash_attention_fwd(qh, kh, vh, 0.2, S.SALTS)
-        for name, rw in (("one_rank", None), ("mapped", rows)):
+        maps = [("one_rank", None), ("mapped", rows)]
+        from trade_aid_multimodal_transformer_tpu_torch.ops import layers
+
+        if "head_axis" in inspect.signature(layers.batch_row_map).parameters:
+            # rank (1, 1) of {data: 2, model: 2}: rows (4, 4, 3) of (4, 8, 6)
+            maps.append(("two_levels", (24, 24, 27, 3, 3)))
+        for name, rw in maps:
             t[f"K5f_half_{name}"] = S.device_ms(
                 lambda: K.flash_attention_fwd(qh, kh, vh, 0.2, S.SALTS, rw))
             t[f"K5b_half_{name}"] = S.device_ms(
@@ -115,6 +123,11 @@ def main() -> int:
         runs.append(json.loads(out.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]), flush=True)
     ratio = {}
+    change = [r for r in runs if r["checkout"] == "change"]
+    if "K5f_half_two_levels" in change[0]["ms"]:  # the change's two levels over its one
+        for k in ("K5f", "K5b"):
+            ratio[f"{k}_two_levels_over_mapped"] = statistics.median(
+                r["ms"][f"{k}_half_two_levels"] / r["ms"][f"{k}_half_mapped"] for r in change)
     for key in runs[0]["ms"]:
         par = statistics.median(r["ms"][key] for r in runs if r["checkout"] == "parent")
         chg = statistics.median(r["ms"][key] for r in runs if r["checkout"] == "change")

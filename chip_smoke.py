@@ -33,7 +33,13 @@ those two ranks (``dp_training``). So does FSDP (``tpu_options.fsdp:
 true`` on that axis): one production step bit-equal to the data-parallel
 step, with planted faults that must break it (``fsdp_reference``), and the
 entry over the two ranks at dropout 0 and 0.2, its checkpoint and a resume
-(``fsdp_training``).
+(``fsdp_training``). So does tensor parallelism (``tpu_options.mesh:
+{model: 2}``): the kernels on half the heads (and of the batch) with the
+global-head arguments against the global call's heads
+(``tp_kernel_check``), one production step over two ranks against the
+one-rank step, with planted faults that must break it (``tp_reference``),
+and the entry over the two ranks at dropout 0 and 0.2, its checkpoint
+loaded on one rank and a resume (``tp_training``).
 
 Right after the build, the training entry with ``TAT_PROFILE_DIR`` must
 write a trace holding the training step's kernels (``profile_trace``).
@@ -53,9 +59,11 @@ exits non-zero before printing any result.
 
 on a machine with 2 or 4 cards instead runs the training entry with
 context parallelism, data parallelism (``{data: 2}``, ``{data: 4}`` and
-``mesh: auto``, each size also with ``fsdp: true``) and, on 4 cards, data x
-sequence (also with FSDP), one card per rank over NCCL, against the same
-run on one card, and compares every rank's parameters (``multi_card``).
+``mesh: auto``, each size also with ``fsdp: true``), tensor parallelism
+(``{model: 2}`` at block_size 64 and 1024) and, on 4 cards, data x
+sequence (also with FSDP) and data x tensor (``{data: 2, model: 2}``, also
+with FSDP), one card per rank over NCCL, against the same run on one card,
+and compares every rank's parameters (``multi_card``).
 
     python3 chip_smoke.py --k1b-split
 
@@ -1921,12 +1929,12 @@ def context_parallel(K, card, gen, timing, errs, by_path):
                                  f"passed the planted fault: {', '.join(failed)}")
 
     # cp_training: the production training step at block_size 1024, batch 8,
-    # dropout 0.2, bf16, over 2 ranks: 16 steps, one eval batch, exact K7
+    # dropout 0.2, bf16, over 2 ranks: 8 steps, one eval batch, exact K7
     # launches per rank, the loss falling, a profiled step on every rank. The
     # synthetic series is split 80/20 (the config's file split leaves one
     # training file), without augmentation
     splits = [create_train_val_datasets(x, 0.2, 0, [len(x)]) for x in data["ids"]]
-    steps, p_size = 16, 2
+    steps, p_size = 8, 2
     job = dict(kind="training", cfg=cfg, train=[np.asarray(a) for a, _ in splits],
                val=[np.asarray(b) for _, b in splits], batch_size=8, lr=sc["learning_rate"],
                eval_iters=1, steps=steps)
@@ -2148,6 +2156,194 @@ def dp_kernel_check(K, card, gen):
                              f"their plain versions, or the zero offset passed: {failed}")
 
 
+# tensor parallelism: rank 1 of a model axis of 2 holds heads [H / 2, H),
+# the heads whose offset matters
+TP_RANKS = 2
+
+
+def tp_row_map(lead, batch_axis, head_axis, start: int, total: int, h0: int, n_head: int):
+    """The global-row launch arguments of collapsed rows of the leading axes
+    ``lead`` whose axis ``head_axis`` holds heads [h0, h0 + lead[head_axis])
+    of ``n_head`` and, where ``batch_axis`` is given, whose batch axis holds
+    rows [start, start + lead[batch_axis]) of ``total``."""
+    from trade_aid_multimodal_transformer_tpu_torch.ops.layers import (
+        batch_row_map, batch_slice_scope, head_slice_scope)
+
+    with batch_slice_scope(start, total), head_slice_scope(h0, lead[head_axis], n_head):
+        return batch_row_map(lead, batch_axis, head_axis)
+
+
+def head_cols(w, h0: int, per: int, H: int, dim: int, width: int):
+    """Heads [h0, h0 + per) of each of the three q/k/v groups of a fused
+    weight whose dimension ``dim`` holds 3 groups of H heads of ``width``."""
+    import torch
+
+    return torch.cat([w.narrow(dim, (g * H + h0) * width, per * width) for g in range(3)],
+                     dim).contiguous()
+
+
+def tp_kernel_check(K, card, gen):
+    """kernel_check under tensor parallelism: rank 1 of ``{model: 2}``
+    (heads [3, 6) of 6) calls K1f and K1b (the production step's x (4, 32,
+    64, 384): its heads' columns of w1, b1 and w2, ``heads`` = (3, 6)), K2f
+    and K2b (its head-major cross rows (3, 32, 64, 64) against 3 streams),
+    K5f and K5b (the long step's self-attention rows (4, 8, 3, 1024, 64))
+    and K6f, K6f-r (its cross rows (8, 3, 1024, 64) against 3 streams),
+    bf16, dropout 0.2, with the global-head arguments; K1 and the flash
+    kernels also as rank (1, 1) of ``{data: 2, model: 2}`` (the second half
+    of the batch as well: two row levels for the flash kernels). Held
+    against the global call's heads (dx of K1b as the two head halves' sum,
+    the weight gradients as the rank's columns of the global call's) and
+    against the plain version on the same inputs, REL_TOL; the head offset
+    forced to 0 must fail against the global heads. One line per kernel
+    and layout; raises on a failure."""
+    import torch
+
+    from trade_aid_multimodal_transformer_tpu_torch.ops.layers import map_rows
+
+    dev, bf, rate, tol = torch.device("cuda"), torch.bfloat16, 0.2, REL_TOL["bfloat16"]
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    failed = []
+
+    def report(name, layout, shape, vs_global, vs_plain, planted, extra=None):
+        torch.cuda.synchronize()
+        errs_g = {o: rel_err(a, b) for o, (a, b) in vs_global.items()}
+        errs_p = {o: rel_err(a, b) for o, (a, b) in vs_plain.items()}
+        bits = {o: bool(torch.equal(a, b)) for o, (a, b) in vs_global.items()}
+        offset_0 = max(rel_err(a, b) for a, b in planted.values())
+        ok = max(errs_g.values()) <= tol and max(errs_p.values()) <= tol and offset_0 > tol
+        emit({"phase": "tp_kernel_check", "kernel": name, "layout": layout, "card": card,
+              "shape": list(shape), "dtype": "bfloat16", "dropout": rate,
+              "bit_equal_to_global": bits, "rel_err_vs_global": errs_g,
+              "rel_err_vs_plain": errs_p, "head_offset_0_rel_err_vs_global": offset_0,
+              "tol": tol, **(extra or {}), "ok": ok})
+        if not ok:
+            failed.append(f"{name} {layout}")
+
+    # K1f, K1b: the rank's heads' columns; gb from the global batch and heads
+    M, B, T, C, H, hs = PROD_K1
+    per, hs2 = H // TP_RANKS, hs // 2
+    x, w1 = randn(M, B, T, C).to(bf), randn(M, C, 3 * H * hs2, scale=0.05)
+    b1, w2 = randn(M, 3 * H * hs2, scale=0.05), randn(M, 3 * H, hs2, hs, scale=0.2)
+    dout = randn(M, H, B, T, hs).to(bf)
+    g_out = K.fused_qkv_attention_fwd(x, w1, b1, w2, H, rate, SALTS)
+    g_grads = K.fused_qkv_attention_bwd(x, w1, b1, w2, g_out, dout, H, rate, SALTS)
+    names = ("dx", "dw1", "db1", "dw2")
+    for layout, (start, nb) in (("model 2", (0, B)), ("data 2 x model 2", (B // 2, B // 2))):
+        rows_b = slice(start, start + nb)
+        xl = x[:, rows_b].contiguous()
+        batch = (start, B) if nb < B else None
+        halves = []
+        for h0 in (0, per):
+            w1l, b1l = head_cols(w1, h0, per, H, 2, hs2), head_cols(b1, h0, per, H, 1, hs2)
+            w2l = head_cols(w2, h0, per, H, 1, 1)
+            dl = dout[:, h0:h0 + per, rows_b].contiguous()
+            out = K.fused_qkv_attention_fwd(xl, w1l, b1l, w2l, per, rate, SALTS, batch, (h0, H))
+            halves.append((w1l, b1l, w2l, dl, out, K.fused_qkv_attention_bwd(
+                xl, w1l, b1l, w2l, out, dl, per, rate, SALTS, batch, (h0, H))))
+        w1l, b1l, w2l, dl, out, grads = halves[1]
+        p_out = K.fused_qkv_attention_plain(xl, w1l, b1l, w2l, per, rate, SALTS, batch, (per, H))
+        p_grads = K.fused_qkv_attention_bwd_plain(xl, w1l, b1l, w2l, out, dl, per, rate, SALTS,
+                                                  batch, (per, H))
+        vs_global = {"out": (out, g_out[:, per:, rows_b]),
+                     "dx": (halves[0][5][0].float() + grads[0].float(),
+                            g_grads[0][:, rows_b].float())}
+        if nb == B:  # the rank's columns of the global call's weight gradients
+            g_cols = (head_cols(g_grads[1], per, per, H, 2, hs2),
+                      head_cols(g_grads[2], per, per, H, 1, hs2),
+                      head_cols(g_grads[3], per, per, H, 1, 1))
+            vs_global.update(zip(names[1:], zip(grads[1:], g_cols)))
+        report("fused_qkv_attention + fused_qkv_attention_bwd", layout, (M, nb, T, C, per, hs),
+               vs_global,
+               {"out": (out, p_out), **{o: (a, b) for o, a, b in zip(names, grads, p_grads)}},
+               {"out": (K.fused_qkv_attention_fwd(xl, w1l, b1l, w2l, per, rate, SALTS, batch,
+                                                  (0, H)), g_out[:, per:, rows_b])},
+               {"dx": "the two head halves' sum against the global call's",
+                "weight_gradients": "the rank's columns of the global call's",
+                "gb_global": K.fqkv_pick_gb(B, H, T, hs, C, 2),
+                "gb_local_heads": K.fqkv_pick_gb(nb, per, T, hs, C, 2)}
+               if nb == B else {"weight_gradients": "not held (half the batch)"})
+    del x, dout, g_out, g_grads, halves
+
+    # K2f, K2b: head-major q (H, B, T, hs), k, v (J, H, B, T, hs)
+    J, T2, hs2_ = 3, 64, 64
+    B2 = 32
+    q, k, v, do = (randn(*s_).to(bf) for s_ in ((H, B2, T2, hs2_), (J, H, B2, T2, hs2_),
+                                                 (J, H, B2, T2, hs2_), (H, B2, T2, hs2_)))
+    g_out = K.short_cross_attention_fwd(q, k, v, rate, SALTS)
+    g_grads = K.short_cross_attention_bwd(q, k, v, do, rate, SALTS)
+    ql, dl = q[per:].contiguous(), do[per:].contiguous()
+    kl, vl = k[:, per:].contiguous(), v[:, per:].contiguous()
+    rows = tp_row_map((per, B2), None, 0, 0, B2, per, H)
+    out = K.short_cross_attention_fwd(ql, kl, vl, rate, SALTS, rows)
+    grads = K.short_cross_attention_bwd(ql, kl, vl, dl, rate, SALTS, rows)
+    p_out = K.short_cross_attention_plain(ql, kl, vl, rate, SALTS, rows)
+    p_grads = K.short_cross_attention_bwd_plain(ql, kl, vl, dl, rate, SALTS, rows)
+    bad = K.short_cross_attention_fwd(ql, kl, vl, rate, SALTS, (rows[0], rows[1], 0))
+    report("short_cross_attention + short_cross_attention_bwd", "model 2", (J, per * B2, T2, hs2_),
+           {"out": (out, g_out[per:]), "dq": (grads[0], g_grads[0][per:]),
+            "dk": (grads[1], g_grads[1][:, per:]), "dv": (grads[2], g_grads[2][:, per:])},
+           {"out": (out, p_out), **{o: (a, b) for o, a, b in zip(("dq", "dk", "dv"), grads,
+                                                                p_grads)}},
+           {"out": (bad, g_out[per:])}, {"row_map": list(rows)})
+    del q, k, v, do
+
+    # K5f, K5b: the long step's self-attention rows (M, B, H) collapsed
+    M5, B5, H5, T5, hs5 = 4, 8, 6, LONG_BLOCK, 64
+    q, k, v, do = (randn(M5, B5, H5, T5, hs5).to(bf) for _ in range(4))
+    flat = lambda t: t.reshape(-1, T5, hs5).contiguous()  # noqa: E731
+    g_out, g_lse = K.flash_attention_fwd(flat(q), flat(k), flat(v), rate, SALTS)
+    g_grads = K.flash_attention_bwd(flat(q), flat(k), flat(v), g_out, g_lse, flat(do), rate,
+                                    SALTS)
+    for layout, start, nb in (("model 2", 0, B5), ("data 2 x model 2", B5 // 2, B5 // 2)):
+        ql, kl, vl, dl = (flat(t[:, start:start + nb, per:]) for t in (q, k, v, do))
+        rows = tp_row_map((M5, nb, per), 1 if nb < B5 else None, 2, start, B5, per, H5)
+        idx = map_rows(torch.arange(ql.shape[0], device=dev), rows)
+        out, lse = K.flash_attention_fwd(ql, kl, vl, rate, SALTS, rows)
+        grads = K.flash_attention_bwd(ql, kl, vl, out, lse, dl, rate, SALTS, rows=rows)
+        p_out, p_lse = K.flash_attention_plain(ql, kl, vl, rate, SALTS, rows)
+        p_grads = K.flash_attention_bwd_plain(ql, kl, vl, out, lse, dl, rate, SALTS, rows=rows)
+        bad_rows = tuple(rows[:2]) + (rows[2] - per,) + tuple(rows[3:])
+        bad = K.flash_attention_fwd(ql, kl, vl, rate, SALTS, bad_rows)[0]
+        report("flash_attention + flash_attention_bwd", layout, (M5, nb, per, T5, hs5),
+               {"out": (out, g_out[idx]), "lse": (lse, g_lse[idx]),
+                **{o: (a, g[idx]) for o, a, g in zip(("dq", "dk", "dv"), grads, g_grads)}},
+               {"out": (out, p_out), "lse": (lse, p_lse),
+                **{o: (a, b) for o, a, b in zip(("dq", "dk", "dv"), grads, p_grads)}},
+               {"out": (bad, g_out[idx])}, {"row_map": list(rows)})
+    del q, k, v, do
+
+    # K6f, K6f-r: the long step's cross rows (B, H) in JAX's order
+    J6, B6, H6 = 3, 8, 6
+    q = randn(B6, H6, T5, hs5).to(bf)
+    k, v = (randn(J6, B6, H6, T5, hs5).to(bf) for _ in range(2))
+    g = K.flash_cross_attention_res(q.reshape(-1, T5, hs5), k.reshape(J6, -1, T5, hs5),
+                                    v.reshape(J6, -1, T5, hs5), rate, SALTS)
+    for layout, start, nb in (("model 2", 0, B6), ("data 2 x model 2", B6 // 2, B6 // 2)):
+        ql = q[start:start + nb, per:].reshape(-1, T5, hs5).contiguous()
+        kl, vl = (t[:, start:start + nb, per:].reshape(J6, -1, T5, hs5).contiguous()
+                  for t in (k, v))
+        rows = tp_row_map((nb, per), 0 if nb < B6 else None, 1, start, B6, per, H6)
+        idx = map_rows(torch.arange(ql.shape[0], device=dev), rows)
+        got = K.flash_cross_attention_res(ql, kl, vl, rate, SALTS, rows)
+        summed = K.flash_cross_attention_fwd(ql, kl, vl, rate, SALTS, rows)
+        plain = K.flash_cross_attention_plain(ql, kl, vl, rate, SALTS, residuals=True, rows=rows)
+        bad_rows = tuple(rows[:2]) + (rows[2] - per,) + tuple(rows[3:])
+        bad = K.flash_cross_attention_res(ql, kl, vl, rate, SALTS, bad_rows)[0]
+        report("flash_cross_attention + flash_cross_attention_res", layout,
+               (J6, nb * per, T5, hs5),
+               {"out": (got[0], g[0][idx]), "outs": (got[1], g[1][:, idx]),
+                "lses": (got[2], g[2][:, idx]), "K6f_out": (summed, g[0][idx])},
+               {o: (a, b) for o, a, b in zip(("out", "outs", "lses"), got, plain)},
+               {"out": (bad, g[0][idx])}, {"row_map": list(rows)})
+    if failed:
+        raise AssertionError(f"tensor-parallel kernel calls disagree with the global call or "
+                             f"their plain versions, or the zero head offset passed: {failed}")
+
+
 def dp_rank(rank: int, world: int, job: dict):
     """One rank of ``dp_reference``, in a process of its own: the ranks
     share the one card, so the data axis reduces through host memory (gloo,
@@ -2256,20 +2452,23 @@ def per_step(collectives, kind: str):
     return calls[-1][0], 1e3 * sum(t_ for _, t_ in calls) / len(calls), len(calls)
 
 
-def fsdp_state_bytes(cfg, data: int) -> tuple:
+def state_bytes(cfg, data: int = 1, model: int = 1, fsdp: bool = False) -> tuple:
     """(total, per rank) bytes of the train state the production config
-    trains (f32 parameters, bf16 mu and nu, the int32 count) under FSDP over
-    a data axis of ``data`` ranks, from the tree's shapes and
-    ``param_pspecs``: a leaf it puts on 'data' at 1/data on every rank,
-    every other leaf whole."""
+    trains (f32 parameters, bf16 mu and nu, the int32 count) over a model
+    axis of ``model`` ranks and, with ``fsdp``, a data axis of ``data``,
+    from the tree's shapes and ``param_pspecs``: a leaf it puts on 'model'
+    at 1/model, on 'data' at 1/data (on both at 1/(model data)) on every
+    rank, every other leaf whole."""
     from trade_aid_multimodal_transformer_tpu_torch.models.init import param_shapes, tree_leaves
     from trade_aid_multimodal_transformer_tpu_torch.parallel.mesh import param_pspecs
 
     shapes = param_shapes(cfg)
-    specs = param_pspecs(shapes, n_head=0, model_axis=False, fsdp_size=data)
+    specs = param_pspecs(shapes, n_head=0, model_axis=model > 1, model_size=model,
+                         fsdp_size=data if fsdp else 1)
     per_element = 4 + 2 + 2
     sizes = [math.prod(shape) for _, shape in tree_leaves(shapes)]
-    held = sum(n // data if "data" in spec else n for n, spec in zip(sizes, specs))
+    held = sum(n // ((model if "model" in spec else 1) * (data if "data" in spec else 1))
+               for n, spec in zip(sizes, specs))
     return per_element * sum(sizes) + 4, per_element * held + 4
 
 
@@ -2518,6 +2717,45 @@ def fsdp_rank(rank: int, world: int, job: dict):
     return out
 
 
+def entry_run(K, d: Path, ranks: int) -> dict:
+    """The training entry in ``d`` (seed 5): on one rank in this process,
+    or on ``ranks`` rank processes sharing the card (``dp_entry_rank``);
+    the result (rank 0's, with every rank's under "ranks"), its console,
+    its evaluations, seconds and steps/s after the first chunk."""
+    from trade_aid_multimodal_transformer_tpu_torch.config.compat import reset_compatibility_layer
+    from trade_aid_multimodal_transformer_tpu_torch.parallel import mesh as pmesh
+    from trade_aid_multimodal_transformer_tpu_torch.train import runner
+
+    cwd = os.getcwd()
+    os.chdir(d)
+    try:
+        reset_compatibility_layer()
+        K.reset_launch_counts()
+        t0_ = time.perf_counter()
+        if ranks == 1:
+            with contextlib.redirect_stdout(io.StringIO()) as buf:
+                r = runner.run_training(caller_globals={}, seed=5)
+            r["launches"] = K.launch_counts()
+            r["ranks"] = [dict(launches_rank=r["launches"])]
+            console = buf.getvalue()
+        else:
+            got = pmesh.run_ranks(dp_entry_rank, ranks, ({}, 5, str(d / "rank0.log")),
+                                  timeout=RANK_TIMEOUT)
+            r = {**got[0], "ranks": got,
+                 "param_checksums": [x["param_checksum"] for x in got]}
+            console = (d / "rank0.log").read_text()
+        sec_ = time.perf_counter() - t0_
+    finally:
+        os.chdir(cwd)
+        reset_compatibility_layer()
+    later = r["step_timer"].chunks[1:]
+    evals = [(int(m[0]), float(m[1]), float(m[2])) for m in re.findall(
+        r"LOSS METRICS: Step (\d+)/\d+ \| Train: ([-\d.naif]+) \| Val: ([-\d.naif]+)",
+        console)]
+    return dict(r, console=console, evals=evals, seconds=sec_,
+                steps_per_s=sum(n_ for n_, _ in later) / sum(t for _, t in later))
+
+
 def fsdp_phases(K, card, by_path, dp_runs):
     """FSDP / ZeRO-3 (``mesh: {data: 2}``, ``fsdp: true``) on the one card,
     two ranks sharing it (gloo through host memory):
@@ -2527,7 +2765,7 @@ def fsdp_phases(K, card, by_path, dp_runs):
       count bit-equal to it (both ranks), each rank's parts its slices of
       the data-parallel result, the launches the data-parallel step's, the
       rank's train-state tensors the per-device figure, that figure the one
-      ``fsdp_state_bytes`` gives (without FSDP the whole), and the allocated
+      ``state_bytes`` gives (without FSDP the whole), and the allocated
       bytes they add within 10% of it (the caching allocator hands out
       blocks up to 1 MB larger than asked; the whole tree left alive would
       add 2x). The data-parallel step
@@ -2539,7 +2777,7 @@ def fsdp_phases(K, card, by_path, dp_runs):
       losses within STEP_TOL), every rank's checksum of the gathered
       parameters equal, exact launches on every rank (those of
       ``dp_training``'s ranks at 0.2), every rank's train-state bytes those
-      ``fsdp_state_bytes`` gives, one all-gather, one reduce-scatter
+      ``state_bytes`` gives, one all-gather, one reduce-scatter
       and one all-reduce a step (their bytes and ms, TAT_TIMING), the peak
       of allocated memory per rank beside the data-parallel run's, the
       last checkpoint (dropout 0.2) bit-equal to ``dp_training``'s, and a
@@ -2571,7 +2809,7 @@ def fsdp_phases(K, card, by_path, dp_runs):
     ids = torch.from_numpy(np.stack([rng.integers(0, v, (B, cfg.block_size + 1))
                                      for v in cfg.vocab_sizes]))
     params = init_params(cfg, torch.Generator().manual_seed(1234), "cpu")
-    want_bytes = fsdp_state_bytes(cfg, DP_RANKS)
+    want_bytes = state_bytes(cfg, DP_RANKS, fsdp=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     res = pmesh.run_ranks(fsdp_rank, DP_RANKS, (dict(
@@ -2629,36 +2867,6 @@ def fsdp_phases(K, card, by_path, dp_runs):
     one = {0.2: dp_runs["\"off\""]}
     fs = {}
 
-    def entry_run(d: Path, ranks: int) -> dict:
-        cwd = os.getcwd()
-        os.chdir(d)
-        try:
-            reset_compatibility_layer()
-            K.reset_launch_counts()
-            t0_ = time.perf_counter()
-            if ranks == 1:
-                with contextlib.redirect_stdout(io.StringIO()) as buf:
-                    r = runner.run_training(caller_globals={}, seed=5)
-                r["launches"] = K.launch_counts()
-                r["ranks"] = [dict(launches_rank=r["launches"])]
-                console = buf.getvalue()
-            else:
-                got = pmesh.run_ranks(dp_entry_rank, ranks, ({}, 5, str(d / "rank0.log")),
-                                      timeout=RANK_TIMEOUT)
-                r = {**got[0], "ranks": got,
-                     "param_checksums": [x["param_checksum"] for x in got]}
-                console = (d / "rank0.log").read_text()
-            sec_ = time.perf_counter() - t0_
-        finally:
-            os.chdir(cwd)
-            reset_compatibility_layer()
-        later = r["step_timer"].chunks[1:]
-        evals = [(int(m[0]), float(m[1]), float(m[2])) for m in re.findall(
-            r"LOSS METRICS: Step (\d+)/\d+ \| Train: ([-\d.naif]+) \| Val: ([-\d.naif]+)",
-            console)]
-        return dict(r, console=console, evals=evals, seconds=sec_,
-                    steps_per_s=sum(n_ for n_, _ in later) / sum(t for _, t in later))
-
     resumed = None
     for rate in (0.0, 0.2):
         with tempfile.TemporaryDirectory() as tmp:
@@ -2666,7 +2874,7 @@ def fsdp_phases(K, card, by_path, dp_runs):
             production_config_dir(d, dropout=rate, tpu={"fsdp": "true"}, **config)
             text = (d / "config.yaml").read_text()
             (d / "config.yaml").write_text(text.replace("  mesh: auto", "  mesh: {data: 2}"))
-            fs[rate] = entry_run(d, DP_RANKS)
+            fs[rate] = entry_run(K, d, DP_RANKS)
             if rate == 0.2:
                 fs[rate]["checkpoint"] = _read_native(str(d / "output" / "model.ckpt"))
                 text = (d / "config.yaml").read_text().replace(
@@ -2674,12 +2882,12 @@ def fsdp_phases(K, card, by_path, dp_runs):
                 for key, v in (("max_iters", 2), ("eval_interval", 1), ("eval_iters", 1)):
                     text = re.sub(rf"(\n  {key}: )\S+", rf"\g<1>{v}", text)
                 (d / "config.yaml").write_text(text)
-                resumed = entry_run(d, DP_RANKS)
+                resumed = entry_run(K, d, DP_RANKS)
             else:
                 production_config_dir(d, dropout=rate, **config)
                 text = (d / "config.yaml").read_text()
                 (d / "config.yaml").write_text(text.replace("  mesh: auto", "  mesh: \"off\""))
-                one[rate] = entry_run(d, 1)
+                one[rate] = entry_run(K, d, 1)
     eval_batches = expected_evals(config["max_iters"], config["eval_interval"]) * 2 * 2
     per_eval = dict(fused_qkv_attention=L, short_cross_attention=n_cross * L)
     want = {**dict.fromkeys(K.KERNELS, 0),
@@ -2694,7 +2902,7 @@ def fsdp_phases(K, card, by_path, dp_runs):
         launches = [x["launches_rank"] for x in r["ranks"]]
         coll = {kind: per_step(r["collectives"], kind)
                 for kind in ("all_gather", "reduce_scatter", "all_reduce")}
-        state_bytes = [tuple(x["train_state_bytes"]) for x in r["ranks"]]
+        held_bytes = [tuple(x["train_state_bytes"]) for x in r["ranks"]]
         ok = (len(sums) == DP_RANKS and all(s_ == sums[0] for s_ in sums)
               and all(e <= STEP_TOL["bfloat16"]["loss"] for e in errs_.values())
               and len(r["evals"]) == len(one[rate]["evals"]) > 1
@@ -2703,7 +2911,7 @@ def fsdp_phases(K, card, by_path, dp_runs):
               and "Parallelism: data x2 (fsdp/zero-3) over 2 devices" in r["console"]
               and "TRAINING COMPLETED SUCCESSFULLY" in r["console"]
               and all(c_[2] == config["max_iters"] for c_ in coll.values())
-              and state_bytes == [want_bytes] * DP_RANKS)
+              and held_bytes == [want_bytes] * DP_RANKS)
         line = {"phase": "fsdp_training", "config": "examples/production_config.yaml",
                 "card": card, "changed": {**config, "dropout": rate, "mesh": "{data: 2}",
                                           "fsdp": True},
@@ -2714,7 +2922,7 @@ def fsdp_phases(K, card, by_path, dp_runs):
                 "tol": STEP_TOL["bfloat16"]["loss"], "param_checksums_by_rank": sums,
                 "launches_by_rank": [{k_: v_ for k_, v_ in x.items() if v_} for x in launches],
                 "expected_launches_per_rank": {k_: v_ for k_, v_ in want.items() if v_},
-                "train_state_bytes_by_rank": state_bytes,
+                "train_state_bytes_by_rank": held_bytes,
                 "train_state_bytes_expected": want_bytes,
                 "max_memory_allocated_by_rank": [x["max_memory_allocated"] for x in r["ranks"]],
                 "steps_per_s_after_first_chunk": r["steps_per_s"],
@@ -2756,6 +2964,322 @@ def fsdp_phases(K, card, by_path, dp_runs):
             failed.append(rate)
     if failed:
         raise AssertionError(f"the FSDP training entry failed its checks at dropout {failed}")
+    return one
+
+
+def tp_rank(rank: int, world: int, job: dict):
+    """One rank of ``tp_reference``, in a process of its own (the ranks
+    share the one card: gloo through host memory). Rank 0 first takes the
+    one-rank step on the card on the global batch (the plain Trainer), in
+    bf16 and in f32, and in f32 once more with the output projections'
+    second weights (``proj_w2``, ``ffwd.w2``) scaled by 1 + 1e-7 N(0, 1)
+    elementwise: how far the step's gradients move under rounding-sized
+    changes of its activations. Then every rank takes the tensor-parallel
+    step (``{model: world}``: its heads and columns, the Megatron
+    collectives, masks keyed by global heads) and an AdamW update, in bf16
+    and f32, and in bf16 with two planted faults: rank 1's head offset
+    forced to 0, and the first ``copy_to`` of the step without its backward
+    all-reduce. Returns per variant the loss, the launches, the checksum of
+    the leaves the placement keeps whole (their gradients and updated
+    values), whether the rank's parts are its slices of the gathered
+    updated tree, its train-state bytes and, on rank 0, the gathered
+    gradients' errors against the one-rank step of its dtype."""
+    sys.path.insert(0, str(REPO))
+    import hashlib
+
+    import torch
+
+    from trade_aid_multimodal_transformer_tpu_torch.models.init import (
+        map_tree, tree_leaves, tree_paths)
+    from trade_aid_multimodal_transformer_tpu_torch.ops import kernels as K
+    from trade_aid_multimodal_transformer_tpu_torch.parallel import mesh as pmesh
+    from trade_aid_multimodal_transformer_tpu_torch.parallel.trainer import (
+        make_sharded_trainer, shard_train_state)
+    from trade_aid_multimodal_transformer_tpu_torch.train import steps as tsteps
+    from trade_aid_multimodal_transformer_tpu_torch.utils.memory import train_state_bytes
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfgs = {"bfloat16": job["cfg"],
+            "float32": dataclasses.replace(job["cfg"], compute_dtype="float32")}
+    mesh = pmesh.make_mesh(model=world, staged=True)
+    xb, yb = (t.to(dev) for t in job["batch"])
+    names = ["/".join(map(str, path)) for path, _ in tree_paths(job["params"])]
+    table = [name.startswith("pre/tok_emb/") for name in names]
+
+    def fresh(scale=None):
+        gen = torch.Generator().manual_seed(0)
+
+        def leaf(name, t):
+            t = t.detach().clone()
+            if scale and name.endswith(("proj_w2", "ffwd/w2")):
+                t = t * (1 + scale * torch.randn(t.shape, generator=gen))
+            return t.to(dev).requires_grad_()
+
+        leaves = iter(names)
+        return map_tree(lambda t: leaf(next(leaves), t), job["params"])
+
+    def optimizer():
+        return tsteps.make_optimizer(job["lr"], moment_dtype="bfloat16", nu_dtype="bfloat16")
+
+    def digest(tensors) -> str:
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.detach().float().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    def errors(grads, ref):
+        """Each leaf's L2 error against its own scale, floored at a 1e-4
+        share of the whole, the token tables apart (dp_rank's measure)."""
+        norms = [r.norm().item() for r in ref]
+        floor = 1e-4 * math.sqrt(sum(n_ * n_ for n_ in norms))
+        errs_leaf = [(g.float() - r).norm().item() / max(n_, floor)
+                     for g, r, n_ in zip(grads, ref, norms)]
+        return {"grad_l2_rel_err_max": max(e for e, t in zip(errs_leaf, table) if not t),
+                "token_table_grad_l2_rel_err_max": max(e for e, t in zip(errs_leaf, table) if t),
+                "worst_leaves": sorted(zip(errs_leaf, names), reverse=True)[:4]}
+
+    refs, out = {}, {}
+    if rank == 0:
+        for dtype, cfg in cfgs.items():
+            loss, grads = tsteps.Trainer(cfg, None, optimizer(), [], 1).loss_and_grads(
+                fresh(), [(xb, yb)], [SALTS])
+            refs[dtype] = loss.item(), [g.float() for g in grads]
+        loss, grads = tsteps.Trainer(cfgs["float32"], None, optimizer(), [], 1).loss_and_grads(
+            fresh(1e-7), [(xb, yb)], [SALTS])
+        out["one_rank_f32_perturbed"] = {"loss_abs_err": abs(loss.item() - refs["float32"][0]),
+                                         **errors(grads, refs["float32"][1])}
+    heads, copy_to = mesh.model.heads, mesh.model.copy_to
+    for variant, dtype in (("sound", "bfloat16"), ("sound_f32", "float32"),
+                           ("head_offset_0", "bfloat16"),
+                           ("copy_to_without_all_reduce", "bfloat16")):
+        opt = optimizer()
+        params, _, placed = shard_train_state(fresh(), None, None, False, mesh.model)
+        state = opt.init(params)
+        if variant == "head_offset_0" and rank == 1:
+            mesh.model.heads = lambda n_head: (0, heads(n_head)[1])
+        skipped = []
+        if variant == "copy_to_without_all_reduce":
+            def first_plain(x):
+                if not skipped:
+                    skipped.append(tuple(x.shape))
+                    return x
+                return copy_to(x)
+            mesh.model.copy_to = first_plain
+        try:
+            trainer = make_sharded_trainer(cfgs[dtype], None, opt, [], 1, mesh)
+            K.reset_launch_counts()
+            loss, grads = trainer.loss_and_grads(params, [(xb, yb)], [SALTS])
+            torch.cuda.synchronize()
+            counts = K.launch_counts()
+        finally:
+            mesh.model.__dict__.pop("heads", None)
+            mesh.model.__dict__.pop("copy_to", None)
+        whole_grads = placed.whole(list(grads), "grads")
+        whole_idx = [i for i, s_ in enumerate(placed.specs) if "model" not in s_]
+        opt.update_(params, grads, state)
+        after = placed.whole(params)
+        res = {"dtype": dtype, "loss": loss.item(), "launches": counts,
+               "whole_leaf_grads": digest(grads[i] for i in whole_idx),
+               "whole_leaf_params": digest(tree_leaves(params)[i] for i in whole_idx),
+               "parts_are_slices": all(torch.equal(a, b) for a, b in zip(
+                   tree_leaves(params), tree_leaves(placed.shard(after)))),
+               "state_bytes": train_state_bytes(params, state, opt, placed.parts()),
+               "skipped_copy_to": skipped}
+        if rank == 0:
+            loss_ref, g_ref = refs[dtype]
+            res.update(loss_ref=loss_ref, loss_abs_err=abs(loss.item() - loss_ref),
+                       **errors(whole_grads, g_ref))
+        out[variant] = res
+        del params, state, loss, grads, whole_grads, after, trainer
+    return out
+
+
+def tp_phases(K, card, by_path, one_rank):
+    """Tensor parallelism (``mesh: {model: 2}``) on the one card, two ranks
+    sharing it (gloo through host memory):
+    - ``tp_reference``: one production step (dropout 0.2, batch 32, bf16
+      moments) in bf16 and in f32 against the one-rank step of the same
+      dtype on the same batch and salts: the loss and every gathered
+      gradient leaf within STEP_TOL (the step gate ``train_reference``
+      holds the card to: a row-split sum rounds where the one-rank product
+      does not, and the step's ReLUs turn rounding-sized changes into
+      leaf errors of order the square root of the rounding; the one-rank
+      f32 step's own move under 1e-7 weight changes is printed beside it),
+      the leaves the placement keeps whole bit-equal across the ranks
+      (their gradients and updated values: no collective averages them),
+      each rank's parts its slices of the gathered updated tree, exact
+      launches per rank (a one-rank step's: every rank runs every kernel on
+      its heads), the rank's train-state bytes those ``state_bytes`` gives.
+      Two planted faults in bf16 must each exceed the gate: rank 1's head
+      offset forced to 0, and one ``copy_to`` without its backward
+      all-reduce.
+    - ``tp_training``: the entry over the two ranks, 8 steps, at dropout 0
+      and 0.2 against the one-rank entry with the same seed (``one_rank``,
+      from ``fsdp_phases``): final eval losses within STEP_TOL, every
+      rank's checksum of the gathered parameters equal, exact launches per
+      rank, every rank's train-state bytes those ``state_bytes`` gives, the
+      tensor-parallel all-reduces' bytes, calls and ms a step (TAT_TIMING);
+      the checkpoint of the run at 0.2 loading in a one-rank run
+      (``create_new_model: 0``, ``mesh: off``) that trains on, and a
+      resume from it over the two ranks.
+    Adds ``by_path["tp_training"]``; raises on a failed check."""
+    import numpy as np
+    import torch
+
+    from trade_aid_multimodal_transformer_tpu_torch import generate as entry
+    from trade_aid_multimodal_transformer_tpu_torch.models.init import init_params
+    from trade_aid_multimodal_transformer_tpu_torch.parallel import mesh as pmesh
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        production_config_dir(d)
+        data = entry.load_config_and_data(str(d))
+    cfg, sc = data["cfg"], data["sc"]
+    L, n_cross = cfg.n_layer, sum(cfg.cross_attention)
+    step_launches = dict(fused_qkv_attention=L, fused_qkv_attention_bwd=L,
+                         short_cross_attention=n_cross * L, short_cross_attention_bwd=n_cross * L)
+    want_step = {**dict.fromkeys(K.KERNELS, 0), **step_launches}
+    want_bytes = state_bytes(cfg, model=TP_RANKS)
+
+    # tp_reference
+    rng = np.random.default_rng(13)
+    B = sc["batch_size"]
+    ids = torch.from_numpy(np.stack([rng.integers(0, v, (B, cfg.block_size + 1))
+                                     for v in cfg.vocab_sizes]))
+    params = init_params(cfg, torch.Generator().manual_seed(1234), "cpu")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = pmesh.run_ranks(tp_rank, TP_RANKS, (dict(
+        cfg=cfg, params=params, batch=(ids[..., :-1], ids[..., 1:]), lr=sc["learning_rate"]),),
+        timeout=RANK_TIMEOUT)
+    sec = time.perf_counter() - t0
+    failed = []
+    for variant in ("sound", "sound_f32", "head_offset_0", "copy_to_without_all_reduce"):
+        rows = [res[r][variant] for r in range(TP_RANKS)]
+        r0 = rows[0]
+        tol = STEP_TOL[r0["dtype"]]
+        within = (r0["loss_abs_err"] <= tol["loss"] and r0["grad_l2_rel_err_max"] <= tol["grad_l2"]
+                  and r0["token_table_grad_l2_rel_err_max"] <= tol["grad_l2"])
+        whole_equal = all(x["whole_leaf_grads"] == r0["whole_leaf_grads"]
+                          and x["whole_leaf_params"] == r0["whole_leaf_params"] for x in rows)
+        launches = all(x["launches"] == want_step for x in rows)
+        held = all(tuple(x["state_bytes"]) == want_bytes for x in rows)
+        parts = all(x["parts_are_slices"] for x in rows)
+        planted = not variant.startswith("sound")
+        ok = launches and held and parts and (not within if planted else within and whole_equal)
+        emit({"phase": "tp_reference", "variant": variant, "card": card,
+              "ranks_on_one_card": TP_RANKS, "backend": "gloo through host memory",
+              "config": "examples/production_config.yaml", "global_batch": B,
+              "block_size": cfg.block_size, "dropout": cfg.dropout, "dtype": r0["dtype"],
+              "against": "the one-rank step on the card in the same dtype, same batch and salts",
+              "must_fail": planted, "loss_tol": tol["loss"], "grad_l2_rel_tol": tol["grad_l2"],
+              **{k_: r0[k_] for k_ in ("loss_ref", "loss_abs_err", "grad_l2_rel_err_max",
+                                       "token_table_grad_l2_rel_err_max", "worst_leaves")},
+              "one_rank_f32_step_moved_by_1e-7_weights": res[0]["one_rank_f32_perturbed"],
+              "losses_by_rank": [x["loss"] for x in rows],
+              "whole_leaves_bit_equal_across_ranks": whole_equal,
+              "parts_are_slices_of_the_updated_tree": parts,
+              "skipped_copy_to_input": r0["skipped_copy_to"],
+              "train_state_bytes_by_rank": [tuple(x["state_bytes"]) for x in rows],
+              "train_state_bytes_expected": want_bytes,
+              "launches_by_rank": [{k_: v_ for k_, v_ in x["launches"].items() if v_}
+                                   for x in rows], "launches_exact": launches,
+              "seconds_with_spawn": sec, "ok": ok})
+        if not ok:
+            failed.append(variant)
+    if failed:
+        raise AssertionError(f"tp_reference failed: {failed}")
+
+    # tp_training: the entry over two ranks at dropout 0 and 0.2 (seed 5);
+    # the run at 0.2 writes its checkpoint, which a one-rank run loads and
+    # the two ranks resume
+    config = dict(max_iters=8, eval_interval=4, eval_iters=2)
+    tp, loaded, resumed = {}, None, None
+    for rate in (0.0, 0.2):
+        with tempfile.TemporaryDirectory() as tmp:
+            d = Path(tmp)
+            production_config_dir(d, dropout=rate, **config)
+            text = (d / "config.yaml").read_text()
+            (d / "config.yaml").write_text(text.replace("  mesh: auto", "  mesh: {model: 2}"))
+            tp[rate] = entry_run(K, d, TP_RANKS)
+            if rate == 0.2:
+                text = (d / "config.yaml").read_text().replace(
+                    "create_new_model: 1", "create_new_model: 0")
+                for key, v in (("max_iters", 2), ("eval_interval", 1), ("eval_iters", 1)):
+                    text = re.sub(rf"(\n  {key}: )\S+", rf"\g<1>{v}", text)
+                (d / "config.yaml").write_text(text)
+                resumed = entry_run(K, d, TP_RANKS)
+                (d / "config.yaml").write_text(text.replace("mesh: {model: 2}", "mesh: \"off\""))
+                loaded = entry_run(K, d, 1)
+    eval_batches = expected_evals(config["max_iters"], config["eval_interval"]) * 2 * 2
+    per_eval = dict(fused_qkv_attention=L, short_cross_attention=n_cross * L)
+    want = {**dict.fromkeys(K.KERNELS, 0),
+            **{name: n_ * config["max_iters"] + per_eval.get(name, 0) * eval_batches
+               for name, n_ in step_launches.items()}}
+    failed = []
+    for rate in (0.0, 0.2):
+        r = tp[rate]
+        sums = r["param_checksums"]
+        errs_ = {k_: abs(r["losses"][k_] - one_rank[rate]["losses"][k_]) for k_ in ("train", "val")}
+        launches = [x["launches_rank"] for x in r["ranks"]]
+        calls = [(k_, n_, t_) for k_, n_, t_ in r["collectives"] or []
+                 if k_ in ("tp_all_reduce", "tp_all_reduce_bwd")]
+        steps = config["max_iters"]
+        held = [tuple(x["train_state_bytes"]) for x in r["ranks"]]
+        ok = (len(sums) == TP_RANKS and all(s_ == sums[0] for s_ in sums)
+              and all(e <= STEP_TOL["bfloat16"]["loss"] for e in errs_.values())
+              and len(r["evals"]) == len(one_rank[rate]["evals"]) > 1
+              and all(x == want for x in launches)
+              and "Parallelism: tensor x2 over 2 devices" in r["console"]
+              and "TRAINING COMPLETED SUCCESSFULLY" in r["console"]
+              and held == [want_bytes] * TP_RANKS and bool(calls))
+        line = {"phase": "tp_training", "config": "examples/production_config.yaml",
+                "card": card, "changed": {**config, "dropout": rate, "mesh": "{model: 2}"},
+                "ranks_on_one_card": TP_RANKS, "backend": "gloo through host memory",
+                "plan": r["plan"].describe(), "global_batch": sc["batch_size"],
+                "evals": r["evals"], "evals_one_rank": one_rank[rate]["evals"],
+                "final_eval_losses": r["losses"],
+                "final_eval_losses_one_rank": one_rank[rate]["losses"],
+                "abs_err_vs_one_rank": errs_, "tol": STEP_TOL["bfloat16"]["loss"],
+                "param_checksums_by_rank": sums,
+                "launches_by_rank": [{k_: v_ for k_, v_ in x.items() if v_} for x in launches],
+                "expected_launches_per_rank": {k_: v_ for k_, v_ in want.items() if v_},
+                "train_state_bytes_by_rank": held, "train_state_bytes_expected": want_bytes,
+                "max_memory_allocated_by_rank": [x["max_memory_allocated"] for x in r["ranks"]],
+                "steps_per_s_after_first_chunk": r["steps_per_s"],
+                "steps_per_s_one_rank": one_rank[rate]["steps_per_s"],
+                "tp_all_reduce_bytes_per_step": sum(n_ for _, n_, _ in calls) / steps,
+                "tp_all_reduce_calls_per_step": len(calls) / steps,
+                "tp_all_reduce_ms_per_step": 1e3 * sum(t_ for _, _, t_ in calls) / steps,
+                "tp_all_reduce_fwd_bytes_per_step": sum(
+                    n_ for k_, n_, _ in calls if k_ == "tp_all_reduce") / steps,
+                "collectives_note": "host clock around each staged gloo all-reduce (copy to the "
+                                    "host, reduce, copy back), the card synchronised before and "
+                                    "after", "seconds_with_spawn": r["seconds"]}
+        if rate == 0.2:
+            load_ok = ("Model: Loaded successfully" in loaded["console"]
+                       and "TRAINING COMPLETED SUCCESSFULLY" in loaded["console"]
+                       and loaded["plan"].trivial
+                       and all(math.isfinite(v) for v in loaded["losses"].values()))
+            sums_r = resumed["param_checksums"]
+            resume_ok = ("Model: Loaded successfully" in resumed["console"]
+                         and "TRAINING COMPLETED SUCCESSFULLY" in resumed["console"]
+                         and all(s_ == sums_r[0] for s_ in sums_r)
+                         and all(math.isfinite(v) for v in resumed["losses"].values()))
+            ok = ok and load_ok and resume_ok
+            line.update({"one_rank_load": {"ok": load_ok, "final_eval_losses": loaded["losses"]},
+                         "resume": {"ok": resume_ok, "param_checksums_by_rank": sums_r,
+                                    "final_eval_losses": resumed["losses"]}})
+            by_path["tp_training"] = launches[0]
+        line["ok"] = ok
+        emit(line)
+        if not ok:
+            failed.append(rate)
+    if failed:
+        raise AssertionError(f"the tensor-parallel training entry failed its checks at "
+                             f"dropout {failed}")
 
 
 def multi_card(card: str) -> int:
@@ -2780,8 +3304,15 @@ def multi_card(card: str) -> int:
     - FSDP (``fsdp: true``) on ``{data: 2}``, ``{data: 4}`` and, on 4 cards,
       ``{data: 2}`` x ``context_parallel: 2``: the gates of the same run
       without it, rank 0's kernel launches equal to that run's, and every
-      rank's train-state bytes (total, held) those ``fsdp_state_bytes``
-      gives for the run's config and data axis.
+      rank's train-state bytes (total, held) those ``state_bytes``
+      gives for the run's config and data axis;
+    - tensor parallelism: ``{model: 2}`` at block_size 64 (global batch 32)
+      and 1024 (batch 8), and on 4 cards ``{data: 2, model: 2}`` and the
+      same with ``fsdp: true`` (block_size 64), at dropout 0 and 0.2: final
+      evaluation losses within the limit of the one-card run's at both
+      rates (every mask is keyed by global heads and rows), every rank's
+      train-state bytes those ``state_bytes`` gives, the tensor-parallel
+      all-reduces' bytes, calls and ms a step.
     At every rate every rank's parameter checksum (float64 sum and SHA-256 of
     the bytes) must be equal. Prints each run's steps/s and, under a data
     axis, the bytes and ms a step of the gradient all-reduce and, under
@@ -2811,7 +3342,7 @@ def multi_card(card: str) -> int:
             text = text.replace("  mesh: auto", f"  mesh: {mesh}")
             text = text.replace("  # context_parallel: 4", f"  context_parallel: {cp}")
             (d / "config.yaml").write_text(text)
-            cfg = entry.load_config_and_data(str(d))["cfg"] if fsdp else None
+            cfg = entry.load_config_and_data(str(d))["cfg"] if fsdp or "model" in mesh else None
             cwd = os.getcwd()
             os.chdir(d)
             try:
@@ -2826,6 +3357,11 @@ def multi_card(card: str) -> int:
         later = res["step_timer"].chunks[1:]
         coll = {kind: per_step(res.get("collectives"), kind)
                 for kind in ("all_reduce", "all_gather", "reduce_scatter")}
+        tp = [(n_, t_) for k_, n_, t_ in res.get("collectives") or []
+              if k_ in ("tp_all_reduce", "tp_all_reduce_bwd")]
+        if tp:  # the model axis's all-reduces, summed a step (8 steps)
+            coll["tp_all_reduce"] = (sum(n_ for n_, _ in tp) / 8, 1e3 * sum(t_ for _, t_ in tp) / 8,
+                                     len(tp) / 8)
         return {"losses": res["losses"], "seconds": sec,
                 **{f"{kind}_bytes_per_step": c_[0] for kind, c_ in coll.items()},
                 **{f"{kind}_ms_per_step": c_[1] for kind, c_ in coll.items()},
@@ -2865,10 +3401,10 @@ def multi_card(card: str) -> int:
                   changed: dict, **extra):
         """An FSDP run's line: ``hold``'s gates, rank 0's launches equal to
         the same run's without FSDP (``dp_run``), every rank's train-state
-        bytes those ``fsdp_state_bytes`` gives over ``data`` ranks."""
+        bytes those ``state_bytes`` gives over ``data`` ranks."""
         same = r["launches_rank0"] == dp_run["launches_rank0"]
         held = [tuple(b_) for b_ in r["train_state_bytes_by_rank"] or []]
-        want = fsdp_state_bytes(r["cfg"], data)
+        want = state_bytes(r["cfg"], data, fsdp=True)
         split = held == [want] * ranks
         hold("multi_card_fsdp", r, base, ranks, launched, {**changed, "fsdp": True},
              launches_equal_without_fsdp=same, state_split=split,
@@ -2925,13 +3461,42 @@ def multi_card(card: str) -> int:
                  {"dropout": rate, "mesh": f"{{data: {p_size}}}"}, data=p_size)
             hold_fsdp(run(f"{{data: {p_size}}}", 1, fsdp=True, dropout=rate), r, dp_base[rate],
                       p_size, p_size, "fused_qkv_attention",
-                      {"dropout": rate, "mesh": f"{{data: {p_size}}}"}, data=p_size)
+                      {"dropout": rate, "mesh": f"{{data: {p_size}}}"})
     r = run("auto", 1)
     want = f"data x{n_cards}"
     hold("multi_card_data_parallel", r, dp_base[0.2], n_cards, "fused_qkv_attention",
          {"mesh": "auto"}, data=n_cards, plan_expected=want)
     if r["plan"] != want:
         failed.append(f"mesh: auto planned {r['plan']}, not {want}")
+
+    # tensor parallelism: {model: 2} at 64 and 1024; on 4 cards {data: 2,
+    # model: 2}, and with FSDP, at 64 (a failed run is reported and the
+    # other rows still run)
+    long_base = {0.0: base, 0.2: run("\"off\"", 1, dropout=0.2, **long)}
+    layouts = [("{model: 2}", 1, 2, False, {})]
+    if n_cards >= 4:
+        layouts += [("{data: 2, model: 2}", 2, 2, False, {}), ("{data: 2, model: 2}", 2, 2, True, {})]
+    layouts.append(("{model: 2}", 1, 2, False, long))
+    for mesh, data, model, fsdp, extra in layouts:
+        for rate in (0.0, 0.2):
+            try:
+                r = run(mesh, 1, fsdp=fsdp, dropout=rate, **extra)
+            except Exception as e:  # noqa: BLE001  (reported; the other rows still run)
+                emit({"phase": "multi_card_tensor_parallel", "mesh": mesh, "fsdp": fsdp,
+                      "dropout": rate, **extra, "error": repr(e)[-2000:], "ok": False})
+                failed.append(f"tensor parallel {mesh} fsdp {fsdp} {extra}: {e!r}"[:300])
+                continue
+            want = state_bytes(r["cfg"], data, model, fsdp)
+            held = [tuple(b_) for b_ in r["train_state_bytes_by_rank"] or []]
+            plan = f"data x{data}{' (fsdp/zero-3)' if fsdp else ''} * " * (data > 1) + f"tensor x{model}"
+            hold("multi_card_tensor_parallel", r, (long_base if extra else dp_base)[rate],
+                 data * model, "flash_attention" if extra else "fused_qkv_attention",
+                 {**extra, "dropout": rate, "mesh": mesh, **({"fsdp": True} if fsdp else {})},
+                 data=data, model=model, train_state_bytes_expected=want,
+                 state_split=held == [want] * data * model, plan_expected=plan)
+            if held != [want] * data * model or r["plan"] != plan:
+                failed.append(f"tensor parallel {mesh} fsdp {fsdp} {extra}: bytes {held}, "
+                              f"plan {r['plan']}")
 
     # data x sequence on 4 cards: {data: 2} with context_parallel 2 at 1024
     if n_cards >= 4:
@@ -3444,8 +4009,10 @@ def main() -> int:
                     for g, a, r in zip(("dq", "dk", "dv"), grads, ref))
 
     # the same kernels (and K5f, K5b, K6f-r) on half a batch with the
-    # global-row arguments of data parallelism
+    # global-row arguments of data parallelism, and on half the heads (and
+    # the batch) with those of tensor parallelism
     dp_kernel_check(K, card, gen)
+    tp_kernel_check(K, card, gen)
 
     # K3f: the production prefill (24 B rows, T = 56, hs = 64) at B = 32 and
     # B = 1, T in {8, 64, 512} x hs in {16, 24, 64, 128, 256}, and T 72 x
@@ -3967,9 +4534,11 @@ def main() -> int:
     reference_checkpoint(K, card)
 
     # 10b. data parallelism on the one card: a step against the one-rank
-    # step, and the training entry over two ranks; then FSDP over them
+    # step, and the training entry over two ranks; then FSDP over them, and
+    # tensor parallelism (the one-rank entries of both rates held again)
     dp_runs = data_parallel(K, card, by_path)
-    fsdp_phases(K, card, by_path, dp_runs)
+    one_rank = fsdp_phases(K, card, by_path, dp_runs)
+    tp_phases(K, card, by_path, one_rank)
 
     # 11. long context: the production config at block_size 1024
     by_path.update({"serving": launches, "training": train_launches,

@@ -603,9 +603,11 @@ def test_mesh_that_needs_more_devices_raises():
 
 
 # (mesh, context_parallel, devices, fsdp): JAX's plan or error, in the port
-# the same plan (FSDP included) where it has only data and sequence axes,
-# the same error where JAX raises, and NotImplementedError (a later slice)
-# where JAX's plan has a tensor, modality or pipeline axis
+# the same plan (FSDP included) where it has data, model and sequence axes
+# (model alone or with data), the same error where JAX raises, and
+# NotImplementedError (a later slice) where JAX's plan has a modality or
+# pipeline axis, the model axis with the sequence axis, or a model axis
+# that does not divide n_head
 PLAN_CASES = [
     ("auto", 1, 1, False), ("off", 1, 1, False), (None, 1, 1, False), (1, 1, 1, False),
     ({"data": 1, "model": 1}, 1, 1, False), ("auto", 2, 2, False), ("off", 2, 2, False),
@@ -616,7 +618,7 @@ PLAN_CASES = [
     ({"mod": 3}, 1, 4, False), ({"pipe": 4}, 1, 4, False), ({"data": 3}, 1, 4, False),
     ({"bogus": 2}, 1, 2, False), ({"data": 0}, 1, 2, False), ("sideways", 1, 1, False),
     ({"data": 1}, 2, 2, True), ({"data": 2}, 1, 2, True), ({"data": 2}, 2, 4, True),
-    ({"model": 2}, 1, 2, True),
+    ({"model": 2}, 1, 2, True), ({"model": 4}, 1, 4, False), ({"data": 2, "model": 2}, 1, 4, True),
 ]
 
 
@@ -631,13 +633,15 @@ def test_plan_mesh_matches_jax(mesh, cp, n, fsdp):
         with pytest.raises(ValueError, match=re.escape(str(e))):
             plan_mesh(mesh, cp, n_devices=n, **kw)
         return
-    if ref.model * ref.mod * ref.pipe != 1:
+    if (ref.mod * ref.pipe != 1 or (ref.model > 1 and ref.seq > 1)
+            or kw["n_head"] % ref.model != 0):
         with pytest.raises(NotImplementedError, match="later slice"):
             plan_mesh(mesh, cp, n_devices=n, **kw)
         return
     got = plan_mesh(mesh, cp, n_devices=n, **kw)
-    assert (got.describe(), got.n_devices, got.data, got.seq, got.trivial, got.fsdp) == (
-        ref.describe(), ref.n_devices, ref.data, ref.seq, ref.trivial, ref.fsdp)
+    assert (got.describe(), got.n_devices, got.data, got.model, got.seq, got.trivial,
+            got.fsdp) == (ref.describe(), ref.n_devices, ref.data, ref.model, ref.seq,
+                          ref.trivial, ref.fsdp)
 
 
 def test_trainer_chunk_and_step_draw_from_the_feed():

@@ -1,7 +1,7 @@
 """What each rank process of the port's parallel tests runs.
 
 The tests (tests/test_torch_ring.py, tests/test_torch_dp.py,
-tests/test_torch_fsdp.py) start these
+tests/test_torch_fsdp.py, tests/test_torch_tp.py) start these
 functions in spawned processes joined in one gloo group
 (``parallel.mesh.run_ranks``); a child imports this module, torch and the
 port, never JAX: the JAX references are computed in the test process.
@@ -186,4 +186,73 @@ def fsdp_cases(rank, world, job):
                                         numpy(got_state["nu"])]
                 res["resumed_count"] = got_state["count"]
         out[name] = res
+    return out
+
+
+def tp_cases(rank, world, job):
+    """One rank of a tensor-parallel run over ``make_mesh(data=job["data"],
+    model=world // data)`` (with ``job["fsdp"]`` FSDP on the data axis),
+    from the whole ``job["params"]``: the rank's parts of params, mu and
+    nu (numpy) and its placement's specs and parts; the loss and gradients
+    (the rank's parts, and the whole tree gathered) of one step on the
+    global batch ``job["batches"][0]``; after one AdamW step per batch the
+    losses and the whole params, mu and nu gathered; with ``job["feed"]``
+    an evaluation pass of the global validation batches on the initial
+    parameters; with ``job["ckpt"]`` a file, the whole state saved there by
+    rank 0 and read back and re-sharded on every rank (its parts); with
+    ``job["remat"]`` the first step's loss and gradients again with each
+    block recomputed in the backward. ``job["kernel_dispatch"]`` takes the
+    card's dispatch with the kernels' plain versions; ``job["head_offset_0"]``
+    forces every rank's heads to start at 0 (a planted fault)."""
+    from trade_aid_multimodal_transformer_tpu_torch.ops import attention as tatt
+    from trade_aid_multimodal_transformer_tpu_torch.parallel.trainer import shard_train_state
+    from trade_aid_multimodal_transformer_tpu_torch.train.checkpoint import (
+        load_checkpoint, load_optimizer_state, save_checkpoint)
+    from trade_aid_multimodal_transformer_tpu_torch.train.steps import StepRng
+
+    torch.set_num_threads(1)  # no thread split to vary between the ranks: the same bits
+    if job.get("kernel_dispatch"):
+        tatt._kernel_device = lambda device, impl: impl != "jnp"
+    data = job.get("data", 1)
+    mesh = pmesh.make_mesh(data=data, model=world // data)
+    if job.get("head_offset_0"):
+        mesh.model.heads = lambda n_head, _per=mesh.model.heads: (0, _per(n_head)[1])
+    cfg = ModelConfig(**job["cfg"])
+    feed, specs = _dp_feed(job) if "feed" in job else (None, [])
+    numpy = lambda tree: [t.detach().float().numpy().copy() for t in tree_leaves(tree)]  # noqa: E731
+    opt = make_optimizer(1e-3)
+    params = map_tree(lambda t: t.detach().clone().requires_grad_(), job["params"])
+    params, state, placed = shard_train_state(params, opt.init(params), mesh.data,
+                                              job.get("fsdp", False), mesh.model)
+    trainer = make_sharded_trainer(cfg, feed, opt, specs, job.get("eval_iters", 1), mesh,
+                                   fsdp=placed)
+    out = {"specs": placed.specs, "parts_held": placed.parts(),
+           "parts": [numpy(params), numpy(state["mu"]), numpy(state["nu"])]}
+    if feed is not None:
+        ev = trainer.eval_pass(params, StepRng(job["seed"], "cpu"), "val")
+        out["eval"] = {k: v.numpy() for k, v in ev._asdict().items()}
+    as_batch = [tuple(torch.from_numpy(a) for a in b) for b in job["batches"]]
+    loss, grads = trainer.loss_and_grads(params, [as_batch[0]], [job["salts"][0]])
+    out.update(loss=loss.item(), grads=[g.numpy() for g in grads],
+               whole_grads=numpy(placed.whole(list(grads), "grads")))
+    if job.get("remat"):  # each block recomputed in the backward, its all-reduces again
+        remat = make_sharded_trainer(dataclasses.replace(cfg, remat=True), feed, opt, specs, 1,
+                                     mesh, fsdp=placed)
+        rloss, rgrads = remat.loss_and_grads(params, [as_batch[0]], [job["salts"][0]])
+        out["remat"] = (rloss.item(), [g.numpy() for g in rgrads])
+    out["losses"] = [trainer.step(params, state, [b], [s]).item()
+                     for b, s in zip(as_batch, job["salts"])]
+    whole = [placed.whole(t) for t in (params, state["mu"], state["nu"])]
+    out["whole"] = [numpy(t) for t in whole]
+    out["after_parts"] = numpy(params)
+    if job.get("ckpt"):
+        if rank == 0:
+            save_checkpoint(job["ckpt"], whole[0], step=len(as_batch),
+                            opt_state={"count": state["count"], "mu": whole[1], "nu": whole[2]},
+                            optimizer=opt)
+        torch.distributed.barrier()
+        loaded = load_checkpoint(job["ckpt"], cfg, "cpu")[0]
+        got, got_state, _ = shard_train_state(loaded, load_optimizer_state(job["ckpt"], loaded, opt),
+                                              mesh.data, job.get("fsdp", False), mesh.model)
+        out["resumed_parts"] = [numpy(got), numpy(got_state["mu"]), numpy(got_state["nu"])]
     return out

@@ -13,9 +13,13 @@ the TPU, ``attn_impl: jnp`` keeps the dense attention cores, and the Adam
 dtypes, ``params_dtype``, ``lr_schedule``, ``grad_accum``, ``fused_update``
 (the flat-state AdamW, on one rank) and ``remat`` (each block recomputed in
 the backward) shape training as there. ``context_parallel`` runs ring
-attention over that many ranks and ``mesh`` (``{data: P}``, ``auto``) data
-parallelism, one card a rank (parallel/); a plan that needs a tensor,
-modality or pipeline axis, or ``fsdp``, raises (a later slice of the port).
+attention over that many ranks, ``mesh`` data parallelism (``{data: P}``,
+``auto``; with ``fsdp: true`` FSDP / ZeRO-3 over the data axis) and tensor
+parallelism over whole heads (``{model: N}``, N dividing ``n_head``; alone,
+with a data axis, and with ``fsdp``), one card a rank (parallel/); a plan
+that needs a modality or pipeline axis, the model axis with
+``context_parallel``, or a model axis that does not divide ``n_head``
+raises (a later slice of the port).
 The other keys (``rng_impl``, ``scan_unroll``, ``multihost``,
 ``pipeline_microbatches``, ...) are parsed and validated so that every
 config that loads in the JAX package loads here, and change nothing in the

@@ -35,6 +35,19 @@ taken on the fused path even where its dropout is off), feed-forward one, and
 each cross-attending modality two, so the masks are bit-identical to JAX's.
 Every site names its batch axis, so that inside a data-parallel rank's
 ``batch_slice_scope`` (ops/layers.py) its mask is the global batch's rows.
+Inside a tensor-parallel rank's ``head_slice_scope`` (ops/layers.py) the
+parameters are the rank's parts (parallel/mesh.py ``param_pspecs``), and
+each layer runs the Megatron form of its one-rank computation over the
+scope's model axis: self- and cross-attention on the rank's heads (their
+inputs through ``copy_to``; the output projection's first product split
+by rows, its partial sums added in f32 by ``reduce_from`` before its bias
+and tanh), the feed-forward split by hidden columns (the sum before its
+second bias), the token tables by vocabulary rows (a lookup of the rank's
+rows, zeros elsewhere, summed) and the vocabulary heads by hidden columns
+(the f32 logits summed before their bias). A leaf the placement keeps
+whole (a dimension the axis does not divide) runs as on one rank, with no
+collective. Every attention core names its head axis, so the masks are the
+global heads'.
 With ``cfg.remat`` a training forward stores only each block's input and
 recomputes the block in the backward (``torch.utils.checkpoint``, the JAX
 package's ``jax.checkpoint`` with ``nothing_saveable``): memory changes, values
@@ -59,7 +72,7 @@ from ..ops.attention import (
     cross_short_kernel_active,
     fused_qkv_attention_active,
 )
-from ..ops.layers import KeyGen, batch_slice, dropout, layernorm
+from ..ops.layers import KeyGen, batch_slice, dropout, head_slice, layernorm
 from .config import ModelConfig
 
 
@@ -72,6 +85,22 @@ def _mm(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.dtype == torch.bfloat16 and a.device.type == "cpu":
         return torch.einsum(eq, a.float(), b.float()).to(torch.bfloat16)
     return torch.einsum(eq, a, b.to(a.dtype))
+
+
+def _mm_partial(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``_mm`` before its rounding: the product in f32 (f64 under f64) of
+    the operands ``_mm`` multiplies, a row-split product's share, which the
+    model axis sums before the one rounding to the activation dtype."""
+    acc = torch.float64 if a.dtype == torch.float64 else torch.float32
+    if a.device.type != "cpu":
+        b = b.to(a.dtype)
+    return torch.einsum(eq, a.to(acc), b.to(acc))
+
+
+def _tp_axis():
+    """The model axis of an open ``head_slice_scope``, or None."""
+    tp = head_slice()
+    return None if tp is None else tp[3]
 
 
 def _bias(b: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
@@ -110,10 +139,12 @@ def _qkv_project_fused(h: torch.Tensor, sa: Dict[str, torch.Tensor], H: int, hs2
 
 
 def _proj_mlp_heads(
-    att: torch.Tensor, w1, b1, w2, b2, H: int, hs: int, head_major: bool = False
+    att: torch.Tensor, w1, b1, w2, b2, H: int, hs: int, head_major: bool = False, axis=None
 ) -> torch.Tensor:
     """tanh-MLP output projection taking attention output in (..., H, T, hs)
     layout; ``head_major=True`` takes (M, H, B, T, hs) / (H, B, T, hs).
+    ``axis``: the model axis where att and w1 hold the rank's heads; the
+    first product's partial sums are then added over it before b1.
 
     The heads are moved next to hs and flattened to (..., B, T, H*hs), one
     copy (none for T = 1, a decode step), so that both products are plain
@@ -122,10 +153,12 @@ def _proj_mlp_heads(
     dt = att.dtype
     att = att.movedim(-4, -2) if head_major else att.transpose(-3, -2)
     out = att.reshape(*att.shape[:-2], H * hs)
-    if w1.ndim == 3:  # stacked over modality
-        t = torch.tanh(_mm("mbtd,mdc->mbtc", out, w1) + _bias(b1, dt))
+    eq = "mbtd,mdc->mbtc" if w1.ndim == 3 else "btd,dc->btc"  # stacked over modality or not
+    first = _mm(eq, out, w1) if axis is None else axis.reduce_from(_mm_partial(eq, out, w1)).to(dt)
+    if w1.ndim == 3:
+        t = torch.tanh(first + _bias(b1, dt))
         return _mm("mbtc,mcd->mbtd", t, w2) + _bias(b2, dt)
-    t = torch.tanh(_mm("btd,dc->btc", out, w1) + b1.to(dt))
+    t = torch.tanh(first + b1.to(dt))
     return _mm("btc,cd->btd", t, w2) + b2.to(dt)
 
 
@@ -133,9 +166,14 @@ def self_attention(
     x_norm: torch.Tensor, sa: Dict[str, torch.Tensor], cfg: ModelConfig,
     keys: KeyGen, train: bool = False,
 ) -> torch.Tensor:
-    """Multi-head self-attention for all modalities (x_norm: (M, B, T, C))."""
+    """Multi-head self-attention for all modalities (x_norm: (M, B, T, C));
+    on a tensor-parallel rank its heads."""
     _, _, T, _ = x_norm.shape
     H, hs = cfg.n_head, cfg.head_size
+    tp, axis = head_slice(), _tp_axis()
+    if axis is not None:
+        H = tp[1]
+        x_norm = axis.copy_to(x_norm)
     if fused_qkv_attention_active(T, hs, cfg.attn_impl, x_norm.device):
         w1 = torch.cat([sa["w1_q"], sa["w1_k"], sa["w1_v"]], dim=-1)
         b1 = torch.cat([sa["b1_q"], sa["b1_k"], sa["b1_v"]], dim=-1)
@@ -145,18 +183,18 @@ def self_attention(
         att_hm = kernels.fused_qkv_attention(
             x_norm.contiguous(), w1.float(), b1.float(), w2.float(), H,
             cfg.dropout if use_dropout else 0.0, k_att if use_dropout else None,
-            batch_slice(),
+            batch_slice(), None if tp is None else (tp[0], tp[2]),
         )  # (M, H, B, T, hs)
         out = _proj_mlp_heads(
             att_hm, sa["proj_w1"], sa["proj_b1"], sa["proj_w2"], sa["proj_b2"],
-            H, hs, head_major=True,
+            H, hs, head_major=True, axis=axis,
         )
         return dropout(out, cfg.dropout, keys(), train, batch_axis=1)
     q, k, v = _qkv_project_fused(x_norm, sa, H, hs // 2)
     att = causal_attention(q, k, v, cfg.attn_impl, cfg.dropout, keys(), train,
-                           batch_axis=1)  # (M, B, H, T, hs)
+                           batch_axis=1, head_axis=2)  # (M, B, H, T, hs)
     out = _proj_mlp_heads(
-        att, sa["proj_w1"], sa["proj_b1"], sa["proj_w2"], sa["proj_b2"], H, hs
+        att, sa["proj_w1"], sa["proj_b1"], sa["proj_w2"], sa["proj_b2"], H, hs, axis=axis
     )
     return dropout(out, cfg.dropout, keys(), train, batch_axis=1)
 
@@ -172,9 +210,14 @@ def cross_attention(
     Where the whole-row cross kernel runs, q and k/v are emitted head-major,
     (H, B, T, hs) and (J, H, B, T, hs), as the JAX package emits them for its
     kernel; elsewhere in its (B, H, T, hs) order. The collapsed rows key the
-    attention dropout as the JAX package's do."""
+    attention dropout as the JAX package's do. On a tensor-parallel rank its
+    heads."""
     T = query_x.shape[1]
     H, hs = cfg.n_head, cfg.head_size
+    axis = _tp_axis()
+    if axis is not None:
+        H = head_slice()[1]
+        query_x, kv_x = axis.copy_to(query_x), axis.copy_to(kv_x)
     hs_q = cp["q_w"].shape[-1]
     head_major = cross_short_kernel_active(T, hs_q, cfg.attn_impl, query_x.device)
     lead = "hb" if head_major else "bh"
@@ -182,10 +225,11 @@ def cross_attention(
     k = _mm(f"jbtc,jhcf->j{lead}tf", kv_x, cp["kv_w"][..., :hs_q])
     v = _mm(f"jbtc,jhcf->j{lead}tf", kv_x, cp["kv_w"][..., hs_q:])
     att = cross_causal_attention(q, k, v, cfg.attn_impl, cfg.dropout, keys(), train,
-                                 batch_axis=1 if head_major else 0)
+                                 batch_axis=1 if head_major else 0,
+                                 head_axis=0 if head_major else 1)
     out = _proj_mlp_heads(
         att, cp["proj_w1"], cp["proj_b1"], cp["proj_w2"], cp["proj_b2"],
-        H, hs, head_major=head_major,
+        H, hs, head_major=head_major, axis=axis,
     )
     return dropout(out, cfg.dropout, keys(), train, batch_axis=0)
 
@@ -194,10 +238,20 @@ def feed_forward(
     x_norm: torch.Tensor, ff: Dict[str, torch.Tensor], cfg: ModelConfig, keys: KeyGen,
     train: bool = False,
 ) -> torch.Tensor:
-    """C -> 4C -> ReLU -> C -> dropout."""
+    """C -> 4C -> ReLU -> C -> dropout; on a tensor-parallel rank whose
+    placement splits the hidden 4C, its columns."""
     dt = x_norm.dtype
+    axis = _tp_axis()
+    if ff["w1"].shape[-1] == 4 * x_norm.shape[-1]:  # whole
+        axis = None
+    if axis is not None:
+        x_norm = axis.copy_to(x_norm)
     h = torch.relu(_mm("mbtc,mcd->mbtd", x_norm, ff["w1"]) + _bias(ff["b1"], dt))
-    h = _mm("mbtd,mdc->mbtc", h, ff["w2"]) + _bias(ff["b2"], dt)
+    if axis is None:
+        h = _mm("mbtd,mdc->mbtc", h, ff["w2"]) + _bias(ff["b2"], dt)
+    else:
+        h = axis.reduce_from(_mm_partial("mbtd,mdc->mbtc", h, ff["w2"])).to(dt)
+        h = h + _bias(ff["b2"], dt)
     return dropout(h, cfg.dropout, keys(), train, batch_axis=1)
 
 
@@ -238,13 +292,40 @@ def embed(params: Dict[str, Any], cfg: ModelConfig, idx: torch.Tensor) -> torch.
     """Token + shared positional embedding. idx: (M, B, T) -> (M, B, T, C)."""
     T = idx.shape[-1]
     pos = params["pre"]["pos_emb"][:T]
+    if cfg.compute_dtype == "bfloat16":
+        pos = pos.to(torch.bfloat16)
+    axis = _tp_axis()
+    if axis is not None:
+        return _embed_tp(params["pre"]["tok_emb"], cfg, idx, axis) + pos
     Vp = _round128(max(cfg.vocab_sizes))
     tab = torch.stack([F.pad(t, (0, 0, 0, Vp - t.shape[0])) for t in params["pre"]["tok_emb"]])
     if cfg.compute_dtype == "bfloat16":
         tab = tab.to(torch.bfloat16)
-        pos = pos.to(torch.bfloat16)
     mods = torch.arange(tab.shape[0], device=idx.device)[:, None, None]
     return tab[mods, idx.long()] + pos
+
+
+def _embed_tp(tables, cfg: ModelConfig, idx: torch.Tensor, axis) -> torch.Tensor:
+    """The token rows on a tensor-parallel rank: of a table split by
+    vocabulary rows, the lookup of the rank's rows (an index outside them
+    reads an appended zero row), summed over the axis (one non-zero addend:
+    exact); a whole table's lookup as on one rank. (M, B, T, C)."""
+    rows, split = [], []
+    for i, (t, V) in enumerate(zip(tables, cfg.vocab_sizes)):
+        if cfg.compute_dtype == "bfloat16":
+            t = t.to(torch.bfloat16)
+        ids = idx[i].long()
+        if t.shape[0] != V:
+            per = t.shape[0]
+            local = ids - axis.rank * per
+            ids = torch.where((local >= 0) & (local < per), local, per)
+            t = F.pad(t, (0, 0, 0, 1))
+            split.append(i)
+        rows.append(t[ids])
+    if split:
+        summed = iter(axis.reduce_from(torch.stack([rows[i] for i in split])).unbind(0))
+        rows = [next(summed) if i in split else r for i, r in enumerate(rows)]
+    return torch.stack(rows)
 
 
 _HEAD_PAD_NEG = -1e30  # padded-class logit; exp underflows to exactly 0.0
@@ -254,25 +335,47 @@ def logits_heads_padded(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tenso
     """All vocab heads in one batched matmul chain over a padded vocab.
     Padded classes get a -1e30 bias through zeroed weight columns, so softmax
     and sampling over the real classes equal the unpadded computation.
+    On a tensor-parallel rank the heads its placement splits by hidden
+    columns run as a second batch over their local columns (the LN output
+    through ``copy_to``), whose f32 partial logits the axis sums, then
+    rounded where the one-rank product rounds them, before b2.
     Returns (M, B, T, Vp) logits in f32 (f64 under f64)."""
     post = params["post"]
+    heads = post["heads"]
     Vs = list(cfg.vocab_sizes)
     Vp = _round128(max(Vs))
-    Hp = _round128(max(v // 2 for v in Vs))
-    heads = post["heads"]
-    w1 = torch.stack([F.pad(h["w1"], (0, Hp - h["w1"].shape[1])) for h in heads])
-    b1 = torch.stack([F.pad(h["b1"], (0, Hp - h["b1"].shape[0])) for h in heads])
-    w2 = torch.stack([
-        F.pad(h["w2"], (0, Vp - h["w2"].shape[1], 0, Hp - h["w2"].shape[0])) for h in heads
-    ])
-    b2 = torch.stack([
-        F.pad(h["b2"], (0, Vp - h["b2"].shape[0]), value=_HEAD_PAD_NEG) for h in heads
-    ])
     h = layernorm(x, post["ln_scale"], post["ln_bias"])
     dt = h.dtype
-    t = torch.tanh(_mm("mbtc,mch->mbth", h, w1) + _bias(b1, dt))
-    logits = _mm("mbth,mhv->mbtv", t, w2)
     acc = torch.float64 if dt == torch.float64 else torch.float32
+    axis = _tp_axis()
+    split = [] if axis is None else [i for i, hd in enumerate(heads)
+                                     if hd["w1"].shape[1] != Vs[i] // 2]
+    whole = [i for i in range(len(heads)) if i not in split]
+    outs = []
+    for group, part in ((split, True), (whole, False)):
+        if not group:
+            continue
+        Hp = _round128(max(heads[i]["w1"].shape[1] for i in group))
+        w1 = torch.stack([F.pad(heads[i]["w1"], (0, Hp - heads[i]["w1"].shape[1])) for i in group])
+        b1 = torch.stack([F.pad(heads[i]["b1"], (0, Hp - heads[i]["b1"].shape[0])) for i in group])
+        w2 = torch.stack([F.pad(heads[i]["w2"], (0, Vp - heads[i]["w2"].shape[1],
+                                                 0, Hp - heads[i]["w2"].shape[0])) for i in group])
+        hx = h if len(group) == len(heads) else h[group]
+        if part:
+            hx = axis.copy_to(hx)
+        t = torch.tanh(_mm("mbtc,mch->mbth", hx, w1) + _bias(b1, dt))
+        if part:
+            outs.append((group, axis.reduce_from(_mm_partial("mbth,mhv->mbtv", t, w2)).to(dt)))
+        else:
+            outs.append((group, _mm("mbth,mhv->mbtv", t, w2)))
+    if len(outs) == 1:
+        logits = outs[0][1]
+    else:
+        by_modality = {i: o for group, out in outs for i, o in zip(group, out.unbind(0))}
+        logits = torch.stack([by_modality[i] for i in range(len(heads))])
+    b2 = torch.stack([
+        F.pad(hd["b2"], (0, Vp - hd["b2"].shape[0]), value=_HEAD_PAD_NEG) for hd in heads
+    ])
     return logits.to(acc) + b2.to(acc)[:, None, None, :]
 
 

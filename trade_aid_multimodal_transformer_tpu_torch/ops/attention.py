@@ -18,7 +18,9 @@ everywhere else, as the JAX package leaves shapes outside both to XLA.
 attention (one query position against the KV cache) dispatches in
 models/cache.py. A core given its batch axis (``batch_axis``) keys its
 dropout by global batch rows inside a data-parallel rank's
-``layers.batch_slice_scope``, in the dense cores and the kernels alike.
+``layers.batch_slice_scope``, and given its head axis (``head_axis``) by
+global heads inside a tensor-parallel rank's ``layers.head_slice_scope``,
+in the dense cores and the kernels alike.
 
 Inside ``context_parallel_scope`` (opened by the context-parallel trainer,
 ``tpu_options.context_parallel``) both cores route through ring attention
@@ -52,14 +54,17 @@ def causal_attention_dense(
     dropout_key: Optional[Sequence[int]] = None,
     train: bool = False,
     batch_axis: Optional[int] = None,
+    head_axis: Optional[int] = None,
 ) -> torch.Tensor:
     """Dense causal attention over trailing (T, head_size) axes. Leading axes
-    broadcast (q may have fewer leading dims than k/v); ``batch_axis`` is
-    q's batch axis (counted from the left of q's shape)."""
+    broadcast (q may have fewer leading dims than k/v); ``batch_axis`` and
+    ``head_axis`` are q's batch and head axes (counted from the left of q's
+    shape)."""
     dt = q.dtype
     if dt == torch.bfloat16 and q.device.type == "cpu":
         return causal_attention_dense(
-            q.float(), k.float(), v.float(), dropout_rate, dropout_key, train, batch_axis
+            q.float(), k.float(), v.float(), dropout_rate, dropout_key, train, batch_axis,
+            head_axis,
         ).to(dt)
     acc = torch.float64 if dt == torch.float64 else torch.float32
     t_q, t_k = q.shape[-2], k.shape[-2]
@@ -67,8 +72,10 @@ def causal_attention_dense(
     aff = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
     mask = torch.ones(t_q, t_k, dtype=torch.bool, device=q.device).tril()
     aff = torch.softmax(aff.masked_fill(~mask, float("-inf")), dim=-1)
-    axis = None if batch_axis is None else batch_axis + aff.ndim - q.ndim
-    aff = dropout(aff, dropout_rate, dropout_key, train, axis)
+    shift = aff.ndim - q.ndim
+    aff = dropout(aff, dropout_rate, dropout_key, train,
+                  None if batch_axis is None else batch_axis + shift,
+                  None if head_axis is None else head_axis + shift)
     return torch.matmul(aff.to(v.dtype).to(acc), v.to(acc)).to(dt)
 
 
@@ -173,6 +180,7 @@ def causal_attention(
     dropout_key: Optional[Sequence[int]] = None,
     train: bool = False,
     batch_axis: Optional[int] = None,
+    head_axis: Optional[int] = None,
 ) -> torch.Tensor:
     """Causal self-attention over separate q, k, v (..., T, hs), the JAX
     package's ``causal_attention``. On the card: in the band the
@@ -182,14 +190,16 @@ def causal_attention(
     kernels (K5f forward, K5b backward), the collapsed leading axes keying
     the dropout as the JAX kernels key it; the dense core elsewhere.
     ``batch_axis``: q's batch axis, whose rows key the dropout by their
-    global rows in a data-parallel rank's batch slice scope."""
+    global rows in a data-parallel rank's batch slice scope; ``head_axis``
+    its head axis, by global heads in a tensor-parallel rank's head slice
+    scope."""
     scope = _cp_active(q)
     if scope is not None and q.shape == k.shape:
         return _cp_self_attention(q, k, v, scope, dropout_rate, dropout_key, train, impl)
     t, hs = q.shape[-2], q.shape[-1]
     use_dropout = train and dropout_rate > 0.0
     rate, key = (dropout_rate, dropout_key) if use_dropout else (0.0, None)
-    rows = batch_row_map(q.shape[:-2], batch_axis) if use_dropout else None
+    rows = batch_row_map(q.shape[:-2], batch_axis, head_axis) if use_dropout else None
     if _kernel_device(q.device, impl) and q.shape == k.shape == v.shape:
         if kernels.in_band(t, hs):
             if rows is not None:
@@ -200,7 +210,8 @@ def causal_attention(
                                                   v.contiguous(), rate, key)
         if kernels.flash_eligible(t, hs) and q.ndim >= 3:
             return kernels.flash_causal_attention(q, k, v, rate, key, rows)
-    return causal_attention_dense(q, k, v, dropout_rate, dropout_key, train, batch_axis)
+    return causal_attention_dense(q, k, v, dropout_rate, dropout_key, train, batch_axis,
+                                  head_axis)
 
 
 def packed_attention_active(t: int, hs: int, impl: str, device: torch.device) -> bool:
@@ -245,6 +256,7 @@ def cross_causal_attention(
     dropout_key: Optional[Sequence[int]] = None,
     train: bool = False,
     batch_axis: Optional[int] = None,
+    head_axis: Optional[int] = None,
 ) -> torch.Tensor:
     """Causal attention of one query stream q (..., T, hs) against J
     key/value streams (J, ..., T, hs), summed over the streams. The collapsed
@@ -260,23 +272,25 @@ def cross_causal_attention(
     context-parallel scope: ring attention per stream, summed.
     ``batch_axis``: q's batch axis (0 in JAX's order, 1 head-major), whose
     rows key the dropout by their global rows in a data-parallel rank's
-    batch slice scope."""
+    batch slice scope; ``head_axis`` its head axis (1 in JAX's order, 0
+    head-major), by global heads in a tensor-parallel rank's head slice
+    scope."""
     scope = _cp_active(q)
     if scope is not None:
         return _cp_cross_attention(q, k, v, scope, dropout_rate, dropout_key, train, impl)
     t, hs = q.shape[-2], q.shape[-1]
     use_dropout = train and dropout_rate > 0.0
     rate, key = (dropout_rate, dropout_key) if use_dropout else (0.0, None)
-    rows = batch_row_map(q.shape[:-2], batch_axis) if use_dropout else None
+    rows = batch_row_map(q.shape[:-2], batch_axis, head_axis) if use_dropout else None
     if _kernel_device(q.device, impl):
         if kernels.in_band(t, hs):
             return kernels.short_cross_attention(q.contiguous(), k.contiguous(),
                                                  v.contiguous(), rate, key, rows)
         if kernels.flash_eligible(t, hs):
             return kernels.flash_cross_attention(q, k, v, rate, key, rows)
-    axis = None if batch_axis is None else batch_axis + 1
     return causal_attention_dense(q[None], k, v, dropout_rate, dropout_key, train,
-                                  axis).sum(dim=0)
+                                  None if batch_axis is None else batch_axis + 1,
+                                  None if head_axis is None else head_axis + 1).sum(dim=0)
 
 
 # ------------------------------------------------- chunk core (ring/CP shared)

@@ -95,7 +95,9 @@ struct BwdArgs {
   int layout;        // a BwdLayout
   int B, H, gb;      // kFusedRows: B, H, gb; kPackedRows: H
   int Bg, b0;        // kFusedRows: the global batch and this launch's first row of it
-  RowMap rm;         // kSelfRows, kCrossRows: the rows' mask rows (data parallelism)
+  RowMap rm;         // kSelfRows, kCrossRows: the rows' mask rows (data parallelism);
+                     // kFusedRows: span the model's head count Hg, base the global
+                     // head h0 of head 0 (tensor parallelism), skip unused
   int vec;           // bf16 body: 16-byte copies (hs % 8 == 0, aligned)
 };
 
@@ -115,8 +117,9 @@ struct RowPlanes {
       q_off = ((size_t)m * 3 * a.H + h) * head + b * plane;
       k_off = q_off + (size_t)a.H * head;
       v_off = k_off + (size_t)a.H * head;
-      const int bg = a.b0 + b, pid = m * (a.Bg / a.gb) + bg / a.gb;  // the global batch's row
-      n_idx = (uint32_t)(pid * a.gb * a.H + h * a.gb + bg % a.gb);
+      // the global batch's row bg and the model's head rm.base + h of its rm.span
+      const int bg = a.b0 + b, pid = m * (a.Bg / a.gb) + bg / a.gb;
+      n_idx = (uint32_t)(pid * a.gb * a.rm.span + (a.rm.base + h) * a.gb + bg % a.gb);
     } else if (a.layout == kPackedRows) {
       q_off = ((size_t)(r / a.H) * 3 * a.H + r % a.H) * plane;
       k_off = q_off + (size_t)a.H * plane;

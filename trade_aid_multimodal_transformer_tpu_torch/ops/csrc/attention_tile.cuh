@@ -91,13 +91,31 @@ struct RowMap {
   }
 };
 
+// The mask row of a flash kernel's collapsed row n under data and tensor
+// parallelism: two affine levels. Where a rank holds heads [h0, h0 + Hl) of
+// Hg inside rows (o B + b) Hl + h, the inner (head) level n1 = n + (n /
+// ispan) iskip (ispan = Hl, iskip = Hg - Hl) widens the heads to Hg, then
+// the outer (batch) level n1 + (n1 / span) skip + base as RowMap's, its base
+// holding both levels' offsets. iskip 0 is one level, all zero but span and
+// ispan (1) the identity.
+struct FlashRows {
+  int span, skip, base, ispan, iskip;
+  __host__ __device__ __forceinline__ uint32_t operator()(int n) const {
+    const int n1 = n + (iskip != 0 ? n / ispan * iskip : 0);
+    return (uint32_t)(n1 + (skip != 0 ? n1 / span * skip : 0) + base);
+  }
+  __host__ __device__ __forceinline__ bool mapped() const {
+    return skip != 0 || base != 0 || iskip != 0;
+  }
+};
+
 // The mask row of a flash kernel's row: mapped in the kMapped instances, the
 // row itself in the one-rank instances, whose code stays as it was before
 // the map. The flash kernels take the map as a parameter of its own: 12
 // more bytes in their argument structs (past 128) made the bf16 ones at
 // D = 64 spill and run slower, whichever instance ran.
 template <bool kMapped>
-__device__ __forceinline__ uint32_t mask_row(RowMap rm, int row) {
+__device__ __forceinline__ uint32_t mask_row(FlashRows rm, int row) {
   return kMapped ? rm(row) : (uint32_t)row;
 }
 

@@ -163,7 +163,7 @@ __device__ inline void load_rows_f32(const float* src, int R, float* dst) {
 // without it), the longest rows first.
 template <bool kCausal>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdArgs a,
-                                                                   const RowMap rm) {
+                                                                   const FlashRows rm) {
   extern __shared__ __align__(128) char smem[];
   const BwdLayout<1> L(a.R, a.hs);
   float* sq = reinterpret_cast<float*>(smem + L.off_t[0]);
@@ -213,7 +213,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const BwdArgs a,
 // query row (t_k > t_q) sees no query: its gradients are zero.
 template <bool kCausal>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const BwdArgs a,
-                                                                    const RowMap rm) {
+                                                                    const FlashRows rm) {
   extern __shared__ __align__(128) char smem[];
   const BwdLayout<2> L(a.R, a.hs);
   float* sk = reinterpret_cast<float*>(smem + L.off_t[0]);
@@ -273,7 +273,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(const BwdArgs a
 
 template <typename Kernel>
 int launch_bwd(Kernel kernel, int threads, size_t smem, long long blocks, const BwdArgs& a,
-               RowMap rm, cudaStream_t stream) {
+               FlashRows rm, cudaStream_t stream) {
   if (blocks <= 0 || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -283,7 +283,7 @@ int launch_bwd(Kernel kernel, int threads, size_t smem, long long blocks, const 
 }
 
 template <bool kCausal>
-int launch_flash_bwd_f32(BwdArgs a, RowMap rm, cudaStream_t stream) {
+int launch_flash_bwd_f32(BwdArgs a, FlashRows rm, cudaStream_t stream) {
   // one tile height for both kernels: the dk/dv layout is the larger
   a.R = pick_rows<BwdLayout<2>>(a.hs);
   if (a.R == 0 || a.Tq % a.R != 0 || a.Tk % a.R != 0 || a.bq % a.R != 0 || a.bk % a.R != 0)
@@ -340,7 +340,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 // diagonal, the longest query tiles first over every collapsed row.
 template <int D, bool kCausal, bool kMapped>
 __global__ void __launch_bounds__(MmaBwd<D>::kThreads, MmaBwd<D>::kDqBlocks)
-    flash_bwd_dq_mma_kernel(const BwdArgs a, const RowMap rm) {
+    flash_bwd_dq_mma_kernel(const BwdArgs a, const FlashRows rm) {
   using C = MmaBwd<D>;
   using bf16 = __nv_bfloat16;
   constexpr int kBr = C::kRows, kBc = C::kCols, kLd = C::kLd;
@@ -500,7 +500,7 @@ __global__ void __launch_bounds__(MmaBwd<D>::kThreads, MmaBwd<D>::kDqBlocks)
 // longest key columns first over every collapsed row.
 template <int D, bool kCausal, bool kMapped>
 __global__ void __launch_bounds__(MmaBwd<D>::kThreads, MmaBwd<D>::kDkvBlocks)
-    flash_bwd_dkv_mma_kernel(const BwdArgs a, const RowMap rm) {
+    flash_bwd_dkv_mma_kernel(const BwdArgs a, const FlashRows rm) {
   using C = MmaBwd<D>;
   using bf16 = __nv_bfloat16;
   constexpr int kBk = C::kRows, kBq = C::kCols, kLd = C::kLd;
@@ -720,7 +720,7 @@ __global__ void __launch_bounds__(MmaBwd<D>::kThreads, MmaBwd<D>::kDkvBlocks)
 // The dq kernel, then the dk/dv kernel. Every tile lies in one JAX block
 // (the dropout keys): kRows and kCols divide bq and bk.
 template <int D, bool kCausal, bool kMapped>
-int launch_flash_bwd_mma(const BwdArgs& a, RowMap rm, cudaStream_t stream) {
+int launch_flash_bwd_mma(const BwdArgs& a, FlashRows rm, cudaStream_t stream) {
   using C = MmaBwd<D>;
   if (a.Tq % C::kRows != 0 || a.Tk % C::kRows != 0 || a.bq % C::kRows != 0 ||
       a.bk % C::kRows != 0)
@@ -733,10 +733,10 @@ int launch_flash_bwd_mma(const BwdArgs& a, RowMap rm, cudaStream_t stream) {
 }
 
 template <int D>
-int launch_flash_bwd_d(const BwdArgs& a, RowMap rm, cudaStream_t stream) {
+int launch_flash_bwd_d(const BwdArgs& a, FlashRows rm, cudaStream_t stream) {
   // mapped mask rows (data parallelism) come only with the causal mask (K5b),
   // in instances of their own (flash_fwd_mma_kernel's note)
-  const bool mapped = rm.skip != 0 || rm.base != 0;
+  const bool mapped = rm.mapped();
   if (!a.causal)
     return mapped ? (int)cudaErrorInvalidValue
                   : launch_flash_bwd_mma<D, false, false>(a, rm, stream);
@@ -746,7 +746,7 @@ int launch_flash_bwd_d(const BwdArgs& a, RowMap rm, cudaStream_t stream) {
 
 // bf16 on the tensor cores (mma.sync, hs padded to D = 64, 128 or 256), f32
 // on FMAs; the causal mask or none.
-inline int launch_flash_bwd(BwdArgs a, RowMap rm, int is_bf16, cudaStream_t stream) {
+inline int launch_flash_bwd(BwdArgs a, FlashRows rm, int is_bf16, cudaStream_t stream) {
   if (is_bf16) {
     a.vec = a.hs % 8 == 0 && aligned16({a.q, a.k, a.v, a.dout, a.dq, a.dk, a.dv});
     if (a.hs <= 0 || a.hs > 256) return (int)cudaErrorInvalidValue;
@@ -761,7 +761,7 @@ inline int launch_flash_bwd(BwdArgs a, RowMap rm, int is_bf16, cudaStream_t stre
 
 int chunk_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int n, int Tq,
               int Tk, int hs, int causal, int is_bf16, float scale, unsigned seed,
-              unsigned thresh, int rate_on, float keepf, int bq, int bk, RowMap rm,
+              unsigned thresh, int rate_on, float keepf, int bq, int bk, FlashRows rm,
               void* stream) {
   FwdArgs a{};
   a.q = q; a.k = k; a.v = v; a.out = out; a.lse = static_cast<float*>(lse);
@@ -774,7 +774,7 @@ int chunk_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
 int chunk_bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, void* dq, void* dk, void* dv, int n, int Tq, int Tk, int hs,
               int causal, int is_bf16, float scale, unsigned seed, unsigned thresh, int rate_on,
-              float keepf, int bq, int bk, RowMap rm, void* stream) {
+              float keepf, int bq, int bk, FlashRows rm, void* stream) {
   BwdArgs a{};
   a.q = q; a.k = k; a.v = v; a.dout = dout;
   a.lse = static_cast<const float*>(lse); a.delta = static_cast<const float*>(delta);
@@ -791,16 +791,18 @@ int chunk_bwd(const void* q, const void* k, const void* v, const void* dout, con
 // (n, 1, T) f32. Dropout (rate_on) keeps score (row, col) of collapsed row i
 // by the hash of (seed, g(i), row / blk, col / blk, row % blk, col % blk)
 // against thresh, blk the JAX kernels' block (flash_pick_block(T)); keepf is
-// 1 - rate; g(i) = i + (i / span) skip + base is the row's row in the global
-// batch (tat::RowMap; span 1, skip 0, base 0 on one rank). Returns the
-// cudaError_t of the launch.
+// 1 - rate; g(i) is the row's row in the global call under data and tensor
+// parallelism (tat::FlashRows{span, skip, base, ispan, iskip}; span 1, skip
+// 0, base 0, ispan 1, iskip 0 on one rank). Returns the cudaError_t of the
+// launch.
 extern "C" int tat_flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                        void* lse, int n, int T, int hs, int is_bf16,
                                        float scale, unsigned seed, unsigned thresh, int rate_on,
                                        float keepf, int blk, int span, int skip, int base,
-                                       void* stream) {
+                                       int ispan, int iskip, void* stream) {
   return tat::flash::chunk_fwd(q, k, v, out, lse, n, T, T, hs, 1, is_bf16, scale, seed, thresh,
-                               rate_on, keepf, blk, blk, tat::RowMap{span, skip, base}, stream);
+                               rate_on, keepf, blk, blk,
+                               tat::FlashRows{span, skip, base, ispan, iskip}, stream);
 }
 
 // K5b. dq, dk, dv (n, T, hs) in the inputs' type from q, k, v, dout, the
@@ -813,10 +815,10 @@ extern "C" int tat_flash_attention_bwd(const void* q, const void* k, const void*
                                        void* dq, void* dk, void* dv, int n, int T, int hs,
                                        int is_bf16, float scale, unsigned seed, unsigned thresh,
                                        int rate_on, float keepf, int blk, int span, int skip,
-                                       int base, void* stream) {
+                                       int base, int ispan, int iskip, void* stream) {
   return tat::flash::chunk_bwd(q, k, v, dout, lse, delta, dq, dk, dv, n, T, T, hs, 1, is_bf16,
                                scale, seed, thresh, rate_on, keepf, blk, blk,
-                               tat::RowMap{span, skip, base}, stream);
+                               tat::FlashRows{span, skip, base, ispan, iskip}, stream);
 }
 
 // K7f. q, out (n, Tq, hs), k, v (n, Tk, hs), one type (bf16 or f32),
@@ -829,7 +831,7 @@ extern "C" int tat_flash_chunk_fwd(const void* q, const void* k, const void* v, 
                                    int is_bf16, float scale, unsigned seed, unsigned thresh,
                                    int rate_on, float keepf, int bq, int bk, void* stream) {
   return tat::flash::chunk_fwd(q, k, v, out, lse, n, Tq, Tk, hs, causal, is_bf16, scale, seed,
-                               thresh, rate_on, keepf, bq, bk, tat::RowMap{}, stream);
+                               thresh, rate_on, keepf, bq, bk, tat::FlashRows{}, stream);
 }
 
 // K7b. dq (n, Tq, hs), dk, dv (n, Tk, hs) in the inputs' type from q, k, v,
@@ -844,5 +846,5 @@ extern "C" int tat_flash_chunk_bwd(const void* q, const void* k, const void* v,
                                    void* stream) {
   return tat::flash::chunk_bwd(q, k, v, dout, lse, delta, dq, dk, dv, n, Tq, Tk, hs, causal,
                                is_bf16, scale, seed, thresh, rate_on, keepf, bq, bk,
-                               tat::RowMap{}, stream);
+                               tat::FlashRows{}, stream);
 }

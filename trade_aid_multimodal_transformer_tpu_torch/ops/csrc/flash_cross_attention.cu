@@ -27,7 +27,7 @@ namespace {
 
 int cross_fwd(const void* q, const void* k, const void* v, void* out, void* outs, void* lses,
               int J, int n, int T, int hs, int is_bf16, float scale, unsigned seed,
-              unsigned thresh, int rate_on, float keepf, int blk, tat::RowMap rm,
+              unsigned thresh, int rate_on, float keepf, int blk, tat::FlashRows rm,
               void* stream) {
   tat::flash::FwdArgs a{};
   a.q = q; a.k = k; a.v = v; a.out = out; a.lse = nullptr;
@@ -43,16 +43,16 @@ int cross_fwd(const void* q, const void* k, const void* v, void* out, void* outs
 // K6f. q, out (n, T, hs); k, v (J, n, T, hs); one type (bf16 or f32),
 // contiguous. Dropout keeps score (row, col) of stream j of collapsed row i by
 // the hash of (seed + (j + 1) * 1000003, g(i), row / blk, col / blk, row %
-// blk, col % blk) against thresh; keepf is 1 - rate; g(i) = i + (i / span)
-// skip + base is the row's row in the global batch (tat::RowMap; span 1,
-// skip 0, base 0 on one rank). Returns the cudaError_t.
+// blk, col % blk) against thresh; keepf is 1 - rate; g(i) is the row's row
+// in the global call (tat::FlashRows, as K5f's). Returns the cudaError_t.
 extern "C" int tat_flash_cross_attention_fwd(const void* q, const void* k, const void* v,
                                              void* out, int J, int n, int T, int hs,
                                              int is_bf16, float scale, unsigned seed,
                                              unsigned thresh, int rate_on, float keepf, int blk,
-                                             int span, int skip, int base, void* stream) {
+                                             int span, int skip, int base, int ispan,
+                                             int iskip, void* stream) {
   return cross_fwd(q, k, v, out, nullptr, nullptr, J, n, T, hs, is_bf16, scale, seed, thresh,
-                   rate_on, keepf, blk, tat::RowMap{span, skip, base}, stream);
+                   rate_on, keepf, blk, tat::FlashRows{span, skip, base, ispan, iskip}, stream);
 }
 
 // K6f-r. As K6f, and each stream's output outs (J, n, T, hs) in q's type and
@@ -62,7 +62,7 @@ extern "C" int tat_flash_cross_attention_fwd_res(const void* q, const void* k, c
                                                  int T, int hs, int is_bf16, float scale,
                                                  unsigned seed, unsigned thresh, int rate_on,
                                                  float keepf, int blk, int span, int skip,
-                                                 int base, void* stream) {
+                                                 int base, int ispan, int iskip, void* stream) {
   return cross_fwd(q, k, v, out, outs, lses, J, n, T, hs, is_bf16, scale, seed, thresh,
-                   rate_on, keepf, blk, tat::RowMap{span, skip, base}, stream);
+                   rate_on, keepf, blk, tat::FlashRows{span, skip, base, ispan, iskip}, stream);
 }

@@ -22,7 +22,7 @@
 // by the seed itself for self-attention and the chunks, on the JAX block
 // grid (flash_tile.cuh keep(): query blocks bq, key blocks bk, which differ
 // where t_q != t_k), at each row's global row under data parallelism (the
-// kernels' RowMap parameter). The tiles differ from the JAX blocks, so p is rounded
+// kernels' FlashRows parameter). The tiles differ from the JAX blocks, so p is rounded
 // relative to another running max: agreement with the JAX kernel is to
 // tolerance, not to the bit.
 //
@@ -104,7 +104,7 @@ struct FwdLayout {
 // The f32 body. At most 85 registers a thread.
 template <bool kCausal>
 __global__ void __launch_bounds__(kThreads, 3) flash_fwd_kernel(const FwdArgs a,
-                                                                      const RowMap rm) {
+                                                                      const FlashRows rm) {
   extern __shared__ __align__(128) char smem[];
   const FwdLayout L(a.R, a.hs);
   float* sq = reinterpret_cast<float*>(smem);
@@ -204,7 +204,7 @@ __global__ void __launch_bounds__(kThreads, 3) flash_fwd_kernel(const FwdArgs a,
 }
 
 template <bool kCausal>
-int launch_flash_fwd_f32(FwdArgs a, RowMap rm, cudaStream_t stream) {
+int launch_flash_fwd_f32(FwdArgs a, FlashRows rm, cudaStream_t stream) {
   a.R = pick_rows<FwdLayout>(a.hs);
   if (a.R == 0 || a.Tq % a.R != 0 || a.Tk % a.R != 0 || a.bq % a.R != 0 || a.bk % a.R != 0)
     return (int)cudaErrorInvalidValue;
@@ -315,7 +315,7 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, __nv_bfloat16* st
 // mask rows are mapped (rm, data parallelism; mask_row).
 template <int D, bool kCausal, bool kMulti, bool kMapped>
 __global__ void __launch_bounds__(MmaFwd<D>::kThreads, MmaFwd<D>::kMinBlocks)
-    flash_fwd_mma_kernel(const FwdArgs a, const RowMap rm) {
+    flash_fwd_mma_kernel(const FwdArgs a, const FlashRows rm) {
   using C = MmaFwd<D>;
   using bf16 = __nv_bfloat16;
   constexpr int kBr = C::kBr, kBc = C::kBc, kLd = C::kLd;
@@ -546,7 +546,7 @@ __global__ void __launch_bounds__(MmaFwd<D>::kThreads, MmaFwd<D>::kMinBlocks)
 }
 
 template <int D, bool kCausal, bool kMulti, bool kMapped>
-int launch_flash_fwd_mma(const FwdArgs& a, RowMap rm, cudaStream_t stream) {
+int launch_flash_fwd_mma(const FwdArgs& a, FlashRows rm, cudaStream_t stream) {
   using C = MmaFwd<D>;
   if (a.Tq % C::kBr != 0 || a.Tk % C::kBc != 0 || a.bq % C::kBr != 0 || a.bk % C::kBc != 0)
     return (int)cudaErrorInvalidValue;
@@ -564,9 +564,9 @@ int launch_flash_fwd_mma(const FwdArgs& a, RowMap rm, cudaStream_t stream) {
 // J streams summed under the causal mask (the cross kernels), or one stream
 // with the causal mask or none.
 template <int D>
-int launch_flash_fwd_d(const FwdArgs& a, RowMap rm, cudaStream_t stream) {
+int launch_flash_fwd_d(const FwdArgs& a, FlashRows rm, cudaStream_t stream) {
   // mapped mask rows come only with the causal mask (K5f, K6f, K6f-r)
-  const bool mapped = rm.skip != 0 || rm.base != 0;
+  const bool mapped = rm.mapped();
   if (!a.causal)
     return a.J > 1 || mapped ? (int)cudaErrorInvalidValue
                              : launch_flash_fwd_mma<D, false, false, false>(a, rm, stream);
@@ -579,7 +579,7 @@ int launch_flash_fwd_d(const FwdArgs& a, RowMap rm, cudaStream_t stream) {
 
 // bf16 on the tensor cores (mma.sync, hs padded to D = 64, 128 or 256), f32
 // on FMAs; the causal mask or none.
-inline int launch_flash_fwd(FwdArgs a, RowMap rm, int is_bf16, cudaStream_t stream) {
+inline int launch_flash_fwd(FwdArgs a, FlashRows rm, int is_bf16, cudaStream_t stream) {
   if (is_bf16) {
     a.vec = a.hs % 8 == 0 && aligned16({a.q, a.k, a.v, a.out, a.outs});
     if (a.hs <= 0 || a.hs > 256) return (int)cudaErrorInvalidValue;

@@ -15,7 +15,8 @@
 // interpret-mode mask: row pid * gb * H + h * gb + b % gb of its (m, batch
 // group) programs (FwdDrop, fqkv_dropout). Under data parallelism b is the
 // row's row b0 + b of the global batch of Bg rows, and gb is the global
-// batch's group.
+// batch's group; under tensor parallelism the launch holds heads [h0, h0 +
+// H) of the model's Hg, and h and H in the row are the global h0 + h and Hg.
 //
 // What bounds it on the H100: at the production shape (x 4x32x64x384 bf16,
 // H=6, hs=64) the work is ~4.4 GFLOP, most of it the C=384 -> 3*hs/2
@@ -52,24 +53,26 @@ constexpr int kChunk = 32;  // contraction chunk of the first product
 
 // Dropout arguments of a launch: seed (s0 ^ s1 of the site's salts), keep
 // threshold, on/off, 1 - rate as f32, the JAX kernel's batch group gb of the
-// global batch of Bg rows, and b0, the global row of the launch's first.
+// global batch of Bg rows, b0, the global row of the launch's first, the
+// model's head count Hg and h0, the global head of the launch's first.
 struct FwdDrop {
   uint32_t seed, thresh;
   int on;
   float keepf;
-  int gb, Bg, b0;
+  int gb, Bg, b0, Hg, h0;
 };
 
-// The mask row of (m, b, h) in the JAX kernel on the global batch: program
-// pid = m * (Bg / gb) + bg / gb holds gb batch rows of every head, collapsed
-// head-major, where bg = b0 + b.
-__device__ inline uint32_t fqkv_mask_row(int gb, int Bg, int b0, int m, int b, int h, int H) {
+// The mask row of (m, b, h) in the JAX kernel on the global batch and all
+// Hg heads: program pid = m * (Bg / gb) + bg / gb holds gb batch rows of
+// every head, collapsed head-major, where bg = b0 + b and hg = h0 + h.
+__device__ inline uint32_t fqkv_mask_row(int gb, int Bg, int b0, int Hg, int h0, int m, int b,
+                                         int h) {
   const int bg = b0 + b, pid = m * (Bg / gb) + bg / gb;
-  return (uint32_t)(pid * gb * H + h * gb + bg % gb);
+  return (uint32_t)(pid * gb * Hg + (h0 + h) * gb + bg % gb);
 }
 
-__device__ inline Dropout fqkv_dropout(const FwdDrop& dr, int m, int b, int h, int H) {
-  return Dropout{dr.seed, fqkv_mask_row(dr.gb, dr.Bg, dr.b0, m, b, h, H), dr.thresh,
+__device__ inline Dropout fqkv_dropout(const FwdDrop& dr, int m, int b, int h) {
+  return Dropout{dr.seed, fqkv_mask_row(dr.gb, dr.Bg, dr.b0, dr.Hg, dr.h0, m, b, h), dr.thresh,
                  dr.on != 0};
 }
 
@@ -367,7 +370,7 @@ __global__ void __launch_bounds__(kThreads)
   const int b = (int)(bid % B);
   const int m = (int)(bid / B);
   const int q0 = qt * R;
-  const Dropout d = fqkv_dropout(dr, m, b, h, H);
+  const Dropout d = fqkv_dropout(dr, m, b, h);
 
   Tile t = carve_tile(smem, R, hs);
   float* sT = smem + tile_floats(R, hs);
@@ -441,7 +444,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int b = (int)(bid % B);
   const int m = (int)(bid / B);
   const int q0 = qt * R;
-  const Dropout d = fqkv_dropout(dr, m, b, h, H);
+  const Dropout d = fqkv_dropout(dr, m, b, h);
 
   const LayoutTc L = layout_tc(R, hs);
   TileTc t;
@@ -631,6 +634,7 @@ struct MmaArgs {
   int on;          // dropout
   float keepf;     // 1 - rate as f32
   int gb, Bg, b0;  // the JAX kernel's batch group of the global batch, its rows, our first
+  int Hg, h0;      // the model's heads, our first
   int vec_x;       // x by 16-byte cp.async
   int vec_out;     // out by 16-byte stores
 };
@@ -865,7 +869,7 @@ __global__ void __launch_bounds__(128 * kBR * kGW, kBR == 2 ? kPairBlocksPerSM :
   bf16* sv = sk + kRowsQ * kLd;
   const bool active = k.gw == 0 && q0 + w0 < Tn;  // the warps that hold q: the attention
   const int qrow[2] = {q0 + w0 + (lane >> 2), q0 + w0 + (lane >> 2) + 8};
-  const uint32_t n_idx = fqkv_mask_row(a.gb, a.Bg, a.b0, m, b, h, H);
+  const uint32_t n_idx = fqkv_mask_row(a.gb, a.Bg, a.b0, a.Hg, a.h0, m, b, h);
   const bool on = a.on != 0;
   const KeepRowW kr[2] = {KeepRowW(on, a.seed, n_idx, (uint32_t)qrow[0], a.thresh),
                           KeepRowW(on, a.seed, n_idx, (uint32_t)qrow[1], a.thresh)};
@@ -978,7 +982,7 @@ inline int launch(const void* x, const void* w1, const void* b1, const void* w2,
   a.B = B; a.Tn = Tn; a.C = C; a.H = H; a.hs = hs;
   a.sl2 = scale * wr::kLog2e;
   a.seed = dr.seed; a.thresh = dr.thresh; a.on = dr.on; a.keepf = dr.keepf;
-  a.gb = dr.gb; a.Bg = dr.Bg; a.b0 = dr.b0;
+  a.gb = dr.gb; a.Bg = dr.Bg; a.b0 = dr.b0; a.Hg = dr.Hg; a.h0 = dr.h0;
   a.vec_x = C % 8 == 0 && flash::aligned16({x});
   a.vec_out = flash::aligned16({out});
   if (ws == nullptr || !flash::aligned16({ws})) return (int)cudaErrorInvalidValue;
@@ -1006,7 +1010,9 @@ inline int launch(const void* x, const void* w1, const void* b1, const void* w2,
 // a call and the other bodies leave unused: this entry alone picks the body.
 // Dropout (rate_on): the JAX kernel's mask rows, with batch groups of gb
 // (_fqkv_pick_gb) of the global batch of Bg rows, of which x holds rows
-// [b0, b0 + B) (Bg = B, b0 = 0 on one rank); keepf = 1 - rate as f32.
+// [b0, b0 + B) (Bg = B, b0 = 0 on one rank), and of the model's Hg heads,
+// of which w1 and w2 hold heads [h0, h0 + H) (Hg = H, h0 = 0 on one rank);
+// keepf = 1 - rate as f32.
 // Returns the cudaError_t.
 extern "C" int tat_fused_qkv_attention_fwd(const void* x, const void* w1,
                                            const void* b1, const void* w2,
@@ -1014,9 +1020,10 @@ extern "C" int tat_fused_qkv_attention_fwd(const void* x, const void* w1,
                                            int C, int H, int hs, int is_bf16,
                                            float scale, unsigned seed,
                                            unsigned thresh, int rate_on,
-                                           float keepf, int gb, int Bg, int b0, void* stream) {
+                                           float keepf, int gb, int Bg, int b0, int Hg, int h0,
+                                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const tat::FwdDrop dr{seed, thresh, rate_on, keepf, gb, Bg, b0};
+  const tat::FwdDrop dr{seed, thresh, rate_on, keepf, gb, Bg, b0, Hg, h0};
   // bf16 with hs % 16 == 0 and hs <= 128 (every model path: hs 64) takes the
   // mma.sync body; above 128, hs % 32 == 0, C % 8 == 0 and 16-byte aligned x,
   // w1 and w2 (read as 16-byte vectors) the WMMA body; the rest the FMAs

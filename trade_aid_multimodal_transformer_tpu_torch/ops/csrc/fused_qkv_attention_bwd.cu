@@ -468,7 +468,7 @@ int fqkv_bwd(const void* x, const void* w1, const void* b1, const void* w2, cons
              void* ws_f32b, void* ws_t3, void* ws_qkv, void* ws_dqkv, void* ws_dprec,
              void* ws_dq, int M, int B, int Tn, int C, int H, int hs, float scale,
              uint32_t seed, uint32_t thresh, int rate_on, float inv, int gb, int Bg,
-             int b0, cudaStream_t s) {
+             int b0, int Hg, int h0, cudaStream_t s) {
   constexpr bool kBf16 = sizeof(T) == 2;
   const int hs2 = hs / 2, d3 = 3 * H * hs2, H3 = 3 * H;
   const long long BT = (long long)B * Tn, vhead = BT * hs;
@@ -540,6 +540,8 @@ int fqkv_bwd(const void* x, const void* w1, const void* b1, const void* w2, cons
   a.gb = gb;
   a.Bg = Bg;
   a.b0 = b0;
+  a.rm.span = Hg;
+  a.rm.base = h0;
   TAT_TRY(launch_attn_bwd<T>(a, s));
   // dt3[m][:, vh] (BT x hs2) = dqkv[m, vh] (BT x hs) . w2[m, vh]^T (hs x hs2);
   // dpre = round(dt3) * (1 - t2^2), dprec = dpre rounded; db1 = the column
@@ -615,20 +617,23 @@ int fqkv_bwd(const void* x, const void* w1, const void* b1, const void* w2, cons
 // weights rounded to bf16: w1 (padded to a multiple of 8) and w2.
 // inv = 1 / (1 - rate) as f32; gb = _fqkv_pick_gb's batch group of the
 // global batch of Bg rows, of which x holds rows [b0, b0 + B) (Bg = B, b0 = 0
-// on one rank). All contiguous. Returns the first failing cudaError_t, or 0.
+// on one rank), and of the model's Hg heads, of which w1 and w2 hold heads
+// [h0, h0 + H) (Hg = H, h0 = 0 on one rank). All contiguous. Returns the
+// first failing cudaError_t, or 0.
 extern "C" int tat_fused_qkv_attention_bwd(
     const void* x, const void* w1, const void* b1, const void* w2, const void* o,
     const void* dout, void* dx, void* dw1, void* db1, void* dw2, void* ws_f32a,
     void* ws_f32b, void* ws_t3, void* ws_qkv, void* ws_dqkv, void* ws_dprec, void* ws_dq,
     int M, int B, int T, int C, int H, int hs, int is_bf16, float scale, unsigned seed,
-    unsigned thresh, int rate_on, float inv, int gb, int Bg, int b0, void* stream) {
+    unsigned thresh, int rate_on, float inv, int gb, int Bg, int b0, int Hg, int h0,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return tat::fqkv_bwd<__nv_bfloat16>(x, w1, b1, w2, o, dout, dx, dw1, db1, dw2, ws_f32a,
                                         ws_f32b, ws_t3, ws_qkv, ws_dqkv, ws_dprec, ws_dq, M, B,
                                         T, C, H, hs, scale, seed, thresh, rate_on, inv, gb, Bg,
-                                        b0, s);
+                                        b0, Hg, h0, s);
   return tat::fqkv_bwd<float>(x, w1, b1, w2, o, dout, dx, dw1, db1, dw2, ws_f32a, ws_f32b,
                               ws_t3, ws_qkv, ws_dqkv, ws_dprec, ws_dq, M, B, T, C, H, hs,
-                              scale, seed, thresh, rate_on, inv, gb, Bg, b0, s);
+                              scale, seed, thresh, rate_on, inv, gb, Bg, b0, Hg, h0, s);
 }

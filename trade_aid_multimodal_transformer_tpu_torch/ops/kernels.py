@@ -54,11 +54,15 @@ and tools reach:
 All but the decode kernels take attention dropout in the kernel, keyed as
 the JAX kernels key it in interpret mode (``hash_keep_mask``), so the masks
 are bit-identical. Under data parallelism a rank's rows are rows of a global
-batch, and K1f, K1b, K2f, K2b, K5f, K5b, K6f and K6f-r key each row at its
-global index: K1f and K1b take ``batch`` = (start, total), the rank's first
-row and the global batch (whose batch group gb keys the fused mask), the
-others ``rows`` = (span, skip, base) over their collapsed rows
-(``layers.batch_row_map``); None is the one-rank mask. ``fused_qkv_attention``, ``short_cross_attention``,
+batch, and under tensor parallelism its heads are heads of the model's, and
+K1f, K1b, K2f, K2b, K5f, K5b, K6f and K6f-r key each row at its global
+index: K1f and K1b take ``batch`` = (start, total), the rank's first row and
+the global batch, and ``heads`` = (h0, Hg), its first head and the model's
+head count (both of which key the fused mask and its batch group gb), the
+others ``rows`` over their collapsed rows (``layers.batch_row_map``):
+(span, skip, base), one affine level, which K2 takes; the flash kernels
+also (span, skip, base, ispan, iskip), a head level inside the batch level.
+None is the one-rank mask. ``fused_qkv_attention``, ``short_cross_attention``,
 ``short_causal_attention``, ``short_causal_attention_packed``,
 ``flash_causal_attention`` and ``flash_cross_attention`` are the
 differentiable entries (``torch.autograd.Function``: forward kernel, backward
@@ -113,11 +117,11 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _SIGNATURES = {
     "fused_qkv_attention": {
         "tat_fused_qkv_attention_fwd":
-            [_P] * 6 + [_I] * 7 + [_F, _U, _U, _I, _F, _I, _I, _I, _P],
+            [_P] * 6 + [_I] * 7 + [_F, _U, _U, _I, _F] + [_I] * 5 + [_P],
     },
     "fused_qkv_attention_bwd": {
         "tat_fused_qkv_attention_bwd":
-            [_P] * 17 + [_I] * 7 + [_F, _U, _U, _I, _F, _I, _I, _I, _P],
+            [_P] * 17 + [_I] * 7 + [_F, _U, _U, _I, _F] + [_I] * 5 + [_P],
     },
     "short_cross_attention": {
         "tat_short_cross_attention_fwd": [_P] * 4 + [_I] * 5 + [_F, _U, _U, _I, _F] + [_I] * 3
@@ -139,16 +143,16 @@ _SIGNATURES = {
         "tat_decode_attention_packed_q8": [_P] * 7 + [_I] * 5 + [_F, _P],
     },
     "flash_attention": {
-        "tat_flash_attention_fwd": [_P] * 5 + [_I] * 4 + [_F, _U, _U, _I, _F] + [_I] * 4 + [_P],
-        "tat_flash_attention_bwd": [_P] * 9 + [_I] * 4 + [_F, _U, _U, _I, _F] + [_I] * 4 + [_P],
+        "tat_flash_attention_fwd": [_P] * 5 + [_I] * 4 + [_F, _U, _U, _I, _F] + [_I] * 6 + [_P],
+        "tat_flash_attention_bwd": [_P] * 9 + [_I] * 4 + [_F, _U, _U, _I, _F] + [_I] * 6 + [_P],
         "tat_flash_chunk_fwd": [_P] * 5 + [_I] * 6 + [_F, _U, _U, _I, _F, _I, _I, _P],
         "tat_flash_chunk_bwd": [_P] * 9 + [_I] * 6 + [_F, _U, _U, _I, _F, _I, _I, _P],
     },
     "flash_cross_attention": {
-        "tat_flash_cross_attention_fwd": [_P] * 4 + [_I] * 5 + [_F, _U, _U, _I, _F] + [_I] * 4
+        "tat_flash_cross_attention_fwd": [_P] * 4 + [_I] * 5 + [_F, _U, _U, _I, _F] + [_I] * 6
         + [_P],
         "tat_flash_cross_attention_fwd_res": [_P] * 6 + [_I] * 5 + [_F, _U, _U, _I, _F]
-        + [_I] * 4 + [_P],
+        + [_I] * 6 + [_P],
     },
 }
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -368,28 +372,44 @@ def fqkv_pick_gb(nb: int, H: int, t: int, hs: int, c: int, itemsize: int = 2) ->
     return 1
 
 
-def fqkv_mask_rows(M: int, B: int, H: int, gb: int, device=None, batch=None) -> torch.Tensor:
+def fqkv_mask_rows(M: int, B: int, H: int, gb: int, device=None, batch=None,
+                   heads=None) -> torch.Tensor:
     """(M, H, B, 1, 1) mask row of each (m, h, b) in the JAX fused kernel:
     pid * gb * H + h * gb + b % gb, with pid = m * (Bg / gb) + b // gb; with
     ``batch`` = (start, Bg) the B rows are rows start + b of a global batch
-    of Bg (gb that batch's group), else Bg = B."""
+    of Bg (gb that batch's group), else Bg = B; with ``heads`` = (h0, Hg)
+    the H heads are heads h0 + h of the model's Hg, else Hg = H."""
     start, Bg = batch or (0, B)
+    h0, Hg = heads or (0, H)
     m = torch.arange(M, device=device)[:, None, None]
-    h = torch.arange(H, device=device)[None, :, None]
+    h = h0 + torch.arange(H, device=device)[None, :, None]
     b = start + torch.arange(B, device=device)[None, None, :]
     pid = m * (Bg // gb) + b // gb
-    return (pid * gb * H + h * gb + b % gb)[..., None, None]
+    return (pid * gb * Hg + h * gb + b % gb)[..., None, None]
 
 
 IDENTITY_ROWS = (1, 0, 0)  # the launch arguments of a one-rank row map
 
 
-def _fqkv_batch(what: str, B: int, batch):
-    """(start, total) of a fused launch's rows in the global batch."""
+def _fqkv_batch(what: str, B: int, batch, H: int = 1, heads=None):
+    """(start, total, h0, Hg) of a fused launch's rows in the global batch
+    and its heads among the model's."""
     start, total = batch or (0, B)
     if not (0 <= start and start + B <= total):
         raise ValueError(f"{what}: rows [{start}, {start + B}) outside a batch of {total}")
-    return int(start), int(total)
+    h0, Hg = heads or (0, H)
+    if not (0 <= h0 and h0 + H <= Hg):
+        raise ValueError(f"{what}: heads [{h0}, {h0 + H}) outside the model's {Hg}")
+    return int(start), int(total), int(h0), int(Hg)
+
+
+def _one_level(what: str, rows):
+    """The (span, skip, base) launch arguments of a row map of one level."""
+    if rows is None:
+        return IDENTITY_ROWS
+    if len(rows) > 3 and rows[4] != 0:
+        raise ValueError(f"{what}: takes a row map of one level, got {tuple(rows)}")
+    return tuple(rows[:3])
 
 
 def _dropout_args(what: str, rate: float, salts):
@@ -472,16 +492,17 @@ def _attention_bwd(q, k, v, do, keep, rate: float, o=None):
     return dq, dk, dv
 
 
-def _fqkv_mask(x, w2, n_head: int, rate: float, salts, batch=None):
+def _fqkv_mask(x, w2, n_head: int, rate: float, salts, batch=None, heads=None):
     """(M, H, B, T, T) keep-mask of the fused kernel, or None without dropout;
     ``batch`` = (start, total): x holds rows [start, start + B) of a global
-    batch, whose group gb keys the mask."""
+    batch; ``heads`` = (h0, Hg): w2 holds heads [h0, h0 + H) of the model's
+    Hg. The global batch and Hg give the group gb that keys the mask."""
     if rate == 0.0:
         return None
     M, B, T, C = x.shape
-    start, total = _fqkv_batch("fused_qkv_attention", B, batch)
-    gb = fqkv_pick_gb(total, n_head, T, w2.shape[-1], C, x.element_size())
-    rows = fqkv_mask_rows(M, B, n_head, gb, x.device, (start, total))
+    start, total, h0, Hg = _fqkv_batch("fused_qkv_attention", B, batch, n_head, heads)
+    gb = fqkv_pick_gb(total, Hg, T, w2.shape[-1], C, x.element_size())
+    rows = fqkv_mask_rows(M, B, n_head, gb, x.device, (start, total), (h0, Hg))
     return hash_keep_mask(seed_from_salts(salts), rows, 0, 0, (M, n_head, B, T, T), rate, x.device)
 
 
@@ -499,24 +520,25 @@ def _fqkv_project_plain(x, w1, b1, w2, n_head: int):
 
 
 def fused_qkv_attention_plain(x, w1, b1, w2, n_head: int, dropout_rate: float = 0.0,
-                              dropout_salts=None, batch=None):
+                              dropout_salts=None, batch=None, heads=None):
     """Plain PyTorch version of the fused forward kernel (same arguments)."""
     H = n_head
     _, _, qkv = _fqkv_project_plain(x, w1, b1, w2, H)
-    keep = _fqkv_mask(x, w2, H, float(dropout_rate), dropout_salts, batch)
+    keep = _fqkv_mask(x, w2, H, float(dropout_rate), dropout_salts, batch, heads)
     q, k, v = qkv[:, :H], qkv[:, H:2 * H], qkv[:, 2 * H:]
     return _whole_row_attention(q, k, v, keep, float(dropout_rate)).to(x.dtype)
 
 
 def fused_qkv_attention_bwd_plain(x, w1, b1, w2, out, dout, n_head: int,
-                                  dropout_rate: float = 0.0, dropout_salts=None, batch=None):
+                                  dropout_rate: float = 0.0, dropout_salts=None, batch=None,
+                                  heads=None):
     """Plain PyTorch version of the fused backward kernel: returns dx (x's
     type) and dw1, db1, dw2 (f32, f64 for f64), as ``_fqkv_bwd_kernel``."""
     dt, acc = x.dtype, _acc(x.dtype)
     H, rate = n_head, float(dropout_rate)
     M, B, T, C = x.shape
     t2, t3, qkv = _fqkv_project_plain(x, w1, b1, w2, H)
-    keep = _fqkv_mask(x, w2, H, rate, dropout_salts, batch)
+    keep = _fqkv_mask(x, w2, H, rate, dropout_salts, batch, heads)
     q, k, v = qkv[:, :H], qkv[:, H:2 * H], qkv[:, 2 * H:]
     dq, dk, dv = _attention_bwd(q, k, v, dout, keep, rate, o=out)
     dqkv = torch.cat([dq, dk, dv], dim=1).to(dt).to(acc)  # (M, 3H, B, T, hs)
@@ -915,27 +937,30 @@ def _check_fqkv_shapes(what, x, w1, b1, w2, H):
 
 
 def fused_qkv_attention_fwd(x, w1, b1, w2, n_head: int, dropout_rate: float = 0.0,
-                            dropout_salts=None, batch=None):
+                            dropout_salts=None, batch=None, heads=None):
     """The forward kernel (K1f): the plain version for CPU tensors, the CUDA
     kernel for CUDA tensors. Returns (M, H, B, T, hs) in x's type. On the
     mma.sync body (bf16, hs % 16 == 0, hs <= 128: every model path) one
     call launches two CUDA kernels (the weights rounded to bf16 into the
     workspace, then the forward) and counts one launch; the C entry picks
     the body, so every call passes the workspace. ``batch`` = (start,
-    total): x holds rows [start, start + B) of a global batch of total rows,
-    and the mask is the global call's rows (gb taken from total)."""
+    total): x holds rows [start, start + B) of a global batch of total rows;
+    ``heads`` = (h0, Hg): the weights hold heads [h0, h0 + n_head) of the
+    model's Hg; the mask is the global call's rows (gb taken from total and
+    Hg)."""
     what = "fused_qkv_attention"
     H = n_head
     _check_fqkv_shapes(what, x, w1, b1, w2, H)
     seed, thresh, on, keepf, _ = _dropout_args(what, dropout_rate, dropout_salts)
     M, B, T, C = x.shape
-    start, total = _fqkv_batch(what, B, batch)
+    start, total, h0, Hg = _fqkv_batch(what, B, batch, H, heads)
     if _on_cpu(x, w1, b1, w2):
-        return fused_qkv_attention_plain(x, w1, b1, w2, H, dropout_rate, dropout_salts, batch)
+        return fused_qkv_attention_plain(x, w1, b1, w2, H, dropout_rate, dropout_salts, batch,
+                                         heads)
     _check_cuda_operands(what, (x,), (w1, b1, w2))
     hs = w2.shape[-1]
     _check_band(what, T, hs)
-    gb = fqkv_pick_gb(total, H, T, hs, C, x.element_size())
+    gb = fqkv_pick_gb(total, Hg, T, hs, C, x.element_size())
     out = torch.empty((M, H, B, T, hs), dtype=x.dtype, device=x.device)
     # the weights rounded to bf16 once a call: w1 (padded to 8), then w2
     ws = torch.empty(-(-w1.numel() // 8) * 8 + w2.numel(), dtype=torch.bfloat16,
@@ -943,7 +968,7 @@ def fused_qkv_attention_fwd(x, w1, b1, w2, n_head: int, dropout_rate: float = 0.
     err = _fn("fused_qkv_attention", "tat_fused_qkv_attention_fwd")(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), out.data_ptr(),
         ws.data_ptr(), M, B, T, C, H, hs, int(x.dtype == torch.bfloat16), hs ** -0.5,
-        seed, thresh, on, keepf, gb, total, start, _stream(),
+        seed, thresh, on, keepf, gb, total, start, Hg, h0, _stream(),
     )
     _check_launch(err, what)
     fused_qkv_attention_fwd.launches += 1
@@ -954,9 +979,10 @@ fused_qkv_attention_fwd.launches = 0
 
 
 def fused_qkv_attention_bwd(x, w1, b1, w2, out, dout, n_head: int,
-                            dropout_rate: float = 0.0, dropout_salts=None, batch=None):
+                            dropout_rate: float = 0.0, dropout_salts=None, batch=None,
+                            heads=None):
     """The backward kernel (K1b): dx in x's type and dw1, db1, dw2 in f32;
-    ``batch`` as the forward's."""
+    ``batch`` and ``heads`` as the forward's."""
     what = "fused_qkv_attention_bwd"
     H = n_head
     _check_fqkv_shapes(what, x, w1, b1, w2, H)
@@ -965,13 +991,13 @@ def fused_qkv_attention_bwd(x, w1, b1, w2, out, dout, n_head: int,
     hs2, hs = w2.shape[-2], w2.shape[-1]
     if out.shape != (M, H, B, T, hs) or dout.shape != out.shape:
         raise ValueError(f"{what}: out / dout must be {(M, H, B, T, hs)}")
-    start, total = _fqkv_batch(what, B, batch)
+    start, total, h0, Hg = _fqkv_batch(what, B, batch, H, heads)
     if _on_cpu(x, w1, b1, w2, out, dout):
         return fused_qkv_attention_bwd_plain(x, w1, b1, w2, out, dout, H, dropout_rate,
-                                             dropout_salts, batch)
+                                             dropout_salts, batch, heads)
     _check_cuda_operands(what, (x, out, dout), (w1, b1, w2))
     _check_band(what, T, hs)
-    gb = fqkv_pick_gb(total, H, T, hs, C, x.element_size())
+    gb = fqkv_pick_gb(total, Hg, T, hs, C, x.element_size())
     dev, dt, f32 = x.device, x.dtype, torch.float32
     d3 = 3 * H * hs2
     dx = torch.empty_like(x)
@@ -991,7 +1017,7 @@ def fused_qkv_attention_bwd(x, w1, b1, w2, out, dout, n_head: int,
         dout.data_ptr(), dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(),
         *(w.data_ptr() for w in ws),
         M, B, T, C, H, hs, int(dt == torch.bfloat16), hs ** -0.5,
-        seed, thresh, on, inv, gb, total, start, _stream(),
+        seed, thresh, on, inv, gb, total, start, Hg, h0, _stream(),
     )
     _check_launch(err, what)
     fused_qkv_attention_bwd.launches += 1
@@ -1007,10 +1033,11 @@ class FusedQKVAttention(torch.autograd.Function):
     stored."""
 
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, n_head, dropout_rate, dropout_salts, batch):
-        out = fused_qkv_attention_fwd(x, w1, b1, w2, n_head, dropout_rate, dropout_salts, batch)
+    def forward(ctx, x, w1, b1, w2, n_head, dropout_rate, dropout_salts, batch, heads):
+        out = fused_qkv_attention_fwd(x, w1, b1, w2, n_head, dropout_rate, dropout_salts, batch,
+                                      heads)
         ctx.save_for_backward(x, w1, b1, w2, out)
-        ctx.args = (n_head, dropout_rate, dropout_salts, batch)
+        ctx.args = (n_head, dropout_rate, dropout_salts, batch, heads)
         return out
 
     @staticmethod
@@ -1018,21 +1045,25 @@ class FusedQKVAttention(torch.autograd.Function):
         x, w1, b1, w2, out = ctx.saved_tensors
         dx, dw1, db1, dw2 = fused_qkv_attention_bwd(x, w1, b1, w2, out, dout.contiguous(),
                                                     *ctx.args)
-        return dx, dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype), None, None, None, None
+        return (dx, dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
+                None, None, None, None, None)
 
 
 def fused_qkv_attention(x, w1, b1, w2, n_head: int, dropout_rate: float = 0.0,
-                        dropout_salts=None, batch=None):
+                        dropout_salts=None, batch=None, heads=None):
     """Factored QKV projection + whole-row causal attention, differentiable.
 
     x: (M, B, T, C) normalised input, bf16 or f32; w1: (M, C, 3D) with
     D = H*hs/2; b1: (M, 3D); w2: (M, 3H, hs/2, hs), the q/k/v head groups
     concatenated; weights f32. dropout_salts: the site's raw uint32[2] salts
     (needed when dropout_rate > 0); batch: (start, total) of x's rows in a
-    global batch (data parallelism), or None. Returns (M, H, B, T, hs) in
-    x's type, head-major like the JAX entry ``fused_qkv_attention``."""
+    global batch (data parallelism), or None; heads: (h0, Hg), the weights'
+    first head among the model's Hg (tensor parallelism), or None. Returns
+    (M, H, B, T, hs) in x's type, head-major like the JAX entry
+    ``fused_qkv_attention``."""
     return FusedQKVAttention.apply(x, w1, b1, w2, n_head, float(dropout_rate),
-                                   _salts(dropout_salts), None if batch is None else tuple(batch))
+                                   _salts(dropout_salts), None if batch is None else tuple(batch),
+                                   None if heads is None else tuple(heads))
 
 
 def _check_cross_shapes(what, q, k, v):
@@ -1050,6 +1081,7 @@ def short_cross_attention_fwd(q, k, v, dropout_rate: float = 0.0, dropout_salts=
     what = "short_cross_attention"
     _check_cross_shapes(what, q, k, v)
     seed, thresh, on, keepf, _ = _dropout_args(what, dropout_rate, dropout_salts)
+    row_args = _one_level(what, rows)
     if _on_cpu(q, k, v):
         return short_cross_attention_plain(q, k, v, dropout_rate, dropout_salts, rows)
     _check_cuda_operands(what, (q, k, v))
@@ -1060,7 +1092,7 @@ def short_cross_attention_fwd(q, k, v, dropout_rate: float = 0.0, dropout_salts=
     err = _fn("short_cross_attention", "tat_short_cross_attention_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         J, n, T, hs, int(q.dtype == torch.bfloat16), hs ** -0.5,
-        seed, thresh, on, keepf, *(rows or IDENTITY_ROWS), _stream(),
+        seed, thresh, on, keepf, *row_args, _stream(),
     )
     _check_launch(err, what)
     short_cross_attention_fwd.launches += 1
@@ -1079,6 +1111,7 @@ def short_cross_attention_bwd(q, k, v, dout, dropout_rate: float = 0.0, dropout_
     if dout.shape != q.shape:
         raise ValueError(f"{what}: dout {tuple(dout.shape)} != q {tuple(q.shape)}")
     seed, thresh, on, _, inv = _dropout_args(what, dropout_rate, dropout_salts)
+    row_args = _one_level(what, rows)
     if _on_cpu(q, k, v, dout):
         return short_cross_attention_bwd_plain(q, k, v, dout, dropout_rate, dropout_salts, rows)
     _check_cuda_operands(what, (q, k, v, dout))
@@ -1091,7 +1124,7 @@ def short_cross_attention_bwd(q, k, v, dout, dropout_rate: float = 0.0, dropout_
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), ws.data_ptr(),
         J, n, T, hs, int(q.dtype == torch.bfloat16), hs ** -0.5,
-        seed, thresh, on, inv, *(rows or IDENTITY_ROWS), _stream(),
+        seed, thresh, on, inv, *row_args, _stream(),
     )
     _check_launch(err, what)
     short_cross_attention_bwd.launches += 1
@@ -1509,12 +1542,13 @@ def _check_flash_operands(what, q, k, v, cross: bool = False):
 
 def _flash_launch_args(q, rate: float, salts, stream=None, rows=None):
     """(n, T, hs, is_bf16, scale, seed, thresh, on, keepf, JAX block, the
-    row map) of a flash launch."""
+    row map's two levels) of a flash launch."""
     n, t, hs = q.shape
     _, thresh, on, keepf, _ = _dropout_args("flash", rate, salts)
+    rows = tuple(rows or IDENTITY_ROWS)
     return (n, t, hs, int(q.dtype == torch.bfloat16), hs ** -0.5,
             _flash_seed(float(rate), salts, stream), thresh, on, keepf, flash_pick_block(t),
-            *(rows or IDENTITY_ROWS))
+            *(rows if len(rows) > 3 else rows + (1, 0)))
 
 
 def flash_attention_fwd(q, k, v, dropout_rate: float = 0.0, dropout_salts=None, rows=None):

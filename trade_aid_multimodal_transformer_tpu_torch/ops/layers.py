@@ -15,7 +15,13 @@ batch, and every mask must be the global call's rows. The data-parallel
 trainer opens ``batch_slice_scope(start, total)``; a site that names its
 batch axis (``dropout(..., batch_axis=...)``, the attention cores and their
 kernels) then hashes each collapsed row at its global index
-(``batch_row_map``). Outside the scope the masks are the one-rank masks.
+(``batch_row_map``). Under tensor parallelism a rank holds heads
+[h0, h0 + H / N) of the model's H, and the tensor-parallel trainer opens
+``head_slice_scope``, which also carries the model axis whose collectives
+the model calls (parallel/mesh.py ``ModelAxis``); an attention core that
+names its head axis then hashes each row at its global head as well: a row
+map of two affine levels where both a batch and a head axis are split.
+Outside the scopes the masks are the one-rank masks.
 """
 
 from __future__ import annotations
@@ -103,27 +109,83 @@ def batch_slice() -> Optional[Tuple[int, int]]:
     return _BATCH_SLICE
 
 
-def batch_row_map(lead: Sequence[int], batch_axis: Optional[int]
-                  ) -> Optional[Tuple[int, int, int]]:
+_HEAD_SLICE = None  # (h0, local heads, global heads, model axis) of an open scope
+
+
+@contextlib.contextmanager
+def head_slice_scope(h0: int, n_local: int, n_head: int, axis=None):
+    """While open, the head axes that attention cores name hold heads
+    [h0, h0 + n_local) of the model's ``n_head`` (one tensor-parallel
+    rank's share), so their masks are keyed by global heads; ``axis`` is
+    the model axis (``parallel.mesh.ModelAxis``) whose ``copy_to`` and
+    ``reduce_from`` the model's layers call around their head-split and
+    column-split products."""
+    global _HEAD_SLICE
+    prev = _HEAD_SLICE
+    _HEAD_SLICE = (int(h0), int(n_local), int(n_head), axis)
+    try:
+        yield
+    finally:
+        _HEAD_SLICE = prev
+
+
+def head_slice():
+    """(h0, local heads, global heads, model axis) of the open
+    ``head_slice_scope``, or None."""
+    return _HEAD_SLICE
+
+
+def _level(lead: Tuple[int, ...], axis: int, offset: int, total: int):
+    """One affine level of a row map: the collapsed rows of ``lead`` whose
+    axis ``axis`` holds [offset, offset + lead[axis]) of ``total``, as
+    (span, skip, base) over that axis's inner rows."""
+    inner = math.prod(lead[axis + 1:])
+    return lead[axis] * inner, (total - lead[axis]) * inner, offset * inner
+
+
+def batch_row_map(lead: Sequence[int], batch_axis: Optional[int],
+                  head_axis: Optional[int] = None) -> Optional[Tuple[int, ...]]:
     """Under a ``batch_slice_scope``, the global row of each collapsed row of
     the leading axes ``lead`` whose axis ``batch_axis`` is the batch axis, as
     (span, skip, base): row n = (o B + b) I + i (I the rows inside a batch
     row) is global row n + (n // span) skip + base = (o Bg + start + b) I + i.
-    None (the identity) outside the scope or without a batch axis."""
-    if _BATCH_SLICE is None or batch_axis is None:
-        return None
-    start, total = _BATCH_SLICE
+    Under a ``head_slice_scope`` too, with ``head_axis`` the head axis: the
+    head level the same way. Where both are split the inner axis's level
+    comes first: (span, skip, base, ispan, iskip) maps n to n1 = n +
+    (n // ispan) iskip, then n1 + (n1 // span) skip + base (``map_rows``);
+    two levels that one expresses are merged into one. None (the identity)
+    outside the scopes or without the named axes."""
     lead = tuple(int(d) for d in lead)
-    inner = math.prod(lead[batch_axis + 1:])
-    B = lead[batch_axis]
-    return B * inner, (total - B) * inner, start * inner
+    levels = []
+    if _BATCH_SLICE is not None and batch_axis is not None:
+        levels.append((batch_axis, *_BATCH_SLICE))
+    if _HEAD_SLICE is not None and head_axis is not None:
+        levels.append((head_axis, _HEAD_SLICE[0], _HEAD_SLICE[2]))
+    if not levels:
+        return None
+    levels.sort(reverse=True)  # the inner axis first
+    inner = _level(lead, *levels[0])
+    if len(levels) == 1:
+        return inner
+    p, _, total = levels[0]
+    widened = lead[:p] + (total,) + lead[p + 1:]  # the inner axis at its global size
+    q = levels[1][0]
+    span, skip, base = _level(widened, *levels[1])
+    base += inner[2]
+    if q == 0 or skip == 0:  # the outer level adds its base alone
+        return inner[0], inner[1], base
+    if inner[1] == 0:
+        return span, skip, base
+    return span, skip, base, inner[0], inner[1]
 
 
-def map_rows(n: torch.Tensor, rows: Optional[Tuple[int, int, int]]) -> torch.Tensor:
+def map_rows(n: torch.Tensor, rows: Optional[Tuple[int, ...]]) -> torch.Tensor:
     """The global rows (``batch_row_map``) of integer row indices ``n``."""
     if rows is None:
         return n
-    span, skip, base = rows
+    span, skip, base = rows[:3]
+    if len(rows) > 3:
+        n = n + torch.div(n, rows[3], rounding_mode="floor") * rows[4]
     return n + torch.div(n, span, rounding_mode="floor") * skip + base
 
 
@@ -192,17 +254,19 @@ class _HashDropout(torch.autograd.Function):
 
 
 def dropout(x: torch.Tensor, rate: float, key: Optional[Sequence[int]], train: bool,
-            batch_axis: Optional[int] = None) -> torch.Tensor:
+            batch_axis: Optional[int] = None, head_axis: Optional[int] = None) -> torch.Tensor:
     """Inverted hash dropout; the identity when not training or rate == 0.
     ``key`` is a site's raw uint32[2] salt pair (from ``KeyGen``);
     ``batch_axis``, x's batch axis (one of its leading axes), keys the mask
-    by global batch rows inside a ``batch_slice_scope``."""
+    by global batch rows inside a ``batch_slice_scope``; ``head_axis`` by
+    global heads inside a ``head_slice_scope``."""
     if not train or rate == 0.0:
         return x
     if key is None:
         raise ValueError("dropout in training needs a key")
     s1, s2 = dropout_salts(key)
-    return _HashDropout.apply(x, s1, s2, float(rate), batch_row_map(x.shape[:-2], batch_axis))
+    return _HashDropout.apply(x, s1, s2, float(rate),
+                              batch_row_map(x.shape[:-2], batch_axis, head_axis))
 
 
 class KeyGen:

@@ -1,9 +1,10 @@
-"""Parallel training: the parallelism plan, the process groups of a run (data
-and sequence axes), data-parallel training and ring (context-parallel)
-attention."""
+"""Parallel training: the parallelism plan, the process groups of a run (data,
+model and sequence axes), data-parallel and tensor-parallel training and
+ring (context-parallel) attention."""
 
 from .mesh import (
     DataAxis,
+    ModelAxis,
     RankMesh,
     SeqMesh,
     batch_rows,
@@ -23,6 +24,7 @@ __all__ = [
     "MESH_AXES",
     "DataAxis",
     "MeshPlan",
+    "ModelAxis",
     "RankMesh",
     "SeqMesh",
     "batch_rows",

@@ -4,14 +4,17 @@ placement of the parameters over them (port of the JAX package's
 
 The JAX package lays its devices out as a (pipe, mod, data, model, seq)
 mesh; the port builds the data axis (data parallelism, and FSDP / ZeRO-3
-over it) and the sequence axis ('seq', context parallelism) and nothing
-else yet (parallel/resolve.py refuses the other axes). A run of P ranks is
-P processes in one ``torch.distributed`` group: NCCL with one card per
-rank, gloo on the CPU. Ranks are laid out in the JAX package's device
-order, data outer and sequence inner: global rank d * S + s holds data row
-d and sequence place s (``make_mesh``). Every rank creates the same groups
-in the same order: one sequence group per data row (S consecutive ranks)
-and one data group per sequence place.
+over it), the model axis ('model', tensor parallelism over the heads and
+the feed-forward, embedding and vocabulary columns) and the sequence axis
+('seq', context parallelism), and no modality or pipeline axis yet
+(parallel/resolve.py refuses those, and 'model' with 'seq'). A run of P
+ranks is P processes in one ``torch.distributed`` group: NCCL with one card
+per rank, gloo on the CPU. Ranks are laid out in the JAX package's device
+order, data outer, model, sequence inner: global rank (d * N + t) * S + s
+holds data row d, model place t and sequence place s (``make_mesh``).
+Every rank creates the same groups in the same order: the sequence groups
+(S consecutive ranks), the data groups (one per model and sequence place)
+and the model groups (one per data row and sequence place).
 
 ``SeqMesh`` is one rank's view of the sequence axis: the ring hop (to the
 next place, from the previous one, as global ranks of its group) and the
@@ -19,14 +22,20 @@ all-gather along the sequence that ring attention needs. ``DataAxis`` is its
 view of the data axis: its rows of a global batch (``batch_rows``, the JAX
 package's ``batch_pspec``), the gradient mean over the axis in one flat
 all-reduce in ``tree_leaves`` order, the sums of an evaluation pass, and
-FSDP's flat all-gather and reduce-scatter.
+FSDP's flat all-gather and reduce-scatter. ``ModelAxis`` is its view of the
+model axis: its heads, and the two collectives of the Megatron form as
+autograd functions, ``copy_to`` (the identity forward, an all-reduce of the
+gradient backward) at the input of each column-split product and
+``reduce_from`` (an all-reduce forward, the identity backward) after each
+row-split one.
 
 ``param_pspecs`` is the JAX package's placement table, as a function of
 the leaves' shapes and tree paths: per leaf a tuple of axis names or None
 (``model``, ``mod``, and with ``fsdp_size`` > 1 ``data`` on the largest
-free dimension the axis divides). Under FSDP a rank keeps ``shard_of``
-each leaf: its contiguous slice along the ``data`` dimension
-(``shard_dim``), the slice that device r holds in the JAX package.
+free dimension the axis divides). A rank keeps ``shard_of`` each leaf: its
+contiguous slice along the dimension of each axis (``shard_dim``), first
+'model', then 'data' (``shard_tree``), the block that device (d, t) holds in
+the JAX package.
 
 Where several ranks share one card (a test arrangement: NCCL refuses two
 ranks on one device), the group is gloo and CUDA tensors travel through
@@ -108,24 +117,18 @@ def batch_rows(batch_size: int, rank: int, size: int) -> Tuple[int, int]:
 
 
 @dataclass
-class DataAxis:
-    """This rank's place on the data axis of a data-parallel run: its rows
-    of each global batch, and the means, sums, gathers and scatters over
-    the axis. ``group``: the axis's process group (None: the default
-    group)."""
+class _Axis:
+    """One rank's place on an axis whose collectives reduce (data, model):
+    ``group`` is the axis's process group (None: the default group).
+    ``timing`` keeps (kind, bytes, seconds) of each collective, the host's
+    clock around the call (the device synchronised first), where timing is
+    on."""
 
     rank: int
     size: int
     staged: bool = False  # gloo with CUDA tensors: communicate through host memory
     group: Any = None
-    # (kind, bytes, seconds) of each collective on a flat buffer, the
-    # host's clock around the call (the device synchronised first), kept
-    # where timing is on; kind "all_reduce", or the caller's tag for a
-    # gather or a reduce-scatter
     timing: Optional[List[Tuple[str, int, float]]] = None
-
-    def rows(self, batch_size: int) -> Tuple[int, int]:
-        return batch_rows(batch_size, self.rank, self.size)
 
     def _timed(self, kind: str, flat: torch.Tensor, collective: Callable) -> torch.Tensor:
         """``collective(flat)`` (through host memory where staged), its
@@ -160,6 +163,17 @@ class DataAxis:
             return out.view(self.size, -1)
 
         return self._timed(kind, flat, gather)
+
+
+@dataclass
+class DataAxis(_Axis):
+    """This rank's place on the data axis of a data-parallel run: its rows
+    of each global batch, and the means, sums, gathers and scatters over
+    the axis (timing kinds: "all_reduce", or the caller's tag for a gather
+    or a reduce-scatter)."""
+
+    def rows(self, batch_size: int) -> Tuple[int, int]:
+        return batch_rows(batch_size, self.rank, self.size)
 
     def reduce_scatter_flat(self, flat: torch.Tensor, kind: str = "reduce_scatter"
                             ) -> torch.Tensor:
@@ -206,50 +220,133 @@ class DataAxis:
         return type(stats)(mean_loss, mean_losses, wins, losses, cert, stats.batches_processed)
 
 
+class _ReduceFrom(torch.autograd.Function):
+    """The sum over the model axis forward (one all-reduce), the identity
+    backward: after a row-split product, whose partial sums every rank of
+    the axis adds."""
+
+    @staticmethod
+    def forward(ctx, x, axis, kind):
+        return axis._timed(kind, x.contiguous().clone(), axis._all_reduce)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    """The identity forward, the sum over the model axis of the gradient
+    backward (one f32 all-reduce, back in the gradient's type): at the input
+    of a column-split product, whose input gradient every rank holds a part
+    of."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis = ctx.axis
+        total = axis._timed("tp_all_reduce_bwd", g.float().contiguous(), axis._all_reduce)
+        return total.to(g.dtype), None
+
+
+@dataclass
+class ModelAxis(_Axis):
+    """This rank's place on the model axis of a tensor-parallel run: its
+    heads of the model's, and the two collectives of the Megatron form
+    (timing kinds "tp_all_reduce" forward and "tp_all_reduce_bwd"
+    backward), issued in one order on every rank of the axis (each rank
+    runs the same layers)."""
+
+    def heads(self, n_head: int) -> Tuple[int, int]:
+        """(h0, local count): this rank's heads [h0, h0 + n_head / size)."""
+        if n_head % self.size != 0:
+            raise ValueError(f"the model axis ({self.size}) must divide n_head ({n_head})")
+        per = n_head // self.size
+        return self.rank * per, per
+
+    def reduce_from(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the axis of every rank's ``x`` (differentiable: the
+        gradient passes unchanged); timed as "tp_all_reduce" where gradients
+        are on (a training forward, or its recompute), else as
+        "tp_all_reduce_eval"."""
+        kind = "tp_all_reduce" if torch.is_grad_enabled() else "tp_all_reduce_eval"
+        return _ReduceFrom.apply(x, self, kind)
+
+    def copy_to(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` unchanged, whose gradient is summed over the axis."""
+        return _CopyTo.apply(x, self)
+
+
 @dataclass
 class RankMesh:
     """One rank's view of the (pipe, mod, data, model, seq) layout of a run
     (the JAX package's ``make_mesh``): the axis sizes, this rank's place on
-    each, and its data and sequence groups (None where the axis is 1)."""
+    each, and its data, model and sequence groups (None where the axis is
+    1)."""
 
     shape: Dict[str, int]
     coords: Dict[str, int]
     data: Optional[DataAxis]
     seq: Optional[SeqMesh]
+    model: Optional[ModelAxis] = None
 
 
 def make_mesh(data: int = 1, model: int = 1, seq: int = 1, mod: int = 1, pipe: int = 1,
               staged: bool = False) -> RankMesh:
     """This rank's place in a (pipe, mod, data, model, seq) layout over the
     initialised default group, whose size must be the product of the axes.
-    Global rank d * seq + s is data row d, sequence place s (the JAX
-    package's device order: data outer, seq inner). Every rank calls this
-    in the same order: it creates every data and sequence group of the run.
+    Global rank (d * model + t) * seq + s is data row d, model place t,
+    sequence place s (the JAX package's device order: data outer, seq
+    inner; with model 1, d * seq + s). Every rank calls this in the same
+    order: it creates every sequence, data and model group of the run, in
+    that order (an axis that spans the whole run takes the default group).
     The data axis serves data parallelism and FSDP alike (FSDP's collectives
-    run on its groups). Model, modality and pipeline axes are a later slice
+    run on its groups). Modality and pipeline axes are a later slice
     (parallel/resolve.py refuses them)."""
-    if model * mod * pipe != 1:
-        raise NotImplementedError("tensor, modality and pipeline axes are a later slice of "
-                                  "the port (ROADMAP.md, queue 1, items 5 and 6)")
+    if mod * pipe != 1:
+        raise NotImplementedError("modality and pipeline axes are a later slice of the port "
+                                  "(ROADMAP.md, queue 1, items 5b and 6)")
     world, rank = dist.get_world_size(), dist.get_rank()
-    if data * seq != world:
-        raise ValueError(f"mesh data={data} x seq={seq} needs {data * seq} ranks, have {world}")
-    d, s = divmod(rank, seq)
-    seq_axis = data_axis = None
+    if data * model * seq != world:
+        raise ValueError(f"mesh data={data} x model={model} x seq={seq} needs "
+                         f"{data * model * seq} ranks, have {world}")
+    d, rest = divmod(rank, model * seq)
+    t, s = divmod(rest, seq)
+
+    def at(d_: int, t_: int, s_: int) -> int:
+        return (d_ * model + t_) * seq + s_
+
+    def groups(size: int, members: Callable, places):
+        """(group, ranks) of this rank's group along an axis: every group
+        created (``members(place)`` its ranks), this rank's kept."""
+        mine = None
+        for place in places:
+            ranks = tuple(members(*place))
+            group = dist.new_group(list(ranks)) if size != world else None
+            if rank in ranks:
+                mine = group, ranks
+        return mine
+
+    pairs = lambda a, b: [(i, j) for i in range(a) for j in range(b)]  # noqa: E731
+    seq_axis = data_axis = model_axis = None
     if seq > 1:
-        for row in range(data):  # every rank creates every group, in one order
-            ranks = tuple(range(row * seq, (row + 1) * seq))
-            group = dist.new_group(list(ranks)) if data > 1 else None
-            if row == d:
-                seq_axis = SeqMesh(s, seq, staged, group, ranks)
+        group, ranks = groups(seq, lambda d_, t_: [at(d_, t_, s_) for s_ in range(seq)],
+                              pairs(data, model))
+        seq_axis = SeqMesh(s, seq, staged, group, ranks)
     if data > 1:
-        for place in range(seq):
-            ranks = list(range(place, world, seq))
-            group = dist.new_group(ranks) if seq > 1 else None
-            if place == s:
-                data_axis = DataAxis(d, data, staged, group)
+        group, _ = groups(data, lambda t_, s_: [at(d_, t_, s_) for d_ in range(data)],
+                          pairs(model, seq))
+        data_axis = DataAxis(d, data, staged, group)
+    if model > 1:
+        group, _ = groups(model, lambda d_, s_: [at(d_, t_, s_) for t_ in range(model)],
+                          pairs(data, seq))
+        model_axis = ModelAxis(t, model, staged, group)
     return RankMesh({"pipe": pipe, "mod": mod, "data": data, "model": model, "seq": seq},
-                    {"pipe": 0, "mod": 0, "data": d, "model": 0, "seq": s}, data_axis, seq_axis)
+                    {"pipe": 0, "mod": 0, "data": d, "model": t, "seq": s}, data_axis, seq_axis,
+                    model_axis)
 
 
 def default_mesh_shape(n_devices: int, n_head: int) -> Tuple[int, int]:
@@ -369,22 +466,46 @@ def param_pspecs(params, n_head: int, model_axis: bool = True, model_size: int =
     return [spec_for(path, _shape(leaf)) for path, leaf in tree_paths(params)]
 
 
-def shard_dim(spec: Sequence[Optional[str]]) -> Optional[int]:
-    """The dimension a leaf of placement ``spec`` splits over 'data', or
+def shard_dim(spec: Sequence[Optional[str]], axis: str = "data") -> Optional[int]:
+    """The dimension a leaf of placement ``spec`` splits over ``axis``, or
     None (the leaf whole on every rank of the axis)."""
-    return list(spec).index("data") if "data" in spec else None
+    return list(spec).index(axis) if axis in spec else None
 
 
 def shard_of(full: torch.Tensor, spec: Sequence[Optional[str]], rank: int,
-             size: int) -> torch.Tensor:
-    """Data rank ``rank``'s part of a leaf of placement ``spec`` over an
-    axis of ``size``: its contiguous slice along the 'data' dimension (a
-    view; the whole leaf where the spec has none)."""
-    d = shard_dim(spec)
+             size: int, axis: str = "data") -> torch.Tensor:
+    """Rank ``rank``'s part of a leaf of placement ``spec`` over an axis of
+    ``size`` named ``axis``: its contiguous slice along that axis's
+    dimension (a view; the whole leaf where the spec has none)."""
+    d = shard_dim(spec, axis)
     if d is None:
         return full
     n = full.shape[d] // size
     return full.narrow(d, rank * n, n)
+
+
+def shard_tree(tree, specs: Sequence[Tuple], places: Dict[str, Tuple[int, int]]):
+    """A rank's part of a whole tree: for each leaf (``tree_leaves`` order,
+    placement ``specs``) its slice over each axis of ``places`` ({axis:
+    (rank, size)}), 'model' before 'data', as a tensor of its own (the
+    whole leaf no longer referenced) with the leaf's requires_grad; a leaf
+    split over none of them as it is. Device (d, t)'s block of the JAX
+    package's placement."""
+    from ..models.init import map_tree
+
+    specs = iter(specs)
+
+    def part(t):
+        spec, out = next(specs), t.detach()
+        split = [axis for axis in ("model", "data")
+                 if axis in places and shard_dim(spec, axis) is not None]
+        if not split:
+            return t
+        for axis in split:
+            out = shard_of(out, spec, *places[axis], axis)
+        return out.clone(memory_format=torch.contiguous_format).requires_grad_(t.requires_grad)
+
+    return map_tree(part, tree)
 
 
 def free_port() -> int:

@@ -1,6 +1,7 @@
 """Parallel training (port of the JAX package's ``parallel/trainer.py``:
-``make_sharded_trainer`` for data and sequence axes, ``shard_train_state``
-for FSDP, ``_compose_scopes`` and ``make_shard_map_dp_step``).
+``make_sharded_trainer`` for data, model and sequence axes,
+``shard_train_state`` for tensor parallelism and FSDP, ``_compose_scopes``
+and ``make_shard_map_dp_step``).
 
 ``make_sharded_trainer`` gives every rank the port's ``Trainer`` on the same
 parameters, batches and dropout salts (the same seed on every rank):
@@ -22,6 +23,20 @@ parameters, batches and dropout salts (the same seed on every rank):
   in one small all-reduce); the elementwise AdamW then updates the slices,
   each element as the data-parallel update does. An evaluation pass
   gathers once (``Fsdp``).
+- On a model axis of N ranks (tensor parallelism; N divides n_head) each
+  rank keeps its part of every leaf that ``param_pspecs`` places on
+  'model' (params and both Adam moments; ``shard_train_state``) and runs
+  its training steps and evaluation passes inside ``head_slice_scope``:
+  the model's layers compute on the rank's heads and columns and call the
+  axis's collectives (models/transformer.py), the masks keyed by global
+  heads. Every rank of a model group draws the same batch rows and computes
+  the same loss; the gradients of its parts are its own, those of the
+  whole leaves come out the same on every rank (they follow from
+  identical all-reduce results), so no collective averages them. With a
+  data axis (data x model) the data axis's one flat all-reduce runs on the
+  rank's parts, and FSDP gathers and reduce-scatters over the data group
+  on the rank's model slices. An evaluation pass runs replicated over the
+  model group and sums over the data axis.
 - On a sequence axis its training steps and evaluation passes run inside
   ``context_parallel_scope``: each attention core goes through ring
   attention over the rank's sequence group, the gradients come out the same
@@ -50,23 +65,30 @@ from ..models.config import ModelConfig
 from ..models.init import map_tree, tree_leaves
 from ..models.transformer import total_loss
 from ..ops.attention import context_parallel_scope, fold_key
-from ..ops.layers import _U32
+from ..ops.layers import _U32, head_slice_scope
 from ..sampling.feed import BatchFeed
 from ..train.metrics import ModalityMetricSpec
 from ..train.steps import AdamW, StepRng, Trainer
-from .mesh import DataAxis, RankMesh, param_pspecs, shard_dim, shard_of
+from .mesh import DataAxis, ModelAxis, RankMesh, param_pspecs, shard_dim, shard_tree
 
 
 def make_sharded_trainer(cfg: ModelConfig, feed: BatchFeed, optimizer: AdamW,
                          metric_specs: Sequence[ModalityMetricSpec], eval_iters: int,
                          mesh: RankMesh, grad_accum: int = 1,
                          fsdp: Optional["Fsdp"] = None) -> Trainer:
-    """A Trainer whose steps run over this rank's data and sequence axes
-    (``parallel.mesh.make_mesh``), on the train state's shards where
-    ``fsdp`` (``shard_train_state``) is given. block_size must be divisible
-    by the sequence axis."""
-    seq, data = mesh.seq, mesh.data
+    """A Trainer whose steps run over this rank's data, model and sequence
+    axes (``parallel.mesh.make_mesh``), on the train state's parts that
+    ``shard_train_state`` placed (``fsdp``: its placement; the trainer
+    gathers and reduce-scatters only where it splits leaves over 'data').
+    block_size must be divisible by the sequence axis, n_head by the model
+    axis."""
+    seq, data, model = mesh.seq, mesh.data, mesh.model
+    if fsdp is not None and all(d is None for d in fsdp.dims):
+        fsdp = None
     scopes = []
+    if model is not None and model.size > 1:
+        h0, per = model.heads(cfg.n_head)
+        scopes.append(lambda: head_slice_scope(h0, per, cfg.n_head, model))
     if seq is not None and seq.size > 1:
         if cfg.block_size % seq.size != 0:
             raise ValueError(
@@ -78,66 +100,81 @@ def make_sharded_trainer(cfg: ModelConfig, feed: BatchFeed, optimizer: AdamW,
                    scope=_compose_scopes(scopes) if scopes else None, data=data, fsdp=fsdp)
 
 
-class Fsdp:
-    """The placement of an FSDP run's train state on this rank: ``specs``
-    (``param_pspecs`` per leaf, ``tree_leaves`` order) over the data axis
-    ``data``. A tree that it places holds, for every leaf with a 'data'
-    dimension, this rank's contiguous slice along it (``shard_of``), and
-    every other leaf whole. Its collectives move one flat buffer each,
-    rank-major: rank r's chunk is its slice of every sharded leaf in
-    ``tree_leaves`` order, so a gather's row r and a reduce-scatter's
-    chunk r are rank r's slices."""
+def _gather_axis(tree, dims: Sequence[Optional[int]], axis, kind: str):
+    """The tree with every leaf split over ``axis`` (its dimension in
+    ``dims``, None: whole) reassembled from every rank's part (collective:
+    every rank of the axis calls it, in the same order): one all-gather of
+    the split leaves' parts, rank-major, each leaf a new tensor; the whole
+    leaves as they are. The split leaves must share one dtype."""
+    leaves = tree_leaves(tree)
+    mine = [t.detach() for t, d in zip(leaves, dims) if d is not None]
+    if not mine:
+        return tree
+    if len({t.dtype for t in mine}) != 1:
+        raise TypeError(f"a gather moves one dtype a tree, got {sorted({str(t.dtype) for t in mine})}")
+    rows = axis.all_gather_flat(torch.cat([t.reshape(-1) for t in mine]), kind)
+    P, full, at = axis.size, [], 0
+    for t, d in zip(leaves, dims):
+        if d is None:
+            full.append(t)
+            continue
+        n = t.numel()
+        shape = list(t.shape)
+        shape[d] *= P
+        full.append(rows[:, at:at + n].reshape(P, *t.shape).movedim(0, d).reshape(shape))
+        at += n
+    it = iter(full)
+    return map_tree(lambda _: next(it), tree)
 
-    def __init__(self, specs: Sequence[Tuple], data: DataAxis):
+
+class Fsdp:
+    """The placement of a run's train state on this rank: ``specs``
+    (``param_pspecs`` per leaf, ``tree_leaves`` order) over the data axis
+    ``data`` (FSDP) and the model axis ``model`` (tensor parallelism;
+    either may be None). A tree that it places holds, for every leaf with a
+    'model' or 'data' dimension, this rank's contiguous block of it
+    (``shard_tree``: the model slice, and of that the data slice), and
+    every other leaf whole. Its collectives move one flat buffer each,
+    rank-major: rank r's chunk is its slice of every split leaf in
+    ``tree_leaves`` order, so a gather's row r and a reduce-scatter's
+    chunk r are rank r's slices. The data axis's (``gather``,
+    ``reduce_grads``) are a step's; ``whole`` also gathers the model axis,
+    for a checkpoint."""
+
+    def __init__(self, specs: Sequence[Tuple], data: Optional[DataAxis],
+                 model: Optional[ModelAxis] = None):
         self.specs = list(specs)
         self.data = data
-        self.dims = [shard_dim(s) for s in self.specs]
+        self.model = model
+        self.dims = [shard_dim(s) if data is not None else None for s in self.specs]
+        self.model_dims = [shard_dim(s, "model") if model is not None else None
+                           for s in self.specs]
 
     def parts(self) -> List[int]:
         """Per leaf, the number of ranks it is split over (1: whole)."""
-        return [1 if d is None else self.data.size for d in self.dims]
+        return [(1 if d is None else self.data.size) * (1 if m is None else self.model.size)
+                for d, m in zip(self.dims, self.model_dims)]
 
     def shard(self, tree):
-        """This rank's part of a whole tree: every sharded leaf's slice as a
+        """This rank's part of a whole tree: every split leaf's block as a
         tensor of its own (the whole leaf no longer referenced), with the
         leaf's requires_grad; the other leaves as they are."""
-        P, r = self.data.size, self.data.rank
-        specs = iter(self.specs)
-
-        def part(t):
-            spec = next(specs)
-            if shard_dim(spec) is None:
-                return t
-            out = shard_of(t.detach(), spec, r, P).clone(memory_format=torch.contiguous_format)
-            return out.requires_grad_(t.requires_grad)
-
-        return map_tree(part, tree)
+        places = {name: (ax.rank, ax.size) for name, ax in (("data", self.data),
+                                                             ("model", self.model))
+                  if ax is not None}
+        return shard_tree(tree, self.specs, places)
 
     def gather(self, tree, kind: str = "all_gather"):
-        """The whole tree from every rank's part (collective: every rank of
-        the axis calls it, in the same order): one all-gather of the
-        sharded leaves' slices, each leaf reassembled along its 'data'
-        dimension as a new tensor; the whole leaves as they are. The
-        sharded leaves must share one dtype."""
-        leaves = tree_leaves(tree)
-        mine = [t.detach() for t, d in zip(leaves, self.dims) if d is not None]
-        if not mine:
-            return tree
-        if len({t.dtype for t in mine}) != 1:
-            raise TypeError(f"FSDP gathers one dtype a tree, got {sorted({str(t.dtype) for t in mine})}")
-        rows = self.data.all_gather_flat(torch.cat([t.reshape(-1) for t in mine]), kind)
-        P, full, at = self.data.size, [], 0
-        for t, d in zip(leaves, self.dims):
-            if d is None:
-                full.append(t)
-                continue
-            n = t.numel()
-            shape = list(t.shape)
-            shape[d] *= P
-            full.append(rows[:, at:at + n].reshape(P, *t.shape).movedim(0, d).reshape(shape))
-            at += n
-        it = iter(full)
-        return map_tree(lambda _: next(it), tree)
+        """The tree whole over the data axis (collective over the data
+        group): each leaf split over 'data' reassembled from every data
+        rank's part; on a model axis the rank's model slices."""
+        return _gather_axis(tree, self.dims, self.data, kind)
+
+    def whole(self, tree, kind: str = "all_gather"):
+        """The whole tree: gathered over the data axis, then over the model
+        axis (collective over both groups)."""
+        tree = self.gather(tree, kind)
+        return _gather_axis(tree, self.model_dims, self.model, kind)
 
     def reduce_grads(self, loss: torch.Tensor, grads: Sequence[torch.Tensor]
                      ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
@@ -175,17 +212,25 @@ class Fsdp:
 
 
 def shard_train_state(params, opt_state: Optional[Dict[str, Any]], data: Optional[DataAxis],
-                      fsdp: bool) -> Tuple[Any, Optional[Dict[str, Any]], Optional[Fsdp]]:
+                      fsdp: bool, model: Optional[ModelAxis] = None
+                      ) -> Tuple[Any, Optional[Dict[str, Any]], Optional[Fsdp]]:
     """This rank's train state (the JAX package's ``shard_train_state``):
-    from a whole tree (fresh or loaded), with ``fsdp`` over the data axis,
-    the rank's part of ``params`` and of ``opt_state``'s ``mu`` and ``nu``
-    (``Fsdp.shard``: the leaves ``param_pspecs`` places on 'data' sliced,
-    the whole originals freed once the caller drops them; the count
-    shared), and the ``Fsdp`` placement the trainer keeps. Without
-    ``fsdp`` (or a data axis) the state as it is and None."""
-    if not fsdp or data is None or data.size == 1:
+    from a whole tree (fresh or loaded), over the model axis ``model``
+    and, with ``fsdp``, the data axis, the rank's part of ``params`` and of
+    ``opt_state``'s ``mu`` and ``nu`` (``Fsdp.shard``: the leaves
+    ``param_pspecs`` places on 'model' or 'data' sliced, from the whole
+    tree's shapes, the whole originals freed once the caller drops them;
+    the count shared), and the ``Fsdp`` placement the trainer keeps.
+    Without ``fsdp`` (or a data axis) and a model axis the state as it is
+    and None."""
+    data = data if fsdp and data is not None and data.size > 1 else None
+    model = model if model is not None and model.size > 1 else None
+    if data is None and model is None:
         return params, opt_state, None
-    placed = Fsdp(param_pspecs(params, n_head=0, model_axis=False, fsdp_size=data.size), data)
+    specs = param_pspecs(params, n_head=0, model_axis=model is not None,
+                         model_size=model.size if model is not None else 1,
+                         fsdp_size=data.size if data is not None else 1)
+    placed = Fsdp(specs, data, model)
     params = placed.shard(params)
     if opt_state is not None:
         opt_state = {"count": opt_state["count"], "mu": placed.shard(opt_state["mu"]),

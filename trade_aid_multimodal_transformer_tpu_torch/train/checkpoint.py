@@ -13,7 +13,9 @@ package loads in the other, moments included, so a resumed run continues
 them. ``load_checkpoint`` also reads the reference model's ``.pth``
 state_dict (utils/torch_compat.py): weights only, no step and no optimizer
 state. A ``.pth`` is a zip as an ``.npz`` is, so a file counts as this
-format only where it holds parameter keys.
+format only where it holds parameter keys. A sharded run (FSDP, tensor
+parallelism) gathers its parts into the whole tree first (train/runner.py),
+so the file is the same whatever the plan, and a resume re-shards it.
 """
 
 from __future__ import annotations

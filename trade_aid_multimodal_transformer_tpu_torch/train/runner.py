@@ -12,23 +12,28 @@ It runs on the card unless the config says ``device: cpu``. The
 parallelism plan resolves as the JAX package's (parallel/resolve.py):
 ``tpu_options.mesh`` (``{data: P}``, or ``auto`` over the cards) trains data
 parallel over P ranks (with ``tpu_options.fsdp: true`` each rank holding
-1/P of the train state, FSDP / ZeRO-3), ``tpu_options.context_parallel: P``
-with the sequence sharded over P ranks (ring attention), and both together
-over their product (data outer, sequence inner). ``run_training`` starts the
+1/P of the train state, FSDP / ZeRO-3), ``tpu_options.mesh: {model: N}``
+tensor parallel over N ranks (each holding its heads' and columns' part of
+the train state; alone, with a data axis, and with FSDP),
+``tpu_options.context_parallel: P`` with the sequence sharded over P ranks
+(ring attention), and data with either over their product (data outer,
+sequence inner). ``run_training`` starts the
 plan's rank processes itself, one card each over NCCL (on the CPU, gloo
 processes), after building the kernels once; inside a process group that
 already exists (``torchrun``) it runs as that group's rank. Rank 0 alone
 prints the console, writes the log and the checkpoints (the parameters and
-moments are the same on every rank; under FSDP every rank takes part in
-gathering them first), and returns the result. A resumed FSDP run reads the
-whole file on every rank and keeps its part. Tensor, modality and pipeline
-plans raise (a later slice of the port).
+moments are the same on every rank; under FSDP and tensor parallelism every
+rank takes part in gathering them first), and returns the result. A resumed
+sharded run reads the whole file on every rank and keeps its part.
+Modality and pipeline plans, and a model axis with a sequence axis, raise
+(a later slice of the port).
 ``multihost`` prints that it is unavailable and trains single-process, as
 the JAX package does without a pod. f32 products run in full f32
 (PyTorch's default, TF32 off) whatever ``matmul_precision`` says.
 ``TAT_SEED`` pins the run seed; ``TAT_TIMING`` prints the training rate
 and, under a data axis, the gradient all-reduce's bytes and time per step
-(under FSDP also the all-gather's and the reduce-scatter's);
+(under FSDP also the all-gather's and the reduce-scatter's; under a model
+axis the tensor-parallel all-reduces' bytes and time per step);
 ``TAT_PROFILE_DIR`` writes a ``torch.profiler`` trace of the second training
 chunk there (utils/profiling.py). On one rank ``tpu_options.fused_update:
 true`` trains with the flat-state AdamW (train/steps.py), and ``remat``
@@ -511,9 +516,9 @@ def _run_training(caller_globals: Optional[dict], seed: Optional[int],
 
     # ----------------------------------------------------- parallelism plan
     plan = _plan(sc, num_modalities)
-    # (kind, bytes, seconds) of each collective of the data axis, under TAT_TIMING
+    # (kind, bytes, seconds) of each collective of the data and model axes, under TAT_TIMING
     collectives = None
-    fsdp = None  # parallel.trainer.Fsdp: this rank's part of the train state
+    fsdp = None  # parallel.trainer.Fsdp: the placement of this rank's part of the train state
     state_bytes = None
     if plan.trivial:
         # tpu_options.fused_update: the flat-state AdamW (steps.Trainer);
@@ -532,12 +537,17 @@ def _run_training(caller_globals: Optional[dict], seed: Optional[int],
         print(f"Parallelism: {plan.describe()} over {plan.n_devices} devices")
         # gloo with tensors on a card: ranks that share the card, whose
         # collectives go through host memory
-        mesh = pmesh.make_mesh(data=plan.data, seq=plan.seq,
+        mesh = pmesh.make_mesh(data=plan.data, model=plan.model, seq=plan.seq,
                                staged=dev.type == "cuda" and dist.get_backend() == "gloo")
-        if mesh.data is not None and os.environ.get("TAT_TIMING"):
-            collectives = mesh.data.timing = []
-        # the loaded or fresh whole state -> this rank's part under FSDP
-        params, opt_state, fsdp = shard_train_state(params, opt_state, mesh.data, plan.fsdp)
+        if os.environ.get("TAT_TIMING"):
+            collectives = []
+            for axis in (mesh.data, mesh.model):
+                if axis is not None:
+                    axis.timing = collectives
+        # the loaded or fresh whole state -> this rank's part under FSDP and
+        # tensor parallelism
+        params, opt_state, fsdp = shard_train_state(params, opt_state, mesh.data, plan.fsdp,
+                                                    mesh.model)
         trainer = make_sharded_trainer(cfg, feed, optimizer, metric_specs, eval_iters, mesh,
                                        grad_accum=sc.get("grad_accum", 1), fsdp=fsdp)
         parts = fsdp.parts() if fsdp is not None else None
@@ -683,13 +693,14 @@ def _run_training(caller_globals: Optional[dict], seed: Optional[int],
         return False
 
     def whole_state(kind: str):
-        """The whole parameters and optimizer state: under FSDP gathered
-        from every rank's part (every rank takes part), else as they are."""
+        """The whole parameters and optimizer state: under FSDP and tensor
+        parallelism gathered from every rank's part (every rank takes
+        part), else as they are."""
         if fsdp is None:
             return params, opt_state
-        return fsdp.gather(params, kind), {"count": opt_state["count"],
-                                           "mu": fsdp.gather(opt_state["mu"], kind),
-                                           "nu": fsdp.gather(opt_state["nu"], kind)}
+        return fsdp.whole(params, kind), {"count": opt_state["count"],
+                                          "mu": fsdp.whole(opt_state["mu"], kind),
+                                          "nu": fsdp.whole(opt_state["nu"], kind)}
 
     def handle_save(it: int):
         current_time = datetime.now().strftime("%H:%M:%S")
@@ -756,6 +767,13 @@ def _run_training(caller_globals: Optional[dict], seed: Optional[int],
             if calls:
                 print(f"{what}: {calls[-1][0]} bytes, "
                       f"{1e3 * sum(t for _, t in calls) / len(calls):.3f} ms per step")
+        # the model axis's all-reduces, many a step: their sums per step
+        calls = [(n, t) for k, n, t in collectives or []
+                 if k in ("tp_all_reduce", "tp_all_reduce_bwd")]
+        if calls:
+            print(f"Tensor-parallel all-reduces: {sum(n for n, _ in calls) // timer.steps} "
+                  f"bytes, {1e3 * sum(t for _, t in calls) / timer.steps:.3f} ms per step "
+                  f"({len(calls) // timer.steps} calls)")
 
     params, opt_state = whole_state("all_gather_save")
     if save_model:
