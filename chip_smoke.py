@@ -39,7 +39,17 @@ global-head arguments against the global call's heads
 (``tp_kernel_check``), one production step over two ranks against the
 one-rank step, with planted faults that must break it (``tp_reference``),
 and the entry over the two ranks at dropout 0 and 0.2, its checkpoint
-loaded on one rank and a resume (``tp_training``).
+loaded on one rank and a resume (``tp_training``). So does modality
+parallelism (``tpu_options.mesh: {mod: 2}``): the kernels on half the
+modalities with the modality offset against the global call's rows
+(``mod_kernel_check``), one production step over two ranks (and over
+``{mod: 4}``) against the one-rank step, with planted faults
+(``mod_reference``), and the entry over the two ranks at dropout 0 and 0.2,
+its checkpoint loaded on one rank (``mod_training``); and the other tensor
+plans: ``{model: 4}`` over the 6 heads (``tp_split_reference``)
+and ``{model: 2}`` x ``context_parallel: 2`` at block_size 1024
+(``tp_seq_reference``). The entries over ranks sharing the card run 4
+steps (``PARALLEL_ENTRY``).
 
 Right after the build, the training entry with ``TAT_PROFILE_DIR`` must
 write a trace holding the training step's kernels (``profile_trace``).
@@ -61,9 +71,11 @@ on a machine with 2 or 4 cards instead runs the training entry with
 context parallelism, data parallelism (``{data: 2}``, ``{data: 4}`` and
 ``mesh: auto``, each size also with ``fsdp: true``), tensor parallelism
 (``{model: 2}`` at block_size 64 and 1024) and, on 4 cards, data x
-sequence (also with FSDP) and data x tensor (``{data: 2, model: 2}``, also
-with FSDP), one card per rank over NCCL, against the same run on one card,
-and compares every rank's parameters (``multi_card``).
+sequence (also with FSDP), data x tensor (``{data: 2, model: 2}``, also
+with FSDP), modality (``{mod: 2, data: 2}``, also with FSDP, ``{mod: 4}``,
+``{mod: 2, model: 2}``), ``{model: 4}`` and ``{model: 2}`` x
+``context_parallel: 2``, one card per rank over NCCL, against the same run
+on one card, and compares every rank's parameters (``multi_card``).
 
     python3 chip_smoke.py --k1b-split
 
@@ -214,6 +226,10 @@ CP_SELF = (4 * 8 * 6, 512, 512, 64)
 CP_CROSS = (8 * 6, 512, 512, 64)
 # the phases' rank processes share the one card; each spawn is stopped after
 RANK_TIMEOUT = 420.0
+# the step count of the entries over ranks sharing the card (dp_training,
+# fsdp_training, tp_training, mod_training and their one-rank runs), cut
+# from 8 to 4 for the smoke's time limit
+PARALLEL_ENTRY = dict(max_iters=4, eval_interval=2, eval_iters=2)
 # the kernels that only public ops and tools reach: K3b at the
 # production training step's self-attention rows (M B H = 4 x 32 x 6, T 64,
 # hs 64), K4 over the same rows packed (nb = M B = 128, H = 6), K9 at the
@@ -2344,6 +2360,149 @@ def tp_kernel_check(K, card, gen):
                              f"their plain versions, or the zero head offset passed: {failed}")
 
 
+# modality parallelism: modality place 1 of {mod: 2} holds modalities [2, 4)
+# of the production config's 4
+MOD_RANKS = 2
+
+
+def mod_row_map(lead, batch_axis, start: int, total: int, m0: int, n_mod: int):
+    """The global-row launch arguments of collapsed rows of the leading axes
+    ``lead`` whose axis 0 holds modalities [m0, m0 + lead[0]) of ``n_mod``
+    and, where ``batch_axis`` is given, whose batch axis holds rows [start,
+    start + lead[batch_axis]) of ``total``."""
+    from trade_aid_multimodal_transformer_tpu_torch.ops.layers import (
+        batch_row_map, batch_slice_scope, mod_slice_scope)
+
+    with batch_slice_scope(start, total), mod_slice_scope(m0, lead[0], n_mod):
+        return batch_row_map(lead, batch_axis, None, 0)
+
+
+def mod_kernel_check(K, card, gen):
+    """kernel_check under modality parallelism: modality place 1 of ``{mod:
+    2}`` (modalities [2, 4) of 4) calls K1f and K1b (the production step's x
+    (2 of 4 modalities, 32, 64, 384), its modalities' slices of w1, b1 and
+    w2, ``mods`` = (2, 4)) and K5f and K5b (the long step's self-attention
+    rows (2 of 4, 8, 6, 1024, 64): the modality level in the row map's
+    base), bf16, dropout 0.2; both also as rank (1, 1) of ``{mod: 2, data:
+    2}`` (the second half of the batch too). Held against the global call's
+    rows (K1b's weight gradients: the rank's modalities' slices) and the
+    plain version, REL_TOL; the modality offset forced to 0 must fail
+    against the global call. K6f-r runs once per querying modality on (B,
+    H) rows, whose map a modality scope leaves the one-rank map: its call
+    inside rank 1's scope is held bit-equal to the one-rank call and within
+    REL_TOL of its plain version. One line per kernel and layout; raises on
+    a failure."""
+    import torch
+
+    from trade_aid_multimodal_transformer_tpu_torch.ops.layers import (
+        batch_row_map, map_rows, mod_slice_scope)
+
+    dev, bf, rate, tol = torch.device("cuda"), torch.bfloat16, 0.2, REL_TOL["bfloat16"]
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    failed = []
+
+    def report(name, layout, shape, vs_global, vs_plain, planted, extra=None):
+        torch.cuda.synchronize()
+        errs_g = {o: rel_err(a, b) for o, (a, b) in vs_global.items()}
+        errs_p = {o: rel_err(a, b) for o, (a, b) in vs_plain.items()}
+        bits = {o: bool(torch.equal(a, b)) for o, (a, b) in vs_global.items()}
+        offset_0 = max((rel_err(a, b) for a, b in planted.values()), default=None)
+        ok = (max(errs_g.values()) <= tol and max(errs_p.values()) <= tol
+              and (offset_0 is None or offset_0 > tol))
+        emit({"phase": "mod_kernel_check", "kernel": name, "layout": layout, "card": card,
+              "shape": list(shape), "dtype": "bfloat16", "dropout": rate,
+              "bit_equal_to_global": bits, "rel_err_vs_global": errs_g,
+              "rel_err_vs_plain": errs_p, "mod_offset_0_rel_err_vs_global": offset_0,
+              "tol": tol, **(extra or {}), "ok": ok})
+        if not ok:
+            failed.append(f"{name} {layout}")
+
+    # K1f, K1b: modalities [2, 4) of the production step's x
+    M, B, T, C, H, hs = PROD_K1
+    m0, per, hs2 = M // MOD_RANKS, M // MOD_RANKS, hs // 2
+    mine = slice(m0, m0 + per)
+    x, w1 = randn(M, B, T, C).to(bf), randn(M, C, 3 * H * hs2, scale=0.05)
+    b1, w2 = randn(M, 3 * H * hs2, scale=0.05), randn(M, 3 * H, hs2, hs, scale=0.2)
+    dout = randn(M, H, B, T, hs).to(bf)
+    g_out = K.fused_qkv_attention_fwd(x, w1, b1, w2, H, rate, SALTS)
+    g_grads = K.fused_qkv_attention_bwd(x, w1, b1, w2, g_out, dout, H, rate, SALTS)
+    names = ("dx", "dw1", "db1", "dw2")
+    w1l, b1l, w2l = (w[mine].contiguous() for w in (w1, b1, w2))
+    for layout, (start, nb) in (("mod 2", (0, B)), ("mod 2 x data 2", (B // 2, B // 2))):
+        rows_b = slice(start, start + nb)
+        xl = x[mine, rows_b].contiguous()
+        dl = dout[mine, :, rows_b].contiguous()
+        batch = (start, B) if nb < B else None
+        mods = (m0, M)
+        out = K.fused_qkv_attention_fwd(xl, w1l, b1l, w2l, H, rate, SALTS, batch, None, mods)
+        grads = K.fused_qkv_attention_bwd(xl, w1l, b1l, w2l, out, dl, H, rate, SALTS, batch,
+                                          None, mods)
+        p_out = K.fused_qkv_attention_plain(xl, w1l, b1l, w2l, H, rate, SALTS, batch, None, mods)
+        p_grads = K.fused_qkv_attention_bwd_plain(xl, w1l, b1l, w2l, out, dl, H, rate, SALTS,
+                                                  batch, None, mods)
+        vs_global = {"out": (out, g_out[mine, :, rows_b]),
+                     "dx": (grads[0], g_grads[0][mine, rows_b])}
+        if nb == B:  # the rank's modalities' slices of the weight gradients
+            vs_global.update({o: (a, g[mine]) for o, a, g in zip(names[1:], grads[1:],
+                                                                 g_grads[1:])})
+        bad = K.fused_qkv_attention_fwd(xl, w1l, b1l, w2l, H, rate, SALTS, batch, None, (0, M))
+        report("fused_qkv_attention + fused_qkv_attention_bwd", layout, (per, nb, T, C, H, hs),
+               vs_global,
+               {"out": (out, p_out), **{o: (a, b) for o, a, b in zip(names, grads, p_grads)}},
+               {"out": (bad, g_out[mine, :, rows_b])},
+               {"mods": list(mods), "launch_first_row": start + m0 * B})
+    del x, dout, g_out, g_grads
+
+    # K5f, K5b: the long step's self-attention rows (M, B, H) collapsed
+    M5, B5, H5, T5, hs5 = 4, 8, 6, LONG_BLOCK, 64
+    q, k, v, do = (randn(M5, B5, H5, T5, hs5).to(bf) for _ in range(4))
+    flat = lambda t: t.reshape(-1, T5, hs5).contiguous()  # noqa: E731
+    g_out, g_lse = K.flash_attention_fwd(flat(q), flat(k), flat(v), rate, SALTS)
+    g_grads = K.flash_attention_bwd(flat(q), flat(k), flat(v), g_out, g_lse, flat(do), rate,
+                                    SALTS)
+    for layout, start, nb in (("mod 2", 0, B5), ("mod 2 x data 2", B5 // 2, B5 // 2)):
+        ql, kl, vl, dl = (flat(t[2:4, start:start + nb]) for t in (q, k, v, do))
+        rows = mod_row_map((2, nb, H5), 1 if nb < B5 else None, start, B5, 2, M5)
+        idx = map_rows(torch.arange(ql.shape[0], device=dev), rows)
+        out, lse = K.flash_attention_fwd(ql, kl, vl, rate, SALTS, rows)
+        grads = K.flash_attention_bwd(ql, kl, vl, out, lse, dl, rate, SALTS, rows=rows)
+        p_out, p_lse = K.flash_attention_plain(ql, kl, vl, rate, SALTS, rows)
+        p_grads = K.flash_attention_bwd_plain(ql, kl, vl, out, lse, dl, rate, SALTS, rows=rows)
+        bad_rows = tuple(rows[:2]) + (rows[2] - 2 * B5 * H5,) + tuple(rows[3:])
+        bad = K.flash_attention_fwd(ql, kl, vl, rate, SALTS, bad_rows)[0]
+        report("flash_attention + flash_attention_bwd", layout, (2, nb, H5, T5, hs5),
+               {"out": (out, g_out[idx]), "lse": (lse, g_lse[idx]),
+                **{o: (a, g[idx]) for o, a, g in zip(("dq", "dk", "dv"), grads, g_grads)}},
+               {"out": (out, p_out), "lse": (lse, p_lse),
+                **{o: (a, b) for o, a, b in zip(("dq", "dk", "dv"), grads, p_grads)}},
+               {"out": (bad, g_out[idx])}, {"row_map": list(rows)})
+    del q, k, v, do
+
+    # K6f-r: one querying modality's cross rows (B, H) in JAX's order
+    J6, B6, H6 = 3, 8, 6
+    q = randn(B6, H6, T5, hs5).to(bf)
+    k, v = (randn(J6, B6, H6, T5, hs5).to(bf) for _ in range(2))
+    qf, kf, vf = q.reshape(-1, T5, hs5), k.reshape(J6, -1, T5, hs5), v.reshape(J6, -1, T5, hs5)
+    g = K.flash_cross_attention_res(qf, kf, vf, rate, SALTS)
+    with mod_slice_scope(2, 2, 4):
+        rows = batch_row_map((B6, H6), 0, 1)
+    got = K.flash_cross_attention_res(qf, kf, vf, rate, SALTS, rows)
+    plain = K.flash_cross_attention_plain(qf, kf, vf, rate, SALTS, residuals=True, rows=rows)
+    report("flash_cross_attention_res", "mod 2", (J6, B6 * H6, T5, hs5),
+           {o: (a, b) for o, a, b in zip(("out", "outs", "lses"), got, g)},
+           {o: (a, b) for o, a, b in zip(("out", "outs", "lses"), got, plain)}, {},
+           {"row_map_in_scope": rows, "no_modality_level": rows is None,
+            "bit_equal_required": True})
+    if rows is not None or not all(torch.equal(a, b) for a, b in zip(got, g)):
+        failed.append("flash_cross_attention_res: a modality level reached the cross rows")
+    if failed:
+        raise AssertionError(f"modality-parallel kernel calls disagree with the global call or "
+                             f"their plain versions, or the zero modality offset passed: {failed}")
+
+
 def dp_rank(rank: int, world: int, job: dict):
     """One rank of ``dp_reference``, in a process of its own: the ranks
     share the one card, so the data axis reduces through host memory (gloo,
@@ -2421,28 +2580,6 @@ def dp_rank(rank: int, world: int, job: dict):
     return out
 
 
-def dp_entry_rank(rank: int, world: int, caller_globals: dict, seed: int, log: str):
-    """One rank of ``dp_training`` and ``fsdp_training``: the training
-    entry's rank (``runner._rank_entry``) with ``mesh: {data: world}`` on
-    ranks that share the one card (the plan counts the ranks as its
-    devices; gloo through host memory), the collectives timed (TAT_TIMING);
-    rank 0's console to ``log``. Adds the rank's kernel launches and the
-    peak of its allocated device memory."""
-    sys.path.insert(0, str(REPO))
-    os.environ["TAT_TIMING"] = "1"
-    import torch
-
-    from trade_aid_multimodal_transformer_tpu_torch.ops import kernels as K
-    from trade_aid_multimodal_transformer_tpu_torch.train import runner
-
-    runner.available_devices = lambda device, cp, mesh=None: world
-    if rank == 0:
-        sys.stdout = open(log, "w")
-    out = runner._rank_entry(rank, world, caller_globals, seed)
-    return dict(out, launches_rank=K.launch_counts(),
-                max_memory_allocated=torch.cuda.max_memory_allocated())
-
-
 def per_step(collectives, kind: str):
     """(bytes of the last call, mean ms a call, calls) of one kind of a
     run's timed collectives (``runner`` result ``collectives``)."""
@@ -2452,22 +2589,24 @@ def per_step(collectives, kind: str):
     return calls[-1][0], 1e3 * sum(t_ for _, t_ in calls) / len(calls), len(calls)
 
 
-def state_bytes(cfg, data: int = 1, model: int = 1, fsdp: bool = False) -> tuple:
+def state_bytes(cfg, data: int = 1, model: int = 1, fsdp: bool = False, mod: int = 1) -> tuple:
     """(total, per rank) bytes of the train state the production config
     trains (f32 parameters, bf16 mu and nu, the int32 count) over a model
-    axis of ``model`` ranks and, with ``fsdp``, a data axis of ``data``,
-    from the tree's shapes and ``param_pspecs``: a leaf it puts on 'model'
-    at 1/model, on 'data' at 1/data (on both at 1/(model data)) on every
-    rank, every other leaf whole."""
+    axis of ``model`` ranks, a modality axis of ``mod`` and, with ``fsdp``,
+    a data axis of ``data``, from the tree's shapes and ``param_pspecs``: a
+    leaf it puts on 'model' at 1/model, on 'mod' at 1/mod, on 'data' at
+    1/data (on several at the product) on every rank, every other leaf
+    whole."""
     from trade_aid_multimodal_transformer_tpu_torch.models.init import param_shapes, tree_leaves
     from trade_aid_multimodal_transformer_tpu_torch.parallel.mesh import param_pspecs
 
     shapes = param_shapes(cfg)
     specs = param_pspecs(shapes, n_head=0, model_axis=model > 1, model_size=model,
-                         fsdp_size=data if fsdp else 1)
+                         mod_axis=mod > 1, mod_size=mod, fsdp_size=data if fsdp else 1)
     per_element = 4 + 2 + 2
     sizes = [math.prod(shape) for _, shape in tree_leaves(shapes)]
-    held = sum(n // ((model if "model" in spec else 1) * (data if "data" in spec else 1))
+    held = sum(n // ((model if "model" in spec else 1) * (data if "data" in spec else 1)
+                     * (mod if "mod" in spec else 1))
                for n, spec in zip(sizes, specs))
     return per_element * sum(sizes) + 4, per_element * held + 4
 
@@ -2480,7 +2619,7 @@ def data_parallel(K, card, by_path):
     (loss within STEP_TOL, every all-reduced gradient leaf within REL_TOL),
     which the step with rank 1's row offset forced to 0 must exceed, both
     ranks' parameters bit-equal after the update; ``dp_training``, the
-    training entry over the two ranks for 8 steps against the one-rank
+    training entry over the two ranks for 4 steps against the one-rank
     entry with the same seed (final eval losses within STEP_TOL, the ranks'
     parameter checksums equal, the eval train loss falling, exact launches
     per rank), with its steps/s and the gradient all-reduce's bytes and
@@ -2491,10 +2630,8 @@ def data_parallel(K, card, by_path):
     import torch
 
     from trade_aid_multimodal_transformer_tpu_torch import generate as entry
-    from trade_aid_multimodal_transformer_tpu_torch.config.compat import reset_compatibility_layer
     from trade_aid_multimodal_transformer_tpu_torch.models.init import init_params
     from trade_aid_multimodal_transformer_tpu_torch.parallel import mesh as pmesh
-    from trade_aid_multimodal_transformer_tpu_torch.train import runner
     from trade_aid_multimodal_transformer_tpu_torch.train.checkpoint import _read_native
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2513,11 +2650,21 @@ def data_parallel(K, card, by_path):
     ids = torch.from_numpy(np.stack([rng.integers(0, v, (B, cfg.block_size + 1))
                                      for v in cfg.vocab_sizes]))
     params = init_params(cfg, torch.Generator().manual_seed(1234), "cpu")
+    # the dp_training entry over the two ranks runs after the reference
+    # step in the same start of the rank processes
+    config = dict(PARALLEL_ENTRY)
+    tmp = tempfile.TemporaryDirectory()
+    d = Path(tmp.name)
+    production_config_dir(d, **config)
+    text = (d / "config.yaml").read_text()
+    if text.count("  mesh: auto") != 1:
+        raise AssertionError("production config has no single mesh: auto")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    res = pmesh.run_ranks(dp_rank, DP_RANKS, (dict(
-        cfg=cfg, params=params, batch=(ids[..., :-1], ids[..., 1:]), lr=sc["learning_rate"]),),
-        timeout=RANK_TIMEOUT)
+    res, (dp,) = entry_runs(
+        K, [(d, text.replace("  mesh: auto", "  mesh: {data: 2}"), None)], DP_RANKS,
+        before=(dp_rank, (dict(cfg=cfg, params=params, batch=(ids[..., :-1], ids[..., 1:]),
+                               lr=sc["learning_rate"]),)))
     sec = time.perf_counter() - t0
     tol = STEP_TOL["bfloat16"]["loss"], REL_TOL["bfloat16"]
     lines = {}
@@ -2542,51 +2689,19 @@ def data_parallel(K, card, by_path):
               "params_bit_equal_after_update": equal,
               "launches_by_rank": [{k_: v_ for k_, v_ in res[r][variant]["launches"].items() if v_}
                                    for r in range(DP_RANKS)], "launches_exact": counts_ok,
-              "seconds_with_spawn": sec, "ok": ok})
+              "seconds_with_spawn_and_entry": sec, "ok": ok})
     if not all(lines.values()):
         raise AssertionError("the data-parallel step disagrees with the one-rank step, the ranks "
                              "differ, or the gate passed the zero offset")
 
-    # dp_training: the entry over two ranks, then the one-rank entry, seed 5
-    # (the data-parallel run's last checkpoint kept for fsdp_training)
-    config = dict(max_iters=8, eval_interval=4, eval_iters=2)
-    runs = {}
-    for mesh in ("{data: 2}", "\"off\""):
-        with tempfile.TemporaryDirectory() as tmp:
-            d = Path(tmp)
-            production_config_dir(d, **config)
-            text = (d / "config.yaml").read_text()
-            if text.count("  mesh: auto") != 1:
-                raise AssertionError("production config has no single mesh: auto")
-            (d / "config.yaml").write_text(text.replace("  mesh: auto", f"  mesh: {mesh}"))
-            cwd = os.getcwd()
-            os.chdir(d)
-            try:
-                reset_compatibility_layer()
-                K.reset_launch_counts()
-                t0 = time.perf_counter()
-                if mesh == "\"off\"":
-                    with contextlib.redirect_stdout(io.StringIO()) as buf:
-                        r = runner.run_training(caller_globals={}, seed=5)
-                    console, r["launches"] = buf.getvalue(), K.launch_counts()
-                else:
-                    ranks = pmesh.run_ranks(dp_entry_rank, DP_RANKS, (
-                        {}, 5, str(d / "rank0.log")), timeout=RANK_TIMEOUT)
-                    r = {**ranks[0], "param_checksums": [x["param_checksum"] for x in ranks],
-                         "ranks": ranks,
-                         "checkpoint": _read_native(str(d / "output" / "model.ckpt"))}
-                    console = (d / "rank0.log").read_text()
-                sec = time.perf_counter() - t0
-            finally:
-                os.chdir(cwd)
-                reset_compatibility_layer()
-        later = r["step_timer"].chunks[1:]
-        evals = [(int(m[0]), float(m[1]), float(m[2])) for m in re.findall(
-            r"LOSS METRICS: Step (\d+)/\d+ \| Train: ([-\d.naif]+) \| Val: ([-\d.naif]+)",
-            console)]
-        runs[mesh] = dict(r, console=console, evals=evals, seconds=sec,
-                          steps_per_s=sum(n_ for n_, _ in later) / sum(t for _, t in later))
-    dp, one = runs["{data: 2}"], runs["\"off\""]
+    # dp_training: the entry over two ranks (run above), then the one-rank
+    # entry, seed 5 (the data-parallel run's last checkpoint kept for
+    # fsdp_training)
+    dp["checkpoint"] = _read_native(str(d / "output" / "model.ckpt"))
+    (d / "config.yaml").write_text(text.replace("  mesh: auto", "  mesh: \"off\""))
+    runs = {"{data: 2}": dp, "\"off\"": entry_run(K, d)}
+    tmp.cleanup()
+    one = runs["\"off\""]
     eval_batches = expected_evals(config["max_iters"], config["eval_interval"]) * 2 * 2
     per_eval = dict(fused_qkv_attention=L, short_cross_attention=n_cross * L)
     want = {**dict.fromkeys(K.KERNELS, 0),
@@ -2717,13 +2832,11 @@ def fsdp_rank(rank: int, world: int, job: dict):
     return out
 
 
-def entry_run(K, d: Path, ranks: int) -> dict:
-    """The training entry in ``d`` (seed 5): on one rank in this process,
-    or on ``ranks`` rank processes sharing the card (``dp_entry_rank``);
-    the result (rank 0's, with every rank's under "ranks"), its console,
-    its evaluations, seconds and steps/s after the first chunk."""
+def entry_run(K, d: Path) -> dict:
+    """The training entry in ``d`` (seed 5) on one rank in this process:
+    its result, its console, its evaluations, seconds and steps/s after
+    the first chunk (the runs over ranks: ``entry_runs``)."""
     from trade_aid_multimodal_transformer_tpu_torch.config.compat import reset_compatibility_layer
-    from trade_aid_multimodal_transformer_tpu_torch.parallel import mesh as pmesh
     from trade_aid_multimodal_transformer_tpu_torch.train import runner
 
     cwd = os.getcwd()
@@ -2732,28 +2845,131 @@ def entry_run(K, d: Path, ranks: int) -> dict:
         reset_compatibility_layer()
         K.reset_launch_counts()
         t0_ = time.perf_counter()
-        if ranks == 1:
-            with contextlib.redirect_stdout(io.StringIO()) as buf:
-                r = runner.run_training(caller_globals={}, seed=5)
-            r["launches"] = K.launch_counts()
-            r["ranks"] = [dict(launches_rank=r["launches"])]
-            console = buf.getvalue()
-        else:
-            got = pmesh.run_ranks(dp_entry_rank, ranks, ({}, 5, str(d / "rank0.log")),
-                                  timeout=RANK_TIMEOUT)
-            r = {**got[0], "ranks": got,
-                 "param_checksums": [x["param_checksum"] for x in got]}
-            console = (d / "rank0.log").read_text()
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            r = runner.run_training(caller_globals={}, seed=5)
+        r["launches"] = K.launch_counts()
+        r["ranks"] = [dict(launches_rank=r["launches"])]
         sec_ = time.perf_counter() - t0_
     finally:
         os.chdir(cwd)
         reset_compatibility_layer()
-    later = r["step_timer"].chunks[1:]
-    evals = [(int(m[0]), float(m[1]), float(m[2])) for m in re.findall(
+    return dict(r, console=buf.getvalue(), evals=evals_of(buf.getvalue()), seconds=sec_,
+                steps_per_s=steps_per_s(r))
+
+
+def evals_of(console: str) -> list:
+    """(step, train, val) of each evaluation an entry's console prints."""
+    return [(int(m[0]), float(m[1]), float(m[2])) for m in re.findall(
         r"LOSS METRICS: Step (\d+)/\d+ \| Train: ([-\d.naif]+) \| Val: ([-\d.naif]+)",
         console)]
-    return dict(r, console=console, evals=evals, seconds=sec_,
-                steps_per_s=sum(n_ for n_, _ in later) / sum(t for _, t in later))
+
+
+def steps_per_s(r: dict) -> float:
+    """An entry's training steps a second after its first chunk."""
+    later = r["step_timer"].chunks[1:]
+    return sum(n_ for n_, _ in later) / sum(t for _, t in later)
+
+
+def parallel_entry_dirs(root: Path, mesh: str, tpu: dict | None = None) -> dict:
+    """Directories under ``root`` for a parallel phase's entries over ranks
+    sharing the card (``PARALLEL_ENTRY`` steps, ``mesh`` and the ``tpu``
+    options set): runs at dropout 0 and 0.2 and a resume at 0.2 (2 steps
+    from the checkpoint, ``create_new_model: 0``), each a production
+    config folder; under ("text", key) each run's config text."""
+    dirs = {}
+    for key, rate in ((0.0, 0.0), (0.2, 0.2), ("resume", 0.2)):
+        d = root / f"run_{key}"
+        d.mkdir()
+        production_config_dir(d, dropout=rate, tpu=tpu, **PARALLEL_ENTRY)
+        text = (d / "config.yaml").read_text().replace("  mesh: auto", f"  mesh: {mesh}")
+        if key == "resume":
+            text = text.replace("create_new_model: 1", "create_new_model: 0")
+            for name, v in (("max_iters", 2), ("eval_interval", 1), ("eval_iters", 1)):
+                text = re.sub(rf"(\n  {name}: )\S+", rf"\g<1>{v}", text)
+        dirs[key], dirs["text", key] = d, text
+    return dirs
+
+
+def entry_runs_rank(rank: int, world: int, seed: int, plan):
+    """One rank of ``entry_runs``: the training entry's rank
+    (``runner._rank_entry``) once per run of ``plan`` (dir, config text,
+    dir whose ``output/`` to copy in first, or None), in order, in this one
+    process: rank 0 writes the run's config (and copies the output folder)
+    before a barrier, and its console goes to the run's ``rank0.log``;
+    the collectives timed (TAT_TIMING). Returns per run the entry's result
+    with the rank's kernel launches, the peak of its allocated device
+    memory and the run's seconds."""
+    sys.path.insert(0, str(REPO))
+    os.environ["TAT_TIMING"] = "1"
+    import torch
+    import torch.distributed as dist
+
+    from trade_aid_multimodal_transformer_tpu_torch.config.compat import reset_compatibility_layer
+    from trade_aid_multimodal_transformer_tpu_torch.ops import kernels as K
+    from trade_aid_multimodal_transformer_tpu_torch.train import runner
+
+    runner.available_devices = lambda device, cp, mesh=None: world
+    threads, stdout, outs = torch.get_num_threads(), sys.stdout, []
+    for d, text, output_from in plan:
+        d = Path(d)
+        if rank == 0:
+            if output_from is not None:
+                shutil.copytree(Path(output_from) / "output", d / "output", dirs_exist_ok=True)
+            (d / "config.yaml").write_text(text)
+        dist.barrier()
+        os.chdir(d)
+        reset_compatibility_layer()
+        K.reset_launch_counts()
+        cuda = torch.cuda.is_available()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        torch.set_num_threads(threads)
+        if rank == 0:
+            sys.stdout = open(d / "rank0.log", "w")
+        t0 = time.perf_counter()
+        try:
+            out = runner._rank_entry(rank, world, {}, seed)
+        finally:
+            if sys.stdout is not stdout:
+                sys.stdout.close()
+            sys.stdout = stdout
+        outs.append(dict(out, launches_rank=K.launch_counts(), seconds=time.perf_counter() - t0,
+                         max_memory_allocated=torch.cuda.max_memory_allocated() if cuda else None))
+        dist.barrier()  # the run's checkpoint is written before the next run reads it
+    return outs
+
+
+def rank_calls(rank: int, world: int, calls):
+    """Several rank functions ``fn(rank, world, *args)`` of ``calls`` in
+    one start of the rank processes, in order: their results."""
+    return [fn(rank, world, *args) for fn, args in calls]
+
+
+def entry_runs(K, plan, ranks: int, before=None):
+    """The training entry (seed 5) once per run of ``plan`` (dir, config
+    text, dir whose ``output/`` the run starts from, or None), in order, on
+    ``ranks`` rank processes sharing the card, started once for all the
+    runs (``entry_runs_rank``), after ``before`` (a rank function and its
+    arguments: a phase's reference step) where given: (``before``'s
+    per-rank results or None, per run ``entry_run``'s result)."""
+    from trade_aid_multimodal_transformer_tpu_torch.config.compat import reset_compatibility_layer
+    from trade_aid_multimodal_transformer_tpu_torch.parallel import mesh as pmesh
+
+    plan = [(str(d), text, None if src is None else str(src)) for d, text, src in plan]
+    calls = ([before] if before is not None else []) + [(entry_runs_rank, (5, plan))]
+    try:
+        got = pmesh.run_ranks(rank_calls, ranks, (calls,),
+                              timeout=RANK_TIMEOUT * (len(plan) + len(calls) - 1))
+    finally:
+        reset_compatibility_layer()
+    first = [g[0] for g in got] if before is not None else None
+    results = []
+    for i, (d, _, _) in enumerate(plan):
+        rows = [g[-1][i] for g in got]
+        r = {**rows[0], "ranks": rows, "param_checksums": [x["param_checksum"] for x in rows]}
+        console = (Path(d) / "rank0.log").read_text()
+        results.append(dict(r, console=console, evals=evals_of(console), steps_per_s=steps_per_s(r)))
+    return first, results
 
 
 def fsdp_phases(K, card, by_path, dp_runs):
@@ -2772,7 +2988,7 @@ def fsdp_phases(K, card, by_path, dp_runs):
       is taken twice (reported). Planted faults that must break the bit
       equality: rank 1 holding rank 0's slices; the reduce-scatter's chunks
       handed out in reverse rank order.
-    - ``fsdp_training``: the entry over the two ranks, 8 steps, at dropout
+    - ``fsdp_training``: the entry over the two ranks, 4 steps, at dropout
       0 and 0.2 against the one-rank entry with the same seed (final eval
       losses within STEP_TOL), every rank's checksum of the gathered
       parameters equal, exact launches on every rank (those of
@@ -2810,11 +3026,18 @@ def fsdp_phases(K, card, by_path, dp_runs):
                                      for v in cfg.vocab_sizes]))
     params = init_params(cfg, torch.Generator().manual_seed(1234), "cpu")
     want_bytes = state_bytes(cfg, DP_RANKS, fsdp=True)
+    # fsdp_training's three runs over the two ranks (dropout 0 and 0.2, and
+    # a resume from a copy of the 0.2 run's output folder) after the
+    # reference step, in one start of the rank processes
+    tmp = tempfile.TemporaryDirectory()
+    dirs = parallel_entry_dirs(Path(tmp.name), "{data: 2}", {"fsdp": "true"})
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    res = pmesh.run_ranks(fsdp_rank, DP_RANKS, (dict(
-        cfg=cfg, params=params, batch=(ids[..., :-1], ids[..., 1:]), lr=sc["learning_rate"]),),
-        timeout=RANK_TIMEOUT)
+    res, (fs0, fs2, resumed) = entry_runs(
+        K, [(dirs[0.0], dirs["text", 0.0], None), (dirs[0.2], dirs["text", 0.2], None),
+            (dirs["resume"], dirs["text", "resume"], dirs[0.2])], DP_RANKS,
+        before=(fsdp_rank, (dict(cfg=cfg, params=params, batch=(ids[..., :-1], ids[..., 1:]),
+                                 lr=sc["learning_rate"]),)))
     sec = time.perf_counter() - t0
     failed = []
     for variant in ("dp_again", "fsdp", "fsdp_rank1_keeps_rank0_slice",
@@ -2860,34 +3083,18 @@ def fsdp_phases(K, card, by_path, dp_runs):
     if failed:
         raise AssertionError(f"fsdp_reference failed: {failed}")
 
-    # fsdp_training: the entry over two ranks at dropout 0 and 0.2, then the
-    # one-rank entry at 0 (dp_training ran it at 0.2), seed 5; the run at
-    # 0.2 writes its checkpoint and is resumed from it
-    config = dict(max_iters=8, eval_interval=4, eval_iters=2)
+    # fsdp_training: the entry over two ranks at dropout 0 and 0.2 and the
+    # resume (run above), then the one-rank entry at 0 (dp_training ran it
+    # at 0.2), seed 5
+    config = dict(PARALLEL_ENTRY)
     one = {0.2: dp_runs["\"off\""]}
-    fs = {}
-
-    resumed = None
-    for rate in (0.0, 0.2):
-        with tempfile.TemporaryDirectory() as tmp:
-            d = Path(tmp)
-            production_config_dir(d, dropout=rate, tpu={"fsdp": "true"}, **config)
-            text = (d / "config.yaml").read_text()
-            (d / "config.yaml").write_text(text.replace("  mesh: auto", "  mesh: {data: 2}"))
-            fs[rate] = entry_run(K, d, DP_RANKS)
-            if rate == 0.2:
-                fs[rate]["checkpoint"] = _read_native(str(d / "output" / "model.ckpt"))
-                text = (d / "config.yaml").read_text().replace(
-                    "create_new_model: 1", "create_new_model: 0")
-                for key, v in (("max_iters", 2), ("eval_interval", 1), ("eval_iters", 1)):
-                    text = re.sub(rf"(\n  {key}: )\S+", rf"\g<1>{v}", text)
-                (d / "config.yaml").write_text(text)
-                resumed = entry_run(K, d, DP_RANKS)
-            else:
-                production_config_dir(d, dropout=rate, **config)
-                text = (d / "config.yaml").read_text()
-                (d / "config.yaml").write_text(text.replace("  mesh: auto", "  mesh: \"off\""))
-                one[rate] = entry_run(K, d, 1)
+    fs2["checkpoint"] = _read_native(str(dirs[0.2] / "output" / "model.ckpt"))
+    fs = {0.0: fs0, 0.2: fs2}
+    d = dirs[0.0]
+    (d / "config.yaml").write_text(dirs["text", 0.0].replace(
+        "mesh: {data: 2}", "mesh: \"off\"").replace("  fsdp: true\n", ""))
+    one[0.0] = entry_run(K, d)
+    tmp.cleanup()
     eval_batches = expected_evals(config["max_iters"], config["eval_interval"]) * 2 * 2
     per_eval = dict(fused_qkv_attention=L, short_cross_attention=n_cross * L)
     want = {**dict.fromkeys(K.KERNELS, 0),
@@ -3115,7 +3322,7 @@ def tp_phases(K, card, by_path, one_rank):
       Two planted faults in bf16 must each exceed the gate: rank 1's head
       offset forced to 0, and one ``copy_to`` without its backward
       all-reduce.
-    - ``tp_training``: the entry over the two ranks, 8 steps, at dropout 0
+    - ``tp_training``: the entry over the two ranks, 4 steps, at dropout 0
       and 0.2 against the one-rank entry with the same seed (``one_rank``,
       from ``fsdp_phases``): final eval losses within STEP_TOL, every
       rank's checksum of the gathered parameters equal, exact launches per
@@ -3149,11 +3356,19 @@ def tp_phases(K, card, by_path, one_rank):
     ids = torch.from_numpy(np.stack([rng.integers(0, v, (B, cfg.block_size + 1))
                                      for v in cfg.vocab_sizes]))
     params = init_params(cfg, torch.Generator().manual_seed(1234), "cpu")
+    # tp_training's three runs over the two ranks (dropout 0 and 0.2, and a
+    # resume from a copy of the 0.2 run's output folder, whose checkpoint a
+    # one-rank run then loads) after the reference step, in one start of
+    # the rank processes
+    tmp = tempfile.TemporaryDirectory()
+    dirs = parallel_entry_dirs(Path(tmp.name), "{model: 2}")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    res = pmesh.run_ranks(tp_rank, TP_RANKS, (dict(
-        cfg=cfg, params=params, batch=(ids[..., :-1], ids[..., 1:]), lr=sc["learning_rate"]),),
-        timeout=RANK_TIMEOUT)
+    res, (tp0, tp2, resumed) = entry_runs(
+        K, [(dirs[0.0], dirs["text", 0.0], None), (dirs[0.2], dirs["text", 0.2], None),
+            (dirs["resume"], dirs["text", "resume"], dirs[0.2])], TP_RANKS,
+        before=(tp_rank, (dict(cfg=cfg, params=params, batch=(ids[..., :-1], ids[..., 1:]),
+                               lr=sc["learning_rate"]),)))
     sec = time.perf_counter() - t0
     failed = []
     for variant in ("sound", "sound_f32", "head_offset_0", "copy_to_without_all_reduce"):
@@ -3192,27 +3407,16 @@ def tp_phases(K, card, by_path, one_rank):
     if failed:
         raise AssertionError(f"tp_reference failed: {failed}")
 
-    # tp_training: the entry over two ranks at dropout 0 and 0.2 (seed 5);
-    # the run at 0.2 writes its checkpoint, which a one-rank run loads and
-    # the two ranks resume
-    config = dict(max_iters=8, eval_interval=4, eval_iters=2)
-    tp, loaded, resumed = {}, None, None
-    for rate in (0.0, 0.2):
-        with tempfile.TemporaryDirectory() as tmp:
-            d = Path(tmp)
-            production_config_dir(d, dropout=rate, **config)
-            text = (d / "config.yaml").read_text()
-            (d / "config.yaml").write_text(text.replace("  mesh: auto", "  mesh: {model: 2}"))
-            tp[rate] = entry_run(K, d, TP_RANKS)
-            if rate == 0.2:
-                text = (d / "config.yaml").read_text().replace(
-                    "create_new_model: 1", "create_new_model: 0")
-                for key, v in (("max_iters", 2), ("eval_interval", 1), ("eval_iters", 1)):
-                    text = re.sub(rf"(\n  {key}: )\S+", rf"\g<1>{v}", text)
-                (d / "config.yaml").write_text(text)
-                resumed = entry_run(K, d, TP_RANKS)
-                (d / "config.yaml").write_text(text.replace("mesh: {model: 2}", "mesh: \"off\""))
-                loaded = entry_run(K, d, 1)
+    # tp_training: the entry over two ranks at dropout 0 and 0.2 and the
+    # resume (run above, seed 5), and a one-rank run from the resume's
+    # checkpoint
+    config = dict(PARALLEL_ENTRY)
+    tp = {0.0: tp0, 0.2: tp2}
+    d = dirs["resume"]
+    (d / "config.yaml").write_text(
+        dirs["text", "resume"].replace("mesh: {model: 2}", "mesh: \"off\""))
+    loaded = entry_run(K, d)
+    tmp.cleanup()
     eval_batches = expected_evals(config["max_iters"], config["eval_interval"]) * 2 * 2
     per_eval = dict(fused_qkv_attention=L, short_cross_attention=n_cross * L)
     want = {**dict.fromkeys(K.KERNELS, 0),
@@ -3282,6 +3486,449 @@ def tp_phases(K, card, by_path, one_rank):
                              f"dropout {failed}")
 
 
+def mesh_rank(rank: int, world: int, job: dict):
+    """One rank of ``mod_reference``, ``tp_split_reference`` and
+    ``tp_seq_reference``, in a process of its own (the ranks share the one
+    card: gloo through host memory). Rank 0 first takes the one-rank step
+    on the card on the global batch (the plain Trainer) for each (dtype,
+    dropout) of ``job["refs"]``. Then every rank takes the step over
+    ``make_mesh(**job["mesh"])`` on its parts (``shard_train_state``) and
+    an AdamW update, per variant (name, dtype, dropout, fault): fault None,
+    "mod_offset_0" (rank 1 keys its masks as modality place 0's: the row
+    maps without their modality level, K1f and K1b given offset 0) or
+    "skip_cross_keys" (no salts drawn for another rank's cross sites).
+    With ``job["in_path"]`` every K7f and K7b call is held in-path against
+    its plain version. Returns per variant the loss, the launches, the
+    checksums of the leaves the placement keeps whole (their gradients and
+    updated values), whether the rank's parts are its slices of the
+    gathered updated tree, its train-state bytes, the in-path errors and,
+    on rank 0, the gathered gradients' errors against the one-rank step of
+    the variant's dtype and dropout."""
+    sys.path.insert(0, str(REPO))
+    import hashlib
+
+    import torch
+
+    from trade_aid_multimodal_transformer_tpu_torch.models import transformer as ttr
+    from trade_aid_multimodal_transformer_tpu_torch.models.init import (
+        map_tree, tree_leaves, tree_paths)
+    from trade_aid_multimodal_transformer_tpu_torch.ops import attention as tatt
+    from trade_aid_multimodal_transformer_tpu_torch.ops import kernels as K
+    from trade_aid_multimodal_transformer_tpu_torch.ops import layers as tl
+    from trade_aid_multimodal_transformer_tpu_torch.parallel import mesh as pmesh
+    from trade_aid_multimodal_transformer_tpu_torch.parallel.trainer import (
+        make_sharded_trainer, shard_train_state)
+    from trade_aid_multimodal_transformer_tpu_torch.train import steps as tsteps
+    from trade_aid_multimodal_transformer_tpu_torch.utils.memory import train_state_bytes
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(job.get("device", "cuda"))  # "cpu": a rehearsal of the phase
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    mesh = pmesh.make_mesh(**job["mesh"], staged=dev.type == "cuda")
+    xb, yb = (t.to(dev) for t in job["batch"])
+    names = ["/".join(map(str, path)) for path, _ in tree_paths(job["params"])]
+    table = [name.startswith("pre/tok_emb/") for name in names]
+
+    def config(dtype, rate):
+        return dataclasses.replace(job["cfg"], compute_dtype=dtype, dropout=rate)
+
+    def fresh():
+        return map_tree(lambda t: t.detach().to(dev).clone().requires_grad_(), job["params"])
+
+    def optimizer():
+        return tsteps.make_optimizer(job["lr"], moment_dtype="bfloat16", nu_dtype="bfloat16")
+
+    def digest(tensors) -> str:
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.detach().float().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    def errors(grads, ref):
+        """Each leaf's L2 error against its own scale, floored at a 1e-4
+        share of the whole, the token tables apart (dp_rank's measure)."""
+        norms = [r.norm().item() for r in ref]
+        floor = 1e-4 * math.sqrt(sum(n_ * n_ for n_ in norms))
+        errs_leaf = [(g.float() - r).norm().item() / max(n_, floor)
+                     for g, r, n_ in zip(grads, ref, norms)]
+        return {"grad_l2_rel_err_max": max(e for e, t in zip(errs_leaf, table) if not t),
+                "token_table_grad_l2_rel_err_max": max(e for e, t in zip(errs_leaf, table) if t),
+                "worst_leaves": sorted(zip(errs_leaf, names), reverse=True)[:4]}
+
+    refs, out = {}, {}
+    if rank == 0:
+        for dtype, rate in job["refs"]:
+            loss, grads = tsteps.Trainer(config(dtype, rate), None, optimizer(), [],
+                                         1).loss_and_grads(fresh(), [(xb, yb)], [SALTS])
+            refs[dtype, rate] = loss.item(), [g.float() for g in grads]
+            del loss, grads
+    real_map, real_fqkv, real_sites = tl.batch_row_map, K.fused_qkv_attention, ttr.CROSS_SITES
+    for name, dtype, rate, fault in job["variants"]:
+        opt = optimizer()
+        params, _, placed = shard_train_state(fresh(), None, mesh.data, False, mesh.model,
+                                              mesh.mod)
+        state = opt.init(params)
+        if fault == "mod_offset_0" and rank == 1:
+            tl.batch_row_map = tatt.batch_row_map = (
+                lambda lead, b, h=None, m=None: real_map(lead, b, h, None))
+            def offset_0(x, w1, b1, w2, n_head, rate=0.0, salts=None, batch=None,
+                         heads=None, mods=None):
+                return real_fqkv(x, w1, b1, w2, n_head, rate, salts, batch, heads,
+                                 None if mods is None else (0, mods[1]))
+
+            K.fused_qkv_attention = offset_0
+        if fault == "skip_cross_keys":
+            ttr.CROSS_SITES = 0
+        worst = {}
+        fns = {} if not job.get("in_path") else dict(
+            flash_chunk_fwd=checked(K, "flash_chunk_fwd", K.flash_chunk_fwd, worst),
+            flash_chunk_bwd=checked(K, "flash_chunk_bwd", K.flash_chunk_bwd, worst))
+        try:
+            trainer = make_sharded_trainer(config(dtype, rate), None, opt, [], 1, mesh,
+                                           fsdp=placed)
+            with patched(K, **fns):
+                K.reset_launch_counts()
+                loss, grads = trainer.loss_and_grads(params, [(xb, yb)], [SALTS])
+                sync()
+                counts = K.launch_counts()
+        finally:
+            tl.batch_row_map = tatt.batch_row_map = real_map
+            K.fused_qkv_attention = real_fqkv
+            ttr.CROSS_SITES = real_sites
+        whole_grads = placed.whole(list(grads), "grads")
+        whole_idx = [i for i, s_ in enumerate(placed.specs)
+                     if not {"model", "mod", "data"} & set(s_)]
+        opt.update_(params, grads, state)
+        after = placed.whole(params)
+        res = {"dtype": dtype, "dropout": rate, "loss": loss.item(), "launches": counts,
+               "in_path": worst, "whole_leaf_grads": digest(grads[i] for i in whole_idx),
+               "whole_leaf_params": digest(tree_leaves(params)[i] for i in whole_idx),
+               "parts_are_slices": all(torch.equal(a, b) for a, b in zip(
+                   tree_leaves(params), tree_leaves(placed.shard(after)))),
+               "state_bytes": train_state_bytes(params, state, opt, placed.parts()),
+               "coords": mesh.coords}
+        if rank == 0 and (dtype, rate) in refs:
+            loss_ref, g_ref = refs[dtype, rate]
+            res.update(loss_ref=loss_ref, loss_abs_err=abs(loss.item() - loss_ref),
+                       **errors(whole_grads, g_ref))
+        out[name] = res
+        del params, state, loss, grads, whole_grads, after, trainer
+    return out
+
+
+def mesh_ranks(rank: int, world: int, jobs):
+    """Several ``mesh_rank`` jobs in one start of the rank processes, in
+    order (each makes its own groups)."""
+    return [mesh_rank(rank, world, job) for job in jobs]
+
+
+def mesh_reference(K, card, specs, entries=None):
+    """Spawn ``mesh_rank`` once for every spec (phase, job, expected bytes,
+    expected launches of a rank's coords, gate of a dtype: (loss, leaf,
+    token-table) limits, names that must fail, extra fields), all of one
+    world size, on the one card; hold each variant: rank 0's loss and
+    gathered gradients within the gate of the one-rank step, the whole
+    leaves bit-equal across the ranks, each rank's parts its slices, its
+    bytes and launches the expected ones and its in-path K7 errors within
+    REL_TOL; a variant that must fail must exceed the step gate instead.
+    One line per variant; raises on a failure. ``entries``: a plan of
+    ``entry_runs`` run after the steps in the same start of the rank
+    processes, whose results it returns."""
+    import torch
+
+    from trade_aid_multimodal_transformer_tpu_torch.parallel import mesh as pmesh
+
+    worlds = {math.prod(spec[1]["mesh"].values()) for spec in specs}
+    if len(worlds) != 1:
+        raise ValueError(f"one spawn runs one world size, got {sorted(worlds)}")
+    world = worlds.pop()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    before = (mesh_ranks, ([spec[1] for spec in specs],))
+    if entries:
+        got, results = entry_runs(K, entries, world, before)
+    else:
+        got, results = pmesh.run_ranks(rank_calls, world, ([before],),
+                                       timeout=RANK_TIMEOUT * len(specs)), []
+        got = [g[0] for g in got]
+    sec = time.perf_counter() - t0
+    failed = []
+    for i, (phase, job, want_bytes, want_launches, gate, must_fail, extra) in enumerate(specs):
+        res = [g[i] for g in got]
+        for name, dtype, rate, fault in job["variants"]:
+            rows = [res[r][name] for r in range(world)]
+            r0 = rows[0]
+            loss_tol, leaf_tol, table_tol = gate(dtype)
+            held = "loss_abs_err" in r0
+            within = held and (r0["loss_abs_err"] <= loss_tol
+                               and r0["grad_l2_rel_err_max"] <= leaf_tol
+                               and r0["token_table_grad_l2_rel_err_max"] <= table_tol)
+            whole_equal = all(x["whole_leaf_grads"] == r0["whole_leaf_grads"]
+                              and x["whole_leaf_params"] == r0["whole_leaf_params"] for x in rows)
+            launches = all(x["launches"] == want_launches(x["coords"]) for x in rows)
+            state = all(tuple(x["state_bytes"]) == want_bytes for x in rows)
+            parts = all(x["parts_are_slices"] for x in rows)
+            in_path = {k_: max(x["in_path"].get(k_, 0.0) for x in rows)
+                       for k_ in set().union(*(x["in_path"] for x in rows))}
+            in_path_ok = all(v_ <= REL_TOL[dtype] for v_ in in_path.values())
+            planted = name in must_fail
+            step_ok = (not within) if planted else (within or not held)
+            ok = (launches and state and parts and in_path_ok and step_ok
+                  and (planted or whole_equal))
+            emit({"phase": phase, "variant": name, "card": card, "mesh": job["mesh"],
+                  "ranks_on_one_card": world, "backend": "gloo through host memory",
+                  "config": "examples/production_config.yaml",
+                  "batch": int(job["batch"][0].shape[1]), "block_size": job["cfg"].block_size,
+                  "n_layer": job["cfg"].n_layer, "dropout": rate, "dtype": dtype,
+                  "fault": fault,
+                  "against": "the one-rank step on the card, same dtype, dropout, batch and "
+                             "salts" if held else "its kernels' plain versions in-path only",
+                  "must_fail": planted, "loss_tol": loss_tol, "grad_l2_rel_tol": leaf_tol,
+                  "token_table_grad_l2_rel_tol": table_tol,
+                  **{k_: r0[k_] for k_ in ("loss_ref", "loss_abs_err", "grad_l2_rel_err_max",
+                                           "token_table_grad_l2_rel_err_max", "worst_leaves")
+                     if k_ in r0},
+                  "losses_by_rank": [x["loss"] for x in rows],
+                  "whole_leaves_bit_equal_across_ranks": whole_equal,
+                  "parts_are_slices_of_the_updated_tree": parts,
+                  "train_state_bytes_by_rank": [tuple(x["state_bytes"]) for x in rows],
+                  "train_state_bytes_expected": want_bytes,
+                  "in_path_l2_rel": in_path, "in_path_tol": REL_TOL[dtype],
+                  "launches_by_rank": [{k_: v_ for k_, v_ in x["launches"].items() if v_}
+                                       for x in rows], "launches_exact": launches,
+                  **(extra or {}), "seconds_with_spawn_all_jobs": sec, "ok": ok})
+            if not ok:
+                failed.append(f"{phase} {name}")
+    if failed:
+        raise AssertionError(f"reference steps failed: {failed}")
+    return results
+
+
+def production_step_job(cfg, sc, B: int, seed: int, **job):
+    """The common part of a ``mesh_rank`` job: the production config's
+    weights (seed 1234) and a global batch of B rows drawn from ``seed``."""
+    import numpy as np
+    import torch
+
+    from trade_aid_multimodal_transformer_tpu_torch.models.init import init_params
+
+    rng = np.random.default_rng(seed)
+    ids = torch.from_numpy(np.stack([rng.integers(0, v, (B, cfg.block_size + 1))
+                                     for v in cfg.vocab_sizes]))
+    return dict(cfg=cfg, params=init_params(cfg, torch.Generator().manual_seed(1234), "cpu"),
+                batch=(ids[..., :-1], ids[..., 1:]), lr=sc["learning_rate"], **job)
+
+
+def mod_launches(K, cfg, mod: int):
+    """The kernel launches of one step of a modality place of ``{mod:
+    mod}`` (a function of the rank's coordinates): its modalities' fused
+    calls, one a layer, and the cross kernels of the cross-attending
+    modalities it owns."""
+    L = cfg.n_layer
+    cross = [i for i in range(cfg.num_modalities) if cfg.cross_attention[i]]
+
+    def want(coords):
+        per = cfg.num_modalities // mod
+        owned = sum(1 for i in cross if coords["mod"] * per <= i < (coords["mod"] + 1) * per)
+        return {**dict.fromkeys(K.KERNELS, 0),
+                **dict(fused_qkv_attention=L, fused_qkv_attention_bwd=L,
+                       short_cross_attention=owned * L, short_cross_attention_bwd=owned * L)}
+
+    return want
+
+
+def mod_gate(dtype):
+    """``dp_reference``'s gate: (loss, leaf, token-table) limits."""
+    return STEP_TOL[dtype]["loss"], REL_TOL[dtype], STEP_TOL[dtype]["grad_l2"]
+
+
+def step_gate(dtype):
+    """The step gate ``train_reference`` holds the card to."""
+    return STEP_TOL[dtype]["loss"], STEP_TOL[dtype]["grad_l2"], STEP_TOL[dtype]["grad_l2"]
+
+
+def mod_phases(K, card, by_path, one_rank):
+    """Modality parallelism (``mesh: {mod: 2}``) on the one card, two ranks
+    sharing it (gloo through host memory):
+    - ``mod_reference``: one production step (dropout 0.2, batch 32, bf16
+      moments) in bf16 and in f32 against the one-rank step of the same
+      dtype on the same batch and salts, at ``dp_reference``'s gates (loss
+      STEP_TOL, every gathered gradient leaf REL_TOL, the token tables
+      STEP_TOL's leaf limit): a rank computes what the one-rank step
+      computes on its modalities, only sums move; the leaves the axis
+      keeps whole bit-equal across the ranks, each rank's parts its slices,
+      exact launches per rank (its modalities' fused call a layer, the
+      cross kernels of the modalities it owns), bytes ``state_bytes(cfg,
+      mod=2)``; rank 1's masks keyed as place 0's must exceed the gate. The
+      production config's cross-attending modalities 0 and 1 both sit on
+      place 0 at ``{mod: 2}``, so a rank that skipped another's cross
+      sites would change nothing there: that fault runs over ``{mod: 4}``
+      (4 ranks, modality 1's cross sites after modality 0's), beside that
+      layout's sound step and bytes, in ``four_rank_references``.
+    - ``mod_training``: the entry over the two ranks, 4 steps, at dropout 0
+      and 0.2 against the one-rank entry with the same seed (``one_rank``,
+      from ``fsdp_phases``): final eval losses within STEP_TOL, every
+      rank's checksum of the gathered parameters equal, exact launches per
+      rank, every rank's train-state bytes ``state_bytes(cfg, mod=2)``, the
+      modality collectives' bytes, calls and ms a step (TAT_TIMING); the
+      checkpoint of the run at 0.2 loading in a one-rank run that trains
+      on.
+    Adds ``by_path["mod_training"]``; raises on a failed check."""
+    from trade_aid_multimodal_transformer_tpu_torch import generate as entry
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        production_config_dir(d)
+        data = entry.load_config_and_data(str(d))
+    cfg, sc = data["cfg"], data["sc"]
+    want_step = lambda mod: mod_launches(K, cfg, mod)  # noqa: E731
+
+    # mod_reference, then mod_training's runs over the two ranks at dropout
+    # 0 and 0.2 (seed 5) in the same start of the rank processes; the run at
+    # 0.2 writes its checkpoint, which a one-rank run loads
+    config = dict(PARALLEL_ENTRY)
+    want_bytes = state_bytes(cfg, mod=MOD_RANKS)
+    bf, f32 = "bfloat16", "float32"
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = parallel_entry_dirs(Path(tmp), "{mod: 2}")
+        runs = dict(zip((0.0, 0.2), mesh_reference(K, card, [("mod_reference", production_step_job(
+            cfg, sc, sc["batch_size"], 13, mesh=dict(mod=MOD_RANKS), refs=[(bf, 0.2), (f32, 0.2)],
+            variants=[("sound", bf, 0.2, None), ("sound_f32", f32, 0.2, None),
+                      ("mod_offset_0", bf, 0.2, "mod_offset_0")]),
+            want_bytes, want_step(MOD_RANKS), mod_gate, ("mod_offset_0",), None)],
+            [(dirs[rate], dirs["text", rate], None) for rate in (0.0, 0.2)])))
+        d = dirs["resume"]  # a one-rank run from the 0.2 run's checkpoint
+        shutil.copytree(dirs[0.2] / "output", d / "output")
+        (d / "config.yaml").write_text(
+            dirs["text", "resume"].replace("mesh: {mod: 2}", "mesh: \"off\""))
+        loaded = entry_run(K, d)
+    eval_batches = expected_evals(config["max_iters"], config["eval_interval"]) * 2 * 2
+    failed = []
+    for rate in (0.0, 0.2):
+        r = runs[rate]
+        sums = r["param_checksums"]
+        errs_ = {k_: abs(r["losses"][k_] - one_rank[rate]["losses"][k_]) for k_ in ("train", "val")}
+        launches = [x["launches_rank"] for x in r["ranks"]]
+        want = []
+        for place in range(MOD_RANKS):  # rank r is modality place r
+            step = want_step(MOD_RANKS)({"mod": place})
+            want.append({name: n_ * config["max_iters"]
+                         + (n_ * eval_batches if name in ("fused_qkv_attention",
+                                                          "short_cross_attention") else 0)
+                         for name, n_ in step.items()})
+        steps = config["max_iters"]
+        calls = {kind: [(n_, t_) for k_, n_, t_ in r["collectives"] or [] if k_ == kind]
+                 for kind in ("mod_all_gather", "mod_reduce_scatter_bwd", "mod_all_reduce")}
+        held = [tuple(x["train_state_bytes"]) for x in r["ranks"]]
+        ok = (len(sums) == MOD_RANKS and all(s_ == sums[0] for s_ in sums)
+              and all(e <= STEP_TOL["bfloat16"]["loss"] for e in errs_.values())
+              and len(r["evals"]) == len(one_rank[rate]["evals"]) > 1
+              and launches == want
+              and "Parallelism: modality x2 over 2 devices" in r["console"]
+              and "TRAINING COMPLETED SUCCESSFULLY" in r["console"]
+              and held == [want_bytes] * MOD_RANKS and all(calls.values()))
+        line = {"phase": "mod_training", "config": "examples/production_config.yaml",
+                "card": card, "changed": {**config, "dropout": rate, "mesh": "{mod: 2}"},
+                "ranks_on_one_card": MOD_RANKS, "backend": "gloo through host memory",
+                "plan": r["plan"].describe(), "global_batch": sc["batch_size"],
+                "evals": r["evals"], "evals_one_rank": one_rank[rate]["evals"],
+                "final_eval_losses": r["losses"],
+                "final_eval_losses_one_rank": one_rank[rate]["losses"],
+                "abs_err_vs_one_rank": errs_, "tol": STEP_TOL["bfloat16"]["loss"],
+                "param_checksums_by_rank": sums,
+                "launches_by_rank": [{k_: v_ for k_, v_ in x.items() if v_} for x in launches],
+                "expected_launches_by_rank": [{k_: v_ for k_, v_ in x.items() if v_}
+                                              for x in want],
+                "train_state_bytes_by_rank": held, "train_state_bytes_expected": want_bytes,
+                "max_memory_allocated_by_rank": [x["max_memory_allocated"] for x in r["ranks"]],
+                "steps_per_s_after_first_chunk": r["steps_per_s"],
+                "steps_per_s_one_rank": one_rank[rate]["steps_per_s"],
+                **{f"{kind}_{what}": v_ for kind, c_ in calls.items() for what, v_ in (
+                    ("bytes_per_step", sum(n_ for n_, _ in c_) / steps),
+                    ("calls_per_step", len(c_) / steps),
+                    ("ms_per_step", 1e3 * sum(t_ for _, t_ in c_) / steps))},
+                "collectives_note": "over the whole run (eval passes' gathers included), per "
+                                    "training step; host clock around each staged gloo call, "
+                                    "the card synchronised before and after",
+                "seconds_with_spawn": r["seconds"]}
+        if rate == 0.2:
+            load_ok = ("Model: Loaded successfully" in loaded["console"]
+                       and "TRAINING COMPLETED SUCCESSFULLY" in loaded["console"]
+                       and loaded["plan"].trivial
+                       and all(math.isfinite(v) for v in loaded["losses"].values()))
+            ok = ok and load_ok
+            line["one_rank_load"] = {"ok": load_ok, "final_eval_losses": loaded["losses"]}
+            by_path["mod_training"] = launches[0]
+        line["ok"] = ok
+        emit(line)
+        if not ok:
+            failed.append(rate)
+    if failed:
+        raise AssertionError(f"the modality-parallel training entry failed its checks at "
+                             f"dropout {failed}")
+
+
+def four_rank_references(K, card):
+    """The reference steps over four ranks sharing the one card (gloo
+    through host memory), in one start of the rank processes:
+    - ``mod_reference`` over ``{mod: 4}``: the sound step (bf16, dropout
+      0.2) at ``dp_reference``'s gate, and a rank that draws no salts for
+      another rank's cross sites (modality 1's sites after modality 0's),
+      which must exceed it; bytes ``state_bytes(cfg, mod=4)``.
+    - ``tp_split_reference``: ``{model: 4}`` over the production config's
+      6 heads, which 4 does not divide: w1_*, b1_* and proj_w1 split
+      through the heads (a head and a half a rank), the per-head leaves
+      whole; one production step at dropout 0.2, bf16, against the
+      one-rank step (STEP_TOL), the whole leaves bit-equal across the
+      ranks, the parts the slices, a one-rank step's launches on every
+      rank, bytes ``state_bytes(cfg, model=4)``.
+    - ``tp_seq_reference``: ``{model: 2}`` x ``context_parallel: 2`` at
+      block_size 1024, ``cp_reference``'s depth at 4 ranks (2 layers),
+      batch 1: the step at dropout 0 in f32 and bf16 against the card's
+      single-rank step (K5/K6; STEP_TOL), and at dropout 0.2 in bf16 (the
+      rings keyed by local rows and heads, the key folded with the model
+      place: no one-rank counterpart), every K7f and K7b call of every
+      variant in-path within REL_TOL of its plain version; exact K7
+      launches per rank; bytes ``state_bytes(cfg, model=2)`` at that depth.
+    Raises on a failed check."""
+    from trade_aid_multimodal_transformer_tpu_torch import generate as entry
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        production_config_dir(d)
+        data = entry.load_config_and_data(str(d))
+        production_config_dir(d, block_size=LONG_BLOCK)
+        long = entry.load_config_and_data(str(d))
+    cfg, sc = data["cfg"], data["sc"]
+    L, n_cross = cfg.n_layer, sum(cfg.cross_attention)
+    one_rank_step = {**dict.fromkeys(K.KERNELS, 0),
+                     **dict(fused_qkv_attention=L, fused_qkv_attention_bwd=L,
+                            short_cross_attention=n_cross * L,
+                            short_cross_attention_bwd=n_cross * L)}
+    bf, f32 = "bfloat16", "float32"
+    c = dataclasses.replace(long["cfg"], n_layer=2)
+    mesh_reference(K, card, [
+        ("mod_reference", production_step_job(
+            cfg, sc, sc["batch_size"], 13, mesh=dict(mod=4), refs=[(bf, 0.2)],
+            variants=[("sound_mod4", bf, 0.2, None),
+                      ("skip_cross_keys_mod4", bf, 0.2, "skip_cross_keys")]),
+         state_bytes(cfg, mod=4), mod_launches(K, cfg, 4), mod_gate,
+         ("skip_cross_keys_mod4",), None),
+        ("tp_split_reference", production_step_job(
+            cfg, sc, sc["batch_size"], 13, mesh=dict(model=4), refs=[(bf, 0.2)],
+            variants=[("sound", bf, 0.2, None)]),
+         state_bytes(cfg, model=4), lambda coords: one_rank_step, step_gate, (),
+         {"heads_per_rank": cfg.n_head / 4}),
+        ("tp_seq_reference", production_step_job(
+            c, long["sc"], 1, 11, mesh=dict(model=2, seq=2), refs=[(f32, 0.0), (bf, 0.0)],
+            in_path=True, variants=[("f32", f32, 0.0, None), ("bf16", bf, 0.0, None),
+                                    ("bf16_dropout", bf, 0.2, None)]),
+         state_bytes(c, model=2), lambda coords: cp_want(K, c, coords["seq"], "step"),
+         step_gate, (), {"context_parallel": 2})])
+
+
 def multi_card(card: str) -> int:
     """``python3 chip_smoke.py --multi-card`` on a machine with 2 or more
     cards: the training entry over NCCL, one card per rank, 8 steps
@@ -3312,7 +3959,15 @@ def multi_card(card: str) -> int:
       evaluation losses within the limit of the one-card run's at both
       rates (every mask is keyed by global heads and rows), every rank's
       train-state bytes those ``state_bytes`` gives, the tensor-parallel
-      all-reduces' bytes, calls and ms a step.
+      all-reduces' bytes, calls and ms a step;
+    - on 4 cards (``new_rows``): ``{mod: 2, data: 2}`` (and with ``fsdp:
+      true``), ``{mod: 4}``, ``{mod: 2, model: 2}`` and ``{model: 4}`` at
+      block_size 64 (global batch 32), and ``{model: 2}`` x
+      ``context_parallel: 2`` at block_size 1024 (batch 8), each at dropout
+      0 and 0.2 with the tensor-parallel rows' gates (model x sequence at
+      0.2: the rings fold their keys with the model place as the JAX
+      package does, so only the ranks' agreement is held), the modality
+      collectives' bytes, calls and ms a step.
     At every rate every rank's parameter checksum (float64 sum and SHA-256 of
     the bytes) must be equal. Prints each run's steps/s and, under a data
     axis, the bytes and ms a step of the gradient all-reduce and, under
@@ -3342,7 +3997,8 @@ def multi_card(card: str) -> int:
             text = text.replace("  mesh: auto", f"  mesh: {mesh}")
             text = text.replace("  # context_parallel: 4", f"  context_parallel: {cp}")
             (d / "config.yaml").write_text(text)
-            cfg = entry.load_config_and_data(str(d))["cfg"] if fsdp or "model" in mesh else None
+            cfg = (entry.load_config_and_data(str(d))["cfg"]
+                   if fsdp or "model" in mesh or "mod" in mesh else None)
             cwd = os.getcwd()
             os.chdir(d)
             try:
@@ -3362,6 +4018,12 @@ def multi_card(card: str) -> int:
         if tp:  # the model axis's all-reduces, summed a step (8 steps)
             coll["tp_all_reduce"] = (sum(n_ for n_, _ in tp) / 8, 1e3 * sum(t_ for _, t_ in tp) / 8,
                                      len(tp) / 8)
+        for kind in ("tp_all_gather", "mod_all_gather", "mod_reduce_scatter_bwd",
+                     "mod_all_reduce"):  # the model and modality axes' other collectives
+            calls = [(n_, t_) for k_, n_, t_ in res.get("collectives") or [] if k_ == kind]
+            if calls:
+                coll[kind] = (sum(n_ for n_, _ in calls) / 8,
+                              1e3 * sum(t_ for _, t_ in calls) / 8, len(calls) / 8)
         return {"losses": res["losses"], "seconds": sec,
                 **{f"{kind}_bytes_per_step": c_[0] for kind, c_ in coll.items()},
                 **{f"{kind}_ms_per_step": c_[1] for kind, c_ in coll.items()},
@@ -3414,8 +4076,8 @@ def multi_card(card: str) -> int:
         if not (same and split):
             failed.append(f"multi_card_fsdp {changed}: launches {same}, state split {split}")
 
-    # context parallelism at block_size 1024, batch 8
     long = dict(block_size=LONG_BLOCK, batch_size=8)
+    # context parallelism at block_size 1024, batch 8
     runs = {}
     sizes = [2] + ([4] if n_cards >= 4 else [])
     for p_size, rate in [(1, 0.0)] + [(p_, r_) for r_ in (0.0, 0.2) for p_ in sizes]:
@@ -3512,12 +4174,53 @@ def multi_card(card: str) -> int:
                               (rf, "data x2 (fsdp/zero-3) * context x2")):
                 if got["plan"] != want:
                     failed.append(f"data x seq planned {got['plan']}")
+        new_rows(run, hold, failed, dp_base, base, long)
     if failed:
         raise AssertionError(f"multi-card training disagrees: {failed}")
     emit(card)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": n_cards}})
     return 0
+
+
+def new_rows(run, hold, failed, dp_base, long_base0, long) -> None:
+    """``multi_card``'s modality and further tensor rows on 4 cards (``run``
+    and ``hold`` its helpers): ``{mod: 2, data: 2}`` (and FSDP), ``{mod:
+    4}``, ``{mod: 2, model: 2}``, ``{model: 4}`` and ``{model: 2}`` x
+    ``context_parallel: 2``, each at dropout 0 and 0.2 against the one-card
+    runs ``dp_base`` (block_size 64) and ``long_base0`` (block_size 1024,
+    dropout 0), with the exact bytes ``state_bytes`` gives and the plan's
+    line. A failed run is reported and the other rows still run."""
+    layouts = [("{mod: 2, data: 2}", dict(data=2, mod=2), False, {}, "modality x2 * data x2"),
+               ("{mod: 2, data: 2}", dict(data=2, mod=2), True, {},
+                "modality x2 * data x2 (fsdp/zero-3)"),
+               ("{mod: 4}", dict(mod=4), False, {}, "modality x4"),
+               ("{mod: 2, model: 2}", dict(model=2, mod=2), False, {}, "modality x2 * tensor x2"),
+               ("{model: 4}", dict(model=4), False, {}, "tensor x4"),
+               ("{model: 2}", dict(model=2), False, dict(long, cp=2), "tensor x2 * context x2")]
+    for mesh, axes, fsdp, extra, plan in layouts:
+        extra = dict(extra)
+        cp = extra.pop("cp", 1)
+        for rate in (0.0, 0.2):
+            try:
+                r = run(mesh, cp, fsdp=fsdp, dropout=rate, **extra)
+            except Exception as e:  # noqa: BLE001  (reported; the other rows still run)
+                emit({"phase": "multi_card_new", "mesh": mesh, "fsdp": fsdp, "dropout": rate,
+                      "context_parallel": cp, **extra, "error": repr(e)[-2000:], "ok": False})
+                failed.append(f"{mesh} fsdp {fsdp} cp {cp}: {e!r}"[:300])
+                continue
+            want = state_bytes(r["cfg"], axes.get("data", 1), axes.get("model", 1), fsdp,
+                               axes.get("mod", 1))
+            held = [tuple(b_) for b_ in r["train_state_bytes_by_rank"] or []]
+            base = (None if rate else long_base0) if cp > 1 else dp_base[rate]
+            hold("multi_card_new", r, base, 4,
+                 "flash_chunk_fwd_causal" if cp > 1 else "fused_qkv_attention",
+                 {**extra, "dropout": rate, "mesh": mesh, "context_parallel": cp,
+                  **({"fsdp": True} if fsdp else {})},
+                 train_state_bytes_expected=want, state_split=held == [want] * 4,
+                 plan_expected=plan)
+            if held != [want] * 4 or r["plan"] != plan:
+                failed.append(f"{mesh} fsdp {fsdp} cp {cp}: bytes {held}, plan {r['plan']}")
 
 
 def short_kernels(K, card, gen, timing, errs, by_path):
@@ -4013,6 +4716,7 @@ def main() -> int:
     # the batch) with those of tensor parallelism
     dp_kernel_check(K, card, gen)
     tp_kernel_check(K, card, gen)
+    mod_kernel_check(K, card, gen)
 
     # K3f: the production prefill (24 B rows, T = 56, hs = 64) at B = 32 and
     # B = 1, T in {8, 64, 512} x hs in {16, 24, 64, 128, 256}, and T 72 x
@@ -4507,7 +5211,7 @@ def main() -> int:
                     short_cross_attention=n_cross * L, short_cross_attention_bwd=n_cross * L)
     per_eval = dict(fused_qkv_attention=L, short_cross_attention=n_cross * L)
     train_launches, _, train_evals = training_run(
-        K, card, "training", per_step, per_eval, max_iters=60, eval_interval=20, eval_iters=4)
+        K, card, "training", per_step, per_eval, max_iters=30, eval_interval=10, eval_iters=4)
 
     # 10b. the flat-state AdamW (tpu_options.fused_update): the update alone
     # on one step's gradients against the per-leaf update, then the entry
@@ -4517,7 +5221,7 @@ def main() -> int:
     flat_update_check(K, card, cfg, ids)
     fused_launches, _, fused_evals = training_run(
         K, card, "training_fused", per_step, per_eval, tpu={"fused_update": "true"},
-        max_iters=60, eval_interval=20, eval_iters=4)
+        max_iters=30, eval_interval=10, eval_iters=4)
     loss_errs = [abs(a - b) for a, b in zip(fused_evals[-1][1:], train_evals[-1][1:])]
     ok = fused_launches == train_launches and max(loss_errs) <= STEP_TOL["bfloat16"]["loss"]
     emit({"phase": "fused_update", "part": "entry", "card": card,
@@ -4539,6 +5243,8 @@ def main() -> int:
     dp_runs = data_parallel(K, card, by_path)
     one_rank = fsdp_phases(K, card, by_path, dp_runs)
     tp_phases(K, card, by_path, one_rank)
+    mod_phases(K, card, by_path, one_rank)
+    four_rank_references(K, card)
 
     # 11. long context: the production config at block_size 1024
     by_path.update({"serving": launches, "training": train_launches,

@@ -5,8 +5,13 @@ mode, the dense chunk core against ``chunk_fwd_jnp`` / ``chunk_bwd_jnp``,
 ring attention over 2 and 4 gloo ranks against ``ring_causal_attention_local``
 under ``shard_map`` on 2 and 4 of the tests' 8 CPU devices, a context-parallel
 training step and 5-step trajectory against the JAX package's loss under
-its context-parallel scope on a sequence mesh of 2, and ``run_training``
-with ``context_parallel: 2`` against the JAX runner.
+its context-parallel scope on a sequence mesh of 2, ``run_training``
+with ``context_parallel: 2`` against the JAX runner, and tensor x context
+parallelism (``{model: 2}`` x ``context_parallel: 2``, 4 gloo ranks): the
+attention cores at dropout 0.2 against JAX's ``_cp_self_attention`` /
+``_cp_cross_attention`` under ``shard_map`` on a (model 2, seq 2) mesh of 4
+CPU devices (local rows and heads, the key folded with the model place),
+and the whole step at dropout 0 against JAX's unsharded step.
 
 Inputs are made with numpy and handed to both packages. The port's ranks are
 spawned processes (tests/torch_rank_bodies.py, which imports no JAX), each
@@ -391,3 +396,88 @@ def test_run_training_ranks_end_with_equal_parameters(tmp_path, monkeypatch, cap
     assert len(sums) == 2 and sums[0] == sums[1], sums
     assert sums[0] == runner.param_checksum(res["params"])
     assert np.isfinite(sums[0]["sum"]) and np.isfinite(res["losses"]["train"])
+
+
+# ------------------------------------------------------------ model x sequence
+
+
+def _jax_tp_ring(arrays, rate, impl):
+    """JAX's self- and cross-attention cores under its context-parallel
+    scope on a (data 1, model 2, seq 2) mesh of 4 CPU devices: outputs and
+    the gradients of q, k, v."""
+    mesh = make_mesh(1, 2, jax.devices()[:4], seq=2)
+    key = jnp.asarray(SALTS)
+    out = {}
+    for name, fn in (("self", jatt._cp_self_attention), ("cross", jatt._cp_cross_attention)):
+        q, k, v, g = (jnp.asarray(a) for a in arrays[name])
+
+        @jax.jit
+        def run(q, k, v, g, fn=fn):
+            o, vjp = jax.vjp(lambda q, k, v: fn(q, k, v, mesh, "seq", rate, key, True, impl),
+                             q, k, v)
+            return (o,) + vjp(g)
+
+        out[name] = run(q, k, v, g)
+    return out
+
+
+def test_tp_cp_cores_match_jax_shard_map_and_need_the_model_fold():
+    """``{model: 2}`` x ``context_parallel: 2`` over 4 gloo ranks, dropout
+    0.2, the dense chunk core: each rank's self- and cross-attention cores
+    on its head (values and q/k/v gradients) against JAX's cores under its
+    ``shard_map`` on the same head, within 1e-5; without the fold of the
+    model place into the rings' key the values move past 1e-2."""
+    rng = np.random.default_rng(11)
+    T, hs = 64, 8
+    arrays = {"self": [_normal((2, 2, 2, T, hs), rng) for _ in range(4)],
+              "cross": [_normal(s, rng) for s in ((2, 2, T, hs), (2, 2, 2, T, hs),
+                                                   (2, 2, 2, T, hs), (2, 2, T, hs))]}
+    ref = _jax_tp_ring(arrays, 0.2, "jnp")
+    job = dict(self=[torch.from_numpy(a) for a in arrays["self"]],
+               cross=[torch.from_numpy(a) for a in arrays["cross"]], rate=0.2, impl="jnp",
+               salts=tuple(int(s) for s in SALTS))
+    for fold in (True, False):
+        port = pmesh.run_ranks(torch_rank_bodies.tp_ring_cases, 4, (dict(job, fold=fold),),
+                               timeout=RANK_TIMEOUT)
+        worst = 0.0
+        for r, got in enumerate(port):
+            t = r // 2
+            for name in ("self", "cross"):
+                for i, (a, want) in enumerate(zip(got[name], ref[name])):
+                    ax = 2 if name == "self" or i in (2, 3) else 1  # k, v: (J, B, H, T, hs)
+                    worst = max(worst, _err(a, np.take(np.asarray(want), [t], axis=ax)))
+        if fold:
+            assert worst <= 1e-5
+        else:
+            assert worst > 1e-2
+
+
+def test_tp_cp_step_matches_jax_unsharded_step_at_dropout_0():
+    """The whole training step over ``{model: 2}`` x ``context_parallel: 2``
+    (4 gloo ranks, the dense cores at block_size 64, dropout 0) against JAX's
+    unsharded ``value_and_grad`` and AdamW on the same global batches: the
+    losses and every gradient leaf as tests/test_torch_tp.py holds a step,
+    every rank's gathered tree bit-equal."""
+    from test_torch_dp import _dp_batches
+    from test_torch_fsdp import _init
+    from test_torch_tp import TP_MODEL, _jax_steps
+
+    cfg_kw = dict(TP_MODEL, dropout=0.0)
+    jparams = _init(5, JaxConfig(**cfg_kw))
+    batches = _dp_batches(cfg_kw, 2, 4, 6)
+    salts = [(1, 2), (3, 4)]
+    (jloss, jgrads), jlosses, jafter = _jax_steps(JaxConfig(**cfg_kw), jparams, batches, salts,
+                                                  False)
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
+    job = dict(cfg=cfg_kw, params=tparams, batches=batches, salts=salts,
+               mesh=dict(model=2, seq=2), batch=4)
+    ranks = pmesh.run_ranks(torch_rank_bodies.mesh_cases, 4, (job,), timeout=RANK_TIMEOUT)
+    got = ranks[0]
+    np.testing.assert_allclose(got["loss"], jloss, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got["losses"], jlosses, rtol=1e-5, atol=1e-6)
+    assert max(_leaf_errs(got["whole_grads"], jax.tree_util.tree_leaves(jgrads))) <= 1e-5
+    for a, b in zip(got["whole"][0], jafter):
+        np.testing.assert_allclose(a, b, rtol=2e-4, atol=1e-5)
+    for other in ranks[1:]:
+        for a, b in zip(other["whole"][0], got["whole"][0]):
+            np.testing.assert_array_equal(a, b)

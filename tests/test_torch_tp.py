@@ -6,9 +6,13 @@ that ``param_pspecs`` places on 'model', its slice (the block that device
 (d, t) holds after the JAX package's ``shard_train_state(model_axis=True)``)
 and runs the Megatron form of the one-rank step: its heads and columns,
 ``copy_to`` / ``reduce_from`` around the split products, every dropout mask
-keyed by global heads (and rows). The JAX package lets GSPMD partition the
+keyed by global heads (and rows). Where N does not divide n_head (three
+heads over two ranks, the split of 6 heads over 4) the JAX placement keeps
+the per-head leaves whole and splits the heads' columns: the attention
+layers gather their split leaves and run whole on every rank. The JAX
+package lets GSPMD partition the
 unsharded step, so its contract is that step; the port is held to it. The
-ranks are spawned gloo processes (tests/torch_rank_bodies.py ``tp_cases``,
+ranks are spawned gloo processes (tests/torch_rank_bodies.py ``mesh_cases``,
 which imports no JAX), one spawn per layout, joined under a time limit,
 one thread per rank. Tolerances:
 - placements, parts and train-state bytes: equal (specs leaf for leaf,
@@ -83,9 +87,14 @@ TP_MODEL = dict(vocab_sizes=(13, 12, 9, 6), cross_attention=(True, False, True, 
 # mode; two heads, one a rank
 FLASH_MODEL = dict(TP_MODEL, vocab_sizes=(13, 8, 9), cross_attention=(True, False, True),
                    n_embd=32, n_head=2, block_size=640, attn_impl="pallas")
+# three heads of 16 over two ranks: the model axis does not divide the
+# heads, and splits w1_* / b1_* in columns of 12 and proj_w1 in rows of 24
+# (a head and a half a rank), the placement of 6 heads over {model: 4}
+SPLIT_MODEL = dict(TP_MODEL, n_head=3)
 GLOBAL_B = 4
 # (model config, data, model, fsdp, steps, global batch, kernel dispatch)
 LAYOUTS = {"model2": (TP_MODEL, 1, 2, False, 2, GLOBAL_B, False),
+           "split_heads_model2": (SPLIT_MODEL, 1, 2, False, 2, GLOBAL_B, False),
            "data2_model2_fsdp": (TP_MODEL, 2, 2, True, 2, GLOBAL_B, False),
            "mixed_model3": (TP_MODEL, 1, 3, False, 2, GLOBAL_B, False),
            "flash_model2": (FLASH_MODEL, 1, 2, False, 1, 2, True),
@@ -129,6 +138,28 @@ def test_param_pspecs_model_axis_equal_jax_on_the_production_tree(model):
     sizes = [int(np.prod(s)) for _, s in tree_leaves(tshapes)]
     split = sum(n for n, s in zip(sizes, got) if "model" in s)
     assert split > 0.90 * sum(sizes)
+
+
+def test_param_pspecs_model4_splits_the_production_heads_in_columns():
+    """``{model: 4}`` on the production tree's 6 heads of 64 (hs/2 = 32), as
+    the JAX package places it: w1_* and b1_* in columns of 48 (a head and a
+    half a rank), sa.proj_w1 and cross.proj_w1 in rows of 96, the per-head
+    leaves sa.w2_*, cross.q_w and cross.kv_w whole (4 does not divide 6)."""
+    jcfg = JaxConfig(**TREES["production"], dropout=0.0, attn_impl="jnp")
+    jshapes = jax.eval_shape(lambda: jax_init(jax.random.PRNGKey(0), jcfg))
+    want = _jax_specs(jshapes, jcfg.n_head, model_axis=True, model_size=4)
+    tshapes = param_shapes(ModelConfig(**TREES["production"]))
+    got = pmesh.param_pspecs(tshapes, jcfg.n_head, model_axis=True, model_size=4)
+    assert got == want
+    spec = dict(zip(["/".join(map(str, p)) for p, _ in tree_paths(tshapes)], got))
+    shape = dict((("/".join(map(str, p)), tuple(s)) for p, (_, s) in tree_paths(tshapes)))
+    assert spec["blocks/0/sa/w1_q"] == (None, None, "model") and shape["blocks/0/sa/w1_q"][-1] == 192
+    assert spec["blocks/0/sa/b1_k"] == (None, "model")
+    assert spec["blocks/0/sa/proj_w1"] == (None, "model", None)
+    assert shape["blocks/0/sa/proj_w1"][1] == 384
+    assert spec["blocks/0/cross/0/proj_w1"] == ("model", None)
+    for leaf in ("blocks/0/sa/w2_q", "blocks/0/cross/0/q_w", "blocks/0/cross/0/kv_w"):
+        assert spec[leaf] == (), leaf
 
 
 # (data, model, fsdp) of the shard and byte cases
@@ -373,11 +404,11 @@ def _layout_run(name):
         _JAX_STEPS[key] = _jax_steps(jcfg, jparams, batches, salts, dispatch)
     ref = _JAX_STEPS[key]
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
-    job = dict(cfg=cfg_kw, params=tparams, batches=batches, salts=salts, data=data, fsdp=fsdp,
-               kernel_dispatch=dispatch, batch=B)
+    job = dict(cfg=cfg_kw, params=tparams, batches=batches, salts=salts,
+               mesh=dict(data=data, model=model), fsdp=fsdp, kernel_dispatch=dispatch, batch=B)
     if name == "model2":
         job.update(feed=_dp_feed_args(cfg_kw, 8), seed=11, eval_iters=2, remat=True)
-    ranks = pmesh.run_ranks(torch_rank_bodies.tp_cases, data * model, (job,),
+    ranks = pmesh.run_ranks(torch_rank_bodies.mesh_cases, data * model, (job,),
                             timeout=RANK_TIMEOUT)
     _RUNS[name] = (ref, ranks, tparams, job)
     return _RUNS[name]
@@ -402,6 +433,12 @@ def test_tp_step_matches_jax_unsharded_step(name):
         np.testing.assert_allclose(a, b, rtol=2e-4, atol=1e-5)
     specs = got["specs"]
     assert any("model" in s for s in specs)
+    if LAYOUTS[name][0] is SPLIT_MODEL:  # the heads' columns split, the per-head leaves whole
+        spec = dict(zip(["/".join(map(str, p)) for p, _ in tree_paths(_layout_run(name)[2])],
+                        specs))
+        assert spec["blocks/0/sa/w1_q"][-1] == "model" and spec["blocks/0/sa/w2_q"] == ()
+        assert spec["blocks/0/cross/0/proj_w1"][0] == "model"
+        assert spec["blocks/0/cross/0/q_w"] == ()
     if LAYOUTS[name][0] is TP_MODEL:  # mixed placements: whole and split vocabulary leaves
         spec = dict(zip(["/".join(map(str, p)) for p, _ in tree_paths(_layout_run(name)[2])],
                         specs))
@@ -437,7 +474,7 @@ def test_tp_head_offset_0_breaks_the_step():
     (_, jgrads), _, _ = _layout_run("model2")[0]
     job = {k: v for k, v in _layout_run("model2")[3].items()
            if k not in ("feed", "seed", "eval_iters", "remat")}
-    bad = pmesh.run_ranks(torch_rank_bodies.tp_cases, 2, (dict(
+    bad = pmesh.run_ranks(torch_rank_bodies.mesh_cases, 2, (dict(
         job, batches=job["batches"][:1], salts=job["salts"][:1], head_offset_0=True),),
         timeout=RANK_TIMEOUT)
     assert max(_leaf_errs(bad[0]["whole_grads"], jgrads)) > 1e-3

@@ -603,11 +603,11 @@ def test_mesh_that_needs_more_devices_raises():
 
 
 # (mesh, context_parallel, devices, fsdp): JAX's plan or error, in the port
-# the same plan (FSDP included) where it has data, model and sequence axes
-# (model alone or with data), the same error where JAX raises, and
-# NotImplementedError (a later slice) where JAX's plan has a modality or
-# pipeline axis, the model axis with the sequence axis, or a model axis
-# that does not divide n_head
+# the same plan (FSDP included) where it has modality, data, model and
+# sequence axes (a model axis that does not divide n_head too), the same
+# error where JAX raises, and NotImplementedError (a later slice) where
+# JAX's plan has a pipeline axis, the modality axis with the sequence axis,
+# or the sequence axis with a model axis that does not divide n_head
 PLAN_CASES = [
     ("auto", 1, 1, False), ("off", 1, 1, False), (None, 1, 1, False), (1, 1, 1, False),
     ({"data": 1, "model": 1}, 1, 1, False), ("auto", 2, 2, False), ("off", 2, 2, False),
@@ -619,6 +619,10 @@ PLAN_CASES = [
     ({"bogus": 2}, 1, 2, False), ({"data": 0}, 1, 2, False), ("sideways", 1, 1, False),
     ({"data": 1}, 2, 2, True), ({"data": 2}, 1, 2, True), ({"data": 2}, 2, 4, True),
     ({"model": 2}, 1, 2, True), ({"model": 4}, 1, 4, False), ({"data": 2, "model": 2}, 1, 4, True),
+    ({"mod": 4}, 1, 4, False), ({"mod": 2, "data": 2}, 1, 4, True),
+    ({"mod": 2, "model": 2}, 1, 4, False), ({"mod": 2, "data": 2, "model": 2}, 1, 8, False),
+    ({"model": 2}, 2, 4, False), ({"data": 2, "model": 2}, 2, 8, False), ({"mod": 2}, 2, 4, False),
+    ({"model": 4}, 2, 8, False),
 ]
 
 
@@ -633,14 +637,14 @@ def test_plan_mesh_matches_jax(mesh, cp, n, fsdp):
         with pytest.raises(ValueError, match=re.escape(str(e))):
             plan_mesh(mesh, cp, n_devices=n, **kw)
         return
-    if (ref.mod * ref.pipe != 1 or (ref.model > 1 and ref.seq > 1)
-            or kw["n_head"] % ref.model != 0):
+    if (ref.pipe != 1 or (ref.mod > 1 and ref.seq > 1)
+            or (ref.seq > 1 and kw["n_head"] % ref.model != 0)):
         with pytest.raises(NotImplementedError, match="later slice"):
             plan_mesh(mesh, cp, n_devices=n, **kw)
         return
     got = plan_mesh(mesh, cp, n_devices=n, **kw)
-    assert (got.describe(), got.n_devices, got.data, got.model, got.seq, got.trivial,
-            got.fsdp) == (ref.describe(), ref.n_devices, ref.data, ref.model, ref.seq,
+    assert (got.describe(), got.n_devices, got.data, got.model, got.mod, got.seq, got.trivial,
+            got.fsdp) == (ref.describe(), ref.n_devices, ref.data, ref.model, ref.mod, ref.seq,
                           ref.trivial, ref.fsdp)
 
 

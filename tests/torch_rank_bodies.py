@@ -1,7 +1,8 @@
 """What each rank process of the port's parallel tests runs.
 
 The tests (tests/test_torch_ring.py, tests/test_torch_dp.py,
-tests/test_torch_fsdp.py, tests/test_torch_tp.py) start these
+tests/test_torch_fsdp.py, tests/test_torch_tp.py, tests/test_torch_mod.py)
+start these
 functions in spawned processes joined in one gloo group
 (``parallel.mesh.run_ranks``); a child imports this module, torch and the
 port, never JAX: the JAX references are computed in the test process.
@@ -189,22 +190,27 @@ def fsdp_cases(rank, world, job):
     return out
 
 
-def tp_cases(rank, world, job):
-    """One rank of a tensor-parallel run over ``make_mesh(data=job["data"],
-    model=world // data)`` (with ``job["fsdp"]`` FSDP on the data axis),
-    from the whole ``job["params"]``: the rank's parts of params, mu and
-    nu (numpy) and its placement's specs and parts; the loss and gradients
-    (the rank's parts, and the whole tree gathered) of one step on the
-    global batch ``job["batches"][0]``; after one AdamW step per batch the
-    losses and the whole params, mu and nu gathered; with ``job["feed"]``
-    an evaluation pass of the global validation batches on the initial
-    parameters; with ``job["ckpt"]`` a file, the whole state saved there by
-    rank 0 and read back and re-sharded on every rank (its parts); with
-    ``job["remat"]`` the first step's loss and gradients again with each
-    block recomputed in the backward. ``job["kernel_dispatch"]`` takes the
-    card's dispatch with the kernels' plain versions; ``job["head_offset_0"]``
-    forces every rank's heads to start at 0 (a planted fault)."""
+def mesh_cases(rank, world, job):
+    """One rank of a run over ``make_mesh(**job["mesh"])`` (any of mod,
+    data, model, seq; with ``job["fsdp"]`` FSDP on the data axis), from the
+    whole ``job["params"]``: the rank's coordinates, its placement's specs
+    and parts, its parts of params, mu and nu (numpy); the loss and the
+    gradients (the rank's parts, and the whole tree gathered) of one step on
+    the global batch ``job["batches"][0]``; after one AdamW step per batch
+    the losses, the rank's parts and the whole params, mu and nu gathered;
+    with ``job["feed"]`` an evaluation pass of the global validation
+    batches on the initial parameters; with ``job["ckpt"]`` a file, the
+    whole state saved there by rank 0 and read back and re-sharded on every
+    rank; with ``job["remat"]`` the first step's loss and gradients again
+    with each block recomputed in the backward. ``job["kernel_dispatch"]``
+    takes the card's dispatch with the kernels' plain versions. Planted
+    faults: ``job["head_offset_0"]`` (every rank's heads start at 0),
+    ``job["skip_cross_keys"]`` (a rank draws no salts for the cross sites
+    of modalities it does not own) and ``job["mod_offset_0"]`` (rank 1
+    keys its masks as modality place 0's)."""
+    from trade_aid_multimodal_transformer_tpu_torch.models import transformer as ttr
     from trade_aid_multimodal_transformer_tpu_torch.ops import attention as tatt
+    from trade_aid_multimodal_transformer_tpu_torch.ops import layers as tl
     from trade_aid_multimodal_transformer_tpu_torch.parallel.trainer import shard_train_state
     from trade_aid_multimodal_transformer_tpu_torch.train.checkpoint import (
         load_checkpoint, load_optimizer_state, save_checkpoint)
@@ -213,46 +219,87 @@ def tp_cases(rank, world, job):
     torch.set_num_threads(1)  # no thread split to vary between the ranks: the same bits
     if job.get("kernel_dispatch"):
         tatt._kernel_device = lambda device, impl: impl != "jnp"
-    data = job.get("data", 1)
-    mesh = pmesh.make_mesh(data=data, model=world // data)
+    if job.get("skip_cross_keys"):
+        ttr.CROSS_SITES = 0
+    if job.get("mod_offset_0") and rank == 1:
+        unkeyed = tl.batch_row_map
+        tl.batch_row_map = tatt.batch_row_map = (
+            lambda lead, b, h=None, m=None: unkeyed(lead, b, h, None))
+    mesh = pmesh.make_mesh(**job["mesh"])
     if job.get("head_offset_0"):
         mesh.model.heads = lambda n_head, _per=mesh.model.heads: (0, _per(n_head)[1])
     cfg = ModelConfig(**job["cfg"])
     feed, specs = _dp_feed(job) if "feed" in job else (None, [])
     numpy = lambda tree: [t.detach().float().numpy().copy() for t in tree_leaves(tree)]  # noqa: E731
-    opt = make_optimizer(1e-3)
+    opt = make_optimizer(1e-3, **job.get("opt", {}))
     params = map_tree(lambda t: t.detach().clone().requires_grad_(), job["params"])
     params, state, placed = shard_train_state(params, opt.init(params), mesh.data,
-                                              job.get("fsdp", False), mesh.model)
+                                              job.get("fsdp", False), mesh.model, mesh.mod)
     trainer = make_sharded_trainer(cfg, feed, opt, specs, job.get("eval_iters", 1), mesh,
                                    fsdp=placed)
-    out = {"specs": placed.specs, "parts_held": placed.parts(),
-           "parts": [numpy(params), numpy(state["mu"]), numpy(state["nu"])]}
+    out = {"coords": mesh.coords}
+    if placed is not None:
+        out.update(specs=placed.specs, parts_held=placed.parts())
+    out["parts"] = [numpy(params), numpy(state["mu"]), numpy(state["nu"])]
+    whole = (lambda tree, kind="all_gather": tree) if placed is None else placed.whole
     if feed is not None:
         ev = trainer.eval_pass(params, StepRng(job["seed"], "cpu"), "val")
         out["eval"] = {k: v.numpy() for k, v in ev._asdict().items()}
     as_batch = [tuple(torch.from_numpy(a) for a in b) for b in job["batches"]]
     loss, grads = trainer.loss_and_grads(params, [as_batch[0]], [job["salts"][0]])
-    out.update(loss=loss.item(), grads=[g.numpy() for g in grads],
-               whole_grads=numpy(placed.whole(list(grads), "grads")))
-    if job.get("remat"):  # each block recomputed in the backward, its all-reduces again
+    out.update(loss=loss.item(), grads=[g.float().numpy() for g in grads],
+               whole_grads=numpy(whole(list(grads), "grads")))
+    if job.get("remat"):  # each block recomputed in the backward, its collectives again
         remat = make_sharded_trainer(dataclasses.replace(cfg, remat=True), feed, opt, specs, 1,
                                      mesh, fsdp=placed)
         rloss, rgrads = remat.loss_and_grads(params, [as_batch[0]], [job["salts"][0]])
         out["remat"] = (rloss.item(), [g.numpy() for g in rgrads])
     out["losses"] = [trainer.step(params, state, [b], [s]).item()
                      for b, s in zip(as_batch, job["salts"])]
-    whole = [placed.whole(t) for t in (params, state["mu"], state["nu"])]
-    out["whole"] = [numpy(t) for t in whole]
+    trees = [whole(t) for t in (params, state["mu"], state["nu"])]
+    out["whole"] = [numpy(t) for t in trees]
     out["after_parts"] = numpy(params)
     if job.get("ckpt"):
         if rank == 0:
-            save_checkpoint(job["ckpt"], whole[0], step=len(as_batch),
-                            opt_state={"count": state["count"], "mu": whole[1], "nu": whole[2]},
+            save_checkpoint(job["ckpt"], trees[0], step=len(as_batch),
+                            opt_state={"count": state["count"], "mu": trees[1], "nu": trees[2]},
                             optimizer=opt)
         torch.distributed.barrier()
         loaded = load_checkpoint(job["ckpt"], cfg, "cpu")[0]
         got, got_state, _ = shard_train_state(loaded, load_optimizer_state(job["ckpt"], loaded, opt),
-                                              mesh.data, job.get("fsdp", False), mesh.model)
+                                              mesh.data, job.get("fsdp", False), mesh.model,
+                                              mesh.mod)
         out["resumed_parts"] = [numpy(got), numpy(got_state["mu"]), numpy(got_state["nu"])]
+    return out
+
+
+def tp_ring_cases(rank, world, job):
+    """One rank of ``make_mesh(model=2, seq=world // 2)``: the self- and
+    cross-attention cores (``ops.attention``) on this rank's head of
+    ``job["self"]`` (q, k, v, g of (M, B, H, T, hs)) and ``job["cross"]``
+    (q, g of (B, H, T, hs); k, v of (J, B, H, T, hs)) inside the
+    context-parallel scope (and the tensor-parallel rank's head scope,
+    whose global heads the ring must not use), dropout ``job["rate"]``: the
+    whole outputs and the gradients of q, k, v, as numpy. Without
+    ``job["fold"]`` the rings' key is not folded with the model rank (a
+    planted fault)."""
+    from trade_aid_multimodal_transformer_tpu_torch.ops import attention as tatt
+    from trade_aid_multimodal_transformer_tpu_torch.ops import layers as tl
+
+    torch.set_num_threads(1)  # no thread split to vary between the ranks: the same bits
+    mesh = pmesh.make_mesh(model=2, seq=world // 2)
+    t = mesh.model.rank
+    model_rank = t if job.get("fold", True) else None
+    out = {}
+    for name, h_ax, core in (("self", 2, tatt.causal_attention),
+                             ("cross", 1, tatt.cross_causal_attention)):
+        q, k, v, g = (x.narrow(h_ax + (x.ndim > job[name][0].ndim), t, 1).clone()
+                      for x in job[name])
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+        with tatt.context_parallel_scope(mesh.seq, None, model_rank), \
+                tl.head_slice_scope(t, 1, 2, mesh.model):
+            o = core(q, k, v, job["impl"], job["rate"], job["salts"], True,
+                     batch_axis=h_ax - 1, head_axis=h_ax)
+            grads = torch.autograd.grad(o, (q, k, v), g)
+        out[name] = [o.detach().numpy()] + [x.numpy() for x in grads]
     return out

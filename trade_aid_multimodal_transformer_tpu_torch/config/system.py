@@ -14,12 +14,15 @@ dtypes, ``params_dtype``, ``lr_schedule``, ``grad_accum``, ``fused_update``
 (the flat-state AdamW, on one rank) and ``remat`` (each block recomputed in
 the backward) shape training as there. ``context_parallel`` runs ring
 attention over that many ranks, ``mesh`` data parallelism (``{data: P}``,
-``auto``; with ``fsdp: true`` FSDP / ZeRO-3 over the data axis) and tensor
-parallelism over whole heads (``{model: N}``, N dividing ``n_head``; alone,
-with a data axis, and with ``fsdp``), one card a rank (parallel/); a plan
-that needs a modality or pipeline axis, the model axis with
-``context_parallel``, or a model axis that does not divide ``n_head``
-raises (a later slice of the port).
+``auto``; with ``fsdp: true`` FSDP / ZeRO-3 over the data axis), tensor
+parallelism (``{model: N}``: over whole heads where N divides ``n_head``,
+else over the columns the placement splits; alone, with a data axis, with
+``fsdp`` and with ``context_parallel``) and modality parallelism
+(``{mod: P}``, P dividing the modality count; alone and with the data and
+model axes), one card a rank (parallel/); a plan that needs a pipeline
+axis, the modality axis with ``context_parallel``, or ``context_parallel``
+with a model axis that does not divide ``n_head`` raises (a later slice of
+the port).
 The other keys (``rng_impl``, ``scan_unroll``, ``multihost``,
 ``pipeline_microbatches``, ...) are parsed and validated so that every
 config that loads in the JAX package loads here, and change nothing in the

@@ -46,8 +46,24 @@ second bias), the token tables by vocabulary rows (a lookup of the rank's
 rows, zeros elsewhere, summed) and the vocabulary heads by hidden columns
 (the f32 logits summed before their bias). A leaf the placement keeps
 whole (a dimension the axis does not divide) runs as on one rank, with no
-collective. Every attention core names its head axis, so the masks are the
-global heads'.
+collective. Where the axis does not divide the heads (the JAX package's
+placement then keeps the per-head leaves ``w2_*``, ``q_w`` and ``kv_w``
+whole and splits ``w1_*``, ``b1_*`` and ``proj_w1`` by columns and rows
+through the heads), each attention layer gathers its split leaves over the
+axis (``ModelAxis.gather``) and runs whole on every rank of the axis, its
+masks those of all the heads (h0 = 0), each rank keeping its slice of the
+gathered leaves' gradients. Every attention core names its head axis, so
+the masks are the global heads'.
+Inside a modality-parallel rank's ``mod_slice_scope`` (ops/layers.py) the
+batch, the M-stacked leaves (sa, ffwd, ln1, ln2, the post norm) and the
+activations hold the rank's modalities [m0, m0 + M / P); the embedding and
+the vocabulary heads run on them, every (M, B, ...) dropout site names its
+modality axis, so its mask is the global modalities' rows. Before the
+cross loop each block gathers x over the modality axis (``ModAxis.gather``,
+whose backward sums each modality's gradient onto its owner); the owner of
+a querying modality computes its cross update, and every rank advances the
+block's ``KeyGen`` over every cross site, its own or not, so the salts of
+the sites after it stay the global forward's.
 With ``cfg.remat`` a training forward stores only each block's input and
 recomputes the block in the backward (``torch.utils.checkpoint``, the JAX
 package's ``jax.checkpoint`` with ``nothing_saveable``): memory changes, values
@@ -72,7 +88,8 @@ from ..ops.attention import (
     cross_short_kernel_active,
     fused_qkv_attention_active,
 )
-from ..ops.layers import KeyGen, batch_slice, dropout, head_slice, layernorm
+from ..ops.layers import (KeyGen, batch_slice, dropout, head_slice, head_slice_scope,
+                          layernorm, mod_slice)
 from .config import ModelConfig
 
 
@@ -101,6 +118,30 @@ def _tp_axis():
     """The model axis of an open ``head_slice_scope``, or None."""
     tp = head_slice()
     return None if tp is None else tp[3]
+
+
+def _mods(M: int) -> Tuple[int, int]:
+    """(m0, local count) of the modalities an open ``mod_slice_scope``
+    holds, else (0, M)."""
+    ms = mod_slice()
+    return (0, M) if ms is None else (ms[0], ms[1])
+
+
+def _whole_heads(leaves: Dict[str, torch.Tensor], whole: Dict[str, Tuple[int, int]], axis
+                 ) -> Dict[str, torch.Tensor]:
+    """``leaves`` with each one the model axis splits gathered whole:
+    ``whole`` maps a leaf's name to (its split dimension, its whole size
+    there); a leaf already whole as it is."""
+    out = dict(leaves)
+    for name, (dim, size) in whole.items():
+        if out[name].shape[dim] != size:
+            out[name] = axis.gather(out[name], dim)
+    return out
+
+
+# the sites (KeyGen draws) of one cross-attending modality: the core's and
+# the output's dropout
+CROSS_SITES = 2
 
 
 def _bias(b: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
@@ -167,13 +208,27 @@ def self_attention(
     keys: KeyGen, train: bool = False,
 ) -> torch.Tensor:
     """Multi-head self-attention for all modalities (x_norm: (M, B, T, C));
-    on a tensor-parallel rank its heads."""
+    on a tensor-parallel rank its heads, or where the axis does not divide
+    the heads all of them on every rank of the axis; on a
+    modality-parallel rank its modalities."""
     _, _, T, _ = x_norm.shape
     H, hs = cfg.n_head, cfg.head_size
     tp, axis = head_slice(), _tp_axis()
+    if axis is not None and sa["w2_q"].shape[1] == H:  # the axis does not divide the heads
+        # every rank computes the layer whole, proj_w1 gathered as well: its
+        # row-split partial sums would leave each rank a share of the whole
+        # attention output's gradient, and summing that over the axis (M B T C
+        # in f32 a layer) moves about ten times the bytes of the gather
+        names =[f"{w}_{g}" for w in ("w1", "b1") for g in "qkv"]
+        whole = {n: (sa[n].ndim - 1, H * (hs // 2)) for n in names}
+        whole["proj_w1"] = (1, H * hs)
+        with head_slice_scope(0, H, H):
+            return self_attention(x_norm, _whole_heads(sa, whole, axis), cfg, keys, train)
     if axis is not None:
         H = tp[1]
         x_norm = axis.copy_to(x_norm)
+    ms = mod_slice()
+    mods = None if ms is None else (ms[0], ms[2])
     if fused_qkv_attention_active(T, hs, cfg.attn_impl, x_norm.device):
         w1 = torch.cat([sa["w1_q"], sa["w1_k"], sa["w1_v"]], dim=-1)
         b1 = torch.cat([sa["b1_q"], sa["b1_k"], sa["b1_v"]], dim=-1)
@@ -183,20 +238,20 @@ def self_attention(
         att_hm = kernels.fused_qkv_attention(
             x_norm.contiguous(), w1.float(), b1.float(), w2.float(), H,
             cfg.dropout if use_dropout else 0.0, k_att if use_dropout else None,
-            batch_slice(), None if tp is None else (tp[0], tp[2]),
+            batch_slice(), None if tp is None else (tp[0], tp[2]), mods,
         )  # (M, H, B, T, hs)
         out = _proj_mlp_heads(
             att_hm, sa["proj_w1"], sa["proj_b1"], sa["proj_w2"], sa["proj_b2"],
             H, hs, head_major=True, axis=axis,
         )
-        return dropout(out, cfg.dropout, keys(), train, batch_axis=1)
+        return dropout(out, cfg.dropout, keys(), train, batch_axis=1, mod_axis=0)
     q, k, v = _qkv_project_fused(x_norm, sa, H, hs // 2)
     att = causal_attention(q, k, v, cfg.attn_impl, cfg.dropout, keys(), train,
-                           batch_axis=1, head_axis=2)  # (M, B, H, T, hs)
+                           batch_axis=1, head_axis=2, mod_axis=0)  # (M, B, H, T, hs)
     out = _proj_mlp_heads(
         att, sa["proj_w1"], sa["proj_b1"], sa["proj_w2"], sa["proj_b2"], H, hs, axis=axis
     )
-    return dropout(out, cfg.dropout, keys(), train, batch_axis=1)
+    return dropout(out, cfg.dropout, keys(), train, batch_axis=1, mod_axis=0)
 
 
 def cross_attention(
@@ -211,10 +266,15 @@ def cross_attention(
     (H, B, T, hs) and (J, H, B, T, hs), as the JAX package emits them for its
     kernel; elsewhere in its (B, H, T, hs) order. The collapsed rows key the
     attention dropout as the JAX package's do. On a tensor-parallel rank its
-    heads."""
+    heads, or where the axis does not divide the heads all of them on every
+    rank of the axis."""
     T = query_x.shape[1]
     H, hs = cfg.n_head, cfg.head_size
     axis = _tp_axis()
+    if axis is not None and cp["q_w"].shape[0] == H:  # the axis does not divide the heads
+        with head_slice_scope(0, H, H):
+            return cross_attention(query_x, kv_x, _whole_heads(cp, {"proj_w1": (0, H * hs)},
+                                                               axis), cfg, keys, train)
     if axis is not None:
         H = head_slice()[1]
         query_x, kv_x = axis.copy_to(query_x), axis.copy_to(kv_x)
@@ -252,13 +312,14 @@ def feed_forward(
     else:
         h = axis.reduce_from(_mm_partial("mbtd,mdc->mbtc", h, ff["w2"])).to(dt)
         h = h + _bias(ff["b2"], dt)
-    return dropout(h, cfg.dropout, keys(), train, batch_axis=1)
+    return dropout(h, cfg.dropout, keys(), train, batch_axis=1, mod_axis=0)
 
 
 def block_forward(
     x: torch.Tensor, block: Dict[str, Any], key, cfg: ModelConfig, train: bool = False
 ) -> torch.Tensor:
-    """One MultimodalBlock. x: (M, B, T, C); key: the block's salt pair."""
+    """One MultimodalBlock. x: (M, B, T, C) (on a modality-parallel rank its
+    modalities); key: the block's salt pair."""
     keys = KeyGen(key)
     x = x + self_attention(
         layernorm(x, block["ln1"]["scale"], block["ln1"]["bias"]), block["sa"], cfg, keys, train
@@ -268,19 +329,30 @@ def block_forward(
     )
     if block["cross"]:
         # the KV inputs are x after SA/FF, frozen for every querying modality
-        # before any cross update applies; modalities in the JAX tree's
-        # (sorted) key order, which fixes their dropout sites
+        # before any cross update applies (all modalities': gathered over a
+        # modality axis); modalities in the JAX tree's (sorted) key order,
+        # which fixes their dropout sites
+        # (the block's output is taken from the gathered x, so that every
+        # rank's backward runs the gather's reduce-scatter, cross-attending
+        # modality or not)
+        ms = mod_slice()
+        m0, per = _mods(x.shape[0])
+        full = x if ms is None else ms[3].gather(x)
         updates = {}
         for i_str, cp in sorted(block["cross"].items()):
             i = int(i_str)
             kv_idx = cfg.kv_modalities(i)
             if not kv_idx:
                 continue
-            kv_x = x[list(kv_idx)]
-            y = layernorm(x[i], cp["ln_scale"], cp["ln_bias"])
-            updates[i] = x[i] + cross_attention(y, kv_x, cp, cfg, keys, train)
-        if updates:
-            x = torch.stack([updates.get(i, x[i]) for i in range(cfg.num_modalities)])
+            if not m0 <= i < m0 + per:  # another rank's: its sites still drawn
+                for _ in range(CROSS_SITES):
+                    keys()
+                continue
+            kv_x = full[list(kv_idx)]
+            y = layernorm(full[i], cp["ln_scale"], cp["ln_bias"])
+            updates[i] = full[i] + cross_attention(y, kv_x, cp, cfg, keys, train)
+        if updates or ms is not None:
+            x = torch.stack([updates.get(i, full[i]) for i in range(m0, m0 + per)])
     return x
 
 
@@ -289,29 +361,32 @@ def _round128(n: int) -> int:
 
 
 def embed(params: Dict[str, Any], cfg: ModelConfig, idx: torch.Tensor) -> torch.Tensor:
-    """Token + shared positional embedding. idx: (M, B, T) -> (M, B, T, C)."""
+    """Token + shared positional embedding. idx: (M, B, T) -> (M, B, T, C)
+    (on a modality-parallel rank its modalities' rows and tables)."""
     T = idx.shape[-1]
     pos = params["pre"]["pos_emb"][:T]
     if cfg.compute_dtype == "bfloat16":
         pos = pos.to(torch.bfloat16)
+    m0, per = _mods(idx.shape[0])
+    tables = params["pre"]["tok_emb"][m0:m0 + per]
     axis = _tp_axis()
     if axis is not None:
-        return _embed_tp(params["pre"]["tok_emb"], cfg, idx, axis) + pos
+        return _embed_tp(tables, cfg.vocab_sizes[m0:m0 + per], cfg, idx, axis) + pos
     Vp = _round128(max(cfg.vocab_sizes))
-    tab = torch.stack([F.pad(t, (0, 0, 0, Vp - t.shape[0])) for t in params["pre"]["tok_emb"]])
+    tab = torch.stack([F.pad(t, (0, 0, 0, Vp - t.shape[0])) for t in tables])
     if cfg.compute_dtype == "bfloat16":
         tab = tab.to(torch.bfloat16)
     mods = torch.arange(tab.shape[0], device=idx.device)[:, None, None]
     return tab[mods, idx.long()] + pos
 
 
-def _embed_tp(tables, cfg: ModelConfig, idx: torch.Tensor, axis) -> torch.Tensor:
+def _embed_tp(tables, vocab_sizes, cfg: ModelConfig, idx: torch.Tensor, axis) -> torch.Tensor:
     """The token rows on a tensor-parallel rank: of a table split by
     vocabulary rows, the lookup of the rank's rows (an index outside them
     reads an appended zero row), summed over the axis (one non-zero addend:
     exact); a whole table's lookup as on one rank. (M, B, T, C)."""
     rows, split = [], []
-    for i, (t, V) in enumerate(zip(tables, cfg.vocab_sizes)):
+    for i, (t, V) in enumerate(zip(tables, vocab_sizes)):
         if cfg.compute_dtype == "bfloat16":
             t = t.to(torch.bfloat16)
         ids = idx[i].long()
@@ -338,12 +413,15 @@ def logits_heads_padded(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tenso
     On a tensor-parallel rank the heads its placement splits by hidden
     columns run as a second batch over their local columns (the LN output
     through ``copy_to``), whose f32 partial logits the axis sums, then
-    rounded where the one-rank product rounds them, before b2.
+    rounded where the one-rank product rounds them, before b2. On a
+    modality-parallel rank its modalities' heads (x and the post norm its
+    modalities').
     Returns (M, B, T, Vp) logits in f32 (f64 under f64)."""
     post = params["post"]
-    heads = post["heads"]
-    Vs = list(cfg.vocab_sizes)
-    Vp = _round128(max(Vs))
+    m0, per = _mods(x.shape[0])
+    heads = post["heads"][m0:m0 + per]
+    Vs = list(cfg.vocab_sizes[m0:m0 + per])
+    Vp = _round128(max(cfg.vocab_sizes))
     h = layernorm(x, post["ln_scale"], post["ln_bias"])
     dt = h.dtype
     acc = torch.float64 if dt == torch.float64 else torch.float32
@@ -399,7 +477,8 @@ def forward(
     """Full forward. idx: (M, B, T) stacked token ids; rng: a raw uint32[2]
     key (needed for dropout in training). Returns (per-modality logits
     (B, T, V_i), per-modality mean losses or None without targets), like the
-    JAX ``forward``."""
+    JAX ``forward``; on a modality-parallel rank its modalities' (idx and
+    targets its rows)."""
     keys = KeyGen(rng)
     x = embed(params, cfg, idx)
     for block in params["blocks"]:
@@ -412,11 +491,12 @@ def forward(
         else:
             x = block_forward(x, block, keys(), cfg, train)
     padded = logits_heads_padded(params, cfg, x)
-    logits = [padded[m, ..., :v] for m, v in enumerate(cfg.vocab_sizes)]
+    m0, per = _mods(idx.shape[0])
+    logits = [padded[m, ..., :v] for m, v in enumerate(cfg.vocab_sizes[m0:m0 + per])]
     if targets is None:
         return logits, None
     losses = cross_entropy_padded(padded, targets)
-    return logits, [losses[m] for m in range(cfg.num_modalities)]
+    return logits, [losses[m] for m in range(per)]
 
 
 def total_loss(

@@ -18,16 +18,22 @@ everywhere else, as the JAX package leaves shapes outside both to XLA.
 attention (one query position against the KV cache) dispatches in
 models/cache.py. A core given its batch axis (``batch_axis``) keys its
 dropout by global batch rows inside a data-parallel rank's
-``layers.batch_slice_scope``, and given its head axis (``head_axis``) by
+``layers.batch_slice_scope``, given its head axis (``head_axis``) by
 global heads inside a tensor-parallel rank's ``layers.head_slice_scope``,
-in the dense cores and the kernels alike.
+and given its modality axis (``mod_axis``, self-attention's leading M) by
+global modalities inside a modality-parallel rank's
+``layers.mod_slice_scope``, in the dense cores and the kernels alike.
 
 Inside ``context_parallel_scope`` (opened by the context-parallel trainer,
 ``tpu_options.context_parallel``) both cores route through ring attention
 (parallel/ring_attention.py) over the scope's sequence group, as the JAX
 package's scope does, and the whole-row kernels are off. With a data axis
 (data x sequence) the ring keys its masks by local rows and the dropout key
-folded with the data rank, as the JAX package's ``shard_map`` body does. The ring's chunk
+folded with the data rank, as the JAX package's ``shard_map`` body does;
+with a model axis (model x sequence) by local heads too, the key folded
+with the data rank and then the model rank, as that body does wherever
+the axis is larger than 1. The global-row and global-head maps of the
+scopes never reach the ring. The ring's chunk
 core is ``chunk_fwd`` / ``chunk_bwd``: the chunk kernels K7f / K7b where the
 chunk is at least 256 long and eligible on the card (``attn_impl: pallas``:
 wherever eligible; on the CPU that is their plain version), the dense mirror
@@ -55,16 +61,17 @@ def causal_attention_dense(
     train: bool = False,
     batch_axis: Optional[int] = None,
     head_axis: Optional[int] = None,
+    mod_axis: Optional[int] = None,
 ) -> torch.Tensor:
     """Dense causal attention over trailing (T, head_size) axes. Leading axes
-    broadcast (q may have fewer leading dims than k/v); ``batch_axis`` and
-    ``head_axis`` are q's batch and head axes (counted from the left of q's
-    shape)."""
+    broadcast (q may have fewer leading dims than k/v); ``batch_axis``,
+    ``head_axis`` and ``mod_axis`` are q's batch, head and modality axes
+    (counted from the left of q's shape)."""
     dt = q.dtype
     if dt == torch.bfloat16 and q.device.type == "cpu":
         return causal_attention_dense(
             q.float(), k.float(), v.float(), dropout_rate, dropout_key, train, batch_axis,
-            head_axis,
+            head_axis, mod_axis,
         ).to(dt)
     acc = torch.float64 if dt == torch.float64 else torch.float32
     t_q, t_k = q.shape[-2], k.shape[-2]
@@ -75,7 +82,8 @@ def causal_attention_dense(
     shift = aff.ndim - q.ndim
     aff = dropout(aff, dropout_rate, dropout_key, train,
                   None if batch_axis is None else batch_axis + shift,
-                  None if head_axis is None else head_axis + shift)
+                  None if head_axis is None else head_axis + shift,
+                  None if mod_axis is None else mod_axis + shift)
     return torch.matmul(aff.to(v.dtype).to(acc), v.to(acc)).to(dt)
 
 
@@ -87,18 +95,20 @@ def _kernel_device(device: torch.device, impl: str) -> bool:
 
 # ------------------------------------------------- context-parallel dispatch
 
-_CP_SCOPE = None  # (sequence group (parallel.mesh.SeqMesh), data rank) of an open scope
+_CP_SCOPE = None  # (sequence group (parallel.mesh.SeqMesh), data rank, model rank) of an open scope
 
 
 @contextlib.contextmanager
-def context_parallel_scope(mesh, data_rank: Optional[int] = None):
+def context_parallel_scope(mesh, data_rank: Optional[int] = None,
+                           model_rank: Optional[int] = None):
     """Route causal and cross attention through ring attention over
     ``mesh`` (a ``parallel.mesh.SeqMesh``) while the scope is open.
-    ``data_rank``: this rank's place on a data axis of more than one rank
-    (data x sequence), whose index the rings' dropout keys are folded with."""
+    ``data_rank`` and ``model_rank``: this rank's places on a data and a
+    model axis of more than one rank (data x sequence, model x sequence),
+    whose indices the rings' dropout keys are folded with, in that order."""
     global _CP_SCOPE
     prev = _CP_SCOPE
-    _CP_SCOPE = (mesh, data_rank)
+    _CP_SCOPE = (mesh, data_rank, model_rank)
     try:
         yield
     finally:
@@ -106,8 +116,8 @@ def context_parallel_scope(mesh, data_rank: Optional[int] = None):
 
 
 def _cp_active(q: torch.Tensor):
-    """The scope's (mesh, data rank) where it shards q's sequence axis, else
-    None."""
+    """The scope's (mesh, data rank, model rank) where it shards q's
+    sequence axis, else None."""
     if _CP_SCOPE is None:
         return None
     mesh = _CP_SCOPE[0]
@@ -116,10 +126,16 @@ def _cp_active(q: torch.Tensor):
     return _CP_SCOPE
 
 
-def _ring_key(key, data_rank: Optional[int], use_drop: bool):
-    """The rings' dropout key: folded with the data rank under a data axis
-    (JAX's ``shard_map`` body decorrelates its data shards so)."""
-    return fold_key(key, data_rank) if use_drop and data_rank is not None else key
+def _ring_key(key, places: Sequence[Optional[int]], use_drop: bool):
+    """The rings' dropout key: folded with the data rank under a data axis,
+    then with the model rank under a model axis (JAX's ``shard_map`` body
+    decorrelates its data and model shards so)."""
+    if not use_drop:
+        return key
+    for place in places:
+        if place is not None:
+            key = fold_key(key, place)
+    return key
 
 
 def fold_key(key, i: int):
@@ -131,25 +147,25 @@ def fold_key(key, i: int):
 
 def _cp_self_attention(q, k, v, scope, dropout_rate, dropout_key, train, impl):
     """Ring attention over the sequence group, every leading axis local
-    (JAX's ``_cp_self_attention`` with a model axis of size 1): this rank's
-    batch rows keyed by their local index, the key folded with the data
-    rank under a data axis."""
+    (JAX's ``_cp_self_attention``): this rank's batch rows and heads keyed
+    by their local index, the key folded with the data rank under a data
+    axis and the model rank under a model axis."""
     from ..parallel.ring_attention import ring_causal_attention
 
-    mesh, data_rank = scope
-    key = _ring_key(dropout_key, data_rank, train and dropout_rate > 0.0)
+    mesh, places = scope[0], scope[1:]
+    key = _ring_key(dropout_key, places, train and dropout_rate > 0.0)
     return ring_causal_attention(q, k, v, mesh, impl, dropout_rate, key, train)
 
 
 def _cp_cross_attention(q, k, v, scope, dropout_rate, dropout_key, train, impl):
     """Ring attention per key/value stream j with ``fold_key(key, j)`` (the
-    key first folded with the data rank under a data axis), summed over the
-    streams in q's type (JAX's ``_cp_cross_attention``); q (..., T, hs), k,
-    v (J, ..., T, hs)."""
+    key first folded with the data rank and the model rank where those axes
+    exist), summed over the streams in q's type (JAX's
+    ``_cp_cross_attention``); q (..., T, hs), k, v (J, ..., T, hs)."""
     from ..parallel.ring_attention import ring_cross_attention
 
-    mesh, data_rank = scope
-    key = _ring_key(dropout_key, data_rank, train and dropout_rate > 0.0)
+    mesh, places = scope[0], scope[1:]
+    key = _ring_key(dropout_key, places, train and dropout_rate > 0.0)
     return ring_cross_attention(q, k, v, mesh, impl, dropout_rate, key, train)
 
 
@@ -181,6 +197,7 @@ def causal_attention(
     train: bool = False,
     batch_axis: Optional[int] = None,
     head_axis: Optional[int] = None,
+    mod_axis: Optional[int] = None,
 ) -> torch.Tensor:
     """Causal self-attention over separate q, k, v (..., T, hs), the JAX
     package's ``causal_attention``. On the card: in the band the
@@ -192,14 +209,15 @@ def causal_attention(
     ``batch_axis``: q's batch axis, whose rows key the dropout by their
     global rows in a data-parallel rank's batch slice scope; ``head_axis``
     its head axis, by global heads in a tensor-parallel rank's head slice
-    scope."""
+    scope; ``mod_axis`` its modality axis (0), by global modalities in a
+    modality-parallel rank's modality slice scope."""
     scope = _cp_active(q)
     if scope is not None and q.shape == k.shape:
         return _cp_self_attention(q, k, v, scope, dropout_rate, dropout_key, train, impl)
     t, hs = q.shape[-2], q.shape[-1]
     use_dropout = train and dropout_rate > 0.0
     rate, key = (dropout_rate, dropout_key) if use_dropout else (0.0, None)
-    rows = batch_row_map(q.shape[:-2], batch_axis, head_axis) if use_dropout else None
+    rows = batch_row_map(q.shape[:-2], batch_axis, head_axis, mod_axis) if use_dropout else None
     if _kernel_device(q.device, impl) and q.shape == k.shape == v.shape:
         if kernels.in_band(t, hs):
             if rows is not None:
@@ -211,7 +229,7 @@ def causal_attention(
         if kernels.flash_eligible(t, hs) and q.ndim >= 3:
             return kernels.flash_causal_attention(q, k, v, rate, key, rows)
     return causal_attention_dense(q, k, v, dropout_rate, dropout_key, train, batch_axis,
-                                  head_axis)
+                                  head_axis, mod_axis)
 
 
 def packed_attention_active(t: int, hs: int, impl: str, device: torch.device) -> bool:

@@ -1012,7 +1012,9 @@ inline int launch(const void* x, const void* w1, const void* b1, const void* w2,
 // (_fqkv_pick_gb) of the global batch of Bg rows, of which x holds rows
 // [b0, b0 + B) (Bg = B, b0 = 0 on one rank), and of the model's Hg heads,
 // of which w1 and w2 hold heads [h0, h0 + H) (Hg = H, h0 = 0 on one rank);
-// keepf = 1 - rate as f32.
+// under modality parallelism b0 also carries the launch's first modality m0
+// as m0 Bg (gb divides Bg, so the row's program moves by m0 Bg / gb, as the
+// global call's modality m0 + m moves it); keepf = 1 - rate as f32.
 // Returns the cudaError_t.
 extern "C" int tat_fused_qkv_attention_fwd(const void* x, const void* w1,
                                            const void* b1, const void* w2,

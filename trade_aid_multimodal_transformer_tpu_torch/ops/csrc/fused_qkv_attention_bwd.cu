@@ -618,7 +618,8 @@ int fqkv_bwd(const void* x, const void* w1, const void* b1, const void* w2, cons
 // inv = 1 / (1 - rate) as f32; gb = _fqkv_pick_gb's batch group of the
 // global batch of Bg rows, of which x holds rows [b0, b0 + B) (Bg = B, b0 = 0
 // on one rank), and of the model's Hg heads, of which w1 and w2 hold heads
-// [h0, h0 + H) (Hg = H, h0 = 0 on one rank). All contiguous. Returns the
+// [h0, h0 + H) (Hg = H, h0 = 0 on one rank); b0 carries a modality offset
+// m0 as m0 Bg, as the forward's. All contiguous. Returns the
 // first failing cudaError_t, or 0.
 extern "C" int tat_fused_qkv_attention_bwd(
     const void* x, const void* w1, const void* b1, const void* w2, const void* o,

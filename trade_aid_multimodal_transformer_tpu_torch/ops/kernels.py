@@ -57,11 +57,16 @@ are bit-identical. Under data parallelism a rank's rows are rows of a global
 batch, and under tensor parallelism its heads are heads of the model's, and
 K1f, K1b, K2f, K2b, K5f, K5b, K6f and K6f-r key each row at its global
 index: K1f and K1b take ``batch`` = (start, total), the rank's first row and
-the global batch, and ``heads`` = (h0, Hg), its first head and the model's
-head count (both of which key the fused mask and its batch group gb), the
-others ``rows`` over their collapsed rows (``layers.batch_row_map``):
+the global batch, ``heads`` = (h0, Hg), its first head and the model's
+head count (both of which key the fused mask and its batch group gb), and
+under modality parallelism ``mods`` = (m0, Mg), its first modality and the
+model's (the launch's first batch row then start + m0 total: the JAX
+kernel's program index moves by m0 Bg / gb, as a modality offset moves
+it), the others ``rows`` over their collapsed rows (``layers.batch_row_map``):
 (span, skip, base), one affine level, which K2 takes; the flash kernels
-also (span, skip, base, ispan, iskip), a head level inside the batch level.
+also (span, skip, base, ispan, iskip), a head level inside the batch level,
+the modality level in the base. K2, K6 and K7 run once per querying
+modality (cross) or on a ring's local rows, and take no modality level.
 None is the one-rank mask. ``fused_qkv_attention``, ``short_cross_attention``,
 ``short_causal_attention``, ``short_causal_attention_packed``,
 ``flash_causal_attention`` and ``flash_cross_attention`` are the
@@ -373,15 +378,18 @@ def fqkv_pick_gb(nb: int, H: int, t: int, hs: int, c: int, itemsize: int = 2) ->
 
 
 def fqkv_mask_rows(M: int, B: int, H: int, gb: int, device=None, batch=None,
-                   heads=None) -> torch.Tensor:
+                   heads=None, mods=None) -> torch.Tensor:
     """(M, H, B, 1, 1) mask row of each (m, h, b) in the JAX fused kernel:
     pid * gb * H + h * gb + b % gb, with pid = m * (Bg / gb) + b // gb; with
     ``batch`` = (start, Bg) the B rows are rows start + b of a global batch
     of Bg (gb that batch's group), else Bg = B; with ``heads`` = (h0, Hg)
-    the H heads are heads h0 + h of the model's Hg, else Hg = H."""
+    the H heads are heads h0 + h of the model's Hg, else Hg = H; with
+    ``mods`` = (m0, Mg) the M modalities are modalities m0 + m of the
+    model's Mg."""
     start, Bg = batch or (0, B)
     h0, Hg = heads or (0, H)
-    m = torch.arange(M, device=device)[:, None, None]
+    m0 = (mods or (0, M))[0]
+    m = m0 + torch.arange(M, device=device)[:, None, None]
     h = h0 + torch.arange(H, device=device)[None, :, None]
     b = start + torch.arange(B, device=device)[None, None, :]
     pid = m * (Bg // gb) + b // gb
@@ -391,16 +399,19 @@ def fqkv_mask_rows(M: int, B: int, H: int, gb: int, device=None, batch=None,
 IDENTITY_ROWS = (1, 0, 0)  # the launch arguments of a one-rank row map
 
 
-def _fqkv_batch(what: str, B: int, batch, H: int = 1, heads=None):
-    """(start, total, h0, Hg) of a fused launch's rows in the global batch
-    and its heads among the model's."""
+def _fqkv_batch(what: str, B: int, batch, H: int = 1, heads=None, M: int = 1, mods=None):
+    """(start, total, h0, Hg, m0) of a fused launch's rows in the global
+    batch, its heads among the model's and its first modality."""
     start, total = batch or (0, B)
     if not (0 <= start and start + B <= total):
         raise ValueError(f"{what}: rows [{start}, {start + B}) outside a batch of {total}")
     h0, Hg = heads or (0, H)
     if not (0 <= h0 and h0 + H <= Hg):
         raise ValueError(f"{what}: heads [{h0}, {h0 + H}) outside the model's {Hg}")
-    return int(start), int(total), int(h0), int(Hg)
+    m0, Mg = mods or (0, M)
+    if not (0 <= m0 and m0 + M <= Mg):
+        raise ValueError(f"{what}: modalities [{m0}, {m0 + M}) outside the model's {Mg}")
+    return int(start), int(total), int(h0), int(Hg), int(m0)
 
 
 def _one_level(what: str, rows):
@@ -492,17 +503,19 @@ def _attention_bwd(q, k, v, do, keep, rate: float, o=None):
     return dq, dk, dv
 
 
-def _fqkv_mask(x, w2, n_head: int, rate: float, salts, batch=None, heads=None):
+def _fqkv_mask(x, w2, n_head: int, rate: float, salts, batch=None, heads=None, mods=None):
     """(M, H, B, T, T) keep-mask of the fused kernel, or None without dropout;
     ``batch`` = (start, total): x holds rows [start, start + B) of a global
     batch; ``heads`` = (h0, Hg): w2 holds heads [h0, h0 + H) of the model's
-    Hg. The global batch and Hg give the group gb that keys the mask."""
+    Hg; ``mods`` = (m0, Mg): x holds modalities [m0, m0 + M) of Mg. The
+    global batch and Hg give the group gb that keys the mask."""
     if rate == 0.0:
         return None
     M, B, T, C = x.shape
-    start, total, h0, Hg = _fqkv_batch("fused_qkv_attention", B, batch, n_head, heads)
+    start, total, h0, Hg, m0 = _fqkv_batch("fused_qkv_attention", B, batch, n_head, heads, M,
+                                           mods)
     gb = fqkv_pick_gb(total, Hg, T, w2.shape[-1], C, x.element_size())
-    rows = fqkv_mask_rows(M, B, n_head, gb, x.device, (start, total), (h0, Hg))
+    rows = fqkv_mask_rows(M, B, n_head, gb, x.device, (start, total), (h0, Hg), (m0, None))
     return hash_keep_mask(seed_from_salts(salts), rows, 0, 0, (M, n_head, B, T, T), rate, x.device)
 
 
@@ -520,25 +533,25 @@ def _fqkv_project_plain(x, w1, b1, w2, n_head: int):
 
 
 def fused_qkv_attention_plain(x, w1, b1, w2, n_head: int, dropout_rate: float = 0.0,
-                              dropout_salts=None, batch=None, heads=None):
+                              dropout_salts=None, batch=None, heads=None, mods=None):
     """Plain PyTorch version of the fused forward kernel (same arguments)."""
     H = n_head
     _, _, qkv = _fqkv_project_plain(x, w1, b1, w2, H)
-    keep = _fqkv_mask(x, w2, H, float(dropout_rate), dropout_salts, batch, heads)
+    keep = _fqkv_mask(x, w2, H, float(dropout_rate), dropout_salts, batch, heads, mods)
     q, k, v = qkv[:, :H], qkv[:, H:2 * H], qkv[:, 2 * H:]
     return _whole_row_attention(q, k, v, keep, float(dropout_rate)).to(x.dtype)
 
 
 def fused_qkv_attention_bwd_plain(x, w1, b1, w2, out, dout, n_head: int,
                                   dropout_rate: float = 0.0, dropout_salts=None, batch=None,
-                                  heads=None):
+                                  heads=None, mods=None):
     """Plain PyTorch version of the fused backward kernel: returns dx (x's
     type) and dw1, db1, dw2 (f32, f64 for f64), as ``_fqkv_bwd_kernel``."""
     dt, acc = x.dtype, _acc(x.dtype)
     H, rate = n_head, float(dropout_rate)
     M, B, T, C = x.shape
     t2, t3, qkv = _fqkv_project_plain(x, w1, b1, w2, H)
-    keep = _fqkv_mask(x, w2, H, rate, dropout_salts, batch, heads)
+    keep = _fqkv_mask(x, w2, H, rate, dropout_salts, batch, heads, mods)
     q, k, v = qkv[:, :H], qkv[:, H:2 * H], qkv[:, 2 * H:]
     dq, dk, dv = _attention_bwd(q, k, v, dout, keep, rate, o=out)
     dqkv = torch.cat([dq, dk, dv], dim=1).to(dt).to(acc)  # (M, 3H, B, T, hs)
@@ -937,7 +950,7 @@ def _check_fqkv_shapes(what, x, w1, b1, w2, H):
 
 
 def fused_qkv_attention_fwd(x, w1, b1, w2, n_head: int, dropout_rate: float = 0.0,
-                            dropout_salts=None, batch=None, heads=None):
+                            dropout_salts=None, batch=None, heads=None, mods=None):
     """The forward kernel (K1f): the plain version for CPU tensors, the CUDA
     kernel for CUDA tensors. Returns (M, H, B, T, hs) in x's type. On the
     mma.sync body (bf16, hs % 16 == 0, hs <= 128: every model path) one
@@ -946,17 +959,18 @@ def fused_qkv_attention_fwd(x, w1, b1, w2, n_head: int, dropout_rate: float = 0.
     the body, so every call passes the workspace. ``batch`` = (start,
     total): x holds rows [start, start + B) of a global batch of total rows;
     ``heads`` = (h0, Hg): the weights hold heads [h0, h0 + n_head) of the
-    model's Hg; the mask is the global call's rows (gb taken from total and
-    Hg)."""
+    model's Hg; ``mods`` = (m0, Mg): x holds modalities [m0, m0 + M) of
+    the model's Mg; the mask is the global call's rows (gb taken from total
+    and Hg)."""
     what = "fused_qkv_attention"
     H = n_head
     _check_fqkv_shapes(what, x, w1, b1, w2, H)
     seed, thresh, on, keepf, _ = _dropout_args(what, dropout_rate, dropout_salts)
     M, B, T, C = x.shape
-    start, total, h0, Hg = _fqkv_batch(what, B, batch, H, heads)
+    start, total, h0, Hg, m0 = _fqkv_batch(what, B, batch, H, heads, M, mods)
     if _on_cpu(x, w1, b1, w2):
         return fused_qkv_attention_plain(x, w1, b1, w2, H, dropout_rate, dropout_salts, batch,
-                                         heads)
+                                         heads, mods)
     _check_cuda_operands(what, (x,), (w1, b1, w2))
     hs = w2.shape[-1]
     _check_band(what, T, hs)
@@ -968,7 +982,7 @@ def fused_qkv_attention_fwd(x, w1, b1, w2, n_head: int, dropout_rate: float = 0.
     err = _fn("fused_qkv_attention", "tat_fused_qkv_attention_fwd")(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), out.data_ptr(),
         ws.data_ptr(), M, B, T, C, H, hs, int(x.dtype == torch.bfloat16), hs ** -0.5,
-        seed, thresh, on, keepf, gb, total, start, Hg, h0, _stream(),
+        seed, thresh, on, keepf, gb, total, start + m0 * total, Hg, h0, _stream(),
     )
     _check_launch(err, what)
     fused_qkv_attention_fwd.launches += 1
@@ -980,9 +994,9 @@ fused_qkv_attention_fwd.launches = 0
 
 def fused_qkv_attention_bwd(x, w1, b1, w2, out, dout, n_head: int,
                             dropout_rate: float = 0.0, dropout_salts=None, batch=None,
-                            heads=None):
+                            heads=None, mods=None):
     """The backward kernel (K1b): dx in x's type and dw1, db1, dw2 in f32;
-    ``batch`` and ``heads`` as the forward's."""
+    ``batch``, ``heads`` and ``mods`` as the forward's."""
     what = "fused_qkv_attention_bwd"
     H = n_head
     _check_fqkv_shapes(what, x, w1, b1, w2, H)
@@ -991,10 +1005,10 @@ def fused_qkv_attention_bwd(x, w1, b1, w2, out, dout, n_head: int,
     hs2, hs = w2.shape[-2], w2.shape[-1]
     if out.shape != (M, H, B, T, hs) or dout.shape != out.shape:
         raise ValueError(f"{what}: out / dout must be {(M, H, B, T, hs)}")
-    start, total, h0, Hg = _fqkv_batch(what, B, batch, H, heads)
+    start, total, h0, Hg, m0 = _fqkv_batch(what, B, batch, H, heads, M, mods)
     if _on_cpu(x, w1, b1, w2, out, dout):
         return fused_qkv_attention_bwd_plain(x, w1, b1, w2, out, dout, H, dropout_rate,
-                                             dropout_salts, batch, heads)
+                                             dropout_salts, batch, heads, mods)
     _check_cuda_operands(what, (x, out, dout), (w1, b1, w2))
     _check_band(what, T, hs)
     gb = fqkv_pick_gb(total, Hg, T, hs, C, x.element_size())
@@ -1017,7 +1031,7 @@ def fused_qkv_attention_bwd(x, w1, b1, w2, out, dout, n_head: int,
         dout.data_ptr(), dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(),
         *(w.data_ptr() for w in ws),
         M, B, T, C, H, hs, int(dt == torch.bfloat16), hs ** -0.5,
-        seed, thresh, on, inv, gb, total, start, Hg, h0, _stream(),
+        seed, thresh, on, inv, gb, total, start + m0 * total, Hg, h0, _stream(),
     )
     _check_launch(err, what)
     fused_qkv_attention_bwd.launches += 1
@@ -1033,11 +1047,11 @@ class FusedQKVAttention(torch.autograd.Function):
     stored."""
 
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, n_head, dropout_rate, dropout_salts, batch, heads):
+    def forward(ctx, x, w1, b1, w2, n_head, dropout_rate, dropout_salts, batch, heads, mods):
         out = fused_qkv_attention_fwd(x, w1, b1, w2, n_head, dropout_rate, dropout_salts, batch,
-                                      heads)
+                                      heads, mods)
         ctx.save_for_backward(x, w1, b1, w2, out)
-        ctx.args = (n_head, dropout_rate, dropout_salts, batch, heads)
+        ctx.args = (n_head, dropout_rate, dropout_salts, batch, heads, mods)
         return out
 
     @staticmethod
@@ -1046,11 +1060,11 @@ class FusedQKVAttention(torch.autograd.Function):
         dx, dw1, db1, dw2 = fused_qkv_attention_bwd(x, w1, b1, w2, out, dout.contiguous(),
                                                     *ctx.args)
         return (dx, dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype),
-                None, None, None, None, None)
+                None, None, None, None, None, None)
 
 
 def fused_qkv_attention(x, w1, b1, w2, n_head: int, dropout_rate: float = 0.0,
-                        dropout_salts=None, batch=None, heads=None):
+                        dropout_salts=None, batch=None, heads=None, mods=None):
     """Factored QKV projection + whole-row causal attention, differentiable.
 
     x: (M, B, T, C) normalised input, bf16 or f32; w1: (M, C, 3D) with
@@ -1058,12 +1072,14 @@ def fused_qkv_attention(x, w1, b1, w2, n_head: int, dropout_rate: float = 0.0,
     concatenated; weights f32. dropout_salts: the site's raw uint32[2] salts
     (needed when dropout_rate > 0); batch: (start, total) of x's rows in a
     global batch (data parallelism), or None; heads: (h0, Hg), the weights'
-    first head among the model's Hg (tensor parallelism), or None. Returns
-    (M, H, B, T, hs) in x's type, head-major like the JAX entry
-    ``fused_qkv_attention``."""
+    first head among the model's Hg (tensor parallelism), or None; mods:
+    (m0, Mg), x's first modality among the model's Mg (modality
+    parallelism), or None. Returns (M, H, B, T, hs) in x's type, head-major
+    like the JAX entry ``fused_qkv_attention``."""
     return FusedQKVAttention.apply(x, w1, b1, w2, n_head, float(dropout_rate),
                                    _salts(dropout_salts), None if batch is None else tuple(batch),
-                                   None if heads is None else tuple(heads))
+                                   None if heads is None else tuple(heads),
+                                   None if mods is None else tuple(mods))
 
 
 def _check_cross_shapes(what, q, k, v):

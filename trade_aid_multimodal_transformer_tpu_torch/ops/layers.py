@@ -21,7 +21,13 @@ kernels) then hashes each collapsed row at its global index
 the model calls (parallel/mesh.py ``ModelAxis``); an attention core that
 names its head axis then hashes each row at its global head as well: a row
 map of two affine levels where both a batch and a head axis are split.
-Outside the scopes the masks are the one-rank masks.
+Under modality parallelism a rank holds modalities [m0, m0 + M / P) of the
+model's M, and the modality-parallel trainer opens ``mod_slice_scope``,
+which also carries the modality axis (parallel/mesh.py ``ModAxis``); a site
+on an (M, B, ...) tensor that names its modality axis (always the leading
+one) then hashes modality m's rows at m0 + m: a third level, the outermost,
+which adds to the map's base alone. Outside the scopes the masks are the
+one-rank masks.
 """
 
 from __future__ import annotations
@@ -135,6 +141,31 @@ def head_slice():
     return _HEAD_SLICE
 
 
+_MOD_SLICE = None  # (m0, local modalities, global modalities, modality axis) of an open scope
+
+
+@contextlib.contextmanager
+def mod_slice_scope(m0: int, n_local: int, n_mod: int, axis=None):
+    """While open, the modality axes that dropout sites name hold
+    modalities [m0, m0 + n_local) of the model's ``n_mod`` (one
+    modality-parallel rank's share), so their masks are keyed by global
+    modalities; ``axis`` is the modality axis (``parallel.mesh.ModAxis``)
+    whose gather the model's blocks call before cross-attention."""
+    global _MOD_SLICE
+    prev = _MOD_SLICE
+    _MOD_SLICE = (int(m0), int(n_local), int(n_mod), axis)
+    try:
+        yield
+    finally:
+        _MOD_SLICE = prev
+
+
+def mod_slice():
+    """(m0, local modalities, global modalities, modality axis) of the open
+    ``mod_slice_scope``, or None."""
+    return _MOD_SLICE
+
+
 def _level(lead: Tuple[int, ...], axis: int, offset: int, total: int):
     """One affine level of a row map: the collapsed rows of ``lead`` whose
     axis ``axis`` holds [offset, offset + lead[axis]) of ``total``, as
@@ -144,7 +175,8 @@ def _level(lead: Tuple[int, ...], axis: int, offset: int, total: int):
 
 
 def batch_row_map(lead: Sequence[int], batch_axis: Optional[int],
-                  head_axis: Optional[int] = None) -> Optional[Tuple[int, ...]]:
+                  head_axis: Optional[int] = None,
+                  mod_axis: Optional[int] = None) -> Optional[Tuple[int, ...]]:
     """Under a ``batch_slice_scope``, the global row of each collapsed row of
     the leading axes ``lead`` whose axis ``batch_axis`` is the batch axis, as
     (span, skip, base): row n = (o B + b) I + i (I the rows inside a batch
@@ -153,9 +185,34 @@ def batch_row_map(lead: Sequence[int], batch_axis: Optional[int],
     head level the same way. Where both are split the inner axis's level
     comes first: (span, skip, base, ispan, iskip) maps n to n1 = n +
     (n // ispan) iskip, then n1 + (n1 // span) skip + base (``map_rows``);
-    two levels that one expresses are merged into one. None (the identity)
-    outside the scopes or without the named axes."""
+    two levels that one expresses are merged into one. Under a
+    ``mod_slice_scope`` too, with ``mod_axis`` (0: the modality axis leads)
+    the modality level: modality m's rows start at global modality m0 + m,
+    the product of the other axes' global sizes past it, added to the base
+    (the outermost level never skips). None (the identity) outside the
+    scopes or without the named axes."""
     lead = tuple(int(d) for d in lead)
+    mod_base = 0
+    if _MOD_SLICE is not None and mod_axis is not None:
+        if mod_axis != 0:
+            raise ValueError(f"the modality axis must lead, got axis {mod_axis}")
+        glob = list(lead)
+        if _BATCH_SLICE is not None and batch_axis is not None:
+            glob[batch_axis] = _BATCH_SLICE[1]
+        if _HEAD_SLICE is not None and head_axis is not None:
+            glob[head_axis] = _HEAD_SLICE[2]
+        mod_base = _MOD_SLICE[0] * math.prod(glob[1:])
+    rows = _row_levels(lead, batch_axis, head_axis)
+    if not mod_base:
+        return rows
+    if rows is None:
+        return max(1, math.prod(lead)), 0, mod_base
+    return rows[:2] + (rows[2] + mod_base,) + rows[3:]
+
+
+def _row_levels(lead: Tuple[int, ...], batch_axis: Optional[int],
+                head_axis: Optional[int]) -> Optional[Tuple[int, ...]]:
+    """``batch_row_map``'s batch and head levels."""
     levels = []
     if _BATCH_SLICE is not None and batch_axis is not None:
         levels.append((batch_axis, *_BATCH_SLICE))
@@ -195,7 +252,8 @@ def hash_keep_mask_nd(s1: int, s2: int, shape: Sequence[int], rate: float,
     vectors (murmur-mixed iotas) combined per element by adds and a
     multiply-free avalanche, as the JAX package's ``hash_keep_mask_nd``.
     ``rows`` (``batch_row_map``) keys the collapsed leading axes by their
-    global rows: the global call's nv vector at this rank's rows, O(N)."""
+    global rows (batch, head and modality levels): the global call's nv
+    vector at this rank's rows, O(N)."""
     threshold = min(int(rate * (1 << 32)), (1 << 32) - 1)
     shape = tuple(int(d) for d in shape)
     shape2 = (1,) * max(0, 2 - len(shape)) + shape
@@ -254,19 +312,21 @@ class _HashDropout(torch.autograd.Function):
 
 
 def dropout(x: torch.Tensor, rate: float, key: Optional[Sequence[int]], train: bool,
-            batch_axis: Optional[int] = None, head_axis: Optional[int] = None) -> torch.Tensor:
+            batch_axis: Optional[int] = None, head_axis: Optional[int] = None,
+            mod_axis: Optional[int] = None) -> torch.Tensor:
     """Inverted hash dropout; the identity when not training or rate == 0.
     ``key`` is a site's raw uint32[2] salt pair (from ``KeyGen``);
     ``batch_axis``, x's batch axis (one of its leading axes), keys the mask
     by global batch rows inside a ``batch_slice_scope``; ``head_axis`` by
-    global heads inside a ``head_slice_scope``."""
+    global heads inside a ``head_slice_scope``; ``mod_axis`` (0) by global
+    modalities inside a ``mod_slice_scope``."""
     if not train or rate == 0.0:
         return x
     if key is None:
         raise ValueError("dropout in training needs a key")
     s1, s2 = dropout_salts(key)
     return _HashDropout.apply(x, s1, s2, float(rate),
-                              batch_row_map(x.shape[:-2], batch_axis, head_axis))
+                              batch_row_map(x.shape[:-2], batch_axis, head_axis, mod_axis))
 
 
 class KeyGen:

@@ -1,9 +1,10 @@
-"""Parallel training: the parallelism plan, the process groups of a run (data,
-model and sequence axes), data-parallel and tensor-parallel training and
-ring (context-parallel) attention."""
+"""Parallel training: the parallelism plan, the process groups of a run
+(modality, data, model and sequence axes), data-, tensor- and
+modality-parallel training and ring (context-parallel) attention."""
 
 from .mesh import (
     DataAxis,
+    ModAxis,
     ModelAxis,
     RankMesh,
     SeqMesh,
@@ -24,6 +25,7 @@ __all__ = [
     "MESH_AXES",
     "DataAxis",
     "MeshPlan",
+    "ModAxis",
     "ModelAxis",
     "RankMesh",
     "SeqMesh",

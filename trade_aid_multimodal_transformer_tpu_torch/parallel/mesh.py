@@ -3,18 +3,20 @@ placement of the parameters over them (port of the JAX package's
 ``parallel/mesh.py``).
 
 The JAX package lays its devices out as a (pipe, mod, data, model, seq)
-mesh; the port builds the data axis (data parallelism, and FSDP / ZeRO-3
-over it), the model axis ('model', tensor parallelism over the heads and
-the feed-forward, embedding and vocabulary columns) and the sequence axis
-('seq', context parallelism), and no modality or pipeline axis yet
-(parallel/resolve.py refuses those, and 'model' with 'seq'). A run of P
-ranks is P processes in one ``torch.distributed`` group: NCCL with one card
-per rank, gloo on the CPU. Ranks are laid out in the JAX package's device
-order, data outer, model, sequence inner: global rank (d * N + t) * S + s
-holds data row d, model place t and sequence place s (``make_mesh``).
-Every rank creates the same groups in the same order: the sequence groups
-(S consecutive ranks), the data groups (one per model and sequence place)
-and the model groups (one per data row and sequence place).
+mesh; the port builds the modality axis ('mod', modality parallelism over
+the M-stacked leaves and the (M, B, T) batch), the data axis (data
+parallelism, and FSDP / ZeRO-3 over it), the model axis ('model', tensor
+parallelism over the heads and the feed-forward, embedding and vocabulary
+columns) and the sequence axis ('seq', context parallelism), and no
+pipeline axis yet (parallel/resolve.py refuses it, and 'mod' with 'seq').
+A run of P ranks is P processes in one ``torch.distributed`` group: NCCL
+with one card per rank, gloo on the CPU. Ranks are laid out in the JAX
+package's device order, modality outer, data, model, sequence inner: global
+rank ((m * D + d) * N + t) * S + s holds modality place m, data row d,
+model place t and sequence place s (``make_mesh``). Every rank creates the
+same groups in the same order: the sequence groups (S consecutive ranks),
+the data groups, the model groups and the modality groups, each axis's
+groups in the order of the other axes' places.
 
 ``SeqMesh`` is one rank's view of the sequence axis: the ring hop (to the
 next place, from the previous one, as global ranks of its group) and the
@@ -27,15 +29,21 @@ model axis: its heads, and the two collectives of the Megatron form as
 autograd functions, ``copy_to`` (the identity forward, an all-reduce of the
 gradient backward) at the input of each column-split product and
 ``reduce_from`` (an all-reduce forward, the identity backward) after each
-row-split one.
+row-split one, and ``gather`` (an all-gather forward, the rank's slice of
+the gradient backward) for a leaf split where the heads do not split.
+``ModAxis`` is its view of the modality axis: its modalities, the
+all-gather of the activations along M before cross-attention (the backward
+sums each modality's gradient back onto its owner in one reduce-scatter),
+the sum over the axis of the loss and of the gradients of the leaves the
+axis keeps whole, and the sums of an evaluation pass.
 
 ``param_pspecs`` is the JAX package's placement table, as a function of
 the leaves' shapes and tree paths: per leaf a tuple of axis names or None
 (``model``, ``mod``, and with ``fsdp_size`` > 1 ``data`` on the largest
 free dimension the axis divides). A rank keeps ``shard_of`` each leaf: its
-contiguous slice along the dimension of each axis (``shard_dim``), first
-'model', then 'data' (``shard_tree``), the block that device (d, t) holds in
-the JAX package.
+contiguous slice along the dimension of each axis (``shard_dim``):
+'model', 'mod' and 'data', each on a dimension of its own (``shard_tree``),
+the block that device (m, d, t) holds in the JAX package.
 
 Where several ranks share one card (a test arrangement: NCCL refuses two
 ranks on one device), the group is gloo and CUDA tensors travel through
@@ -49,6 +57,8 @@ returns, and kills them all if one fails or the time limit passes.
 from __future__ import annotations
 
 import io
+import itertools
+import math
 import os
 import queue
 import socket
@@ -164,17 +174,6 @@ class _Axis:
 
         return self._timed(kind, flat, gather)
 
-
-@dataclass
-class DataAxis(_Axis):
-    """This rank's place on the data axis of a data-parallel run: its rows
-    of each global batch, and the means, sums, gathers and scatters over
-    the axis (timing kinds: "all_reduce", or the caller's tag for a gather
-    or a reduce-scatter)."""
-
-    def rows(self, batch_size: int) -> Tuple[int, int]:
-        return batch_rows(batch_size, self.rank, self.size)
-
     def reduce_scatter_flat(self, flat: torch.Tensor, kind: str = "reduce_scatter"
                             ) -> torch.Tensor:
         """The sum over the axis of this rank's chunk of a flat tensor of
@@ -187,6 +186,30 @@ class DataAxis(_Axis):
             return out
 
         return self._timed(kind, flat, scatter)
+
+    def _sum_flat(self, kind: str, leaves: Sequence[torch.Tensor], dtype=torch.float32
+                  ) -> List[torch.Tensor]:
+        """The sum over the axis of each tensor of ``leaves``: one all-reduce
+        of one flat buffer in ``dtype``, each back in its own shape and
+        dtype."""
+        flat = torch.cat([t.reshape(-1).to(dtype) for t in leaves])
+        flat = self._timed(kind, flat, self._all_reduce)
+        out, at = [], 0
+        for t in leaves:
+            out.append(flat[at:at + t.numel()].view(t.shape).to(t.dtype))
+            at += t.numel()
+        return out
+
+
+@dataclass
+class DataAxis(_Axis):
+    """This rank's place on the data axis of a data-parallel run: its rows
+    of each global batch, and the means, sums, gathers and scatters over
+    the axis (timing kinds: "all_reduce", or the caller's tag for a gather
+    or a reduce-scatter)."""
+
+    def rows(self, batch_size: int) -> Tuple[int, int]:
+        return batch_rows(batch_size, self.rank, self.size)
 
     def mean_grads(self, loss: torch.Tensor, grads: Sequence[torch.Tensor]
                    ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
@@ -279,74 +302,174 @@ class ModelAxis(_Axis):
         """``x`` unchanged, whose gradient is summed over the axis."""
         return _CopyTo.apply(x, self)
 
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The whole of a leaf split over the axis along ``dim`` (every
+        rank's part, in rank order), whose gradient is the rank's slice of
+        the whole's: for a layer that every rank of the axis computes whole
+        and alike (a model axis that does not divide ``n_head``), so that
+        the whole's gradient is the same on every rank. Timed as
+        "tp_all_gather"."""
+        return _GatherSplit.apply(x, self, dim)
+
+
+class _GatherSplit(torch.autograd.Function):
+    """Every rank's part of a split leaf along ``dim`` forward (one
+    all-gather); the rank's slice of the whole's gradient backward (no
+    collective: the computation after the gather is the same on every
+    rank)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim, ctx.n = axis, dim, x.shape[dim]
+        rows = axis.all_gather_flat(x.detach().reshape(-1), "tp_all_gather")
+        return rows.view(axis.size, *x.shape).movedim(0, dim).reshape(
+            *x.shape[:dim], axis.size * x.shape[dim], *x.shape[dim + 1:])
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.axis.rank * ctx.n, ctx.n).contiguous(), None, None
+
+
+class _GatherMods(torch.autograd.Function):
+    """Every rank's modalities of an (M / P, ...) activation along the
+    leading axis forward (one all-gather, (M, ...)); backward each
+    modality's gradient summed over the axis onto its owner (one f32
+    reduce-scatter, back in the gradient's type)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        rows = axis.all_gather_flat(x.detach().contiguous().reshape(-1), "mod_all_gather")
+        return rows.view(axis.size * x.shape[0], *x.shape[1:])
+
+    @staticmethod
+    def backward(ctx, g):
+        axis = ctx.axis
+        mine = axis.reduce_scatter_flat(g.float().contiguous().reshape(-1),
+                                        "mod_reduce_scatter_bwd")
+        return mine.view(g.shape[0] // axis.size, *g.shape[1:]).to(g.dtype), None
+
+
+@dataclass
+class ModAxis(_Axis):
+    """This rank's place on the modality axis of a modality-parallel run:
+    its modalities of the model's, the gather of the activations before
+    cross-attention, and the sums over the axis (timing kinds
+    "mod_all_gather", "mod_reduce_scatter_bwd", "mod_all_reduce",
+    "mod_eval_sum")."""
+
+    def mods(self, n_mod: int) -> Tuple[int, int]:
+        """(m0, local count): this rank's modalities [m0, m0 + M / size)."""
+        if n_mod % self.size != 0:
+            raise ValueError(f"the modality axis ({self.size}) must divide the modality "
+                             f"count ({n_mod})")
+        per = n_mod // self.size
+        return self.rank * per, per
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's modalities of x (M / size, ...) as (M, ...), in
+        modality order (differentiable)."""
+        return _GatherMods.apply(x, self)
+
+    def sum_grads(self, loss: torch.Tensor, grads: Sequence[torch.Tensor],
+                  whole: Sequence[bool]) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """The loss and the gradients of the leaves the axis keeps whole
+        (``whole``, ``tree_leaves`` order) summed over the axis, in one f32
+        all-reduce (the same bits on every rank); the split leaves' as they
+        are (their owner's modalities hold all of their gradient)."""
+        picked = [g for g, w in zip(grads, whole) if w] + [loss.detach().reshape(1)]
+        summed = self._sum_flat("mod_all_reduce", picked)
+        it = iter(summed[:-1])
+        return summed[-1].reshape(loss.shape), [next(it) if w else g
+                                                for g, w in zip(grads, whole)]
+
+    def sum_eval(self, stats):
+        """An evaluation pass's statistics (``train.steps.EvalStats``) summed
+        over the axis, each rank's modalities in their own slots and zeros
+        elsewhere (one f64 all-reduce; the counts stay exact integers)."""
+        leaves = [stats.mean_loss.reshape(1), stats.mean_losses, stats.certainty, stats.wins,
+                  stats.losses]
+        mean_loss, mean_losses, cert, wins, losses = self._sum_flat(
+            "mod_eval_sum", leaves, torch.float64)
+        return type(stats)(mean_loss.reshape(stats.mean_loss.shape), mean_losses, wins, losses,
+                           cert, stats.batches_processed)
+
 
 @dataclass
 class RankMesh:
     """One rank's view of the (pipe, mod, data, model, seq) layout of a run
     (the JAX package's ``make_mesh``): the axis sizes, this rank's place on
-    each, and its data, model and sequence groups (None where the axis is
-    1)."""
+    each, and its data, model, sequence and modality groups (None where the
+    axis is 1)."""
 
     shape: Dict[str, int]
     coords: Dict[str, int]
     data: Optional[DataAxis]
     seq: Optional[SeqMesh]
     model: Optional[ModelAxis] = None
+    mod: Optional[ModAxis] = None
+
+
+_ORDER = ("mod", "data", "model", "seq")  # the JAX package's device order, outer first
 
 
 def make_mesh(data: int = 1, model: int = 1, seq: int = 1, mod: int = 1, pipe: int = 1,
               staged: bool = False) -> RankMesh:
     """This rank's place in a (pipe, mod, data, model, seq) layout over the
     initialised default group, whose size must be the product of the axes.
-    Global rank (d * model + t) * seq + s is data row d, model place t,
-    sequence place s (the JAX package's device order: data outer, seq
-    inner; with model 1, d * seq + s). Every rank calls this in the same
-    order: it creates every sequence, data and model group of the run, in
-    that order (an axis that spans the whole run takes the default group).
-    The data axis serves data parallelism and FSDP alike (FSDP's collectives
-    run on its groups). Modality and pipeline axes are a later slice
-    (parallel/resolve.py refuses them)."""
-    if mod * pipe != 1:
-        raise NotImplementedError("modality and pipeline axes are a later slice of the port "
-                                  "(ROADMAP.md, queue 1, items 5b and 6)")
+    Global rank ((m * data + d) * model + t) * seq + s is modality place m,
+    data row d, model place t, sequence place s (the JAX package's device
+    order: modality outer, seq inner). Every rank calls this in the same
+    order: it creates every sequence, data, model and modality group of the
+    run, in that order, each axis's groups in the order of the other axes'
+    places (an axis that spans the whole run takes the default group). The
+    data axis serves data parallelism and FSDP alike (FSDP's collectives
+    run on its groups). A pipeline axis is a later slice
+    (parallel/resolve.py refuses it)."""
+    if pipe != 1:
+        raise NotImplementedError("a pipeline axis is a later slice of the port "
+                                  "(ROADMAP.md, queue 1, item 6)")
+    sizes = {"mod": mod, "data": data, "model": model, "seq": seq}
     world, rank = dist.get_world_size(), dist.get_rank()
-    if data * model * seq != world:
-        raise ValueError(f"mesh data={data} x model={model} x seq={seq} needs "
-                         f"{data * model * seq} ranks, have {world}")
-    d, rest = divmod(rank, model * seq)
-    t, s = divmod(rest, seq)
+    if math.prod(sizes.values()) != world:
+        raise ValueError(f"mesh mod={mod} x data={data} x model={model} x seq={seq} needs "
+                         f"{math.prod(sizes.values())} ranks, have {world}")
+    coords, rest = {}, rank
+    for name in reversed(_ORDER):
+        rest, coords[name] = divmod(rest, sizes[name])
 
-    def at(d_: int, t_: int, s_: int) -> int:
-        return (d_ * model + t_) * seq + s_
+    def at(place: Dict[str, int]) -> int:
+        r = 0
+        for name in _ORDER:
+            r = r * sizes[name] + place[name]
+        return r
 
-    def groups(size: int, members: Callable, places):
-        """(group, ranks) of this rank's group along an axis: every group
-        created (``members(place)`` its ranks), this rank's kept."""
+    def group_of(axis: str):
+        """(group, ranks) of this rank's group along ``axis``: every group
+        of the axis created, in the order of the other axes' places, this
+        rank's kept."""
+        others = [n for n in _ORDER if n != axis]
         mine = None
-        for place in places:
-            ranks = tuple(members(*place))
-            group = dist.new_group(list(ranks)) if size != world else None
+        for place in itertools.product(*(range(sizes[n]) for n in others)):
+            fixed = dict(zip(others, place))
+            ranks = tuple(at({**fixed, axis: i}) for i in range(sizes[axis]))
+            group = dist.new_group(list(ranks)) if sizes[axis] != world else None
             if rank in ranks:
                 mine = group, ranks
         return mine
 
-    pairs = lambda a, b: [(i, j) for i in range(a) for j in range(b)]  # noqa: E731
-    seq_axis = data_axis = model_axis = None
+    seq_axis = data_axis = model_axis = mod_axis = None
     if seq > 1:
-        group, ranks = groups(seq, lambda d_, t_: [at(d_, t_, s_) for s_ in range(seq)],
-                              pairs(data, model))
-        seq_axis = SeqMesh(s, seq, staged, group, ranks)
+        group, ranks = group_of("seq")
+        seq_axis = SeqMesh(coords["seq"], seq, staged, group, ranks)
     if data > 1:
-        group, _ = groups(data, lambda t_, s_: [at(d_, t_, s_) for d_ in range(data)],
-                          pairs(model, seq))
-        data_axis = DataAxis(d, data, staged, group)
+        data_axis = DataAxis(coords["data"], data, staged, group_of("data")[0])
     if model > 1:
-        group, _ = groups(model, lambda d_, s_: [at(d_, t_, s_) for t_ in range(model)],
-                          pairs(data, seq))
-        model_axis = ModelAxis(t, model, staged, group)
-    return RankMesh({"pipe": pipe, "mod": mod, "data": data, "model": model, "seq": seq},
-                    {"pipe": 0, "mod": 0, "data": d, "model": t, "seq": s}, data_axis, seq_axis,
-                    model_axis)
+        model_axis = ModelAxis(coords["model"], model, staged, group_of("model")[0])
+    if mod > 1:
+        mod_axis = ModAxis(coords["mod"], mod, staged, group_of("mod")[0])
+    return RankMesh({"pipe": pipe, **sizes}, {"pipe": 0, **coords}, data_axis, seq_axis,
+                    model_axis, mod_axis)
 
 
 def default_mesh_shape(n_devices: int, n_head: int) -> Tuple[int, int]:
@@ -487,17 +610,17 @@ def shard_of(full: torch.Tensor, spec: Sequence[Optional[str]], rank: int,
 def shard_tree(tree, specs: Sequence[Tuple], places: Dict[str, Tuple[int, int]]):
     """A rank's part of a whole tree: for each leaf (``tree_leaves`` order,
     placement ``specs``) its slice over each axis of ``places`` ({axis:
-    (rank, size)}), 'model' before 'data', as a tensor of its own (the
-    whole leaf no longer referenced) with the leaf's requires_grad; a leaf
-    split over none of them as it is. Device (d, t)'s block of the JAX
-    package's placement."""
+    (rank, size)}: 'model', 'mod', 'data', each on a dimension of its own),
+    as a tensor of its own (the whole leaf no longer referenced) with the
+    leaf's requires_grad; a leaf split over none of them as it is. Device
+    (m, d, t)'s block of the JAX package's placement."""
     from ..models.init import map_tree
 
     specs = iter(specs)
 
     def part(t):
         spec, out = next(specs), t.detach()
-        split = [axis for axis in ("model", "data")
+        split = [axis for axis in ("model", "mod", "data")
                  if axis in places and shard_dim(spec, axis) is not None]
         if not split:
             return t

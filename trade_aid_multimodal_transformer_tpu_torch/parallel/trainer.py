@@ -23,13 +23,14 @@ parameters, batches and dropout salts (the same seed on every rank):
   in one small all-reduce); the elementwise AdamW then updates the slices,
   each element as the data-parallel update does. An evaluation pass
   gathers once (``Fsdp``).
-- On a model axis of N ranks (tensor parallelism; N divides n_head) each
+- On a model axis of N ranks (tensor parallelism) each
   rank keeps its part of every leaf that ``param_pspecs`` places on
   'model' (params and both Adam moments; ``shard_train_state``) and runs
   its training steps and evaluation passes inside ``head_slice_scope``:
   the model's layers compute on the rank's heads and columns and call the
   axis's collectives (models/transformer.py), the masks keyed by global
-  heads. Every rank of a model group draws the same batch rows and computes
+  heads; where N does not divide n_head the attention layers gather their
+  split leaves and run whole on every rank of the axis. Every rank of a model group draws the same batch rows and computes
   the same loss; the gradients of its parts are its own, those of the
   whole leaves come out the same on every rank (they follow from
   identical all-reduce results), so no collective averages them. With a
@@ -37,13 +38,28 @@ parameters, batches and dropout salts (the same seed on every rank):
   rank's parts, and FSDP gathers and reduce-scatters over the data group
   on the rank's model slices. An evaluation pass runs replicated over the
   model group and sums over the data axis.
+- On a modality axis of P ranks (modality parallelism; P divides the
+  modality count) each rank keeps its modalities' slice of every
+  M-stacked leaf (sa, ffwd, ln1, ln2, the post norm; 'mod' in
+  ``param_pspecs``) and the other leaves whole, runs inside
+  ``mod_slice_scope`` on its modalities of every global batch (the JAX
+  package's ``batch_pspec(mod_axis=True)``), gathers the activations over
+  the axis before each block's cross-attention, and sums the loss and the
+  gradients of the whole leaves over the axis in one all-reduce (their
+  owners' modalities hold the rest), so every rank of the axis keeps the
+  same whole leaves. Evaluation sums its per-modality statistics over the
+  axis. With a data axis (and FSDP) and a model axis it composes as they
+  do: the modality sums run first, then the data axis's mean or
+  reduce-scatter.
 - On a sequence axis its training steps and evaluation passes run inside
   ``context_parallel_scope``: each attention core goes through ring
   attention over the rank's sequence group, the gradients come out the same
   on every rank of the group with no all-reduce.
-- Both (data x sequence): the ring keys its masks by the rank's local rows
-  with the dropout key folded with the data rank, as the JAX package's
-  ``shard_map`` body does; every other site stays keyed by global rows.
+- Both (data x sequence, model x sequence): the ring keys its masks by
+  the rank's local rows and heads with the dropout key folded with the
+  data rank and then the model rank (where those axes are larger than 1),
+  as the JAX package's ``shard_map`` body does; every other site stays
+  keyed by global rows and heads.
   FSDP's collectives run on the data groups, the ring's hops on the
   sequence groups, every rank issuing them in one order: the gather before
   the forward, the reductions after the backward.
@@ -69,25 +85,28 @@ from ..ops.layers import _U32, head_slice_scope
 from ..sampling.feed import BatchFeed
 from ..train.metrics import ModalityMetricSpec
 from ..train.steps import AdamW, StepRng, Trainer
-from .mesh import DataAxis, ModelAxis, RankMesh, param_pspecs, shard_dim, shard_tree
+from .mesh import DataAxis, ModAxis, ModelAxis, RankMesh, param_pspecs, shard_dim, shard_tree
 
 
 def make_sharded_trainer(cfg: ModelConfig, feed: BatchFeed, optimizer: AdamW,
                          metric_specs: Sequence[ModalityMetricSpec], eval_iters: int,
                          mesh: RankMesh, grad_accum: int = 1,
                          fsdp: Optional["Fsdp"] = None) -> Trainer:
-    """A Trainer whose steps run over this rank's data, model and sequence
-    axes (``parallel.mesh.make_mesh``), on the train state's parts that
-    ``shard_train_state`` placed (``fsdp``: its placement; the trainer
-    gathers and reduce-scatters only where it splits leaves over 'data').
-    block_size must be divisible by the sequence axis, n_head by the model
-    axis."""
-    seq, data, model = mesh.seq, mesh.data, mesh.model
-    if fsdp is not None and all(d is None for d in fsdp.dims):
-        fsdp = None
+    """A Trainer whose steps run over this rank's modality, data, model and
+    sequence axes (``parallel.mesh.make_mesh``), on the train state's parts
+    that ``shard_train_state`` placed (``fsdp``: its placement, which a
+    modality axis needs; the trainer gathers and reduce-scatters only where
+    it splits leaves over 'data'). block_size must be divisible by the
+    sequence axis, the modality count by the modality axis."""
+    seq, data, model, mod = mesh.seq, mesh.data, mesh.model, mesh.mod
+    if mod is not None and mod.size > 1 and (fsdp is None or fsdp.mod is None):
+        raise ValueError("a modality axis needs the placement shard_train_state gives")
     scopes = []
     if model is not None and model.size > 1:
-        h0, per = model.heads(cfg.n_head)
+        if cfg.n_head % model.size == 0:
+            h0, per = model.heads(cfg.n_head)
+        else:  # the attention layers run whole on every rank of the axis
+            h0, per = 0, cfg.n_head
         scopes.append(lambda: head_slice_scope(h0, per, cfg.n_head, model))
     if seq is not None and seq.size > 1:
         if cfg.block_size % seq.size != 0:
@@ -95,7 +114,8 @@ def make_sharded_trainer(cfg: ModelConfig, feed: BatchFeed, optimizer: AdamW,
                 f"context parallelism needs block_size ({cfg.block_size}) "
                 f"divisible by the 'seq' mesh axis ({seq.size})")
         data_rank = data.rank if data is not None else None
-        scopes.append(lambda: context_parallel_scope(seq, data_rank))
+        model_rank = model.rank if model is not None and model.size > 1 else None
+        scopes.append(lambda: context_parallel_scope(seq, data_rank, model_rank))
     return Trainer(cfg, feed, optimizer, metric_specs, eval_iters, grad_accum=grad_accum,
                    scope=_compose_scopes(scopes) if scopes else None, data=data, fsdp=fsdp)
 
@@ -130,37 +150,42 @@ def _gather_axis(tree, dims: Sequence[Optional[int]], axis, kind: str):
 class Fsdp:
     """The placement of a run's train state on this rank: ``specs``
     (``param_pspecs`` per leaf, ``tree_leaves`` order) over the data axis
-    ``data`` (FSDP) and the model axis ``model`` (tensor parallelism;
-    either may be None). A tree that it places holds, for every leaf with a
-    'model' or 'data' dimension, this rank's contiguous block of it
-    (``shard_tree``: the model slice, and of that the data slice), and
-    every other leaf whole. Its collectives move one flat buffer each,
+    ``data`` (FSDP), the model axis ``model`` (tensor parallelism) and the
+    modality axis ``mod`` (modality parallelism; any may be None). A tree
+    that it places holds, for every leaf with a 'model', 'mod' or 'data'
+    dimension, this rank's contiguous block of it (``shard_tree``: its
+    slice along each, each on a dimension of its own), and every other
+    leaf whole. Its collectives move one flat buffer each,
     rank-major: rank r's chunk is its slice of every split leaf in
     ``tree_leaves`` order, so a gather's row r and a reduce-scatter's
     chunk r are rank r's slices. The data axis's (``gather``,
     ``reduce_grads``) are a step's; ``whole`` also gathers the model axis,
-    for a checkpoint."""
+    for a checkpoint (and the modality axis)."""
 
     def __init__(self, specs: Sequence[Tuple], data: Optional[DataAxis],
-                 model: Optional[ModelAxis] = None):
+                 model: Optional[ModelAxis] = None, mod: Optional[ModAxis] = None):
         self.specs = list(specs)
         self.data = data
         self.model = model
+        self.mod = mod
         self.dims = [shard_dim(s) if data is not None else None for s in self.specs]
         self.model_dims = [shard_dim(s, "model") if model is not None else None
                            for s in self.specs]
+        self.mod_dims = [shard_dim(s, "mod") if mod is not None else None for s in self.specs]
 
     def parts(self) -> List[int]:
         """Per leaf, the number of ranks it is split over (1: whole)."""
         return [(1 if d is None else self.data.size) * (1 if m is None else self.model.size)
-                for d, m in zip(self.dims, self.model_dims)]
+                * (1 if o is None else self.mod.size)
+                for d, m, o in zip(self.dims, self.model_dims, self.mod_dims)]
 
     def shard(self, tree):
         """This rank's part of a whole tree: every split leaf's block as a
         tensor of its own (the whole leaf no longer referenced), with the
         leaf's requires_grad; the other leaves as they are."""
         places = {name: (ax.rank, ax.size) for name, ax in (("data", self.data),
-                                                             ("model", self.model))
+                                                             ("model", self.model),
+                                                             ("mod", self.mod))
                   if ax is not None}
         return shard_tree(tree, self.specs, places)
 
@@ -172,9 +197,10 @@ class Fsdp:
 
     def whole(self, tree, kind: str = "all_gather"):
         """The whole tree: gathered over the data axis, then over the model
-        axis (collective over both groups)."""
+        axis, then over the modality axis (collective over their groups)."""
         tree = self.gather(tree, kind)
-        return _gather_axis(tree, self.model_dims, self.model, kind)
+        tree = _gather_axis(tree, self.model_dims, self.model, kind)
+        return _gather_axis(tree, self.mod_dims, self.mod, kind)
 
     def reduce_grads(self, loss: torch.Tensor, grads: Sequence[torch.Tensor]
                      ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
@@ -212,25 +238,28 @@ class Fsdp:
 
 
 def shard_train_state(params, opt_state: Optional[Dict[str, Any]], data: Optional[DataAxis],
-                      fsdp: bool, model: Optional[ModelAxis] = None
+                      fsdp: bool, model: Optional[ModelAxis] = None,
+                      mod: Optional[ModAxis] = None
                       ) -> Tuple[Any, Optional[Dict[str, Any]], Optional[Fsdp]]:
     """This rank's train state (the JAX package's ``shard_train_state``):
-    from a whole tree (fresh or loaded), over the model axis ``model``
-    and, with ``fsdp``, the data axis, the rank's part of ``params`` and of
-    ``opt_state``'s ``mu`` and ``nu`` (``Fsdp.shard``: the leaves
-    ``param_pspecs`` places on 'model' or 'data' sliced, from the whole
-    tree's shapes, the whole originals freed once the caller drops them;
-    the count shared), and the ``Fsdp`` placement the trainer keeps.
-    Without ``fsdp`` (or a data axis) and a model axis the state as it is
-    and None."""
+    from a whole tree (fresh or loaded), over the model axis ``model``, the
+    modality axis ``mod`` and, with ``fsdp``, the data axis, the rank's part
+    of ``params`` and of ``opt_state``'s ``mu`` and ``nu`` (``Fsdp.shard``:
+    the leaves ``param_pspecs`` places on 'model', 'mod' or 'data' sliced,
+    from the whole tree's shapes, the whole originals freed once the caller
+    drops them; the count shared), and the ``Fsdp`` placement the trainer
+    keeps. Without ``fsdp`` (or a data axis), a model and a modality axis
+    the state as it is and None."""
     data = data if fsdp and data is not None and data.size > 1 else None
     model = model if model is not None and model.size > 1 else None
-    if data is None and model is None:
+    mod = mod if mod is not None and mod.size > 1 else None
+    if data is None and model is None and mod is None:
         return params, opt_state, None
     specs = param_pspecs(params, n_head=0, model_axis=model is not None,
                          model_size=model.size if model is not None else 1,
+                         mod_axis=mod is not None, mod_size=mod.size if mod is not None else 1,
                          fsdp_size=data.size if data is not None else 1)
-    placed = Fsdp(specs, data, model)
+    placed = Fsdp(specs, data, model, mod)
     params = placed.shard(params)
     if opt_state is not None:
         opt_state = {"count": opt_state["count"], "mu": placed.shard(opt_state["mu"]),

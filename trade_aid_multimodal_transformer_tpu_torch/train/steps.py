@@ -43,7 +43,7 @@ import torch
 from ..models.config import ModelConfig
 from ..models.init import map_tree, tree_leaves
 from ..models.transformer import forward, total_loss
-from ..ops.layers import batch_slice_scope
+from ..ops.layers import batch_slice_scope, mod_slice_scope
 from ..sampling.feed import BatchFeed
 from .metrics import ModalityMetricSpec, batch_directional_metrics
 
@@ -261,6 +261,15 @@ class EvalStats(NamedTuple):
     batches_processed: torch.Tensor  # (M,)
 
 
+@contextlib.contextmanager
+def _entered(scopes: Sequence):
+    """All of ``scopes`` (context managers) entered, in order."""
+    with contextlib.ExitStack() as stack:
+        for scope in scopes:
+            stack.enter_context(scope)
+        yield
+
+
 class Trainer:
     """Owns the step functions of one (model, feed, optimizer) run.
     ``scope``: a zero-argument context-manager factory entered around every
@@ -270,15 +279,20 @@ class Trainer:
     or drawn is the global batch, of which the rank keeps its rows, with
     its dropout masks keyed by global rows; each step's loss and gradients
     are then the means over the axis, and an evaluation pass's statistics
-    its sums. ``fsdp``: the placement of an FSDP run's train state on this
-    rank (``parallel.trainer.Fsdp``, on the data axis ``data``): the
-    parameters and moments given are the rank's parts; a step gathers the
-    whole parameter tree, takes the data-parallel step's gradients on it
-    and reduces them to the rank's parts, which the update then changes;
-    an evaluation pass gathers once. ``fused_update``: a chunk carries the
-    parameters and moments as flat vectors (``tpu_options.fused_update:
-    true``; the runner gives it only to the one-rank trainer), where every
-    leaf has one dtype."""
+    its sums. ``fsdp``: the placement of a sharded run's train state on
+    this rank (``parallel.trainer.Fsdp``). Where it splits leaves over the
+    data axis ``data`` (FSDP) the parameters and moments given are the
+    rank's parts; a step gathers the whole parameter tree, takes the
+    data-parallel step's gradients on it and reduces them to the rank's
+    parts, which the update then changes; an evaluation pass gathers once.
+    Where it has a modality axis (``fsdp.mod``, ``parallel.mesh.ModAxis``)
+    every batch is the global batch, of which the rank keeps its
+    modalities ``mods`` under their scope (``ops.layers.mod_slice_scope``);
+    each step's loss and the gradients of the leaves the axis keeps whole
+    are then summed over the axis, and an evaluation pass's statistics
+    too. ``fused_update``: a chunk carries the parameters and moments as
+    flat vectors (``tpu_options.fused_update: true``; the runner gives it
+    only to the one-rank trainer), where every leaf has one dtype."""
 
     def __init__(self, cfg: ModelConfig, feed: BatchFeed, optimizer: AdamW,
                  metric_specs: Sequence[ModalityMetricSpec], eval_iters: int,
@@ -293,17 +307,28 @@ class Trainer:
         self.grad_accum = max(1, int(grad_accum))
         self.scope = scope or contextlib.nullcontext
         self.data = data
-        self.fsdp = fsdp
         self.fused_update = fused_update
+        self.mod = None if fsdp is None else fsdp.mod
+        M = cfg.num_modalities
+        self.mods = (0, M) if self.mod is None else self.mod.mods(M)
+        self.mod_whole = None if self.mod is None else [d is None for d in fsdp.mod_dims]
+        self.fsdp = fsdp if fsdp is not None and any(d is not None for d in fsdp.dims) else None
 
     def _rows(self, xb: torch.Tensor, yb: torch.Tensor):
-        """This rank's rows of a global (M, B, T) batch (all of them without
-        a data axis), and the scope that keys its dropout by global rows."""
-        if self.data is None:
-            return xb, yb, contextlib.nullcontext()
-        total = xb.shape[1]
-        start, stop = self.data.rows(total)
-        return xb[:, start:stop], yb[:, start:stop], batch_slice_scope(start, total)
+        """This rank's modalities and rows of a global (M, B, T) batch (all
+        of them without a modality and a data axis), and the scope that
+        keys its dropout by global modalities and rows."""
+        scopes = []
+        if self.mod is not None:
+            m0, per = self.mods
+            xb, yb = xb[m0:m0 + per], yb[m0:m0 + per]
+            scopes.append(mod_slice_scope(m0, per, self.cfg.num_modalities, self.mod))
+        if self.data is not None:
+            total = xb.shape[1]
+            start, stop = self.data.rows(total)
+            xb, yb = xb[:, start:stop], yb[:, start:stop]
+            scopes.append(batch_slice_scope(start, total))
+        return xb, yb, _entered(scopes)
 
     # ------------------------------------------------------------- training
 
@@ -311,16 +336,27 @@ class Trainer:
                        salts: Sequence[Tuple[int, int]]) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """Loss and gradients (``tree_leaves`` order) of one step: the mean
         over its microbatches (xb, yb) with their dropout salts (and over
-        the data axis; under FSDP of the rank's parts of ``params``)."""
+        the data axis; under FSDP of the rank's parts of ``params``; over
+        the modality axis the loss and the whole leaves' gradients
+        summed)."""
         if self.fsdp is not None:
             full = map_tree(lambda t: t if t.requires_grad else t.requires_grad_(),
                             self.fsdp.gather(params))
-            loss, grads = self._mean_grads(lambda: full, tree_leaves(full), batches, salts)
+            loss, grads = self._mod_sum(*self._mean_grads(lambda: full, tree_leaves(full),
+                                                          batches, salts))
             return self.fsdp.reduce_grads(loss, grads)
-        loss, grads = self._mean_grads(lambda: params, tree_leaves(params), batches, salts)
+        loss, grads = self._mod_sum(*self._mean_grads(lambda: params, tree_leaves(params),
+                                                      batches, salts))
         if self.data is None:
             return loss, grads
         return self.data.mean_grads(loss, grads)
+
+    def _mod_sum(self, loss: torch.Tensor, grads: List[torch.Tensor]):
+        """Over a modality axis, the loss and the gradients of the leaves it
+        keeps whole summed over the axis (``ModAxis.sum_grads``)."""
+        if self.mod is None:
+            return loss, grads
+        return self.mod.sum_grads(loss, grads, self.mod_whole)
 
     def _mean_grads(self, make_params: Callable, wrt: Sequence[torch.Tensor], batches,
                     salts) -> Tuple[torch.Tensor, List[torch.Tensor]]:
@@ -334,7 +370,11 @@ class Trainer:
             xb, yb, rows = self._rows(xb, yb)
             with self.scope(), rows:
                 loss, _ = total_loss(make_params(), self.cfg, xb, yb, key, True)
-                grads = torch.autograd.grad(loss, wrt)
+                # over a modality axis another rank's per-modality leaves
+                # (its token table, vocabulary head, cross-attention) go
+                # unused here: their gradient is zero on this rank
+                grads = torch.autograd.grad(loss, wrt, allow_unused=self.mod is not None)
+                grads = [torch.zeros_like(w) if g is None else g for g, w in zip(grads, wrt)]
             loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
             grad_sum = list(grads) if grad_sum is None else [a + b for a, b in zip(grad_sum, grads)]
         if len(batches) > 1:
@@ -411,8 +451,8 @@ class Trainer:
     def eval_pass(self, params, rng: StepRng, split: str) -> EvalStats:
         """eval_iters batches without augmentation: summed CE per batch and
         the directional metrics of every eligible modality (over the global
-        batches under a data axis; under FSDP on the whole tree, gathered
-        once)."""
+        batches under a data axis, each rank's modalities over a modality
+        axis; under FSDP on the whole tree, gathered once)."""
         if self.fsdp is not None:
             params = self.fsdp.gather(params, "all_gather_eval")
         M = self.cfg.num_modalities
@@ -422,21 +462,25 @@ class Trainer:
         wins = torch.zeros(M, dtype=torch.int64, device=dev)
         losses_n = torch.zeros(M, dtype=torch.int64, device=dev)
         cert = torch.zeros(M, device=dev)
+        m0, per = self.mods
         for _ in range(self.eval_iters):
             xb, yb, rows = self._rows(*self.feed.sample(rng.batch, split, augment=False))
             with self.scope(), rows:
                 logits, ce = forward(params, self.cfg, xb, yb, train=False)
             ce = torch.stack(ce)
             loss_sum = loss_sum + ce.sum()
-            losses_sum = losses_sum + ce
+            losses_sum[m0:m0 + per] += ce
             for m, spec in enumerate(self.metric_specs):
-                if spec.eligible:
-                    w, l, c = batch_directional_metrics(logits[m][:, -1, :], xb[m][:, -1],
-                                                        yb[m][:, -1], spec)
+                j = m - m0  # the modality's place in this rank's
+                if spec.eligible and 0 <= j < per:
+                    w, l, c = batch_directional_metrics(logits[j][:, -1, :], xb[j][:, -1],
+                                                        yb[j][:, -1], spec)
                     wins[m] += w
                     losses_n[m] += l
                     cert[m] += c
         processed = torch.tensor([self.eval_iters if s.eligible else 0 for s in self.metric_specs])
         n = float(self.eval_iters)
         stats = EvalStats(loss_sum / n, losses_sum / n, wins, losses_n, cert, processed)
+        if self.mod is not None:
+            stats = self.mod.sum_eval(stats)
         return stats if self.data is None else self.data.sum_eval(stats)

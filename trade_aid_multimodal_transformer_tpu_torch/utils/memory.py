@@ -4,8 +4,8 @@
 The bytes of the parameters and the optimizer state, as the JAX package
 counts its train-state leaves: every tensor at its size, the optimizer's
 step count as one int32 (and the schedule's count, where optax keeps one).
-The per-device figure is what this rank holds: under FSDP and tensor
-parallelism a split leaf (and its moments) at its part's size, every other
+The per-device figure is what this rank holds: under FSDP, tensor and
+modality parallelism a split leaf (and its moments) at its part's size, every other
 leaf whole, as the JAX package's ``_leaf_bytes`` reads a leaf's shard
 shape; where no leaf is split every rank holds the whole state, so the
 figure equals the total.
@@ -22,7 +22,7 @@ def train_state_bytes(params, opt_state=None, optimizer=None,
                       parts: Optional[Sequence[int]] = None) -> Tuple[int, int]:
     """(total_bytes, per_device_bytes) of params (+ optimizer state) as this
     rank holds them. ``parts``: per leaf (``tree_leaves`` order) the number
-    of ranks it is split over, over the model and data axes together
+    of ranks it is split over, over the model, modality and data axes together
     (``parallel.trainer.Fsdp.parts``; None: every leaf whole), the same for
     the moments."""
     trees = [params] + ([opt_state["mu"], opt_state["nu"]] if opt_state is not None else [])
