@@ -48,8 +48,12 @@ modalities with the modality offset against the global call's rows
 its checkpoint loaded on one rank (``mod_training``); and the other tensor
 plans: ``{model: 4}`` over the 6 heads (``tp_split_reference``)
 and ``{model: 2}`` x ``context_parallel: 2`` at block_size 1024
-(``tp_seq_reference``). The entries over ranks sharing the card run 4
-steps (``PARALLEL_ENTRY``).
+(``tp_seq_reference``). So does pipeline parallelism (``tpu_options.mesh:
+{pipe: 2}``, 4 microbatches): one production step over the two stages
+bit-equal to the one-rank pipeline, the kernels held in-path, with planted
+faults (``pp_reference``), and the entry over the two ranks at dropout 0
+and 0.2, its checkpoint loaded on one rank (``pp_training``). The entries
+over ranks sharing the card run 4 steps (``PARALLEL_ENTRY``).
 
 Right after the build, the training entry with ``TAT_PROFILE_DIR`` must
 write a trace holding the training step's kernels (``profile_trace``).
@@ -74,8 +78,10 @@ context parallelism, data parallelism (``{data: 2}``, ``{data: 4}`` and
 sequence (also with FSDP), data x tensor (``{data: 2, model: 2}``, also
 with FSDP), modality (``{mod: 2, data: 2}``, also with FSDP, ``{mod: 4}``,
 ``{mod: 2, model: 2}``), ``{model: 4}`` and ``{model: 2}`` x
-``context_parallel: 2``, one card per rank over NCCL, against the same run
-on one card, and compares every rank's parameters (``multi_card``).
+``context_parallel: 2``, and pipeline parallelism (``{pipe: 2}``, on 4
+cards ``{pipe: 2, data: 2}``, also with FSDP), one card per rank over
+NCCL, against the same run on one card, and compares every rank's
+parameters (``multi_card``).
 
     python3 chip_smoke.py --k1b-split
 
@@ -1102,6 +1108,9 @@ def wrapper_kernel_names(K) -> dict:
                  q, k, v, do, 0.2, SALTS)}
     for fn in calls.values():
         fn()
+    # the process's first profiler session has been seen to record none of
+    # K1f's kernels: one session first whose record is not read
+    cuda_kernels(calls["fused_qkv_attention"])
     return {name: {k: n for k, n in cuda_kernels(fn).items() if pattern.search(k)}
             for name, fn in calls.items()}
 
@@ -1880,6 +1889,18 @@ def context_parallel(K, card, gen, timing, errs, by_path):
     ids = torch.from_numpy(np.stack([rng.integers(0, v, (1, cfg.block_size + 1))
                                      for v in cfg.vocab_sizes]))
     xb, yb = ids[..., :-1], ids[..., 1:]
+    # cp_training's job (below), run in the start of cp_reference's P = 2 ranks:
+    # the production training step at block_size 1024, batch 8, dropout 0.2,
+    # bf16, over 2 ranks: 4 steps (cut from 8 for the smoke's time limit), one
+    # eval batch, exact K7 launches per rank, the loss falling (the last two
+    # steps' mean below the first two's), a profiled step on every rank. The
+    # synthetic series is split 80/20 (the config's file split leaves one
+    # training file), without augmentation
+    splits = [create_train_val_datasets(x, 0.2, 0, [len(x)]) for x in data["ids"]]
+    steps = 4
+    train_job = dict(kind="training", cfg=cfg, train=[np.asarray(a) for a, _ in splits],
+                     val=[np.asarray(b) for _, b in splits], batch_size=8,
+                     lr=sc["learning_rate"], eval_iters=1, steps=steps)
     for p_size, depth in ((2, cfg.n_layer), (4, 2)):
         c = dataclasses.replace(cfg, n_layer=depth, dropout=0.0)
         cpu_p = init_params(c, torch.Generator().manual_seed(1234), "cpu")
@@ -1897,12 +1918,17 @@ def context_parallel(K, card, gen, timing, errs, by_path):
             variants += [("bf16_dropout_plain", "bfloat16", 0.2, "plain"),
                          ("bf16_dropout", "bfloat16", 0.2, None),
                          ("bf16_dropout_remat", "bfloat16", 0.2, "remat")]
-        torch.cuda.empty_cache()
+        torch.cuda.empty_cache()  # the ranks' activations need the card's memory
         t0 = time.perf_counter()
-        res = pmesh.run_ranks(cp_rank, p_size, (dict(
-            kind="reference", cfg=c, params=cpu_p, batch=(xb, yb), refs=refs,
-            variants=variants),), timeout=RANK_TIMEOUT)
+        calls = [(cp_rank, (dict(kind="reference", cfg=c, params=cpu_p, batch=(xb, yb),
+                                 refs=refs, variants=variants),))]
+        if p_size == 2:
+            calls.append((cp_rank, (train_job,)))
+        got = pmesh.run_ranks(rank_calls, p_size, (calls,), timeout=RANK_TIMEOUT * len(calls))
+        res = [g[0] for g in got]
         sec = time.perf_counter() - t0
+        if p_size == 2:
+            trained, train_sec = [g[1] for g in got], sec
         failed = []
         for name, dtype, rate, change in variants:
             want = [cp_want(K, c, r, "step") for r in range(p_size)]
@@ -1934,7 +1960,7 @@ def context_parallel(K, card, gen, timing, errs, by_path):
                       {k_: v_ for k_, v_ in res[r][name]["launches"].items() if v_}
                       for r in range(p_size)], "launches_exact": counts_ok,
                   "losses_by_rank": [res[r][name]["loss"] for r in range(p_size)],
-                  "seconds_all_variants": sec, **{k_: line[k_] for k_ in (
+                  "seconds_with_spawn_all_jobs": sec, **{k_: line[k_] for k_ in (
                       "against", "loss_ref", "loss_abs_err", "grad_l2_rel_err_max", "worst_leaves",
                       "bit_equal") if k_ in line},
                   "ok": ok})
@@ -1944,20 +1970,8 @@ def context_parallel(K, card, gen, timing, errs, by_path):
             raise AssertionError(f"context-parallel step disagrees, miscounts, or the gate "
                                  f"passed the planted fault: {', '.join(failed)}")
 
-    # cp_training: the production training step at block_size 1024, batch 8,
-    # dropout 0.2, bf16, over 2 ranks: 8 steps, one eval batch, exact K7
-    # launches per rank, the loss falling, a profiled step on every rank. The
-    # synthetic series is split 80/20 (the config's file split leaves one
-    # training file), without augmentation
-    splits = [create_train_val_datasets(x, 0.2, 0, [len(x)]) for x in data["ids"]]
-    steps, p_size = 8, 2
-    job = dict(kind="training", cfg=cfg, train=[np.asarray(a) for a, _ in splits],
-               val=[np.asarray(b) for _, b in splits], batch_size=8, lr=sc["learning_rate"],
-               eval_iters=1, steps=steps)
-    torch.cuda.empty_cache()  # the ranks' activations need the card's memory
-    t0 = time.perf_counter()
-    res = pmesh.run_ranks(cp_rank, p_size, (job,), timeout=RANK_TIMEOUT)
-    sec = time.perf_counter() - t0
+    # cp_training (run above, after the P = 2 reference)
+    res, p_size, job = trained, 2, train_job
     want_train = [{k_: steps * v_ for k_, v_ in cp_want(K, cfg, r, "step").items()}
                   for r in range(p_size)]
     want_eval = [cp_want(K, cfg, r, "forward") for r in range(p_size)]
@@ -1973,7 +1987,7 @@ def context_parallel(K, card, gen, timing, errs, by_path):
                                       for r in range(p_size)) for k_ in K.KERNELS}
     losses = res[0]["losses"]
     finite = all(math.isfinite(x) for x in losses)
-    falls = finite and statistics.mean(losses[-4:]) < statistics.mean(losses[:4])
+    falls = finite and statistics.mean(losses[-2:]) < statistics.mean(losses[:2])
     same = all(res[r]["losses"] == losses for r in range(p_size))
     drift = max(abs(a - b) for r in range(1, p_size)
                 for a, b in zip(res[r]["param_sums"], res[0]["param_sums"]))
@@ -1987,7 +2001,8 @@ def context_parallel(K, card, gen, timing, errs, by_path):
           "dropout": cfg.dropout, "compute_dtype": cfg.compute_dtype, "steps": steps,
           "losses": losses, "same_losses_on_every_rank": same,
           "param_sum_max_diff_between_ranks": drift, "eval_train_loss": res[0]["eval_train_loss"],
-          "steps_per_s_after_two": steps_per_s, "seconds_with_spawn": sec,
+          "steps_per_s_after_two": steps_per_s,
+          "seconds_with_spawn_and_reference": train_sec,
           "split": "80/20 of the series", "augmentation": "off", "ok": ok})
     emit({"phase": "profile", "path": "cp_training", "card": card, "block_size": LONG_BLOCK,
           "steps": 1, "step_ms_unprofiled": 1e3 / steps_per_s,
@@ -3623,7 +3638,7 @@ def mesh_ranks(rank: int, world: int, jobs):
     return [mesh_rank(rank, world, job) for job in jobs]
 
 
-def mesh_reference(K, card, specs, entries=None):
+def mesh_reference(K, card, specs, entries=None, also=()):
     """Spawn ``mesh_rank`` once for every spec (phase, job, expected bytes,
     expected launches of a rank's coords, gate of a dtype: (loss, leaf,
     token-table) limits, names that must fail, extra fields), all of one
@@ -3634,7 +3649,9 @@ def mesh_reference(K, card, specs, entries=None):
     REL_TOL; a variant that must fail must exceed the step gate instead.
     One line per variant; raises on a failure. ``entries``: a plan of
     ``entry_runs`` run after the steps in the same start of the rank
-    processes, whose results it returns."""
+    processes; ``also``: more rank calls (fn, args) run right after the
+    steps. Returns the entries' results and, per call of ``also``, its
+    per-rank results."""
     import torch
 
     from trade_aid_multimodal_transformer_tpu_torch.parallel import mesh as pmesh
@@ -3646,13 +3663,15 @@ def mesh_reference(K, card, specs, entries=None):
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    before = (mesh_ranks, ([spec[1] for spec in specs],))
+    before = (rank_calls, ([(mesh_ranks, ([spec[1] for spec in specs],)), *also],))
     if entries:
         got, results = entry_runs(K, entries, world, before)
     else:
         got, results = pmesh.run_ranks(rank_calls, world, ([before],),
-                                       timeout=RANK_TIMEOUT * len(specs)), []
+                                       timeout=RANK_TIMEOUT * (len(specs) + len(also))), []
         got = [g[0] for g in got]
+    also_got = [[g[1 + i] for g in got] for i in range(len(also))]
+    got = [g[0] for g in got]
     sec = time.perf_counter() - t0
     failed = []
     for i, (phase, job, want_bytes, want_launches, gate, must_fail, extra) in enumerate(specs):
@@ -3703,7 +3722,7 @@ def mesh_reference(K, card, specs, entries=None):
                 failed.append(f"{phase} {name}")
     if failed:
         raise AssertionError(f"reference steps failed: {failed}")
-    return results
+    return results, also_got
 
 
 def production_step_job(cfg, sc, B: int, seed: int, **job):
@@ -3749,7 +3768,7 @@ def step_gate(dtype):
     return STEP_TOL[dtype]["loss"], STEP_TOL[dtype]["grad_l2"], STEP_TOL[dtype]["grad_l2"]
 
 
-def mod_phases(K, card, by_path, one_rank):
+def mod_phases(K, card, by_path, one_rank, also=(), also_entries=()):
     """Modality parallelism (``mesh: {mod: 2}``) on the one card, two ranks
     sharing it (gloo through host memory):
     - ``mod_reference``: one production step (dropout 0.2, batch 32, bf16
@@ -3775,7 +3794,11 @@ def mod_phases(K, card, by_path, one_rank):
       modality collectives' bytes, calls and ms a step (TAT_TIMING); the
       checkpoint of the run at 0.2 loading in a one-rank run that trains
       on.
-    Adds ``by_path["mod_training"]``; raises on a failed check."""
+    ``also`` (rank calls) and ``also_entries`` (an ``entry_runs`` plan): a
+    later phase's work on two ranks, run in the same start of the rank
+    processes after this phase's (a start costs 15–20 s); their results are
+    returned, per call and per run. Adds ``by_path["mod_training"]``;
+    raises on a failed check."""
     from trade_aid_multimodal_transformer_tpu_torch import generate as entry
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -3793,12 +3816,14 @@ def mod_phases(K, card, by_path, one_rank):
     bf, f32 = "bfloat16", "float32"
     with tempfile.TemporaryDirectory() as tmp:
         dirs = parallel_entry_dirs(Path(tmp), "{mod: 2}")
-        runs = dict(zip((0.0, 0.2), mesh_reference(K, card, [("mod_reference", production_step_job(
+        results, also_got = mesh_reference(K, card, [("mod_reference", production_step_job(
             cfg, sc, sc["batch_size"], 13, mesh=dict(mod=MOD_RANKS), refs=[(bf, 0.2), (f32, 0.2)],
             variants=[("sound", bf, 0.2, None), ("sound_f32", f32, 0.2, None),
                       ("mod_offset_0", bf, 0.2, "mod_offset_0")]),
             want_bytes, want_step(MOD_RANKS), mod_gate, ("mod_offset_0",), None)],
-            [(dirs[rate], dirs["text", rate], None) for rate in (0.0, 0.2)])))
+            [(dirs[rate], dirs["text", rate], None) for rate in (0.0, 0.2)] + list(also_entries),
+            also)
+        runs = dict(zip((0.0, 0.2), results))
         d = dirs["resume"]  # a one-rank run from the 0.2 run's checkpoint
         shutil.copytree(dirs[0.2] / "output", d / "output")
         (d / "config.yaml").write_text(
@@ -3868,6 +3893,323 @@ def mod_phases(K, card, by_path, one_rank):
     if failed:
         raise AssertionError(f"the modality-parallel training entry failed its checks at "
                              f"dropout {failed}")
+    return also_got, results[2:]
+
+
+PP_RANKS, PP_MU = 2, 4
+
+
+def pp_rank(rank: int, world: int, job: dict):
+    """One rank of ``pp_reference`` in a process of its own (the ranks share
+    the one card: gloo through host memory). Rank 0 first takes the
+    one-rank pipeline (S = 1, the same µ and keys: ``pipeline_total_loss``
+    without an axis, differentiated, then the AdamW update) at each dropout
+    of ``job["variants"]``, and the one-rank sequential step (the plain
+    Trainer) at dropout 0. Then every rank takes the step over ``{pipe:
+    world}`` and its update, per variant (name, dropout, fault): fault None,
+    "stage1_keys_from_0" (stage 1 keys its layers from layer 0's keys, not
+    from L / S's) or "bwd_handoff_forward_order" (stage 1 sends its input
+    gradients back in the forward's microbatch order). The sound variants
+    hold every K1f, K1b, K2f and K2b call in-path against its plain
+    version. Returns per variant the loss, the launches, the in-path
+    errors, the digests of the updated parameters and moments, the rank's
+    train-state bytes and, on rank 0, whether the loss, every gradient leaf
+    and the updated parameters are bit-equal to the one-rank pipeline's,
+    and the gradients' errors against it (or at dropout 0 against the
+    sequential step)."""
+    sys.path.insert(0, str(REPO))
+    import hashlib
+
+    import torch
+
+    from trade_aid_multimodal_transformer_tpu_torch.models.init import (
+        map_tree, tree_leaves, tree_paths)
+    from trade_aid_multimodal_transformer_tpu_torch.ops import kernels as K
+    from trade_aid_multimodal_transformer_tpu_torch.parallel import mesh as pmesh
+    from trade_aid_multimodal_transformer_tpu_torch.parallel import pipeline as pp
+    from trade_aid_multimodal_transformer_tpu_torch.parallel.trainer import make_sharded_trainer
+    from trade_aid_multimodal_transformer_tpu_torch.train import steps as tsteps
+    from trade_aid_multimodal_transformer_tpu_torch.utils.memory import train_state_bytes
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(job.get("device", "cuda"))  # "cpu": a rehearsal of the phase
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    mesh = pmesh.make_mesh(pipe=world, staged=dev.type == "cuda")
+    xb, yb = (t.to(dev) for t in job["batch"])
+    mu, L = job["mu"], job["cfg"].n_layer
+    names = ["/".join(map(str, path)) for path, _ in tree_paths(job["params"])]
+    table = [name.startswith("pre/tok_emb/") for name in names]
+
+    def config(rate):
+        return dataclasses.replace(job["cfg"], dropout=rate)
+
+    def fresh():
+        return map_tree(lambda t: t.detach().to(dev).clone().requires_grad_(), job["params"])
+
+    def optimizer():
+        return tsteps.make_optimizer(job["lr"], moment_dtype="bfloat16", nu_dtype="bfloat16")
+
+    def digest(tensors) -> str:
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.detach().float().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    def errors(grads, ref):
+        """Each leaf's L2 error against its own scale, floored at a 1e-4
+        share of the whole, the token tables apart (mesh_rank's measure)."""
+        norms = [r.norm().item() for r in ref]
+        floor = 1e-4 * math.sqrt(sum(n_ * n_ for n_ in norms))
+        errs_leaf = [(g.float() - r.float()).norm().item() / max(n_, floor)
+                     for g, r, n_ in zip(grads, ref, norms)]
+        return {"grad_l2_rel_err_max": max(e for e, t in zip(errs_leaf, table) if not t),
+                "token_table_grad_l2_rel_err_max": max(e for e, t in zip(errs_leaf, table) if t),
+                "worst_leaves": sorted(zip(errs_leaf, names), reverse=True)[:4]}
+
+    refs = {}
+    if rank == 0:
+        for rate in sorted({v[1] for v in job["variants"] if v[1] > 0}):
+            params, opt = fresh(), optimizer()
+            state = opt.init(params)
+            loss, _ = pp.pipeline_total_loss(params, config(rate), xb, yb, None, mu, SALTS, True)
+            grads = torch.autograd.grad(loss, tree_leaves(params))
+            opt.update_(params, grads, state)
+            refs["pipe1", rate] = (loss.detach(), [g.detach() for g in grads],
+                                   [t.detach() for t in tree_leaves(params)])
+            del params, state, loss, grads
+        loss, grads = tsteps.Trainer(config(0.0), None, optimizer(), [], 1).loss_and_grads(
+            fresh(), [(xb, yb)], [SALTS])
+        refs["seq", 0.0] = loss.detach(), [g.detach() for g in grads]
+        del loss, grads
+    real_keys = pp.pipeline_keys
+    out = {}
+    for name, rate, fault in job["variants"]:
+        opt, params = optimizer(), fresh()
+        state = opt.init(params)
+        if fault == "stage1_keys_from_0" and rank == 1:
+            def keys_from_0(*args):
+                keys = real_keys(*args)
+                per = L // world
+                return keys if keys is None else torch.cat([keys[:per], keys[:per], keys[2 * per:]])
+
+            pp.pipeline_keys = keys_from_0
+        if fault == "bwd_handoff_forward_order" and rank == 1:
+            pending, real_send = [], mesh.pipe.send
+
+            def forward_order(t, step):
+                if step != -1:
+                    return real_send(t, step)
+                pending.append(t.clone())  # backward: the last microbatch's first
+                if len(pending) == mu:
+                    for x in reversed(pending):
+                        real_send(x, step)
+                    pending.clear()
+
+            mesh.pipe.send = forward_order
+        worst = {}
+        fns = {} if fault else {k_: checked(K, k_, getattr(K, k_), worst) for k_ in (
+            "fused_qkv_attention", "fused_qkv_attention_bwd", "short_cross_attention",
+            "short_cross_attention_bwd")}
+        try:
+            trainer = make_sharded_trainer(config(rate), None, opt, [], 1, mesh,
+                                           pipeline_microbatches=mu)
+            with patched(K, **fns):
+                K.reset_launch_counts()
+                loss, grads = trainer.loss_and_grads(params, [(xb, yb)], [SALTS])
+                sync()
+            counts = K.launch_counts()
+            for k_, fn in fns.items():  # a wrapper counts on the name it is patched over
+                if k_ in counts:
+                    counts[k_] += fn.launches
+        finally:
+            pp.pipeline_keys = real_keys
+            mesh.pipe.__dict__.pop("send", None)
+        opt.update_(params, grads, state)
+        leaves = tree_leaves(params)
+        res = {"dropout": rate, "loss": loss.item(), "launches": counts, "in_path": worst,
+               "params": digest(leaves), "mu": digest(tree_leaves(state["mu"])),
+               "nu": digest(tree_leaves(state["nu"])),
+               "state_bytes": train_state_bytes(params, state, opt), "coords": mesh.coords}
+        if rank == 0 and ("pipe1", rate) in refs:
+            loss1, grads1, after1 = refs["pipe1", rate]
+            res.update(loss_ref=loss1.item(), loss_bit_equal=torch.equal(loss, loss1),
+                       grad_leaves_bit_equal=sum(torch.equal(a, b) for a, b in zip(grads, grads1)),
+                       n_leaves=len(grads1),
+                       params_bit_equal=all(torch.equal(a, b) for a, b in zip(leaves, after1)),
+                       loss_abs_err=abs(loss.item() - loss1.item()), **errors(grads, grads1))
+        if rank == 0 and rate == 0.0:
+            loss0, grads0 = refs["seq", 0.0]
+            res["vs_sequential"] = {"loss_ref": loss0.item(),
+                                    "loss_abs_err": abs(loss.item() - loss0.item()),
+                                    **errors(grads, grads0)}
+        out[name] = res
+        del params, state, loss, grads, trainer
+    return out
+
+
+def pp_phases(K, card, by_path, one_rank, start):
+    """Pipeline parallelism (``mesh: {pipe: 2}``, µ = 4, the GPipe schedule
+    over the production config's 6 layers: 3 a stage) on the one card, two
+    ranks sharing it (gloo through host memory), in the start of the rank
+    processes that ``start(calls, plan)`` runs them in (``mod_phases``'s:
+    it returns the calls' per-rank results and the plan's entry results):
+    - ``pp_reference``: one production step (bf16, dropout 0.2, batch 32,
+      bf16 moments): the loss, every gradient leaf and the updated
+      parameters bit-equal to the one-rank pipeline's (S = 1, the same µ and
+      keys: each stage runs the same kernels on the same microbatch rows,
+      the backward visits the microbatches in one order and each leaf's
+      gradient comes from the one stage that owns it); the parameters and
+      moments equal on both ranks; every K1f, K1b, K2f and K2b call of the
+      step at the microbatch shape within REL_TOL of its plain version;
+      exact launches per rank (K1f and K1b (L/S) µ = 12, K2f and K2b 24);
+      every rank's train-state bytes the whole tree's (``state_bytes``);
+      the same step at dropout 0 within ``dp_reference``'s gate of the
+      one-rank sequential step. Planted: stage 1 keying its layers from
+      layer 0's keys, and stage 1 sending its backward handoffs in the
+      forward's microbatch order: each must break the bit-equality and
+      exceed ``dp_reference``'s gate against the one-rank pipeline.
+    - ``pp_training``: the entry over the two ranks, 4 steps, at dropout 0
+      and 0.2 against the one-rank entry with the same seed (``one_rank``):
+      final eval losses within STEP_TOL, every rank's checksum equal, exact
+      launches per rank (a step's above, 6 K1f and 12 K2f an evaluation
+      batch), the handoffs' send and receive bytes, calls and ms a step
+      (TAT_TIMING), every rank's bytes the whole tree's; the checkpoint of
+      the run at 0.2 loading in a one-rank run that trains on.
+    Adds ``by_path["pp_training"]``; raises on a failed check."""
+    from trade_aid_multimodal_transformer_tpu_torch import generate as entry
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        production_config_dir(d)
+        data = entry.load_config_and_data(str(d))
+    cfg, sc = data["cfg"], data["sc"]
+    L, n_cross, S = cfg.n_layer, sum(cfg.cross_attention), PP_RANKS
+    step = {**dict.fromkeys(K.KERNELS, 0),
+            **dict(fused_qkv_attention=L // S * PP_MU, fused_qkv_attention_bwd=L // S * PP_MU,
+                   short_cross_attention=n_cross * L // S * PP_MU,
+                   short_cross_attention_bwd=n_cross * L // S * PP_MU)}
+    want_bytes = state_bytes(cfg)
+    config = dict(PARALLEL_ENTRY)
+    job = production_step_job(cfg, sc, sc["batch_size"], 13, mu=PP_MU, variants=[
+        ("sound", 0.2, None), ("sound_dropout_0", 0.0, None),
+        ("stage1_keys_from_0", 0.2, "stage1_keys_from_0"),
+        ("bwd_handoff_forward_order", 0.2, "bwd_handoff_forward_order")])
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = parallel_entry_dirs(Path(tmp), "{pipe: 2}")
+        # only the run at 0.2 writes checkpoints (the one-rank load reads its last)
+        dirs["text", 0.0] = dirs["text", 0.0].replace("save_model: 1", "save_model: 0")
+        (ref_rows,), runs = start([(pp_rank, (job,))], [(dirs[rate], dirs["text", rate], None)
+                                                         for rate in (0.0, 0.2)])
+        runs = dict(zip((0.0, 0.2), runs))
+        d = dirs["resume"]  # a one-rank run from the 0.2 run's checkpoint
+        shutil.copytree(dirs[0.2] / "output", d / "output")
+        (d / "config.yaml").write_text(
+            dirs["text", "resume"].replace("mesh: {pipe: 2}", "mesh: \"off\""))
+        loaded = entry_run(K, d)
+    sec = time.perf_counter() - t0
+    failed = []
+    loss_tol, leaf_tol, table_tol = mod_gate("bfloat16")
+    for name, rate, fault in job["variants"]:
+        rows = [ref_rows[r][name] for r in range(S)]
+        r0 = rows[0]
+        bit_equal = (r0.get("loss_bit_equal") and r0.get("params_bit_equal")
+                     and r0.get("grad_leaves_bit_equal") == r0.get("n_leaves"))
+        gate = r0.get("vs_sequential", r0) if rate == 0.0 else r0
+        within = (gate["loss_abs_err"] <= loss_tol and gate["grad_l2_rel_err_max"] <= leaf_tol
+                  and gate["token_table_grad_l2_rel_err_max"] <= table_tol)
+        ranks_equal = all(x[k_] == r0[k_] for x in rows for k_ in ("params", "mu", "nu"))
+        launches = all(x["launches"] == step for x in rows)
+        held = all(tuple(x["state_bytes"]) == want_bytes for x in rows)
+        in_path = {k_: max(x["in_path"].get(k_, 0.0) for x in rows)
+                   for k_ in set().union(*(x["in_path"] for x in rows))}
+        in_path_ok = all(v_ <= REL_TOL["bfloat16"] for v_ in in_path.values())
+        if fault:
+            ok = not bit_equal and not within and launches
+        else:
+            ok = (ranks_equal and launches and held and in_path_ok and within
+                  and (bit_equal or rate == 0.0) and len(in_path) == 9)
+        emit({"phase": "pp_reference", "variant": name, "card": card, "mesh": {"pipe": S},
+              "microbatches": PP_MU, "ranks_on_one_card": S,
+              "backend": "gloo through host memory", "config": "examples/production_config.yaml",
+              "batch": sc["batch_size"], "dropout": rate, "dtype": "bfloat16", "fault": fault,
+              "against": "the one-rank sequential step (dp_reference's gate)" if rate == 0.0
+              else "the one-rank pipeline (S = 1, same µ and keys): bit-equal, and "
+                   "dp_reference's gate",
+              "loss_tol": loss_tol, "grad_l2_rel_tol": leaf_tol,
+              "token_table_grad_l2_rel_tol": table_tol, "bit_equal": bool(bit_equal),
+              **{k_: r0[k_] for k_ in ("loss_ref", "loss_bit_equal", "grad_leaves_bit_equal",
+                                       "n_leaves", "params_bit_equal", "loss_abs_err",
+                                       "grad_l2_rel_err_max", "token_table_grad_l2_rel_err_max",
+                                       "worst_leaves", "vs_sequential") if k_ in r0},
+              "losses_by_rank": [x["loss"] for x in rows],
+              "params_mu_nu_equal_across_ranks": ranks_equal,
+              "train_state_bytes_by_rank": [tuple(x["state_bytes"]) for x in rows],
+              "train_state_bytes_expected": want_bytes,
+              "in_path_l2_rel": in_path, "in_path_tol": REL_TOL["bfloat16"],
+              "launches_by_rank": [{k_: v_ for k_, v_ in x["launches"].items() if v_}
+                                   for x in rows], "launches_exact": launches,
+              "seconds_with_mod_phases": sec, "ok": ok})
+        if not ok:
+            failed.append(f"pp_reference {name}")
+    eval_batches = expected_evals(config["max_iters"], config["eval_interval"]) * 2 * 2
+    per_eval = dict(fused_qkv_attention=L, short_cross_attention=n_cross * L)
+    want = {k_: n_ * config["max_iters"] + per_eval.get(k_, 0) * eval_batches
+            for k_, n_ in step.items()}
+    steps = config["max_iters"]
+    for rate in (0.0, 0.2):
+        r = runs[rate]
+        sums = r["param_checksums"]
+        errs_ = {k_: abs(r["losses"][k_] - one_rank[rate]["losses"][k_]) for k_ in ("train", "val")}
+        launches = [x["launches_rank"] for x in r["ranks"]]
+        calls = {kind: [(n_, t_) for k_, n_, t_ in r["collectives"] or [] if k_ == kind]
+                 for kind in ("send", "recv", "pipe_broadcast", "pipe_all_reduce")}
+        held = [tuple(x["train_state_bytes"]) for x in r["ranks"]]
+        ok = (len(sums) == S and all(s_ == sums[0] for s_ in sums)
+              and all(e <= STEP_TOL["bfloat16"]["loss"] for e in errs_.values())
+              and len(r["evals"]) == len(one_rank[rate]["evals"]) > 1
+              and launches == [want] * S
+              and "Parallelism: pipeline x2 over 2 devices" in r["console"]
+              and "TRAINING COMPLETED SUCCESSFULLY" in r["console"]
+              and held == [want_bytes] * S and all(calls.values()))
+        line = {"phase": "pp_training", "config": "examples/production_config.yaml",
+                "card": card, "changed": {**config, "dropout": rate, "mesh": "{pipe: 2}"},
+                "microbatches": PP_MU, "ranks_on_one_card": S,
+                "backend": "gloo through host memory", "plan": r["plan"].describe(),
+                "global_batch": sc["batch_size"], "evals": r["evals"],
+                "evals_one_rank": one_rank[rate]["evals"], "final_eval_losses": r["losses"],
+                "final_eval_losses_one_rank": one_rank[rate]["losses"],
+                "abs_err_vs_one_rank": errs_, "tol": STEP_TOL["bfloat16"]["loss"],
+                "param_checksums_by_rank": sums,
+                "launches_by_rank": [{k_: v_ for k_, v_ in x.items() if v_} for x in launches],
+                "expected_launches_per_rank": {k_: v_ for k_, v_ in want.items() if v_},
+                "train_state_bytes_by_rank": held, "train_state_bytes_expected": want_bytes,
+                "max_memory_allocated_by_rank": [x["max_memory_allocated"] for x in r["ranks"]],
+                "steps_per_s_after_first_chunk": r["steps_per_s"],
+                "steps_per_s_one_rank": one_rank[rate]["steps_per_s"],
+                **{f"{kind}_{what}": v_ for kind, c_ in calls.items() for what, v_ in (
+                    ("bytes_per_step", sum(n_ for n_, _ in c_) / steps),
+                    ("calls_per_step", len(c_) / steps),
+                    ("ms_per_step", 1e3 * sum(t_ for _, t_ in c_) / steps))},
+                "collectives_note": "rank 0's (stage 0: its sends forward and receives "
+                                    "backward), per training step; host clock around each "
+                                    "staged gloo call, the card synchronised before and after",
+                "seconds_with_spawn": r["seconds"]}
+        if rate == 0.2:
+            load_ok = ("Model: Loaded successfully" in loaded["console"]
+                       and "TRAINING COMPLETED SUCCESSFULLY" in loaded["console"]
+                       and loaded["plan"].trivial
+                       and all(math.isfinite(v) for v in loaded["losses"].values()))
+            ok = ok and load_ok
+            line["one_rank_load"] = {"ok": load_ok, "final_eval_losses": loaded["losses"]}
+            by_path["pp_training"] = launches[0]
+        line["ok"] = ok
+        emit(line)
+        if not ok:
+            failed.append(f"pp_training {rate}")
+    if failed:
+        raise AssertionError(f"pipeline parallelism failed its checks: {failed}")
 
 
 def four_rank_references(K, card):
@@ -3998,7 +4340,7 @@ def multi_card(card: str) -> int:
             text = text.replace("  # context_parallel: 4", f"  context_parallel: {cp}")
             (d / "config.yaml").write_text(text)
             cfg = (entry.load_config_and_data(str(d))["cfg"]
-                   if fsdp or "model" in mesh or "mod" in mesh else None)
+                   if fsdp or any(a_ in mesh for a_ in ("model", "mod", "pipe")) else None)
             cwd = os.getcwd()
             os.chdir(d)
             try:
@@ -4019,7 +4361,8 @@ def multi_card(card: str) -> int:
             coll["tp_all_reduce"] = (sum(n_ for n_, _ in tp) / 8, 1e3 * sum(t_ for _, t_ in tp) / 8,
                                      len(tp) / 8)
         for kind in ("tp_all_gather", "mod_all_gather", "mod_reduce_scatter_bwd",
-                     "mod_all_reduce"):  # the model and modality axes' other collectives
+                     "mod_all_reduce", "send", "recv", "pipe_broadcast", "pipe_all_reduce"):
+            # the model, modality and pipeline axes' other collectives
             calls = [(n_, t_) for k_, n_, t_ in res.get("collectives") or [] if k_ == kind]
             if calls:
                 coll[kind] = (sum(n_ for n_, _ in calls) / 8,
@@ -4175,12 +4518,58 @@ def multi_card(card: str) -> int:
                 if got["plan"] != want:
                     failed.append(f"data x seq planned {got['plan']}")
         new_rows(run, hold, failed, dp_base, base, long)
+    pipe_rows(run, hold, failed, dp_base, n_cards)
     if failed:
         raise AssertionError(f"multi-card training disagrees: {failed}")
     emit(card)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": n_cards}})
     return 0
+
+
+def pipe_rows(run, hold, failed, dp_base, n_cards: int) -> None:
+    """``multi_card``'s pipeline rows (``run`` and ``hold`` its helpers):
+    ``{pipe: 2}`` and, on 4 cards, ``{pipe: 2, data: 2}`` and the same with
+    ``fsdp: true`` (block_size 64, global batch 32, µ = 4), each at dropout
+    0 and 0.2 against the one-card runs ``dp_base`` with the tensor rows'
+    gates, the exact bytes ``state_bytes`` gives (the whole tree without
+    FSDP), the plan's line, the handoffs' bytes, calls and ms a step; the
+    FSDP run's parameter checksums equal to the run without it (the same
+    seed: bit-equal). A failed run is reported and the other rows still
+    run."""
+    layouts = [("{pipe: 2}", dict(pipe=2), False, "pipeline x2")]
+    if n_cards >= 4:
+        layouts += [("{pipe: 2, data: 2}", dict(pipe=2, data=2), False, "pipeline x2 * data x2"),
+                    ("{pipe: 2, data: 2}", dict(pipe=2, data=2), True,
+                     "pipeline x2 * data x2 (fsdp/zero-3)")]
+    without_fsdp = {}
+    for mesh, axes, fsdp, plan in layouts:
+        ranks = math.prod(axes.values())
+        for rate in (0.0, 0.2):
+            try:
+                r = run(mesh, 1, fsdp=fsdp, dropout=rate)
+            except Exception as e:  # noqa: BLE001  (reported; the other rows still run)
+                emit({"phase": "multi_card_pipeline", "mesh": mesh, "fsdp": fsdp,
+                      "dropout": rate, "error": repr(e)[-2000:], "ok": False})
+                failed.append(f"{mesh} fsdp {fsdp}: {e!r}"[:300])
+                continue
+            want = state_bytes(r["cfg"], axes.get("data", 1), fsdp=fsdp)
+            held = [tuple(b_) for b_ in r["train_state_bytes_by_rank"] or []]
+            extra = {}
+            if fsdp:
+                same = r["param_checksums"] == without_fsdp.get(rate)
+                extra["checksums_equal_without_fsdp"] = same
+                if not same:
+                    failed.append(f"{mesh} fsdp at {rate}: checksums differ from the run "
+                                  f"without FSDP")
+            elif "data" in axes:
+                without_fsdp[rate] = r["param_checksums"]
+            hold("multi_card_pipeline", r, dp_base[rate], ranks, "fused_qkv_attention",
+                 {"dropout": rate, "mesh": mesh, **({"fsdp": True} if fsdp else {})},
+                 train_state_bytes_expected=want, state_split=held == [want] * ranks,
+                 plan_expected=plan, microbatches=PP_MU, **extra)
+            if held != [want] * ranks or r["plan"] != plan:
+                failed.append(f"{mesh} fsdp {fsdp}: bytes {held}, plan {r['plan']}")
 
 
 def new_rows(run, hold, failed, dp_base, long_base0, long) -> None:
@@ -5243,7 +5632,8 @@ def main() -> int:
     dp_runs = data_parallel(K, card, by_path)
     one_rank = fsdp_phases(K, card, by_path, dp_runs)
     tp_phases(K, card, by_path, one_rank)
-    mod_phases(K, card, by_path, one_rank)
+    pp_phases(K, card, by_path, one_rank,
+              lambda calls, plan: mod_phases(K, card, by_path, one_rank, calls, plan))
     four_rank_references(K, card)
 
     # 11. long context: the production config at block_size 1024

@@ -603,11 +603,12 @@ def test_mesh_that_needs_more_devices_raises():
 
 
 # (mesh, context_parallel, devices, fsdp): JAX's plan or error, in the port
-# the same plan (FSDP included) where it has modality, data, model and
-# sequence axes (a model axis that does not divide n_head too), the same
-# error where JAX raises, and NotImplementedError (a later slice) where
-# JAX's plan has a pipeline axis, the modality axis with the sequence axis,
-# or the sequence axis with a model axis that does not divide n_head
+# the same plan (FSDP included) where it has pipeline, modality, data,
+# model and sequence axes (a model axis that does not divide n_head too),
+# the same error where JAX raises, and NotImplementedError (a later slice)
+# where JAX's plan has a pipeline axis with a model, modality or sequence
+# axis, the modality axis with the sequence axis, or the sequence axis with
+# a model axis that does not divide n_head
 PLAN_CASES = [
     ("auto", 1, 1, False), ("off", 1, 1, False), (None, 1, 1, False), (1, 1, 1, False),
     ({"data": 1, "model": 1}, 1, 1, False), ("auto", 2, 2, False), ("off", 2, 2, False),
@@ -622,30 +623,47 @@ PLAN_CASES = [
     ({"mod": 4}, 1, 4, False), ({"mod": 2, "data": 2}, 1, 4, True),
     ({"mod": 2, "model": 2}, 1, 4, False), ({"mod": 2, "data": 2, "model": 2}, 1, 8, False),
     ({"model": 2}, 2, 4, False), ({"data": 2, "model": 2}, 2, 8, False), ({"mod": 2}, 2, 4, False),
-    ({"model": 4}, 2, 8, False),
+    ({"model": 4}, 2, 8, False), ({"pipe": 2, "data": 2}, 1, 4, False),
+    ({"pipe": 2, "data": 2}, 1, 4, True), ({"pipe": 2, "model": 2}, 1, 4, False),
 ]
 
 
 @pytest.mark.parametrize("mesh,cp,n,fsdp", PLAN_CASES)
 def test_plan_mesh_matches_jax(mesh, cp, n, fsdp):
+    _plan_matches_jax(mesh, cp, n, fsdp, 4)
+
+
+# (mesh, context_parallel, devices, fsdp, pipeline_microbatches) of the
+# pipeline plans at other microbatch counts: 3 does not divide the batch
+# (JAX's ValueError), 2 over a data axis of 2 divides it
+PIPE_MU_CASES = [({"pipe": 2}, 1, 2, False, 3), ({"pipe": 2, "data": 2}, 1, 4, False, 2),
+                 ({"pipe": 2, "data": 2}, 1, 4, False, 3)]
+
+
+@pytest.mark.parametrize("mesh,cp,n,fsdp,mu", PIPE_MU_CASES)
+def test_plan_mesh_pipeline_microbatches_match_jax(mesh, cp, n, fsdp, mu):
+    _plan_matches_jax(mesh, cp, n, fsdp, mu)
+
+
+def _plan_matches_jax(mesh, cp, n, fsdp, mu):
     from trade_aid_multimodal_transformer_tpu.parallel.resolve import plan_mesh as jax_plan_mesh
 
-    kw = dict(_PLAN_KW, pipeline_microbatches=4, fsdp=fsdp)
+    kw = dict(_PLAN_KW, pipeline_microbatches=mu, fsdp=fsdp)
     try:
         ref = jax_plan_mesh(mesh, cp, devices=[object()] * n, **kw)
     except ValueError as e:
         with pytest.raises(ValueError, match=re.escape(str(e))):
             plan_mesh(mesh, cp, n_devices=n, **kw)
         return
-    if (ref.pipe != 1 or (ref.mod > 1 and ref.seq > 1)
+    if ((ref.pipe > 1 and max(ref.model, ref.mod, ref.seq) > 1) or (ref.mod > 1 and ref.seq > 1)
             or (ref.seq > 1 and kw["n_head"] % ref.model != 0)):
-        with pytest.raises(NotImplementedError, match="later slice"):
+        with pytest.raises(NotImplementedError, match="later slice.*item 6b"):
             plan_mesh(mesh, cp, n_devices=n, **kw)
         return
     got = plan_mesh(mesh, cp, n_devices=n, **kw)
-    assert (got.describe(), got.n_devices, got.data, got.model, got.mod, got.seq, got.trivial,
-            got.fsdp) == (ref.describe(), ref.n_devices, ref.data, ref.model, ref.mod, ref.seq,
-                          ref.trivial, ref.fsdp)
+    assert (got.describe(), got.n_devices, got.data, got.model, got.mod, got.pipe, got.seq,
+            got.trivial, got.fsdp) == (ref.describe(), ref.n_devices, ref.data, ref.model,
+                                       ref.mod, ref.pipe, ref.seq, ref.trivial, ref.fsdp)
 
 
 def test_trainer_chunk_and_step_draw_from_the_feed():

@@ -303,3 +303,74 @@ def tp_ring_cases(rank, world, job):
             grads = torch.autograd.grad(o, (q, k, v), g)
         out[name] = [o.detach().numpy()] + [x.numpy() for x in grads]
     return out
+
+
+def pipe_cases(rank, world, tasks):
+    """One rank of pipelined runs, each task over ``make_mesh(pipe=...,
+    data=world // pipe)`` (a dict: ``pipe``, ``mu``, ``cfg``, ``params``,
+    ``batch`` (xb, yb) global, ``key`` the step's raw threefry key, and
+    what to compute): ``eval`` the loss at train=False (the data axis's
+    mean); ``grads`` the loss and whole gradients of one training step
+    (``loss_and_grads``); ``steps`` that many AdamW steps (lr 1e-2) on the
+    batch and one more of two microbatch draws (the batch and its rows
+    reversed), with the losses and the params, mu and nu after; ``fsdp`` one
+    step with FSDP on the data axis and the same without, the gathered
+    state after each; ``contiguous_rows`` (planted) a data rank's rows
+    taken as one block of the batch instead of its rows of every
+    microbatch. Every result as numpy."""
+    from trade_aid_multimodal_transformer_tpu_torch.parallel import pipeline as pp
+    from trade_aid_multimodal_transformer_tpu_torch.parallel.trainer import shard_train_state
+
+    torch.set_num_threads(1)  # no thread split to vary between the ranks: the same bits
+    numpy = lambda tree: [t.detach().float().numpy().copy() for t in tree_leaves(tree)]  # noqa: E731
+    real_rows = pp.pipeline_rows
+    out = []
+    for task in tasks:
+        S, mu = task["pipe"], task["mu"]
+        mesh = pmesh.make_mesh(pipe=S, data=world // S)
+        cfg = ModelConfig(**task["cfg"])
+        fresh = lambda: map_tree(lambda t: t.detach().clone().requires_grad_(),  # noqa: E731
+                                 task["params"])
+        xb, yb = (torch.from_numpy(a) for a in task["batch"])
+        res = {"coords": mesh.coords}
+        if task.get("contiguous_rows"):
+            pp.pipeline_rows = lambda B, m, r, size: torch.arange(r * B // size,
+                                                                  (r + 1) * B // size)
+        try:
+            if task.get("eval"):
+                rows = slice(None) if mesh.data is None else pp.pipeline_rows(
+                    xb.shape[1], mu, mesh.data.rank, mesh.data.size)
+                with torch.no_grad():
+                    loss, _ = pp.pipeline_total_loss(fresh(), cfg, xb[:, rows], yb[:, rows],
+                                                     mesh.pipe, mu, None, False, mesh.data)
+                if mesh.data is not None:
+                    loss, _ = mesh.data.mean_grads(loss, [])
+                res["eval_loss"] = loss.item()
+            if task.get("grads"):
+                trainer = make_sharded_trainer(cfg, None, make_optimizer(1e-3), [], 1, mesh,
+                                               pipeline_microbatches=mu)
+                loss, grads = trainer.loss_and_grads(fresh(), [(xb, yb)], [task["key"]])
+                res.update(loss=loss.item(), grads=[g.numpy() for g in grads])
+            for variant in (("pipe", "fsdp") if task.get("fsdp") else ()) + (
+                    ("steps",) if task.get("steps") else ()):
+                opt = make_optimizer(1e-2)
+                params, state, placed = shard_train_state(fresh(), None, mesh.data,
+                                                          variant == "fsdp")
+                state = opt.init(params)
+                trainer = make_sharded_trainer(cfg, None, opt, [], 1, mesh, fsdp=placed,
+                                               pipeline_microbatches=mu)
+                losses = [trainer.step(params, state, [(xb, yb)], [task["key"]]).item()
+                          for _ in range(task.get("steps", 1) if variant == "steps" else 1)]
+                if variant == "steps":  # then one step of two microbatch draws (grad_accum)
+                    flipped = (xb.flip(1), yb.flip(1))
+                    losses.append(trainer.step(params, state, [(xb, yb), flipped],
+                                               [task["key"], task["key"][::-1]]).item())
+                trees = [params, state["mu"], state["nu"]]
+                if placed is not None:
+                    trees = [placed.gather(t) for t in trees]
+                res[variant] = {"losses": losses, "whole": [numpy(t) for t in trees],
+                                "count": state["count"]}
+        finally:
+            pp.pipeline_rows = real_rows
+        out.append(res)
+    return out

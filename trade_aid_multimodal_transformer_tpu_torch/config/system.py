@@ -19,14 +19,15 @@ parallelism (``{model: N}``: over whole heads where N divides ``n_head``,
 else over the columns the placement splits; alone, with a data axis, with
 ``fsdp`` and with ``context_parallel``) and modality parallelism
 (``{mod: P}``, P dividing the modality count; alone and with the data and
-model axes), one card a rank (parallel/); a plan that needs a pipeline
-axis, the modality axis with ``context_parallel``, or ``context_parallel``
-with a model axis that does not divide ``n_head`` raises (a later slice of
-the port).
-The other keys (``rng_impl``, ``scan_unroll``, ``multihost``,
-``pipeline_microbatches``, ...) are parsed and validated so that every
-config that loads in the JAX package loads here, and change nothing in the
-port.
+model axes) and pipeline parallelism (``{pipe: S}`` over
+``pipeline_microbatches`` microbatches; alone, with a data axis and with
+``fsdp``), one card a rank (parallel/); a plan with a pipeline axis and a
+model, modality or sequence axis, the modality axis with
+``context_parallel``, or ``context_parallel`` with a model axis that does
+not divide ``n_head`` raises (a later slice of the port).
+The other keys (``rng_impl``, ``scan_unroll``, ``multihost``, ...) are
+parsed and validated so that every config that loads in the JAX package
+loads here, and change nothing in the port.
 """
 
 from __future__ import annotations

@@ -457,6 +457,21 @@ def logits_heads_padded(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tenso
     return logits.to(acc) + b2.to(acc)[:, None, None, :]
 
 
+def logits_heads(params: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor) -> List[torch.Tensor]:
+    """Per-modality logits (B, T, V_i): the list view of
+    ``logits_heads_padded`` over each modality's real classes."""
+    m0, per = _mods(x.shape[0])
+    padded = logits_heads_padded(params, cfg, x)
+    return [padded[m, ..., :v] for m, v in enumerate(cfg.vocab_sizes[m0:m0 + per])]
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean token-level CE of one modality's unpadded logits (B, T, V) over
+    every position (the pipelined loss's form)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, targets.long()[..., None])[..., 0].mean()
+
+
 def cross_entropy_padded(logits_pad: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Per-modality mean CE over padded batched logits (M, B, T, Vp), whose
     padded classes carry exactly zero probability; targets (M, B, T).

@@ -1,11 +1,13 @@
 """Parallel training: the parallelism plan, the process groups of a run
-(modality, data, model and sequence axes), data-, tensor- and
-modality-parallel training and ring (context-parallel) attention."""
+(pipeline, modality, data, model and sequence axes), data-, tensor-,
+modality- and pipeline-parallel training and ring (context-parallel)
+attention."""
 
 from .mesh import (
     DataAxis,
     ModAxis,
     ModelAxis,
+    PipeAxis,
     RankMesh,
     SeqMesh,
     batch_rows,
@@ -27,6 +29,7 @@ __all__ = [
     "MeshPlan",
     "ModAxis",
     "ModelAxis",
+    "PipeAxis",
     "RankMesh",
     "SeqMesh",
     "batch_rows",

@@ -3,20 +3,22 @@ placement of the parameters over them (port of the JAX package's
 ``parallel/mesh.py``).
 
 The JAX package lays its devices out as a (pipe, mod, data, model, seq)
-mesh; the port builds the modality axis ('mod', modality parallelism over
-the M-stacked leaves and the (M, B, T) batch), the data axis (data
-parallelism, and FSDP / ZeRO-3 over it), the model axis ('model', tensor
-parallelism over the heads and the feed-forward, embedding and vocabulary
-columns) and the sequence axis ('seq', context parallelism), and no
-pipeline axis yet (parallel/resolve.py refuses it, and 'mod' with 'seq').
-A run of P ranks is P processes in one ``torch.distributed`` group: NCCL
-with one card per rank, gloo on the CPU. Ranks are laid out in the JAX
-package's device order, modality outer, data, model, sequence inner: global
-rank ((m * D + d) * N + t) * S + s holds modality place m, data row d,
-model place t and sequence place s (``make_mesh``). Every rank creates the
-same groups in the same order: the sequence groups (S consecutive ranks),
-the data groups, the model groups and the modality groups, each axis's
-groups in the order of the other axes' places.
+mesh, and so does the port: the pipeline axis ('pipe', GPipe stages over
+the block stack, parallel/pipeline.py), the modality axis ('mod', modality
+parallelism over the M-stacked leaves and the (M, B, T) batch), the data
+axis (data parallelism, and FSDP / ZeRO-3 over it), the model axis
+('model', tensor parallelism over the heads and the feed-forward,
+embedding and vocabulary columns) and the sequence axis ('seq', context
+parallelism) (parallel/resolve.py refuses 'pipe' with 'mod', 'model' or
+'seq', and 'mod' with 'seq'). A run of P ranks is P processes in one
+``torch.distributed`` group: NCCL with one card per rank, gloo on the CPU.
+Ranks are laid out in the JAX package's device order, pipeline outer,
+modality, data, model, sequence inner: global rank (((p * Mo + m) * D + d)
+* N + t) * S + s holds stage p, modality place m, data row d, model place
+t and sequence place s (``make_mesh``). Every rank creates the same groups
+in the same order: the sequence groups (S consecutive ranks), the data
+groups, the model groups, the modality groups and the pipeline groups,
+each axis's groups in the order of the other axes' places.
 
 ``SeqMesh`` is one rank's view of the sequence axis: the ring hop (to the
 next place, from the previous one, as global ranks of its group) and the
@@ -35,7 +37,12 @@ the gradient backward) for a leaf split where the heads do not split.
 all-gather of the activations along M before cross-attention (the backward
 sums each modality's gradient back onto its owner in one reduce-scatter),
 the sum over the axis of the loss and of the gradients of the leaves the
-axis keeps whole, and the sums of an evaluation pass.
+axis keeps whole, and the sums of an evaluation pass. ``PipeAxis`` is its
+view of the pipeline axis: its layers, the GPipe schedule's handoffs as
+autograd functions (``send_next``: a send forward, the receive of the
+gradient backward; ``recv_prev`` the reverse; ``replicate``: the last
+stage's output broadcast to every stage, JAX's psum), and the sum of each
+leaf's gradient from the stage that owns it.
 
 ``param_pspecs`` is the JAX package's placement table, as a function of
 the leaves' shapes and tree paths: per leaf a tuple of axis names or None
@@ -395,12 +402,155 @@ class ModAxis(_Axis):
                            cert, stats.batches_processed)
 
 
+class _SendNext(torch.autograd.Function):
+    """A stage's output to the next stage forward (one send), returning an
+    empty token that ties the send into the loss's graph; backward the
+    gradient of that output received from the next stage: the transpose of
+    a forward handoff is the reverse handoff (JAX's ppermute transposed)."""
+
+    @staticmethod
+    def forward(ctx, h, axis):
+        ctx.axis, ctx.like = axis, (h.shape, h.dtype, h.device)
+        axis.send(h.detach(), 1)
+        return h.new_empty(0)
+
+    @staticmethod
+    def backward(ctx, _):
+        return ctx.axis.recv(*ctx.like, 1), None
+
+
+class _RecvPrev(torch.autograd.Function):
+    """The previous stage's output forward (one receive); backward its
+    gradient sent back there. ``anchor`` (``PipeAxis.anchor``) is the
+    node's input, which a differentiation must ask for, so that the
+    backward runs."""
+
+    @staticmethod
+    def forward(ctx, anchor, axis, shape, dtype):
+        ctx.axis = axis
+        return axis.recv(shape, dtype, anchor.device, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.axis.send(g.contiguous(), -1)
+        return None, None, None, None
+
+
+class _Replicate(torch.autograd.Function):
+    """The last stage's output on every stage of the axis forward (one
+    broadcast: JAX's psum of the outputs only the last stage holds);
+    backward the last stage's gradient of it as it is (every stage computes
+    the same loss from the same output, so each holds the same gradient,
+    which the last stage's layers take once), and an empty gradient for
+    each send token of an earlier stage, so that its sends' backward
+    receives run."""
+
+    @staticmethod
+    def forward(ctx, y, axis, shape, dtype, device, *tokens):
+        ctx.last, ctx.n_tokens = axis.rank == axis.size - 1, len(tokens)
+        buf = y.detach().clone() if ctx.last else torch.empty(shape, dtype=dtype, device=device)
+        return axis.broadcast_last(buf)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.last else None, None, None, None, None,
+                *[g.new_zeros(0)] * ctx.n_tokens)
+
+
+@dataclass
+class PipeAxis(_Axis):
+    """This rank's stage on the pipeline axis of a pipelined run: its
+    layers, the activation handoffs of the GPipe schedule as autograd
+    functions (``send_next``, ``recv_prev``, ``replicate``) and the sum
+    of the stages' gradients (timing kinds "send", "recv",
+    "pipe_broadcast", "pipe_all_reduce"). ``ranks``: the global ranks of
+    its stages in order (None: 0 .. size - 1). Handoffs run in one order on
+    every stage: forward microbatch 0 first, backward the last first."""
+
+    ranks: Optional[Tuple[int, ...]] = None
+
+    def __post_init__(self):
+        self._anchors: Dict[Any, torch.Tensor] = {}
+
+    def _peer(self, place: int) -> int:
+        return place if self.ranks is None else self.ranks[place]
+
+    def layers(self, n_layer: int) -> Tuple[int, int]:
+        """(l0, local count): this stage's layers [l0, l0 + n_layer / size)."""
+        if n_layer % self.size != 0:
+            raise ValueError(f"n_layer {n_layer} not divisible by pipe axis {self.size}")
+        per = n_layer // self.size
+        return self.rank * per, per
+
+    def send(self, t: torch.Tensor, step: int) -> None:
+        """``t`` to stage rank + step."""
+        peer = self._peer(self.rank + step)
+
+        def send(x):
+            dist.send(x, peer, self.group)
+            return x[:0]  # nothing to bring back where staged
+
+        self._timed("send", t.contiguous(), send)
+
+    def recv(self, shape, dtype, device, step: int) -> torch.Tensor:
+        """A tensor of ``shape`` and ``dtype`` from stage rank + step, on
+        ``device``."""
+        peer = self._peer(self.rank + step)
+
+        def recv(x):
+            dist.recv(x, peer, self.group)
+            return x
+
+        return self._timed("recv", torch.empty(shape, dtype=dtype, device=device), recv)
+
+    def broadcast_last(self, buf: torch.Tensor) -> torch.Tensor:
+        """The last stage's ``buf`` on every stage (in place elsewhere)."""
+        src = self._peer(self.size - 1)
+
+        def broadcast(x):
+            dist.broadcast(x, src, group=self.group)
+            return x
+
+        return self._timed("pipe_broadcast", buf, broadcast)
+
+    def anchor(self, device) -> torch.Tensor:
+        """The leaf every ``recv_prev`` of this axis hangs from on
+        ``device``: a differentiation of a stage's loss asks for it too."""
+        key = str(torch.device(device))
+        if key not in self._anchors:
+            self._anchors[key] = torch.zeros((), device=device, requires_grad=True)
+        return self._anchors[key]
+
+    def send_next(self, h: torch.Tensor) -> torch.Tensor:
+        """``h`` to the next stage (differentiable); its token."""
+        return _SendNext.apply(h, self)
+
+    def recv_prev(self, shape, dtype, device) -> torch.Tensor:
+        """The previous stage's output (differentiable)."""
+        return _RecvPrev.apply(self.anchor(device), self, tuple(shape), dtype)
+
+    def replicate(self, y: Optional[torch.Tensor], shape, dtype, device,
+                  tokens: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The last stage's output ``y`` on every stage (differentiable);
+        an earlier stage passes None and its send tokens."""
+        return _Replicate.apply(y, self, tuple(shape), dtype, device, *tokens)
+
+    def sum_grads(self, grads: Sequence[torch.Tensor], owners: Sequence[int]
+                  ) -> List[torch.Tensor]:
+        """Every leaf's gradient from the stage that owns it (``owners``,
+        ``tree_leaves`` order): one f32 all-reduce of each stage's owned
+        gradients with zeros in the others' places, so that the sum is each
+        owner's gradient exactly, the same bits on every stage."""
+        return self._sum_flat("pipe_all_reduce", [g if o == self.rank else torch.zeros_like(g)
+                                                  for g, o in zip(grads, owners)])
+
+
 @dataclass
 class RankMesh:
     """One rank's view of the (pipe, mod, data, model, seq) layout of a run
     (the JAX package's ``make_mesh``): the axis sizes, this rank's place on
-    each, and its data, model, sequence and modality groups (None where the
-    axis is 1)."""
+    each, and its data, model, sequence, modality and pipeline groups (None
+    where the axis is 1)."""
 
     shape: Dict[str, int]
     coords: Dict[str, int]
@@ -408,32 +558,29 @@ class RankMesh:
     seq: Optional[SeqMesh]
     model: Optional[ModelAxis] = None
     mod: Optional[ModAxis] = None
+    pipe: Optional[PipeAxis] = None
 
 
-_ORDER = ("mod", "data", "model", "seq")  # the JAX package's device order, outer first
+_ORDER = ("pipe", "mod", "data", "model", "seq")  # the JAX package's device order, outer first
 
 
 def make_mesh(data: int = 1, model: int = 1, seq: int = 1, mod: int = 1, pipe: int = 1,
               staged: bool = False) -> RankMesh:
     """This rank's place in a (pipe, mod, data, model, seq) layout over the
     initialised default group, whose size must be the product of the axes.
-    Global rank ((m * data + d) * model + t) * seq + s is modality place m,
-    data row d, model place t, sequence place s (the JAX package's device
-    order: modality outer, seq inner). Every rank calls this in the same
-    order: it creates every sequence, data, model and modality group of the
-    run, in that order, each axis's groups in the order of the other axes'
-    places (an axis that spans the whole run takes the default group). The
-    data axis serves data parallelism and FSDP alike (FSDP's collectives
-    run on its groups). A pipeline axis is a later slice
-    (parallel/resolve.py refuses it)."""
-    if pipe != 1:
-        raise NotImplementedError("a pipeline axis is a later slice of the port "
-                                  "(ROADMAP.md, queue 1, item 6)")
-    sizes = {"mod": mod, "data": data, "model": model, "seq": seq}
+    Global rank (((p * mod + m) * data + d) * model + t) * seq + s is stage
+    p, modality place m, data row d, model place t, sequence place s (the
+    JAX package's device order: pipe outer, seq inner). Every rank calls
+    this in the same order: it creates every sequence, data, model,
+    modality and pipeline group of the run, in that order, each axis's
+    groups in the order of the other axes' places (an axis that spans the
+    whole run takes the default group). The data axis serves data
+    parallelism and FSDP alike (FSDP's collectives run on its groups)."""
+    sizes = {"pipe": pipe, "mod": mod, "data": data, "model": model, "seq": seq}
     world, rank = dist.get_world_size(), dist.get_rank()
     if math.prod(sizes.values()) != world:
-        raise ValueError(f"mesh mod={mod} x data={data} x model={model} x seq={seq} needs "
-                         f"{math.prod(sizes.values())} ranks, have {world}")
+        raise ValueError(f"mesh pipe={pipe} x mod={mod} x data={data} x model={model} x "
+                         f"seq={seq} needs {math.prod(sizes.values())} ranks, have {world}")
     coords, rest = {}, rank
     for name in reversed(_ORDER):
         rest, coords[name] = divmod(rest, sizes[name])
@@ -458,7 +605,7 @@ def make_mesh(data: int = 1, model: int = 1, seq: int = 1, mod: int = 1, pipe: i
                 mine = group, ranks
         return mine
 
-    seq_axis = data_axis = model_axis = mod_axis = None
+    seq_axis = data_axis = model_axis = mod_axis = pipe_axis = None
     if seq > 1:
         group, ranks = group_of("seq")
         seq_axis = SeqMesh(coords["seq"], seq, staged, group, ranks)
@@ -468,8 +615,10 @@ def make_mesh(data: int = 1, model: int = 1, seq: int = 1, mod: int = 1, pipe: i
         model_axis = ModelAxis(coords["model"], model, staged, group_of("model")[0])
     if mod > 1:
         mod_axis = ModAxis(coords["mod"], mod, staged, group_of("mod")[0])
-    return RankMesh({"pipe": pipe, **sizes}, {"pipe": 0, **coords}, data_axis, seq_axis,
-                    model_axis, mod_axis)
+    if pipe > 1:
+        group, ranks = group_of("pipe")
+        pipe_axis = PipeAxis(coords["pipe"], pipe, staged, group, ranks=ranks)
+    return RankMesh(sizes, coords, data_axis, seq_axis, model_axis, mod_axis, pipe_axis)
 
 
 def default_mesh_shape(n_devices: int, n_head: int) -> Tuple[int, int]:

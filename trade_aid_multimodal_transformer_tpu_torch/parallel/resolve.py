@@ -17,12 +17,15 @@ with ``tpu_options.fsdp: true`` FSDP / ZeRO-3 over it), the model axis
 (tensor parallelism: over whole heads where it divides ``n_head``, else
 over the columns the JAX package's placement splits, the attention layers
 computed whole on every rank of the axis), the modality axis (modality
-parallelism over the M-stacked leaves and the batch's modalities) and the
-sequence axis (ring attention, parallel/ring_attention.py), in any
-combination but three: a plan with a pipeline axis, with the modality and
-sequence axes together, or with a sequence axis and a model axis that does
-not divide ``n_head`` raises ``NotImplementedError``. As in the JAX
-package, ``fsdp`` takes effect only where the data axis is larger than 1.
+parallelism over the M-stacked leaves and the batch's modalities), the
+sequence axis (ring attention, parallel/ring_attention.py) and the
+pipeline axis (GPipe over the block stack, parallel/pipeline.py: alone or
+with a data axis, and FSDP over it), in any combination but three: a plan
+with the modality and sequence axes together, with a sequence axis and a
+model axis that does not divide ``n_head``, or with a pipeline axis and a
+model, modality or sequence axis raises ``NotImplementedError``. As in the
+JAX package, ``fsdp`` takes effect only where the data axis is larger than
+1.
 """
 
 from __future__ import annotations
@@ -33,8 +36,9 @@ from typing import Dict, Optional, Union
 
 MESH_AXES = ("data", "model", "mod", "pipe")
 LATER_SLICE = ("modality parallelism with context parallelism, context parallelism with a "
-               "model axis that does not divide n_head, and pipeline parallelism are a later "
-               "slice of the port (ROADMAP.md, queue 1: item 5c, item 6)")
+               "model axis that does not divide n_head, and pipeline parallelism with a model, "
+               "modality or sequence axis are a later slice of the port (ROADMAP.md, queue 1: "
+               "item 5c, item 6b)")
 
 
 @dataclass
@@ -163,14 +167,16 @@ def plan_mesh(
     """Resolve the config surface into a MeshPlan over ``n_devices``
     devices (default: the CUDA cards). Raises ``ValueError`` where the JAX
     package's ``plan_mesh`` raises, and ``NotImplementedError`` for a plan
-    with a pipeline axis, a modality axis with a sequence axis, or a
-    sequence axis with a model axis that does not divide ``n_head``."""
+    with a pipeline axis and a model, modality or sequence axis, a
+    modality axis with a sequence axis, or a sequence axis with a model
+    axis that does not divide ``n_head``."""
     seq = max(1, int(context_parallel))
     if n_devices is None:
         n_devices = available_devices("cuda", seq)
     plan = _resolve(mesh_cfg, seq, fsdp, batch_size, block_size, num_modalities, n_layer,
                     pipeline_microbatches, int(n_devices))
-    if (plan.pipe != 1 or (plan.mod > 1 and plan.seq > 1)
+    if ((plan.pipe > 1 and max(plan.model, plan.mod, plan.seq) > 1)
+            or (plan.mod > 1 and plan.seq > 1)
             or (plan.seq > 1 and n_head % plan.model != 0)):
         raise NotImplementedError(f"parallelism plan {plan.describe()} over {plan.n_devices} "
                                   f"devices: {LATER_SLICE}")

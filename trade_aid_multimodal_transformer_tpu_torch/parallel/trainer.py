@@ -55,6 +55,14 @@ parameters, batches and dropout salts (the same seed on every rank):
   ``context_parallel_scope``: each attention core goes through ring
   attention over the rank's sequence group, the gradients come out the same
   on every rank of the group with no all-reduce.
+- On a pipeline axis of S stages (GPipe, parallel/pipeline.py) every rank
+  keeps the whole tree (with FSDP its data slices, as without the axis);
+  a training step's loss is ``pipeline_total_loss`` over the trainer's
+  microbatches, on a data rank's rows of every microbatch, and after the
+  backward each leaf's gradient comes from the stage that owns it (one
+  f32 all-reduce over the stages), before the data axis's mean or
+  reduce-scatter, so every stage updates the same tree. Evaluation runs
+  the plain forward on every stage.
 - Both (data x sequence, model x sequence): the ring keys its masks by
   the rank's local rows and heads with the dropout key folded with the
   data rank and then the model rank (where those axes are larger than 1),
@@ -91,14 +99,22 @@ from .mesh import DataAxis, ModAxis, ModelAxis, RankMesh, param_pspecs, shard_di
 def make_sharded_trainer(cfg: ModelConfig, feed: BatchFeed, optimizer: AdamW,
                          metric_specs: Sequence[ModalityMetricSpec], eval_iters: int,
                          mesh: RankMesh, grad_accum: int = 1,
-                         fsdp: Optional["Fsdp"] = None) -> Trainer:
-    """A Trainer whose steps run over this rank's modality, data, model and
-    sequence axes (``parallel.mesh.make_mesh``), on the train state's parts
-    that ``shard_train_state`` placed (``fsdp``: its placement, which a
-    modality axis needs; the trainer gathers and reduce-scatters only where
-    it splits leaves over 'data'). block_size must be divisible by the
-    sequence axis, the modality count by the modality axis."""
-    seq, data, model, mod = mesh.seq, mesh.data, mesh.model, mesh.mod
+                         fsdp: Optional["Fsdp"] = None,
+                         pipeline_microbatches: int = 4) -> Trainer:
+    """A Trainer whose steps run over this rank's pipeline, modality, data,
+    model and sequence axes (``parallel.mesh.make_mesh``), on the train
+    state's parts that ``shard_train_state`` placed (``fsdp``: its
+    placement, which a modality axis needs; the trainer gathers and
+    reduce-scatters only where it splits leaves over 'data'). block_size
+    must be divisible by the sequence axis, the modality count by the
+    modality axis; a pipeline axis trains over ``pipeline_microbatches``
+    microbatches, alone or with a data axis (and FSDP)."""
+    seq, data, model, mod, pipe = mesh.seq, mesh.data, mesh.model, mesh.mod, mesh.pipe
+    if pipe is not None and any(ax is not None and ax.size > 1 for ax in (seq, model, mod)):
+        from .resolve import LATER_SLICE
+
+        raise NotImplementedError(f"a pipeline axis with a model, modality or sequence axis: "
+                                  f"{LATER_SLICE}")
     if mod is not None and mod.size > 1 and (fsdp is None or fsdp.mod is None):
         raise ValueError("a modality axis needs the placement shard_train_state gives")
     scopes = []
@@ -117,7 +133,8 @@ def make_sharded_trainer(cfg: ModelConfig, feed: BatchFeed, optimizer: AdamW,
         model_rank = model.rank if model is not None and model.size > 1 else None
         scopes.append(lambda: context_parallel_scope(seq, data_rank, model_rank))
     return Trainer(cfg, feed, optimizer, metric_specs, eval_iters, grad_accum=grad_accum,
-                   scope=_compose_scopes(scopes) if scopes else None, data=data, fsdp=fsdp)
+                   scope=_compose_scopes(scopes) if scopes else None, data=data, fsdp=fsdp,
+                   pipe=pipe, microbatches=pipeline_microbatches)
 
 
 def _gather_axis(tree, dims: Sequence[Optional[int]], axis, kind: str):

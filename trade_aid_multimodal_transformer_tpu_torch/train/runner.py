@@ -17,9 +17,12 @@ tensor parallel over N ranks (each holding its heads' and columns' part of
 the train state; alone, with a data axis, and with FSDP),
 ``tpu_options.mesh: {mod: P}`` modality parallel over P ranks (each holding
 its modalities' slice of the M-stacked leaves; with the data and model
-axes too), ``tpu_options.context_parallel: P`` with the sequence sharded
-over P ranks (ring attention), and the axes together over their product
-(modality outer, then data, model, sequence inner). ``run_training`` starts the
+axes too), ``tpu_options.mesh: {pipe: S}`` pipeline parallel over S
+stages (GPipe over ``pipeline_microbatches`` microbatches; alone, with a
+data axis, and with FSDP over it), ``tpu_options.context_parallel: P``
+with the sequence sharded over P ranks (ring attention), and the axes
+together over their product (pipeline outer, then modality, data, model,
+sequence inner). ``run_training`` starts the
 plan's rank processes itself, one card each over NCCL (on the CPU, gloo
 processes), after building the kernels once; inside a process group that
 already exists (``torchrun``) it runs as that group's rank. Rank 0 alone
@@ -27,9 +30,9 @@ prints the console, writes the log and the checkpoints (the parameters and
 moments are the same on every rank; under FSDP and tensor parallelism every
 rank takes part in gathering them first), and returns the result. A resumed
 sharded run reads the whole file on every rank and keeps its part.
-Pipeline plans, a modality axis with a sequence axis, and a sequence axis
-with a model axis that does not divide ``n_head`` raise (a later slice of
-the port).
+A pipeline axis with a model, modality or sequence axis, a modality axis
+with a sequence axis, and a sequence axis with a model axis that does not
+divide ``n_head`` raise (a later slice of the port).
 ``multihost`` prints that it is unavailable and trains single-process, as
 the JAX package does without a pod. f32 products run in full f32
 (PyTorch's default, TF32 off) whatever ``matmul_precision`` says.
@@ -38,7 +41,8 @@ and, under a data axis, the gradient all-reduce's bytes and time per step
 (under FSDP also the all-gather's and the reduce-scatter's; under a model
 axis the tensor-parallel collectives' bytes and time per step; under a
 modality axis the activation gathers', their backward reduce-scatters' and
-the gradient sum's);
+the gradient sum's; under a pipeline axis the handoffs' sends and
+receives, the output's broadcast and the gradient sum's);
 ``TAT_PROFILE_DIR`` writes a ``torch.profiler`` trace of the second training
 chunk there (utils/profiling.py). On one rank ``tpu_options.fused_update:
 true`` trains with the flat-state AdamW (train/steps.py), and ``remat``
@@ -543,18 +547,21 @@ def _run_training(caller_globals: Optional[dict], seed: Optional[int],
         # gloo with tensors on a card: ranks that share the card, whose
         # collectives go through host memory
         mesh = pmesh.make_mesh(data=plan.data, model=plan.model, seq=plan.seq, mod=plan.mod,
+                               pipe=plan.pipe,
                                staged=dev.type == "cuda" and dist.get_backend() == "gloo")
         if os.environ.get("TAT_TIMING"):
             collectives = []
-            for axis in (mesh.data, mesh.model, mesh.mod):
+            for axis in (mesh.data, mesh.model, mesh.mod, mesh.pipe):
                 if axis is not None:
                     axis.timing = collectives
         # the loaded or fresh whole state -> this rank's part under FSDP,
         # tensor and modality parallelism
         params, opt_state, fsdp = shard_train_state(params, opt_state, mesh.data, plan.fsdp,
                                                     mesh.model, mesh.mod)
-        trainer = make_sharded_trainer(cfg, feed, optimizer, metric_specs, eval_iters, mesh,
-                                       grad_accum=sc.get("grad_accum", 1), fsdp=fsdp)
+        trainer = make_sharded_trainer(
+            cfg, feed, optimizer, metric_specs, eval_iters, mesh,
+            grad_accum=sc.get("grad_accum", 1), fsdp=fsdp,
+            pipeline_microbatches=int(sc.get("pipeline_microbatches", 4)))
         parts = fsdp.parts() if fsdp is not None else None
         state_bytes = train_state_bytes(params, opt_state, optimizer, parts)
         print(f"Parallelism: {format_train_state_memory(params, opt_state, optimizer, parts)}")
@@ -776,7 +783,10 @@ def _run_training(caller_globals: Optional[dict], seed: Optional[int],
         for kinds, what in ((("tp_all_reduce", "tp_all_reduce_bwd", "tp_all_gather"),
                              "Tensor-parallel collectives"),
                             (("mod_all_gather", "mod_reduce_scatter_bwd", "mod_all_reduce"),
-                             "Modality-parallel collectives")):
+                             "Modality-parallel collectives"),
+                            (("send", "recv"), "Pipeline send/recv"),
+                            (("pipe_broadcast", "pipe_all_reduce"),
+                             "Pipeline broadcast and gradient sum")):
             calls = [(n, t) for k, n, t in collectives or [] if k in kinds]
             if calls:
                 print(f"{what}: {sum(n for n, _ in calls) // timer.steps} bytes, "

@@ -290,14 +290,23 @@ class Trainer:
     modalities ``mods`` under their scope (``ops.layers.mod_slice_scope``);
     each step's loss and the gradients of the leaves the axis keeps whole
     are then summed over the axis, and an evaluation pass's statistics
-    too. ``fused_update``: a chunk carries the parameters and moments as
-    flat vectors (``tpu_options.fused_update: true``; the runner gives it
-    only to the one-rank trainer), where every leaf has one dtype."""
+    too. ``pipe``: this rank's stage on a pipeline axis
+    (``parallel.mesh.PipeAxis``): a training step's loss is then
+    ``parallel.pipeline.pipeline_total_loss`` over ``microbatches``
+    microbatches (its dropout keys split from the step's salts as a
+    threefry key), on the rank's rows of every microbatch under a data axis
+    (``pipeline_rows``, keyed by the microbatch's own rows), and each
+    leaf's gradient comes from the stage that owns it
+    (``PipeAxis.sum_grads``) before the data axis's mean; an evaluation
+    pass runs the plain forward on every stage. ``fused_update``: a chunk
+    carries the parameters and moments as flat vectors
+    (``tpu_options.fused_update: true``; the runner gives it only to the
+    one-rank trainer), where every leaf has one dtype."""
 
     def __init__(self, cfg: ModelConfig, feed: BatchFeed, optimizer: AdamW,
                  metric_specs: Sequence[ModalityMetricSpec], eval_iters: int,
                  grad_accum: int = 1, scope: Optional[Callable] = None, data=None,
-                 fused_update: bool = False, fsdp=None):
+                 fused_update: bool = False, fsdp=None, pipe=None, microbatches: int = 4):
         self.cfg = cfg
         self.feed = feed
         self.optimizer = optimizer
@@ -313,11 +322,22 @@ class Trainer:
         self.mods = (0, M) if self.mod is None else self.mod.mods(M)
         self.mod_whole = None if self.mod is None else [d is None for d in fsdp.mod_dims]
         self.fsdp = fsdp if fsdp is not None and any(d is not None for d in fsdp.dims) else None
+        self.pipe = pipe if pipe is not None and pipe.size > 1 else None
+        self.microbatches = int(microbatches)
 
-    def _rows(self, xb: torch.Tensor, yb: torch.Tensor):
+    def _rows(self, xb: torch.Tensor, yb: torch.Tensor, pipelined: bool = False):
         """This rank's modalities and rows of a global (M, B, T) batch (all
         of them without a modality and a data axis), and the scope that
-        keys its dropout by global modalities and rows."""
+        keys its dropout by global modalities and rows; ``pipelined``: the
+        pipeline's rows of every microbatch, keyed by their own rows."""
+        if pipelined:
+            from ..parallel.pipeline import pipeline_rows
+
+            if self.data is not None:
+                rows = pipeline_rows(xb.shape[1], self.microbatches, self.data.rank,
+                                     self.data.size).to(xb.device)
+                xb, yb = xb[:, rows], yb[:, rows]
+            return xb, yb, contextlib.nullcontext()
         scopes = []
         if self.mod is not None:
             m0, per = self.mods
@@ -344,12 +364,23 @@ class Trainer:
                             self.fsdp.gather(params))
             loss, grads = self._mod_sum(*self._mean_grads(lambda: full, tree_leaves(full),
                                                           batches, salts))
-            return self.fsdp.reduce_grads(loss, grads)
+            return self.fsdp.reduce_grads(*self._pipe_sum(full, loss, grads))
         loss, grads = self._mod_sum(*self._mean_grads(lambda: params, tree_leaves(params),
                                                       batches, salts))
+        loss, grads = self._pipe_sum(params, loss, grads)
         if self.data is None:
             return loss, grads
         return self.data.mean_grads(loss, grads)
+
+    def _pipe_sum(self, params, loss: torch.Tensor, grads: List[torch.Tensor]):
+        """Over a pipeline axis, each leaf's gradient from the stage that
+        owns it (``PipeAxis.sum_grads``); the loss is every stage's."""
+        if self.pipe is None:
+            return loss, grads
+        from ..parallel.pipeline import stage_owners
+
+        owners = stage_owners(params, self.cfg.n_layer, self.pipe.size)
+        return loss, self.pipe.sum_grads(grads, owners)
 
     def _mod_sum(self, loss: torch.Tensor, grads: List[torch.Tensor]):
         """Over a modality axis, the loss and the gradients of the leaves it
@@ -366,14 +397,26 @@ class Trainer:
         the scopes of the forward: a rematerialised block (``remat``)
         recomputes its forward there."""
         loss_sum, grad_sum = None, None
+        pipe = self.pipe
         for (xb, yb), key in zip(batches, salts):
-            xb, yb, rows = self._rows(xb, yb)
+            xb, yb, rows = self._rows(xb, yb, pipe is not None)
             with self.scope(), rows:
-                loss, _ = total_loss(make_params(), self.cfg, xb, yb, key, True)
+                if pipe is None:
+                    loss, _ = total_loss(make_params(), self.cfg, xb, yb, key, True)
+                    inputs = list(wrt)
+                else:
+                    from ..parallel.pipeline import pipeline_total_loss
+
+                    loss, _ = pipeline_total_loss(make_params(), self.cfg, xb, yb, pipe,
+                                                  self.microbatches, key, True, self.data)
+                    inputs = list(wrt) + [pipe.anchor(xb.device)]  # so the receives' sends run
                 # over a modality axis another rank's per-modality leaves
                 # (its token table, vocabulary head, cross-attention) go
-                # unused here: their gradient is zero on this rank
-                grads = torch.autograd.grad(loss, wrt, allow_unused=self.mod is not None)
+                # unused here, over a pipeline axis another stage's blocks
+                # (and the embedding after the first): their gradient is
+                # zero on this rank
+                grads = torch.autograd.grad(loss, inputs, allow_unused=self.mod is not None
+                                            or pipe is not None)[:len(wrt)]
                 grads = [torch.zeros_like(w) if g is None else g for g, w in zip(grads, wrt)]
             loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
             grad_sum = list(grads) if grad_sum is None else [a + b for a, b in zip(grad_sum, grads)]
