@@ -7,9 +7,12 @@ PARENT_DIR is another checkout of this repository (for instance the parent
 commit, unpacked with ``git archive HEAD | tar -x -C dev_scratch/parent``).
 In turns (parent, this checkout, this checkout, parent; ``--rounds``
 times), a process of its own for each checkout builds that checkout's
-kernels into its own ``ops/_build/`` and times K1f, K1b, K2f, K2b, K5f, K5b
-and K6f-r at the production shapes of ``chip_smoke.py`` (bf16, dropout 0 and
-0.2; device time behind a spin kernel, ``chip_smoke.device_ms``), and, where
+kernels into its own ``ops/_build/`` and times K1f, K1b, K2f, K2b, K5f, K5b,
+K6f-r and the ring's chunk pair K7f / K7b (causal and full mask) at the
+production shapes of ``chip_smoke.py`` (bf16, dropout 0 and 0.2; device time
+behind a spin kernel, ``chip_smoke.device_ms``), where the checkout's K7
+takes a row base (modality x sequence parallelism) K7 with one as well, and,
+where
 the checkout's flash kernels take a row map (data parallelism), K5f and K5b
 on half the self-attention rows with and without one, and with a map of two
 levels (a head level inside the batch level, data x tensor parallelism)
@@ -65,6 +68,10 @@ def time_checkout(root: Path, label: str) -> dict:
     J6, n6, T6, h6 = S.FLASH_CROSS_PROD
     q6 = randn(n6, T6, h6).to(bf)
     k6, v6 = randn(J6, n6, T6, h6).to(bf), randn(J6, n6, T6, h6).to(bf)
+    n7, tq7, tk7, h7 = S.CP_SELF
+    q7, o7g = randn(n7, tq7, h7).to(bf), randn(n7, tq7, h7).to(bf)
+    k7, v7 = randn(n7, tk7, h7).to(bf), randn(n7, tk7, h7).to(bf)
+    o7, l7 = K.flash_chunk_fwd(q7, k7, v7, True, 12345, 0.2)
     t = {}
     for rate in (0.0, 0.2):
         s = S.SALTS if rate else None
@@ -79,6 +86,18 @@ def time_checkout(root: Path, label: str) -> dict:
         t[f"K5b_{rate}"] = S.device_ms(
             lambda: K.flash_attention_bwd(q5, k5, v5, o5, l5, d5, rate, s))
         t[f"K6fr_{rate}"] = S.device_ms(lambda: K.flash_cross_attention_res(q6, k6, v6, rate, s))
+        seed = 12345 if rate else None
+        for mask, causal in (("causal", True), ("full", False)):
+            t[f"K7f_{mask}_{rate}"] = S.device_ms(
+                lambda: K.flash_chunk_fwd(q7, k7, v7, causal, seed, rate))
+            t[f"K7b_{mask}_{rate}"] = S.device_ms(
+                lambda: K.flash_chunk_bwd(q7, k7, v7, o7, l7, o7g, causal, seed, rate))
+    if "base" in inspect.signature(K.flash_chunk_fwd).parameters:
+        # modality place 1 of {mod: 2} x seq: the rows from base n / 2 (the mapped instance)
+        t["K7f_causal_based"] = S.device_ms(
+            lambda: K.flash_chunk_fwd(q7, k7, v7, True, 12345, 0.2, n7 // 2))
+        t["K7b_causal_based"] = S.device_ms(
+            lambda: K.flash_chunk_bwd(q7, k7, v7, o7, l7, o7g, True, 12345, 0.2, n7 // 2))
     if "rows" in inspect.signature(K.flash_attention_fwd).parameters:
         # as many rows as data rank 1 of 2 holds of the (M 4, B 8, H 6) rows,
         # with its map (span, skip and base B/2 H = 24) and without one
@@ -128,6 +147,10 @@ def main() -> int:
         for k in ("K5f", "K5b"):
             ratio[f"{k}_two_levels_over_mapped"] = statistics.median(
                 r["ms"][f"{k}_half_two_levels"] / r["ms"][f"{k}_half_mapped"] for r in change)
+    if "K7f_causal_based" in change[0]["ms"]:  # the change's K7 with a row base over without
+        for k in ("K7f", "K7b"):
+            ratio[f"{k}_causal_based_over_unbased"] = statistics.median(
+                r["ms"][f"{k}_causal_based"] / r["ms"][f"{k}_causal_0.2"] for r in change)
     for key in runs[0]["ms"]:
         par = statistics.median(r["ms"][key] for r in runs if r["checkout"] == "parent")
         chg = statistics.median(r["ms"][key] for r in runs if r["checkout"] == "change")

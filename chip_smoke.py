@@ -1616,8 +1616,8 @@ def k7b_full_dk_x1_2(K):
     returns dk 20% too large: one chunk pair."""
     real, done = K.flash_chunk_bwd, []
 
-    def wrong(q, k, v, out, lse, g, causal, seed=None, rate=0.0):
-        dq, dk, dv = real(q, k, v, out, lse, g, causal, seed, rate)
+    def wrong(q, k, v, out, lse, g, causal, seed=None, rate=0.0, base=0):
+        dq, dk, dv = real(q, k, v, out, lse, g, causal, seed, rate, base)
         if not causal and q.dim() == 5 and not done:
             done.append(True)
             dk = dk * 1.2
@@ -1632,11 +1632,14 @@ def cp_rank(rank: int, world: int, job: dict):
     gathers go through host memory; every chunk runs K7 on the card.
 
     job "reference": one step per variant (name, dtype, dropout, change:
-    None, "planted", "plain" K7 or "remat") on batch ``job["batch"]``; rank
-    0 holds each against ``job["refs"][dtype]`` (the card's single-rank
-    step) or, at dropout, the variant computed with K7's plain versions, and
-    a "remat" variant (each block recomputed in the backward, under the
-    ring's scope) against the variant of its name without "_remat". job "training":
+    None, "planted", "plain" K7, "remat" or "export") on batch
+    ``job["batch"]``; rank 0 holds each against ``job["refs"][dtype]`` (the
+    card's single-rank step) or, at dropout, the variant computed with K7's
+    plain versions, and a "remat" variant (each block recomputed in the
+    backward, under the ring's scope) against the variant of its name
+    without "_remat"; an "export" variant is held in-path only and rank 0
+    returns its loss and gradients (on the CPU) as a later phase's
+    reference. job "training":
     ``job["steps"]`` steps of the production training step, one eval batch,
     and a profiled step. Returns what the parent checks."""
     sys.path.insert(0, str(REPO))
@@ -1683,6 +1686,9 @@ def cp_rank(rank: int, world: int, job: dict):
             if change == "plain":
                 continue
             loss, grads = got[name]
+            if change == "export":
+                out[name]["reference"] = (loss, [g.cpu() for g in grads])
+                continue
             if change == "remat":
                 ref_loss, ref = got[name[:-len("_remat")]]
                 out[name]["bit_equal"] = loss == ref_loss and all(
@@ -1743,18 +1749,112 @@ def cp_rank(rank: int, world: int, job: dict):
                                 for e in top]}}
 
 
+def cp_batch(cfg):
+    """cp_reference's global batch (B = 1, the config's block_size), seeded."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(11)
+    ids = torch.from_numpy(np.stack([rng.integers(0, v, (1, cfg.block_size + 1))
+                                     for v in cfg.vocab_sizes]))
+    return ids[..., :-1], ids[..., 1:]
+
+
+def cp_reference_job(cfg, depth: int, p_size: int, xb, yb) -> dict:
+    """cp_reference's ``cp_rank`` job over ``p_size`` ranks at ``depth``
+    layers: one step (B = 1, T = 1024) against the card's single-rank step
+    (K5f, K6f-r, K5b) at dropout 0 in f32 and bf16 (its references, taken
+    here), the planted K7b fault (full-mask dk x 1.2 on one chunk pair),
+    and at P = 2 the step at dropout 0.2 against the same step with K7's
+    plain versions and with remat against the same step without it."""
+    import torch
+
+    from trade_aid_multimodal_transformer_tpu_torch.models.init import (
+        init_params, map_tree, tree_leaves)
+    from trade_aid_multimodal_transformer_tpu_torch.models.transformer import total_loss
+
+    dev = torch.device("cuda")
+    c = dataclasses.replace(cfg, n_layer=depth, dropout=0.0)
+    cpu_p = init_params(c, torch.Generator().manual_seed(1234), "cpu")
+    refs = {}
+    for dtype in ("float32", "bfloat16"):
+        cd = dataclasses.replace(c, compute_dtype=dtype)
+        dev_p = map_tree(lambda t: t.detach().to(dev).requires_grad_(), cpu_p)
+        loss = total_loss(dev_p, cd, xb.to(dev), yb.to(dev), None, True)[0]
+        refs[dtype] = (loss.item(), [g.float().cpu() for g in
+                                     torch.autograd.grad(loss, tree_leaves(dev_p))])
+        del dev_p, loss
+    variants = [("f32", "float32", 0.0, None), ("f32_planted", "float32", 0.0, "planted"),
+                ("bf16", "bfloat16", 0.0, None)]
+    if p_size == 2:
+        variants += [("bf16_dropout_plain", "bfloat16", 0.2, "plain"),
+                     ("bf16_dropout", "bfloat16", 0.2, None),
+                     ("bf16_dropout_remat", "bfloat16", 0.2, "remat")]
+    return dict(kind="reference", cfg=c, params=cpu_p, batch=(xb, yb), refs=refs,
+                variants=variants, ranks=p_size)
+
+
+def hold_cp_reference(K, res, job, sec) -> None:
+    """One ``cp_reference`` line per variant of ``job`` (``res``: every
+    rank's ``cp_rank`` results): exact K7 launches per rank, every K7 call
+    in-path within REL_TOL and the step within STEP_TOL of its reference;
+    the planted fault must fail the in-path gate (its whole-step reading is
+    printed, not held: a chunk pair's dk is a few per cent of its layer's
+    key gradient at random weights). Raises on a failure."""
+    c, p_size = job["cfg"], job["ranks"]
+    failed = []
+    for name, dtype, rate, change in job["variants"]:
+        want = [cp_want(K, c, r, "step") for r in range(p_size)]
+        if change == "remat":  # the backward recomputes every block's rings
+            for w in want:
+                w["flash_chunk_fwd_causal"] *= 2
+                w["flash_chunk_fwd_full"] *= 2
+        counts_ok = change == "plain" or all(res[r][name]["launches"] == want[r]
+                                            for r in range(p_size))
+        line = res[0][name]
+        if change == "plain":
+            continue
+        tol = STEP_TOL[dtype]
+        in_path = {k_: max(res[r][name]["in_path"][k_] for r in range(p_size)
+                           if k_ in res[r][name]["in_path"])
+                   for k_ in set().union(*(res[r][name]["in_path"] for r in range(p_size)))}
+        in_path_ok = max(in_path.values()) <= REL_TOL[dtype]
+        step_ok = (line["loss_abs_err"] <= tol["loss"]
+                   and line["grad_l2_rel_err_max"] <= tol["grad_l2"])
+        ok = counts_ok and (not in_path_ok if change == "planted" else in_path_ok and step_ok)
+        emit({"phase": "cp_reference", "ranks": p_size, "n_layer": c.n_layer, "variant": name,
+              "dtype": dtype, "dropout": rate, "batch": 1, "block_size": c.block_size,
+              "must_fail": change == "planted", "tol": tol,
+              "in_path_l2_rel": in_path, "in_path_tol": REL_TOL[dtype],
+              "step_gate_passed": step_ok, "launches_by_rank": [
+                  {k_: v_ for k_, v_ in res[r][name]["launches"].items() if v_}
+                  for r in range(p_size)], "launches_exact": counts_ok,
+              "losses_by_rank": [res[r][name]["loss"] for r in range(p_size)],
+              "seconds_with_spawn_all_jobs": sec, **{k_: line[k_] for k_ in (
+                  "against", "loss_ref", "loss_abs_err", "grad_l2_rel_err_max", "worst_leaves",
+                  "bit_equal") if k_ in line},
+              "ok": ok})
+        if not ok:
+            failed.append(f"P={p_size} {name}")
+    if failed:
+        raise AssertionError(f"context-parallel step disagrees, miscounts, or the gate "
+                             f"passed the planted fault: {', '.join(failed)}")
+
+
 def context_parallel(K, card, gen, timing, errs, by_path):
     """Context parallelism (tpu_options.context_parallel) at block_size 1024:
     the ring's chunk kernels K7f and K7b held against their plain versions
     (production chunk pairs, t_q != t_k, hs 16 / 128 / 256, the backward from
     a logsumexp merged over two chunks and run twice for the same bits) and
-    timed; one context-parallel step over P ranks against the card's
-    single-rank step (P = 2 at full depth, P = 4 at depth 2), with a planted
-    fault; a context-parallel training run over 2 ranks with exact launches
-    per rank and a profiled step. The ranks are processes that share the
-    card (gloo through host memory), started below the training entry's
-    card-count check. Adds to ``timing``, ``errs`` and ``by_path``; raises on
-    a failed check."""
+    timed; one context-parallel step over 2 ranks at full depth against the
+    card's single-rank step, with a planted fault (over 4 ranks at depth 2
+    in ``four_rank_references``); a context-parallel training run over 2
+    ranks with exact launches per rank and a profiled step; and, in the same
+    start of the ranks, the ring step at depth 2 and dropout 0.2 that
+    ``mod_seq_reference`` is held against. The ranks are processes that
+    share the card (gloo through host memory), started below the training
+    entry's card-count check. Adds to ``timing``, ``errs`` and ``by_path``;
+    returns that step's (loss, gradients); raises on a failed check."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1879,16 +1979,9 @@ def context_parallel(K, card, gen, timing, errs, by_path):
           "memory)", "ranks_on_one_card": [2, 4], "cards": torch.cuda.device_count(),
           "entry_plan_check": "below it: the ranks share one card"})
 
-    # cp_reference: one step (B = 1, T = 1024, dropout 0) over P ranks against
-    # the card's single-rank step (K5f, K6f-r, K5b), f32 and bf16, every
-    # gradient leaf within STEP_TOL; the planted K7b fault (full-mask dk x 1.2
-    # on one chunk pair) must fail the f32 gate; at dropout 0.2 the step
-    # against the same step with K7 replaced by its plain versions, and with
-    # remat against the same step without it
-    rng = np.random.default_rng(11)
-    ids = torch.from_numpy(np.stack([rng.integers(0, v, (1, cfg.block_size + 1))
-                                     for v in cfg.vocab_sizes]))
-    xb, yb = ids[..., :-1], ids[..., 1:]
+    # cp_reference at P = 2, full depth (P = 4 runs in four_rank_references'
+    # start of the ranks)
+    xb, yb = cp_batch(cfg)
     # cp_training's job (below), run in the start of cp_reference's P = 2 ranks:
     # the production training step at block_size 1024, batch 8, dropout 0.2,
     # bf16, over 2 ranks: 4 steps (cut from 8 for the smoke's time limit), one
@@ -1901,74 +1994,22 @@ def context_parallel(K, card, gen, timing, errs, by_path):
     train_job = dict(kind="training", cfg=cfg, train=[np.asarray(a) for a, _ in splits],
                      val=[np.asarray(b) for _, b in splits], batch_size=8,
                      lr=sc["learning_rate"], eval_iters=1, steps=steps)
-    for p_size, depth in ((2, cfg.n_layer), (4, 2)):
-        c = dataclasses.replace(cfg, n_layer=depth, dropout=0.0)
-        cpu_p = init_params(c, torch.Generator().manual_seed(1234), "cpu")
-        refs = {}
-        for dtype in ("float32", "bfloat16"):
-            cd = dataclasses.replace(c, compute_dtype=dtype)
-            dev_p = map_tree(lambda t: t.detach().to(dev).requires_grad_(), cpu_p)
-            loss = total_loss(dev_p, cd, xb.to(dev), yb.to(dev), None, True)[0]
-            refs[dtype] = (loss.item(), [g.float().cpu() for g in
-                                         torch.autograd.grad(loss, tree_leaves(dev_p))])
-            del dev_p, loss
-        variants = [("f32", "float32", 0.0, None), ("f32_planted", "float32", 0.0, "planted"),
-                    ("bf16", "bfloat16", 0.0, None)]
-        if p_size == 2:
-            variants += [("bf16_dropout_plain", "bfloat16", 0.2, "plain"),
-                         ("bf16_dropout", "bfloat16", 0.2, None),
-                         ("bf16_dropout_remat", "bfloat16", 0.2, "remat")]
-        torch.cuda.empty_cache()  # the ranks' activations need the card's memory
-        t0 = time.perf_counter()
-        calls = [(cp_rank, (dict(kind="reference", cfg=c, params=cpu_p, batch=(xb, yb),
-                                 refs=refs, variants=variants),))]
-        if p_size == 2:
-            calls.append((cp_rank, (train_job,)))
-        got = pmesh.run_ranks(rank_calls, p_size, (calls,), timeout=RANK_TIMEOUT * len(calls))
-        res = [g[0] for g in got]
-        sec = time.perf_counter() - t0
-        if p_size == 2:
-            trained, train_sec = [g[1] for g in got], sec
-        failed = []
-        for name, dtype, rate, change in variants:
-            want = [cp_want(K, c, r, "step") for r in range(p_size)]
-            if change == "remat":  # the backward recomputes every block's rings
-                for w in want:
-                    w["flash_chunk_fwd_causal"] *= 2
-                    w["flash_chunk_fwd_full"] *= 2
-            counts_ok = change == "plain" or all(res[r][name]["launches"] == want[r]
-                                                for r in range(p_size))
-            line = res[0][name]
-            if change == "plain":
-                continue
-            tol = STEP_TOL[dtype]
-            in_path = {k_: max(res[r][name]["in_path"][k_] for r in range(p_size)
-                               if k_ in res[r][name]["in_path"])
-                       for k_ in set().union(*(res[r][name]["in_path"] for r in range(p_size)))}
-            in_path_ok = max(in_path.values()) <= REL_TOL[dtype]
-            step_ok = (line["loss_abs_err"] <= tol["loss"]
-                       and line["grad_l2_rel_err_max"] <= tol["grad_l2"])
-            # the planted fault must fail the in-path gate; its whole-step
-            # reading is printed, not held (a chunk pair's dk is a few per
-            # cent of its layer's key gradient at random weights)
-            ok = counts_ok and (not in_path_ok if change == "planted" else in_path_ok and step_ok)
-            emit({"phase": "cp_reference", "ranks": p_size, "n_layer": depth, "variant": name,
-                  "dtype": dtype, "dropout": rate, "batch": 1, "block_size": c.block_size,
-                  "must_fail": change == "planted", "tol": tol,
-                  "in_path_l2_rel": in_path, "in_path_tol": REL_TOL[dtype],
-                  "step_gate_passed": step_ok, "launches_by_rank": [
-                      {k_: v_ for k_, v_ in res[r][name]["launches"].items() if v_}
-                      for r in range(p_size)], "launches_exact": counts_ok,
-                  "losses_by_rank": [res[r][name]["loss"] for r in range(p_size)],
-                  "seconds_with_spawn_all_jobs": sec, **{k_: line[k_] for k_ in (
-                      "against", "loss_ref", "loss_abs_err", "grad_l2_rel_err_max", "worst_leaves",
-                      "bit_equal") if k_ in line},
-                  "ok": ok})
-            if not ok:
-                failed.append(f"P={p_size} {name}")
-        if failed:
-            raise AssertionError(f"context-parallel step disagrees, miscounts, or the gate "
-                                 f"passed the planted fault: {', '.join(failed)}")
+    ref_job = cp_reference_job(cfg, cfg.n_layer, 2, xb, yb)
+    # mod_seq_reference's reference at dropout 0.2 (four_rank_references): the
+    # same P = 2 ring step at depth 2, bf16, rank 0's loss and gradients
+    c2 = dataclasses.replace(cfg, n_layer=2, dropout=0.0)
+    export_job = dict(kind="reference", cfg=c2,
+                      params=init_params(c2, torch.Generator().manual_seed(1234), "cpu"),
+                      batch=(xb, yb), refs={},
+                      variants=[("mod_seq_ref", "bfloat16", 0.2, "export")])
+    torch.cuda.empty_cache()  # the ranks' activations need the card's memory
+    t0 = time.perf_counter()
+    calls = [(cp_rank, (ref_job,)), (cp_rank, (train_job,)), (cp_rank, (export_job,))]
+    got = pmesh.run_ranks(rank_calls, 2, (calls,), timeout=RANK_TIMEOUT * len(calls))
+    train_sec = time.perf_counter() - t0
+    hold_cp_reference(K, [g[0] for g in got], ref_job, train_sec)
+    trained = [g[1] for g in got]
+    mod_seq_ref = got[0][2]["mod_seq_ref"]["reference"]
 
     # cp_training (run above, after the P = 2 reference)
     res, p_size, job = trained, 2, train_job
@@ -2014,6 +2055,7 @@ def context_parallel(K, card, gen, timing, errs, by_path):
           "top_rank1": prof[-1]["top"]})
     if not ok:
         raise AssertionError("the context-parallel training run failed its checks")
+    return mod_seq_ref
 
 
 # data parallelism: the second half of the batch is the rank whose row offset
@@ -3510,10 +3552,14 @@ def mesh_rank(rank: int, world: int, job: dict):
     ``make_mesh(**job["mesh"])`` on its parts (``shard_train_state``) and
     an AdamW update, per variant (name, dtype, dropout, fault): fault None,
     "mod_offset_0" (rank 1 keys its masks as modality place 0's: the row
-    maps without their modality level, K1f and K1b given offset 0) or
-    "skip_cross_keys" (no salts drawn for another rank's cross sites).
-    With ``job["in_path"]`` every K7f and K7b call is held in-path against
-    its plain version. Returns per variant the loss, the launches, the
+    maps without their modality level, K1f and K1b given offset 0),
+    "skip_cross_keys" (no salts drawn for another rank's cross sites) or
+    "mod_rows_from_0" (a modality-parallel ring keys its rows from 0, not
+    from the rank's first modality in the whole M). With ``job["in_path"]``
+    every K7f and K7b call is held in-path against its plain version;
+    ``job["given_refs"]`` adds references computed elsewhere ((dtype,
+    dropout): (loss, gradients), on the CPU), which rank 0 holds the
+    variant of that dtype and dropout against. Returns per variant the loss, the launches, the
     checksums of the leaves the placement keeps whole (their gradients and
     updated values), whether the rank's parts are its slices of the
     gathered updated tree, its train-state bytes, the in-path errors and,
@@ -3573,12 +3619,14 @@ def mesh_rank(rank: int, world: int, job: dict):
 
     refs, out = {}, {}
     if rank == 0:
+        refs.update(job.get("given_refs", {}))
         for dtype, rate in job["refs"]:
             loss, grads = tsteps.Trainer(config(dtype, rate), None, optimizer(), [],
                                          1).loss_and_grads(fresh(), [(xb, yb)], [SALTS])
             refs[dtype, rate] = loss.item(), [g.float() for g in grads]
             del loss, grads
     real_map, real_fqkv, real_sites = tl.batch_row_map, K.fused_qkv_attention, ttr.CROSS_SITES
+    real_base = tatt._ring_base
     for name, dtype, rate, fault in job["variants"]:
         opt = optimizer()
         params, _, placed = shard_train_state(fresh(), None, mesh.data, False, mesh.model,
@@ -3595,6 +3643,8 @@ def mesh_rank(rank: int, world: int, job: dict):
             K.fused_qkv_attention = offset_0
         if fault == "skip_cross_keys":
             ttr.CROSS_SITES = 0
+        if fault == "mod_rows_from_0":
+            tatt._ring_base = lambda q, mod_axis: 0
         worst = {}
         fns = {} if not job.get("in_path") else dict(
             flash_chunk_fwd=checked(K, "flash_chunk_fwd", K.flash_chunk_fwd, worst),
@@ -3611,6 +3661,7 @@ def mesh_rank(rank: int, world: int, job: dict):
             tl.batch_row_map = tatt.batch_row_map = real_map
             K.fused_qkv_attention = real_fqkv
             ttr.CROSS_SITES = real_sites
+            tatt._ring_base = real_base
         whole_grads = placed.whole(list(grads), "grads")
         whole_idx = [i for i, s_ in enumerate(placed.specs)
                      if not {"model", "mod", "data"} & set(s_)]
@@ -3626,7 +3677,7 @@ def mesh_rank(rank: int, world: int, job: dict):
         if rank == 0 and (dtype, rate) in refs:
             loss_ref, g_ref = refs[dtype, rate]
             res.update(loss_ref=loss_ref, loss_abs_err=abs(loss.item() - loss_ref),
-                       **errors(whole_grads, g_ref))
+                       **errors(whole_grads, [g.to(dev) for g in g_ref]))
         out[name] = res
         del params, state, loss, grads, whole_grads, after, trainer
     return out
@@ -3900,23 +3951,30 @@ PP_RANKS, PP_MU = 2, 4
 
 
 def pp_rank(rank: int, world: int, job: dict):
-    """One rank of ``pp_reference`` in a process of its own (the ranks share
-    the one card: gloo through host memory). Rank 0 first takes the
-    one-rank pipeline (S = 1, the same µ and keys: ``pipeline_total_loss``
-    without an axis, differentiated, then the AdamW update) at each dropout
-    of ``job["variants"]``, and the one-rank sequential step (the plain
-    Trainer) at dropout 0. Then every rank takes the step over ``{pipe:
-    world}`` and its update, per variant (name, dropout, fault): fault None,
+    """One rank of ``pp_reference`` (and of ``pp_tp_reference`` and
+    ``pp_mod_reference``) in a process of its own (the ranks share the one
+    card: gloo through host memory). Rank 0 first takes the one-rank
+    pipeline (S = 1, the same µ and keys: ``pipeline_total_loss`` without
+    an axis, differentiated, then the AdamW update) at each dropout of
+    ``job["variants"]`` above 0 (at every one with ``job["bit_rates"]``),
+    and the one-rank sequential step (the plain Trainer) at dropout 0. Then
+    every rank takes the step over ``make_mesh(**job["mesh"])`` (default
+    ``{pipe: world}``) on its parts (``shard_train_state``: a model or
+    modality axis splits leaves, which the step gathers whole) and its
+    update, per variant (name, dropout, fault): fault None,
     "stage1_keys_from_0" (stage 1 keys its layers from layer 0's keys, not
-    from L / S's) or "bwd_handoff_forward_order" (stage 1 sends its input
-    gradients back in the forward's microbatch order). The sound variants
-    hold every K1f, K1b, K2f and K2b call in-path against its plain
-    version. Returns per variant the loss, the launches, the in-path
-    errors, the digests of the updated parameters and moments, the rank's
-    train-state bytes and, on rank 0, whether the loss, every gradient leaf
-    and the updated parameters are bit-equal to the one-rank pipeline's,
-    and the gradients' errors against it (or at dropout 0 against the
-    sequential step)."""
+    from L / S's), "bwd_handoff_forward_order" (stage 1 sends its input
+    gradients back in the forward's microbatch order) or "model_group_sum"
+    (the gathered leaves' gradients summed over the model group before the
+    rank keeps its slices). The sound variants hold every K1f, K1b, K2f
+    and K2b call in-path against its plain version. Returns per variant
+    the loss, the launches, the in-path errors, the digests of the updated
+    parameters and moments (gathered whole), the rank's train-state bytes,
+    the model and modality gathers' bytes and ms of the step and, on rank
+    0, whether the loss, every gathered gradient leaf and the updated
+    parameters are bit-equal to the one-rank pipeline's, and the
+    gradients' errors against it (or at dropout 0 against the sequential
+    step)."""
     sys.path.insert(0, str(REPO))
     import hashlib
 
@@ -3927,7 +3985,8 @@ def pp_rank(rank: int, world: int, job: dict):
     from trade_aid_multimodal_transformer_tpu_torch.ops import kernels as K
     from trade_aid_multimodal_transformer_tpu_torch.parallel import mesh as pmesh
     from trade_aid_multimodal_transformer_tpu_torch.parallel import pipeline as pp
-    from trade_aid_multimodal_transformer_tpu_torch.parallel.trainer import make_sharded_trainer
+    from trade_aid_multimodal_transformer_tpu_torch.parallel.trainer import (
+        make_sharded_trainer, shard_train_state)
     from trade_aid_multimodal_transformer_tpu_torch.train import steps as tsteps
     from trade_aid_multimodal_transformer_tpu_torch.utils.memory import train_state_bytes
 
@@ -3935,7 +3994,12 @@ def pp_rank(rank: int, world: int, job: dict):
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(job.get("device", "cuda"))  # "cpu": a rehearsal of the phase
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    mesh = pmesh.make_mesh(pipe=world, staged=dev.type == "cuda")
+    mesh = pmesh.make_mesh(**job.get("mesh", dict(pipe=world)), staged=dev.type == "cuda")
+    stages = mesh.pipe.size
+    timing = []
+    for axis in (mesh.model, mesh.mod):
+        if axis is not None:
+            axis.timing = timing
     xb, yb = (t.to(dev) for t in job["batch"])
     mu, L = job["mu"], job["cfg"].n_layer
     names = ["/".join(map(str, path)) for path, _ in tree_paths(job["params"])]
@@ -3969,7 +4033,7 @@ def pp_rank(rank: int, world: int, job: dict):
 
     refs = {}
     if rank == 0:
-        for rate in sorted({v[1] for v in job["variants"] if v[1] > 0}):
+        for rate in sorted({v[1] for v in job["variants"] if v[1] > 0 or job.get("bit_rates")}):
             params, opt = fresh(), optimizer()
             state = opt.init(params)
             loss, _ = pp.pipeline_total_loss(params, config(rate), xb, yb, None, mu, SALTS, True)
@@ -3985,12 +4049,23 @@ def pp_rank(rank: int, world: int, job: dict):
     real_keys = pp.pipeline_keys
     out = {}
     for name, rate, fault in job["variants"]:
-        opt, params = optimizer(), fresh()
+        opt = optimizer()
+        params, _, placed = shard_train_state(fresh(), None, mesh.data, False, mesh.model,
+                                              mesh.mod)
         state = opt.init(params)
+        whole = (lambda tree, kind="all_gather": tree) if placed is None else placed.whole
+        if fault == "model_group_sum":
+            real_part = placed.split_part
+
+            def summed(leaves):
+                return real_part([mesh.model._sum_flat("fault", [g])[0] if m is not None else g
+                                  for g, m in zip(leaves, placed.model_dims)])
+
+            placed.split_part = summed
         if fault == "stage1_keys_from_0" and rank == 1:
             def keys_from_0(*args):
                 keys = real_keys(*args)
-                per = L // world
+                per = L // stages
                 return keys if keys is None else torch.cat([keys[:per], keys[:per], keys[2 * per:]])
 
             pp.pipeline_keys = keys_from_0
@@ -4012,25 +4087,32 @@ def pp_rank(rank: int, world: int, job: dict):
             "fused_qkv_attention", "fused_qkv_attention_bwd", "short_cross_attention",
             "short_cross_attention_bwd")}
         try:
-            trainer = make_sharded_trainer(config(rate), None, opt, [], 1, mesh,
+            trainer = make_sharded_trainer(config(rate), None, opt, [], 1, mesh, fsdp=placed,
                                            pipeline_microbatches=mu)
             with patched(K, **fns):
                 K.reset_launch_counts()
+                timing.clear()
                 loss, grads = trainer.loss_and_grads(params, [(xb, yb)], [SALTS])
                 sync()
             counts = K.launch_counts()
+            gathers = [(n_, t_) for k_, n_, t_ in timing if k_ == "split_all_gather"]
             for k_, fn in fns.items():  # a wrapper counts on the name it is patched over
                 if k_ in counts:
                     counts[k_] += fn.launches
         finally:
             pp.pipeline_keys = real_keys
             mesh.pipe.__dict__.pop("send", None)
+        whole_grads = whole(list(grads), "grads")
         opt.update_(params, grads, state)
-        leaves = tree_leaves(params)
+        leaves = tree_leaves(whole(params))
         res = {"dropout": rate, "loss": loss.item(), "launches": counts, "in_path": worst,
-               "params": digest(leaves), "mu": digest(tree_leaves(state["mu"])),
-               "nu": digest(tree_leaves(state["nu"])),
-               "state_bytes": train_state_bytes(params, state, opt), "coords": mesh.coords}
+               "params": digest(leaves), "mu": digest(tree_leaves(whole(state["mu"]))),
+               "nu": digest(tree_leaves(whole(state["nu"]))),
+               "state_bytes": train_state_bytes(params, state, opt,
+                                                None if placed is None else placed.parts()),
+               "coords": mesh.coords, "gather_bytes": sum(n_ for n_, _ in gathers),
+               "gather_ms": 1e3 * sum(t_ for _, t_ in gathers), "gather_calls": len(gathers)}
+        grads = whole_grads
         if rank == 0 and ("pipe1", rate) in refs:
             loss1, grads1, after1 = refs["pipe1", rate]
             res.update(loss_ref=loss1.item(), loss_bit_equal=torch.equal(loss, loss1),
@@ -4044,8 +4126,73 @@ def pp_rank(rank: int, world: int, job: dict):
                                     "loss_abs_err": abs(loss.item() - loss0.item()),
                                     **errors(grads, grads0)}
         out[name] = res
-        del params, state, loss, grads, trainer
+        del params, state, loss, grads, whole_grads, trainer
     return out
+
+
+def hold_pp_reference(card, phase, job, ref_rows, step, want_bytes, extra) -> list:
+    """One line per variant of a ``pp_rank`` job (``ref_rows``: every
+    rank's results): rank 0's loss, gathered gradients and updated
+    parameters bit-equal to the one-rank pipeline's where it holds them
+    (the sound variants at dropout 0.2, at every rate with
+    ``job["bit_rates"]``) and within ``dp_reference``'s gate of it (of the
+    one-rank sequential step at dropout 0), the parameters and moments
+    equal on every rank, exact launches ``step`` on every rank, every
+    rank's train-state bytes ``want_bytes``, every in-path K1/K2 call
+    within REL_TOL; a planted fault must break the bits and exceed the
+    gate. Returns the failed variants' names."""
+    mesh = job.get("mesh", {"pipe": len(ref_rows)})
+    ranks = math.prod(mesh.values())
+    bits_always = bool(job.get("bit_rates"))
+    failed = []
+    loss_tol, leaf_tol, table_tol = mod_gate("bfloat16")
+    for name, rate, fault in job["variants"]:
+        rows = [ref_rows[r][name] for r in range(ranks)]
+        r0 = rows[0]
+        bit_equal = (r0.get("loss_bit_equal") and r0.get("params_bit_equal")
+                     and r0.get("grad_leaves_bit_equal") == r0.get("n_leaves"))
+        gate = r0.get("vs_sequential", r0) if rate == 0.0 else r0
+        within = (gate["loss_abs_err"] <= loss_tol and gate["grad_l2_rel_err_max"] <= leaf_tol
+                  and gate["token_table_grad_l2_rel_err_max"] <= table_tol)
+        ranks_equal = all(x[k_] == r0[k_] for x in rows for k_ in ("params", "mu", "nu"))
+        launches = all(x["launches"] == step for x in rows)
+        held = all(tuple(x["state_bytes"]) == want_bytes for x in rows)
+        in_path = {k_: max(x["in_path"].get(k_, 0.0) for x in rows)
+                   for k_ in set().union(*(x["in_path"] for x in rows))}
+        in_path_ok = all(v_ <= REL_TOL["bfloat16"] for v_ in in_path.values())
+        if fault:
+            ok = not bit_equal and not within and launches
+        else:
+            ok = (ranks_equal and launches and held and in_path_ok and within
+                  and (bit_equal or (rate == 0.0 and not bits_always)) and len(in_path) == 9)
+        emit({"phase": phase, "variant": name, "card": card, "mesh": mesh,
+              "microbatches": job["mu"], "ranks_on_one_card": ranks,
+              "backend": "gloo through host memory", "config": "examples/production_config.yaml",
+              "batch": int(job["batch"][0].shape[1]), "dropout": rate, "dtype": "bfloat16",
+              "fault": fault,
+              "against": "the one-rank sequential step (dp_reference's gate)"
+              if rate == 0.0 and not bits_always
+              else "the one-rank pipeline (S = 1, same µ and keys): bit-equal, and "
+                   "dp_reference's gate",
+              "loss_tol": loss_tol, "grad_l2_rel_tol": leaf_tol,
+              "token_table_grad_l2_rel_tol": table_tol, "bit_equal": bool(bit_equal),
+              **{k_: r0[k_] for k_ in ("loss_ref", "loss_bit_equal", "grad_leaves_bit_equal",
+                                       "n_leaves", "params_bit_equal", "loss_abs_err",
+                                       "grad_l2_rel_err_max", "token_table_grad_l2_rel_err_max",
+                                       "worst_leaves", "vs_sequential") if k_ in r0},
+              "losses_by_rank": [x["loss"] for x in rows],
+              "params_mu_nu_equal_across_ranks": ranks_equal,
+              "train_state_bytes_by_rank": [tuple(x["state_bytes"]) for x in rows],
+              "train_state_bytes_expected": want_bytes,
+              "split_gather_bytes_by_rank": [x["gather_bytes"] for x in rows],
+              "split_gather_ms_by_rank": [x["gather_ms"] for x in rows],
+              "in_path_l2_rel": in_path, "in_path_tol": REL_TOL["bfloat16"],
+              "launches_by_rank": [{k_: v_ for k_, v_ in x["launches"].items() if v_}
+                                   for x in rows], "launches_exact": launches,
+              **extra, "ok": ok})
+        if not ok:
+            failed.append(f"{phase} {name}")
+    return failed
 
 
 def pp_phases(K, card, by_path, one_rank, start):
@@ -4109,50 +4256,8 @@ def pp_phases(K, card, by_path, one_rank, start):
             dirs["text", "resume"].replace("mesh: {pipe: 2}", "mesh: \"off\""))
         loaded = entry_run(K, d)
     sec = time.perf_counter() - t0
-    failed = []
-    loss_tol, leaf_tol, table_tol = mod_gate("bfloat16")
-    for name, rate, fault in job["variants"]:
-        rows = [ref_rows[r][name] for r in range(S)]
-        r0 = rows[0]
-        bit_equal = (r0.get("loss_bit_equal") and r0.get("params_bit_equal")
-                     and r0.get("grad_leaves_bit_equal") == r0.get("n_leaves"))
-        gate = r0.get("vs_sequential", r0) if rate == 0.0 else r0
-        within = (gate["loss_abs_err"] <= loss_tol and gate["grad_l2_rel_err_max"] <= leaf_tol
-                  and gate["token_table_grad_l2_rel_err_max"] <= table_tol)
-        ranks_equal = all(x[k_] == r0[k_] for x in rows for k_ in ("params", "mu", "nu"))
-        launches = all(x["launches"] == step for x in rows)
-        held = all(tuple(x["state_bytes"]) == want_bytes for x in rows)
-        in_path = {k_: max(x["in_path"].get(k_, 0.0) for x in rows)
-                   for k_ in set().union(*(x["in_path"] for x in rows))}
-        in_path_ok = all(v_ <= REL_TOL["bfloat16"] for v_ in in_path.values())
-        if fault:
-            ok = not bit_equal and not within and launches
-        else:
-            ok = (ranks_equal and launches and held and in_path_ok and within
-                  and (bit_equal or rate == 0.0) and len(in_path) == 9)
-        emit({"phase": "pp_reference", "variant": name, "card": card, "mesh": {"pipe": S},
-              "microbatches": PP_MU, "ranks_on_one_card": S,
-              "backend": "gloo through host memory", "config": "examples/production_config.yaml",
-              "batch": sc["batch_size"], "dropout": rate, "dtype": "bfloat16", "fault": fault,
-              "against": "the one-rank sequential step (dp_reference's gate)" if rate == 0.0
-              else "the one-rank pipeline (S = 1, same µ and keys): bit-equal, and "
-                   "dp_reference's gate",
-              "loss_tol": loss_tol, "grad_l2_rel_tol": leaf_tol,
-              "token_table_grad_l2_rel_tol": table_tol, "bit_equal": bool(bit_equal),
-              **{k_: r0[k_] for k_ in ("loss_ref", "loss_bit_equal", "grad_leaves_bit_equal",
-                                       "n_leaves", "params_bit_equal", "loss_abs_err",
-                                       "grad_l2_rel_err_max", "token_table_grad_l2_rel_err_max",
-                                       "worst_leaves", "vs_sequential") if k_ in r0},
-              "losses_by_rank": [x["loss"] for x in rows],
-              "params_mu_nu_equal_across_ranks": ranks_equal,
-              "train_state_bytes_by_rank": [tuple(x["state_bytes"]) for x in rows],
-              "train_state_bytes_expected": want_bytes,
-              "in_path_l2_rel": in_path, "in_path_tol": REL_TOL["bfloat16"],
-              "launches_by_rank": [{k_: v_ for k_, v_ in x["launches"].items() if v_}
-                                   for x in rows], "launches_exact": launches,
-              "seconds_with_mod_phases": sec, "ok": ok})
-        if not ok:
-            failed.append(f"pp_reference {name}")
+    failed = hold_pp_reference(card, "pp_reference", job, ref_rows, step, want_bytes,
+                               {"seconds_with_mod_phases": sec})
     eval_batches = expected_evals(config["max_iters"], config["eval_interval"]) * 2 * 2
     per_eval = dict(fused_qkv_attention=L, short_cross_attention=n_cross * L)
     want = {k_: n_ * config["max_iters"] + per_eval.get(k_, 0) * eval_batches
@@ -4212,7 +4317,27 @@ def pp_phases(K, card, by_path, one_rank, start):
         raise AssertionError(f"pipeline parallelism failed its checks: {failed}")
 
 
-def four_rank_references(K, card):
+def mod_cp_launches(K, cfg, mod: int):
+    """The K7 launches of one step of a rank of ``{mod: mod}`` x a sequence
+    axis (a function of its coordinates): its modalities' self-attention
+    ring and the rings of the cross-attending modalities it owns, one a
+    key/value stream, each one causal chunk and one full-mask chunk per
+    earlier sequence place, forward and backward."""
+    cross = [i for i in range(cfg.num_modalities) if cfg.cross_attention[i]]
+    per = cfg.num_modalities // mod
+
+    def want(coords):
+        owned = [i for i in cross if coords["mod"] * per <= i < (coords["mod"] + 1) * per]
+        rings = cfg.n_layer * (1 + sum(len(cfg.kv_modalities(i)) for i in owned))
+        out = dict.fromkeys(K.KERNELS, 0)
+        out.update(flash_chunk_fwd_causal=rings, flash_chunk_fwd_full=rings * coords["seq"],
+                   flash_chunk_bwd_causal=rings, flash_chunk_bwd_full=rings * coords["seq"])
+        return out
+
+    return want
+
+
+def four_rank_references(K, card, mod_seq_ref):
     """The reference steps over four ranks sharing the one card (gloo
     through host memory), in one start of the rank processes:
     - ``mod_reference`` over ``{mod: 4}``: the sound step (bf16, dropout
@@ -4227,13 +4352,31 @@ def four_rank_references(K, card):
       ranks, the parts the slices, a one-rank step's launches on every
       rank, bytes ``state_bytes(cfg, model=4)``.
     - ``tp_seq_reference``: ``{model: 2}`` x ``context_parallel: 2`` at
-      block_size 1024, ``cp_reference``'s depth at 4 ranks (2 layers),
-      batch 1: the step at dropout 0 in f32 and bf16 against the card's
-      single-rank step (K5/K6; STEP_TOL), and at dropout 0.2 in bf16 (the
-      rings keyed by local rows and heads, the key folded with the model
-      place: no one-rank counterpart), every K7f and K7b call of every
-      variant in-path within REL_TOL of its plain version; exact K7
-      launches per rank; bytes ``state_bytes(cfg, model=2)`` at that depth.
+      block_size 1024, depth 2, batch 1: the step at dropout 0 in f32 and
+      bf16 against the card's single-rank step (K5/K6; STEP_TOL), and at
+      dropout 0.2 in bf16 (the rings keyed by local rows and heads, the
+      key folded with the model place: no one-rank counterpart), every K7f
+      and K7b call of every variant in-path within REL_TOL of its plain
+      version; exact K7 launches per rank; bytes ``state_bytes(cfg,
+      model=2)`` at that depth.
+    - ``mod_seq_reference``: ``{mod: 2}`` x ``context_parallel: 2`` at the
+      same size: at dropout 0 against the card's single-rank step
+      (STEP_TOL), at 0.2 against ``mod_seq_ref``, the ring step over 2
+      ranks (``context_parallel``; ``dp_reference``'s gate: the same
+      masks, the modality rows keyed by their index in the whole M), every
+      K7 call in-path; a ring keying its modality rows from 0 must exceed
+      that gate; exact K7 launches per rank (``mod_cp_launches``); bytes
+      ``state_bytes(cfg, mod=2)``.
+    - ``pp_tp_reference`` (``{pipe: 2, model: 2}``) and
+      ``pp_mod_reference`` (``{pipe: 2, mod: 2}``): one production step
+      (µ 4, bf16, batch 32) at dropout 0.2 and 0, every rank computing its
+      stage whole on the gathered tree: the loss, every gathered gradient
+      leaf and the update bit-equal to the one-rank pipeline's
+      (``hold_pp_reference``), exact launches (K1f and K1b 12 a stage, K2f
+      and K2b 24), bytes ``state_bytes(cfg, model=2)`` and ``(cfg,
+      mod=2)``, the gather's bytes and ms; a model-group sum of the
+      gathered leaves' gradients must break the bits.
+    - ``cp_reference`` at P = 4, depth 2 (``cp_reference_job``).
     Raises on a failed check."""
     from trade_aid_multimodal_transformer_tpu_torch import generate as entry
 
@@ -4249,9 +4392,20 @@ def four_rank_references(K, card):
                      **dict(fused_qkv_attention=L, fused_qkv_attention_bwd=L,
                             short_cross_attention=n_cross * L,
                             short_cross_attention_bwd=n_cross * L)}
+    stage_step = {**dict.fromkeys(K.KERNELS, 0),
+                  **dict(fused_qkv_attention=L // 2 * PP_MU, fused_qkv_attention_bwd=L // 2 * PP_MU,
+                         short_cross_attention=n_cross * L // 2 * PP_MU,
+                         short_cross_attention_bwd=n_cross * L // 2 * PP_MU)}
     bf, f32 = "bfloat16", "float32"
     c = dataclasses.replace(long["cfg"], n_layer=2)
-    mesh_reference(K, card, [
+    pp_jobs = {name: production_step_job(
+        cfg, sc, sc["batch_size"], 13, mu=PP_MU, mesh=dict(pipe=2, **{axis: 2}), bit_rates=True,
+        variants=[("sound", 0.2, None), ("sound_dropout_0", 0.0, None)] + (
+            [("model_group_sum", 0.2, "model_group_sum")] if axis == "model" else []))
+        for name, axis in (("pp_tp_reference", "model"), ("pp_mod_reference", "mod"))}
+    cp4_job = cp_reference_job(long["cfg"], 2, 4, *cp_batch(long["cfg"]))
+    t0 = time.perf_counter()
+    _, (pp_tp_rows, pp_mod_rows, cp4_rows) = mesh_reference(K, card, [
         ("mod_reference", production_step_job(
             cfg, sc, sc["batch_size"], 13, mesh=dict(mod=4), refs=[(bf, 0.2)],
             variants=[("sound_mod4", bf, 0.2, None),
@@ -4268,7 +4422,61 @@ def four_rank_references(K, card):
             in_path=True, variants=[("f32", f32, 0.0, None), ("bf16", bf, 0.0, None),
                                     ("bf16_dropout", bf, 0.2, None)]),
          state_bytes(c, model=2), lambda coords: cp_want(K, c, coords["seq"], "step"),
-         step_gate, (), {"context_parallel": 2})])
+         step_gate, (), {"context_parallel": 2}),
+        ("mod_seq_reference", production_step_job(
+            c, long["sc"], 1, 11, mesh=dict(mod=2, seq=2), refs=[(bf, 0.0)], in_path=True,
+            variants=[("bf16", bf, 0.0, None)]),
+         state_bytes(c, mod=2), mod_cp_launches(K, c, 2), step_gate, (),
+         {"context_parallel": 2}),
+        ("mod_seq_reference", production_step_job(
+            c, long["sc"], 1, 11, mesh=dict(mod=2, seq=2), refs=[],
+            given_refs={(bf, 0.2): mod_seq_ref}, in_path=True,
+            variants=[("bf16_dropout", bf, 0.2, None),
+                      ("rows_from_0", bf, 0.2, "mod_rows_from_0")]),
+         state_bytes(c, mod=2), mod_cp_launches(K, c, 2), mod_gate, ("rows_from_0",),
+         {"context_parallel": 2, "reference": "the ring step over 2 ranks (context_parallel) "
+                                               "at dropout 0.2, bf16, the same batch and salts"})],
+        also=[(pp_rank, (pp_jobs["pp_tp_reference"],)), (pp_rank, (pp_jobs["pp_mod_reference"],)),
+              (cp_rank, (cp4_job,))])
+    sec = time.perf_counter() - t0
+    failed = []
+    for (name, job), rows in zip(pp_jobs.items(), (pp_tp_rows, pp_mod_rows)):
+        axis = "model" if "model" in job["mesh"] else "mod"
+        failed += hold_pp_reference(card, name, job, rows, stage_step,
+                                    state_bytes(cfg, **{axis: 2}),
+                                    {"seconds_with_spawn_all_jobs": sec})
+    hold_cp_reference(K, cp4_rows, cp4_job, sec)
+    if failed:
+        raise AssertionError(f"pipeline parallelism with a model or modality axis failed its "
+                             f"checks: {failed}")
+
+
+def tp_split_seq_reference(K, card):
+    """``tp_split_seq_reference``: ``{model: 4}`` x ``context_parallel: 2``
+    over the production config's 6 heads (4 does not divide them) at
+    block_size 1024, depth 2, batch 1, on eight ranks sharing the one card
+    (gloo through host memory), in a start of their own: at dropout 0 in
+    bf16 against the card's single-rank step (STEP_TOL); at 0.2 every rank
+    rings all 6 heads with the key folded with model place 0 (no one-rank
+    counterpart), every K7f and K7b call of both variants in-path within
+    REL_TOL of its plain version; exact K7 launches per rank (a ring's, as
+    one rank's), the whole leaves bit-equal across the ranks, bytes
+    ``state_bytes(cfg, model=4)`` at that depth. Raises on a failed
+    check."""
+    from trade_aid_multimodal_transformer_tpu_torch import generate as entry
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        production_config_dir(d, block_size=LONG_BLOCK)
+        long = entry.load_config_and_data(str(d))
+    bf = "bfloat16"
+    c = dataclasses.replace(long["cfg"], n_layer=2)
+    mesh_reference(K, card, [
+        ("tp_split_seq_reference", production_step_job(
+            c, long["sc"], 1, 11, mesh=dict(model=4, seq=2), refs=[(bf, 0.0)], in_path=True,
+            variants=[("bf16", bf, 0.0, None), ("bf16_dropout", bf, 0.2, None)]),
+         state_bytes(c, model=4), lambda coords: cp_want(K, c, coords["seq"], "step"),
+         step_gate, (), {"context_parallel": 2, "heads_per_rank": c.n_head})])
 
 
 def multi_card(card: str) -> int:
@@ -4308,8 +4516,14 @@ def multi_card(card: str) -> int:
       ``context_parallel: 2`` at block_size 1024 (batch 8), each at dropout
       0 and 0.2 with the tensor-parallel rows' gates (model x sequence at
       0.2: the rings fold their keys with the model place as the JAX
-      package does, so only the ranks' agreement is held), the modality
-      collectives' bytes, calls and ms a step.
+      package does, so only the ranks' agreement is held), and ``{mod: 2}``
+      x ``context_parallel: 2`` (at 0.2 against the ``context_parallel: 2``
+      run: the same masks), the modality collectives' bytes, calls and ms a
+      step;
+    - pipeline parallelism (``pipe_rows``): ``{pipe: 2}``, and on 4 cards
+      ``{pipe: 2, data: 2}`` (and FSDP), ``{pipe: 2, model: 2}`` and
+      ``{pipe: 2, mod: 2}``, the last two's checksums equal to ``{pipe:
+      2}``'s.
     At every rate every rank's parameter checksum (float64 sum and SHA-256 of
     the bytes) must be equal. Prints each run's steps/s and, under a data
     axis, the bytes and ms a step of the gradient all-reduce and, under
@@ -4361,7 +4575,8 @@ def multi_card(card: str) -> int:
             coll["tp_all_reduce"] = (sum(n_ for n_, _ in tp) / 8, 1e3 * sum(t_ for _, t_ in tp) / 8,
                                      len(tp) / 8)
         for kind in ("tp_all_gather", "mod_all_gather", "mod_reduce_scatter_bwd",
-                     "mod_all_reduce", "send", "recv", "pipe_broadcast", "pipe_all_reduce"):
+                     "mod_all_reduce", "send", "recv", "pipe_broadcast", "pipe_all_reduce",
+                     "split_all_gather"):
             # the model, modality and pipeline axes' other collectives
             calls = [(n_, t_) for k_, n_, t_ in res.get("collectives") or [] if k_ == kind]
             if calls:
@@ -4517,7 +4732,7 @@ def multi_card(card: str) -> int:
                               (rf, "data x2 (fsdp/zero-3) * context x2")):
                 if got["plan"] != want:
                     failed.append(f"data x seq planned {got['plan']}")
-        new_rows(run, hold, failed, dp_base, base, long)
+        new_rows(run, hold, failed, dp_base, base, long, runs[2, 0.2])
     pipe_rows(run, hold, failed, dp_base, n_cards)
     if failed:
         raise AssertionError(f"multi-card training disagrees: {failed}")
@@ -4530,19 +4745,24 @@ def multi_card(card: str) -> int:
 def pipe_rows(run, hold, failed, dp_base, n_cards: int) -> None:
     """``multi_card``'s pipeline rows (``run`` and ``hold`` its helpers):
     ``{pipe: 2}`` and, on 4 cards, ``{pipe: 2, data: 2}`` and the same with
-    ``fsdp: true`` (block_size 64, global batch 32, µ = 4), each at dropout
-    0 and 0.2 against the one-card runs ``dp_base`` with the tensor rows'
-    gates, the exact bytes ``state_bytes`` gives (the whole tree without
-    FSDP), the plan's line, the handoffs' bytes, calls and ms a step; the
-    FSDP run's parameter checksums equal to the run without it (the same
-    seed: bit-equal). A failed run is reported and the other rows still
-    run."""
+    ``fsdp: true``, ``{pipe: 2, model: 2}`` and ``{pipe: 2, mod: 2}``
+    (block_size 64, global batch 32, µ = 4), each at dropout 0 and 0.2
+    against the one-card runs ``dp_base`` with the tensor rows' gates, the
+    exact bytes ``state_bytes`` gives, the plan's line, the handoffs' (and
+    the model and modality gathers') bytes, calls and ms a step; the FSDP
+    run's parameter checksums equal to the run without it, and those of
+    the runs with a model or modality axis equal to ``{pipe: 2}``'s (the
+    same seed: bit-equal; every rank of their groups computes the stage
+    whole). A failed run is reported and the other rows still run."""
     layouts = [("{pipe: 2}", dict(pipe=2), False, "pipeline x2")]
     if n_cards >= 4:
         layouts += [("{pipe: 2, data: 2}", dict(pipe=2, data=2), False, "pipeline x2 * data x2"),
                     ("{pipe: 2, data: 2}", dict(pipe=2, data=2), True,
-                     "pipeline x2 * data x2 (fsdp/zero-3)")]
-    without_fsdp = {}
+                     "pipeline x2 * data x2 (fsdp/zero-3)"),
+                    ("{pipe: 2, model: 2}", dict(pipe=2, model=2), False,
+                     "pipeline x2 * tensor x2"),
+                    ("{pipe: 2, mod: 2}", dict(pipe=2, mod=2), False, "pipeline x2 * modality x2")]
+    without_fsdp, alone = {}, {}
     for mesh, axes, fsdp, plan in layouts:
         ranks = math.prod(axes.values())
         for rate in (0.0, 0.2):
@@ -4553,9 +4773,18 @@ def pipe_rows(run, hold, failed, dp_base, n_cards: int) -> None:
                       "dropout": rate, "error": repr(e)[-2000:], "ok": False})
                 failed.append(f"{mesh} fsdp {fsdp}: {e!r}"[:300])
                 continue
-            want = state_bytes(r["cfg"], axes.get("data", 1), fsdp=fsdp)
+            want = state_bytes(r["cfg"], axes.get("data", 1), axes.get("model", 1), fsdp,
+                               axes.get("mod", 1))
             held = [tuple(b_) for b_ in r["train_state_bytes_by_rank"] or []]
             extra = {}
+            if axes == dict(pipe=2):
+                alone[rate] = r["param_checksums"]
+            elif "data" not in axes:
+                same = bool(alone.get(rate)) and all(
+                    c_ == alone[rate][0] for c_ in r["param_checksums"] or [None])
+                extra["checksums_equal_pipe_2"] = same
+                if not same:
+                    failed.append(f"{mesh} at {rate}: checksums differ from {{pipe: 2}}'s")
             if fsdp:
                 same = r["param_checksums"] == without_fsdp.get(rate)
                 extra["checksums_equal_without_fsdp"] = same
@@ -4572,21 +4801,26 @@ def pipe_rows(run, hold, failed, dp_base, n_cards: int) -> None:
                 failed.append(f"{mesh} fsdp {fsdp}: bytes {held}, plan {r['plan']}")
 
 
-def new_rows(run, hold, failed, dp_base, long_base0, long) -> None:
+def new_rows(run, hold, failed, dp_base, long_base0, long, cp2_rate02) -> None:
     """``multi_card``'s modality and further tensor rows on 4 cards (``run``
     and ``hold`` its helpers): ``{mod: 2, data: 2}`` (and FSDP), ``{mod:
-    4}``, ``{mod: 2, model: 2}``, ``{model: 4}`` and ``{model: 2}`` x
-    ``context_parallel: 2``, each at dropout 0 and 0.2 against the one-card
-    runs ``dp_base`` (block_size 64) and ``long_base0`` (block_size 1024,
-    dropout 0), with the exact bytes ``state_bytes`` gives and the plan's
-    line. A failed run is reported and the other rows still run."""
+    4}``, ``{mod: 2, model: 2}``, ``{model: 4}``, ``{model: 2}`` x
+    ``context_parallel: 2`` and ``{mod: 2}`` x ``context_parallel: 2``,
+    each at dropout 0 and 0.2 against the one-card runs ``dp_base``
+    (block_size 64) and ``long_base0`` (block_size 1024, dropout 0), with
+    the exact bytes ``state_bytes`` gives and the plan's line; ``{mod: 2}``
+    x ``context_parallel: 2`` at 0.2 against ``cp2_rate02``, the
+    ``context_parallel: 2`` run at 0.2 (its rings key every modality's
+    rows by its index in the whole M: the same masks). A failed run is
+    reported and the other rows still run."""
     layouts = [("{mod: 2, data: 2}", dict(data=2, mod=2), False, {}, "modality x2 * data x2"),
                ("{mod: 2, data: 2}", dict(data=2, mod=2), True, {},
                 "modality x2 * data x2 (fsdp/zero-3)"),
                ("{mod: 4}", dict(mod=4), False, {}, "modality x4"),
                ("{mod: 2, model: 2}", dict(model=2, mod=2), False, {}, "modality x2 * tensor x2"),
                ("{model: 4}", dict(model=4), False, {}, "tensor x4"),
-               ("{model: 2}", dict(model=2), False, dict(long, cp=2), "tensor x2 * context x2")]
+               ("{model: 2}", dict(model=2), False, dict(long, cp=2), "tensor x2 * context x2"),
+               ("{mod: 2}", dict(mod=2), False, dict(long, cp=2), "modality x2 * context x2")]
     for mesh, axes, fsdp, extra, plan in layouts:
         extra = dict(extra)
         cp = extra.pop("cp", 1)
@@ -4601,7 +4835,8 @@ def new_rows(run, hold, failed, dp_base, long_base0, long) -> None:
             want = state_bytes(r["cfg"], axes.get("data", 1), axes.get("model", 1), fsdp,
                                axes.get("mod", 1))
             held = [tuple(b_) for b_ in r["train_state_bytes_by_rank"] or []]
-            base = (None if rate else long_base0) if cp > 1 else dp_base[rate]
+            base = (long_base0 if not rate else cp2_rate02 if "mod" in axes else None
+                    ) if cp > 1 else dp_base[rate]
             hold("multi_card_new", r, base, 4,
                  "flash_chunk_fwd_causal" if cp > 1 else "fused_qkv_attention",
                  {**extra, "dropout": rate, "mesh": mesh, "context_parallel": cp,
@@ -5634,15 +5869,18 @@ def main() -> int:
     tp_phases(K, card, by_path, one_rank)
     pp_phases(K, card, by_path, one_rank,
               lambda calls, plan: mod_phases(K, card, by_path, one_rank, calls, plan))
-    four_rank_references(K, card)
 
     # 11. long context: the production config at block_size 1024
     by_path.update({"serving": launches, "training": train_launches,
                     "training_fused": fused_launches, **serve_counts})
     long_context(K, card, gen, timing, errs, by_path)
 
-    # 12. context parallelism at block_size 1024
-    context_parallel(K, card, gen, timing, errs, by_path)
+    # 12. context parallelism at block_size 1024; then the reference steps
+    # over four ranks (the pipeline with a model or modality axis, modality
+    # x sequence held against a ring step of 12) and over eight
+    mod_seq_ref = context_parallel(K, card, gen, timing, errs, by_path)
+    four_rank_references(K, card, mod_seq_ref)
+    tp_split_seq_reference(K, card)
 
     # 13. the crossover tool (K3f + K3b against K5f + K5b and the dense core)
     crossover(K, card, by_path)

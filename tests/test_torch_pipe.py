@@ -36,6 +36,7 @@ thread per rank. Tolerances:
 """
 
 import math
+import re
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -302,10 +303,16 @@ def test_stage_owners_are_the_stages_that_compute_each_leaf(ref, S):
 
 
 @pytest.mark.parametrize("axis", ("model", "mod", "seq"))
-def test_pipe_with_another_axis_is_a_later_slice(axis):
-    """``make_sharded_trainer`` refuses a pipeline axis with a model,
-    modality or sequence axis (ROADMAP item 6b), as ``plan_mesh`` does."""
-    from trade_aid_multimodal_transformer_tpu_torch.parallel.trainer import make_sharded_trainer
+def test_pipe_with_model_or_mod_trains_and_with_seq_is_refused(ref, axis):
+    """``make_sharded_trainer`` builds a pipelined trainer with a model or a
+    modality axis on the placement ``shard_train_state`` gives (each rank
+    computes the stage whole on the gathered tree, tests/test_torch_combos.py),
+    refuses one without it, and refuses a pipeline axis with a sequence
+    axis with the ValueError of ``plan_mesh`` (the JAX package's trainer
+    cannot run that plan)."""
+    from trade_aid_multimodal_transformer_tpu_torch.parallel.resolve import PIPE_SEQ
+    from trade_aid_multimodal_transformer_tpu_torch.parallel.trainer import (
+        make_sharded_trainer, shard_train_state)
 
     other = {"model": pmesh.ModelAxis(0, 2), "mod": pmesh.ModAxis(0, 2),
              "seq": pmesh.SeqMesh(0, 2)}[axis]
@@ -313,8 +320,16 @@ def test_pipe_with_another_axis_is_a_later_slice(axis):
                           other if axis == "seq" else None,
                           other if axis == "model" else None, other if axis == "mod" else None,
                           pmesh.PipeAxis(0, 2))
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        make_sharded_trainer(ModelConfig(**TINY), None, make_optimizer(1e-3), [], 1, mesh)
+    cfg, opt = ModelConfig(**TINY), make_optimizer(1e-3)
+    if axis == "seq":
+        with pytest.raises(ValueError, match=re.escape(PIPE_SEQ)):
+            make_sharded_trainer(cfg, None, opt, [], 1, mesh)
+        return
+    with pytest.raises(ValueError, match="placement"):
+        make_sharded_trainer(cfg, None, opt, [], 1, mesh)
+    _, _, placed = shard_train_state(ref[1], None, None, False, mesh.model, mesh.mod)
+    trainer = make_sharded_trainer(cfg, None, opt, [], 1, mesh, fsdp=placed)
+    assert trainer.pipe is mesh.pipe and trainer.split is placed and trainer.mod is None
 
 
 # ------------------------------------------------------------------ losses and gradients

@@ -73,7 +73,7 @@ from trade_aid_multimodal_transformer_tpu_torch.train.metrics import (
     ModalityMetricSpec,
     batch_directional_metrics,
 )
-from trade_aid_multimodal_transformer_tpu_torch.parallel.resolve import plan_mesh
+from trade_aid_multimodal_transformer_tpu_torch.parallel.resolve import PIPE_SEQ, plan_mesh
 from trade_aid_multimodal_transformer_tpu_torch.train.runner import run_training
 from trade_aid_multimodal_transformer_tpu_torch.train.steps import (
     StepRng,
@@ -603,12 +603,11 @@ def test_mesh_that_needs_more_devices_raises():
 
 
 # (mesh, context_parallel, devices, fsdp): JAX's plan or error, in the port
-# the same plan (FSDP included) where it has pipeline, modality, data,
+# the same plan (FSDP included) with any of the pipeline, modality, data,
 # model and sequence axes (a model axis that does not divide n_head too),
-# the same error where JAX raises, and NotImplementedError (a later slice)
-# where JAX's plan has a pipeline axis with a model, modality or sequence
-# axis, the modality axis with the sequence axis, or the sequence axis with
-# a model axis that does not divide n_head
+# the same error where JAX raises, and a ValueError naming the JAX failure
+# where JAX's plan has a pipeline axis with a sequence axis, which its
+# trainer cannot run
 PLAN_CASES = [
     ("auto", 1, 1, False), ("off", 1, 1, False), (None, 1, 1, False), (1, 1, 1, False),
     ({"data": 1, "model": 1}, 1, 1, False), ("auto", 2, 2, False), ("off", 2, 2, False),
@@ -625,6 +624,10 @@ PLAN_CASES = [
     ({"model": 2}, 2, 4, False), ({"data": 2, "model": 2}, 2, 8, False), ({"mod": 2}, 2, 4, False),
     ({"model": 4}, 2, 8, False), ({"pipe": 2, "data": 2}, 1, 4, False),
     ({"pipe": 2, "data": 2}, 1, 4, True), ({"pipe": 2, "model": 2}, 1, 4, False),
+    ({"pipe": 2, "mod": 2}, 1, 4, False), ({"mod": 2}, 2, 4, False),
+    ({"mod": 2, "data": 2}, 2, 8, False), ({"model": 4, "data": 2}, 2, 16, False),
+    ({"pipe": 2, "model": 2, "data": 2}, 1, 8, True), ({"pipe": 2, "mod": 2, "data": 2}, 1, 8, True),
+    ({"pipe": 2}, 2, 4, False), ({"pipe": 2, "data": 2}, 2, 8, False),
 ]
 
 
@@ -655,9 +658,8 @@ def _plan_matches_jax(mesh, cp, n, fsdp, mu):
         with pytest.raises(ValueError, match=re.escape(str(e))):
             plan_mesh(mesh, cp, n_devices=n, **kw)
         return
-    if ((ref.pipe > 1 and max(ref.model, ref.mod, ref.seq) > 1) or (ref.mod > 1 and ref.seq > 1)
-            or (ref.seq > 1 and kw["n_head"] % ref.model != 0)):
-        with pytest.raises(NotImplementedError, match="later slice.*item 6b"):
+    if ref.pipe > 1 and ref.seq > 1:  # a plan JAX's trainer cannot run
+        with pytest.raises(ValueError, match=re.escape(PIPE_SEQ)):
             plan_mesh(mesh, cp, n_devices=n, **kw)
         return
     got = plan_mesh(mesh, cp, n_devices=n, **kw)

@@ -1,8 +1,8 @@
 """What each rank process of the port's parallel tests runs.
 
 The tests (tests/test_torch_ring.py, tests/test_torch_dp.py,
-tests/test_torch_fsdp.py, tests/test_torch_tp.py, tests/test_torch_mod.py)
-start these
+tests/test_torch_fsdp.py, tests/test_torch_tp.py, tests/test_torch_mod.py,
+tests/test_torch_pipe.py, tests/test_torch_combos.py) start these
 functions in spawned processes joined in one gloo group
 (``parallel.mesh.run_ranks``); a child imports this module, torch and the
 port, never JAX: the JAX references are computed in the test process.
@@ -372,5 +372,67 @@ def pipe_cases(rank, world, tasks):
                                 "count": state["count"]}
         finally:
             pp.pipeline_rows = real_rows
+        out.append(res)
+    return out
+
+
+def combo_cases(rank, world, jobs):
+    """One rank of each job of one start of the ranks, in order, each over
+    ``make_mesh(**job["mesh"])`` (any axes; a pipeline axis at
+    ``job["mu"]`` microbatches), from the whole ``job["params"]`` placed by
+    ``shard_train_state`` (``job["fsdp"]``: FSDP on the data axis): the
+    rank's coordinates, its placement's specs and parts, its train-state
+    bytes, the loss and the gradients (the rank's parts, and the whole
+    tree gathered) of one step on the global batch ``job["batch"]`` with
+    the raw key ``job["key"]``, and after the AdamW update (lr 1e-3) the
+    rank's parts and the whole params, mu and nu. Planted faults
+    (``job["fault"]``): "model_group_sum" (under a pipeline axis the
+    gathered leaves' gradients summed over the model group before the
+    rank keeps its slices) and "mod_rows_from_0" (a modality-parallel
+    ring keying its rows from 0, not from the rank's first modality in
+    the whole M). Every result as numpy."""
+    from trade_aid_multimodal_transformer_tpu_torch.ops import attention as tatt
+    from trade_aid_multimodal_transformer_tpu_torch.parallel.trainer import shard_train_state
+    from trade_aid_multimodal_transformer_tpu_torch.utils.memory import train_state_bytes
+
+    torch.set_num_threads(1)  # no thread split to vary between the ranks: the same bits
+    numpy = lambda tree: [t.detach().float().numpy().copy() for t in tree_leaves(tree)]  # noqa: E731
+    real_base = tatt._ring_base
+    out = []
+    for job in jobs:
+        mesh = pmesh.make_mesh(**job["mesh"])
+        cfg = ModelConfig(**job["cfg"])
+        opt = make_optimizer(1e-3)
+        params = map_tree(lambda t: t.detach().clone().requires_grad_(), job["params"])
+        params, state, placed = shard_train_state(params, opt.init(params), mesh.data,
+                                                  job.get("fsdp", False), mesh.model, mesh.mod)
+        if job.get("fault") == "model_group_sum":
+            real_part = placed.split_part
+
+            def summed(leaves):
+                return real_part([mesh.model._sum_flat("fault", [g])[0] if m is not None else g
+                                  for g, m in zip(leaves, placed.model_dims)])
+
+            placed.split_part = summed
+        if job.get("fault") == "mod_rows_from_0":
+            tatt._ring_base = lambda q, mod_axis: 0
+        try:
+            trainer = make_sharded_trainer(cfg, None, opt, [], 1, mesh, fsdp=placed,
+                                           pipeline_microbatches=job.get("mu", 4))
+            batch = tuple(torch.from_numpy(a) for a in job["batch"])
+            loss, grads = trainer.loss_and_grads(params, [batch], [job["key"]])
+        finally:
+            tatt._ring_base = real_base
+        whole = (lambda tree: tree) if placed is None else placed.whole
+        res = {"coords": mesh.coords, "loss": loss.item(), "grads": [g.numpy() for g in grads],
+               "whole_grads": numpy(whole(list(grads))),
+               "state_bytes": train_state_bytes(params, state, opt,
+                                                None if placed is None else placed.parts()),
+               "parts_before": numpy(params)}
+        if placed is not None:
+            res.update(specs=placed.specs, parts_held=placed.parts())
+        opt.update_(params, grads, state)
+        res["parts_after"] = [numpy(params), numpy(state["mu"]), numpy(state["nu"])]
+        res["whole_after"] = [numpy(whole(t)) for t in (params, state["mu"], state["nu"])]
         out.append(res)
     return out

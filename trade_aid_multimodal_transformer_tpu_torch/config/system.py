@@ -20,11 +20,10 @@ else over the columns the placement splits; alone, with a data axis, with
 ``fsdp`` and with ``context_parallel``) and modality parallelism
 (``{mod: P}``, P dividing the modality count; alone and with the data and
 model axes) and pipeline parallelism (``{pipe: S}`` over
-``pipeline_microbatches`` microbatches; alone, with a data axis and with
-``fsdp``), one card a rank (parallel/); a plan with a pipeline axis and a
-model, modality or sequence axis, the modality axis with
-``context_parallel``, or ``context_parallel`` with a model axis that does
-not divide ``n_head`` raises (a later slice of the port).
+``pipeline_microbatches`` microbatches; alone, with data, model and
+modality axes and with ``fsdp``), one card a rank (parallel/); every axis
+also with ``context_parallel`` but the pipeline axis: a plan with both
+raises, as the JAX package's trainer cannot run it.
 The other keys (``rng_impl``, ``scan_unroll``, ``multihost``, ...) are
 parsed and validated so that every config that loads in the JAX package
 loads here, and change nothing in the port.

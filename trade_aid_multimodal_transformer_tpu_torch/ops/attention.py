@@ -32,8 +32,15 @@ package's scope does, and the whole-row kernels are off. With a data axis
 folded with the data rank, as the JAX package's ``shard_map`` body does;
 with a model axis (model x sequence) by local heads too, the key folded
 with the data rank and then the model rank, as that body does wherever
-the axis is larger than 1. The global-row and global-head maps of the
-scopes never reach the ring. The ring's chunk
+the axis is larger than 1 (where it does not divide the heads every rank
+rings every head, the key folded with place 0: parallel/trainer.py). The
+global-row and global-head maps of the scopes never reach the ring. With
+a modality axis (modality x sequence)
+the JAX body sees every modality and folds no modality place, so a
+modality-parallel rank's self-attention ring keys its rows by their index
+in the whole M: the chunk kernels' row base m0 B H (B and H the ring's
+local sizes), the modality level of ``layers.mod_slice_scope``; the cross
+rings run per querying modality and need none. The ring's chunk
 core is ``chunk_fwd`` / ``chunk_bwd``: the chunk kernels K7f / K7b where the
 chunk is at least 256 long and eligible on the card (``attn_impl: pallas``:
 wherever eligible; on the CPU that is their plain version), the dense mirror
@@ -44,12 +51,13 @@ jnp``.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Optional, Sequence
 
 import torch
 
 from . import kernels
-from .layers import batch_row_map, dropout, mix32_const
+from .layers import batch_row_map, dropout, mix32_const, mod_slice
 
 
 def causal_attention_dense(
@@ -145,16 +153,31 @@ def fold_key(key, i: int):
     return (s0, s1 ^ mix32_const(int(i)))
 
 
-def _cp_self_attention(q, k, v, scope, dropout_rate, dropout_key, train, impl):
+def _ring_base(q, mod_axis: Optional[int]) -> int:
+    """The first mask row of a self-attention ring on q (M, ..., T, hs):
+    inside a ``mod_slice_scope`` its first modality m0 times the rows of
+    one modality (the JAX ring keys the whole M), else 0."""
+    ms = mod_slice()
+    if ms is None or mod_axis is None:
+        return 0
+    if mod_axis != 0:
+        raise ValueError(f"the modality axis must lead, got axis {mod_axis}")
+    return ms[0] * math.prod(q.shape[1:-2])
+
+
+def _cp_self_attention(q, k, v, scope, dropout_rate, dropout_key, train, impl, mod_axis=None):
     """Ring attention over the sequence group, every leading axis local
     (JAX's ``_cp_self_attention``): this rank's batch rows and heads keyed
     by their local index, the key folded with the data rank under a data
-    axis and the model rank under a model axis."""
+    axis and the model rank under a model axis; a modality-parallel rank's
+    modalities (``mod_axis``) keyed by their global index."""
     from ..parallel.ring_attention import ring_causal_attention
 
     mesh, places = scope[0], scope[1:]
-    key = _ring_key(dropout_key, places, train and dropout_rate > 0.0)
-    return ring_causal_attention(q, k, v, mesh, impl, dropout_rate, key, train)
+    use_drop = train and dropout_rate > 0.0
+    key = _ring_key(dropout_key, places, use_drop)
+    base = _ring_base(q, mod_axis) if use_drop else 0
+    return ring_causal_attention(q, k, v, mesh, impl, dropout_rate, key, train, base)
 
 
 def _cp_cross_attention(q, k, v, scope, dropout_rate, dropout_key, train, impl):
@@ -213,7 +236,8 @@ def causal_attention(
     modality-parallel rank's modality slice scope."""
     scope = _cp_active(q)
     if scope is not None and q.shape == k.shape:
-        return _cp_self_attention(q, k, v, scope, dropout_rate, dropout_key, train, impl)
+        return _cp_self_attention(q, k, v, scope, dropout_rate, dropout_key, train, impl,
+                                  mod_axis)
     t, hs = q.shape[-2], q.shape[-1]
     use_dropout = train and dropout_rate > 0.0
     rate, key = (dropout_rate, dropout_key) if use_dropout else (0.0, None)
@@ -334,30 +358,32 @@ def _chunk_scores(q, k, causal: bool):
     return s
 
 
-def _chunk_keep_mask(shape, seed, rate: float, device):
+def _chunk_keep_mask(shape, seed, rate: float, device, base: int = 0):
     """The JAX package's ``_chunk_keep_mask``: every leading slice its
-    linearised index as the hash's row index, iq = jk = 0."""
+    linearised index (plus ``base``) as the hash's row index, iq = jk = 0."""
     lead = tuple(shape[:-2])
-    n_idx = torch.arange(max(1, int(torch.Size(lead).numel())), device=device)
+    n_idx = torch.arange(max(1, int(torch.Size(lead).numel())), device=device) + base
     return kernels.hash_keep_mask(seed, n_idx.reshape(*lead, 1, 1), 0, 0, shape, rate, device)
 
 
-def chunk_fwd_dense(q, k, v, causal: bool, seed=None, rate: float = 0.0):
-    """Dense chunk forward: (out (..., t_q, hs) in q's type, lse (..., t_q))."""
+def chunk_fwd_dense(q, k, v, causal: bool, seed=None, rate: float = 0.0, base: int = 0):
+    """Dense chunk forward: (out (..., t_q, hs) in q's type, lse (..., t_q));
+    ``base``: the mask row of the first leading slice."""
     s = _chunk_scores(q, k, causal)
     m = torch.clamp(s.amax(dim=-1, keepdim=True), min=-1e30)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     lse = (m + torch.log(l))[..., 0]
     if rate > 0.0:
-        keep = _chunk_keep_mask(s.shape, seed, rate, q.device)
+        keep = _chunk_keep_mask(s.shape, seed, rate, q.device, base)
         p = torch.where(keep, p, torch.zeros((), device=q.device))
         l = l * (1.0 - rate)
     out = torch.matmul(p, v.float()) / l
     return out.to(q.dtype), lse
 
 
-def chunk_bwd_dense(q, k, v, out, lse, g, causal: bool, seed=None, rate: float = 0.0):
+def chunk_bwd_dense(q, k, v, out, lse, g, causal: bool, seed=None, rate: float = 0.0,
+                    base: int = 0):
     """Dense chunk backward given the merged lse: P = exp(S - lse),
     D = rowsum(g * out), dS = P * (keep * (g V^T) / (1 - rate) - D).
     Returns (dq, dk, dv) in q's, k's and v's types."""
@@ -368,7 +394,7 @@ def chunk_bwd_dense(q, k, v, out, lse, g, causal: bool, seed=None, rate: float =
     delta = (g32 * out.float()).sum(dim=-1, keepdim=True)
     dp = torch.matmul(g32, v.float().transpose(-1, -2))
     if rate > 0.0:
-        keep = _chunk_keep_mask(s.shape, seed, rate, q.device)
+        keep = _chunk_keep_mask(s.shape, seed, rate, q.device, base)
         pd = torch.where(keep, p / (1.0 - rate), zero)
         dp = torch.where(keep, dp / (1.0 - rate), zero)
     else:
@@ -391,16 +417,18 @@ def _chunk_use_kernel(q, k, impl: str) -> bool:
     return impl == "pallas" or (on_card and q.shape[-2] >= kernels.FLASH_MIN_SEQ_LEN)
 
 
-def chunk_fwd(q, k, v, causal: bool, seed=None, rate: float = 0.0, impl: str = "auto"):
-    """Chunk forward with dispatch: K7f, or the dense mirror."""
+def chunk_fwd(q, k, v, causal: bool, seed=None, rate: float = 0.0, impl: str = "auto",
+              base: int = 0):
+    """Chunk forward with dispatch: K7f, or the dense mirror; ``base``: the
+    mask row of the first collapsed row."""
     if _chunk_use_kernel(q, k, impl):
-        return kernels.flash_chunk_fwd(q, k, v, causal, seed, rate)
-    return chunk_fwd_dense(q, k, v, causal, seed, rate)
+        return kernels.flash_chunk_fwd(q, k, v, causal, seed, rate, base)
+    return chunk_fwd_dense(q, k, v, causal, seed, rate, base)
 
 
 def chunk_bwd(q, k, v, out, lse, g, causal: bool, seed=None, rate: float = 0.0,
-              impl: str = "auto"):
+              impl: str = "auto", base: int = 0):
     """Chunk backward with dispatch: K7b, or the dense mirror."""
     if _chunk_use_kernel(q, k, impl):
-        return kernels.flash_chunk_bwd(q, k, v, out, lse, g, causal, seed, rate)
-    return chunk_bwd_dense(q, k, v, out, lse, g, causal, seed, rate)
+        return kernels.flash_chunk_bwd(q, k, v, out, lse, g, causal, seed, rate, base)
+    return chunk_bwd_dense(q, k, v, out, lse, g, causal, seed, rate, base)

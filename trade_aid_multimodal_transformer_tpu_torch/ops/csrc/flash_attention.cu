@@ -734,11 +734,12 @@ int launch_flash_bwd_mma(const BwdArgs& a, FlashRows rm, cudaStream_t stream) {
 
 template <int D>
 int launch_flash_bwd_d(const BwdArgs& a, FlashRows rm, cudaStream_t stream) {
-  // mapped mask rows (data parallelism) come only with the causal mask (K5b),
-  // in instances of their own (flash_fwd_mma_kernel's note)
+  // mapped mask rows in instances of their own (flash_fwd_mma_kernel's
+  // note): the causal mask (K5b, K7b) and none (K7b: a ring's modality rows
+  // from a base)
   const bool mapped = rm.mapped();
   if (!a.causal)
-    return mapped ? (int)cudaErrorInvalidValue
+    return mapped ? launch_flash_bwd_mma<D, false, true>(a, rm, stream)
                   : launch_flash_bwd_mma<D, false, false>(a, rm, stream);
   return mapped ? launch_flash_bwd_mma<D, true, true>(a, rm, stream)
                 : launch_flash_bwd_mma<D, true, false>(a, rm, stream);
@@ -768,7 +769,7 @@ int chunk_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
   a.J = 1; a.n = n; a.Tq = Tq; a.Tk = Tk; a.hs = hs; a.bq = bq; a.bk = bk; a.causal = causal;
   a.scale = scale; a.keepf = keepf; a.seed = seed; a.thresh = thresh; a.on = rate_on;
   a.stream_seeds = 0;
-  return launch_flash_fwd(a, rm, is_bf16, static_cast<cudaStream_t>(stream));
+  return launch_flash_fwd<false>(a, rm, is_bf16, static_cast<cudaStream_t>(stream));
 }
 
 int chunk_bwd(const void* q, const void* k, const void* v, const void* dout, const void* lse,
@@ -824,14 +825,18 @@ extern "C" int tat_flash_attention_bwd(const void* q, const void* k, const void*
 // K7f. q, out (n, Tq, hs), k, v (n, Tk, hs), one type (bf16 or f32),
 // contiguous; lse (n, 1, Tq) f32. causal: the top-left causal mask, else
 // none. Dropout keeps score (row, col) of collapsed row i by the hash of
-// (seed, i, row / bq, col / bk, row % bq, col % bk), bq and bk the JAX
-// blocks of Tq and Tk. Returns the cudaError_t of the launch.
+// (seed, base + i, row / bq, col / bk, row % bq, col % bk), bq and bk the
+// JAX blocks of Tq and Tk (base != 0: the mapped instance, a
+// modality-parallel rank's rows in the whole M). Returns the cudaError_t of
+// the launch.
 extern "C" int tat_flash_chunk_fwd(const void* q, const void* k, const void* v, void* out,
                                    void* lse, int n, int Tq, int Tk, int hs, int causal,
                                    int is_bf16, float scale, unsigned seed, unsigned thresh,
-                                   int rate_on, float keepf, int bq, int bk, void* stream) {
+                                   int rate_on, float keepf, int bq, int bk, int base,
+                                   void* stream) {
   return tat::flash::chunk_fwd(q, k, v, out, lse, n, Tq, Tk, hs, causal, is_bf16, scale, seed,
-                               thresh, rate_on, keepf, bq, bk, tat::FlashRows{}, stream);
+                               thresh, rate_on, keepf, bq, bk, tat::FlashRows{1, 0, base, 1, 0},
+                               stream);
 }
 
 // K7b. dq (n, Tq, hs), dk, dv (n, Tk, hs) in the inputs' type from q, k, v,
@@ -843,8 +848,8 @@ extern "C" int tat_flash_chunk_bwd(const void* q, const void* k, const void* v,
                                    void* dq, void* dk, void* dv, int n, int Tq, int Tk, int hs,
                                    int causal, int is_bf16, float scale, unsigned seed,
                                    unsigned thresh, int rate_on, float keepf, int bq, int bk,
-                                   void* stream) {
+                                   int base, void* stream) {
   return tat::flash::chunk_bwd(q, k, v, dout, lse, delta, dq, dk, dv, n, Tq, Tk, hs, causal,
                                is_bf16, scale, seed, thresh, rate_on, keepf, bq, bk,
-                               tat::FlashRows{}, stream);
+                               tat::FlashRows{1, 0, base, 1, 0}, stream);
 }

@@ -35,7 +35,7 @@ int cross_fwd(const void* q, const void* k, const void* v, void* out, void* outs
   a.J = J; a.n = n; a.Tq = T; a.Tk = T; a.hs = hs; a.bq = blk; a.bk = blk; a.causal = 1;
   a.scale = scale; a.keepf = keepf; a.seed = seed; a.thresh = thresh; a.on = rate_on;
   a.stream_seeds = 1;
-  return tat::flash::launch_flash_fwd(a, rm, is_bf16, static_cast<cudaStream_t>(stream));
+  return tat::flash::launch_flash_fwd<true>(a, rm, is_bf16, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace

@@ -561,31 +561,38 @@ int launch_flash_fwd_mma(const FwdArgs& a, FlashRows rm, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// J streams summed under the causal mask (the cross kernels), or one stream
-// with the causal mask or none.
-template <int D>
+// kCross: J streams summed under the causal mask (the cross kernels, K6f
+// and K6f-r); else one stream with the causal mask or none (K5f, K7f). Each
+// source compiles only the instances its kernels launch. Mapped mask rows
+// (a rank's rows of the global call) in instances of their own.
+template <int D, bool kCross>
 int launch_flash_fwd_d(const FwdArgs& a, FlashRows rm, cudaStream_t stream) {
-  // mapped mask rows come only with the causal mask (K5f, K6f, K6f-r)
   const bool mapped = rm.mapped();
-  if (!a.causal)
-    return a.J > 1 || mapped ? (int)cudaErrorInvalidValue
-                             : launch_flash_fwd_mma<D, false, false, false>(a, rm, stream);
-  if (a.J > 1)
-    return mapped ? launch_flash_fwd_mma<D, true, true, true>(a, rm, stream)
-                  : launch_flash_fwd_mma<D, true, true, false>(a, rm, stream);
+  if constexpr (kCross) {
+    if (!a.causal) return (int)cudaErrorInvalidValue;
+    if (a.J > 1)
+      return mapped ? launch_flash_fwd_mma<D, true, true, true>(a, rm, stream)
+                    : launch_flash_fwd_mma<D, true, true, false>(a, rm, stream);
+  } else {
+    if (a.J > 1) return (int)cudaErrorInvalidValue;
+    if (!a.causal)
+      return mapped ? launch_flash_fwd_mma<D, false, false, true>(a, rm, stream)
+                    : launch_flash_fwd_mma<D, false, false, false>(a, rm, stream);
+  }
   return mapped ? launch_flash_fwd_mma<D, true, false, true>(a, rm, stream)
                 : launch_flash_fwd_mma<D, true, false, false>(a, rm, stream);
 }
 
 // bf16 on the tensor cores (mma.sync, hs padded to D = 64, 128 or 256), f32
 // on FMAs; the causal mask or none.
+template <bool kCross>
 inline int launch_flash_fwd(FwdArgs a, FlashRows rm, int is_bf16, cudaStream_t stream) {
   if (is_bf16) {
     a.vec = a.hs % 8 == 0 && aligned16({a.q, a.k, a.v, a.out, a.outs});
     if (a.hs <= 0 || a.hs > 256) return (int)cudaErrorInvalidValue;
-    return a.hs <= 64    ? launch_flash_fwd_d<64>(a, rm, stream)
-           : a.hs <= 128 ? launch_flash_fwd_d<128>(a, rm, stream)
-                         : launch_flash_fwd_d<256>(a, rm, stream);
+    return a.hs <= 64    ? launch_flash_fwd_d<64, kCross>(a, rm, stream)
+           : a.hs <= 128 ? launch_flash_fwd_d<128, kCross>(a, rm, stream)
+                         : launch_flash_fwd_d<256, kCross>(a, rm, stream);
   }
   a.vec = 0;
   return a.causal ? launch_flash_fwd_f32<true>(a, rm, stream)

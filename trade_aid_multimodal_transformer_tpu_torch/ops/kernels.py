@@ -66,7 +66,9 @@ it), the others ``rows`` over their collapsed rows (``layers.batch_row_map``):
 (span, skip, base), one affine level, which K2 takes; the flash kernels
 also (span, skip, base, ispan, iskip), a head level inside the batch level,
 the modality level in the base. K2, K6 and K7 run once per querying
-modality (cross) or on a ring's local rows, and take no modality level.
+modality (cross) or on a ring's local rows, and take no modality level;
+K7 takes a row base alone (``base``: a modality-parallel rank's first row
+in the whole M, whose rows a context-parallel ring keys).
 None is the one-rank mask. ``fused_qkv_attention``, ``short_cross_attention``,
 ``short_causal_attention``, ``short_causal_attention_packed``,
 ``flash_causal_attention`` and ``flash_cross_attention`` are the
@@ -150,8 +152,8 @@ _SIGNATURES = {
     "flash_attention": {
         "tat_flash_attention_fwd": [_P] * 5 + [_I] * 4 + [_F, _U, _U, _I, _F] + [_I] * 6 + [_P],
         "tat_flash_attention_bwd": [_P] * 9 + [_I] * 4 + [_F, _U, _U, _I, _F] + [_I] * 6 + [_P],
-        "tat_flash_chunk_fwd": [_P] * 5 + [_I] * 6 + [_F, _U, _U, _I, _F, _I, _I, _P],
-        "tat_flash_chunk_bwd": [_P] * 9 + [_I] * 6 + [_F, _U, _U, _I, _F, _I, _I, _P],
+        "tat_flash_chunk_fwd": [_P] * 5 + [_I] * 6 + [_F, _U, _U, _I, _F, _I, _I, _I, _P],
+        "tat_flash_chunk_bwd": [_P] * 9 + [_I] * 6 + [_F, _U, _U, _I, _F, _I, _I, _I, _P],
     },
     "flash_cross_attention": {
         "tat_flash_cross_attention_fwd": [_P] * 4 + [_I] * 5 + [_F, _U, _U, _I, _F] + [_I] * 6
@@ -828,18 +830,26 @@ def _collapse(x):
     return x.reshape(-1, *x.shape[-2:]).contiguous(), x.shape[:-2]
 
 
-def flash_chunk_fwd_plain(q, k, v, causal: bool, seed=None, rate: float = 0.0):
+def _base_rows(n: int, base: int):
+    """The row map of n collapsed rows from mask row ``base`` (None: 0)."""
+    return (max(1, n), 0, int(base)) if base else None
+
+
+def flash_chunk_fwd_plain(q, k, v, causal: bool, seed=None, rate: float = 0.0, base: int = 0):
     """Plain PyTorch version of the chunk forward kernel (K7f): q
     (..., t_q, hs), k, v (..., t_k, hs), the top-left causal mask or none,
     dropout keyed by the chunk pair's int32 ``seed`` on JAX's blocks of t_q
-    and t_k -> (out (..., t_q, hs) in q's type, lse (..., t_q) f32)."""
+    and t_k, collapsed row n at mask row base + n -> (out (..., t_q, hs) in
+    q's type, lse (..., t_q) f32)."""
     rate = float(rate)
     (q3, lead), (k3, _), (v3, _) = _collapse(q), _collapse(k), _collapse(v)
-    out, lse = _flash_fwd_plain(q3, k3, v3, _chunk_seed(seed, rate), rate, causal)
+    out, lse = _flash_fwd_plain(q3, k3, v3, _chunk_seed(seed, rate), rate, causal,
+                                _base_rows(q3.shape[0], base))
     return out.reshape(q.shape), lse.reshape(*lead, q.shape[-2])
 
 
-def flash_chunk_bwd_plain(q, k, v, out, lse, dout, causal: bool, seed=None, rate: float = 0.0):
+def flash_chunk_bwd_plain(q, k, v, out, lse, dout, causal: bool, seed=None, rate: float = 0.0,
+                          base: int = 0):
     """Plain PyTorch version of the chunk backward kernel (K7b): dq, dk, dv
     in the inputs' types from the output and logsumexp ``lse`` (..., t_q)
     merged over the ring (delta = rowsum(dout * out) of that output)."""
@@ -847,7 +857,8 @@ def flash_chunk_bwd_plain(q, k, v, out, lse, dout, causal: bool, seed=None, rate
     (q3, _), (k3, _), (v3, _) = _collapse(q), _collapse(k), _collapse(v)
     o3, g3 = _collapse(out)[0], _collapse(dout)[0]
     lse3 = lse.reshape(q3.shape[0], 1, q3.shape[1])
-    dq, dk, dv = _flash_bwd_plain(q3, k3, v3, o3, lse3, g3, _chunk_seed(seed, rate), rate, causal)
+    dq, dk, dv = _flash_bwd_plain(q3, k3, v3, o3, lse3, g3, _chunk_seed(seed, rate), rate, causal,
+                                  _base_rows(q3.shape[0], base))
     return dq.reshape(q.shape), dk.reshape(k.shape), dv.reshape(v.shape)
 
 
@@ -1788,9 +1799,9 @@ def _check_chunk(what, q, k, v, rate: float, seed, acts=(), f32=()):
     return False
 
 
-def _chunk_launch_args(q, k, causal: bool, seed, rate: float):
+def _chunk_launch_args(q, k, causal: bool, seed, rate: float, base: int = 0):
     """(n, t_q, t_k, hs, causal, is_bf16, scale, seed, thresh, on, keepf, bq,
-    bk) of a chunk launch."""
+    bk, base) of a chunk launch."""
     *_, t_q, hs = q.shape
     t_k = k.shape[-2]
     rate = float(rate)
@@ -1798,32 +1809,34 @@ def _chunk_launch_args(q, k, causal: bool, seed, rate: float):
     return (q.numel() // (t_q * hs), t_q, t_k, hs, int(bool(causal)),
             int(q.dtype == torch.bfloat16), hs ** -0.5, _chunk_seed(seed, rate),
             keep_threshold(rate) if on else 0, on, 1.0 - rate,
-            flash_pick_block(t_q), flash_pick_block(t_k))
+            flash_pick_block(t_q), flash_pick_block(t_k), int(base))
 
 
-def flash_chunk_fwd(q, k, v, causal: bool, seed=None, rate: float = 0.0):
+def flash_chunk_fwd(q, k, v, causal: bool, seed=None, rate: float = 0.0, base: int = 0):
     """The chunk forward kernel (K7f): q (..., t_q, hs), k, v (..., t_k, hs),
     one type, bf16 or f32; ``causal``: the top-left causal mask (the diagonal
     chunk of a ring), else every key; ``seed``: the chunk pair's int32
-    dropout seed. Returns (out (..., t_q, hs) in q's type, lse (..., t_q)
+    dropout seed; ``base``: the mask row of the first collapsed row (0: the
+    one-rank rows). Returns (out (..., t_q, hs) in q's type, lse (..., t_q)
     f32). The plain version for CPU tensors, the CUDA kernel for CUDA tensors
     with t_q % 128 == 0, t_k % 128 == 0, hs <= 256."""
     what = "flash_chunk_fwd"
     if _check_chunk(what, q, k, v, rate, seed):
-        return flash_chunk_fwd_plain(q, k, v, causal, seed, rate)
+        return flash_chunk_fwd_plain(q, k, v, causal, seed, rate, base)
     (q3, lead), (k3, _), (v3, _) = _collapse(q), _collapse(k), _collapse(v)
     out = torch.empty_like(q3)
     lse = torch.empty((q3.shape[0], 1, q3.shape[1]), dtype=torch.float32, device=q.device)
     err = _fn("flash_attention", "tat_flash_chunk_fwd")(
         q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        *_chunk_launch_args(q3, k3, causal, seed, rate), _stream(),
+        *_chunk_launch_args(q3, k3, causal, seed, rate, base), _stream(),
     )
     _check_launch(err, what)
     CHUNK_LAUNCHES["fwd", bool(causal)].launches += 1
     return out.reshape(q.shape), lse.reshape(*lead, q.shape[-2])
 
 
-def flash_chunk_bwd(q, k, v, out, lse, dout, causal: bool, seed=None, rate: float = 0.0):
+def flash_chunk_bwd(q, k, v, out, lse, dout, causal: bool, seed=None, rate: float = 0.0,
+                    base: int = 0):
     """The chunk backward kernel (K7b): dq (..., t_q, hs), dk, dv
     (..., t_k, hs) in the inputs' type, from the output ``out`` and
     logsumexp ``lse`` (..., t_q) merged over the whole ring and the output
@@ -1835,7 +1848,7 @@ def flash_chunk_bwd(q, k, v, out, lse, dout, causal: bool, seed=None, rate: floa
         raise ValueError(f"{what}: out and dout must be {tuple(q.shape)}, lse "
                          f"{tuple(q.shape[:-1])}")
     if _check_chunk(what, q, k, v, rate, seed, (out, dout), (lse,)):
-        return flash_chunk_bwd_plain(q, k, v, out, lse, dout, causal, seed, rate)
+        return flash_chunk_bwd_plain(q, k, v, out, lse, dout, causal, seed, rate, base)
     q3, k3, v3, o3, g3 = (_collapse(x)[0] for x in (q, k, v, out, dout))
     lse3 = lse.reshape(q3.shape[0], 1, q3.shape[1]).contiguous()
     delta = g3.to(torch.float32, copy=True).mul_(o3).sum(dim=-1)
@@ -1843,7 +1856,7 @@ def flash_chunk_bwd(q, k, v, out, lse, dout, causal: bool, seed=None, rate: floa
     err = _fn("flash_attention", "tat_flash_chunk_bwd")(
         q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), g3.data_ptr(), lse3.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_chunk_launch_args(q3, k3, causal, seed, rate), _stream(),
+        *_chunk_launch_args(q3, k3, causal, seed, rate, base), _stream(),
     )
     _check_launch(err, what)
     CHUNK_LAUNCHES["bwd", bool(causal)].launches += 1

@@ -9,8 +9,8 @@ parallelism over the M-stacked leaves and the (M, B, T) batch), the data
 axis (data parallelism, and FSDP / ZeRO-3 over it), the model axis
 ('model', tensor parallelism over the heads and the feed-forward,
 embedding and vocabulary columns) and the sequence axis ('seq', context
-parallelism) (parallel/resolve.py refuses 'pipe' with 'mod', 'model' or
-'seq', and 'mod' with 'seq'). A run of P ranks is P processes in one
+parallelism) (parallel/resolve.py refuses 'pipe' with 'seq', a plan the
+JAX package's trainer cannot run). A run of P ranks is P processes in one
 ``torch.distributed`` group: NCCL with one card per rank, gloo on the CPU.
 Ranks are laid out in the JAX package's device order, pipeline outer,
 modality, data, model, sequence inner: global rank (((p * Mo + m) * D + d)

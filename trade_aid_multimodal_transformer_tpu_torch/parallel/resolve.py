@@ -19,13 +19,13 @@ over the columns the JAX package's placement splits, the attention layers
 computed whole on every rank of the axis), the modality axis (modality
 parallelism over the M-stacked leaves and the batch's modalities), the
 sequence axis (ring attention, parallel/ring_attention.py) and the
-pipeline axis (GPipe over the block stack, parallel/pipeline.py: alone or
-with a data axis, and FSDP over it), in any combination but three: a plan
-with the modality and sequence axes together, with a sequence axis and a
-model axis that does not divide ``n_head``, or with a pipeline axis and a
-model, modality or sequence axis raises ``NotImplementedError``. As in the
-JAX package, ``fsdp`` takes effect only where the data axis is larger than
-1.
+pipeline axis (GPipe over the block stack, parallel/pipeline.py), in every
+combination the JAX package's trainer runs. One plan it resolves the
+trainer cannot run: a pipeline axis with a sequence axis (the ring
+attention's ``shard_map`` nests inside the pipeline's and fails at trace),
+which raises ``ValueError`` here (``PIPE_SEQ``) after every check of the
+JAX package's ``plan_mesh``. As in the JAX package, ``fsdp`` takes effect
+only where the data axis is larger than 1.
 """
 
 from __future__ import annotations
@@ -35,10 +35,10 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Union
 
 MESH_AXES = ("data", "model", "mod", "pipe")
-LATER_SLICE = ("modality parallelism with context parallelism, context parallelism with a "
-               "model axis that does not divide n_head, and pipeline parallelism with a model, "
-               "modality or sequence axis are a later slice of the port (ROADMAP.md, queue 1: "
-               "item 5c, item 6b)")
+PIPE_SEQ = ("a pipeline axis with context parallelism: the JAX package's trainer cannot run "
+            "this plan (its ring attention's shard_map, ops/attention.py, nests inside the "
+            "pipeline's shard_map, trade_aid_multimodal_transformer_tpu/parallel/pipeline.py, "
+            "and fails at trace with a nested shard_map mesh error)")
 
 
 @dataclass
@@ -166,18 +166,15 @@ def plan_mesh(
 ) -> MeshPlan:
     """Resolve the config surface into a MeshPlan over ``n_devices``
     devices (default: the CUDA cards). Raises ``ValueError`` where the JAX
-    package's ``plan_mesh`` raises, and ``NotImplementedError`` for a plan
-    with a pipeline axis and a model, modality or sequence axis, a
-    modality axis with a sequence axis, or a sequence axis with a model
-    axis that does not divide ``n_head``."""
+    package's ``plan_mesh`` raises, and for a plan with a pipeline axis and
+    a sequence axis, which the JAX package's trainer cannot run
+    (``PIPE_SEQ``)."""
     seq = max(1, int(context_parallel))
     if n_devices is None:
         n_devices = available_devices("cuda", seq)
     plan = _resolve(mesh_cfg, seq, fsdp, batch_size, block_size, num_modalities, n_layer,
                     pipeline_microbatches, int(n_devices))
-    if ((plan.pipe > 1 and max(plan.model, plan.mod, plan.seq) > 1)
-            or (plan.mod > 1 and plan.seq > 1)
-            or (plan.seq > 1 and n_head % plan.model != 0)):
-        raise NotImplementedError(f"parallelism plan {plan.describe()} over {plan.n_devices} "
-                                  f"devices: {LATER_SLICE}")
+    if plan.pipe > 1 and plan.seq > 1:
+        raise ValueError(f"parallelism plan {plan.describe()} over {plan.n_devices} devices: "
+                         f"{PIPE_SEQ}")
     return plan

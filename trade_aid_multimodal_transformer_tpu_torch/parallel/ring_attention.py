@@ -21,7 +21,9 @@ in the causal future) and drops them with a select, to keep its SPMD program
 uniform. The port skips those launches, which gives the same values: per
 ring, rank r launches one causal chunk and r full-mask chunks forward, and
 as many backward. Dropout is keyed per (rank, source) pair, seed +
-rank * P + src in int32, as the JAX package's ``_pair_seed``.
+rank * P + src in int32, as the JAX package's ``_pair_seed``, each row of
+the collapsed leading axes at its index plus ``base`` (a modality-parallel
+rank's first row in the whole M: ops/attention.py).
 
 The model's attention runs on the full sequence on every rank (the JAX
 package's sequence-only mesh: everything but the attention cores is
@@ -47,9 +49,9 @@ def _pair_seed(seed: Optional[int], rank: int, src: int, p_size: int) -> Optiona
     return None if seed is None else kernels._int32(seed + rank * p_size + src)
 
 
-def _ring_fwd(q, k, v, seed, mesh: SeqMesh, impl: str, rate: float):
+def _ring_fwd(q, k, v, seed, mesh: SeqMesh, impl: str, rate: float, base: int = 0):
     P, r = mesh.size, mesh.rank
-    out, lse = chunk_fwd(q, k, v, True, _pair_seed(seed, r, r, P), rate, impl)
+    out, lse = chunk_fwd(q, k, v, True, _pair_seed(seed, r, r, P), rate, impl, base)
     out = out.float()
     kv = (k, v)
     for s in range(1, P):
@@ -57,7 +59,8 @@ def _ring_fwd(q, k, v, seed, mesh: SeqMesh, impl: str, rate: float):
         src = (r - s) % P
         if src >= r:
             continue  # a later rank: wholly in the causal future
-        o_s, lse_s = chunk_fwd(q, kv[0], kv[1], False, _pair_seed(seed, r, src, P), rate, impl)
+        o_s, lse_s = chunk_fwd(q, kv[0], kv[1], False, _pair_seed(seed, r, src, P), rate, impl,
+                               base)
         lse_new = torch.logaddexp(lse, lse_s)
         out = (out * torch.exp(lse - lse_new)[..., None]
                + o_s.float() * torch.exp(lse_s - lse_new)[..., None])
@@ -65,17 +68,18 @@ def _ring_fwd(q, k, v, seed, mesh: SeqMesh, impl: str, rate: float):
     return out.to(q.dtype), lse
 
 
-def _ring_bwd(q, k, v, out, lse, g, seed, mesh: SeqMesh, impl: str, rate: float):
+def _ring_bwd(q, k, v, out, lse, g, seed, mesh: SeqMesh, impl: str, rate: float,
+              base: int = 0):
     P, r = mesh.size, mesh.rank
     dq, dk, dv = (x.float() for x in chunk_bwd(q, k, v, out, lse, g, True,
-                                               _pair_seed(seed, r, r, P), rate, impl))
+                                               _pair_seed(seed, r, r, P), rate, impl, base))
     travel = (k, v, dk, dv)
     for s in range(1, P):
         k_c, v_c, dk_c, dv_c = mesh.hop(travel)
         src = (r - s) % P
         if src < r:
             dq_s, dk_s, dv_s = chunk_bwd(q, k_c, v_c, out, lse, g, False,
-                                         _pair_seed(seed, r, src, P), rate, impl)
+                                         _pair_seed(seed, r, src, P), rate, impl, base)
             dq = dq + dq_s.float()
             dk_c = dk_c + dk_s.float()
             dv_c = dv_c + dv_s.float()
@@ -90,16 +94,17 @@ class _Ring(torch.autograd.Function):
     """Ring attention on this rank's chunks: q, k, v (..., c, hs) -> out."""
 
     @staticmethod
-    def forward(ctx, q, k, v, seed, mesh, impl, rate):
-        out, lse = _ring_fwd(q, k, v, seed, mesh, impl, rate)
+    def forward(ctx, q, k, v, seed, mesh, impl, rate, base):
+        out, lse = _ring_fwd(q, k, v, seed, mesh, impl, rate, base)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.args = (seed, mesh, impl, rate)
+        ctx.args = (seed, mesh, impl, rate, base)
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
-        return (*_ring_bwd(q, k, v, out, lse, g.contiguous(), *ctx.args), None, None, None, None)
+        return (*_ring_bwd(q, k, v, out, lse, g.contiguous(), *ctx.args),
+                None, None, None, None, None)
 
 
 class _SeqChunk(torch.autograd.Function):
@@ -141,22 +146,25 @@ def _seed(rate: float, dropout_key) -> Optional[int]:
 def ring_causal_attention_local(q, k, v, mesh: SeqMesh, impl: str = "auto",
                                 dropout_rate: float = 0.0,
                                 dropout_key: Optional[Sequence[int]] = None,
-                                train: bool = False) -> torch.Tensor:
+                                train: bool = False, base: int = 0) -> torch.Tensor:
     """Causal attention of this rank's chunks q, k, v (..., c, hs) with the
     ring's key/value exchange, the JAX package's
-    ``ring_causal_attention_local``; returns this rank's output chunk."""
+    ``ring_causal_attention_local``; returns this rank's output chunk.
+    ``base``: the mask row of the first collapsed leading row."""
     rate = float(dropout_rate) if train else 0.0
-    return _Ring.apply(q, k, v, _seed(rate, dropout_key), mesh, impl, rate)
+    return _Ring.apply(q, k, v, _seed(rate, dropout_key), mesh, impl, rate, int(base))
 
 
 def ring_causal_attention(q, k, v, mesh: SeqMesh, impl: str = "auto",
                           dropout_rate: float = 0.0,
                           dropout_key: Optional[Sequence[int]] = None,
-                          train: bool = False) -> torch.Tensor:
+                          train: bool = False, base: int = 0) -> torch.Tensor:
     """Causal self-attention of whole q, k, v (..., T, hs), the same on every
-    rank, through the ring: this rank's chunks in, the whole output out."""
+    rank, through the ring: this rank's chunks in, the whole output out;
+    ``base`` as ``ring_causal_attention_local``'s."""
     chunks = [_SeqChunk.apply(x, mesh) for x in (q, k, v)]
-    out = ring_causal_attention_local(*chunks, mesh, impl, dropout_rate, dropout_key, train)
+    out = ring_causal_attention_local(*chunks, mesh, impl, dropout_rate, dropout_key, train,
+                                      base)
     return _SeqGather.apply(out, mesh)
 
 

@@ -63,11 +63,37 @@ parameters, batches and dropout salts (the same seed on every rank):
   f32 all-reduce over the stages), before the data axis's mean or
   reduce-scatter, so every stage updates the same tree. Evaluation runs
   the plain forward on every stage.
+- A pipeline axis with a model or a modality axis (pipe x model, pipe x
+  mod; with a data axis and FSDP too): the JAX package's pipeline
+  ``shard_map`` names only 'pipe' and 'data', so every rank of a model or
+  modality group computes its stage whole. A rank keeps the placement's
+  parts (``shard_train_state``: its 'model' or 'mod' slices); a step
+  gathers every leaf those axes split once (``Fsdp.gather_split``: one
+  flat all-gather of the f32 masters an axis, exact), runs the pipeline
+  on the whole tree with no head or modality scope (every row, head and
+  modality the model's, the keys folded with the data place alone), and
+  keeps the rank's slice of each whole gradient (``Fsdp.split_part``: no
+  collective, every rank of the group computed it alike; a sum over the
+  group would multiply it), then sums over the stages and takes the data
+  axis's mean or reduce-scatter as above. Neither the loss nor a gradient
+  is summed over 'mod'. Evaluation gathers once and runs the plain
+  forward on every modality.
 - Both (data x sequence, model x sequence): the ring keys its masks by
   the rank's local rows and heads with the dropout key folded with the
   data rank and then the model rank (where those axes are larger than 1),
   as the JAX package's ``shard_map`` body does; every other site stays
-  keyed by global rows and heads.
+  keyed by global rows and heads. Where the model axis does not divide
+  ``n_head`` the ring runs every head on every rank of the axis, its key
+  folded with model place 0 on every rank. The JAX body folds each
+  device's own place there, so its devices' rings differ at dropout > 0
+  and what they report is not one function: the loss is place 0's
+  forward on every device, the replicated gradients differ by device
+  (ROADMAP.md section 3). The port computes that loss and its exact
+  gradient, the same on every rank of the axis. With a modality axis
+  (modality x sequence) the ring sees the rank's modalities and keys
+  their rows by their index in the whole M (the JAX body's spec leaves M
+  whole and never folds the modality place): the row map's base m0 B H
+  (``ops.attention``).
   FSDP's collectives run on the data groups, the ring's hops on the
   sequence groups, every rank issuing them in one order: the gather before
   the forward, the reductions after the backward.
@@ -104,21 +130,27 @@ def make_sharded_trainer(cfg: ModelConfig, feed: BatchFeed, optimizer: AdamW,
     """A Trainer whose steps run over this rank's pipeline, modality, data,
     model and sequence axes (``parallel.mesh.make_mesh``), on the train
     state's parts that ``shard_train_state`` placed (``fsdp``: its
-    placement, which a modality axis needs; the trainer gathers and
-    reduce-scatters only where it splits leaves over 'data'). block_size
-    must be divisible by the sequence axis, the modality count by the
-    modality axis; a pipeline axis trains over ``pipeline_microbatches``
-    microbatches, alone or with a data axis (and FSDP)."""
+    placement, which a modality axis and a model axis under a pipeline
+    axis need; the trainer gathers and reduce-scatters where it splits
+    leaves over 'data', and under a pipeline axis gathers the 'model' and
+    'mod' splits too). block_size must be divisible by the sequence axis,
+    the modality count by the modality axis; a pipeline axis trains over
+    ``pipeline_microbatches`` microbatches, alone or with data, model and
+    modality axes (and FSDP), never with a sequence axis
+    (``resolve.PIPE_SEQ``)."""
     seq, data, model, mod, pipe = mesh.seq, mesh.data, mesh.model, mesh.mod, mesh.pipe
-    if pipe is not None and any(ax is not None and ax.size > 1 for ax in (seq, model, mod)):
-        from .resolve import LATER_SLICE
+    piped = pipe is not None and pipe.size > 1
+    if piped and seq is not None and seq.size > 1:
+        from .resolve import PIPE_SEQ
 
-        raise NotImplementedError(f"a pipeline axis with a model, modality or sequence axis: "
-                                  f"{LATER_SLICE}")
+        raise ValueError(PIPE_SEQ)
     if mod is not None and mod.size > 1 and (fsdp is None or fsdp.mod is None):
         raise ValueError("a modality axis needs the placement shard_train_state gives")
+    if piped and model is not None and model.size > 1 and (fsdp is None or fsdp.model is None):
+        raise ValueError("a model axis under a pipeline axis needs the placement "
+                         "shard_train_state gives")
     scopes = []
-    if model is not None and model.size > 1:
+    if model is not None and model.size > 1 and not piped:
         if cfg.n_head % model.size == 0:
             h0, per = model.heads(cfg.n_head)
         else:  # the attention layers run whole on every rank of the axis
@@ -131,6 +163,8 @@ def make_sharded_trainer(cfg: ModelConfig, feed: BatchFeed, optimizer: AdamW,
                 f"divisible by the 'seq' mesh axis ({seq.size})")
         data_rank = data.rank if data is not None else None
         model_rank = model.rank if model is not None and model.size > 1 else None
+        if model_rank is not None and cfg.n_head % model.size != 0:
+            model_rank = 0  # whole heads: every rank rings place 0's masks
         scopes.append(lambda: context_parallel_scope(seq, data_rank, model_rank))
     return Trainer(cfg, feed, optimizer, metric_specs, eval_iters, grad_accum=grad_accum,
                    scope=_compose_scopes(scopes) if scopes else None, data=data, fsdp=fsdp,
@@ -177,7 +211,9 @@ class Fsdp:
     ``tree_leaves`` order, so a gather's row r and a reduce-scatter's
     chunk r are rank r's slices. The data axis's (``gather``,
     ``reduce_grads``) are a step's; ``whole`` also gathers the model axis,
-    for a checkpoint (and the modality axis)."""
+    for a checkpoint (and the modality axis); under a pipeline axis a
+    step gathers the model and modality axes too (``gather_split``) and
+    keeps the rank's slices of the whole gradients (``split_part``)."""
 
     def __init__(self, specs: Sequence[Tuple], data: Optional[DataAxis],
                  model: Optional[ModelAxis] = None, mod: Optional[ModAxis] = None):
@@ -212,12 +248,32 @@ class Fsdp:
         rank's part; on a model axis the rank's model slices."""
         return _gather_axis(tree, self.dims, self.data, kind)
 
+    def gather_split(self, tree, kind: str = "all_gather"):
+        """A tree whole over the data axis made whole over the model axis,
+        then over the modality axis (collective over their groups: one
+        flat all-gather an axis that splits a leaf)."""
+        tree = _gather_axis(tree, self.model_dims, self.model, kind)
+        return _gather_axis(tree, self.mod_dims, self.mod, kind)
+
     def whole(self, tree, kind: str = "all_gather"):
         """The whole tree: gathered over the data axis, then over the model
         axis, then over the modality axis (collective over their groups)."""
-        tree = self.gather(tree, kind)
-        tree = _gather_axis(tree, self.model_dims, self.model, kind)
-        return _gather_axis(tree, self.mod_dims, self.mod, kind)
+        return self.gather_split(self.gather(tree, kind), kind)
+
+    def split_part(self, leaves: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """This rank's model and modality slices (``shard_tree``'s) of whole
+        leaves in ``tree_leaves`` order, each a tensor of its own; a leaf
+        neither axis splits as it is. No collective: the transpose of
+        ``gather_split`` where every rank of the groups computed the whole
+        alike."""
+        out = []
+        for t, m, o in zip(leaves, self.model_dims, self.mod_dims):
+            for d, ax in ((m, self.model), (o, self.mod)):
+                if d is not None:
+                    n = t.shape[d] // ax.size
+                    t = t.narrow(d, ax.rank * n, n)
+            out.append(t.contiguous() if (m, o) != (None, None) else t)
+        return out
 
     def reduce_grads(self, loss: torch.Tensor, grads: Sequence[torch.Tensor]
                      ) -> Tuple[torch.Tensor, List[torch.Tensor]]:

@@ -18,8 +18,10 @@ the train state; alone, with a data axis, and with FSDP),
 ``tpu_options.mesh: {mod: P}`` modality parallel over P ranks (each holding
 its modalities' slice of the M-stacked leaves; with the data and model
 axes too), ``tpu_options.mesh: {pipe: S}`` pipeline parallel over S
-stages (GPipe over ``pipeline_microbatches`` microbatches; alone, with a
-data axis, and with FSDP over it), ``tpu_options.context_parallel: P``
+stages (GPipe over ``pipeline_microbatches`` microbatches; alone, with
+data, model and modality axes, and with FSDP over the data axis; every
+rank of a model or modality group computing its stage whole),
+``tpu_options.context_parallel: P``
 with the sequence sharded over P ranks (ring attention), and the axes
 together over their product (pipeline outer, then modality, data, model,
 sequence inner). ``run_training`` starts the
@@ -30,9 +32,8 @@ prints the console, writes the log and the checkpoints (the parameters and
 moments are the same on every rank; under FSDP and tensor parallelism every
 rank takes part in gathering them first), and returns the result. A resumed
 sharded run reads the whole file on every rank and keeps its part.
-A pipeline axis with a model, modality or sequence axis, a modality axis
-with a sequence axis, and a sequence axis with a model axis that does not
-divide ``n_head`` raise (a later slice of the port).
+A pipeline axis with a sequence axis raises ``ValueError``: the JAX
+package's trainer cannot run that plan (parallel/resolve.py).
 ``multihost`` prints that it is unavailable and trains single-process, as
 the JAX package does without a pod. f32 products run in full f32
 (PyTorch's default, TF32 off) whatever ``matmul_precision`` says.
@@ -42,7 +43,8 @@ and, under a data axis, the gradient all-reduce's bytes and time per step
 axis the tensor-parallel collectives' bytes and time per step; under a
 modality axis the activation gathers', their backward reduce-scatters' and
 the gradient sum's; under a pipeline axis the handoffs' sends and
-receives, the output's broadcast and the gradient sum's);
+receives, the output's broadcast and the gradient sum's, and with a model
+or modality axis the gather of the leaves they split);
 ``TAT_PROFILE_DIR`` writes a ``torch.profiler`` trace of the second training
 chunk there (utils/profiling.py). On one rank ``tpu_options.fused_update:
 true`` trains with the flat-state AdamW (train/steps.py), and ``remat``
@@ -786,7 +788,8 @@ def _run_training(caller_globals: Optional[dict], seed: Optional[int],
                              "Modality-parallel collectives"),
                             (("send", "recv"), "Pipeline send/recv"),
                             (("pipe_broadcast", "pipe_all_reduce"),
-                             "Pipeline broadcast and gradient sum")):
+                             "Pipeline broadcast and gradient sum"),
+                            (("split_all_gather",), "Pipeline model/modality leaf gather")):
             calls = [(n, t) for k, n, t in collectives or [] if k in kinds]
             if calls:
                 print(f"{what}: {sum(n for n, _ in calls) // timer.steps} bytes, "

@@ -298,7 +298,12 @@ class Trainer:
     (``pipeline_rows``, keyed by the microbatch's own rows), and each
     leaf's gradient comes from the stage that owns it
     (``PipeAxis.sum_grads``) before the data axis's mean; an evaluation
-    pass runs the plain forward on every stage. ``fused_update``: a chunk
+    pass runs the plain forward on every stage. With a model or modality
+    axis under the pipeline (``fsdp.model``, ``fsdp.mod``) every rank
+    computes the whole model: a step gathers the leaves they split
+    (``Fsdp.gather_split``), and each rank keeps its slices of the whole
+    gradients (``Fsdp.split_part``) before the stage sum; no modality
+    scope opens and nothing is summed over 'mod'. ``fused_update``: a chunk
     carries the parameters and moments as flat vectors
     (``tpu_options.fused_update: true``; the runner gives it only to the
     one-rank trainer), where every leaf has one dtype."""
@@ -317,13 +322,18 @@ class Trainer:
         self.scope = scope or contextlib.nullcontext
         self.data = data
         self.fused_update = fused_update
-        self.mod = None if fsdp is None else fsdp.mod
+        self.pipe = pipe if pipe is not None and pipe.size > 1 else None
+        self.microbatches = int(microbatches)
+        # under a pipeline axis a rank computes every modality and head: the
+        # leaves the model and modality axes split are gathered for a step
+        split = self.pipe is not None and fsdp is not None and any(
+            (m, o) != (None, None) for m, o in zip(fsdp.model_dims, fsdp.mod_dims))
+        self.split = fsdp if split else None
+        self.mod = None if fsdp is None or self.pipe is not None else fsdp.mod
         M = cfg.num_modalities
         self.mods = (0, M) if self.mod is None else self.mod.mods(M)
         self.mod_whole = None if self.mod is None else [d is None for d in fsdp.mod_dims]
         self.fsdp = fsdp if fsdp is not None and any(d is not None for d in fsdp.dims) else None
-        self.pipe = pipe if pipe is not None and pipe.size > 1 else None
-        self.microbatches = int(microbatches)
 
     def _rows(self, xb: torch.Tensor, yb: torch.Tensor, pipelined: bool = False):
         """This rank's modalities and rows of a global (M, B, T) batch (all
@@ -358,19 +368,32 @@ class Trainer:
         over its microbatches (xb, yb) with their dropout salts (and over
         the data axis; under FSDP of the rank's parts of ``params``; over
         the modality axis the loss and the whole leaves' gradients
-        summed)."""
-        if self.fsdp is not None:
-            full = map_tree(lambda t: t if t.requires_grad else t.requires_grad_(),
-                            self.fsdp.gather(params))
-            loss, grads = self._mod_sum(*self._mean_grads(lambda: full, tree_leaves(full),
-                                                          batches, salts))
-            return self.fsdp.reduce_grads(*self._pipe_sum(full, loss, grads))
-        loss, grads = self._mod_sum(*self._mean_grads(lambda: params, tree_leaves(params),
+        summed; under a pipeline axis with a model or modality axis of the
+        rank's parts, computed on the whole tree)."""
+        full = self._gathered(params, "all_gather")
+        if full is not params:
+            full = map_tree(lambda t: t if t.requires_grad else t.requires_grad_(), full)
+        loss, grads = self._mod_sum(*self._mean_grads(lambda: full, tree_leaves(full),
                                                       batches, salts))
-        loss, grads = self._pipe_sum(params, loss, grads)
+        if self.split is not None:
+            grads = self.split.split_part(grads)
+        loss, grads = self._pipe_sum(full, loss, grads)
+        if self.fsdp is not None:
+            return self.fsdp.reduce_grads(loss, grads)
         if self.data is None:
             return loss, grads
         return self.data.mean_grads(loss, grads)
+
+    def _gathered(self, params, kind: str):
+        """The tree a step or an evaluation pass computes on: under FSDP
+        gathered over the data axis, under a pipeline axis with a model or
+        modality axis gathered over those too (timed as ``kind``, and
+        ``"split_" + kind``); else ``params`` itself."""
+        if self.fsdp is not None:
+            params = self.fsdp.gather(params, kind)
+        if self.split is not None:
+            params = self.split.gather_split(params, "split_" + kind)
+        return params
 
     def _pipe_sum(self, params, loss: torch.Tensor, grads: List[torch.Tensor]):
         """Over a pipeline axis, each leaf's gradient from the stage that
@@ -496,8 +519,7 @@ class Trainer:
         the directional metrics of every eligible modality (over the global
         batches under a data axis, each rank's modalities over a modality
         axis; under FSDP on the whole tree, gathered once)."""
-        if self.fsdp is not None:
-            params = self.fsdp.gather(params, "all_gather_eval")
+        params = self._gathered(params, "all_gather_eval")
         M = self.cfg.num_modalities
         dev = self.feed.device
         loss_sum = torch.zeros((), device=dev)
