@@ -52,8 +52,14 @@ and ``{model: 2}`` x ``context_parallel: 2`` at block_size 1024
 {pipe: 2}``, 4 microbatches): one production step over the two stages
 bit-equal to the one-rank pipeline, the kernels held in-path, with planted
 faults (``pp_reference``), and the entry over the two ranks at dropout 0
-and 0.2, its checkpoint loaded on one rank (``pp_training``). The entries
-over ranks sharing the card run 4 steps (``PARALLEL_ENTRY``).
+and 0.2, its checkpoint loaded on one rank (``pp_training``). So does
+multi-host training (``tpu_options.multihost: true``): the entry (``main``)
+launched as two nodes of one rank each in torchrun's environment, sharing
+the card (gloo, staged), ``mesh: auto`` with FSDP, bit-equal to
+``fsdp_training`` (``multihost``). The entries over ranks sharing the card
+run 4 steps (``PARALLEL_ENTRY``). The ``build`` phase also builds the
+port's native C++ data transforms (``g++``) and holds them bit-equal to
+their numpy paths on the synthetic CSVs (``native_check``).
 
 Right after the build, the training entry with ``TAT_PROFILE_DIR`` must
 write a trace holding the training step's kernels (``profile_trace``).
@@ -78,9 +84,11 @@ context parallelism, data parallelism (``{data: 2}``, ``{data: 4}`` and
 sequence (also with FSDP), data x tensor (``{data: 2, model: 2}``, also
 with FSDP), modality (``{mod: 2, data: 2}``, also with FSDP, ``{mod: 4}``,
 ``{mod: 2, model: 2}``), ``{model: 4}`` and ``{model: 2}`` x
-``context_parallel: 2``, and pipeline parallelism (``{pipe: 2}``, on 4
-cards ``{pipe: 2, data: 2}``, also with FSDP), one card per rank over
-NCCL, against the same run on one card, and compares every rank's
+``context_parallel: 2``, pipeline parallelism (``{pipe: 2}``, on 4
+cards ``{pipe: 2, data: 2}``, also with FSDP) and, on 4 cards, multi-host
+training (two nodes of two cards each, ``multihost: true``, ``{data: 4}``
+and ``mesh: auto`` with FSDP: ``multi_card_multihost``), one card per rank
+over NCCL, against the same run on one card, and compares every rank's
 parameters (``multi_card``).
 
     python3 chip_smoke.py --k1b-split
@@ -2965,7 +2973,6 @@ def entry_runs_rank(rank: int, world: int, seed: int, plan):
     from trade_aid_multimodal_transformer_tpu_torch.ops import kernels as K
     from trade_aid_multimodal_transformer_tpu_torch.train import runner
 
-    runner.available_devices = lambda device, cp, mesh=None: world
     threads, stdout, outs = torch.get_num_threads(), sys.stdout, []
     for d, text, output_from in plan:
         d = Path(d)
@@ -3055,7 +3062,9 @@ def fsdp_phases(K, card, by_path, dp_runs):
       of allocated memory per rank beside the data-parallel run's, the
       last checkpoint (dropout 0.2) bit-equal to ``dp_training``'s, and a
       resume from it (``create_new_model: 0``) under FSDP.
-    Adds ``by_path["fsdp_training"]``; raises on a failed check."""
+    Adds ``by_path["fsdp_training"]``; returns the one-rank entries of both
+    rates and the FSDP entry at 0.2 (with its checkpoint's arrays); raises
+    on a failed check."""
     import numpy as np
     import torch
 
@@ -3228,7 +3237,7 @@ def fsdp_phases(K, card, by_path, dp_runs):
             failed.append(rate)
     if failed:
         raise AssertionError(f"the FSDP training entry failed its checks at dropout {failed}")
-    return one
+    return one, fs2
 
 
 def tp_rank(rank: int, world: int, job: dict):
@@ -4479,6 +4488,252 @@ def tp_split_seq_reference(K, card):
          step_gate, (), {"context_parallel": 2, "heads_per_rank": c.n_head})])
 
 
+def native_check(card: str) -> None:
+    """The ``build`` phase's native part: the port's C++ data transforms
+    (runtime/native.py, built with ``g++`` from runtime/transforms.cpp)
+    must build, and on the smoke's synthetic CSVs (``write_stock_folder``,
+    the production schemas: ranging, percent changes, binning, raw hours)
+    each modality's values and types, its token ids and vocabulary, and
+    the rounding-only path of ``range_numeric_data`` must be bit-equal with
+    the library and without it (its numpy/Python paths), each of its five
+    functions called. Raises on a failure."""
+    from trade_aid_multimodal_transformer_tpu_torch.config.system import ConfigManager
+    from trade_aid_multimodal_transformer_tpu_torch.data import transforms as T
+    from trade_aid_multimodal_transformer_tpu_torch.data.ingest import load_and_process_modality
+    from trade_aid_multimodal_transformer_tpu_torch.data.vocab import numerical_representation
+    from trade_aid_multimodal_transformer_tpu_torch.runtime import native
+
+    t0 = time.perf_counter()
+    built = native.available()
+    build_s = time.perf_counter() - t0
+    names = ("round_decimal", "percent_changes", "range_numeric", "bin_assign", "factorize")
+    calls = dict.fromkeys(names, 0)
+    real = {n: getattr(native, n) for n in names}
+
+    def counted(name):
+        def fn(*args):
+            calls[name] += 1
+            return real[name](*args)
+        return fn
+
+    def transformed(schemas):
+        out = []
+        with contextlib.redirect_stdout(io.StringIO()):  # the binning breakdown
+            for schema in schemas:
+                md = load_and_process_modality(schema, quiet=True)
+                ids, vocab = numerical_representation(md.data)
+                out.append((list(md.data), [type(v) for v in md.data], ids, vocab))
+            close = [float(v) for v in out[0][0][:2000]]
+            out.append(T.range_numeric_data(close, None, 2))
+        return out
+
+    rows, equal, cwd = 0, False, os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        write_stock_folder(Path(tmp) / "your_data" / "stocks", n_files=6, rows=1500, seed=1)
+        os.chdir(tmp)
+        try:
+            manager = ConfigManager()
+            manager.load_input_schemas(REPO / "examples" / "production_input_schemas.yaml")
+            schemas = list(manager.schema_manager.schemas)
+            if built:
+                for n in names:
+                    setattr(native, n, counted(n))
+                try:
+                    on = transformed(schemas)
+                finally:
+                    for n in names:
+                        setattr(native, n, real[n])
+                load = native._load
+                native._load = lambda: None  # every function takes its numpy path
+                try:
+                    off = transformed(schemas)
+                finally:
+                    native._load = load
+                rows = sum(len(m[0]) for m in on[:-1])
+                equal = on[-1] == off[-1] and all(
+                    a[0] == b[0] and a[1] == b[1] and a[2].dtype == b[2].dtype
+                    and (a[2] == b[2]).all() and a[3] == b[3] for a, b in zip(on[:-1], off[:-1]))
+        finally:
+            os.chdir(cwd)
+    ok = built and equal and all(calls.values())
+    emit({"phase": "build", "part": "native", "card": card, "available": built,
+          "library": str(native.library_path().relative_to(REPO)) if built else None,
+          "build_seconds": build_s, "rows_per_run": rows, "calls": calls,
+          "bit_equal_to_numpy_paths": equal, "ok": ok})
+    if not ok:
+        raise AssertionError(f"the native transforms: built {built}, bit-equal {equal}, "
+                             f"calls {calls}")
+
+
+def multihost_node(rank: int, world: int, d: str) -> dict:
+    """One rank of a multi-node launch of the port's entry (``main``) in
+    ``d``, in a process that ``run_ranks`` gave the launcher's environment
+    (RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR,
+    MASTER_PORT, CUDA_VISIBLE_DEVICES): its console (a node's first rank
+    prints) into ``d/rank<rank>.log``; returns the run's final losses and
+    plan, the group's backend, this rank's kernel launches, parameter
+    checksum and train-state bytes, the steps/s after the first chunk, the
+    collectives' (bytes, ms, calls) a step and the seconds."""
+    sys.path.insert(0, str(REPO))
+    import torch.distributed as dist
+
+    from trade_aid_multimodal_transformer_tpu_torch import main as entry
+    from trade_aid_multimodal_transformer_tpu_torch.ops import kernels as K
+    from trade_aid_multimodal_transformer_tpu_torch.train import runner
+
+    os.chdir(d)
+    got, real = {}, entry.run_training
+    entry.run_training = lambda **kw: got.setdefault("r", real(**kw))
+    t0 = time.perf_counter()
+    with open(Path(d) / f"rank{rank}.log", "w") as f, contextlib.redirect_stdout(f):
+        code = entry.main()
+    r = got["r"]
+    return {"code": code, "losses": r["losses"], "plan": r["plan"].describe(),
+            "backend": dist.get_backend(), "launches": K.launch_counts(),
+            "param_checksum": runner.param_checksum(r["params"]),
+            "train_state_bytes": r["train_state_bytes"], "steps_per_s": steps_per_s(r),
+            "collectives": {kind: per_step(r["collectives"], kind)
+                            for kind in ("all_gather", "reduce_scatter", "all_reduce")},
+            "seconds": time.perf_counter() - t0}
+
+
+def multihost_run(d: Path, nodes: int, per_node: int, cards=None) -> tuple:
+    """The entry in ``d`` launched as ``nodes`` nodes of ``per_node`` ranks
+    on this machine, torchrun's environment set by hand (node i holds ranks
+    i per_node .. (i + 1) per_node - 1, a localhost coordinator, TAT_SEED 5,
+    TAT_TIMING on; ``cards[i]``: node i's CUDA_VISIBLE_DEVICES): (per rank
+    ``multihost_node``'s result, per rank its console, seconds with the
+    start of the processes)."""
+    from trade_aid_multimodal_transformer_tpu_torch.parallel import mesh as pmesh
+
+    world, port = nodes * per_node, pmesh.free_port()
+    env = [dict(RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r % per_node),
+                LOCAL_WORLD_SIZE=str(per_node), MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                TAT_SEED="5", TAT_TIMING="1",
+                **({"CUDA_VISIBLE_DEVICES": cards[r // per_node]} if cards else {}))
+           for r in range(world)]
+    t0 = time.perf_counter()
+    ranks = pmesh.run_ranks(multihost_node, world, (str(d),), timeout=RANK_TIMEOUT, env=env)
+    sec = time.perf_counter() - t0
+    return ranks, [(d / f"rank{r}.log").read_text() for r in range(world)], sec
+
+
+def multihost_phase(card: str, fs2: dict) -> None:
+    """``multihost``: the port's entry as two nodes of one rank each on the
+    one card (node ranks 0 and 1, LOCAL_RANK 0, LOCAL_WORLD_SIZE 1, a
+    localhost coordinator: ``multihost_run``). The ranks share the card, so
+    ``multihost.initialize`` takes gloo and the collectives are staged
+    through host memory, as in ``fsdp_training``. The production config
+    with ``multihost: true``, ``mesh: auto``, ``fsdp: true``, 4 steps at
+    dropout 0.2, ``fsdp_training``'s seed: the ``Multi-host: process i/2``
+    line on both nodes, ``auto`` planned data x2 (FSDP) over the group,
+    every rank's checksum equal, rank 0's launches those of
+    ``fsdp_training``'s rank 0 (``fs2``), every rank's train-state bytes
+    ``state_bytes(cfg, data=2, fsdp=True)``, and the checkpoint bit-equal
+    to ``fsdp_training``'s: the same program over the same gloo
+    collectives. Raises on a failed check."""
+    import numpy as np
+
+    from trade_aid_multimodal_transformer_tpu_torch import generate as entry
+    from trade_aid_multimodal_transformer_tpu_torch.train.checkpoint import _read_native
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        production_config_dir(d, dropout=0.2, tpu={"fsdp": "true", "multihost": "true"},
+                              **PARALLEL_ENTRY)
+        cfg = entry.load_config_and_data(str(d))["cfg"]
+        ranks, consoles, sec = multihost_run(d, DP_RANKS, 1)
+        ck = _read_native(str(d / "output" / "model.ckpt"))
+    want_bytes = state_bytes(cfg, DP_RANKS, fsdp=True)
+    ref = fs2["checkpoint"]
+    same_file = sorted(ck) == sorted(ref) and all(np.array_equal(ck[k], ref[k]) for k in ck)
+    sums = [r["param_checksum"] for r in ranks]
+    lines = [f"Multi-host: process {i + 1}/{DP_RANKS} ({DP_RANKS} ranks)" in c
+             for i, c in enumerate(consoles)]
+    launches = ranks[0]["launches"] == fs2["ranks"][0]["launches_rank"]
+    held = [tuple(r["train_state_bytes"]) for r in ranks]
+    plan = [r["plan"] for r in ranks]
+    ok = (all(lines) and all(s == sums[0] for s in sums) and launches
+          and held == [want_bytes] * DP_RANKS and same_file
+          and plan == ["data x2 (fsdp/zero-3)"] * DP_RANKS
+          and all(r["backend"] == "gloo" and r["code"] == 0 for r in ranks)
+          and all("TRAINING COMPLETED SUCCESSFULLY" in c for c in consoles))
+    emit({"phase": "multihost", "card": card, "config": "examples/production_config.yaml",
+          "changed": {**PARALLEL_ENTRY, "dropout": 0.2, "mesh": "auto", "fsdp": True,
+                      "multihost": True},
+          "nodes": DP_RANKS, "ranks_per_node": 1, "ranks_on_one_card": DP_RANKS,
+          "backend": [r["backend"] for r in ranks], "plan": plan,
+          "multihost_lines": lines, "final_eval_losses": ranks[0]["losses"],
+          "final_eval_losses_fsdp_training": fs2["losses"], "param_checksums_by_rank": sums,
+          "param_checksums_equal_fsdp_training": sums == fs2["param_checksums"],
+          "launches_equal_fsdp_training": launches,
+          "launches_rank0": {k: v for k, v in ranks[0]["launches"].items() if v},
+          "train_state_bytes_by_rank": held, "train_state_bytes_expected": want_bytes,
+          "checkpoint_bit_equal_to_fsdp_training": same_file, "checkpoint_keys": len(ck),
+          "steps_per_s_after_first_chunk": ranks[0]["steps_per_s"],
+          "collectives_per_step": ranks[0]["collectives"],
+          "seconds_by_rank": [r["seconds"] for r in ranks], "seconds_with_spawn": sec, "ok": ok})
+    if not ok:
+        raise AssertionError("the multihost entry differs from fsdp_training's or failed a check")
+
+
+def multihost_rows(card: str, failed: list, dp_base: dict) -> None:
+    """``multi_card``'s ``multi_card_multihost`` rows on 4 cards: the entry
+    as two nodes of two ranks (``multihost_run``: node 0 sees cards 0,1,
+    node 1 cards 2,3, so each node's ``device_count`` is 2 while the group
+    holds 4 ranks), NCCL (every rank a card of its own), ``multihost:
+    true``, ``fsdp: true``, 8 steps (``multi_card``'s runs): ``{data: 4}``
+    at dropout 0 and 0.2 and ``mesh: auto`` at 0.2, which must plan data x4
+    over the group. Gates (the data rows'): final eval losses within
+    STEP_TOL's bf16 loss limit of the one-card runs ``dp_base``, every
+    rank's checksum equal, every rank's bytes ``state_bytes(cfg, data=4,
+    fsdp=True)``, the ``Multi-host: process 1/2`` and ``2/2`` lines, the
+    backend NCCL. A failed run is reported and the other rows still run."""
+    from trade_aid_multimodal_transformer_tpu_torch import generate as entry
+
+    for mesh, rate in (("{data: 4}", 0.0), ("{data: 4}", 0.2), ("auto", 0.2)):
+        changed = {"dropout": rate, "mesh": mesh, "fsdp": True, "multihost": True}
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                d = Path(tmp)
+                production_config_dir(d, max_iters=8, eval_interval=4, eval_iters=2,
+                                      dropout=rate, tpu={"fsdp": "true", "multihost": "true"})
+                text = (d / "config.yaml").read_text().replace("  mesh: auto", f"  mesh: {mesh}")
+                (d / "config.yaml").write_text(text)
+                cfg = entry.load_config_and_data(str(d))["cfg"]
+                ranks, consoles, sec = multihost_run(d, 2, 2, cards=["0,1", "2,3"])
+        except Exception as e:  # noqa: BLE001  (reported; the other rows still run)
+            emit({"phase": "multi_card_multihost", "changed": changed, "error": repr(e)[-2000:],
+                  "ok": False})
+            failed.append(f"multihost {changed}: {e!r}"[:300])
+            continue
+        want = state_bytes(cfg, 4, fsdp=True)
+        errs_ = {k: abs(ranks[0]["losses"][k] - dp_base[rate]["losses"][k])
+                 for k in ("train", "val")}
+        sums = [r["param_checksum"] for r in ranks]
+        held = [tuple(r["train_state_bytes"]) for r in ranks]
+        lines = ["Multi-host: process 1/2 (4 ranks)" in consoles[0],
+                 "Multi-host: process 2/2 (4 ranks)" in consoles[2]]
+        ok = (all(e <= STEP_TOL["bfloat16"]["loss"] for e in errs_.values())
+              and all(s == sums[0] for s in sums) and held == [want] * 4 and all(lines)
+              and all(r["backend"] == "nccl" and r["plan"] == "data x4 (fsdp/zero-3)"
+                      for r in ranks))
+        emit({"phase": "multi_card_multihost", "card": card,
+              "config": "examples/production_config.yaml", "changed": changed, "nodes": 2,
+              "ranks_per_node": 2, "cuda_visible_devices_by_node": ["0,1", "2,3"],
+              "backend": [r["backend"] for r in ranks], "plan": ranks[0]["plan"],
+              "multihost_lines": lines, "final_eval_losses": ranks[0]["losses"],
+              "final_eval_losses_one_card": dp_base[rate]["losses"], "abs_err_vs_one_card": errs_,
+              "tol": STEP_TOL["bfloat16"]["loss"], "param_checksums_by_rank": sums,
+              "train_state_bytes_by_rank": held, "train_state_bytes_expected": want,
+              "steps_per_s_after_first_chunk": ranks[0]["steps_per_s"],
+              "collectives_per_step": ranks[0]["collectives"],
+              "launches_rank0": {k: v for k, v in ranks[0]["launches"].items() if v},
+              "seconds_with_spawn": sec, "ok": ok})
+        if not ok:
+            failed.append(f"multihost {changed}: losses {errs_}, bytes {held}, lines {lines}")
+
+
 def multi_card(card: str) -> int:
     """``python3 chip_smoke.py --multi-card`` on a machine with 2 or more
     cards: the training entry over NCCL, one card per rank, 8 steps
@@ -4523,7 +4778,14 @@ def multi_card(card: str) -> int:
     - pipeline parallelism (``pipe_rows``): ``{pipe: 2}``, and on 4 cards
       ``{pipe: 2, data: 2}`` (and FSDP), ``{pipe: 2, model: 2}`` and
       ``{pipe: 2, mod: 2}``, the last two's checksums equal to ``{pipe:
-      2}``'s.
+      2}``'s;
+    - on 4 cards, multi-host training (``multihost_rows``, right after the
+      one-card data runs): the entry launched as two nodes of two ranks,
+      node 0 seeing cards 0,1 and node 1 cards 2,3, ``multihost: true``,
+      FSDP over ``{data: 4}`` at dropout 0 and 0.2 and over ``mesh: auto``
+      (which must plan data x4 over the group) at 0.2, with the data rows'
+      gates, the bytes ``state_bytes`` gives and each node's
+      ``Multi-host: process`` line.
     At every rate every rank's parameter checksum (float64 sum and SHA-256 of
     the bytes) must be equal. Prints each run's steps/s and, under a data
     axis, the bytes and ms a step of the gradient all-reduce and, under
@@ -4674,6 +4936,8 @@ def multi_card(card: str) -> int:
     for rate, r in dp_base.items():
         hold("multi_card_data_parallel", r, None, 1, "fused_qkv_attention",
              {"dropout": rate, "mesh": "off"}, data=1)
+    if n_cards >= 4:
+        multihost_rows(card, failed, dp_base)
     for p_size in sizes:
         for rate in (0.0, 0.2):
             r = run(f"{{data: {p_size}}}", 1, dropout=rate)
@@ -5220,6 +5484,7 @@ def main() -> int:
     t0 = time.perf_counter()
     per_source = K.build_kernels()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "per_source": per_source})
+    native_check(card)
     for name in K._SIGNATURES:
         emit({"phase": "ptxas", "source": name, "functions": ptxas_report(K.build_log(name))})
 
@@ -5865,7 +6130,8 @@ def main() -> int:
     # step, and the training entry over two ranks; then FSDP over them, and
     # tensor parallelism (the one-rank entries of both rates held again)
     dp_runs = data_parallel(K, card, by_path)
-    one_rank = fsdp_phases(K, card, by_path, dp_runs)
+    one_rank, fsdp_run = fsdp_phases(K, card, by_path, dp_runs)
+    multihost_phase(card, fsdp_run)
     tp_phases(K, card, by_path, one_rank)
     pp_phases(K, card, by_path, one_rank,
               lambda calls, plan: mod_phases(K, card, by_path, one_rank, calls, plan))

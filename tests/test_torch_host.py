@@ -1,10 +1,13 @@
 """The port's host layers (config, ingest, vocab) held against the JAX
 package's, and the rule that the port imports nothing of JAX.
 
-The port keeps copies of the JAX package's config/ and data/ modules without
-the optional native C++ helpers; these tests pin that the copies give the
-same SystemConfig dicts, modality parameters, token ids and vocabularies,
-for the demo config and for a folder of synthetic stock CSVs written here.
+The port keeps copies of the JAX package's config/ and data/ modules and of
+its native C++ helpers (runtime/, built from the port's own source); these
+tests pin that the copies give the same SystemConfig dicts, modality
+parameters, token ids and vocabularies, for the demo config and for a
+folder of synthetic stock CSVs written here. The AST rule covers every
+module of the port (runtime/ and parallel/multihost.py among them) and the
+chip scripts. tests/test_torch_native.py holds the native helpers.
 """
 
 import ast
@@ -135,9 +138,9 @@ def test_system_parameters_match_on_cpu(folder_config, monkeypatch):
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_transforms_match_native_backed_originals(seed):
-    """The copies keep only the numpy paths; the JAX package may use its
-    native helper. Outputs must agree exactly, since the values are the
-    vocabulary."""
+    """The port's transforms (its native helper where built, else its numpy
+    paths) against the JAX package's (its own helper or paths). Outputs
+    must agree exactly, since the values are the vocabulary."""
     rng = np.random.default_rng(seed)
     data = list(np.round(rng.lognormal(3.0, 1.0, 500), 3))
     data[5] = 0.0
@@ -258,3 +261,11 @@ def _forbidden(name: str) -> bool:
 def test_port_imports_no_jax(path):
     bad = [name for name in _imports(path) if _forbidden(name)]
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_import_rule_covers_the_last_modules():
+    """The rule's paths include the port's runtime/ and
+    parallel/multihost.py, the modules that replace the JAX package's last
+    ones."""
+    paths = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"runtime/__init__.py", "runtime/native.py", "parallel/multihost.py"} <= paths

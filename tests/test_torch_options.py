@@ -366,3 +366,33 @@ def test_profile_dir_traces_the_second_chunk(tmp_path, monkeypatch, capsys, trac
     names = {e.get("name") for e in events}
     assert sum(e.get("name") == "train_chunk" for e in events) == 1
     assert "aten::mm" in names or "aten::bmm" in names
+
+
+# ------------------------------------------------------------------ rng_impl
+
+
+def test_rng_impl_values_train_the_same_bits(tmp_path, monkeypatch, capsys, reset_configs):
+    """``tpu_options.rng_impl`` is a no-op in the port (train/steps.py): each
+    of its four values loads and trains 2 CPU steps of the demo config
+    (dropout 0.1) to parameters, Adam moments and losses bit-identical to the
+    run without the key."""
+    runs = {}
+    for value in (None, "auto", "threefry2x32", "rbg", "unsafe_rbg"):
+        d = tmp_path / str(value)
+        d.mkdir()
+        _demo_dir(d, f"  rng_impl: {value}\n" if value else "", max_iters=2)
+        monkeypatch.chdir(d)
+        port_compat.reset_compatibility_layer()
+        res = runner.run_training(caller_globals={}, seed=0)
+        capsys.readouterr()
+        assert port_compat.get_system_configuration()["rng_impl"] == (value or "auto")
+        runs[value] = res
+    base = runs.pop(None)
+    assert base["cfg"].dropout > 0 and base["opt_state"]["count"] == 2
+    for value, res in runs.items():
+        assert res["losses"] == base["losses"], value
+        for tree in ("params", "mu", "nu"):
+            got = res["params"] if tree == "params" else res["opt_state"][tree]
+            want = base["params"] if tree == "params" else base["opt_state"][tree]
+            for a, b in zip(tree_leaves(got), tree_leaves(want), strict=True):
+                assert torch.equal(a, b), (value, tree)

@@ -2,9 +2,10 @@
 
 The tests (tests/test_torch_ring.py, tests/test_torch_dp.py,
 tests/test_torch_fsdp.py, tests/test_torch_tp.py, tests/test_torch_mod.py,
-tests/test_torch_pipe.py, tests/test_torch_combos.py) start these
-functions in spawned processes joined in one gloo group
-(``parallel.mesh.run_ranks``); a child imports this module, torch and the
+tests/test_torch_pipe.py, tests/test_torch_combos.py,
+tests/test_torch_multihost.py) start these functions in spawned processes
+joined in one gloo group (``parallel.mesh.run_ranks``; the multi-node
+bodies join it themselves); a child imports this module, torch and the
 port, never JAX: the JAX references are computed in the test process.
 """
 
@@ -128,9 +129,10 @@ def fsdp_cases(rank, world, job):
     the whole params, mu, nu and count after (gathered under FSDP); with
     ``job["feed"]`` an evaluation pass of the global validation batches on
     the initial parameters; with ``job["ckpt"]`` a directory, each
-    variant's whole state saved there by rank 0 (``<variant>.npz``), and
-    the FSDP file read back whole and re-sharded on every rank. Every
-    result as numpy."""
+    variant's whole state saved there (``<variant>.npz``: every rank calls
+    ``save_checkpoint``, rank 0 writes; its size on every rank), and the
+    FSDP file read back whole and re-sharded on every rank. Every result as
+    numpy."""
     from trade_aid_multimodal_transformer_tpu_torch.parallel.trainer import shard_train_state
     from trade_aid_multimodal_transformer_tpu_torch.train.checkpoint import (
         load_checkpoint, load_optimizer_state, save_checkpoint)
@@ -172,13 +174,11 @@ def fsdp_cases(rank, world, job):
             res["specs"] = placed.specs
         res["whole"] = [numpy(t) for t in whole]
         res["count"] = state["count"]
-        if job.get("ckpt"):
+        if job.get("ckpt"):  # every rank calls it: rank 0 writes, then a barrier
             path = f"{job['ckpt']}/{name}.npz"
-            if rank == 0:
-                save_checkpoint(path, whole[0], step=len(as_batch),
-                                opt_state={"count": state["count"], "mu": whole[1], "nu": whole[2]},
-                                optimizer=opt)
-            torch.distributed.barrier()
+            res["ckpt_size"] = save_checkpoint(
+                path, whole[0], step=len(as_batch),
+                opt_state={"count": state["count"], "mu": whole[1], "nu": whole[2]}, optimizer=opt)
             if placed is not None:
                 loaded = load_checkpoint(path, cfg, "cpu")[0]
                 got, got_state, _ = shard_train_state(
@@ -200,8 +200,8 @@ def mesh_cases(rank, world, job):
     the losses, the rank's parts and the whole params, mu and nu gathered;
     with ``job["feed"]`` an evaluation pass of the global validation
     batches on the initial parameters; with ``job["ckpt"]`` a file, the
-    whole state saved there by rank 0 and read back and re-sharded on every
-    rank; with ``job["remat"]`` the first step's loss and gradients again
+    whole state saved there (rank 0 writes) and read back and re-sharded on
+    every rank; with ``job["remat"]`` the first step's loss and gradients again
     with each block recomputed in the backward. ``job["kernel_dispatch"]``
     takes the card's dispatch with the kernels' plain versions. Planted
     faults: ``job["head_offset_0"]`` (every rank's heads start at 0),
@@ -259,12 +259,10 @@ def mesh_cases(rank, world, job):
     trees = [whole(t) for t in (params, state["mu"], state["nu"])]
     out["whole"] = [numpy(t) for t in trees]
     out["after_parts"] = numpy(params)
-    if job.get("ckpt"):
-        if rank == 0:
-            save_checkpoint(job["ckpt"], trees[0], step=len(as_batch),
-                            opt_state={"count": state["count"], "mu": trees[1], "nu": trees[2]},
-                            optimizer=opt)
-        torch.distributed.barrier()
+    if job.get("ckpt"):  # every rank calls it: rank 0 writes, then a barrier
+        save_checkpoint(job["ckpt"], trees[0], step=len(as_batch),
+                        opt_state={"count": state["count"], "mu": trees[1], "nu": trees[2]},
+                        optimizer=opt)
         loaded = load_checkpoint(job["ckpt"], cfg, "cpu")[0]
         got, got_state, _ = shard_train_state(loaded, load_optimizer_state(job["ckpt"], loaded, opt),
                                               mesh.data, job.get("fsdp", False), mesh.model,
@@ -436,3 +434,89 @@ def combo_cases(rank, world, jobs):
         res["whole_after"] = [numpy(whole(t)) for t in (params, state["mu"], state["nu"])]
         out.append(res)
     return out
+
+
+def multihost_cases(rank, world, job):
+    """One rank of nodes of ``job["per_node"]`` ranks each (LOCAL_RANK,
+    LOCAL_WORLD_SIZE as a node's launcher sets them), joined through
+    ``multihost.initialize`` twice: from the torchrun environment (port
+    ``job["ports"][0]``) and from coordinator arguments (port
+    ``job["ports"][1]``). Per join ("env", "coordinator"): the backend, the
+    node and the node count, ``is_multiprocess``, the plan of ``auto`` and
+    of ``{data: world}`` over the group, whether a second ``initialize``
+    left the group alone, ``fsdp_cases`` of ``job["fsdp"]`` (its
+    checkpoints under ``<ckpt>/<join>``) and whether ``gather_to_host`` of
+    the FSDP parts of the initial parameters is the whole tree on the
+    host."""
+    import os
+
+    import torch.distributed as dist
+
+    from trade_aid_multimodal_transformer_tpu_torch.parallel import multihost
+    from trade_aid_multimodal_transformer_tpu_torch.parallel.resolve import (
+        available_devices, plan_mesh)
+    from trade_aid_multimodal_transformer_tpu_torch.parallel.trainer import shard_train_state
+
+    per = job["per_node"]
+    os.environ.update(LOCAL_RANK=str(rank % per), LOCAL_WORLD_SIZE=str(per))
+    out = {}
+    for how, port in zip(("env", "coordinator"), job["ports"]):
+        if how == "env":
+            os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                              MASTER_PORT=str(port))
+            multihost.initialize()
+        else:
+            for k in multihost.TORCHRUN_ENV:
+                os.environ.pop(k, None)
+            multihost.initialize(f"localhost:{port}", world, rank)
+        group = dist.group.WORLD
+        multihost.initialize("localhost:1", 1, 0)  # joined already: left alone
+        cfg = job["fsdp"]["cfg"]
+        plans = {str(m): plan_mesh(m, 1, fsdp=True, batch_size=job["fsdp"]["batch"],
+                                   block_size=cfg["block_size"], n_head=cfg["n_head"],
+                                   num_modalities=len(cfg["vocab_sizes"]), n_layer=cfg["n_layer"],
+                                   n_devices=available_devices("cpu", 1, m)).describe()
+                 for m in ("auto", {"data": world})}
+        res = {"backend": dist.get_backend(), "node": multihost.process_index(),
+               "nodes": multihost.process_count(), "multiprocess": multihost.is_multiprocess(),
+               "left_alone": dist.group.WORLD is group, "plans": plans,
+               "devices": available_devices("cpu", 1, "auto")}
+        res.update(fsdp_cases(rank, world, dict(job["fsdp"], ckpt=f"{job['fsdp']['ckpt']}/{how}"))
+                   ["fsdp"])
+        mesh = pmesh.make_mesh(data=world)
+        opt = make_optimizer(1e-3)
+        params = map_tree(lambda t: t.detach().clone(), job["fsdp"]["params"])
+        parts, _, placed = shard_train_state(params, opt.init(params), mesh.data, True)
+        host = multihost.gather_to_host(parts, placed)
+        res["gathered_whole"] = all(
+            a.device.type == "cpu" and torch.equal(a, b)
+            for a, b in zip(tree_leaves(host), tree_leaves(job["fsdp"]["params"]), strict=True))
+        dist.destroy_process_group()
+        out[how] = res
+    return out
+
+
+def multihost_entry(rank, world, job):
+    """One node of a launch of the port's entry (``main.main``) in
+    ``job["dir"]`` with a launcher's environment (set by ``run_ranks``):
+    its console, the run's final losses and plan, its parameters'
+    checksum, and the group's backend and plan devices for ``auto``."""
+    import contextlib
+    import io
+    import os
+
+    import torch.distributed as dist
+
+    from trade_aid_multimodal_transformer_tpu_torch import main as entry
+    from trade_aid_multimodal_transformer_tpu_torch.parallel.resolve import available_devices
+    from trade_aid_multimodal_transformer_tpu_torch.train import runner
+
+    os.chdir(job["dir"])
+    got, real = {}, entry.run_training
+    entry.run_training = lambda **kw: got.setdefault("res", real(**kw))
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        assert entry.main() == 0
+    res = got["res"]
+    return {"console": buf.getvalue(), "losses": res["losses"], "plan": res["plan"].describe(),
+            "checksum": runner.param_checksum(res["params"]), "backend": dist.get_backend(),
+            "devices": available_devices("cpu", 1, "auto")}

@@ -23,10 +23,16 @@ model axes) and pipeline parallelism (``{pipe: S}`` over
 ``pipeline_microbatches`` microbatches; alone, with data, model and
 modality axes and with ``fsdp``), one card a rank (parallel/); every axis
 also with ``context_parallel`` but the pipeline axis: a plan with both
-raises, as the JAX package's trainer cannot run it.
-The other keys (``rng_impl``, ``scan_unroll``, ``multihost``, ...) are
-parsed and validated so that every config that loads in the JAX package
-loads here, and change nothing in the port.
+raises, as the JAX package's trainer cannot run it. ``multihost: true``
+runs a group over several nodes (``torchrun --nnodes``) as the JAX
+package's pod (parallel/multihost.py): the entry prints the node and the
+node count, or trains single-process where there is no group to join.
+``rng_impl`` is a documented no-op: its four values choose JAX key
+implementations, and the port's dropout hash and ``StepRng``
+(train/steps.py) use none of them, so every value trains the same bits.
+The other keys (``scan_unroll``, ``matmul_precision``, ...) are parsed and
+validated so that every config that loads in the JAX package loads here,
+and change nothing in the port.
 """
 
 from __future__ import annotations
@@ -104,7 +110,7 @@ class SystemConfig:
     params_dtype: str = "float32"    # 'float32' | 'bfloat16' (master params)
     attn_impl: str = "auto"          # 'auto' | 'jnp' | 'pallas'
     remat: bool = False              # rematerialize blocks in backward
-    rng_impl: str = "auto"           # 'auto' | 'threefry2x32' | 'rbg'
+    rng_impl: str = "auto"           # 'auto' | 'threefry2x32' | 'rbg' (a no-op in the port)
     adam_moment_dtype: str = "float32"  # 'float32' | 'bfloat16' (Adam mu)
     adam_nu_dtype: str = "float32"   # 'float32' | 'bfloat16' (Adam nu)
     scan_unroll: int = 1             # train-chunk lax.scan unroll factor
@@ -135,9 +141,12 @@ class SystemConfig:
     # 'data' axis (parallel/mesh.py param_pspecs) — per-device train-state
     # memory scales 1/data. No-op when the resolved data axis is 1.
     fsdp: bool = False
-    # Multi-host: initialize jax.distributed at startup so the mesh spans
-    # every host's chips (launch `python main.py` once per host; on TPU
-    # pods initialization self-bootstraps from pod metadata).
+    # Multi-host: the entry runs as a rank of a group over several nodes
+    # (`torchrun --nnodes N --node-rank i --nproc-per-node P -m
+    # trade_aid_multimodal_transformer_tpu_torch.main` on each node) and
+    # prints the node and the node count; the plan spans every node's ranks
+    # (parallel/multihost.py). Without a group or a launcher's environment
+    # it trains single-process.
     multihost: bool = False
     # GPipe microbatch count when mesh.pipe > 1 (parallel/pipeline.py).
     pipeline_microbatches: int = 4

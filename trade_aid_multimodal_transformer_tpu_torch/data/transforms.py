@@ -16,6 +16,10 @@ Exactness notes:
 - Validation error types/messages are preserved (the reference's quirky
   choices included, e.g. IndexError for non-numeric ranging input;
   reference: data_utils.py:400-402).
+- The native C++ helpers (runtime/native.py: decimal rounding, percent
+  changes, ranging, bin assignment) take these loops where the library is
+  built, as in the JAX package; the numpy/Python paths below stay the
+  ground truth and run where it is not (no ``g++``, ``TAT_DISABLE_NATIVE``).
 """
 
 from __future__ import annotations
@@ -33,9 +37,14 @@ _rng = np.random.default_rng()
 def _round_list(values: np.ndarray, dp: int) -> List[float]:
     """Correctly-rounded decimal rounding of a float64 array, as a list.
 
-    Python round element-wise (the semantic ground truth that the JAX
-    package's optional native C++ helper reproduces bit for bit).
+    Uses the native C++ helper (runtime/native.py, bit-identical to Python
+    round) where it is built, else Python round element-wise.
     """
+    from ..runtime import native
+
+    out = native.round_decimal(values, dp)
+    if out is not None:
+        return out.tolist()
     return [round(v, dp) for v in values.tolist()]
 
 
@@ -93,6 +102,18 @@ def convert_to_percent_changes(data: ArrayLike, decimal_places: Optional[int] = 
     if arr.size == 1:
         return [0.0]
 
+    from ..runtime import native
+
+    res = native.percent_changes(arr, decimal_places)
+    if res is not None:
+        out_arr, _, first_zero = res
+        if first_zero >= 0:
+            raise ZeroDivisionError(
+                "Cannot calculate percentage change: previous value is zero at "
+                f"index {first_zero}."
+            )
+        return out_arr.tolist()
+
     prev = arr[:-1]
     zero_mask = prev == 0
     if zero_mask.any():
@@ -140,12 +161,21 @@ def percent_changes_lenient(
     if arr.size == 1:
         return [0.0]
 
+    from ..runtime import native
+
     def _warn(i):
         print(
             f"Warning: Zero value found at index {i-1} in file '{filename}' causes "
             f"division by zero. Skipping percentage calculation for index {i}. "
             f"Using 0.0% change instead."
         )
+
+    res = native.percent_changes(arr, decimal_places)
+    if res is not None:
+        out_arr, zmask, _ = res
+        for j in np.nonzero(zmask[1:])[0]:
+            _warn(int(j) + 1)
+        return out_arr.tolist()
 
     prev = arr[:-1]
     zero_mask = prev == 0
@@ -251,6 +281,21 @@ def range_numeric_data(
         # Pure rounding path: scaling_factor stays 1.
         return _round_list(arr, adp)
 
+    from ..runtime import native
+
+    res = native.range_numeric(arr, num_whole_digits, adp)
+    if res is not None:
+        vals, clip_lower_m, clip_upper_m = res
+        out = vals.tolist()
+        lower = 10 ** (num_whole_digits - 1)
+        upper_int = 10 ** num_whole_digits - 1
+        neg = arr < 0
+        for i in np.nonzero(clip_lower_m)[0]:
+            out[i] = -lower if neg[i] else lower
+        for i in np.nonzero(clip_upper_m)[0]:
+            out[i] = -upper_int if neg[i] else upper_int
+        return out
+
     with np.errstate(divide="ignore", invalid="ignore"):
         powers = np.floor(np.log10(np.abs(arr)))
     powers = np.where(arr == 0.0, 0.0, powers)
@@ -343,15 +388,19 @@ def bin_numeric_data(
     pos_b = np.concatenate(([0.0], np.power(idx, float(exponent)) * max_abs_value))
     neg_b = np.concatenate((-pos_b[1:][::-1], [0.0]))
 
-    out = np.zeros(arr.size, dtype=np.int64)
-    pos_mask = arr > 0
-    neg_mask = arr < 0
-    if pos_mask.any():
-        g = np.searchsorted(pos_b, arr[pos_mask], side="right")
-        out[pos_mask] = np.minimum(g, G)
-    if neg_mask.any():
-        g = np.searchsorted(neg_b, arr[neg_mask], side="right")
-        out[neg_mask] = np.maximum(g - 1, 0) - G
+    from ..runtime import native
+
+    out = native.bin_assign(arr, pos_b)
+    if out is None:
+        out = np.zeros(arr.size, dtype=np.int64)
+        pos_mask = arr > 0
+        neg_mask = arr < 0
+        if pos_mask.any():
+            g = np.searchsorted(pos_b, arr[pos_mask], side="right")
+            out[pos_mask] = np.minimum(g, G)
+        if neg_mask.any():
+            g = np.searchsorted(neg_b, arr[neg_mask], side="right")
+            out[neg_mask] = np.maximum(g - 1, 0) - G
 
     # --- binning breakdown display (reference: data_utils.py:562-607) ---
     uniq, counts = np.unique(out, return_counts=True)

@@ -24,6 +24,17 @@ def numerical_representation(data_points: ArrayLike) -> Tuple[np.ndarray, List]:
     reference's ``sorted(list(set(data_points)))`` for numeric data.
     """
     arr = np.asarray(data_points)
+    if arr.dtype.kind == "f" and not np.isnan(arr).any():
+        # Hash-based native factorize: real vocabularies are tiny relative
+        # to row count, so O(n) hashing + a sort of just the uniques beats
+        # np.unique's O(n log n) argsort over all rows (runtime/transforms
+        # .cpp tat_factorize; parity pinned in tests/test_torch_native.py).
+        from ..runtime import native
+
+        nat = native.factorize(arr)
+        if nat is not None:
+            codes, uniq = nat
+            return codes, uniq.tolist()
     if arr.dtype.kind in "ifb" or arr.dtype.kind in "US":
         vocab_arr, inverse = np.unique(arr, return_inverse=True)
         return inverse.astype(np.int32), vocab_arr.tolist()

@@ -8,7 +8,13 @@ configured in the directory's files (or a programmatic ``config.py``), and
 training runs on the card unless ``config.yaml`` says ``device: cpu``. With
 ``tpu_options.context_parallel: P`` it starts P rank processes, one card each
 (``torchrun --nproc-per-node P -m trade_aid_multimodal_transformer_tpu_torch.main``
-runs the same inside torchrun's group).
+runs the same inside torchrun's group). Over several nodes, with
+``tpu_options.multihost: true``, each node runs
+
+    torchrun --nnodes N --node-rank i --nproc-per-node P --master-addr HOST
+        --master-port PORT -m trade_aid_multimodal_transformer_tpu_torch.main
+
+(one command line) and the plan spans the N P ranks (parallel/multihost.py).
 """
 
 import sys

@@ -56,9 +56,12 @@ Where several ranks share one card (a test arrangement: NCCL refuses two
 ranks on one device), the group is gloo and CUDA tensors travel through
 host memory (``staged``): every chunk still runs on the card.
 
-``run_ranks`` starts the processes of a run (spawned, each told its rank,
-the world size and a ``tcp://localhost`` address), collects what each
-returns, and kills them all if one fails or the time limit passes.
+``run_ranks`` starts the processes of a run on this node (spawned, each
+told its rank, the world size and a ``tcp://localhost`` address, or given
+a launcher's environment to join from), collects what each returns, and
+kills them all if one fails or the time limit passes. ``init_from_env``
+joins the group a launcher such as ``torchrun`` describes, over one node
+or several (parallel/multihost.py).
 """
 
 from __future__ import annotations
@@ -786,15 +789,20 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(fn, rank: int, world: int, init_method: str, backend: str, args, results):
+def _rank_main(fn, rank: int, world: int, init_method: str, backend: str, args, results,
+               env=None):
     try:
-        if backend == "nccl":
-            torch.cuda.set_device(rank)  # one card per rank
-        dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank)
+        if env is None:
+            if backend == "nccl":
+                torch.cuda.set_device(rank)  # one card per rank
+            dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank)
+        else:
+            os.environ.update(env)  # fn joins, as a launcher's process does
         try:
             out = fn(rank, world, *args)
         finally:
-            dist.destroy_process_group()
+            if dist.is_initialized():
+                dist.destroy_process_group()
         buf = io.BytesIO()
         torch.save(out, buf)  # by value: the rank may exit before the parent reads it
         results.put((rank, True, buf.getvalue()))
@@ -803,18 +811,23 @@ def _rank_main(fn, rank: int, world: int, init_method: str, backend: str, args, 
 
 
 def run_ranks(fn: Callable, world: int, args=(), backend: str = "gloo",
-              timeout: Optional[float] = 600.0) -> List[Any]:
-    """Run ``fn(rank, world, *args)`` in ``world`` spawned processes joined
-    in one ``backend`` group; returns each rank's return value (anything
-    ``torch.save`` takes) in rank order. ``fn`` must be importable by name.
+              timeout: Optional[float] = 600.0,
+              env: Optional[Sequence[Dict[str, str]]] = None) -> List[Any]:
+    """Run ``fn(rank, world, *args)`` in ``world`` spawned processes on
+    this node joined in one ``backend`` group; returns each rank's return
+    value (anything ``torch.save`` takes) in rank order. ``fn`` must be
+    importable by name. With ``env`` (one mapping a rank), each process
+    sets those environment variables and joins no group: ``fn`` joins
+    (``multihost.initialize``), as the processes of a multi-node launch do.
     Tensors in ``args`` reach every rank in one shared memory: a rank that
-    changes one in place changes it for all, so it clones it first.
-    Raises if a rank raises, dies or outlives ``timeout`` seconds (None: no
+    changes one in place changes it for all, so it clones it first. Raises
+    if a rank raises, dies or outlives ``timeout`` seconds (None: no
     limit); every rank is stopped first."""
     ctx = torch.multiprocessing.get_context("spawn")
     results = ctx.Queue()
     init = f"tcp://localhost:{free_port()}"
-    procs = [ctx.Process(target=_rank_main, args=(fn, r, world, init, backend, args, results))
+    procs = [ctx.Process(target=_rank_main, args=(fn, r, world, init, backend, args, results,
+                                                  None if env is None else dict(env[r])))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -859,14 +872,14 @@ def run_ranks(fn: Callable, world: int, args=(), backend: str = "gloo",
 
 def init_from_env() -> bool:
     """Join the group that a launcher such as ``torchrun`` describes in the
-    environment (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT); False where
-    there is none. A group already initialised counts as joined."""
+    environment (RANK, WORLD_SIZE > 1, MASTER_ADDR, MASTER_PORT, on one node
+    or several) through ``multihost.initialize``; False where there is none.
+    A group already initialised counts as joined."""
     if dist.is_available() and dist.is_initialized():
         return True
     if int(os.environ.get("WORLD_SIZE", "1")) <= 1 or "RANK" not in os.environ:
         return False
-    backend = "nccl" if torch.cuda.is_available() else "gloo"
-    if backend == "nccl":
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", os.environ["RANK"])))
-    dist.init_process_group(backend, init_method="env://")
+    from .multihost import initialize
+
+    initialize()
     return True

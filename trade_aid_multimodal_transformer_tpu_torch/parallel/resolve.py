@@ -6,11 +6,13 @@ the JAX package's rules and messages: ``"auto"`` (default) takes data
 parallelism over the devices left after ``context_parallel``, ``"off"`` one
 device (context parallelism still honoured), an int N ``{data: N}``, a
 mapping ``{data, model, mod, pipe}`` explicit axis sizes; impossible
-requests raise ``ValueError``. The devices are the CUDA cards, or on the
-CPU the gloo processes that a run starts: as many as an explicit mesh asks
-for times ``context_parallel``, and for ``auto`` and ``off`` the
-``context_parallel`` processes alone (CPU processes are not devices the user
-has, so ``auto`` adds no data axis there).
+requests raise ``ValueError``. Inside a process group (``torchrun``'s, on
+one node or several: parallel/multihost.py) the devices are its ranks.
+Else they are the CUDA cards, or on the CPU the gloo processes that a run
+starts: as many as an explicit mesh asks for times ``context_parallel``,
+and for ``auto`` and ``off`` the ``context_parallel`` processes alone (CPU
+processes are not devices the user has, so ``auto`` adds no data axis
+there).
 
 The port builds the data axis (data parallelism, parallel/trainer.py, and
 with ``tpu_options.fsdp: true`` FSDP / ZeRO-3 over it), the model axis
@@ -77,10 +79,17 @@ class MeshPlan:
 
 
 def available_devices(device: str, context_parallel: int, mesh_cfg=None) -> int:
-    """The devices a plan may use: the CUDA cards, or on the CPU as many
+    """The devices a plan may use. Inside a process group (``torchrun``'s,
+    over one node or several, or the ranks a run starts), its world size:
+    every rank is one device, as every chip of every host is in the JAX
+    package's global device set. Else the CUDA cards, or on the CPU as many
     gloo processes as an explicit ``mesh_cfg`` asks for times
     ``context_parallel`` (``auto``, ``off`` and no mesh: the
     ``context_parallel`` processes alone)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
     if str(device).startswith("cpu"):
         cp = max(1, int(context_parallel))
         if isinstance(mesh_cfg, int) and not isinstance(mesh_cfg, bool):

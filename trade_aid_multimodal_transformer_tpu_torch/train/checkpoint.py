@@ -15,7 +15,8 @@ state_dict (utils/torch_compat.py): weights only, no step and no optimizer
 state. A ``.pth`` is a zip as an ``.npz`` is, so a file counts as this
 format only where it holds parameter keys. A sharded run (FSDP, tensor
 parallelism) gathers its parts into the whole tree first (train/runner.py),
-so the file is the same whatever the plan, and a resume re-shards it.
+so the file is the same whatever the plan, and a resume re-shards it; in a
+group rank 0 alone writes it (``save_checkpoint``).
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..convert import params_from_jax
 from ..models.config import ModelConfig
@@ -72,7 +74,20 @@ def save_checkpoint(path: str, params, step: Optional[int] = None, opt_state=Non
                     optimizer=None) -> int:
     """Write the parameters (and optionally the step and the optimizer state
     of ``optimizer``, train/steps.AdamW) as an ``.npz`` that the JAX
-    package's ``load_checkpoint`` reads; returns the file size in bytes."""
+    package's ``load_checkpoint`` reads; returns the file size in bytes.
+
+    In a process group of more than one rank every rank calls it with the
+    whole tree (a sharded state gathered first, every rank taking part:
+    train/runner.py), as the JAX package's processes do (its
+    train/checkpoint.py:80-114): global rank 0 alone
+    writes, a barrier follows the write, and every rank returns the file's
+    size (0 where it cannot see the file). A resume reads the file on every
+    rank: every node must see the same files, as every host of a JAX run
+    sees the same files and the same data."""
+    group = dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
+    if group and dist.get_rank() != 0:
+        dist.barrier()  # pairs with rank 0's after its write
+        return os.path.getsize(path) if os.path.exists(path) else 0
     out: Dict[str, np.ndarray] = {}
     for p, t in tree_paths(params):
         _put(out, _PARAMS_PREFIX + _keystr(p), t)
@@ -94,6 +109,8 @@ def save_checkpoint(path: str, params, step: Optional[int] = None, opt_state=Non
     with open(tmp, "wb") as f:
         np.savez(f, **out)
     os.replace(tmp, path)
+    if group:
+        dist.barrier()
     return os.path.getsize(path)
 
 

@@ -27,14 +27,18 @@ together over their product (pipeline outer, then modality, data, model,
 sequence inner). ``run_training`` starts the
 plan's rank processes itself, one card each over NCCL (on the CPU, gloo
 processes), after building the kernels once; inside a process group that
-already exists (``torchrun``) it runs as that group's rank. Rank 0 alone
-prints the console, writes the log and the checkpoints (the parameters and
-moments are the same on every rank; under FSDP and tensor parallelism every
-rank takes part in gathering them first), and returns the result. A resumed
-sharded run reads the whole file on every rank and keeps its part.
-A pipeline axis with a sequence axis raises ``ValueError``: the JAX
-package's trainer cannot run that plan (parallel/resolve.py).
-``multihost`` prints that it is unavailable and trains single-process, as
+a launcher describes (``torchrun``, on one node or several:
+parallel/multihost.py) it runs as that group's rank, the plan over the
+group's ranks, the kernels built once a node. Each node's first rank
+prints the console (as each process of a multi-host JAX run does); rank 0
+alone writes the log and the checkpoints (the parameters and moments are
+the same on every rank; under FSDP and tensor parallelism every rank takes
+part in gathering them first), and returns the result. A resumed sharded
+run reads the whole file on every rank and keeps its part. A pipeline axis
+with a sequence axis raises ``ValueError``: the JAX package's trainer
+cannot run that plan (parallel/resolve.py). ``multihost: true`` prints
+the node and the node count, or, where there is no group and no launcher's
+environment to join, that it is unavailable, and trains single-process, as
 the JAX package does without a pod. f32 products run in full f32
 (PyTorch's default, TF32 off) whatever ``matmul_precision`` says.
 ``TAT_SEED`` pins the run seed; ``TAT_TIMING`` prints the training rate
@@ -85,6 +89,7 @@ from ..models.init import init_params, map_tree, tree_leaves
 from ..models.param_count import estimate_model_params
 from ..ops import kernels
 from ..parallel import mesh as pmesh
+from ..parallel import multihost
 from ..parallel.resolve import available_devices, plan_mesh
 from ..sampling.feed import BatchFeed, resolve_rand_sizes
 from ..utils.profiling import StepTimer, annotate, profile_dir_from_env, trace
@@ -218,7 +223,7 @@ def _rank_entry(rank: int, world: int, caller_globals: dict, seed: int):
     """One rank of a parallel run: the workflow, silent but on rank 0;
     rank 0 returns its result with the tensors on the CPU, every rank its
     parameters' checksum."""
-    if rank != 0:
+    if multihost.local_rank() != 0:
         sys.stdout = open(os.devnull, "w")
     if dist.get_backend() == "gloo":
         torch.set_num_threads(max(1, torch.get_num_threads() // world))  # P ranks share the cores
@@ -255,14 +260,14 @@ def run_training(caller_globals: Optional[dict] = None, seed: Optional[int] = No
     if pmesh.init_from_env():
         rank = dist.get_rank()
         if torch.cuda.is_available():
-            if rank == 0:
-                kernels.build_kernels()  # once; the other ranks load it after the barrier
+            if multihost.local_rank() == 0:
+                kernels.build_kernels()  # once a node; its other ranks load it after the barrier
             dist.barrier()
         if seed is None:
             box = [_run_seed(None)]
             dist.broadcast_object_list(box, src=0)
             seed = box[0]
-        if rank != 0:
+        if multihost.local_rank() != 0:
             sys.stdout = open(os.devnull, "w")
         return _run_training(caller_globals, seed, rank)
     initialize_compatibility_layer(caller_globals if caller_globals is not None else {})
@@ -308,9 +313,15 @@ def _run_training(caller_globals: Optional[dict], seed: Optional[int],
     sc = system_config
 
     if sc.get("multihost", False):
-        # as the JAX package does where no pod is found
-        print("Multi-host: initialization unavailable (multi-host training is "
-              "a later slice of the port); continuing single-process")
+        # as the JAX package: inside a launcher's group (joined by
+        # run_training before any device work) the node and the node count;
+        # without a group or an environment to join, the soft line
+        try:
+            multihost.initialize()
+            print(f"Multi-host: process {multihost.process_index() + 1}"
+                  f"/{multihost.process_count()} ({dist.get_world_size()} ranks)")
+        except Exception as e:  # noqa: BLE001  (a soft config error, as in the JAX package)
+            print(f"Multi-host: initialization unavailable ({e}); continuing single-process")
 
     batch_size = sc["batch_size"]
     block_size = sc["block_size"]
@@ -567,7 +578,7 @@ def _run_training(caller_globals: Optional[dict], seed: Optional[int],
         parts = fsdp.parts() if fsdp is not None else None
         state_bytes = train_state_bytes(params, opt_state, optimizer, parts)
         print(f"Parallelism: {format_train_state_memory(params, opt_state, optimizer, parts)}")
-    writer = rank == 0  # only rank 0 writes the log and the checkpoints
+    writer = rank == 0  # only rank 0 writes the log (and, train/checkpoint.py, the checkpoints)
 
     hyperparams = {
         "n_embd": sc["n_embd"], "n_head": sc["n_head"], "n_layer": sc["n_layer"],
@@ -719,9 +730,9 @@ def _run_training(caller_globals: Optional[dict], seed: Optional[int],
     def handle_save(it: int):
         current_time = datetime.now().strftime("%H:%M:%S")
         whole_params, whole_opt = whole_state("all_gather_save")
+        # every rank: rank 0 writes, the others wait for the file (train/checkpoint.py)
         size = save_checkpoint(
-            model_file_name, whole_params, step=it, opt_state=whole_opt, optimizer=optimizer
-        ) if writer else 0
+            model_file_name, whole_params, step=it, opt_state=whole_opt, optimizer=optimizer)
         print()
         print(f"Saved: Model checkpoint ({round(size/1024**2, 2)} MB) | {current_time}")
         print()
@@ -801,8 +812,7 @@ def _run_training(caller_globals: Optional[dict], seed: Optional[int],
         current_time = datetime.now().strftime("%H:%M:%S")
         print(f"Final Save: Model checkpoint | {current_time}")
         size = save_checkpoint(
-            model_file_name, params, step=max_iters, opt_state=opt_state, optimizer=optimizer
-        ) if writer else 0
+            model_file_name, params, step=max_iters, opt_state=opt_state, optimizer=optimizer)
         print(f"Final Save: {round(size/1024**2, 2)} MB complete")
 
     return {

@@ -26,10 +26,13 @@ package it runs only where every leaf has one dtype, off the sharded
 trainers (parallel/trainer.py), and raises a ``TypeError`` on bf16 master
 parameters, whose flat update comes out f32.
 
-Not ported (parsed by config/system.py, listed on the ROADMAP): ``rng_impl``
-(JAX key implementations). Randomness comes from ``StepRng``: a device
-generator for batches and augmentation and a host generator for the dropout
-salts.
+``rng_impl`` (parsed by config/system.py) is a documented no-op: its values
+('auto', 'threefry2x32', 'rbg', 'unsafe_rbg') choose the JAX package's key
+implementation, and the port draws from none of them. Randomness comes
+from ``StepRng``: a device generator for batches and augmentation and a
+host generator for the dropout salts, which key the integer-hash masks
+(ops/layers.py) that the JAX package's kernels and layers use; every
+``rng_impl`` value trains the same bits (tests/test_torch_options.py).
 """
 
 from __future__ import annotations
