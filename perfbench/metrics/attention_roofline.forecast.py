@@ -1,0 +1,6 @@
+"""The attention kernels' share of their roofline in forecasting, in %:
+the least time of the traced requests' attention forwards
+(yardstick/flops.py) over the device time of the program's attention
+kernels in them (layer: kernels)."""
+
+from perfbench.yardstick.readers import attention_roofline as read  # noqa: F401
